@@ -1,0 +1,259 @@
+"""GPT: decoder-only language model (dense), PyTorch port.
+
+Counterpart of ``paddle_tpu/models/gpt.py`` for inference: fused QKV
+attention, pre-LN blocks, tied LM head, the no-cache forward and the
+paged-KV forward the serving engine drives. Parameter names and layouts
+are the JAX package's (``qkv_weight [E, 3, H, D]``, ``out_weight
+[H, D, E]``, ``w_in [E, FF]``, ...), so a state dict copies across by
+name (:mod:`.convert`). The JAX package's ``lax.scan`` over layers is a
+Python loop here; there is no jit: PyTorch runs eagerly.
+
+Attention routes through ``ops.attention.sdpa_array`` (the flash kernel
+on the card) for the causal no-cache and prefill paths and through the
+paged-decode kernel for single-token decode steps.
+
+Float32 matmuls stay in full float32: ``torch.backends.cuda.matmul.
+allow_tf32`` is False by default and the serving engine sets it so
+explicitly, matching the JAX package's "highest" matmul precision.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.device import DeviceLike, resolve_device
+from ..core.random import make_generator
+from ..ops.attention import sdpa_array
+from ..ops.kernels.paged_decode import paged_decode_attention
+from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
+                                write_pages)
+
+__all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
+           "GPTModel", "GPTForPretraining", "parallel_logits",
+           "gpt_tiny", "gpt2_small", "gpt2_medium", "gpt2_large",
+           "gpt2_xl"]
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: Optional[int] = None   # default 4*hidden
+    max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.1
+    attention_dropout_prob: float = 0.1
+    initializer_range: float = 0.02
+
+    @property
+    def ffn_size(self) -> int:
+        return self.intermediate_size or 4 * self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+def _param(*shape, device):
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
+                                    device=device))
+
+
+class GPTAttention(nn.Module):
+    """Causal self-attention with one fused QKV matmul."""
+
+    def __init__(self, cfg: GPTConfig, device: torch.device):
+        super().__init__()
+        E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+        self.cfg = cfg
+        self.num_heads, self.head_dim = H, D
+        self.qkv_weight = _param(E, 3, H, D, device=device)
+        self.qkv_bias = _param(3, H, D, device=device)
+        self.out_weight = _param(H, D, E, device=device)
+        self.out_bias = _param(E, device=device)
+
+    def forward(self, x, cache: Optional[PagedLayerCache] = None, pos=None):
+        B, S, E = x.shape
+        H, D = self.num_heads, self.head_dim
+        qkv = (x @ self.qkv_weight.reshape(E, 3 * H * D)).reshape(
+            B, S, 3, H, D) + self.qkv_bias
+        q, k, v = qkv.unbind(2)                            # [B, S, H, D]
+        if cache is not None:
+            out = self._paged_attention(q, k, v, cache, pos)
+        else:
+            out = sdpa_array(q, k, v, is_causal=True)
+        y = out.reshape(B, S, H * D) @ self.out_weight.reshape(H * D, E) \
+            + self.out_bias
+        return y
+
+    def _paged_attention(self, q, k, v, cache: PagedLayerCache, pos):
+        """Block-table K/V path. The chunk's K/V scatter into the pools
+        (in place) at logical positions ``pos + 0..S-1``. Prefill
+        (S > 1, fresh slots at pos 0) attends causally over its own
+        chunk — the math of the full-context forward; decode (S == 1)
+        reads the slot's pages through the block table and attends to
+        positions ``<= pos``."""
+        write_pages(cache.k_pages, k, cache.block_table, pos)
+        write_pages(cache.v_pages, v, cache.block_table, pos)
+        if q.shape[1] > 1:
+            return sdpa_array(q, k, v, is_causal=True)
+        o = paged_decode_attention(
+            q[:, 0].contiguous(), cache.k_pages, cache.v_pages,
+            cache.block_table, pos, scale=1.0 / math.sqrt(self.head_dim))
+        return o[:, None]
+
+
+class GPTMLP(nn.Module):
+    """FFN: in-proj, tanh-approximate gelu, out-proj."""
+
+    def __init__(self, cfg: GPTConfig, device: torch.device):
+        super().__init__()
+        E, FF = cfg.hidden_size, cfg.ffn_size
+        self.w_in = _param(E, FF, device=device)
+        self.b_in = _param(FF, device=device)
+        self.w_out = _param(FF, E, device=device)
+        self.b_out = _param(E, device=device)
+
+    def forward(self, x):
+        h = F.gelu(x @ self.w_in + self.b_in, approximate="tanh")
+        return h @ self.w_out + self.b_out
+
+
+class GPTDecoderLayer(nn.Module):
+    """Pre-LN block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+
+    def __init__(self, cfg: GPTConfig, device: torch.device):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
+        self.attn = GPTAttention(cfg, device)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
+        self.mlp = GPTMLP(cfg, device)
+
+    def forward(self, x, cache=None, pos=None):
+        x = x + self.attn(self.ln1(x), cache, pos)
+        return x + self.mlp(self.ln2(x))
+
+
+class GPTModel(nn.Module):
+    """Embeddings + N decoder blocks + final LN. Returns hidden states.
+
+    Dropout is not ported: this slice serves (eval mode, where the JAX
+    model's dropout is the identity)."""
+
+    def __init__(self, cfg: GPTConfig, device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                            device=device)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_position_embeddings, cfg.hidden_size, device=device)
+        self.layers = nn.ModuleList(
+            [GPTDecoderLayer(cfg, device) for _ in range(cfg.num_layers)])
+        self.final_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5,
+                                       device=device)
+
+    def forward(self, input_ids, position_ids=None,
+                caches: Optional[PagedCacheView] = None, cache_pos=None):
+        B, S = input_ids.shape
+        if position_ids is None:
+            start = (cache_pos[:, None].long() if caches is not None
+                     else torch.zeros((1, 1), dtype=torch.long,
+                                      device=input_ids.device))
+            position_ids = start + torch.arange(S, device=input_ids.device)
+        # padded prefill rows can run past the table: JAX clamps the
+        # gather silently, PyTorch would fault, so clamp explicitly
+        position_ids = position_ids.clamp(
+            max=self.cfg.max_position_embeddings - 1)
+        x = self.word_embeddings(input_ids) + \
+            self.position_embeddings(position_ids)
+        for i, blk in enumerate(self.layers):
+            layer_cache = None
+            if caches is not None:
+                layer_cache = PagedLayerCache(caches.k[i], caches.v[i],
+                                              caches.block_table)
+            x = blk(x, layer_cache, cache_pos)
+        return self.final_norm(x)
+
+
+def parallel_logits(hidden, embedding_weight):
+    """LM head: ``hidden @ W_vocab.T`` against the tied embedding."""
+    return torch.matmul(hidden, embedding_weight.t())
+
+
+class GPTForPretraining(nn.Module):
+    """GPT with the tied LM head. Built on ``device`` (the card unless
+    ``device="cpu"`` is passed) with weights drawn from ``seed`` by the
+    JAX package's initializers: N(0, initializer_range) for matrices and
+    embeddings, the residual-out projections scaled by
+    ``1/sqrt(2*num_layers)``, zero biases, unit LayerNorm scales."""
+
+    def __init__(self, cfg: GPTConfig, device: DeviceLike = None,
+                 seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg, dev)
+        self._init_weights(make_generator(seed, dev))
+        self.eval()
+
+    @torch.no_grad()
+    def _init_weights(self, g: torch.Generator) -> None:
+        # biases are built as zeros and LayerNorms as (1, 0) already
+        std = self.cfg.initializer_range
+        out_std = std / math.sqrt(2 * self.cfg.num_layers)
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("out_weight", "w_out"):
+                p.normal_(0.0, out_std, generator=g)
+            elif leaf in ("qkv_weight", "w_in") or "embeddings" in name:
+                p.normal_(0.0, std, generator=g)
+
+    def forward(self, input_ids, position_ids=None,
+                caches: Optional[PagedCacheView] = None, cache_pos=None):
+        hidden = self.gpt(input_ids, position_ids, caches, cache_pos)
+        return parallel_logits(hidden, self.gpt.word_embeddings.weight)
+
+
+def gpt_tiny(**kw) -> GPTConfig:
+    """Test-size config."""
+    d = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+             max_position_embeddings=128, hidden_dropout_prob=0.0,
+             attention_dropout_prob=0.0)
+    d.update(kw)
+    return GPTConfig(**d)
+
+
+def gpt2_small(**kw) -> GPTConfig:
+    d = dict(vocab_size=50304, hidden_size=768, num_layers=12, num_heads=12,
+             max_position_embeddings=1024)
+    d.update(kw)
+    return GPTConfig(**d)
+
+
+def gpt2_medium(**kw) -> GPTConfig:
+    """GPT-2 345M."""
+    d = dict(vocab_size=50304, hidden_size=1024, num_layers=24, num_heads=16,
+             max_position_embeddings=1024)
+    d.update(kw)
+    return GPTConfig(**d)
+
+
+def gpt2_large(**kw) -> GPTConfig:
+    d = dict(vocab_size=50304, hidden_size=1280, num_layers=36,
+             num_heads=20, max_position_embeddings=1024)
+    d.update(kw)
+    return GPTConfig(**d)
+
+
+def gpt2_xl(**kw) -> GPTConfig:
+    d = dict(vocab_size=50304, hidden_size=1600, num_layers=48,
+             num_heads=25, max_position_embeddings=1024)
+    d.update(kw)
+    return GPTConfig(**d)

@@ -1,0 +1,172 @@
+"""Kernel registry and build helper for the hand-written Hopper kernels.
+
+Counterpart of the ``paddle_tpu/ops/pallas/__init__.py`` registry. Each
+entry names a CUDA C++ source under ``paddle_tpu_torch/csrc/``, the TPU
+kernel it replaces and a plain launch counter that its wrapper bumps
+once per launch (and nowhere else), so a run can show that its main
+path really went through the kernel.
+
+There are no kill switches and no fallbacks: a wrapper given CPU tensors
+computes its plain PyTorch version; given CUDA tensors it launches the
+kernel or raises.
+
+Build: each source compiles on first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into ``paddle_tpu_torch/_build/<stem>-<hash>.so`` (the hash is
+the source's, so an edited source rebuilds) and loads through
+``ctypes``. Sources share no header with PyTorch, which keeps a build at
+seconds, not minutes. :func:`build` compiles every missing library at
+once, one ``nvcc`` process per source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence
+
+__all__ = ["Kernel", "KERNELS", "kernels", "reset_launch_counts", "build",
+           "build_log", "function", "check", "BUILD_DIR", "CSRC_DIR"]
+
+_PKG_DIR = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclass
+class Kernel:
+    """One hand-written kernel: its C entry point, its source, the TPU
+    kernel it replaces and the count of its launches."""
+
+    name: str
+    source: str          # repo-relative path of the .cu file
+    replaces: str        # file:line of the pallas_call it ports
+    argtypes: tuple      # ctypes signature of the C entry point
+    launches: int = 0
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+FLASH_ATTENTION_FWD = Kernel(
+    "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+    "paddle_tpu/ops/pallas/flash_attention.py:399",
+    # q, k, v, o, lse, B, Sq, Sk, H, D, causal, scale, dtype, stream
+    (_P,) * 5 + (_I,) * 6 + (_F, _I, _P))
+PAGED_DECODE = Kernel(
+    "paged_decode_attention", "paddle_tpu_torch/csrc/paged_decode.cu",
+    "paddle_tpu/ops/pallas/paged_decode.py:149",
+    # q, k_pages, v_pages, table, pos, out, B, H, D, bs, MB, scale,
+    # dtype, stream
+    (_P,) * 6 + (_I,) * 5 + (_F, _I, _P))
+
+KERNELS: Dict[str, Kernel] = {k.name: k for k in (FLASH_ATTENTION_FWD,
+                                                  PAGED_DECODE)}
+
+
+def kernels() -> List[dict]:
+    """Every kernel with its TPU counterpart, source and launch count."""
+    return [{"name": k.name, "source": k.source, "replaces": k.replaces,
+             "launches": k.launches} for k in KERNELS.values()]
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+_LOCK = threading.Lock()
+_FUNCS: Dict[str, Callable[..., int]] = {}
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the CUDA kernels build only "
+                       "where the CUDA toolkit is installed")
+
+
+def _lib_path(kernel: Kernel) -> Path:
+    src = _PKG_DIR.parent / kernel.source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build(names: Optional[Sequence[str]] = None) -> float:
+    """Compile every missing kernel library (all of them, or ``names``)
+    in parallel and load them. Returns the seconds spent."""
+    t0 = time.perf_counter()
+    todo = [KERNELS[n] for n in (names or KERNELS)]
+    with _LOCK:
+        missing = [k for k in todo
+                   if k.name not in _FUNCS and not _lib_path(k).exists()]
+        if missing:
+            nvcc = _nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            procs = []
+            for k in missing:
+                out = _lib_path(k)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                with open(out.with_suffix(".log"), "w") as log:
+                    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                           str(_PKG_DIR.parent / k.source)]
+                    procs.append((k, out, tmp, subprocess.Popen(
+                        cmd, stdout=log, stderr=subprocess.STDOUT)))
+            failed = []
+            for k, out, tmp, p in procs:
+                if p.wait() != 0:
+                    failed.append(f"{k.source}: nvcc exit {p.returncode}\n"
+                                  + out.with_suffix(".log").read_text())
+                else:
+                    os.replace(tmp, out)
+            if failed:
+                raise RuntimeError("kernel build failed:\n"
+                                   + "\n".join(failed))
+        for k in todo:
+            if k.name not in _FUNCS:
+                _FUNCS[k.name] = _load(k)
+    return time.perf_counter() - t0
+
+
+def _load(kernel: Kernel) -> Callable[..., int]:
+    fn = getattr(ctypes.CDLL(str(_lib_path(kernel))), kernel.name)
+    fn.argtypes = kernel.argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed for the kernel's last build (register and
+    shared-memory use per instantiation, from ``-Xptxas -v``)."""
+    p = _lib_path(KERNELS[name]).with_suffix(".log")
+    return p.read_text() if p.exists() else ""
+
+
+def function(name: str) -> Callable[..., int]:
+    """The C entry point of kernel ``name``, built at first use."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        build([name])
+        fn = _FUNCS[name]
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise when a C entry returned a non-zero ``cudaGetLastError()``."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -70,6 +70,10 @@ def pytest_configure(config):
         "slow: excluded from the tier-1 wall-clock budget "
         "(`-m 'not slow'`); full bench legs and other multi-minute "
         "drills carry it")
+    config.addinivalue_line(
+        "markers",
+        "cuda: launches a hand-written CUDA kernel of paddle_tpu_torch "
+        "on an NVIDIA card; skips where no CUDA device is present")
 
 
 @pytest.fixture(autouse=True)
