@@ -7,22 +7,43 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Four phases, in order:
+result line. Seven phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
               ``nvcc`` (one process per source, all at once);
 2. kernels -- hold each kernel against its plain PyTorch version on the
-              card at the serving path's shapes, and time the kernel,
-              the plain version, the card's bound and, where one exists,
-              the one PyTorch call that computes the same function;
+              card at the serving and training paths' shapes, in float32
+              and bfloat16, and time the kernel, the plain version, the
+              card's bound and, where one exists, the one PyTorch call
+              that computes the same function;
 3. slice   -- serve 16 greedy requests on GPT-2 345M (random weights
               from a seed) through ``ServingEngine`` at the full serving
               configuration, check the launch counts against the
               dispatch counts and cross-check every generated token
               against a teacher-forced no-cache forward;
-4. summary -- print one JSON line describing every ported kernel, then
+4. parity  -- one float32 forward and backward of a 2-layer GPT-2 345M at
+              full width with dropout, on the card and on the CPU from the
+              same weights, batch and seed words: the CPU runs every
+              kernel's plain version, so the loss and every gradient hold
+              the card's kernels to them at full width;
+5. amp     -- ten ``TrainStep`` steps of GPT-2 345M at the training
+              configuration below, each held against the plain versions
+              on the card: before every step the same loss and gradients
+              are computed from the same parameters and seed words with
+              every kernel wrapper swapped for its plain version (inside
+              this script only); then ten float32 steps from the same
+              weights, for comparison;
+6. train   -- ten ``TrainStep`` steps of GPT-2 345M at the configuration
+              of ``bench.py``'s ``bench_gpt2_345m`` (B=8, S=1024, AMP O1,
+              dropout 0.1, AdamW), with exact launch counts per step,
+              step time, tokens/s, peak memory, MFU and a profile of one
+              more step;
+7. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
+
+Launch counts are set to 0 just before each of phases 3 and 6 and read
+just after; the kernel JSON line gives each kernel's launches per path.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
@@ -30,6 +51,8 @@ nothing else of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -43,13 +66,48 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
-# tolerances of kernel vs plain version, max abs error
+# tolerances of kernel vs plain version at the serving shapes, max abs
+# error
 TOL = {
     # the kernel sums the same products in another order
     "float32": 1e-4,
     # both round p.V to bfloat16 output; the kernel keeps p in f32
     "bfloat16": 2e-2,
 }
+# flash forward and backward at the training shapes, max abs error
+# relative to the reference's largest magnitude: in bf16 the two round
+# o, dq, dk, dv from f32 values summed in other orders, so an element
+# may differ by one bf16 ulp, at most 2^-7 of the largest (1.064e-03
+# measured, on dk); f32 as TOL
+TRAIN_FLASH_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# the lse kernel and its plain version sum 50304 exponentials in
+# another order: relative to the largest lse
+LSE_TOL = 1e-5
+# dlogits, per element, from the same lse: |d - plain| <= DLOGITS_REL *
+# (|plain| + DLOGITS_FLOOR * g) with g the row's upstream gradient. In
+# f32 one exp differs in its last bits; in bf16 the two f32 values may
+# round to neighbours, one bf16 ulp, at most 2^-7 of the value. Entries
+# with p below a millionth count against that floor.
+DLOGITS_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+DLOGITS_FLOOR = 1e-6
+
+# the training path measured here is bench.py's bench_gpt2_345m
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 10
+TRAIN_LR, TRAIN_WD = 1e-4, 0.01
+# O1 steps, kernels against plain versions from the same parameters:
+# the loss relative to the plain one, and the gradients' error norm
+# relative to the plain gradients' norm over all parameters. Both paths
+# round attention outputs and gradients to bf16 from sums in other
+# orders, and 24 layers carry those roundings; measured on one H100:
+# loss 8.0e-06, gradients 1.470e-02 at step 1 falling to 1.184e-03 at
+# step 10
+AMP_LOSS_TOL, AMP_GRAD_TOL = 1e-4, 3e-2
+# card-vs-CPU parity step: full width, 2 layers, float32
+PARITY_LAYERS, PARITY_B, PARITY_S = 2, 2, 1024
+# loss: relative; gradients: max abs error relative to each gradient's
+# largest magnitude (sums of 2048 rows in another order, and the
+# attention backward recomputing p in another order)
+PARITY_LOSS_TOL, PARITY_GRAD_TOL = 1e-5, 1e-3
 
 # the serving path measured here is bench.py --serve at full width
 SERVE_CFG = dict(max_batch_slots=8, block_size=16, max_context_len=512,
@@ -76,7 +134,10 @@ def _log(msg: str) -> None:
 def _median_ms(fn, iters: int = 30, warmup: int = 5, flush=None) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each timed
     by its own pair of CUDA events. ``flush`` (not timed) runs before
-    every launch where the real caller finds the inputs cold in L2."""
+    every launch where the real caller finds the inputs cold in L2.
+    Before each pair the card spins for about 0.1 ms, so the host has
+    queued the launch before the start event is reached and a short
+    kernel's time does not include the host's launch overhead."""
     import torch
     for _ in range(warmup):
         fn()
@@ -85,6 +146,7 @@ def _median_ms(fn, iters: int = 30, warmup: int = 5, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(200_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -94,6 +156,15 @@ def _median_ms(fn, iters: int = 30, warmup: int = 5, flush=None) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in pairs)
     return times[len(times) // 2]
+
+
+def _name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _rel_err(got, ref) -> float:
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
 
 
 def _bound_ms(nbytes: float, flops: float, dtype: str):
@@ -115,11 +186,13 @@ def phase_card() -> dict:
          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     from paddle_tpu_torch.ops import kernels
     secs = kernels.build()
-    _log(f"card: built {len(kernels.KERNELS)} kernels in {secs:.2f} s")
-    for name in kernels.KERNELS:
+    sources = {k.source: k.name for k in kernels.KERNELS.values()}
+    _log(f"card: built {len(kernels.KERNELS)} kernels from {len(sources)} "
+         f"sources in {secs:.2f} s")
+    for source, name in sources.items():
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
-                _log(f"  {name}: {line.strip()}")
+                _log(f"  {source}: {line.strip()}")
     return {"smi": out[0]}
 
 
@@ -223,6 +296,161 @@ def _paged_case(dtype, seed, timed=False):
             "shape": f"B={B} MB={MB} bs={bs} H={H} D={D} P={P} {name}"}
 
 
+def _dropout_case(dtype, timed=False):
+    """Bit-equal to the plain version at the residual stream's shape."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.dropout import (dropout_apply,
+                                                      dropout_plain)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(TRAIN_B, TRAIN_S, 1024, device="cuda",
+                    generator=g).to(dtype)
+    words = (0x12345678, 0x9ABCDEF0)
+    y = dropout_apply(x, 0.1, words)
+    equal = torch.equal(y, dropout_plain(x, 0.1, words))
+    kept = (y != 0).float().mean().item()
+    _log(f"kernels: fused_dropout {tuple(x.shape)} {_name(dtype)} rate 0.1: "
+         f"bit-equal to plain {equal}, kept {kept:.5f}")
+    _require(equal, f"fused_dropout differs from its plain version in "
+             f"{_name(dtype)}")
+    if not timed:
+        return None
+    ms = _median_ms(lambda: dropout_apply(x, 0.1, words))
+    plain_ms = _median_ms(lambda: dropout_plain(x, 0.1, words), iters=10)
+    lib_ms = _median_ms(lambda: torch.nn.functional.dropout(x, 0.1, True))
+    bound, by = _bound_ms(2 * x.numel() * x.element_size(), 0, "float32")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "shape": f"{tuple(x.shape)} {_name(dtype)}"}
+
+
+def _ce_case(dtype, timed=False):
+    """lse and dlogits at the LM head's [B*S, V] against the plain
+    versions; returns the two rows when timed."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import chunked_ce as ce
+    N, V = TRAIN_B * TRAIN_S, 50304
+    g = torch.Generator(device="cuda").manual_seed(6)
+    logits = (torch.randn(N, V, device="cuda", generator=g) * 2).to(dtype)
+    labels = torch.randint(0, V, (N,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    gr = torch.full((N,), 1.0 / N, device="cuda")
+    lse = ce.online_lse(logits)
+    lse_ref = ce.online_lse_plain(logits)
+    lse_err = (lse - lse_ref).abs().max().item()
+    d = ce.dlogits(logits, labels, lse_ref, gr).float()
+    d_ref = ce.dlogits_plain(logits, labels, lse_ref, gr).float()
+    diff = (d - d_ref).abs_()
+    d_err = diff.max().item()
+    d_rel = diff.div_(d_ref.abs_().add_(DLOGITS_FLOOR * gr[:, None])) \
+        .max().item()
+    del d, d_ref, diff
+    tol = DLOGITS_REL[_name(dtype)]
+    _log(f"kernels: chunked_ce N={N} V={V} {_name(dtype)}: max|lse-plain| "
+         f"{lse_err:.3e} (tol {LSE_TOL * lse_ref.abs().max().item():.3e}), "
+         f"dlogits max |d-plain|/(|plain|+{DLOGITS_FLOOR:g}g) {d_rel:.3e} "
+         f"(tol {tol:.3e}), max|d-plain| {d_err:.3e}")
+    _require(lse_err <= LSE_TOL * lse_ref.abs().max().item(),
+             f"chunked_ce_lse disagrees with its plain version ({lse_err})")
+    _require(d_rel <= tol, f"chunked_ce_dlogits disagrees with its plain "
+             f"version ({d_rel} > {tol} per element)")
+    if not timed:
+        return None
+    elem = logits.element_size()
+    lg = logits.detach().requires_grad_()
+    lab64 = labels.long()
+    lib_lse = _median_ms(lambda: F.cross_entropy(lg.detach(), lab64,
+                                                 reduction="none"))
+    out = F.cross_entropy(lg, lab64, reduction="none")
+    # autograd.grad: the backward alone, with no accumulation into .grad
+    lib_d = _median_ms(lambda: torch.autograd.grad(out, lg, gr,
+                                                   retain_graph=True))
+    b_lse, by_lse = _bound_ms(N * V * elem + N * 4, 0, "float32")
+    b_d, by_d = _bound_ms(2 * N * V * elem + N * 12, 0, "float32")
+    shape = f"N={N} V={V} {_name(dtype)}"
+    return {
+        "chunked_ce_lse": {
+            "max_abs_err": lse_err, "bound_ms": b_lse, "bound_by": by_lse,
+            "ms": _median_ms(lambda: ce.online_lse(logits)),
+            "plain_ms": _median_ms(lambda: ce.online_lse_plain(logits),
+                                   iters=10),
+            "library_ms": lib_lse, "shape": shape},
+        "chunked_ce_dlogits": {
+            "max_abs_err": d_err, "bound_ms": b_d, "bound_by": by_d,
+            "ms": _median_ms(lambda: ce.dlogits(logits, labels, lse, gr)),
+            "plain_ms": _median_ms(lambda: ce.dlogits_plain(
+                logits, labels, lse, gr), iters=10),
+            "library_ms": lib_d, "shape": shape}}
+
+
+def _flash_train_case(dtype, timed=False):
+    """Forward with dropout and backward at the training shapes, against
+    the plain versions; the backward's is fed the kernel's o and lse, so
+    only the order of summation and the output rounding differ."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain)
+    B, S, H, D, rate = TRAIN_B, TRAIN_S, 16, 64, 0.1
+    words = (0x2468ACE0, 0x13579BDF)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                   .to(dtype) for _ in range(4))
+    name = _name(dtype)
+    o, lse = flash_attention_fwd(q, k, v, True, None, True, rate, words)
+    o_err = _rel_err(o, flash_attention_plain(q, k, v, True, None, False,
+                                              rate, words))
+    grads = flash_attention_bwd(q, k, v, o, lse, do, True, None, rate, words)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, True, None, rate,
+                                     words)
+    errs = [_rel_err(a, r) for a, r in zip(grads, refs)]
+    _log(f"kernels: flash B={B} S={S} H={H} D={D} {name} causal dropout "
+         f"{rate}: o {o_err:.3e}, dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+         f"dv {errs[2]:.3e} (max abs error / max |plain|, tol "
+         f"{TRAIN_FLASH_TOL[name]:g})")
+    _require(max([o_err] + errs) <= TRAIN_FLASH_TOL[name],
+             f"flash forward/backward with dropout disagree with their "
+             f"plain versions in {name}: o {o_err}, grads {errs}")
+    del grads, refs
+    if not timed:
+        return None
+    pairs = S * (S + 1) // 2
+    elem = q.element_size()
+    fwd_ms = _median_ms(lambda: flash_attention_fwd(q, k, v, True, None,
+                                                    True, rate, words))
+    fwd_plain = _median_ms(lambda: flash_attention_plain(
+        q, k, v, True, None, True, rate, words), iters=5, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fwd_lib = _median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, dropout_p=rate, is_causal=True))
+    b_fwd, by_fwd = _bound_ms(4 * B * S * H * D * elem + B * H * S * 4,
+                              4 * B * H * D * pairs, name)
+    bwd_ms = _median_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                    True, None, rate, words))
+    bwd_plain = _median_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True, None, rate, words), iters=5, warmup=1)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(ql, kl, vl, dropout_p=rate,
+                                         is_causal=True)
+    dot = do.transpose(1, 2)
+    bwd_lib = _median_ms(lambda: torch.autograd.grad(
+        out, (ql, kl, vl), dot, retain_graph=True))
+    # q, k, v, o, dO read and dq, dk, dv written; lse read
+    b_bwd, by_bwd = _bound_ms(8 * B * S * H * D * elem + B * H * S * 4,
+                              10 * B * H * D * pairs, name)
+    shape = f"B={B} S={S} H={H} D={D} {name} causal dropout {rate}"
+    return {
+        "flash_attention_fwd": {
+            "max_abs_err": o_err, "ms": fwd_ms, "plain_ms": fwd_plain,
+            "bound_ms": b_fwd, "bound_by": by_fwd, "library_ms": fwd_lib,
+            "shape": shape},
+        "flash_attention_bwd": {
+            "max_abs_err": max(errs), "ms": bwd_ms, "plain_ms": bwd_plain,
+            "bound_ms": b_bwd, "bound_by": by_bwd, "library_ms": bwd_lib,
+            "shape": shape}}
+
+
 def phase_kernels() -> dict:
     import torch
     rows = {}
@@ -231,12 +459,26 @@ def phase_kernels() -> dict:
             _flash_case(4, S, 16, 64, dtype, seed=S)
     _flash_case(2, 256, 8, 128, torch.float32, seed=3)
     _flash_case(4, 256, 16, 64, torch.bfloat16, seed=256)
-    # the serving path runs float32 (the engine's cache dtype): time that
-    rows["flash_attention_fwd"] = _flash_case(4, 256, 16, 64, torch.float32,
-                                              seed=256, timed=True)
+    # the serving path runs float32 (the engine's cache dtype)
+    serve_flash = _flash_case(4, 256, 16, 64, torch.float32, seed=256,
+                              timed=True)
+    _log(f"kernels: flash_attention_fwd at the serving shape "
+         f"[{serve_flash['shape']}]: {serve_flash['ms']:.4f} ms, plain "
+         f"{serve_flash['plain_ms']:.4f} ms, bound "
+         f"{serve_flash['bound_ms']:.4f} ms, library "
+         f"{serve_flash['library_ms']:.4f} ms")
     _paged_case(torch.bfloat16, seed=1)
     rows["paged_decode_attention"] = _paged_case(torch.float32, seed=1,
                                                  timed=True)
+    # the training path runs AMP O1: bf16 attention and logits, dropout
+    # on bf16 and f32 activations; the rows time the bf16 case
+    _flash_train_case(torch.float32)
+    rows.update(_flash_train_case(torch.bfloat16, timed=True))
+    _ce_case(torch.float32)
+    rows.update(_ce_case(torch.bfloat16, timed=True))
+    _dropout_case(torch.float32)
+    rows["fused_dropout"] = _dropout_case(torch.bfloat16, timed=True)
+    torch.cuda.empty_cache()
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         _log(f"kernels: {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
@@ -254,6 +496,7 @@ def phase_slice() -> dict:
     from paddle_tpu_torch.serving import (Request, SamplingParams,
                                           ServingConfig, ServingEngine)
     cfg = gpt2_medium()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = GPTForPretraining(cfg, device="cuda", seed=0)
     engine = ServingEngine(model, ServingConfig(**SERVE_CFG),
@@ -340,6 +583,289 @@ def phase_slice() -> dict:
     return launches
 
 
+# -- phase 4 -----------------------------------------------------------------
+def phase_parity() -> None:
+    """One float32 forward and backward of a 2-layer, full-width GPT with
+    dropout on the card and on the CPU, from the same weights, batch and
+    seed words: the CPU runs the kernels' plain versions."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium)
+    from paddle_tpu_torch.ops import kernels
+    cfg = gpt2_medium(num_layers=PARITY_LAYERS)
+    rng = np.random.default_rng(1)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PARITY_B, PARITY_S)).astype(np.int32))
+        for _ in range(2))
+    crit = GPTPretrainingCriterion()
+    results = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = GPTForPretraining(cfg, device="cpu", seed=0).to(dev)
+        before = {k["name"]: k["launches"] for k in kernels.kernels()}
+        loss = crit(model(ids.to(dev), generator=torch.Generator()
+                          .manual_seed(5)), labels.to(dev))
+        loss.backward()
+        launched = sum(k["launches"] - before[k["name"]]
+                       for k in kernels.kernels())
+        results[dev] = (loss.item(), {n: p.grad.detach().cpu()
+                                      for n, p in model.named_parameters()})
+        _log(f"parity: {dev} loss {results[dev][0]:.6f} in "
+             f"{time.perf_counter() - t0:.2f} s, {launched} kernel "
+             f"launches")
+        _require((launched > 0) == (dev == "cuda"),
+                 f"{dev} run launched {launched} kernels")
+        del model, loss
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst = max(((g_gpu[n] - g_cpu[n]).abs().max()
+                 / g_cpu[n].abs().max().clamp(min=1e-30)).item()
+                for n in g_cpu)
+    worst_name = max(g_cpu, key=lambda n: (
+        (g_gpu[n] - g_cpu[n]).abs().max()
+        / g_cpu[n].abs().max().clamp(min=1e-30)).item())
+    _log(f"parity: gpt2_medium(num_layers={PARITY_LAYERS}) f32 B={PARITY_B} "
+         f"S={PARITY_S} dropout {cfg.hidden_dropout_prob}: |loss| rel err "
+         f"{loss_err:.3e} (tol {PARITY_LOSS_TOL:g}), worst gradient "
+         f"{worst_name} {worst:.3e} (max abs err / max |cpu|, tol "
+         f"{PARITY_GRAD_TOL:g}) over {len(g_cpu)} gradients")
+    _require(loss_err <= PARITY_LOSS_TOL,
+             f"card and CPU losses differ: {l_gpu} vs {l_cpu}")
+    _require(worst <= PARITY_GRAD_TOL,
+             f"gradient {worst_name} differs between card and CPU ({worst})")
+
+
+# -- phase 5 -----------------------------------------------------------------
+@contextlib.contextmanager
+def _plain_versions():
+    """Inside the block every kernel wrapper that the training path calls
+    computes its plain version, on CUDA tensors too: the reference of
+    phase 5. Only this script swaps them; the port has no such switch."""
+    from paddle_tpu_torch.ops.kernels import chunked_ce as ce
+    from paddle_tpu_torch.ops.kernels import dropout as dr
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    swaps = ((fa, "flash_attention_fwd", fa.flash_attention_plain),
+             (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
+             (ce, "online_lse", ce.online_lse_plain),
+             (ce, "dlogits", ce.dlogits_plain),
+             (dr, "dropout_apply", dr.dropout_plain))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def _train_setup(amp: bool):
+    """gpt2_medium, its TrainStep (AdamW, dropout generator seed 0) and the
+    batch, as phase 6 and ``bench_gpt2_345m`` build them."""
+    import numpy as np
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt2_medium()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(layer, ids, labels):
+        if not amp:
+            return crit(layer(ids), labels)
+        with auto_cast(level="O1"):
+            return crit(layer(ids), labels)
+
+    step = TrainStep(model, loss_fn, AdamW(
+        learning_rate=TRAIN_LR, parameters=model.parameters(),
+        weight_decay=TRAIN_WD), seed=0)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size,
+                          (TRAIN_B, TRAIN_S)).astype(np.int32)
+    return cfg, model, loss_fn, step, ids, labels
+
+
+def phase_amp() -> list:
+    """The O1 training steps, each held against the plain versions from
+    the same parameters and seed words; returns the losses."""
+    import torch
+    from paddle_tpu_torch.core.random import dropout_generator
+    from paddle_tpu_torch.ops import kernels
+    cfg, model, loss_fn, step, ids, labels = _train_setup(amp=True)
+    named = list(model.named_parameters())
+    opt, kernel_grads = step.optimizer, {}
+    update = opt.step
+
+    def keep_grads_then_update(step=None):
+        kernel_grads.update((n, p.grad.detach().clone()) for n, p in named)
+        update(step=step)
+
+    opt.step = keep_grads_then_update
+    ids_t, labels_t = (torch.from_numpy(a).cuda() for a in (ids, labels))
+    losses, plain_losses = [], []
+    for t in range(1, TRAIN_STEPS + 1):
+        gen = torch.Generator()
+        gen.set_state(step.generator.get_state())
+        before = sum(k["launches"] for k in kernels.kernels())
+        with _plain_versions():
+            with dropout_generator(gen):
+                ref = loss_fn(model, ids_t, labels_t)
+            ref.backward()
+        _require(sum(k["launches"] for k in kernels.kernels()) == before,
+                 "the plain reference launched a kernel")
+        plain_grads = {n: p.grad for n, p in named}
+        opt.clear_grad()
+        losses.append(float(step(ids, labels)))
+        plain_losses.append(ref.item())
+        num = den = 0.0
+        worst, worst_name = 0.0, ""
+        for n, ref_g in plain_grads.items():
+            d = kernel_grads[n] - ref_g
+            num += float(d.square().sum())
+            den += float(ref_g.square().sum())
+            r = float(d.abs().max() / ref_g.abs().max().clamp(min=1e-30))
+            if r > worst:
+                worst, worst_name = r, n
+        del plain_grads, ref
+        kernel_grads.clear()
+        loss_err = abs(losses[-1] - plain_losses[-1]) / abs(plain_losses[-1])
+        g_err = math.sqrt(num / den)
+        _log(f"amp: step {t} loss {losses[-1]:.5f}, plain "
+             f"{plain_losses[-1]:.5f} (rel err {loss_err:.3e}, tol "
+             f"{AMP_LOSS_TOL:g}); "
+             f"gradients |kernel-plain|/|plain| {g_err:.3e} (tol "
+             f"{AMP_GRAD_TOL:g}), worst tensor {worst_name} max abs err / "
+             f"max |plain| {worst:.3e}")
+        _require(math.isfinite(losses[-1]) and loss_err <= AMP_LOSS_TOL,
+                 f"step {t}: O1 loss {losses[-1]} vs plain {plain_losses[-1]}")
+        _require(g_err <= AMP_GRAD_TOL,
+                 f"step {t}: O1 gradients differ from the plain ones by "
+                 f"{g_err} of their norm")
+    # the wrapped update holds the optimizer in a reference cycle
+    del model, step, opt, update, kernel_grads, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log("amp: O1 losses with the kernels " + " ".join(
+        f"{x:.5f}" for x in losses))
+    _log("amp: O1 losses, plain versions " + " ".join(
+        f"{x:.5f}" for x in plain_losses))
+    step32, ids, labels = _train_setup(amp=False)[3:]
+    f32 = [float(step32(ids, labels)) for _ in range(TRAIN_STEPS)]
+    _log("amp: float32 losses, same weights " + " ".join(
+        f"{x:.5f}" for x in f32))
+    del step32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+# -- phase 6 -----------------------------------------------------------------
+def gpt_flops_per_token(h=1024, L=24, V=50304, S=1024) -> float:
+    """Analytic training FLOPs per token (6P + attention term), as
+    ``bench.py::gpt_flops_per_token``."""
+    p_block = L * 12 * h * h
+    return 6 * (p_block + V * h) + 12 * L * h * S
+
+
+# kernel-name fragments of each group in the step profile; the first
+# group whose fragment a kernel's name holds takes it
+PROFILE_GROUPS = (
+    ("flash forward", ("flash_fwd_kernel",)),
+    ("flash backward", ("dkv_kernel", "dq_kernel", "delta_kernel")),
+    ("chunked CE", ("lse_kernel", "dlogits_kernel")),
+    ("dropout", ("dropout_kernel",)),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("copies and casts", ("copy_kernel", "CatArrayBatched")),
+    ("elementwise", ("elementwise_kernel",)),
+    ("reductions", ("reduce_kernel",)),
+)
+
+
+def _profile_step(step, ids, labels) -> None:
+    """Device time by kernel over one more step (torch.profiler), as
+    ``tools/profile_torch_serve.py`` reads it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(ids, labels))
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
+                 key=lambda a: -a.self_device_time_total)
+    busy = sum(a.self_device_time_total for a in dev) / 1e3     # us -> ms
+    n_launch = sum(a.count for a in avgs
+                   if a.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    _log(f"train: profiled step {wall * 1e3:.1f} ms wall, kernels busy "
+         f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), {n_launch} "
+         f"kernel launches")
+    groups = {}
+    for a in dev:
+        group = next((g for g, keys in PROFILE_GROUPS
+                      if any(k in a.key for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + a.self_device_time_total
+    _log("train: device time by group: " + ", ".join(
+        f"{g} {us / 1e3:.1f} ms ({100 * us / 1e3 / max(busy, 1e-9):.1f}%)"
+        for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for a in dev[:15]:
+        ms = a.self_device_time_total / 1e3
+        _log(f"train:   {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}% "
+             f"x{a.count:<5d} {a.key[:90]}")
+
+
+def phase_train(amp_losses: list) -> dict:
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, _, step, ids, labels = _train_setup(amp=True)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))       # syncs on the loss
+        times.append(time.perf_counter() - t0)
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    _log("train: losses " + " ".join(f"{x:.4f}" for x in losses))
+    _log(f"train: largest difference from phase 5's losses (same seeds) "
+         f"{max(abs(a - b) for a, b in zip(losses, amp_losses)):.3e}")
+    _log(f"train: launches over {TRAIN_STEPS} steps {launches}")
+    _require(all(math.isfinite(x) for x in losses), "non-finite loss")
+    _require(losses[-1] < losses[0],
+             f"loss did not decrease: {losses[0]} -> {losses[-1]}")
+    L, n = cfg.num_layers, TRAIN_STEPS
+    drops = 1 + 2 * L                                  # per forward
+    want = {"flash_attention_fwd": L * n, "flash_attention_bwd": L * n,
+            "chunked_ce_lse": n, "chunked_ce_dlogits": n,
+            "fused_dropout": 2 * drops * n, "paged_decode_attention": 0}
+    _require(launches == want, f"launch counts {launches} != {want}")
+
+    step_s = float(np.median(times[2:]))
+    tokens = TRAIN_B * TRAIN_S
+    mfu = gpt_flops_per_token(S=TRAIN_S) * tokens / step_s / \
+        PEAK_FLOPS["bfloat16"]
+    _log(f"train: gpt2_medium B={TRAIN_B} S={TRAIN_S} AMP O1 dropout "
+         f"{cfg.hidden_dropout_prob} AdamW: step 1 {times[0] * 1e3:.1f} ms,"
+         f" median over steps 3-{TRAIN_STEPS} {step_s * 1e3:.2f} ms/step, "
+         f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} (against 989 "
+         f"TFLOP/s bf16 dense), peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _profile_step(step, ids, labels)
+    return launches
+
+
 # -- main ---------------------------------------------------------------------
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
@@ -362,7 +888,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_card()
     rows = phase_kernels()
-    launches = phase_slice()
+    by_path = {"serve": phase_slice()}
+    phase_parity()
+    by_path["train"] = phase_train(phase_amp())
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))
@@ -372,9 +900,11 @@ def main() -> int:
     line = []
     for k in kernels.kernels():
         r = rows[k["name"]]
+        paths = {p: n[k["name"]] for p, n in by_path.items()}
         line.append({"name": k["name"], "route": "cuda",
                      "source": k["source"], "replaces": k["replaces"],
-                     "launches": launches[k["name"]],
+                     "launches": sum(paths.values()),
+                     "launches_by_path": paths,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -8,7 +8,10 @@ in CUDA C++ for ``sm_90a``. It imports torch, never jax, and nothing of
 PyTorch version.
 
 First slice: GPT served end to end (``models``, ``serving``) through the
-flash-prefill and paged-decode kernels (``ops.kernels``).
+flash-prefill and paged-decode kernels (``ops.kernels``). Second slice:
+GPT pretrained through ``jit.TrainStep`` (``nn``, ``amp``,
+``optimizer``), with the flash backward, chunked cross-entropy and fused
+dropout kernels.
 """
 
 from .core import make_generator, resolve_device

@@ -1,4 +1,5 @@
 from .device import resolve_device
-from .random import make_generator
+from .random import dropout_generator, make_generator, seed_words
 
-__all__ = ["make_generator", "resolve_device"]
+__all__ = ["dropout_generator", "make_generator", "resolve_device",
+           "seed_words"]

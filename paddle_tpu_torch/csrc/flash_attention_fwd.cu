@@ -4,7 +4,12 @@
 // (_fwd2_kernel, pallas_call at :399): online-softmax attention over the
 // framework layout [B, S, H, D] (the same memory as _fwd2's packed
 // [B, S, H*D]), causal masking bottom-right aligned (row + Sk - Sq >= col,
-// _causal_mask), optional per-row lse [B, H, Sq] in f32.
+// _causal_mask), optional per-row lse [B, H, Sq] in f32, and the
+// in-kernel attention dropout of _dropout_keep (:87): the keep bit is a
+// hash of the absolute (b, h, query row, key column) and two seed words
+// (dropout_hash.cuh), it masks the p.V accumulation only, and the
+// softmax denominator l sums the undropped p (:320-333), so the backward
+// regenerates the same mask from the same words.
 //
 // What bounds it on this card: at the serving shapes (D = 64, S <= 512)
 // the work is ~4*S*D operations per byte of q/k/v, far above the card's
@@ -24,6 +29,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -66,7 +73,8 @@ __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int Sq, int Sk, int H,
-                     int causal, float scale) {
+                     int causal, float scale, int dropout, uint32_t thr,
+                     uint32_t seed, float keep_scale) {
   constexpr int DC = D / 16;  // output columns per thread (4 or 8)
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // q tile, transposed
@@ -85,6 +93,7 @@ __global__ void __launch_bounds__(THREADS)
   const T* kb = k + ((long long)b * Sk * H + h) * D;
   const T* vb = v + ((long long)b * Sk * H + h) * D;
   const int off = Sk - Sq;
+  const uint32_t bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
@@ -164,6 +173,14 @@ __global__ void __launch_bounds__(THREADS)
       m[i] = m_new;
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+      // dropout scales what reaches p.V; l above kept the undropped p
+      if (dropout) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] *= attention_keep(row, k0 + tx * 4 + j, bh, seed, thr)
+                         ? keep_scale
+                         : 0.f;
+      }
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -209,6 +226,7 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int Sq, int Sk, int H, int causal, float scale,
+           int dropout, uint32_t thr, uint32_t seed, float keep_scale,
            cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * 4;
   cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
@@ -217,27 +235,30 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      Sq, Sk, H, causal, scale);
+      Sq, Sk, H, causal, scale, dropout, thr, seed, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse may be null.
+// dtype: 0 = float32, 1 = bfloat16. lse may be null. dropout != 0 drops
+// with threshold thr (keep_threshold(rate)), seed = s0 ^ (s1 << 1) and
+// keep_scale = 1/(1-rate) in f32.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int Sq, int Sk, int H, int D, int causal,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, int dropout, unsigned int thr,
+                                   unsigned int seed, float keep_scale,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, causal, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, causal, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, Sq, Sk, H, causal,
-                                     scale, st);
+#define FLASH_FWD_ARGS \
+  q, k, v, o, lse, B, Sq, Sk, H, causal, scale, dropout, thr, seed, \
+      keep_scale, st
+  if (dtype == 0 && D == 64) return launch<float, 64>(FLASH_FWD_ARGS);
+  if (dtype == 0 && D == 128) return launch<float, 128>(FLASH_FWD_ARGS);
+  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(FLASH_FWD_ARGS);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, Sq, Sk, H, causal,
-                                      scale, st);
+    return launch<__nv_bfloat16, 128>(FLASH_FWD_ARGS);
+#undef FLASH_FWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,16 +1,32 @@
 """GPT: decoder-only language model (dense), PyTorch port.
 
-Counterpart of ``paddle_tpu/models/gpt.py`` for inference: fused QKV
-attention, pre-LN blocks, tied LM head, the no-cache forward and the
-paged-KV forward the serving engine drives. Parameter names and layouts
-are the JAX package's (``qkv_weight [E, 3, H, D]``, ``out_weight
-[H, D, E]``, ``w_in [E, FF]``, ...), so a state dict copies across by
-name (:mod:`.convert`). The JAX package's ``lax.scan`` over layers is a
-Python loop here; there is no jit: PyTorch runs eagerly.
+Counterpart of ``paddle_tpu/models/gpt.py``: fused QKV attention, pre-LN
+blocks, tied LM head, the no-cache forward (training and inference), the
+paged-KV forward the serving engine drives, and
+``GPTPretrainingCriterion``. Parameter names and layouts are the JAX
+package's (``qkv_weight [E, 3, H, D]``, ``out_weight [H, D, E]``,
+``w_in [E, FF]``, ``ln1.weight``, ...), so a state dict copies across by
+name (:mod:`.convert`). There is no jit: PyTorch runs eagerly.
 
-Attention routes through ``ops.attention.sdpa_array`` (the flash kernel
-on the card) for the causal no-cache and prefill paths and through the
-paged-decode kernel for single-token decode steps.
+Training mode is the default, as for a JAX ``Layer`` (the serving engine
+calls ``.eval()``). In training mode the embedding, the two residual
+branches of every block and the attention probabilities are dropped, as
+in the JAX model, each call drawing two seed words from the active
+``core.random.dropout_generator`` (``TrainStep`` enters one, or pass
+``generator=`` to ``GPTForPretraining.forward``).
+
+Under ``amp.auto_cast`` the model casts at the JAX op names
+(``embedding``, ``fused_qkv``, ``scaled_dot_product_attention``,
+``attn_out``, ``linear``, ``lm_logits``), so its dtypes follow the JAX
+model's: under O1 the stream starts in bf16, the MLP's ``y + b_out``
+promotes to f32 (so ``dropout1`` runs on bf16 and ``dropout2`` on f32),
+and each block's output is cast back to the dtype of the stream that
+entered it, as the JAX package's ``lax.scan`` over layers casts its
+carry (``nn/scan.py:286``).
+
+Attention routes through ``ops.attention.sdpa_array`` (the flash
+kernels on the card) for the causal no-cache and prefill paths and
+through the paged-decode kernel for single-token decode steps.
 
 Float32 matmuls stay in full float32: ``torch.backends.cuda.matmul.
 allow_tf32`` is False by default and the serving engine sets it so
@@ -24,20 +40,22 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..amp import cast_inputs
 from ..core.device import DeviceLike, resolve_device
-from ..core.random import make_generator
+from ..core.random import dropout_generator, make_generator, next_seed_words
+from ..nn import functional as F
+from ..nn.chunked_ce import enabled_for, hard_nll
 from ..ops.attention import sdpa_array
 from ..ops.kernels.paged_decode import paged_decode_attention
 from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
                                 write_pages)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
-           "GPTModel", "GPTForPretraining", "parallel_logits",
-           "gpt_tiny", "gpt2_small", "gpt2_medium", "gpt2_large",
-           "gpt2_xl"]
+           "GPTModel", "GPTForPretraining", "GPTPretrainingCriterion",
+           "LayerNorm", "Dropout", "parallel_logits", "gpt_tiny",
+           "gpt2_small", "gpt2_medium", "gpt2_large", "gpt2_xl"]
 
 
 @dataclass
@@ -66,6 +84,32 @@ def _param(*shape, device):
                                     device=device))
 
 
+class LayerNorm(nn.Module):
+    """``weight``/``bias`` over the last dim; float32 statistics, output
+    in the input's dtype (``nn/functional.py:1014``)."""
+
+    def __init__(self, size: int, device: torch.device, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(size, device=device))
+        self.bias = _param(size, device=device)
+
+    def forward(self, x):
+        return F.layer_norm(x, x.shape[-1], self.weight, self.bias,
+                            self.eps)
+
+
+class Dropout(nn.Module):
+    """``upscale_in_train`` dropout, active in training mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x):
+        return F.dropout(x, self.p, training=self.training)
+
+
 class GPTAttention(nn.Module):
     """Causal self-attention with one fused QKV matmul."""
 
@@ -82,16 +126,19 @@ class GPTAttention(nn.Module):
     def forward(self, x, cache: Optional[PagedLayerCache] = None, pos=None):
         B, S, E = x.shape
         H, D = self.num_heads, self.head_dim
-        qkv = (x @ self.qkv_weight.reshape(E, 3 * H * D)).reshape(
-            B, S, 3, H, D) + self.qkv_bias
+        x, w, b = cast_inputs("fused_qkv", x, self.qkv_weight, self.qkv_bias)
+        qkv = (x @ w.reshape(E, 3 * H * D)).reshape(B, S, 3, H, D) + b
         q, k, v = qkv.unbind(2)                            # [B, S, H, D]
         if cache is not None:
             out = self._paged_attention(q, k, v, cache, pos)
         else:
-            out = sdpa_array(q, k, v, is_causal=True)
-        y = out.reshape(B, S, H * D) @ self.out_weight.reshape(H * D, E) \
-            + self.out_bias
-        return y
+            q, k, v = cast_inputs("scaled_dot_product_attention", q, k, v)
+            p = self.cfg.attention_dropout_prob if self.training else 0.0
+            out = sdpa_array(q, k, v, is_causal=True, dropout_p=p,
+                             seed_words=next_seed_words() if p > 0 else None)
+        out, w, b = cast_inputs("attn_out", out, self.out_weight,
+                                self.out_bias)
+        return out.reshape(B, S, H * D) @ w.reshape(H * D, E) + b
 
     def _paged_attention(self, q, k, v, cache: PagedLayerCache, pos):
         """Block-table K/V path. The chunk's K/V scatter into the pools
@@ -122,30 +169,30 @@ class GPTMLP(nn.Module):
         self.b_out = _param(E, device=device)
 
     def forward(self, x):
-        h = F.gelu(x @ self.w_in + self.b_in, approximate="tanh")
-        return h @ self.w_out + self.b_out
+        h = F.gelu(F.linear(x, self.w_in, self.b_in), approximate=True)
+        # bf16 + f32 promotes to f32 under O1, as in the JAX model
+        return F.linear(h, self.w_out) + self.b_out
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+    """Pre-LN block: x + drop1(attn(ln1(x))); x + drop2(mlp(ln2(x)))."""
 
     def __init__(self, cfg: GPTConfig, device: torch.device):
         super().__init__()
-        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
+        self.ln1 = LayerNorm(cfg.hidden_size, device)
         self.attn = GPTAttention(cfg, device)
-        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
+        self.ln2 = LayerNorm(cfg.hidden_size, device)
         self.mlp = GPTMLP(cfg, device)
+        self.dropout1 = Dropout(cfg.hidden_dropout_prob)
+        self.dropout2 = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, cache=None, pos=None):
-        x = x + self.attn(self.ln1(x), cache, pos)
-        return x + self.mlp(self.ln2(x))
+        x = x + self.dropout1(self.attn(self.ln1(x), cache, pos))
+        return x + self.dropout2(self.mlp(self.ln2(x)))
 
 
 class GPTModel(nn.Module):
-    """Embeddings + N decoder blocks + final LN. Returns hidden states.
-
-    Dropout is not ported: this slice serves (eval mode, where the JAX
-    model's dropout is the identity)."""
+    """Embeddings + N decoder blocks + final LN. Returns hidden states."""
 
     def __init__(self, cfg: GPTConfig, device: torch.device):
         super().__init__()
@@ -154,10 +201,10 @@ class GPTModel(nn.Module):
                                             device=device)
         self.position_embeddings = nn.Embedding(
             cfg.max_position_embeddings, cfg.hidden_size, device=device)
+        self.embedding_dropout = Dropout(cfg.hidden_dropout_prob)
         self.layers = nn.ModuleList(
             [GPTDecoderLayer(cfg, device) for _ in range(cfg.num_layers)])
-        self.final_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5,
-                                       device=device)
+        self.final_norm = LayerNorm(cfg.hidden_size, device)
 
     def forward(self, input_ids, position_ids=None,
                 caches: Optional[PagedCacheView] = None, cache_pos=None):
@@ -171,20 +218,23 @@ class GPTModel(nn.Module):
         # gather silently, PyTorch would fault, so clamp explicitly
         position_ids = position_ids.clamp(
             max=self.cfg.max_position_embeddings - 1)
-        x = self.word_embeddings(input_ids) + \
-            self.position_embeddings(position_ids)
+        x = F.embedding(input_ids, self.word_embeddings.weight) + \
+            F.embedding(position_ids, self.position_embeddings.weight)
+        x = self.embedding_dropout(x)
         for i, blk in enumerate(self.layers):
             layer_cache = None
             if caches is not None:
                 layer_cache = PagedLayerCache(caches.k[i], caches.v[i],
                                               caches.block_table)
-            x = blk(x, layer_cache, cache_pos)
+            # the scan carry keeps the stream's dtype across layers
+            x = blk(x, layer_cache, cache_pos).to(x.dtype)
         return self.final_norm(x)
 
 
 def parallel_logits(hidden, embedding_weight):
     """LM head: ``hidden @ W_vocab.T`` against the tied embedding."""
-    return torch.matmul(hidden, embedding_weight.t())
+    hidden, w = cast_inputs("lm_logits", hidden, embedding_weight)
+    return torch.matmul(hidden, w.t())
 
 
 class GPTForPretraining(nn.Module):
@@ -201,7 +251,6 @@ class GPTForPretraining(nn.Module):
         self.cfg = cfg
         self.gpt = GPTModel(cfg, dev)
         self._init_weights(make_generator(seed, dev))
-        self.eval()
 
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator) -> None:
@@ -216,9 +265,44 @@ class GPTForPretraining(nn.Module):
                 p.normal_(0.0, std, generator=g)
 
     def forward(self, input_ids, position_ids=None,
-                caches: Optional[PagedCacheView] = None, cache_pos=None):
+                caches: Optional[PagedCacheView] = None, cache_pos=None,
+                generator: Optional[torch.Generator] = None):
+        """Logits ``[B, S, V]``. In training mode with dropout, the seed
+        words come from ``generator`` when given, else from the active
+        ``dropout_generator``."""
+        if generator is not None:
+            with dropout_generator(generator):
+                return self.forward(input_ids, position_ids, caches,
+                                    cache_pos)
         hidden = self.gpt(input_ids, position_ids, caches, cache_pos)
         return parallel_logits(hidden, self.gpt.word_embeddings.weight)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Mean cross-entropy over the (non-masked) positions.
+
+    Holds the single-device branch of the JAX ``ParallelCrossEntropy``
+    (``mp_layers.py:157-168``): at a vocab of ``CHUNKED_CE_THRESHOLD``
+    or more the streamed loss (``nn.chunked_ce.hard_nll``, the chunked-CE
+    kernels on the card), below it the dense ``lse - tgt`` in float32
+    with a detached max shift."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        ids = labels.long()
+        if ids.dim() == logits.dim():
+            ids = ids.squeeze(-1)
+        V = logits.shape[-1]
+        if enabled_for(V):
+            losses = hard_nll(logits, ids)
+        else:
+            lg32 = logits.float()
+            z = lg32 - lg32.max(dim=-1, keepdim=True).values.detach()
+            lse = torch.log(torch.sum(torch.exp(z), dim=-1))
+            losses = lse - z.gather(-1, ids[..., None])[..., 0]
+        if loss_mask is None:
+            return losses.mean()
+        m = loss_mask.float()
+        return torch.sum(losses * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
 def gpt_tiny(**kw) -> GPTConfig:

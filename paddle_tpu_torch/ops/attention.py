@@ -4,13 +4,16 @@ dispatch.
 Counterpart of ``paddle_tpu/ops/attention.py``. Layout convention:
 ``[batch, seq, heads, head_dim]``.
 
-Dispatch (``sdpa_array``): CPU tensors take :func:`_sdpa_plain`. CUDA
-tensors with no mask, no dropout and ``D in (64, 128)`` launch the
-hand-written flash kernel at any sequence length (the TPU gate's
-``S % 128 == 0`` and ``S >= 256`` were the TPU's tile shape; the CUDA
-kernel masks its own ragged edge). Any other CUDA call raises
-``NotImplementedError`` naming the kernel that is missing: nothing on
-the card quietly runs the plain version.
+Dispatch (``sdpa_array``): CPU tensors without dropout take
+:func:`_sdpa_plain`. CUDA tensors with no mask and ``D in (64, 128)``
+go through the hand-written flash kernels (``FlashAttention``: forward,
+and the backward kernel as its gradient) at any sequence length (the
+TPU gate's ``S % 128 == 0`` and ``S >= 256`` were the TPU's tile shape;
+the CUDA kernels mask their own ragged edge), with or without the
+in-kernel attention dropout. CPU calls with dropout and no mask take the
+same ``FlashAttention``, whose plain versions apply the same hash mask.
+Any other call raises ``NotImplementedError`` naming the kernel that is
+missing: nothing on the card quietly runs the plain version.
 """
 
 from __future__ import annotations
@@ -58,24 +61,21 @@ def _sdpa_plain(q, k, v, mask=None, is_causal=False, scale=None):
 
 
 def sdpa_array(q, k, v, mask=None, dropout_p: float = 0.0,
-               is_causal: bool = False):
-    """Scaled dot-product attention over ``[B, S, H, D]`` tensors."""
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout needs the flash kernel's in-kernel "
-            "dropout (ops/pallas/flash_attention.py::_dropout_keep), "
-            "which is not ported yet")
-    if q.device.type == "cpu":
+               is_causal: bool = False, seed_words=None):
+    """Scaled dot-product attention over ``[B, S, H, D]`` tensors;
+    ``dropout_p > 0`` needs the two dropout ``seed_words``."""
+    if q.device.type == "cpu" and dropout_p == 0.0:
         return _sdpa_plain(q, k, v, mask, is_causal)
-    if mask is not None or q.shape[-1] not in FLASH_HEAD_DIMS:
+    if mask is not None or (q.device.type != "cpu"
+                            and q.shape[-1] not in FLASH_HEAD_DIMS):
         raise NotImplementedError(
-            "no CUDA kernel for this attention call (mask="
+            "no flash kernel for this attention call (mask="
             f"{mask is not None}, head_dim={q.shape[-1]}): the masked / "
             "biased flash forward (ops/pallas/flash_attention.py::_fwd_v1) "
             "is not ported yet and the ported one takes D in "
-            f"{FLASH_HEAD_DIMS}")
+            f"{FLASH_HEAD_DIMS} on the card")
     # imported here: the kernel module's plain version is built on this
     # module's _sdpa_plain
-    from .kernels.flash_attention import flash_attention_fwd
-    return flash_attention_fwd(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=is_causal)
+    from .kernels.flash_attention import flash_attention
+    return flash_attention(q, k, v, causal=is_causal, dropout_rate=dropout_p,
+                           seed_words=seed_words)

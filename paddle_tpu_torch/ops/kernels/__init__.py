@@ -12,11 +12,13 @@ kernel or raises.
 
 Build: each source compiles on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` into ``paddle_tpu_torch/_build/<stem>-<hash>.so`` (the hash is
-the source's, so an edited source rebuilds) and loads through
-``ctypes``. Sources share no header with PyTorch, which keeps a build at
-seconds, not minutes. :func:`build` compiles every missing library at
-once, one ``nvcc`` process per source, all started together.
+-fPIC`` into ``paddle_tpu_torch/_build/<stem>-<hash>.so`` (the hash
+covers the source and the ``csrc/*.cuh`` headers it may include, so an
+edited source or header rebuilds) and loads through ``ctypes``. Sources
+share no header with PyTorch, which keeps a build at seconds, not
+minutes. :func:`build` compiles every missing library at once, one
+``nvcc`` process per source, all started together; kernels that share a
+source (the two chunked-CE entries) share its library.
 """
 
 from __future__ import annotations
@@ -55,12 +57,35 @@ class Kernel:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _L = ctypes.c_uint, ctypes.c_longlong
 
 FLASH_ATTENTION_FWD = Kernel(
     "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
     "paddle_tpu/ops/pallas/flash_attention.py:399",
-    # q, k, v, o, lse, B, Sq, Sk, H, D, causal, scale, dtype, stream
-    (_P,) * 5 + (_I,) * 6 + (_F, _I, _P))
+    # q, k, v, o, lse, B, Sq, Sk, H, D, causal, scale, dropout, thr,
+    # seed, keep_scale, dtype, stream
+    (_P,) * 5 + (_I,) * 6 + (_F, _I, _U, _U, _F, _I, _P))
+FLASH_ATTENTION_BWD = Kernel(
+    "flash_attention_bwd", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "paddle_tpu/ops/pallas/flash_attention.py:532",
+    # q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, D, causal,
+    # scale, dropout, thr, seed, keep_scale, dtype, stream
+    (_P,) * 10 + (_I,) * 6 + (_F, _I, _U, _U, _F, _I, _P))
+CHUNKED_CE_LSE = Kernel(
+    "chunked_ce_lse", "paddle_tpu_torch/csrc/chunked_ce.cu",
+    "paddle_tpu/ops/pallas/chunked_ce.py:128",
+    # logits, lse, N, V, dtype, stream
+    (_P, _P, _I, _I, _I, _P))
+CHUNKED_CE_DLOGITS = Kernel(
+    "chunked_ce_dlogits", "paddle_tpu_torch/csrc/chunked_ce.cu",
+    "paddle_tpu/ops/pallas/chunked_ce.py:168",
+    # logits, labels, lse, g, out, N, V, dtype, stream
+    (_P,) * 5 + (_I, _I, _I, _P))
+FUSED_DROPOUT = Kernel(
+    "fused_dropout", "paddle_tpu_torch/csrc/dropout.cu",
+    "paddle_tpu/ops/pallas/dropout.py:69",
+    # x, y, n, seed, thr, inv, dtype, stream
+    (_P, _P, _L, _U, _U, _F, _I, _P))
 PAGED_DECODE = Kernel(
     "paged_decode_attention", "paddle_tpu_torch/csrc/paged_decode.cu",
     "paddle_tpu/ops/pallas/paged_decode.py:149",
@@ -68,8 +93,9 @@ PAGED_DECODE = Kernel(
     # dtype, stream
     (_P,) * 6 + (_I,) * 5 + (_F, _I, _P))
 
-KERNELS: Dict[str, Kernel] = {k.name: k for k in (FLASH_ATTENTION_FWD,
-                                                  PAGED_DECODE)}
+KERNELS: Dict[str, Kernel] = {k.name: k for k in (
+    FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD, CHUNKED_CE_LSE,
+    CHUNKED_CE_DLOGITS, FUSED_DROPOUT, PAGED_DECODE)}
 
 
 def kernels() -> List[dict]:
@@ -102,9 +128,10 @@ def _nvcc() -> str:
 
 def _lib_path(kernel: Kernel) -> Path:
     src = _PKG_DIR.parent / kernel.source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Sequence[str]] = None) -> float:
@@ -113,18 +140,18 @@ def build(names: Optional[Sequence[str]] = None) -> float:
     t0 = time.perf_counter()
     todo = [KERNELS[n] for n in (names or KERNELS)]
     with _LOCK:
-        missing = [k for k in todo
-                   if k.name not in _FUNCS and not _lib_path(k).exists()]
+        # one nvcc per library, however many entries it holds
+        missing = {_lib_path(k): k for k in todo
+                   if k.name not in _FUNCS and not _lib_path(k).exists()}
         if missing:
             nvcc = _nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             procs = []
-            for k in missing:
-                out = _lib_path(k)
+            for out, k in missing.items():
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
                 with open(out.with_suffix(".log"), "w") as log:
-                    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                           str(_PKG_DIR.parent / k.source)]
+                    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o",
+                           str(tmp), str(_PKG_DIR.parent / k.source)]
                     procs.append((k, out, tmp, subprocess.Popen(
                         cmd, stdout=log, stderr=subprocess.STDOUT)))
             failed = []

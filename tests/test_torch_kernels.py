@@ -107,8 +107,8 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         sdpa_array(q, q, q, is_causal=True)
     with pytest.raises(NotImplementedError, match="_fwd_v1"):
         sdpa_array(q, q, q, mask=torch.zeros(1, 1, 1, 4, device="meta"))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        sdpa_array(q, q, q, dropout_p=0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sdpa_array(q, q, q, dropout_p=0.1, seed_words=(1, 2))
     with pytest.raises(ValueError, match="unsupported device"):
         paged_decode_attention(
             torch.empty(1, 2, 64, device="meta"),
@@ -127,8 +127,9 @@ def test_cpu_calls_do_not_count_as_launches():
 
 def test_registry_names_sources_and_tpu_kernels():
     rows = kernels.kernels()
-    assert [r["name"] for r in rows] == ["flash_attention_fwd",
-                                         "paged_decode_attention"]
+    assert [r["name"] for r in rows] == [
+        "flash_attention_fwd", "flash_attention_bwd", "chunked_ce_lse",
+        "chunked_ce_dlogits", "fused_dropout", "paged_decode_attention"]
     for r in rows:
         assert (REPO / r["source"]).is_file()
         path, line = r["replaces"].split(":")
