@@ -7,16 +7,17 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Seven phases, in order:
+result line. Eleven phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
               ``nvcc`` (one process per source, all at once);
 2. kernels -- hold each kernel against its plain PyTorch version on the
-              card at the serving and training paths' shapes, in float32
-              and bfloat16, and time the kernel, the plain version, the
-              card's bound and, where one exists, the one PyTorch call
-              that computes the same function;
+              card at the serving, GPT training and BERT paths' shapes,
+              in float32 and bfloat16 (the biased flash kernels also on
+              a batch row with every key masked), and time the kernel,
+              the plain version, the card's bound and, where one exists,
+              the one PyTorch call that computes the same function;
 3. slice   -- serve 16 greedy requests on GPT-2 345M (random weights
               from a seed) through ``ServingEngine`` at the full serving
               configuration, check the launch counts against the
@@ -39,11 +40,26 @@ result line. Seven phases, in order:
               dropout 0.1, AdamW), with exact launch counts per step,
               step time, tokens/s, peak memory, MFU and a profile of one
               more step;
-7. summary -- print one JSON line describing every ported kernel, then
+7. bert parity -- phase 4 for a 2-layer BERT-base MLM at full width on a
+              padded batch (row 1 padded to 300 of 512 positions);
+8. bert witness -- phase 5's check for the first three O1 steps of the
+              BERT path below;
+9. bert    -- ten ``TrainStep`` steps of BERT-base MLM at ``bench.py``'s
+              ``bench_bert_mlm`` configuration (B=48, S=512, 76 masked
+              positions, AMP O1, AdamW) on a padded batch shaped like
+              Google BERT's pretraining records, with exact launch counts,
+              step time, tokens/s, peak memory, MFU and a profile;
+10. ernie  -- three ERNIE-base pretraining steps (MLM + SOP) at
+              ``bench_ernie``'s configuration on the same kind of batch,
+              each held against the plain versions as in phase 8, with
+              exact launch counts, then three timed steps;
+11. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of phases 3 and 6 and read
-just after; the kernel JSON line gives each kernel's launches per path.
+Launch counts are set to 0 just before each of phases 3, 6, 9 and 10 and
+read just after; the kernel JSON line gives each kernel's launches per
+path (``serve``, ``train``, ``bert``, ``ernie``). Each phase prints its
+seconds.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
@@ -102,12 +118,31 @@ TRAIN_LR, TRAIN_WD = 1e-4, 0.01
 # loss 8.0e-06, gradients 1.470e-02 at step 1 falling to 1.184e-03 at
 # step 10
 AMP_LOSS_TOL, AMP_GRAD_TOL = 1e-4, 3e-2
+# ERNIE's loss adds the SOP term, a mean over only B=48 rows of a
+# 2-class cross-entropy on bf16 logits. After the step-2 jump the logits
+# reach |x| ~ 5, whose bf16 ulp is 2^-5; a one-ulp difference in each
+# row's logits moves the mean by about 2 * 2^-5 / sqrt(48) ~ 9e-3, 6.5e-4
+# of a loss near 13.8. Measured on one H100: 7.337e-05 at step 1 and
+# 1.421e-04 at step 2, above AMP_LOSS_TOL, with the gradients within
+# 1.153e-02 and 3.532e-03 of their norm
+ERNIE_LOSS_TOL = 1e-3
 # card-vs-CPU parity step: full width, 2 layers, float32
 PARITY_LAYERS, PARITY_B, PARITY_S = 2, 2, 1024
 # loss: relative; gradients: max abs error relative to each gradient's
 # largest magnitude (sums of 2048 rows in another order, and the
 # attention backward recomputing p in another order)
 PARITY_LOSS_TOL, PARITY_GRAD_TOL = 1e-5, 1e-3
+
+# the BERT and ERNIE paths: bench.py's bench_bert_mlm and bench_ernie
+# configurations (B, S, masked positions M; AMP O1, AdamW 1e-4, decay
+# 0.01) on a padded batch in the shape of Google BERT's pretraining
+# records (create_pretraining_data.py: short_seq_prob 0.1, 15% masked)
+BERT_B, BERT_S, BERT_M = 48, 512, 76
+BERT_STEPS, BERT_WITNESS_STEPS, ERNIE_STEPS = 10, 3, 3
+SHORT_SEQ_PROB, MASKED_LM_PROB = 0.1, 0.15
+PAD, CLS, SEP, FIRST_ID = 0, 2, 3, 5
+# card-vs-CPU BERT step: full width, 2 layers, f32, one row padded
+BERT_PARITY_LAYERS, BERT_PARITY_B, BERT_PARITY_LEN = 2, 2, 300
 
 # the serving path measured here is bench.py --serve at full width
 SERVE_CFG = dict(max_batch_slots=8, block_size=16, max_context_len=512,
@@ -451,6 +486,152 @@ def _flash_train_case(dtype, timed=False):
             "shape": shape}}
 
 
+def pretraining_batch(B, S, M, V, seed=0, lengths=None):
+    """A padded MLM batch from ``np.random.default_rng(seed)``, in the
+    shape of Google BERT's pretraining records: a row holds ``[CLS]``,
+    ids from ``[FIRST_ID, V)`` with ``[SEP]`` at a split point and at its
+    last position, then ``[PAD]``; 90% of rows are ``S`` long and the
+    rest (``SHORT_SEQ_PROB``) draw a length from [8, S], unless
+    ``lengths`` gives them. Token types are 1 after the first ``[SEP]``
+    and below the length; n = min(M, max(1, round(0.15 L))) non-special
+    positions are masked, the ``M - n`` padding slots have position 0,
+    label 0 and weight 0. Returns ``(ids, token_types, attention_mask,
+    positions, labels, weights)`` and the SOP labels."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = np.full((B, S), PAD, np.int32)
+    tt = np.zeros((B, S), np.int32)
+    mask = np.zeros((B, S), np.int32)
+    pos = np.zeros((B, M), np.int32)
+    labels = np.zeros((B, M), np.int32)
+    w = np.zeros((B, M), np.float32)
+    for b in range(B):
+        if lengths is not None:
+            L = int(lengths[b])
+        elif rng.random() < SHORT_SEQ_PROB:
+            L = int(rng.integers(8, S + 1))
+        else:
+            L = S
+        split = int(rng.integers(1, L - 1))
+        ids[b, :L] = rng.integers(FIRST_ID, V, L)
+        ids[b, [0, split, L - 1]] = CLS, SEP, SEP
+        tt[b, split + 1:L] = 1
+        mask[b, :L] = 1
+        n = min(M, max(1, round(MASKED_LM_PROB * L)))
+        cand = np.setdiff1d(np.arange(1, L - 1), [split])
+        pos[b, :n] = rng.choice(cand, n, replace=False)
+        labels[b, :n] = rng.integers(FIRST_ID, V, n)
+        w[b, :n] = 1.0
+    sop = rng.integers(0, 2, B).astype(np.int32)
+    return (ids, tt, mask, pos, labels, w), sop
+
+
+def _key_bias(mask, dtype):
+    """The additive key bias ``[B, S]`` float32 a BERT mask reaches the
+    kernels as: ``(1 - m) * -1e30``, rounded to bf16 first under O1."""
+    import torch
+    bias = (1.0 - torch.from_numpy(mask).float()) * -1e30
+    return bias.to(dtype).float().cuda()
+
+
+def _bias_flash_case(B, S, H, D, dtype, mask, rate=0.1, seed=10,
+                     timed=False, full_row=None):
+    """The biased forward with dropout and its dq and dk/dv/dbias
+    kernels against their plain versions (the backward's fed the
+    kernel's o and lse); with ``full_row`` that batch row is fully
+    masked and must give o = 0 and lse = -1e30."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    words = (0x0BADF00D, 0x5EED5EED)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                   .to(dtype) for _ in range(4))
+    bias = _key_bias(mask, dtype)
+    name = _name(dtype)
+    args = (False, None, rate, words)
+    o, lse = fa.flash_attention_bias_fwd(q, k, v, bias, False, None, True,
+                                         rate, words)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, False, None, True,
+                                              rate, words, bias)
+    errs = {"o": _rel_err(o, o_ref)}
+    lse_err = (lse - lse_ref).abs().max().item()
+    dq = fa.flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do, *args)
+    dk, dv, db = fa.flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
+                                                 *args)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, *args,
+                                        bias=bias)
+    errs.update((n, _rel_err(a, r)) for n, a, r in
+                zip(("dq", "dk", "dv", "db"), (dq, dk, dv, db), refs))
+    tol = TRAIN_FLASH_TOL[name]
+    shape = (f"B={B} S={S} H={H} D={D} {name} key bias "
+             f"({int((mask == 0).any(1).sum())} padded rows) dropout {rate}")
+    _log(f"kernels: flash bias [{shape}]: " + ", ".join(
+        f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (max abs error / max |plain|, tol {tol:g}; db f32 tol "
+        f"{TRAIN_FLASH_TOL['float32']:g}), max|lse-plain| {lse_err:.3e}")
+    _require(max(e for n, e in errs.items() if n != "db") <= tol
+             and errs["db"] <= TRAIN_FLASH_TOL["float32"]
+             and lse_err <= TOL["float32"] * 10,
+             f"biased flash kernels disagree with their plain versions in "
+             f"{name}: {errs}, lse {lse_err}")
+    if full_row is not None:
+        zero = bool((o[full_row] == 0).all()) and \
+            bool((lse[full_row] == -1e30).all())
+        _log(f"kernels: fully masked row {full_row} with the {name}-rounded "
+             f"-1e30 bias: o == 0 and lse == -1e30: {zero}")
+        _require(zero, "a fully masked row did not give o = 0, "
+                 "lse = -1e30")
+    del dq, dk, dv, db, refs
+    if not timed:
+        return None
+    elem = q.element_size()
+    # the pairs this data needs: every query row sees its row's keys
+    pairs = H * S * int(mask.sum())
+    io = B * S * H * D * elem
+    row_f32 = B * S * 4                          # a bias or db row
+    b_fwd = _bound_ms(4 * io + row_f32 + B * H * S * 4, 4 * D * pairs, name)
+    b_dq = _bound_ms(6 * io + row_f32 + B * H * S * 4, 6 * D * pairs, name)
+    b_dkv = _bound_ms(7 * io + 2 * row_f32 + B * H * S * 4, 8 * D * pairs,
+                      name)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_mask = bias.to(dtype)[:, None, None, :]
+    fwd_lib = _median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=lib_mask, dropout_p=rate))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=lib_mask,
+                                         dropout_p=rate)
+    bwd_lib = _median_ms(lambda: torch.autograd.grad(
+        out, (ql, kl, vl), do.transpose(1, 2), retain_graph=True))
+    rows = {
+        "flash_attention_bias_fwd": (
+            errs["o"], b_fwd, fwd_lib,
+            lambda: fa.flash_attention_bias_fwd(q, k, v, bias, False, None,
+                                                True, rate, words),
+            lambda: fa.flash_attention_plain(q, k, v, False, None, True,
+                                             rate, words, bias)),
+        "flash_attention_bias_bwd_dq": (
+            errs["dq"], b_dq, bwd_lib,
+            lambda: fa.flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do,
+                                                   *args),
+            lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, *args,
+                                                 bias=bias)),
+        "flash_attention_bias_bwd_dkv": (
+            max(errs["dk"], errs["dv"], errs["db"]), b_dkv, bwd_lib,
+            lambda: fa.flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse,
+                                                    do, *args),
+            lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, *args,
+                                                 bias=bias))}
+    out_rows = {}
+    for kname, (err, (bound, by), lib, kern, plain) in rows.items():
+        out_rows[kname] = {
+            "max_abs_err": err, "ms": _median_ms(kern),
+            "plain_ms": _median_ms(plain, iters=5, warmup=1),
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "shape": shape}
+    return out_rows
+
+
 def phase_kernels() -> dict:
     import torch
     rows = {}
@@ -478,6 +659,20 @@ def phase_kernels() -> dict:
     rows.update(_ce_case(torch.bfloat16, timed=True))
     _dropout_case(torch.float32)
     rows["fused_dropout"] = _dropout_case(torch.bfloat16, timed=True)
+    # the BERT path: its padded mask at the full shape, f32 and bf16 (the
+    # O1 path's, timed); a small batch with a fully masked row, once
+    # with the f32 -1e30 and once with the bf16-rounded one
+    import numpy as np
+    mask = pretraining_batch(BERT_B, BERT_S, BERT_M, 30528)[0][2]
+    _require((mask == 0).any(), "the BERT batch has no padded row")
+    _bias_flash_case(BERT_B, BERT_S, 12, 64, torch.float32, mask)
+    rows.update(_bias_flash_case(BERT_B, BERT_S, 12, 64, torch.bfloat16,
+                                 mask, timed=True))
+    small = np.ones((3, 200), np.int32)
+    small[1, 77:] = 0
+    small[2] = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        _bias_flash_case(3, 200, 4, 64, dtype, small, seed=11, full_row=2)
     torch.cuda.empty_cache()
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -584,6 +779,45 @@ def phase_slice() -> dict:
 
 
 # -- phase 4 -----------------------------------------------------------------
+def _zero_in_exact_arithmetic(name: str) -> bool:
+    """The key projection's bias: the softmax ignores the constant q . b
+    that it adds to every score of a query row, so its gradient is 0 in
+    exact arithmetic and what either side computes is rounding noise
+    (about 1e-9 against 6e-3 for the weight, 2-layer BERT-base on the
+    CPU). Its error relative to its own largest entry means nothing; it
+    is held to PARITY_GRAD_TOL of the largest entry of any gradient."""
+    return name.endswith("self_attn.k_proj.bias")
+
+
+def _grads_close(tag, results):
+    """The card's and the CPU's (loss, gradients) of one step: the loss's
+    relative error, the worst gradient's max abs error over its own max
+    |cpu|, that gradient's name and the number of gradients. Gradients
+    that are 0 in exact arithmetic are left out of the worst, logged,
+    and each must stay within ``PARITY_GRAD_TOL`` of the largest |cpu|
+    entry of any gradient on both sides."""
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
+    _require(set(g_gpu) == set(g_cpu), f"{tag}: gradients of other "
+             f"parameters on the card and the CPU")
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    largest = max(g.abs().max().item() for g in g_cpu.values())
+    errs = {}
+    for n in g_cpu:
+        if _zero_in_exact_arithmetic(n):
+            got, ref = (g[n].abs().max().item() for g in (g_gpu, g_cpu))
+            _log(f"{tag}: {n} is 0 in exact arithmetic: max |card| "
+                 f"{got:.3e}, max |cpu| {ref:.3e} (tol {PARITY_GRAD_TOL:g}"
+                 f" of the largest gradient entry, {largest:.3e})")
+            _require(max(got, ref) <= PARITY_GRAD_TOL * largest,
+                     f"{tag}: gradient {n} should be 0, reads {got} on the "
+                     f"card and {ref} on the CPU")
+            continue
+        errs[n] = ((g_gpu[n] - g_cpu[n]).abs().max()
+                   / g_cpu[n].abs().max().clamp(min=1e-30)).item()
+    worst_name = max(errs, key=errs.get)
+    return loss_err, errs[worst_name], worst_name, len(g_cpu)
+
+
 def phase_parity() -> None:
     """One float32 forward and backward of a 2-layer, full-width GPT with
     dropout on the card and on the CPU, from the same weights, batch and
@@ -618,21 +852,15 @@ def phase_parity() -> None:
         _require((launched > 0) == (dev == "cuda"),
                  f"{dev} run launched {launched} kernels")
         del model, loss
-    (l_gpu, g_gpu), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
-    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
-    worst = max(((g_gpu[n] - g_cpu[n]).abs().max()
-                 / g_cpu[n].abs().max().clamp(min=1e-30)).item()
-                for n in g_cpu)
-    worst_name = max(g_cpu, key=lambda n: (
-        (g_gpu[n] - g_cpu[n]).abs().max()
-        / g_cpu[n].abs().max().clamp(min=1e-30)).item())
+    loss_err, worst, worst_name, n = _grads_close("parity", results)
     _log(f"parity: gpt2_medium(num_layers={PARITY_LAYERS}) f32 B={PARITY_B} "
          f"S={PARITY_S} dropout {cfg.hidden_dropout_prob}: |loss| rel err "
          f"{loss_err:.3e} (tol {PARITY_LOSS_TOL:g}), worst gradient "
          f"{worst_name} {worst:.3e} (max abs err / max |cpu|, tol "
-         f"{PARITY_GRAD_TOL:g}) over {len(g_cpu)} gradients")
+         f"{PARITY_GRAD_TOL:g}) over {n} gradients")
     _require(loss_err <= PARITY_LOSS_TOL,
-             f"card and CPU losses differ: {l_gpu} vs {l_cpu}")
+             f"card and CPU losses differ: {results['cuda'][0]} vs "
+             f"{results['cpu'][0]}")
     _require(worst <= PARITY_GRAD_TOL,
              f"gradient {worst_name} differs between card and CPU ({worst})")
 
@@ -650,7 +878,18 @@ def _plain_versions():
              (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
              (ce, "online_lse", ce.online_lse_plain),
              (ce, "dlogits", ce.dlogits_plain),
-             (dr, "dropout_apply", dr.dropout_plain))
+             (dr, "dropout_apply", dr.dropout_plain),
+             (fa, "flash_attention_bias_fwd",
+              lambda q, k, v, bias, *a: fa.flash_attention_plain(
+                  q, k, v, *a, bias=bias)),
+             (fa, "flash_attention_bias_bwd_dq",
+              lambda q, k, v, bias, o, lse, do, *a:
+              fa.flash_attention_bwd_plain(q, k, v, o, lse, do, *a,
+                                           bias=bias)[0]),
+             (fa, "flash_attention_bias_bwd_dkv",
+              lambda q, k, v, bias, o, lse, do, *a:
+              fa.flash_attention_bwd_plain(q, k, v, o, lse, do, *a,
+                                           bias=bias)[1:]))
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -691,70 +930,96 @@ def _train_setup(amp: bool):
     return cfg, model, loss_fn, step, ids, labels
 
 
+def _witness(tag: str, step, loss_fn, batch, n: int,
+             loss_tol: float = AMP_LOSS_TOL) -> list:
+    """``n`` steps of ``step`` on ``batch`` (numpy arrays), each held
+    against the plain versions on the card: before every step the same
+    loss and gradients are computed from the same parameters and seed
+    words with every kernel wrapper swapped for its plain version, and
+    the step's loss and gradients must agree within ``loss_tol`` and
+    ``AMP_GRAD_TOL``. A parameter the loss does not reach has a zero
+    gradient on both sides, as ``TrainStep`` gives it. Returns the
+    losses."""
+    import torch
+    from paddle_tpu_torch.core.random import dropout_generator
+    from paddle_tpu_torch.ops import kernels
+    model, opt = step.layer, step.optimizer
+    named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
+    n_zero = sum(_zero_in_exact_arithmetic(k) for k, _ in named)
+    skipped = (f" ({n_zero} gradients 0 in exact arithmetic left out)"
+               if n_zero else "")
+    kernel_grads = {}
+    update = opt.step
+
+    def keep_grads_then_update(step=None):
+        kernel_grads.update((k, p.grad.detach().clone()) for k, p in named)
+        update(step=step)
+
+    opt.step = keep_grads_then_update
+    batch_t = [torch.from_numpy(a).cuda() for a in batch]
+    losses, plain_losses = [], []
+    try:
+        for t in range(1, n + 1):
+            gen = torch.Generator()
+            gen.set_state(step.generator.get_state())
+            before = sum(k["launches"] for k in kernels.kernels())
+            with _plain_versions():
+                with dropout_generator(gen):
+                    ref = loss_fn(model, *batch_t)
+                ref.backward()
+            _require(sum(k["launches"] for k in kernels.kernels()) == before,
+                     "the plain reference launched a kernel")
+            plain_grads = {k: torch.zeros_like(p) if p.grad is None
+                           else p.grad for k, p in named}
+            opt.clear_grad()
+            losses.append(float(step(*batch)))
+            plain_losses.append(ref.item())
+            num = den = 0.0
+            worst, worst_name = 0.0, ""
+            for k, ref_g in plain_grads.items():
+                d = kernel_grads[k] - ref_g
+                num += float(d.square().sum())
+                den += float(ref_g.square().sum())
+                if _zero_in_exact_arithmetic(k):
+                    continue
+                r = float(d.abs().max() / ref_g.abs().max().clamp(min=1e-30))
+                if r > worst:
+                    worst, worst_name = r, k
+            del plain_grads, ref
+            kernel_grads.clear()
+            loss_err = abs(losses[-1] - plain_losses[-1]) / \
+                abs(plain_losses[-1])
+            g_err = math.sqrt(num / den)
+            _log(f"{tag}: step {t} loss {losses[-1]:.5f}, plain "
+                 f"{plain_losses[-1]:.5f} (rel err {loss_err:.3e}, tol "
+                 f"{loss_tol:g}); "
+                 f"gradients |kernel-plain|/|plain| {g_err:.3e} (tol "
+                 f"{AMP_GRAD_TOL:g}), worst tensor {worst_name} max abs err "
+                 f"/ max |plain| {worst:.3e}{skipped}")
+            _require(math.isfinite(losses[-1]) and loss_err <= loss_tol,
+                     f"{tag} step {t}: O1 loss {losses[-1]} vs plain "
+                     f"{plain_losses[-1]}")
+            _require(g_err <= AMP_GRAD_TOL,
+                     f"{tag} step {t}: O1 gradients differ from the plain "
+                     f"ones by {g_err} of their norm")
+    finally:
+        del opt.step   # the wrapper held the optimizer in a cycle
+    _log(f"{tag}: O1 losses with the kernels " + " ".join(
+        f"{x:.5f}" for x in losses))
+    _log(f"{tag}: O1 losses, plain versions " + " ".join(
+        f"{x:.5f}" for x in plain_losses))
+    return losses
+
+
 def phase_amp() -> list:
     """The O1 training steps, each held against the plain versions from
     the same parameters and seed words; returns the losses."""
     import torch
-    from paddle_tpu_torch.core.random import dropout_generator
-    from paddle_tpu_torch.ops import kernels
-    cfg, model, loss_fn, step, ids, labels = _train_setup(amp=True)
-    named = list(model.named_parameters())
-    opt, kernel_grads = step.optimizer, {}
-    update = opt.step
-
-    def keep_grads_then_update(step=None):
-        kernel_grads.update((n, p.grad.detach().clone()) for n, p in named)
-        update(step=step)
-
-    opt.step = keep_grads_then_update
-    ids_t, labels_t = (torch.from_numpy(a).cuda() for a in (ids, labels))
-    losses, plain_losses = [], []
-    for t in range(1, TRAIN_STEPS + 1):
-        gen = torch.Generator()
-        gen.set_state(step.generator.get_state())
-        before = sum(k["launches"] for k in kernels.kernels())
-        with _plain_versions():
-            with dropout_generator(gen):
-                ref = loss_fn(model, ids_t, labels_t)
-            ref.backward()
-        _require(sum(k["launches"] for k in kernels.kernels()) == before,
-                 "the plain reference launched a kernel")
-        plain_grads = {n: p.grad for n, p in named}
-        opt.clear_grad()
-        losses.append(float(step(ids, labels)))
-        plain_losses.append(ref.item())
-        num = den = 0.0
-        worst, worst_name = 0.0, ""
-        for n, ref_g in plain_grads.items():
-            d = kernel_grads[n] - ref_g
-            num += float(d.square().sum())
-            den += float(ref_g.square().sum())
-            r = float(d.abs().max() / ref_g.abs().max().clamp(min=1e-30))
-            if r > worst:
-                worst, worst_name = r, n
-        del plain_grads, ref
-        kernel_grads.clear()
-        loss_err = abs(losses[-1] - plain_losses[-1]) / abs(plain_losses[-1])
-        g_err = math.sqrt(num / den)
-        _log(f"amp: step {t} loss {losses[-1]:.5f}, plain "
-             f"{plain_losses[-1]:.5f} (rel err {loss_err:.3e}, tol "
-             f"{AMP_LOSS_TOL:g}); "
-             f"gradients |kernel-plain|/|plain| {g_err:.3e} (tol "
-             f"{AMP_GRAD_TOL:g}), worst tensor {worst_name} max abs err / "
-             f"max |plain| {worst:.3e}")
-        _require(math.isfinite(losses[-1]) and loss_err <= AMP_LOSS_TOL,
-                 f"step {t}: O1 loss {losses[-1]} vs plain {plain_losses[-1]}")
-        _require(g_err <= AMP_GRAD_TOL,
-                 f"step {t}: O1 gradients differ from the plain ones by "
-                 f"{g_err} of their norm")
-    # the wrapped update holds the optimizer in a reference cycle
-    del model, step, opt, update, kernel_grads, named
+    _, _, loss_fn, step, ids, labels = _train_setup(amp=True)
+    losses = _witness("amp", step, loss_fn, (ids, labels), TRAIN_STEPS)
+    del step
     gc.collect()
     torch.cuda.empty_cache()
-    _log("amp: O1 losses with the kernels " + " ".join(
-        f"{x:.5f}" for x in losses))
-    _log("amp: O1 losses, plain versions " + " ".join(
-        f"{x:.5f}" for x in plain_losses))
     step32, ids, labels = _train_setup(amp=False)[3:]
     f32 = [float(step32(ids, labels)) for _ in range(TRAIN_STEPS)]
     _log("amp: float32 losses, same weights " + " ".join(
@@ -777,7 +1042,8 @@ def gpt_flops_per_token(h=1024, L=24, V=50304, S=1024) -> float:
 # group whose fragment a kernel's name holds takes it
 PROFILE_GROUPS = (
     ("flash forward", ("flash_fwd_kernel",)),
-    ("flash backward", ("dkv_kernel", "dq_kernel", "delta_kernel")),
+    ("flash backward", ("dkv_kernel", "dq_kernel", "delta_kernel",
+                        "db_sum_kernel")),
     ("chunked CE", ("lse_kernel", "dlogits_kernel")),
     ("dropout", ("dropout_kernel",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -788,7 +1054,7 @@ PROFILE_GROUPS = (
 )
 
 
-def _profile_step(step, ids, labels) -> None:
+def _profile_step(tag: str, step, batch) -> None:
     """Device time by kernel over one more step (torch.profiler), as
     ``tools/profile_torch_serve.py`` reads it."""
     import torch
@@ -798,7 +1064,7 @@ def _profile_step(step, ids, labels) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(step(ids, labels))
+        float(step(*batch))
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
     dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
@@ -806,7 +1072,7 @@ def _profile_step(step, ids, labels) -> None:
     busy = sum(a.self_device_time_total for a in dev) / 1e3     # us -> ms
     n_launch = sum(a.count for a in avgs
                    if a.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    _log(f"train: profiled step {wall * 1e3:.1f} ms wall, kernels busy "
+    _log(f"{tag}: profiled step {wall * 1e3:.1f} ms wall, kernels busy "
          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), {n_launch} "
          f"kernel launches")
     groups = {}
@@ -814,12 +1080,12 @@ def _profile_step(step, ids, labels) -> None:
         group = next((g for g, keys in PROFILE_GROUPS
                       if any(k in a.key for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + a.self_device_time_total
-    _log("train: device time by group: " + ", ".join(
+    _log(f"{tag}: device time by group: " + ", ".join(
         f"{g} {us / 1e3:.1f} ms ({100 * us / 1e3 / max(busy, 1e-9):.1f}%)"
         for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
     for a in dev[:15]:
         ms = a.self_device_time_total / 1e3
-        _log(f"train:   {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}% "
+        _log(f"{tag}:   {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}% "
              f"x{a.count:<5d} {a.key[:90]}")
 
 
@@ -849,7 +1115,9 @@ def phase_train(amp_losses: list) -> dict:
     drops = 1 + 2 * L                                  # per forward
     want = {"flash_attention_fwd": L * n, "flash_attention_bwd": L * n,
             "chunked_ce_lse": n, "chunked_ce_dlogits": n,
-            "fused_dropout": 2 * drops * n, "paged_decode_attention": 0}
+            "fused_dropout": 2 * drops * n, "paged_decode_attention": 0,
+            "flash_attention_bias_fwd": 0, "flash_attention_bias_bwd_dq": 0,
+            "flash_attention_bias_bwd_dkv": 0}
     _require(launches == want, f"launch counts {launches} != {want}")
 
     step_s = float(np.median(times[2:]))
@@ -862,7 +1130,194 @@ def phase_train(amp_losses: list) -> dict:
          f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} (against 989 "
          f"TFLOP/s bf16 dense), peak device memory "
          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    _profile_step(step, ids, labels)
+    _profile_step("train", step, (ids, labels))
+    return launches
+
+
+# -- phases 7-10: BERT and ERNIE ---------------------------------------------
+def phase_bert_parity() -> None:
+    """One float32 forward and backward of a 2-layer, full-width BERT-base
+    MLM with dropout and a padded row, on the card and on the CPU from
+    the same weights, batch and seed words: the CPU runs every kernel's
+    plain version, so the loss and every gradient hold the biased flash
+    kernels (and the chunked CE and dropout) to them at full width."""
+    import torch
+    from paddle_tpu_torch.models import BertForMaskedLM, bert_base
+    from paddle_tpu_torch.ops import kernels
+    cfg = bert_base(num_layers=BERT_PARITY_LAYERS)
+    batch, _ = pretraining_batch(BERT_PARITY_B, BERT_S, BERT_M,
+                                 cfg.vocab_size, seed=1,
+                                 lengths=(BERT_S, BERT_PARITY_LEN))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = BertForMaskedLM(cfg, device="cpu", seed=0).to(dev)
+        ids, tt, mask, pos, labels, w = (torch.from_numpy(a).to(dev)
+                                         for a in batch)
+        before = sum(k["launches"] for k in kernels.kernels())
+        loss = model.loss(model(ids, tt, mask, pos,
+                                generator=torch.Generator().manual_seed(5)),
+                          labels, w)
+        loss.backward()
+        launched = sum(k["launches"] for k in kernels.kernels()) - before
+        results[dev] = (loss.item(), {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()
+            if p.grad is not None})
+        _log(f"bert parity: {dev} loss {results[dev][0]:.6f} in "
+             f"{time.perf_counter() - t0:.2f} s, {launched} kernel launches")
+        _require((launched > 0) == (dev == "cuda"),
+                 f"{dev} run launched {launched} kernels")
+        del model, loss
+    loss_err, worst, worst_name, n = _grads_close("bert parity", results)
+    _log(f"bert parity: bert_base(num_layers={BERT_PARITY_LAYERS}) f32 "
+         f"B={BERT_PARITY_B} S={BERT_S} (row 1 padded to "
+         f"{BERT_PARITY_LEN}) dropout {cfg.hidden_dropout_prob}: |loss| rel "
+         f"err {loss_err:.3e} (tol {PARITY_LOSS_TOL:g}), worst gradient "
+         f"{worst_name} {worst:.3e} (max abs err / max |cpu|, tol "
+         f"{PARITY_GRAD_TOL:g}) over {n} gradients")
+    _require(loss_err <= PARITY_LOSS_TOL, "card and CPU BERT losses differ")
+    _require(worst <= PARITY_GRAD_TOL,
+             f"gradient {worst_name} differs between card and CPU ({worst})")
+
+
+def _encoder_setup(kind: str):
+    """BERT-base MLM or ERNIE-base pretraining at the bench configuration:
+    the model (seed 0), its O1 loss, its TrainStep (AdamW, dropout
+    generator seed 0) and the padded batch as numpy arrays."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (BertForMaskedLM,
+                                         ErnieForPretraining, bert_base,
+                                         ernie_base)
+    from paddle_tpu_torch.optimizer import AdamW
+    if kind == "bert":
+        cfg = bert_base()
+        model = BertForMaskedLM(cfg, device="cuda", seed=0)
+
+        def loss_fn(layer, ids, tt, mask, pos, labels, w):
+            with auto_cast(level="O1"):
+                return layer.loss(layer(ids, tt, mask, pos), labels, w)
+    else:
+        cfg = ernie_base()
+        model = ErnieForPretraining(cfg, device="cuda", seed=0)
+
+        def loss_fn(layer, ids, tt, mask, pos, labels, w, sop):
+            with auto_cast(level="O1"):
+                return layer.loss(*layer(ids, tt, mask, pos), labels, sop, w)
+
+    step = TrainStep(model, loss_fn, AdamW(
+        learning_rate=TRAIN_LR, parameters=model.parameters(),
+        weight_decay=TRAIN_WD), seed=0)
+    batch, sop = pretraining_batch(BERT_B, BERT_S, BERT_M, cfg.vocab_size)
+    _require((batch[2] == 0).any(), "the batch has no padded row")
+    if kind == "ernie":
+        batch = batch + (sop,)
+    return cfg, loss_fn, step, batch
+
+
+def _encoder_launches(cfg, n: int) -> dict:
+    """Exact launches of ``n`` BERT or ERNIE O1 steps."""
+    L = cfg.num_layers
+    return {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "chunked_ce_lse": n, "chunked_ce_dlogits": n,
+            "fused_dropout": 2 * (1 + 2 * L) * n,
+            "paged_decode_attention": 0,
+            "flash_attention_bias_fwd": L * n,
+            "flash_attention_bias_bwd_dq": L * n,
+            "flash_attention_bias_bwd_dkv": L * n}
+
+
+def phase_bert_witness() -> list:
+    """BERT's first O1 steps, each held against the plain versions from
+    the same parameters and seed words."""
+    import torch
+    _, loss_fn, step, batch = _encoder_setup("bert")
+    losses = _witness("bert witness", step, loss_fn, batch,
+                      BERT_WITNESS_STEPS)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def bert_flops_per_token(cfg, S=BERT_S, M=BERT_M) -> float:
+    """Analytic training FLOPs per token, as ``bench.py``'s
+    ``bench_bert_mlm`` counts them (the head GEMM at the masked
+    positions only)."""
+    h, L = cfg.hidden_size, cfg.num_layers
+    return 6 * (12 * L * h * h + cfg.vocab_size * h * M / S) + \
+        12 * L * h * S
+
+
+def phase_bert_train(witness: list) -> dict:
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, step, batch = _encoder_setup("bert")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))            # syncs on the loss
+        times.append(time.perf_counter() - t0)
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    _log("bert: losses " + " ".join(f"{x:.4f}" for x in losses))
+    _log(f"bert: largest difference from the witness steps' losses (same "
+         f"seeds) {max(abs(a - b) for a, b in zip(losses, witness)):.3e}")
+    _log(f"bert: launches over {BERT_STEPS} steps {launches}")
+    _require(all(math.isfinite(x) for x in losses), "non-finite BERT loss")
+    want = _encoder_launches(cfg, BERT_STEPS)
+    _require(launches == want, f"launch counts {launches} != {want}")
+    step_s = float(np.median(times[2:]))
+    tokens = BERT_B * BERT_S
+    mfu = bert_flops_per_token(cfg) * tokens / step_s / \
+        PEAK_FLOPS["bfloat16"]
+    _log(f"bert: bert_base MLM B={BERT_B} S={BERT_S} M={BERT_M} "
+         f"({int((batch[2] == 0).any(1).sum())} padded rows) AMP O1 dropout "
+         f"{cfg.hidden_dropout_prob} AdamW: step 1 {times[0] * 1e3:.1f} ms, "
+         f"median over steps 3-{BERT_STEPS} {step_s * 1e3:.2f} ms/step, "
+         f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} (against 989 "
+         f"TFLOP/s bf16 dense), peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _profile_step("bert", step, batch)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ernie() -> dict:
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    cfg, loss_fn, step, batch = _encoder_setup("ernie")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    # each step held against the plain versions, which launch nothing
+    losses = _witness("ernie", step, loss_fn, batch, ERNIE_STEPS,
+                      ERNIE_LOSS_TOL)
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    _log(f"ernie: ernie_base B={BERT_B} S={BERT_S} M={BERT_M} AMP O1, no "
+         f"task-type ids: losses " + " ".join(f"{x:.4f}" for x in losses)
+         + f"; launches over {ERNIE_STEPS} steps {launches}")
+    _require(all(math.isfinite(x) for x in losses), "non-finite ERNIE loss")
+    want = _encoder_launches(cfg, ERNIE_STEPS)
+    _require(launches == want, f"launch counts {launches} != {want}")
+    times = []
+    for _ in range(ERNIE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))            # syncs on the loss
+        times.append(time.perf_counter() - t0)
+    step_s = sorted(times)[len(times) // 2]
+    _log(f"ernie: steps {ERNIE_STEPS + 1}-{2 * ERNIE_STEPS} losses "
+         + " ".join(f"{x:.4f}" for x in losses[ERNIE_STEPS:])
+         + f", median {step_s * 1e3:.2f} ms/step, "
+         f"{BERT_B * BERT_S / step_s:.1f} tokens/s")
+    _require(all(math.isfinite(x) for x in losses), "non-finite ERNIE loss")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -886,11 +1341,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_card()
-    rows = phase_kernels()
-    by_path = {"serve": phase_slice()}
-    phase_parity()
-    by_path["train"] = phase_train(phase_amp())
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        _log(f"{name}: phase took {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed("card", phase_card)
+    rows = timed("kernels", phase_kernels)
+    by_path = {"serve": timed("slice", phase_slice)}
+    timed("parity", phase_parity)
+    amp_losses = timed("amp", phase_amp)
+    by_path["train"] = timed("train", phase_train, amp_losses)
+    timed("bert parity", phase_bert_parity)
+    witness = timed("bert witness", phase_bert_witness)
+    by_path["bert"] = timed("bert", phase_bert_train, witness)
+    by_path["ernie"] = timed("ernie", phase_ernie)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -1,26 +1,46 @@
 // Flash-attention backward for Hopper (sm_90a), f32 or bf16 in, f32 math.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py::_bwd2
-// (_bwd2_kernel, pallas_call at :532): dq, dk and dv of causal or full
-// online-softmax attention over the framework layout [B, S, H, D], from
-// q, k, v, the forward's output o and its per-row lse [B, H, Sq] (f32),
-// with delta = rowsum(dO * O) and the forward's dropout mask regenerated
-// from the same seed words (dropout_hash.cuh), never stored:
-//   p  = exp(s * scale - lse)          (lse == -1e30 -> shift 0, :464)
+// Replaces three TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
+//   - _bwd2 (_bwd2_kernel, pallas_call at :532), the fused no-bias
+//     backward, exported as flash_attention_bwd;
+//   - the _bwd_v1 dq kernel (_dq_kernel, pallas_call at :702), exported as
+//     flash_attention_bias_bwd_dq;
+//   - the _bwd_v1 dk/dv kernel (_dkv_kernel, pallas_call at :753), which
+//     also returns the key bias's gradient, exported as
+//     flash_attention_bias_bwd_dkv.
+// All compute dq, dk and dv of causal or full online-softmax attention
+// over the framework layout [B, S, H, D], from q, k, v, the forward's
+// output o and its per-row lse [B, H, Sq] (f32), with delta = rowsum(dO*O)
+// and the forward's dropout mask regenerated from the same seed words
+// (dropout_hash.cuh), never stored:
+//   p  = exp(s * scale (+ bias) - lse)   (lse == -1e30 -> shift 0, :464)
 //   pv = p * keep,  dp = (dO . v) * keep
-//   ds = p * (dp - delta) * scale
-//   dq = ds k,  dk = ds^T q,  dv = pv^T dO
+//   dsr = p * (dp - delta),  ds = dsr * scale
+//   dq = ds k,  dk = ds^T q,  dv = pv^T dO,  dbias[h] = sum_q dsr
+// The bias ([B, Sk] f32, the [B, 1, 1, Sk] padding mask) is a template
+// parameter of the same two kernels; dbias is ds/scale summed over the
+// query rows per head (:651) and then over heads (:769).
 //
-// The TPU kernel carries dk/dv and a full-length dq in VMEM scratch across
+// The TPU kernels carry dk/dv and a full-length dq in VMEM scratch across
 // a sequential grid. On Hopper blocks run in parallel and in no order, so
-// this port splits the work three ways, with no atomics (the result is
-// deterministic, so a resumed run repeats itself bit for bit):
-//   1. delta_kernel: one warp per (b, query row, h) computes delta once;
+// this port splits the work, with no atomics (the result is deterministic,
+// so a resumed run repeats itself bit for bit):
+//   1. delta_kernel (no-bias entry only): one warp per (b, query row, h)
+//      computes delta once; the two bias entries are separate launches,
+//      so each computes delta in the kernel from its own dO tile and the
+//      o rows, as _dq_kernel and _dkv_kernel do (:587-589, :628-630).
+//      The no-bias entry keeps the pre-pass: with tile_delta in its dk/dv
+//      and dq kernels instead, it took 4.233 ms against 3.667 ms at
+//      GPT-2 345M's training shape (B=8, S=1024, H=16, D=64, bf16,
+//      causal, dropout 0.1; H100 80GB HBM3 at 700 W,
+//      tools/time_flash_bwd.py), bit-identical results;
 //   2. dkv_kernel: one block per (b, h, 64-key tile) keeps its K and V
-//      tiles and its dk/dv accumulators, and sweeps the query tiles that
-//      can see those keys;
+//      tiles and its dk/dv (and per-head dbias) accumulators, and sweeps
+//      the query tiles that can see those keys;
 //   3. dq_kernel: one block per (b, h, 64-query tile) keeps its Q and dO
-//      tiles and its dq accumulator, and sweeps the visible key tiles.
+//      tiles and its dq accumulator, and sweeps the visible key tiles;
+//   4. db_sum_kernel (bias dk/dv entry only): dbias summed over heads in
+//      a fixed order.
 // Scores and dp are computed in both 2 and 3 (14 D operations per
 // visible (row, column) pair against the fused TPU kernel's 10).
 //
@@ -34,9 +54,11 @@
 // along D (rows ty + 16 i, columns tx + 16 j) and keeps a 4 x D/16 share
 // of its accumulators in registers; causal tiles that no row can see are
 // never loaded. The sequence edge is masked in-kernel, so any S works.
+// dbias needs 4 more registers a thread for its column partial sums,
+// merged once through shared memory at the end.
 //
-// Plain C interface, bound from Python with ctypes; returns
-// cudaGetLastError() after the three launches.
+// Plain C interface, bound from Python with ctypes; each entry returns
+// cudaGetLastError() after its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +109,37 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
   }
 }
 
+// bias_s[c] = bias_b[c0 + c] for the 64 columns of a key tile
+__device__ __forceinline__ void load_bias(float* bias_s, const float* bias_b,
+                                          int c0, int Sk) {
+  if (threadIdx.x < BK)
+    bias_s[threadIdx.x] =
+        c0 + threadIdx.x < Sk ? bias_b[c0 + threadIdx.x] : 0.f;
+}
+
+// delta_s[r] = rowsum(dO * o) of query rows q0 + r, from the dO tile in
+// shared memory and the o rows in device memory (`o` at batch b, head h);
+// one warp per row, summed in the order delta_kernel sums
+template <typename T, int D>
+__device__ __forceinline__ void tile_delta(float* delta_s, const float* dOs,
+                                           const T* o, int q0, int Sq,
+                                           long long ld_row) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < BQ; r += THREADS / 32) {
+    const int row = q0 + r;
+    float acc = 0.f;
+    if (row < Sq) {
+#pragma unroll
+      for (int d = lane; d < D; d += 32)
+        acc += dOs[r * ldt<D>() + d] * to_f32(o[row * ld_row + d]);
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, m);
+    if (lane == 0) delta_s[r] = acc;
+  }
+}
+
 // s[i][j] = a[ty + 16 i] . b[tx + 16 j] over D, from two [64][D+4] tiles
 template <int D>
 __device__ __forceinline__ void microtile(const float* a, const float* b,
@@ -121,11 +174,15 @@ struct Dropout {
 };
 
 // p and ds of one 4x4 microtile: rows (queries) q0 + ty + 16 i, columns
-// (keys) k0 + tx + 16 j; lse_s holds the shifted lse, delta_s delta
+// (keys) k0 + tx + 16 j; lse_s holds the shifted lse, delta_s delta,
+// bias_s the key tile's bias (BIAS only); db[j] accumulates column j's
+// dsr = ds / scale (BIAS only)
+template <bool BIAS>
 __device__ __forceinline__ void probs_and_ds(
     float (&s)[4][4], float (&dp)[4][4], const float* lse_s,
-    const float* delta_s, int q0, int k0, int ty, int tx, int Sq, int Sk,
-    int causal, float scale, const Dropout& drop) {
+    const float* delta_s, const float* bias_s, float (&db)[4], int q0,
+    int k0, int ty, int tx, int Sq, int Sk, int causal, float scale,
+    const Dropout& drop) {
   const int off = Sk - Sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -136,10 +193,14 @@ __device__ __forceinline__ void probs_and_ds(
       const int col = k0 + tx + 16 * j;
       const bool visible =
           row < Sq && col < Sk && (!causal || row + off >= col);
-      const float p = visible ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+      const float x = BIAS ? s[i][j] * scale + bias_s[tx + 16 * j]
+                           : s[i][j] * scale;
+      const float p = visible ? expf(x - lse_s[r]) : 0.f;
       const float keep = drop.keep(row, col);
-      s[i][j] = p * keep;                                   // pv
-      dp[i][j] = p * (dp[i][j] * keep - delta_s[r]) * scale;  // ds
+      const float dsr = p * (dp[i][j] * keep - delta_s[r]);
+      s[i][j] = p * keep;   // pv
+      dp[i][j] = dsr * scale;  // ds
+      if (BIAS) db[j] += dsr;
     }
   }
 }
@@ -169,17 +230,20 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout
 
 template <int D>
 constexpr int dkv_smem_floats() {
-  // K, V, Q, dO tiles + p and ds tiles + lse and delta
-  return 4 * 64 * ldt<D>() + 2 * BQ * LDP + 2 * BQ;
+  // K, V, Q, dO tiles + p and ds tiles + lse and delta + the key tile's
+  // bias + the dbias partial sums of the 16 thread rows
+  return 4 * 64 * ldt<D>() + 2 * BQ * LDP + 2 * BQ + BK + 16 * BK;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ lse,
+               const T* __restrict__ v, const float* __restrict__ bias,
+               const T* __restrict__ o, const float* __restrict__ lse,
                const float* __restrict__ delta, const T* __restrict__ dout,
-               T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
-               int causal, float scale, Dropout drop) {
+               T* __restrict__ dk, T* __restrict__ dv,
+               float* __restrict__ db_h, int Sq, int Sk, int H, int causal,
+               float scale, Dropout drop) {
   constexpr int DC = D / 16;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
@@ -190,6 +254,8 @@ __global__ void __launch_bounds__(THREADS)
   float* dSs = Ps + BQ * LDP;        // [q][key] ds
   float* lse_s = dSs + BQ * LDP;
   float* delta_s = lse_s + BQ;
+  float* bias_s = delta_s + BQ;
+  float* db_s = bias_s + BK;         // [16][BK]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -200,12 +266,12 @@ __global__ void __launch_bounds__(THREADS)
   const long long qoff = ((long long)b * Sq * H + h) * D;
   const long long koff = ((long long)b * Sk * H + h) * D;
   const float* lse_bh = lse + ((long long)b * H + h) * Sq;
-  const float* delta_bh = delta + ((long long)b * H + h) * Sq;
 
   load_tile<T, D>(Ks, k + koff, k0, Sk, ld_row);
   load_tile<T, D>(Vs, v + koff, k0, Sk, ld_row);
+  if (BIAS) load_bias(bias_s, bias + (long long)b * Sk, k0, Sk);
 
-  float dk_acc[4][DC], dv_acc[4][DC];
+  float dk_acc[4][DC], dv_acc[4][DC], db[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -223,15 +289,21 @@ __global__ void __launch_bounds__(THREADS)
       const int row = q0 + tid;
       const float l = row < Sq ? lse_bh[row] : 0.f;
       lse_s[tid] = l == NEG_INF ? 0.f : l;
-      delta_s[tid] = row < Sq ? delta_bh[row] : 0.f;
+      if (!BIAS)
+        delta_s[tid] =
+            row < Sq ? delta[((long long)b * H + h) * Sq + row] : 0.f;
     }
     __syncthreads();
+    if (BIAS) {
+      tile_delta<T, D>(delta_s, dOs, o + qoff, q0, Sq, ld_row);
+      __syncthreads();
+    }
 
     float s[4][4], dp[4][4];
     microtile<D>(Qs, Ks, ty, tx, s);
     microtile<D>(dOs, Vs, ty, tx, dp);
-    probs_and_ds(s, dp, lse_s, delta_s, q0, k0, ty, tx, Sq, Sk, causal,
-                 scale, drop);
+    probs_and_ds<BIAS>(s, dp, lse_s, delta_s, bias_s, db, q0, k0, ty, tx,
+                       Sq, Sk, causal, scale, drop);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -278,18 +350,32 @@ __global__ void __launch_bounds__(THREADS)
         store(&dvrow[g * 64 + tx * 4 + c], dv_acc[i][g * 4 + c]);
       }
   }
+
+  if (BIAS) {
+    // merge the 16 thread rows' column sums in a fixed order
+#pragma unroll
+    for (int j = 0; j < 4; ++j) db_s[ty * BK + tx + 16 * j] = db[j];
+    __syncthreads();
+    if (tid < BK && k0 + tid < Sk) {
+      float acc = 0.f;
+      for (int r = 0; r < 16; ++r) acc += db_s[r * BK + tid];
+      db_h[((long long)b * H + h) * Sk + k0 + tid] = acc;
+    }
+  }
 }
 
 template <int D>
 constexpr int dq_smem_floats() {
-  // Q, dO, K, V tiles + the [key][q] ds tile + lse and delta
-  return 4 * 64 * ldt<D>() + BK * LDQ + 2 * BQ;
+  // Q, dO, K, V tiles + the [key][q] ds tile + lse and delta + the key
+  // tile's bias
+  return 4 * 64 * ldt<D>() + BK * LDQ + 2 * BQ + BK;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ lse,
+              const T* __restrict__ v, const float* __restrict__ bias,
+              const T* __restrict__ o, const float* __restrict__ lse,
               const float* __restrict__ delta, const T* __restrict__ dout,
               T* __restrict__ dq, int Sq, int Sk, int H, int causal,
               float scale, Dropout drop) {
@@ -302,6 +388,7 @@ __global__ void __launch_bounds__(THREADS)
   float* dSt = Vs + 64 * ldt<D>();   // [key][q] ds
   float* lse_s = dSt + BK * LDQ;
   float* delta_s = lse_s + BQ;
+  float* bias_s = delta_s + BQ;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -312,7 +399,6 @@ __global__ void __launch_bounds__(THREADS)
   const long long qoff = ((long long)b * Sq * H + h) * D;
   const long long koff = ((long long)b * Sk * H + h) * D;
   const float* lse_bh = lse + ((long long)b * H + h) * Sq;
-  const float* delta_bh = delta + ((long long)b * H + h) * Sq;
 
   load_tile<T, D>(Qs, q + qoff, q0, Sq, ld_row);
   load_tile<T, D>(dOs, dout + qoff, q0, Sq, ld_row);
@@ -320,10 +406,16 @@ __global__ void __launch_bounds__(THREADS)
     const int row = q0 + tid;
     const float l = row < Sq ? lse_bh[row] : 0.f;
     lse_s[tid] = l == NEG_INF ? 0.f : l;
-    delta_s[tid] = row < Sq ? delta_bh[row] : 0.f;
+    if (!BIAS)
+      delta_s[tid] =
+          row < Sq ? delta[((long long)b * H + h) * Sq + row] : 0.f;
+  }
+  if (BIAS) {
+    __syncthreads();  // dO loaded
+    tile_delta<T, D>(delta_s, dOs, o + qoff, q0, Sq, ld_row);
   }
 
-  float acc[4][DC];
+  float acc[4][DC], unused[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -335,16 +427,17 @@ __global__ void __launch_bounds__(THREADS)
   const int n_k = last_col < 0 ? 0 : last_col / BK + 1;
   for (int t = 0; t < n_k; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // Q/dO loaded; the previous tile's readers are done
+    __syncthreads();  // Q/dO/delta ready; the previous tile's readers done
     load_tile<T, D>(Ks, k + koff, k0, Sk, ld_row);
     load_tile<T, D>(Vs, v + koff, k0, Sk, ld_row);
+    if (BIAS) load_bias(bias_s, bias + (long long)b * Sk, k0, Sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
     microtile<D>(Qs, Ks, ty, tx, s);
     microtile<D>(dOs, Vs, ty, tx, dp);
-    probs_and_ds(s, dp, lse_s, delta_s, q0, k0, ty, tx, Sq, Sk, causal,
-                 scale, drop);
+    probs_and_ds<BIAS>(s, dp, lse_s, delta_s, bias_s, unused, q0, k0, ty,
+                       tx, Sq, Sk, causal, scale, drop);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -382,43 +475,80 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// db[b, c] = sum over h of db_h[b, h, c], heads in order
+__global__ void db_sum_kernel(const float* __restrict__ db_h,
+                              float* __restrict__ db, int B, int H, int Sk) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (long long)B * Sk) return;
+  const long long b = i / Sk, c = i % Sk;
+  float acc = 0.f;
+  for (int h = 0; h < H; ++h) acc += db_h[(b * H + h) * Sk + c];
+  db[i] = acc;
+}
+
+template <typename T, int D, bool BIAS>
+int launch_dkv(const void* q, const void* k, const void* v, const void* bias,
+               const void* o, const void* lse, const void* delta,
+               const void* dout, void* dk, void* dv, void* db_h, int B,
+               int Sq, int Sk, int H, int causal, float scale, Dropout drop,
+               cudaStream_t stream) {
+  constexpr int bytes = dkv_smem_floats<D>() * 4;
+  cudaFuncSetAttribute(dkv_kernel<T, D, BIAS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  dkv_kernel<T, D, BIAS><<<dim3((Sk + BK - 1) / BK, H, B), THREADS, bytes,
+                           stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const T*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const T*>(dout),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(db_h),
+      Sq, Sk, H, causal, scale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, bool BIAS>
+int launch_dq(const void* q, const void* k, const void* v, const void* bias,
+              const void* o, const void* lse, const void* delta,
+              const void* dout, void* dq, int B, int Sq, int Sk, int H,
+              int causal, float scale, Dropout drop, cudaStream_t stream) {
+  constexpr int bytes = dq_smem_floats<D>() * 4;
+  cudaFuncSetAttribute(dq_kernel<T, D, BIAS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  dq_kernel<T, D, BIAS><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS, bytes,
+                          stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const T*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const T*>(dout),
+      static_cast<T*>(dq), Sq, Sk, H, causal, scale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, void* dq, void* dk, void* dv,
            void* delta, int B, int Sq, int Sk, int H, int causal, float scale,
            Dropout drop, cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  float* delta_ = static_cast<float*>(delta);
-
   const int rows = B * Sq * H;
   delta_kernel<T, D><<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0,
-                       stream>>>(static_cast<const T*>(o), do_, delta_, rows,
-                                 Sq, H);
+                       stream>>>(static_cast<const T*>(o),
+                                 static_cast<const T*>(dout),
+                                 static_cast<float*>(delta), rows, Sq, H);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-
-  constexpr int dkv_bytes = dkv_smem_floats<D>() * 4;
-  cudaFuncSetAttribute(dkv_kernel<T, D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
-  dkv_kernel<T, D><<<dim3((Sk + BK - 1) / BK, H, B), THREADS, dkv_bytes,
-                     stream>>>(q_, k_, v_, lse_, delta_, do_,
-                               static_cast<T*>(dk), static_cast<T*>(dv), Sq,
-                               Sk, H, causal, scale, drop);
-  err = static_cast<int>(cudaGetLastError());
+  err = launch_dkv<T, D, false>(q, k, v, nullptr, o, lse, delta, dout, dk, dv,
+                                nullptr, B, Sq, Sk, H, causal, scale, drop,
+                                stream);
   if (err) return err;
+  return launch_dq<T, D, false>(q, k, v, nullptr, o, lse, delta, dout, dq, B,
+                                Sq, Sk, H, causal, scale, drop, stream);
+}
 
-  constexpr int dq_bytes = dq_smem_floats<D>() * 4;
-  cudaFuncSetAttribute(dq_kernel<T, D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  dq_kernel<T, D><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS, dq_bytes,
-                    stream>>>(q_, k_, v_, lse_, delta_, do_,
-                              static_cast<T*>(dq), Sq, Sk, H, causal, scale,
-                              drop);
-  return static_cast<int>(cudaGetLastError());
+// which of the four (dtype, D) instantiations; -1 if none
+int variant(int dtype, int D) {
+  if (dtype != 0 && dtype != 1) return -1;
+  if (D != 64 && D != 128) return -1;
+  return dtype * 2 + (D == 128);
 }
 
 }  // namespace
@@ -441,11 +571,63 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 #define FLASH_BWD_ARGS \
   q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, causal, scale, \
       drop, st
-  if (dtype == 0 && D == 64) return launch<float, 64>(FLASH_BWD_ARGS);
-  if (dtype == 0 && D == 128) return launch<float, 128>(FLASH_BWD_ARGS);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(FLASH_BWD_ARGS);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(FLASH_BWD_ARGS);
+  switch (variant(dtype, D)) {
+    case 0: return launch<float, 64>(FLASH_BWD_ARGS);
+    case 1: return launch<float, 128>(FLASH_BWD_ARGS);
+    case 2: return launch<__nv_bfloat16, 64>(FLASH_BWD_ARGS);
+    case 3: return launch<__nv_bfloat16, 128>(FLASH_BWD_ARGS);
+  }
 #undef FLASH_BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dq of the biased forward (flash_attention_bias_fwd): the arguments of
+// flash_attention_bwd without the delta scratch, plus bias [B, Sk] f32.
+extern "C" int flash_attention_bias_bwd_dq(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* o, const void* lse, const void* dout, void* dq, int B,
+    int Sq, int Sk, int H, int D, int causal, float scale, int dropout,
+    unsigned int thr, unsigned int seed, float keep_scale, int dtype,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{dropout, thr, seed, 0u, keep_scale};
+#define FLASH_DQ_ARGS \
+  q, k, v, bias, o, lse, nullptr, dout, dq, B, Sq, Sk, H, causal, scale, \
+      drop, st
+  switch (variant(dtype, D)) {
+    case 0: return launch_dq<float, 64, true>(FLASH_DQ_ARGS);
+    case 1: return launch_dq<float, 128, true>(FLASH_DQ_ARGS);
+    case 2: return launch_dq<__nv_bfloat16, 64, true>(FLASH_DQ_ARGS);
+    case 3: return launch_dq<__nv_bfloat16, 128, true>(FLASH_DQ_ARGS);
+  }
+#undef FLASH_DQ_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dk, dv and db [B, Sk] f32 of the biased forward; db_h is [B, H, Sk] f32
+// scratch for the per-head rows.
+extern "C" int flash_attention_bias_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* o, const void* lse, const void* dout, void* dk, void* dv,
+    void* db_h, void* db, int B, int Sq, int Sk, int H, int D, int causal,
+    float scale, int dropout, unsigned int thr, unsigned int seed,
+    float keep_scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{dropout, thr, seed, 0u, keep_scale};
+#define FLASH_DKV_ARGS \
+  q, k, v, bias, o, lse, nullptr, dout, dk, dv, db_h, B, Sq, Sk, H, causal, \
+      scale, drop, st
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  switch (variant(dtype, D)) {
+    case 0: err = launch_dkv<float, 64, true>(FLASH_DKV_ARGS); break;
+    case 1: err = launch_dkv<float, 128, true>(FLASH_DKV_ARGS); break;
+    case 2: err = launch_dkv<__nv_bfloat16, 64, true>(FLASH_DKV_ARGS); break;
+    case 3: err = launch_dkv<__nv_bfloat16, 128, true>(FLASH_DKV_ARGS); break;
+  }
+#undef FLASH_DKV_ARGS
+  if (err) return err;
+  const long long n = (long long)B * Sk;
+  db_sum_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, st>>>(
+      static_cast<const float*>(db_h), static_cast<float*>(db), B, H, Sk);
+  return static_cast<int>(cudaGetLastError());
 }

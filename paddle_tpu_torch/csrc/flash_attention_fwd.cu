@@ -1,9 +1,22 @@
 // Flash-attention forward for Hopper (sm_90a), f32 or bf16 in, f32 math.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py::_fwd2
-// (_fwd2_kernel, pallas_call at :399): online-softmax attention over the
-// framework layout [B, S, H, D] (the same memory as _fwd2's packed
-// [B, S, H*D]), causal masking bottom-right aligned (row + Sk - Sq >= col,
+// Replaces two TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
+// _fwd2 (_fwd2_kernel, pallas_call at :399), exported as
+// flash_attention_fwd, and _fwd_v1 (_fwd_kernel, pallas_call at :239),
+// the same forward plus an additive f32 key bias [B, Sk] (the
+// [B, 1, 1, Sk] padding mask of BERT and ERNIE), exported as
+// flash_attention_bias_fwd. The bias is a template parameter of one
+// kernel; it is added after the scale and before the causal mask, as
+// _fwd_kernel does (:144-148), as the number it is: an f32 -1e30 absorbs
+// any score below 3e22 and a fully masked row then has m == -1e30, so
+// the shift-0 guard below gives o = 0 and lse = -1e30; the bf16-rounded
+// mask (-1.00026e30) lies below the running max's starting value -1e30,
+// with the same result, as in the TPU kernel.
+//
+// Both: online-softmax attention over the framework layout [B, S, H, D]
+// (the same memory as _fwd2's packed [B, S, H*D]; _fwd_v1's [B, H, S, D]
+// transpose was its own tiling's), causal masking bottom-right aligned
+// (row + Sk - Sq >= col,
 // _causal_mask), optional per-row lse [B, H, Sq] in f32, and the
 // in-kernel attention dropout of _dropout_keep (:87): the keep bit is a
 // hash of the absolute (b, h, query row, key column) and two seed words
@@ -25,7 +38,8 @@
 // The sequence edge is masked in-kernel, so any S works.
 //
 // Plain C interface, bound from Python with ctypes; returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch. The bias entry reads one 64-float
+// bias slice per key tile into shared memory with the K and V tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,23 +78,24 @@ __device__ __forceinline__ float row_sum16(float x) {
 
 template <int D>
 constexpr int smem_floats() {
-  // Qt [D][LD] + Kt [D][LD] + Vs [BK][D] + Pt [BK][LD]
-  return 2 * D * LD + BK * D + BK * LD;
+  // Qt [D][LD] + Kt [D][LD] + Vs [BK][D] + Pt [BK][LD] + bias [BK]
+  return 2 * D * LD + BK * D + BK * LD + BK;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int Sq, int Sk, int H,
-                     int causal, float scale, int dropout, uint32_t thr,
-                     uint32_t seed, float keep_scale) {
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     T* __restrict__ o, float* __restrict__ lse, int Sq,
+                     int Sk, int H, int causal, float scale, int dropout,
+                     uint32_t thr, uint32_t seed, float keep_scale) {
   constexpr int DC = D / 16;  // output columns per thread (4 or 8)
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // q tile, transposed
   float* Kt = Qt + D * LD;                      // k tile, transposed
   float* Vs = Kt + D * LD;                      // v tile
   float* Pt = Vs + BK * D;                      // probabilities, transposed
+  float* Bs = Pt + BK * LD;                     // the key tile's bias
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // key columns tx*4.. / output columns
@@ -126,6 +141,8 @@ __global__ void __launch_bounds__(THREADS)
       Kt[d * LD + r] = in ? to_f32(kb[col * ld_row + d]) : 0.f;
       Vs[r * D + d] = in ? to_f32(vb[col * ld_row + d]) : 0.f;
     }
+    if (BIAS && tid < BK)
+      Bs[tid] = k0 + tid < Sk ? bias[(long long)b * Sk + k0 + tid] : 0.f;
     __syncthreads();
 
     float s[4][4];
@@ -155,7 +172,9 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
         const bool keep = col < Sk && (!causal || row + off >= col);
-        s[i][j] = keep ? s[i][j] * scale : NEG_INF;
+        const float x = BIAS ? s[i][j] * scale + Bs[tx * 4 + j]
+                             : s[i][j] * scale;
+        s[i][j] = keep ? x : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max16(mx));
@@ -223,20 +242,40 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int Sq, int Sk, int H, int causal, float scale,
-           int dropout, uint32_t thr, uint32_t seed, float keep_scale,
-           cudaStream_t stream) {
+template <typename T, int D, bool BIAS>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           void* o, void* lse, int B, int Sq, int Sk, int H, int causal,
+           float scale, int dropout, uint32_t thr, uint32_t seed,
+           float keep_scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * 4;
-  cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaFuncSetAttribute(flash_fwd_kernel<T, D, BIAS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd_kernel<T, D, BIAS><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      Sq, Sk, H, causal, scale, dropout, thr, seed, keep_scale);
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, H, causal, scale,
+      dropout, thr, seed, keep_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BIAS>
+int run(const void* q, const void* k, const void* v, const void* bias,
+        void* o, void* lse, int B, int Sq, int Sk, int H, int D, int causal,
+        float scale, int dropout, uint32_t thr, uint32_t seed,
+        float keep_scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_FWD_ARGS \
+  q, k, v, bias, o, lse, B, Sq, Sk, H, causal, scale, dropout, thr, seed, \
+      keep_scale, st
+  if (dtype == 0 && D == 64) return launch<float, 64, BIAS>(FLASH_FWD_ARGS);
+  if (dtype == 0 && D == 128) return launch<float, 128, BIAS>(FLASH_FWD_ARGS);
+  if (dtype == 1 && D == 64)
+    return launch<__nv_bfloat16, 64, BIAS>(FLASH_FWD_ARGS);
+  if (dtype == 1 && D == 128)
+    return launch<__nv_bfloat16, 128, BIAS>(FLASH_FWD_ARGS);
+#undef FLASH_FWD_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -250,15 +289,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    float scale, int dropout, unsigned int thr,
                                    unsigned int seed, float keep_scale,
                                    int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_FWD_ARGS \
-  q, k, v, o, lse, B, Sq, Sk, H, causal, scale, dropout, thr, seed, \
-      keep_scale, st
-  if (dtype == 0 && D == 64) return launch<float, 64>(FLASH_FWD_ARGS);
-  if (dtype == 0 && D == 128) return launch<float, 128>(FLASH_FWD_ARGS);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(FLASH_FWD_ARGS);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(FLASH_FWD_ARGS);
-#undef FLASH_FWD_ARGS
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run<false>(q, k, v, nullptr, o, lse, B, Sq, Sk, H, D, causal, scale,
+                    dropout, thr, seed, keep_scale, dtype, stream);
+}
+
+// The same with bias [B, Sk] f32 contiguous added to every query row's
+// scores of batch row b.
+extern "C" int flash_attention_bias_fwd(const void* q, const void* k,
+                                        const void* v, const void* bias,
+                                        void* o, void* lse, int B, int Sq,
+                                        int Sk, int H, int D, int causal,
+                                        float scale, int dropout,
+                                        unsigned int thr, unsigned int seed,
+                                        float keep_scale, int dtype,
+                                        void* stream) {
+  return run<true>(q, k, v, bias, o, lse, B, Sq, Sk, H, D, causal, scale,
+                   dropout, thr, seed, keep_scale, dtype, stream);
 }

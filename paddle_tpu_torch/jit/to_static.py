@@ -4,7 +4,10 @@ Counterpart of ``paddle_tpu/jit/to_static.py::TrainStep`` (:300) for one
 device. The JAX class compiles the forward, backward and update into one
 donated XLA program; here they run eagerly: ``loss_fn(layer, *batch)``,
 ``loss.backward()``, the optimizer's in-place update and
-``clear_grad()``. The step count starts at 1, as at :1246-1248, and is
+``clear_grad()``. A trainable parameter that the loss did not reach gets
+a zero gradient before the update, as ``jax.value_and_grad`` over every
+trainable parameter gives it (:607): AdamW then still decays it and
+moves it by its momentum (BERT's pooler, an unused type embedding). The step count starts at 1, as at :1246-1248, and is
 the ``t`` of the optimizer's bias corrections.
 
 The step owns its dropout generator (a CPU ``torch.Generator`` seeded
@@ -54,6 +57,9 @@ class TrainStep:
         with dropout_generator(self.generator):
             loss = self.loss_fn(self.layer, *batch)
         loss.backward()
+        for p in self.layer.parameters():
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.optimizer.step(step=self.step_count)
         self.optimizer.clear_grad()
         return loss.detach().float()

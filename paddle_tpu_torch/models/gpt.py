@@ -44,9 +44,10 @@ from torch import nn
 
 from ..amp import cast_inputs
 from ..core.device import DeviceLike, resolve_device
-from ..core.random import dropout_generator, make_generator, next_seed_words
+from ..core.random import dropout_generator, make_generator
 from ..nn import functional as F
 from ..nn.chunked_ce import enabled_for, hard_nll
+from ..nn.layers import Dropout, LayerNorm
 from ..ops.attention import sdpa_array
 from ..ops.kernels.paged_decode import paged_decode_attention
 from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
@@ -84,32 +85,6 @@ def _param(*shape, device):
                                     device=device))
 
 
-class LayerNorm(nn.Module):
-    """``weight``/``bias`` over the last dim; float32 statistics, output
-    in the input's dtype (``nn/functional.py:1014``)."""
-
-    def __init__(self, size: int, device: torch.device, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(size, device=device))
-        self.bias = _param(size, device=device)
-
-    def forward(self, x):
-        return F.layer_norm(x, x.shape[-1], self.weight, self.bias,
-                            self.eps)
-
-
-class Dropout(nn.Module):
-    """``upscale_in_train`` dropout, active in training mode."""
-
-    def __init__(self, p: float):
-        super().__init__()
-        self.p = float(p)
-
-    def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
-
-
 class GPTAttention(nn.Module):
     """Causal self-attention with one fused QKV matmul."""
 
@@ -132,10 +107,9 @@ class GPTAttention(nn.Module):
         if cache is not None:
             out = self._paged_attention(q, k, v, cache, pos)
         else:
-            q, k, v = cast_inputs("scaled_dot_product_attention", q, k, v)
-            p = self.cfg.attention_dropout_prob if self.training else 0.0
-            out = sdpa_array(q, k, v, is_causal=True, dropout_p=p,
-                             seed_words=next_seed_words() if p > 0 else None)
+            out = F.scaled_dot_product_attention(
+                q, k, v, dropout_p=self.cfg.attention_dropout_prob,
+                is_causal=True, training=self.training)
         out, w, b = cast_inputs("attn_out", out, self.out_weight,
                                 self.out_bias)
         return out.reshape(B, S, H * D) @ w.reshape(H * D, E) + b

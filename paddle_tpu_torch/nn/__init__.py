@@ -1,3 +1,3 @@
-from . import chunked_ce, functional
+from . import chunked_ce, functional, layers
 
-__all__ = ["chunked_ce", "functional"]
+__all__ = ["chunked_ce", "functional", "layers"]

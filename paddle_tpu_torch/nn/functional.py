@@ -1,14 +1,20 @@
-"""The functional ops GPT training needs, with the JAX package's
+"""The functional ops the port's models need, with the JAX package's
 precision semantics.
 
 Counterpart of ``paddle_tpu/nn/functional.py``: ``linear`` (:func:`linear`,
-Paddle's ``[in, out]`` weight), ``embedding``, ``gelu``, ``layer_norm``
-(:1014) and ``dropout`` (:1115). Each casts its inputs under AMP by the
-JAX op name (``amp.cast_inputs``).
+Paddle's ``[in, out]`` weight), ``embedding``, ``gelu``, ``tanh``,
+``layer_norm`` (:1014), ``dropout`` (:1115), the dense
+hard-label ``cross_entropy`` (:1222) and ``scaled_dot_product_attention``
+(``ops/attention.py``). Each casts its inputs under AMP by the JAX op
+name (``amp.cast_inputs``).
 
 - ``layer_norm`` computes in float32 and returns its input's dtype, as
   the JAX op does (``torch.nn.LayerNorm`` does not take bf16 input with
   f32 weights on the CPU, and under ``torch.autocast`` returns f32).
+- ``cross_entropy`` is the dense branch only (softmax over the last
+  axis in float32, hard labels, ``ignore_index``, mean): the models call
+  it for the 2-class SOP head; their vocab-wide losses go through
+  ``nn.chunked_ce``.
 - ``dropout`` with ``axis=None`` and ``upscale_in_train`` goes through
   the fused dropout kernel on the card whatever the tensor's size: the
   JAX package's ``a.size >= 65536`` gate (:1131) was a TPU launch-cost
@@ -24,9 +30,11 @@ import torch.nn.functional as F
 
 from ..amp import cast_inputs
 from ..core.random import next_seed_words
+from ..ops.attention import scaled_dot_product_attention
 from ..ops.kernels.dropout import fused_dropout
 
-__all__ = ["linear", "embedding", "gelu", "layer_norm", "dropout"]
+__all__ = ["linear", "embedding", "gelu", "tanh", "layer_norm",
+           "dropout", "cross_entropy", "scaled_dot_product_attention"]
 
 
 def linear(x, weight, bias=None):
@@ -44,6 +52,10 @@ def embedding(ids, weight):
 
 def gelu(x, approximate: bool = False):
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x):
+    return torch.tanh(x)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,
@@ -69,3 +81,19 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     if p >= 1.0:
         return torch.zeros_like(x)
     return fused_dropout(x, p, next_seed_words())
+
+
+def cross_entropy(input, label, ignore_index: int = -100):
+    """Mean softmax cross-entropy over the last axis with hard labels
+    (``label`` of ``input``'s leading shape, or with a trailing 1),
+    skipping ``ignore_index``; float32 math, as the O1 black list casts
+    ``cross_entropy``."""
+    (input,) = cast_inputs("cross_entropy", input)
+    logp = torch.log_softmax(input.float(), dim=-1)
+    ids = label.long()
+    if ids.dim() == logp.dim():
+        ids = ids.squeeze(-1)
+    valid = (ids != ignore_index).float()
+    safe = torch.where(ids == ignore_index, 0, ids)
+    loss = -logp.gather(-1, safe[..., None])[..., 0] * valid
+    return loss.sum() / valid.sum().clamp(min=1e-12)

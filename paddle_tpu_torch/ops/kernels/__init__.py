@@ -18,7 +18,8 @@ edited source or header rebuilds) and loads through ``ctypes``. Sources
 share no header with PyTorch, which keeps a build at seconds, not
 minutes. :func:`build` compiles every missing library at once, one
 ``nvcc`` process per source, all started together; kernels that share a
-source (the two chunked-CE entries) share its library.
+source (the two chunked-CE entries, the flash forward with and without
+a key bias, the three flash backward entries) share its library.
 """
 
 from __future__ import annotations
@@ -86,6 +87,26 @@ FUSED_DROPOUT = Kernel(
     "paddle_tpu/ops/pallas/dropout.py:69",
     # x, y, n, seed, thr, inv, dtype, stream
     (_P, _P, _L, _U, _U, _F, _I, _P))
+FLASH_ATTENTION_BIAS_FWD = Kernel(
+    "flash_attention_bias_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+    "paddle_tpu/ops/pallas/flash_attention.py:239",
+    # q, k, v, bias, o, lse, B, Sq, Sk, H, D, causal, scale, dropout, thr,
+    # seed, keep_scale, dtype, stream
+    (_P,) * 6 + (_I,) * 6 + (_F, _I, _U, _U, _F, _I, _P))
+FLASH_ATTENTION_BIAS_BWD_DQ = Kernel(
+    "flash_attention_bias_bwd_dq",
+    "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "paddle_tpu/ops/pallas/flash_attention.py:702",
+    # q, k, v, bias, o, lse, dout, dq, B, Sq, Sk, H, D, causal, scale,
+    # dropout, thr, seed, keep_scale, dtype, stream
+    (_P,) * 8 + (_I,) * 6 + (_F, _I, _U, _U, _F, _I, _P))
+FLASH_ATTENTION_BIAS_BWD_DKV = Kernel(
+    "flash_attention_bias_bwd_dkv",
+    "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "paddle_tpu/ops/pallas/flash_attention.py:753",
+    # q, k, v, bias, o, lse, dout, dk, dv, db_h, db, B, Sq, Sk, H, D,
+    # causal, scale, dropout, thr, seed, keep_scale, dtype, stream
+    (_P,) * 11 + (_I,) * 6 + (_F, _I, _U, _U, _F, _I, _P))
 PAGED_DECODE = Kernel(
     "paged_decode_attention", "paddle_tpu_torch/csrc/paged_decode.cu",
     "paddle_tpu/ops/pallas/paged_decode.py:149",
@@ -95,7 +116,9 @@ PAGED_DECODE = Kernel(
 
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD, CHUNKED_CE_LSE,
-    CHUNKED_CE_DLOGITS, FUSED_DROPOUT, PAGED_DECODE)}
+    CHUNKED_CE_DLOGITS, FUSED_DROPOUT, PAGED_DECODE,
+    FLASH_ATTENTION_BIAS_FWD, FLASH_ATTENTION_BIAS_BWD_DQ,
+    FLASH_ATTENTION_BIAS_BWD_DKV)}
 
 
 def kernels() -> List[dict]:

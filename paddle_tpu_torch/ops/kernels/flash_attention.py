@@ -1,24 +1,39 @@
 """Flash attention: wrappers of ``csrc/flash_attention_fwd.cu`` and
 ``csrc/flash_attention_bwd.cu``.
 
-Replace the TPU kernels ``paddle_tpu/ops/pallas/flash_attention.py::
-_fwd2`` (pallas_call at :399) and ``::_bwd2`` (pallas_call at :532).
-The card bounds both by arithmetic; each source's header says what its
-design does about it.
+Replace five TPU kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
+``_fwd2`` (pallas_call at :399) and ``_bwd2`` (:532) without a bias, and
+the ``v1`` kernels that take an additive key bias ``[B, 1, 1, Sk]`` (the
+padding mask of BERT and ERNIE): ``_fwd_v1`` (:239), the ``_bwd_v1`` dq
+kernel (:702) and its dk/dv/dbias kernel (:753). The card bounds all of
+them by arithmetic; each source's header says what its design does
+about it.
 
 All functions take ``[B, S, H, D]`` tensors and an optional in-kernel
 attention dropout (``dropout_rate`` with two ``seed_words``): the keep
 bit is a hash of the absolute (b, h, query row, key column) and the
 words (``ops/rng.py::attention_keep``, as ``_dropout_keep`` at :87); it
 masks the p.V product only, the softmax denominator keeps the undropped
-p, and the backward regenerates the same mask.
+p, and the backward regenerates the same mask. The bias is ``[B, Sk]``
+float32 at the kernel wrappers; :func:`flash_attention` widens and
+broadcasts a ``[B, 1, 1, Sk]`` mask to it, as the JAX entry does (:956).
 
 - :func:`flash_attention_fwd` -- ``o`` or ``(o, lse)``;
 - :func:`flash_attention_bwd` -- ``(dq, dk, dv)`` from q, k, v, o, lse
-  and dO; its plain version :func:`flash_attention_bwd_plain` reads the
-  saved o and lse as the kernel does;
+  and dO;
+- :func:`flash_attention_bias_fwd` -- the same forward with a bias;
+- :func:`flash_attention_bias_bwd_dq` -- its ``dq``;
+- :func:`flash_attention_bias_bwd_dkv` -- its ``(dk, dv, db)``;
 - :func:`flash_attention` -- the differentiable entry,
   ``FlashAttention`` (the ``_flash`` custom VJP at :866).
+
+Their plain versions are :func:`flash_attention_plain` and
+:func:`flash_attention_bwd_plain`, each with an optional ``bias``: the
+backward reads the saved o and lse as the kernels do and returns ``db``
+when given a bias. They follow the kernels' online softmax, whose
+running max starts at ``NEG_INF``: a row whose every score is
+``NEG_INF`` or below (a fully masked row, with an f32 or a
+bf16-rounded ``-1e30`` bias) gets ``o = 0`` and ``lse = NEG_INF``.
 
 Given CPU tensors each wrapper computes its plain version; given CUDA
 tensors it launches its kernel or raises.
@@ -31,74 +46,100 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..attention import NEG_INF, _sdpa_plain, attention_scores
+from ..attention import NEG_INF, attention_scores
 from ..rng import attention_keep, keep_scale, keep_threshold, seed_mix
+from . import FLASH_ATTENTION_BIAS_BWD_DKV as _BIAS_DKV
+from . import FLASH_ATTENTION_BIAS_BWD_DQ as _BIAS_DQ
+from . import FLASH_ATTENTION_BIAS_FWD as _BIAS_FWD
 from . import FLASH_ATTENTION_BWD as _BWD
 from . import FLASH_ATTENTION_FWD as _KERNEL
 from . import check, function
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd",
-           "flash_attention_plain", "flash_attention_bwd_plain",
-           "flash_attention", "FlashAttention"]
+           "flash_attention_bias_fwd", "flash_attention_bias_bwd_dq",
+           "flash_attention_bias_bwd_dkv", "flash_attention_plain",
+           "flash_attention_bwd_plain", "flash_attention", "FlashAttention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SeedWords = Optional[Tuple[int, int]]
+
+
+def _scores(qf, kf, bias, causal, scale):
+    """float32 scores ``[B, H, Sq, Sk]``: scaled, plus the bias, causal
+    entries at ``NEG_INF`` or below."""
+    return attention_scores(qf, kf, None if bias is None
+                            else bias[:, None, None, :], causal, scale)
+
+
+def _dropout_mult(B, H, Sq, Sk, dropout_rate, seed_words, device):
+    return torch.where(attention_keep(B, H, Sq, Sk, dropout_rate, seed_words,
+                                      device=device),
+                       keep_scale(dropout_rate), 0.0)
 
 
 def flash_attention_plain(q, k, v, causal: bool = True,
                           scale: Optional[float] = None,
                           return_lse: bool = False,
                           dropout_rate: float = 0.0,
-                          seed_words: SeedWords = None):
-    """The kernel's function in plain PyTorch, computed in float32 and
-    returned in q's dtype (plus ``lse [B, H, Sq]`` in float32)."""
+                          seed_words: SeedWords = None,
+                          bias: Optional[torch.Tensor] = None):
+    """The kernels' function in plain PyTorch, computed in float32 and
+    returned in q's dtype (plus ``lse [B, H, Sq]`` in float32); ``bias``
+    is ``[B, Sk]``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf = q.float(), k.float(), v.float()
+    s = _scores(qf, kf, bias, causal, scale)
+    # the kernels' running max starts at NEG_INF; a row with nothing
+    # above it keeps shift 0, so its exponentials are 0
+    m = s.detach().amax(-1).clamp(min=NEG_INF)
+    p = torch.exp(s - torch.where(m == NEG_INF, 0.0, m)[..., None])
+    l = p.sum(-1)
+    safe_l = torch.where(l == 0.0, 1.0, l)
     if dropout_rate > 0.0:
-        scores = attention_scores(qf, kf, None, causal, scale)
-        B, H, Sq, Sk = scores.shape
-        keep = attention_keep(B, H, Sq, Sk, dropout_rate, seed_words,
-                              device=q.device)
-        probs = torch.softmax(scores, dim=-1) * torch.where(
-            keep, keep_scale(dropout_rate), 0.0)
-        o = torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
-    else:
-        o = _sdpa_plain(qf, kf, vf, None, causal, scale).to(q.dtype)
+        p = p * _dropout_mult(*s.shape, dropout_rate, seed_words, q.device)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf) / \
+        safe_l.transpose(1, 2)[..., None]
+    o = o.to(q.dtype)
     if not return_lse:
         return o
-    return o, torch.logsumexp(attention_scores(qf, kf, None, causal, scale),
-                              dim=-1)
+    return o, torch.where(l == 0.0, NEG_INF, m + torch.log(safe_l))
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
                               scale: Optional[float] = None,
                               dropout_rate: float = 0.0,
-                              seed_words: SeedWords = None):
-    """The backward kernel's function in plain PyTorch, as ``_bwd2``
-    computes it: ``p = exp(s - lse)`` from the saved ``lse`` (shift 0
-    where it is ``NEG_INF``), ``delta = rowsum(dO * o)`` from the saved
-    ``o``, the same dropout mask on ``p.V`` and ``dO.V^T``; float32 math,
-    gradients in q's dtype. Given the ``o`` and ``lse`` of
-    :func:`flash_attention_plain` in float32, it is that function's
-    gradient."""
+                              seed_words: SeedWords = None,
+                              bias: Optional[torch.Tensor] = None):
+    """The backward kernels' function in plain PyTorch, as ``_bwd2`` and
+    ``_bwd_v1`` compute it: ``p = exp(s - lse)`` from the saved ``lse``
+    (shift 0 where it is ``NEG_INF``), ``delta = rowsum(dO * o)`` from the
+    saved ``o``, the same dropout mask on ``p.V`` and ``dO.V^T``; float32
+    math, gradients in q's dtype. Returns ``(dq, dk, dv)``, and with a
+    ``bias [B, Sk]`` also ``db [B, Sk]`` float32 (the score gradient
+    summed over heads and query rows, ``:651`` and ``:769``). Given the
+    ``o`` and ``lse`` of :func:`flash_attention_plain` in float32, it is
+    that function's gradient."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
-    s = attention_scores(qf, kf, None, causal, scale)
+    s = _scores(qf, kf, bias, causal, scale)
     p = torch.exp(s - torch.where(lse == NEG_INF, 0.0, lse)[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     pv = p
     if dropout_rate > 0.0:
-        B, H, Sq, Sk = s.shape
-        mult = torch.where(attention_keep(B, H, Sq, Sk, dropout_rate,
-                                          seed_words, device=q.device),
-                           keep_scale(dropout_rate), 0.0)
+        mult = _dropout_mult(*s.shape, dropout_rate, seed_words, q.device)
         pv, dp = p * mult, dp * mult
     delta = (dof * of).sum(-1).transpose(1, 2)               # [B, H, Sq]
-    ds = p * (dp - delta[..., None]) * scale
+    dsr = p * (dp - delta[..., None])
+    ds = dsr * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", pv, dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if bias is None:
+        return grads
+    return grads + (dsr.sum((1, 2)),)
 
 
 def _check_args(q, k, v, causal, dropout_rate, seed_words):
@@ -131,12 +172,41 @@ def _check_args(q, k, v, causal, dropout_rate, seed_words):
                              f"{D}")
 
 
+def _check_bias(bias, q, k):
+    B, Sk = q.shape[0], k.shape[1]
+    if bias.shape != (B, Sk) or bias.dtype != torch.float32 \
+            or bias.device != q.device:
+        raise ValueError(f"the key bias must be [B={B}, Sk={Sk}] float32 on "
+                         f"q's device, got {tuple(bias.shape)} {bias.dtype} "
+                         f"on {bias.device}")
+
+
+def _check_saved(q, o, lse, do, cuda_args):
+    B, Sq, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Sq):
+        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} must "
+                         f"be q's shape and lse {tuple(lse.shape)} "
+                         f"[B, H, Sq]")
+    if q.device.type == "cpu":
+        return
+    if any(t.dtype != q.dtype or t.device != q.device for t in (o, do)) \
+            or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError("flash backward takes q, k, v, o, do in one dtype "
+                         "and lse in float32, all on one device")
+    if not all(t.is_contiguous() for t in cuda_args):
+        raise ValueError("flash backward takes contiguous arguments")
+
+
 def _dropout_args(dropout_rate: float, seed_words: SeedWords):
     """(dropout, threshold, seed, keep_scale) of the C entries."""
     if dropout_rate <= 0.0:
         return 0, 0, 0, 1.0
     return (1, keep_threshold(dropout_rate), seed_mix(seed_words),
             keep_scale(dropout_rate))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True,
@@ -159,13 +229,12 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    fn = function(_KERNEL.name)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr() if lse is not None else None,
-             B, Sq, k.shape[1], H, D, int(bool(causal)), float(scale),
-             *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
-             stream)
+    err = function(_KERNEL.name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        B, Sq, k.shape[1], H, D, int(bool(causal)), float(scale),
+        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
+        _stream(q))
     check(_KERNEL.name, err)
     _KERNEL.launches += 1
     return (o, lse) if return_lse else o
@@ -179,64 +248,173 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     gradient ``do``, from its saved ``o`` and ``lse``."""
     dropout_rate = float(dropout_rate)
     _check_args(q, k, v, causal, dropout_rate, seed_words)
+    _check_saved(q, o, lse, do, (q, k, v, o, do, lse))
     B, Sq, H, D = q.shape
-    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Sq):
-        raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} must "
-                         f"be q's shape and lse {tuple(lse.shape)} "
-                         f"[B, H, Sq]")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
                                          dropout_rate, seed_words)
-    ts = (q, k, v, o, do)
-    if any(t.dtype != q.dtype or t.device != q.device for t in ts) \
-            or lse.dtype != torch.float32 or lse.device != q.device:
-        raise ValueError("flash backward takes q, k, v, o, do in one dtype "
-                         "and lse in float32, all on one device")
-    if not all(t.is_contiguous() for t in ts + (lse,)):
-        raise ValueError("flash backward takes contiguous arguments")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = function(_BWD.name)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), delta.data_ptr(), B, Sq, k.shape[1], H, D,
-             int(bool(causal)), float(scale),
-             *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
-             stream)
+    err = function(_BWD.name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), B, Sq, k.shape[1], H, D,
+        int(bool(causal)), float(scale),
+        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
+        _stream(q))
     check(_BWD.name, err)
     _BWD.launches += 1
     return dq, dk, dv
 
 
+def flash_attention_bias_fwd(q, k, v, bias, causal: bool = False,
+                             scale: Optional[float] = None,
+                             return_lse: bool = False,
+                             dropout_rate: float = 0.0,
+                             seed_words: SeedWords = None):
+    """:func:`flash_attention_fwd` with ``bias [B, Sk]`` float32 added to
+    the scaled scores of every query row (``_fwd_v1``)."""
+    dropout_rate = float(dropout_rate)
+    _check_args(q, k, v, causal, dropout_rate, seed_words)
+    _check_bias(bias, q, k)
+    B, Sq, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, scale, return_lse,
+                                     dropout_rate, seed_words, bias)
+    if not all(t.is_contiguous() for t in (q, k, v, bias)):
+        raise ValueError("flash kernel takes contiguous q, k, v and bias")
+    o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    err = function(_BIAS_FWD.name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        o.data_ptr(), lse.data_ptr() if lse is not None else None,
+        B, Sq, k.shape[1], H, D, int(bool(causal)), float(scale),
+        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
+        _stream(q))
+    check(_BIAS_FWD.name, err)
+    _BIAS_FWD.launches += 1
+    return (o, lse) if return_lse else o
+
+
+def _bias_bwd_args(q, k, v, bias, o, lse, do, causal, dropout_rate,
+                   seed_words):
+    dropout_rate = float(dropout_rate)
+    _check_args(q, k, v, causal, dropout_rate, seed_words)
+    _check_bias(bias, q, k)
+    _check_saved(q, o, lse, do, (q, k, v, bias, o, do, lse))
+    return dropout_rate
+
+
+def flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do,
+                                causal: bool = False,
+                                scale: Optional[float] = None,
+                                dropout_rate: float = 0.0,
+                                seed_words: SeedWords = None):
+    """``dq`` of :func:`flash_attention_bias_fwd` for the output gradient
+    ``do``, from its saved ``o`` and ``lse`` (the ``_bwd_v1`` dq
+    kernel)."""
+    dropout_rate = _bias_bwd_args(q, k, v, bias, o, lse, do, causal,
+                                  dropout_rate, seed_words)
+    B, Sq, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                         dropout_rate, seed_words, bias)[0]
+    dq = torch.empty_like(q)
+    err = function(_BIAS_DQ.name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        B, Sq, k.shape[1], H, D, int(bool(causal)), float(scale),
+        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
+        _stream(q))
+    check(_BIAS_DQ.name, err)
+    _BIAS_DQ.launches += 1
+    return dq
+
+
+def flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
+                                 causal: bool = False,
+                                 scale: Optional[float] = None,
+                                 dropout_rate: float = 0.0,
+                                 seed_words: SeedWords = None):
+    """``(dk, dv, db)`` of :func:`flash_attention_bias_fwd`, ``db [B, Sk]``
+    float32 (the ``_bwd_v1`` dk/dv kernel and its head sum)."""
+    dropout_rate = _bias_bwd_args(q, k, v, bias, o, lse, do, causal,
+                                  dropout_rate, seed_words)
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                         dropout_rate, seed_words, bias)[1:]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    db_h = torch.empty((B, H, Sk), dtype=torch.float32, device=q.device)
+    db = torch.empty((B, Sk), dtype=torch.float32, device=q.device)
+    err = function(_BIAS_DKV.name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), do.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), db_h.data_ptr(), db.data_ptr(), B, Sq, Sk, H, D,
+        int(bool(causal)), float(scale),
+        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
+        _stream(q))
+    check(_BIAS_DKV.name, err)
+    _BIAS_DKV.launches += 1
+    return dk, dv, db
+
+
 class FlashAttention(torch.autograd.Function):
-    """Flash attention with the backward kernel as its gradient."""
+    """Flash attention with the backward kernels as its gradient; with a
+    ``bias [B, Sk]`` float32 the ``v1`` kernels, which return its
+    gradient too."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, dropout_rate, seed_words):
+    def forward(ctx, q, k, v, bias, causal, scale, dropout_rate, seed_words):
         q, k, v = (t.contiguous() for t in (q, k, v))
-        o, lse = flash_attention_fwd(q, k, v, causal, scale, True,
-                                     dropout_rate, seed_words)
-        ctx.save_for_backward(q, k, v, o, lse)
+        args = (causal, scale, True, dropout_rate, seed_words)
+        if bias is None:
+            o, lse = flash_attention_fwd(q, k, v, *args)
+        else:
+            bias = bias.contiguous()
+            o, lse = flash_attention_bias_fwd(q, k, v, bias, *args)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.args = (causal, scale, dropout_rate, seed_words)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if bias is None:
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
+            db = None
+        else:
+            dq = flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do,
+                                             *ctx.args)
+            dk, dv, db = flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse,
+                                                      do, *ctx.args)
+        return dq, dk, dv, db, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None,
                     dropout_rate: float = 0.0,
-                    seed_words: SeedWords = None):
-    """Differentiable flash attention over ``[B, S, H, D]``."""
+                    seed_words: SeedWords = None,
+                    bias: Optional[torch.Tensor] = None):
+    """Differentiable flash attention over ``[B, S, H, D]``; ``bias`` is
+    an additive key mask that broadcasts to ``[B, 1, 1, Sk]``, widened to
+    float32 as the JAX entry does (its gradient comes back in its own
+    dtype)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return FlashAttention.apply(q, k, v, bool(causal), float(scale),
+    if bias is not None:
+        B, Sk = q.shape[0], k.shape[1]
+        bias = bias.float().expand(B, 1, 1, Sk).reshape(B, Sk)
+    return FlashAttention.apply(q, k, v, bias, bool(causal), float(scale),
                                 float(dropout_rate), seed_words)

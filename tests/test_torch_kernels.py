@@ -105,8 +105,13 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         sdpa_array(q, q, q, is_causal=True)
-    with pytest.raises(NotImplementedError, match="_fwd_v1"):
+    with pytest.raises(ValueError, match="unsupported device"):
         sdpa_array(q, q, q, mask=torch.zeros(1, 1, 1, 4, device="meta"))
+    with pytest.raises(NotImplementedError, match="_fwd_v1"):
+        sdpa_array(q, q, q, mask=torch.ones(1, 1, 1, 4, dtype=torch.bool,
+                                            device="meta"))
+    with pytest.raises(NotImplementedError, match="broadcasts"):
+        sdpa_array(q, q, q, mask=torch.zeros(1, 2, 4, 4, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         sdpa_array(q, q, q, dropout_p=0.1, seed_words=(1, 2))
     with pytest.raises(ValueError, match="unsupported device"):
@@ -129,7 +134,9 @@ def test_registry_names_sources_and_tpu_kernels():
     rows = kernels.kernels()
     assert [r["name"] for r in rows] == [
         "flash_attention_fwd", "flash_attention_bwd", "chunked_ce_lse",
-        "chunked_ce_dlogits", "fused_dropout", "paged_decode_attention"]
+        "chunked_ce_dlogits", "fused_dropout", "paged_decode_attention",
+        "flash_attention_bias_fwd", "flash_attention_bias_bwd_dq",
+        "flash_attention_bias_bwd_dkv"]
     for r in rows:
         assert (REPO / r["source"]).is_file()
         path, line = r["replaces"].split(":")
@@ -298,6 +305,11 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         flash_attention_fwd(q, q, q)
     with pytest.raises(NotImplementedError):
         sdpa_array(q, q, q, is_causal=True)
+    q64 = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="boolean"):
+        sdpa_array(q64, q64, q64, mask=torch.ones(1, 1, 1, 8,
+                                                  dtype=torch.bool,
+                                                  device=cuda))
     q64 = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q64.transpose(1, 2).contiguous().transpose(1, 2),

@@ -498,7 +498,10 @@ def test_tiny_trainstep_on_card_launches_every_training_kernel(cuda):
     assert n == {"flash_attention_fwd": 2 * L, "flash_attention_bwd": 2 * L,
                  "chunked_ce_lse": 2, "chunked_ce_dlogits": 2,
                  "fused_dropout": 2 * 2 * drops,
-                 "paged_decode_attention": 0}
+                 "paged_decode_attention": 0,
+                 "flash_attention_bias_fwd": 0,
+                 "flash_attention_bias_bwd_dq": 0,
+                 "flash_attention_bias_bwd_dkv": 0}
 
 
 @pytest.mark.cuda
