@@ -7,59 +7,75 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Eleven phases, in order:
+result line. Twelve phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
               ``nvcc`` (one process per source, all at once);
 2. kernels -- hold each kernel against its plain PyTorch version on the
-              card at the serving, GPT training and BERT paths' shapes,
-              in float32 and bfloat16 (the biased flash kernels also on
-              a batch row with every key masked), and time the kernel,
-              the plain version, the card's bound and, where one exists,
-              the one PyTorch call that computes the same function;
+              card at the serving, multi-tenant serving, GPT training and
+              BERT paths' shapes, in float32 and bfloat16 (the biased
+              flash kernels also on a batch row with every key masked,
+              bgmv also on rows of the zero adapter, which must be exactly
+              0.0), and time the kernel, the plain version, the card's
+              bound and, where one exists, the one PyTorch call that
+              computes the same function;
 3. slice   -- serve 16 greedy requests on GPT-2 345M (random weights
               from a seed) through ``ServingEngine`` at the full serving
               configuration, check the launch counts against the
               dispatch counts and cross-check every generated token
               against a teacher-forced no-cache forward;
-4. parity  -- one float32 forward and backward of a 2-layer GPT-2 345M at
+4. mt      -- multi-tenant serving of GPT-2 345M at the configuration of
+              ``bench.py``'s ``serve_multitenant_metrics`` (full): int8
+              paged KV, eight LoRA adapters of four tenants, at most four
+              slots a tenant, 24 requests of its seeded traffic. The
+              schedule is submitted at once and every generated token
+              checked against a teacher-forced replay through the paged
+              path with the plain versions (a one-slot int8 cache and the
+              request's adapter); then exact launch counts (bgmv once per
+              layer per dispatch, the quantized decode kernel once per
+              layer per decode dispatch, the full-precision one never),
+              every request completed, every adapter reference released;
+              then the same traffic open-loop and timed, and the
+              full-precision engine without LoRA on it as the bench's
+              oracle;
+5. parity  -- one float32 forward and backward of a 2-layer GPT-2 345M at
               full width with dropout, on the card and on the CPU from the
               same weights, batch and seed words: the CPU runs every
               kernel's plain version, so the loss and every gradient hold
               the card's kernels to them at full width;
-5. amp     -- ten ``TrainStep`` steps of GPT-2 345M at the training
+6. amp     -- ten ``TrainStep`` steps of GPT-2 345M at the training
               configuration below, each held against the plain versions
               on the card: before every step the same loss and gradients
               are computed from the same parameters and seed words with
               every kernel wrapper swapped for its plain version (inside
               this script only); then ten float32 steps from the same
               weights, for comparison;
-6. train   -- ten ``TrainStep`` steps of GPT-2 345M at the configuration
+7. train   -- ten ``TrainStep`` steps of GPT-2 345M at the configuration
               of ``bench.py``'s ``bench_gpt2_345m`` (B=8, S=1024, AMP O1,
               dropout 0.1, AdamW), with exact launch counts per step,
               step time, tokens/s, peak memory, MFU and a profile of one
               more step;
-7. bert parity -- phase 4 for a 2-layer BERT-base MLM at full width on a
+8. bert parity -- phase 5 for a 2-layer BERT-base MLM at full width on a
               padded batch (row 1 padded to 300 of 512 positions);
-8. bert witness -- phase 5's check for the first three O1 steps of the
+9. bert witness -- phase 6's check for the first three O1 steps of the
               BERT path below;
-9. bert    -- ten ``TrainStep`` steps of BERT-base MLM at ``bench.py``'s
+10. bert   -- ten ``TrainStep`` steps of BERT-base MLM at ``bench.py``'s
               ``bench_bert_mlm`` configuration (B=48, S=512, 76 masked
               positions, AMP O1, AdamW) on a padded batch shaped like
               Google BERT's pretraining records, with exact launch counts,
               step time, tokens/s, peak memory, MFU and a profile;
-10. ernie  -- three ERNIE-base pretraining steps (MLM + SOP) at
+11. ernie  -- three ERNIE-base pretraining steps (MLM + SOP) at
               ``bench_ernie``'s configuration on the same kind of batch,
-              each held against the plain versions as in phase 8, with
+              each held against the plain versions as in phase 9, with
               exact launch counts, then three timed steps;
-11. summary -- print one JSON line describing every ported kernel, then
+12. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of phases 3, 6, 9 and 10 and
-read just after; the kernel JSON line gives each kernel's launches per
-path (``serve``, ``train``, ``bert``, ``ernie``). Each phase prints its
-seconds.
+Launch counts are set to 0 just before each of phases 3, 4, 7, 10 and 11
+and read just after; the kernel JSON line gives each kernel's launches
+per path (``serve``, ``mt``, ``train``, ``bert``, ``ernie``). Each phase
+prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
@@ -107,6 +123,12 @@ LSE_TOL = 1e-5
 DLOGITS_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 DLOGITS_FLOOR = 1e-6
 
+# bgmv against its plain version, max abs error over max |plain|: f32
+# sums the rank-8 shrink's 1024 products and the expand's 8 in other
+# orders; in bf16 both round the same f32 value to the output, at most
+# one bf16 ulp apart
+BGMV_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
 # the training path measured here is bench.py's bench_gpt2_345m
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 10
 TRAIN_LR, TRAIN_WD = 1e-4, 0.01
@@ -150,6 +172,14 @@ SERVE_CFG = dict(max_batch_slots=8, block_size=16, max_context_len=512,
 NUM_REQUESTS = 16
 PROMPT_RANGE = (64, 224)
 NEW_TOKENS_RANGE = (16, 48)
+# the multi-tenant path: bench.py's serve_multitenant_metrics (full, not
+# quick) on SERVE_CFG: int8 paged KV, 4 tenants with 2 LoRA adapters of
+# rank 8 each, at most 4 slots a tenant, and its seeded open-loop traffic
+MT_TENANTS, MT_PER_TENANT, MT_RANK, MT_QUOTA = 4, 2, 8, 4
+MT_SPEC = dict(num_requests=24, rate_rps=6.0, prompt_len_range=(16, 64),
+               max_new_range=(8, 24), vocab_size=50304, seed=23,
+               shared_prefix_len=32, prefix_pool_size=2, tenants=MT_TENANTS,
+               adapter_pool=MT_PER_TENANT)
 # a teacher-forced position may pick another token than the engine only
 # where the engine's token is within this of the maximum logit (a tie
 # that the summation order of the paged and no-cache paths may break
@@ -329,6 +359,113 @@ def _paged_case(dtype, seed, timed=False):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
             "shape": f"B={B} MB={MB} bs={bs} H={H} D={D} P={P} {name}"}
+
+
+def _quant_paged_case(seed, timed=False):
+    """Kernel 10 at row 9's shape: float32 q, int8 pools written by
+    ``write_pages_quant`` from random float32 K/V, an inactive slot."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.kernels.paged_decode import (
+        paged_decode_attention_quant, paged_decode_quant_plain)
+    from paddle_tpu_torch.serving.kv_cache import write_pages_quant
+    B, MB, bs, H, D, P = 8, 32, 16, 16, 64, 257
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    every_page = torch.arange(P, dtype=torch.int32, device="cuda")[None]
+    start = torch.zeros(1, dtype=torch.int32, device="cuda")
+    pools = []
+    for _ in range(2):
+        pages = torch.zeros(P, bs, H, D, dtype=torch.int8, device="cuda")
+        scales = torch.zeros(P, bs, H, device="cuda")
+        write_pages_quant(pages, scales, torch.randn(
+            1, P * bs, H, D, device="cuda", generator=g), every_page, start)
+        pools.append((pages, scales))
+    (kp, ks), (vp, vs) = pools
+    q = torch.randn(B, H, D, device="cuda", generator=g)
+    pos = np.array([0, 0, 7, 15, 16, 200, 300, 511], np.int32)
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(np.arange(1, P))
+    table = np.zeros((B, MB), np.int32)
+    used = 0
+    for b in range(1, B):
+        n = int(pos[b]) // bs + 1
+        table[b, :n] = perm[used:used + n]
+        used += n
+    tbl = torch.from_numpy(table).cuda()
+    pos_t = torch.from_numpy(pos).cuda()
+    args = (q, kp, ks, vp, vs, tbl, pos_t, 1.0 / math.sqrt(D))
+    out = paged_decode_attention_quant(*args)
+    ref = paged_decode_quant_plain(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    _log(f"kernels: paged_decode_attention_quant B={B} MB={MB} bs={bs} "
+         f"H={H} D={D} P={P} int8 pools, float32 q, pos={pos.tolist()}: "
+         f"max|o-plain| {err:.3e} (tol {TOL['float32']:g})")
+    _require(math.isfinite(err) and err <= TOL["float32"],
+             f"paged_decode_attention_quant disagrees with its plain "
+             f"version ({err} > {TOL['float32']})")
+    if not timed:
+        return None
+    scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    ms = _median_ms(lambda: paged_decode_attention_quant(*args),
+                    flush=scrub.zero_)
+    plain_ms = _median_ms(lambda: paged_decode_quant_plain(*args),
+                          flush=scrub.zero_)
+    visible = int((np.minimum(pos, MB * bs - 1).astype(np.int64) + 1).sum())
+    nbytes = (visible * H * (D + 4) * 2       # int8 K and V rows, scales
+              + 2 * B * H * D * 4             # q read, out written
+              + table.nbytes + pos.nbytes)
+    bound, by = _bound_ms(nbytes, 4 * H * D * visible, "float32")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "shape": f"B={B} MB={MB} bs={bs} H={H} D={D} P={P} int8, "
+                     f"{visible} visible positions"}
+
+
+def _bgmv_case(B, S, dtype, ids, timed=False):
+    """Kernel 11 at a serving dispatch's shape (E=1024, r=8, O=3072,
+    float32 pools of 8 adapters and the zero row); rows with id 0 must
+    be exactly 0.0."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.bgmv import bgmv, bgmv_plain
+    E, r, O, A = 1024, 8, 3072, 9
+    g = torch.Generator(device="cuda").manual_seed(31 + S)
+    x = torch.randn(B, S, E, device="cuda", generator=g).to(dtype)
+    a = torch.randn(A, r, E, device="cuda", generator=g)
+    b = torch.randn(A, r, O, device="cuda", generator=g)
+    a[0] = 0.0
+    b[0] = 0.0
+    ids_t = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    out = bgmv(x, a, b, ids_t)
+    ref = bgmv_plain(x, a, b, ids_t)
+    torch.cuda.synchronize()
+    name = _name(dtype)
+    err = _rel_err(out, ref)
+    zero = [i for i, k in enumerate(ids) if k == 0]
+    exact = bool((out[zero] == 0).all())
+    _log(f"kernels: bgmv B={B} S={S} E={E} r={r} O={O} {name} ids={ids}: "
+         f"max|d-plain|/max|plain| {err:.3e} (tol "
+         f"{BGMV_TOL[name]:g}); zero-adapter rows {zero} exactly 0.0: "
+         f"{exact}")
+    _require(math.isfinite(err) and err <= BGMV_TOL[name],
+             f"bgmv disagrees with its plain version ({err}) at B={B} "
+             f"S={S} {name}")
+    _require(exact, f"bgmv rows {zero} on the zero adapter are not 0.0")
+    if not timed:
+        return None
+    scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    ms = _median_ms(lambda: bgmv(x, a, b, ids_t), flush=scrub.zero_)
+    plain_ms = _median_ms(lambda: bgmv_plain(x, a, b, ids_t),
+                          flush=scrub.zero_)
+    rows = len(set(ids))                      # the adapter rows gathered
+    nbytes = (x.numel() * x.element_size() + B * S * O * x.element_size()
+              + rows * r * (E + O) * a.element_size() + 4 * B)
+    bound, by = _bound_ms(nbytes, 2 * B * S * r * (E + O), name)
+    return {"max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "shape": f"B={B} S={S} E={E} r={r} O={O} {name}, "
+                     f"{rows} adapter rows"}
 
 
 def _dropout_case(dtype, timed=False):
@@ -651,6 +788,16 @@ def phase_kernels() -> dict:
     _paged_case(torch.bfloat16, seed=1)
     rows["paged_decode_attention"] = _paged_case(torch.float32, seed=1,
                                                  timed=True)
+    # the multi-tenant path: int8 decode, and bgmv at the decode (B=8,
+    # S=1) and prefill (B=4, S=256) dispatches; its row times decode
+    rows["paged_decode_attention_quant"] = _quant_paged_case(2, timed=True)
+    bgmv_cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, ids in ((8, 1, [0, 1, 2, 3, 0, 5, 8, 8]),
+                          (4, 256, [3, 0, 7, 3])):
+            bgmv_cases[f"bgmv B={B} S={S} {_name(dtype)}"] = _bgmv_case(
+                B, S, dtype, ids, timed=True)
+    rows["bgmv"] = bgmv_cases["bgmv B=8 S=1 float32"]
     # the training path runs AMP O1: bf16 attention and logits, dropout
     # on bf16 and f32 activations; the rows time the bf16 case
     _flash_train_case(torch.float32)
@@ -674,7 +821,7 @@ def phase_kernels() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         _bias_flash_case(3, 200, 4, 64, dtype, small, seed=11, full_row=2)
     torch.cuda.empty_cache()
-    for name, r in rows.items():
+    for name, r in {**rows, **bgmv_cases}.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         _log(f"kernels: {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -778,7 +925,219 @@ def phase_slice() -> dict:
     return launches
 
 
-# -- phase 4 -----------------------------------------------------------------
+# -- phase 4: multi-tenant serving -------------------------------------------
+def _mt_engine(model, multitenant: bool):
+    """The engine of ``serve_multitenant_metrics``: int8 KV, the LoRA
+    pools with every adapter the traffic names (bench.py:1133-1142) and
+    the tenant quota; or, with ``multitenant`` False, its full-precision
+    oracle without LoRA."""
+    import numpy as np
+    from paddle_tpu_torch.core import flag_scope
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    if not multitenant:
+        return ServingEngine(model, ServingConfig(**SERVE_CFG),
+                             device="cuda")
+    cfg = ServingConfig(**SERVE_CFG, lora_adapters=MT_TENANTS * MT_PER_TENANT,
+                        lora_rank=MT_RANK, tenant_quota=MT_QUOTA)
+    with flag_scope("serve_kv_quant", "int8"):
+        eng = ServingEngine(model, cfg, device="cuda")
+    wrng = np.random.default_rng(31)
+    L, E = model.cfg.num_layers, model.cfg.hidden_size
+    O = 3 * E
+    for t in range(MT_TENANTS):
+        for k in range(MT_PER_TENANT):
+            eng.lora.load_adapter(
+                f"tenant{t}/adapter{k}",
+                weights=(wrng.standard_normal((L, MT_RANK, E))
+                         .astype(np.float32) * 1e-3,
+                         wrng.standard_normal((L, MT_RANK, O))
+                         .astype(np.float32) * 1e-3))
+    return eng
+
+
+def _mt_replay(model, engine, states) -> None:
+    """Teacher-forced replay of every request through the paged path
+    with the plain versions: a one-slot int8 cache and the request's
+    adapter row, the prompt prefilled at the engine's length bucket,
+    then one S=1 decode step for each generated token but the last,
+    feeding the engine's tokens. Every generated token must be the
+    replay's argmax or within ``TIE_GAP`` of its largest logit."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core import flag_scope
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import PagedCacheView, PagedKVCache
+    cfg, ec = model.cfg, engine.cache
+    with flag_scope("serve_kv_quant", "int8"):
+        cache = PagedKVCache(
+            cfg.num_layers, cfg.num_heads, cfg.head_dim,
+            num_pages=1 + ec.max_blocks_per_slot, block_size=ec.block_size,
+            max_slots=1, max_blocks_per_slot=ec.max_blocks_per_slot,
+            device="cuda")
+    before = sum(k["launches"] for k in kernels.kernels())
+    ties, checked, worst_gap = 0, 0, 0.0
+    with torch.no_grad(), _plain_versions():
+        for st in states:
+            prompt, gen = st.request.prompt, st.generated
+            P = prompt.size
+            _require(cache.alloc_slot(0, P + len(gen)), "replay cache full")
+            view = PagedCacheView(
+                cache.k, cache.v, cache.table_array([0]), cache.k_scale,
+                cache.v_scale, engine.lora.a, engine.lora.b,
+                engine.lora.rows_for([st.request.adapter]))
+            ids = np.zeros((1, engine.buckets.len_bucket(P)), np.int64)
+            ids[0, :P] = prompt
+            zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+            preds = [model(torch.from_numpy(ids).cuda(), caches=view,
+                           cache_pos=zero)[0, P - 1]]
+            for i, tok in enumerate(gen[:-1]):
+                pos = torch.tensor([P + i], dtype=torch.int32,
+                                   device="cuda")
+                preds.append(model(torch.tensor([[tok]], device="cuda"),
+                                   caches=view, cache_pos=pos)[0, 0])
+            cache.free_slot(0)
+            pred = torch.stack(preds).float()
+            _require(bool(torch.isfinite(pred).all()),
+                     "non-finite logits in the teacher-forced replay")
+            g = torch.tensor(gen, device="cuda")
+            gap = pred.max(-1).values - pred.gather(1, g[:, None])[:, 0]
+            miss = pred.argmax(-1) != g
+            checked += g.numel()
+            if bool(miss.any()):
+                ties += int(miss.sum())
+                worst_gap = max(worst_gap, float(gap[miss].max()))
+    _require(sum(k["launches"] for k in kernels.kernels()) == before,
+             "the plain replay launched a kernel")
+    _log(f"mt: teacher-forced replay (plain versions, one-slot int8 "
+         f"cache, each request's adapter) over {checked} generated "
+         f"tokens: {ties} positions pick another token, largest logit "
+         f"gap there {worst_gap:.3e} (allowed < {TIE_GAP:g})")
+    _require(worst_gap < TIE_GAP,
+             f"the replay disagrees with the engine by a logit gap of "
+             f"{worst_gap} >= {TIE_GAP}")
+
+
+def phase_multitenant() -> dict:
+    """GPT-2 345M served by the multi-tenant engine (int8 KV, eight LoRA
+    adapters, tenant quota) on bench.py's multi-tenant traffic: the
+    schedule submitted at once and held against a plain replay, then
+    the same schedule open-loop and timed, then the full-precision
+    engine without LoRA on the same traffic, as the bench's oracle."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (LoadSpec, build_requests,
+                                          run_open_loop)
+    cfg = gpt2_medium()
+    L = cfg.num_layers
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    spec = LoadSpec(**MT_SPEC)
+    kernels.reset_launch_counts()
+
+    # correctness: the schedule at once, so admission is deterministic
+    eng = _mt_engine(model, True)
+    states = [eng.submit(r) for _, r in build_requests(spec)]
+    eng.run()
+    torch.cuda.synchronize()
+    stats = eng.stats()
+    _log(f"mt: {len(states)} requests of {MT_TENANTS} tenants at once, "
+         f"{stats['tokens_generated']} tokens, "
+         f"{stats['prefill_dispatches']} prefill and "
+         f"{stats['decode_dispatches']} decode dispatches, "
+         f"{stats['preemptions']} preemptions, quota deferrals "
+         f"{stats['tenant_deferrals']}")
+    _mt_replay(model, eng, states)
+
+    # the timed open-loop run, on a fresh engine of the same build
+    torch.cuda.reset_peak_memory_stats()
+    timed_eng = _mt_engine(model, True)
+    summary = run_open_loop(timed_eng, spec)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+
+    n_pre = n_dec = 0
+    for e, sts in ((eng, states), (timed_eng, None)):
+        st_ = e.stats()
+        n_pre += st_["prefill_dispatches"]
+        n_dec += st_["decode_dispatches"]
+        _require(st_["completed"] == spec.num_requests
+                 and st_["failed"] == 0,
+                 f"mt: {st_['completed']} of {spec.num_requests} requests "
+                 f"completed, {st_['failed']} failed")
+        _require(all(n == 0 for n in st_["lora"]["refcounts"].values()),
+                 f"mt: adapter references left {st_['lora']['refcounts']}")
+        _require(st_["quota_deferred"]
+                 == sum(st_["tenant_deferrals"].values()),
+                 f"mt: quota_deferred {st_['quota_deferred']} != "
+                 f"{st_['tenant_deferrals']}")
+    for st, (_, req) in zip(states, build_requests(spec)):
+        _require(st.outcome == "completed"
+                 and len(st.generated) == req.max_new_tokens,
+                 f"mt: request {st.request.request_id} ended {st.outcome} "
+                 f"with {len(st.generated)} of {req.max_new_tokens} tokens")
+    _log(f"mt: {n_pre} prefill and {n_dec} decode dispatches over both "
+         f"runs; launches {launches}")
+    _require(launches["bgmv"] == L * (n_pre + n_dec) > 0,
+             f"bgmv launches {launches['bgmv']} != {L} x "
+             f"({n_pre} + {n_dec}) dispatches")
+    _require(launches["paged_decode_attention_quant"] == L * n_dec > 0,
+             f"quantized decode launches "
+             f"{launches['paged_decode_attention_quant']} != {L} x {n_dec}")
+    _require(launches["paged_decode_attention"] == 0,
+             f"the int8 engine launched the full-precision decode kernel "
+             f"{launches['paged_decode_attention']} times")
+    _require(launches["flash_attention_fwd"] >= L * n_pre,
+             f"flash launches {launches['flash_attention_fwd']} < {L} x "
+             f"{n_pre} prefill dispatches")
+
+    kv_bytes = summary["kv_bytes_per_token"]
+    f32_bytes = 2 * L * cfg.num_heads * cfg.head_dim * 4
+    _require(kv_bytes == 52224,
+             f"int8 KV costs {kv_bytes} bytes a token, not 52224")
+
+    def ms(x):
+        return "n/a" if x is None else f"{x * 1e3:.3f} ms"
+    _log(f"mt: open loop at {spec.rate_rps:g} requests/s: "
+         f"{summary['requests_completed']}/{spec.num_requests} completed, "
+         f"{summary['tokens_per_sec']:.2f} tokens/s, TTFT p50 "
+         f"{ms(summary['ttft_p50_s'])} p99 {ms(summary['ttft_p99_s'])}, "
+         f"decode step p50 {ms(summary['decode_step_p50_s'])} p99 "
+         f"{ms(summary['decode_step_p99_s'])}, quota deferrals "
+         f"{summary['quota_deferred']}, kv bytes/token {kv_bytes} "
+         f"(float32 {f32_bytes}, bfloat16 {f32_bytes // 2}), peak device "
+         f"memory {peak:.3f} GiB")
+
+    # the bench's oracle, printed beside it and not gated: random
+    # 0.02-init weights decode near-ties, so int8 K/V may flip tokens
+    rng = np.random.default_rng(29)
+    probe = [rng.integers(0, cfg.vocab_size, (n,)).tolist()
+             for n in (9, 6, 12)]
+    outs_mt = [o[-8:].tolist() for o in timed_eng.generate(
+        probe, max_new_tokens=8)]
+    del eng, timed_eng
+    gc.collect()
+    oracle = _mt_engine(model, False)
+    s_off = run_open_loop(oracle, dataclasses.replace(spec, adapter_pool=0))
+    outs_off = [o[-8:].tolist() for o in oracle.generate(
+        probe, max_new_tokens=8)]
+    _log(f"mt: full-precision engine without LoRA on the same traffic: "
+         f"{s_off['tokens_per_sec']:.2f} tokens/s, decode step p99 "
+         f"{ms(s_off['decode_step_p99_s'])} against "
+         f"{ms(summary['decode_step_p99_s'])} multi-tenant (bench budget "
+         f"1.5x: {ms(1.5 * s_off['decode_step_p99_s'])}); zero-adapter "
+         f"greedy probe equal to it: {outs_mt == outs_off} "
+         f"(int8 {outs_mt}, float32 {outs_off})")
+    del oracle, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 5 -----------------------------------------------------------------
 def _zero_in_exact_arithmetic(name: str) -> bool:
     """The key projection's bias: the softmax ignores the constant q . b
     that it adds to every score of a query row, so its gradient is 0 in
@@ -865,16 +1224,29 @@ def phase_parity() -> None:
              f"gradient {worst_name} differs between card and CPU ({worst})")
 
 
-# -- phase 5 -----------------------------------------------------------------
+# -- phase 6 -----------------------------------------------------------------
 @contextlib.contextmanager
 def _plain_versions():
-    """Inside the block every kernel wrapper that the training path calls
-    computes its plain version, on CUDA tensors too: the reference of
-    phase 5. Only this script swaps them; the port has no such switch."""
+    """Inside the block every kernel wrapper that the training and
+    serving paths call computes its plain version, on CUDA tensors too:
+    the reference of phases 4, 6, 9 and 11. Only this script swaps them;
+    the port has no such switch. ``models.gpt`` binds the serving
+    wrappers by name, so they are swapped there as well."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.kernels import bgmv as bg
     from paddle_tpu_torch.ops.kernels import chunked_ce as ce
     from paddle_tpu_torch.ops.kernels import dropout as dr
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    swaps = ((fa, "flash_attention_fwd", fa.flash_attention_plain),
+    from paddle_tpu_torch.ops.kernels import paged_decode as pd
+    swaps = ((pd, "paged_decode_attention", pd.paged_decode_plain),
+             (gpt, "paged_decode_attention", pd.paged_decode_plain),
+             (pd, "paged_decode_attention_quant",
+              pd.paged_decode_quant_plain),
+             (gpt, "paged_decode_attention_quant",
+              pd.paged_decode_quant_plain),
+             (bg, "bgmv", bg.bgmv_plain),
+             (gpt, "bgmv", bg.bgmv_plain),
+             (fa, "flash_attention_fwd", fa.flash_attention_plain),
              (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
              (ce, "online_lse", ce.online_lse_plain),
              (ce, "dlogits", ce.dlogits_plain),
@@ -902,7 +1274,7 @@ def _plain_versions():
 
 def _train_setup(amp: bool):
     """gpt2_medium, its TrainStep (AdamW, dropout generator seed 0) and the
-    batch, as phase 6 and ``bench_gpt2_345m`` build them."""
+    batch, as phase 7 and ``bench_gpt2_345m`` build them."""
     import numpy as np
     from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.jit import TrainStep
@@ -1030,7 +1402,7 @@ def phase_amp() -> list:
     return losses
 
 
-# -- phase 6 -----------------------------------------------------------------
+# -- phase 7 -----------------------------------------------------------------
 def gpt_flops_per_token(h=1024, L=24, V=50304, S=1024) -> float:
     """Analytic training FLOPs per token (6P + attention term), as
     ``bench.py::gpt_flops_per_token``."""
@@ -1105,7 +1477,7 @@ def phase_train(amp_losses: list) -> dict:
         times.append(time.perf_counter() - t0)
     launches = {k["name"]: k["launches"] for k in kernels.kernels()}
     _log("train: losses " + " ".join(f"{x:.4f}" for x in losses))
-    _log(f"train: largest difference from phase 5's losses (same seeds) "
+    _log(f"train: largest difference from phase 6's losses (same seeds) "
          f"{max(abs(a - b) for a, b in zip(losses, amp_losses)):.3e}")
     _log(f"train: launches over {TRAIN_STEPS} steps {launches}")
     _require(all(math.isfinite(x) for x in losses), "non-finite loss")
@@ -1117,7 +1489,8 @@ def phase_train(amp_losses: list) -> dict:
             "chunked_ce_lse": n, "chunked_ce_dlogits": n,
             "fused_dropout": 2 * drops * n, "paged_decode_attention": 0,
             "flash_attention_bias_fwd": 0, "flash_attention_bias_bwd_dq": 0,
-            "flash_attention_bias_bwd_dkv": 0}
+            "flash_attention_bias_bwd_dkv": 0,
+            "paged_decode_attention_quant": 0, "bgmv": 0}
     _require(launches == want, f"launch counts {launches} != {want}")
 
     step_s = float(np.median(times[2:]))
@@ -1134,7 +1507,7 @@ def phase_train(amp_losses: list) -> dict:
     return launches
 
 
-# -- phases 7-10: BERT and ERNIE ---------------------------------------------
+# -- phases 8-11: BERT and ERNIE ---------------------------------------------
 def phase_bert_parity() -> None:
     """One float32 forward and backward of a 2-layer, full-width BERT-base
     MLM with dropout and a padded row, on the card and on the CPU from
@@ -1224,7 +1597,8 @@ def _encoder_launches(cfg, n: int) -> dict:
             "paged_decode_attention": 0,
             "flash_attention_bias_fwd": L * n,
             "flash_attention_bias_bwd_dq": L * n,
-            "flash_attention_bias_bwd_dkv": L * n}
+            "flash_attention_bias_bwd_dkv": L * n,
+            "paged_decode_attention_quant": 0, "bgmv": 0}
 
 
 def phase_bert_witness() -> list:
@@ -1321,7 +1695,7 @@ def phase_ernie() -> dict:
     return launches
 
 
-# -- main ---------------------------------------------------------------------
+# -- main --------------------------------------------------------------------
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1351,6 +1725,7 @@ def main() -> int:
     timed("card", phase_card)
     rows = timed("kernels", phase_kernels)
     by_path = {"serve": timed("slice", phase_slice)}
+    by_path["mt"] = timed("mt", phase_multitenant)
     timed("parity", phase_parity)
     amp_losses = timed("amp", phase_amp)
     by_path["train"] = timed("train", phase_train, amp_losses)

@@ -1,10 +1,12 @@
-// Paged flash-decode attention for Hopper (sm_90a), f32 or bf16 in, f32 math.
+// Paged flash-decode attention for Hopper (sm_90a), f32 or bf16 in, f32 math,
+// over full-precision pools or int8 pools with f32 scales.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 // paddle_tpu/ops/pallas/paged_decode.py::paged_decode_attention
-// (_decode_kernel, pallas_call at :149): one decode step of attention
-// for every batch slot over the paged K/V pools [P, bs, H, D], reading
-// each slot's pages in place through its block-table row [MB]; the slot
+// (_decode_kernel, pallas_call at :149) and ::paged_decode_attention_quant
+// (_decode_kernel with quant=True, pallas_call at :199): one decode step
+// of attention for every batch slot over the paged K/V pools [P, bs, H, D],
+// reading each slot's pages in place through its block-table row [MB]; the slot
 // at position pos attends to columns 0..pos inclusive, blocks past pos
 // are never touched, and the gathered context never exists in memory.
 // An inactive slot (pos 0, all-scratch row) attends column 0 of page 0,
@@ -23,11 +25,31 @@
 // TPU's scalar prefetch: each block reads its own row. Splitting one
 // slot's positions across blocks (split-K) is left for later.
 //
+// The quantized entry (QUANT = true) reads int8 K/V rows and their
+// per-(position, head) f32 scales [P, bs, H] through the same table
+// lookup. Each lane holds D/32 neighbouring elements of a row, so a row
+// of D=64 int8 is one 64-byte coalesced load of 2 bytes a lane (4 bytes
+// at D=128), widened to f32 only in registers and multiplied by the
+// row's scale there: int8 * scale, the math of kv_cache.dequant_pages.
+// The dequantized context never exists in memory. An inactive slot
+// reads column 0 of scratch page 0 with page 0's scale, as the TPU
+// kernel does.
+//
+// Measured on one H100 (tools/time_torch_mt_kernels.py and variants of
+// this source): the quantized kernel takes longer than the f32 one for
+// a quarter of the bytes. It is bound by each warp's serial work per
+// position, not by memory: halving the warps doubles its time, while 4,
+// 8 or 16 positions a step, or no scale loads at all, change nothing,
+// and a compile-time block size (no integer division) saves 12%.
+// Splitting a slot's positions over more warps or blocks is the lever.
+//
 // Plain C interface, bound from Python with ctypes; returns
 // cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -44,10 +66,37 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T, int D>
+// element e of a row held by ``lane``: strided for full-precision rows
+// (each load instruction covers the warp's 32 neighbours), neighbouring
+// for int8 rows (one vector load a lane)
+template <bool QUANT, int E>
+__device__ __forceinline__ int col(int lane, int e) {
+  return QUANT ? lane * E + e : lane + 32 * e;
+}
+
+// E neighbouring int8 values of a row: one 2- or 4-byte load
+template <int E>
+using I8 = std::conditional_t<E == 2, char2, char4>;
+
+// widened to f32 and scaled in registers: int8 * scale
+__device__ __forceinline__ void dequant(char2 c, float s, float* out) {
+  out[0] = c.x * s;
+  out[1] = c.y * s;
+}
+__device__ __forceinline__ void dequant(char4 c, float s, float* out) {
+  out[0] = c.x * s;
+  out[1] = c.y * s;
+  out[2] = c.z * s;
+  out[3] = c.w * s;
+}
+
+// T: q and out; PT: the pools (T, or signed char when QUANT)
+template <typename T, typename PT, int D, bool QUANT>
 __global__ void __launch_bounds__(WARPS * 32)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                        const T* __restrict__ vp,
+    paged_decode_kernel(const T* __restrict__ q, const PT* __restrict__ kp,
+                        const PT* __restrict__ vp,
+                        const float* __restrict__ ks,
+                        const float* __restrict__ vs,
                         const int* __restrict__ table,
                         const int* __restrict__ pos, T* __restrict__ out,
                         int H, int bs, int MB, float scale) {
@@ -68,7 +117,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   float qv[E];
   const T* qrow = q + ((long long)b * H + h) * D;
 #pragma unroll
-  for (int e = 0; e < E; ++e) qv[e] = to_f32(qrow[lane + 32 * e]);
+  for (int e = 0; e < E; ++e) qv[e] = to_f32(qrow[col<QUANT, E>(lane, e)]);
 
   float m = NEG_INF, l = 0.f, acc[E];
 #pragma unroll
@@ -76,20 +125,38 @@ __global__ void __launch_bounds__(WARPS * 32)
 
   for (int base = w * STEP; base <= last; base += WARPS * STEP) {
     float kv[STEP][E], vv[STEP][E], s[STEP];
+    if constexpr (QUANT) {
 #pragma unroll
-    for (int u = 0; u < STEP; ++u) {
-      const int p = base + u;
-      if (p <= last) {
-        const long long page = tbl[p / bs];
-        const long long row = ((page * bs + p % bs) * H + h) * D;
+      for (int u = 0; u < STEP; ++u) {
+        const int p = base + u;
+        if (p <= last) {
+          const long long page = tbl[p / bs];
+          const long long srow = (page * bs + p % bs) * H + h;
+          dequant(*reinterpret_cast<const I8<E>*>(kp + srow * D + lane * E),
+                  ks[srow], kv[u]);
+          dequant(*reinterpret_cast<const I8<E>*>(vp + srow * D + lane * E),
+                  vs[srow], vv[u]);
+        } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          kv[u][e] = to_f32(kp[row + lane + 32 * e]);
-          vv[u][e] = to_f32(vp[row + lane + 32 * e]);
+          for (int e = 0; e < E; ++e) kv[u][e] = vv[u][e] = 0.f;
         }
-      } else {
+      }
+    } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e) kv[u][e] = vv[u][e] = 0.f;
+      for (int u = 0; u < STEP; ++u) {
+        const int p = base + u;
+        if (p <= last) {
+          const long long page = tbl[p / bs];
+          const long long row = ((page * bs + p % bs) * H + h) * D;
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            kv[u][e] = to_f32(kp[row + lane + 32 * e]);
+            vv[u][e] = to_f32(vp[row + lane + 32 * e]);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) kv[u][e] = vv[u][e] = 0.f;
+        }
       }
     }
 #pragma unroll
@@ -130,7 +197,7 @@ __global__ void __launch_bounds__(WARPS * 32)
     sm_l[w] = l;
   }
 #pragma unroll
-  for (int e = 0; e < E; ++e) sm_acc[w][lane + 32 * e] = acc[e];
+  for (int e = 0; e < E; ++e) sm_acc[w][col<QUANT, E>(lane, e)] = acc[e];
   __syncthreads();
 
   if (threadIdx.x < D) {
@@ -151,14 +218,15 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const void* table,
-           const void* pos, void* out, int B, int H, int bs, int MB,
-           float scale, cudaStream_t stream) {
+template <typename T, typename PT, int D, bool QUANT>
+int launch(const void* q, const void* kp, const void* ks, const void* vp,
+           const void* vs, const void* table, const void* pos, void* out,
+           int B, int H, int bs, int MB, float scale, cudaStream_t stream) {
   const dim3 grid(H, B);
-  paged_decode_kernel<T, D><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(table),
+  paged_decode_kernel<T, PT, D, QUANT><<<grid, WARPS * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const PT*>(kp),
+      static_cast<const PT*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(table),
       static_cast<const int*>(pos), static_cast<T*>(out), H, bs, MB, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -172,17 +240,42 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pages,
                                       int H, int D, int bs, int MB,
                                       float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k_pages, v_pages, table, pos, out, B, H, bs,
-                             MB, scale, st);
+    return launch<float, float, 64, false>(q, k_pages, nullptr, v_pages,
+                                           nullptr, table, pos, out, B, H,
+                                           bs, MB, scale, st);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k_pages, v_pages, table, pos, out, B, H, bs,
-                              MB, scale, st);
+    return launch<float, float, 128, false>(q, k_pages, nullptr, v_pages,
+                                            nullptr, table, pos, out, B, H,
+                                            bs, MB, scale, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pages, v_pages, table, pos, out, B,
-                                     H, bs, MB, scale, st);
+    return launch<bf16, bf16, 64, false>(q, k_pages, nullptr, v_pages,
+                                         nullptr, table, pos, out, B, H, bs,
+                                         MB, scale, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pages, v_pages, table, pos, out, B,
-                                      H, bs, MB, scale, st);
+    return launch<bf16, bf16, 128, false>(q, k_pages, nullptr, v_pages,
+                                          nullptr, table, pos, out, B, H, bs,
+                                          MB, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// q and out float32 [B, H, D]; k/v pages int8 [P, bs, H, D]; k/v scales
+// float32 [P, bs, H]; table [B, MB] and pos [B] int32.
+extern "C" int paged_decode_attention_quant(
+    const void* q, const void* k_pages, const void* k_scales,
+    const void* v_pages, const void* v_scales, const void* table,
+    const void* pos, void* out, int B, int H, int D, int bs, int MB,
+    float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch<float, signed char, 64, true>(q, k_pages, k_scales,
+                                                v_pages, v_scales, table, pos,
+                                                out, B, H, bs, MB, scale, st);
+  if (D == 128)
+    return launch<float, signed char, 128, true>(q, k_pages, k_scales,
+                                                 v_pages, v_scales, table,
+                                                 pos, out, B, H, bs, MB,
+                                                 scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

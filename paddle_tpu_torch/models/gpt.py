@@ -26,7 +26,10 @@ carry (``nn/scan.py:286``).
 
 Attention routes through ``ops.attention.sdpa_array`` (the flash
 kernels on the card) for the causal no-cache and prefill paths and
-through the paged-decode kernel for single-token decode steps.
+through the paged-decode kernel for single-token decode steps, or its
+quantized twin when the paged cache is int8 (``FLAGS_serve_kv_quant``).
+A paged cache that carries LoRA pools adds each batch row's adapter
+delta to the fused QKV projection through the bgmv kernel.
 
 Float32 matmuls stay in full float32: ``torch.backends.cuda.matmul.
 allow_tf32`` is False by default and the serving engine sets it so
@@ -49,9 +52,11 @@ from ..nn import functional as F
 from ..nn.chunked_ce import enabled_for, hard_nll
 from ..nn.layers import Dropout, LayerNorm
 from ..ops.attention import sdpa_array
-from ..ops.kernels.paged_decode import paged_decode_attention
+from ..ops.kernels.bgmv import bgmv
+from ..ops.kernels.paged_decode import (paged_decode_attention,
+                                        paged_decode_attention_quant)
 from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
-                                write_pages)
+                                write_pages, write_pages_quant)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
            "GPTModel", "GPTForPretraining", "GPTPretrainingCriterion",
@@ -101,8 +106,13 @@ class GPTAttention(nn.Module):
     def forward(self, x, cache: Optional[PagedLayerCache] = None, pos=None):
         B, S, E = x.shape
         H, D = self.num_heads, self.head_dim
-        x, w, b = cast_inputs("fused_qkv", x, self.qkv_weight, self.qkv_bias)
-        qkv = (x @ w.reshape(E, 3 * H * D)).reshape(B, S, 3, H, D) + b
+        xc, w, b = cast_inputs("fused_qkv", x, self.qkv_weight,
+                               self.qkv_bias)
+        qkv = (xc @ w.reshape(E, 3 * H * D)).reshape(B, S, 3, H, D) + b
+        if cache is not None and cache.lora_a is not None:
+            # multi-tenant LoRA: every batch row's adapter delta, also
+            # when every row is on the zero adapter (as in JAX)
+            qkv = qkv + self._lora_delta(x, cache)
         q, k, v = qkv.unbind(2)                            # [B, S, H, D]
         if cache is not None:
             out = self._paged_attention(q, k, v, cache, pos)
@@ -114,20 +124,45 @@ class GPTAttention(nn.Module):
                                 self.out_bias)
         return out.reshape(B, S, H * D) @ w.reshape(H * D, E) + b
 
+    def _lora_delta(self, x, cache: PagedLayerCache):
+        """Each batch row's adapter delta ``[B, S, 3, H, D]`` for the
+        fused QKV projection, in x's dtype: the ``[A, r, E]`` /
+        ``[A, r, 3*H*D]`` pools read through ``cache.lora_ids`` by the
+        bgmv kernel. Rows on adapter 0 get exactly 0.0."""
+        d = bgmv(x.contiguous(), cache.lora_a, cache.lora_b,
+                 cache.lora_ids)
+        return d.reshape(d.shape[0], d.shape[1], 3, self.num_heads,
+                         self.head_dim)
+
     def _paged_attention(self, q, k, v, cache: PagedLayerCache, pos):
         """Block-table K/V path. The chunk's K/V scatter into the pools
-        (in place) at logical positions ``pos + 0..S-1``. Prefill
-        (S > 1, fresh slots at pos 0) attends causally over its own
-        chunk — the math of the full-context forward; decode (S == 1)
-        reads the slot's pages through the block table and attends to
-        positions ``<= pos``."""
-        write_pages(cache.k_pages, k, cache.block_table, pos)
-        write_pages(cache.v_pages, v, cache.block_table, pos)
+        (in place) at logical positions ``pos + 0..S-1``, quantized to
+        int8 on the way when the cache has scale pools. Prefill (S > 1,
+        fresh slots at pos 0) attends causally over its own chunk, as
+        computed, never read back from the pages — the math of the
+        full-context forward; decode (S == 1) reads the slot's pages
+        through the block table (dequantizing int8 rows as it reads) and
+        attends to positions ``<= pos``."""
+        quant = cache.k_scale is not None
+        if quant:
+            write_pages_quant(cache.k_pages, cache.k_scale, k,
+                              cache.block_table, pos)
+            write_pages_quant(cache.v_pages, cache.v_scale, v,
+                              cache.block_table, pos)
+        else:
+            write_pages(cache.k_pages, k, cache.block_table, pos)
+            write_pages(cache.v_pages, v, cache.block_table, pos)
         if q.shape[1] > 1:
             return sdpa_array(q, k, v, is_causal=True)
-        o = paged_decode_attention(
-            q[:, 0].contiguous(), cache.k_pages, cache.v_pages,
-            cache.block_table, pos, scale=1.0 / math.sqrt(self.head_dim))
+        scale = 1.0 / math.sqrt(self.head_dim)
+        q1 = q[:, 0].contiguous()
+        if quant:
+            o = paged_decode_attention_quant(
+                q1, cache.k_pages, cache.k_scale, cache.v_pages,
+                cache.v_scale, cache.block_table, pos, scale)
+        else:
+            o = paged_decode_attention(q1, cache.k_pages, cache.v_pages,
+                                       cache.block_table, pos, scale)
         return o[:, None]
 
 
@@ -196,10 +231,7 @@ class GPTModel(nn.Module):
             F.embedding(position_ids, self.position_embeddings.weight)
         x = self.embedding_dropout(x)
         for i, blk in enumerate(self.layers):
-            layer_cache = None
-            if caches is not None:
-                layer_cache = PagedLayerCache(caches.k[i], caches.v[i],
-                                              caches.block_table)
+            layer_cache = caches.layer(i) if caches is not None else None
             # the scan carry keeps the stream's dtype across layers
             x = blk(x, layer_cache, cache_pos).to(x.dtype)
         return self.final_norm(x)

@@ -19,7 +19,8 @@ share no header with PyTorch, which keeps a build at seconds, not
 minutes. :func:`build` compiles every missing library at once, one
 ``nvcc`` process per source, all started together; kernels that share a
 source (the two chunked-CE entries, the flash forward with and without
-a key bias, the three flash backward entries) share its library.
+a key bias, the three flash backward entries, paged decode over full
+or int8 pools) share its library.
 """
 
 from __future__ import annotations
@@ -114,11 +115,23 @@ PAGED_DECODE = Kernel(
     # dtype, stream
     (_P,) * 6 + (_I,) * 5 + (_F, _I, _P))
 
+PAGED_DECODE_QUANT = Kernel(
+    "paged_decode_attention_quant", "paddle_tpu_torch/csrc/paged_decode.cu",
+    "paddle_tpu/ops/pallas/paged_decode.py:199",
+    # q, k_pages, k_scales, v_pages, v_scales, table, pos, out, B, H, D,
+    # bs, MB, scale, stream
+    (_P,) * 8 + (_I,) * 5 + (_F, _P))
+BGMV = Kernel(
+    "bgmv", "paddle_tpu_torch/csrc/bgmv.cu",
+    "paddle_tpu/ops/pallas/bgmv.py:103",
+    # x, a, b, ids, out, B, S, E, r, O, dtype, stream
+    (_P,) * 5 + (_I,) * 6 + (_P,))
+
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD, CHUNKED_CE_LSE,
     CHUNKED_CE_DLOGITS, FUSED_DROPOUT, PAGED_DECODE,
     FLASH_ATTENTION_BIAS_FWD, FLASH_ATTENTION_BIAS_BWD_DQ,
-    FLASH_ATTENTION_BIAS_BWD_DKV)}
+    FLASH_ATTENTION_BIAS_BWD_DKV, PAGED_DECODE_QUANT, BGMV)}
 
 
 def kernels() -> List[dict]:

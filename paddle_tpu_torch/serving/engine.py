@@ -1,8 +1,8 @@
 """LLM serving engine: paged decode + continuous batching, PyTorch port.
 
 Counterpart of ``paddle_tpu/serving/engine.py`` (single device, no
-admin plane, drain, hot swap, speculative/prefix/chunked prefill, LoRA
-or mesh). Each :meth:`ServingEngine.step`:
+admin plane, drain, hot swap, speculative/prefix/chunked prefill or
+mesh). Each :meth:`ServingEngine.step`:
 
 1. admits waiting requests into free slots (``Scheduler``);
 2. prefills them in bucketed groups — each group one forward of
@@ -18,6 +18,13 @@ decode, donating the KV pools to each; the port runs the same forwards
 eagerly and writes the pools in place. The attention of every prefill
 launches the flash kernel and every decode step the paged-decode
 kernel when the engine lives on the card.
+
+Multi-tenant serving: an engine built under ``flag_scope(
+"serve_kv_quant", "int8")`` keeps int8 pools and decodes through the
+quantized paged-decode kernel; ``ServingConfig.lora_adapters > 0``
+builds a :class:`~.lora.LoRAManager` whose pools and per-row adapter ids
+ride every prefill and decode view (the bgmv kernel, once per layer per
+dispatch); ``tenant_quota`` caps the slots one tenant holds.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.random import make_generator
 from .detok import StreamingDetokenizer
 from .kv_cache import PagedCacheView, PagedKVCache, blocks_needed
+from .lora import LoRAManager
 from .sampling import SamplingParams, sample_tokens
 from .scheduler import (AdmissionGroup, BucketTable, Request, RequestState,
                         Scheduler)
@@ -59,7 +67,9 @@ class ServingConfig:
     ``num_pages`` sizes the shared KV pool (default: every slot fully
     resident, so no preemption — shrink it to trade memory for
     recompute-preemptions). ``prefill_buckets``/``batch_buckets`` are the
-    prefill shapes."""
+    prefill shapes. ``lora_adapters > 0`` builds a LoRA manager with that
+    many loadable adapters of rank ``lora_rank``; ``tenant_quota`` caps
+    the slots one tenant may hold at a time (None: no cap)."""
 
     max_batch_slots: int = 8
     block_size: int = 16
@@ -71,6 +81,9 @@ class ServingConfig:
     seed: int = 0
     cache_dtype: str = "float32"
     detokenizer: Optional[StreamingDetokenizer] = None
+    lora_adapters: int = 0
+    lora_rank: int = 8
+    tenant_quota: Optional[int] = None
 
     def resolve(self, model_max_positions: Optional[int]) -> None:
         if self.cache_dtype != "float32":
@@ -132,9 +145,19 @@ class ServingEngine:
                                               c.block_size),
             dtype=getattr(torch, c.cache_dtype), device=self.device)
         self.buckets = BucketTable(c.prefill_buckets, c.batch_buckets)
+        self.lora = None
+        if c.lora_adapters > 0:
+            # built before the scheduler, which keeps its references
+            self.lora = LoRAManager(
+                cfg.num_layers, cfg.hidden_size,
+                3 * cfg.num_heads * cfg.head_dim,
+                max_adapters=c.lora_adapters, rank=c.lora_rank,
+                device=self.device)
         self.scheduler = Scheduler(self.cache, self.buckets,
                                    max_queue=c.max_queue, clock=clock,
-                                   max_seq_len=c.max_context_len)
+                                   max_seq_len=c.max_context_len,
+                                   tenant_quota=c.tenant_quota,
+                                   lora=self.lora)
         self._generator = make_generator(c.seed, self.device)
         self._stats = {"prefill_dispatches": 0, "decode_dispatches": 0,
                        "decode_slot_steps": 0, "decode_batch_max": 0,
@@ -156,6 +179,15 @@ class ServingEngine:
 
     # -- request surface ----------------------------------------------------
     def submit(self, request: Request) -> RequestState:
+        if request.adapter and (self.lora is None
+                                or self.lora.row(request.adapter) is None):
+            # the scheduler checks again at admission, for an unload
+            # between now and then
+            raise ValueError(
+                f"adapter {request.adapter!r} is not loaded"
+                + ("" if self.lora is not None
+                   else " (engine has no LoRA manager; set "
+                        "ServingConfig.lora_adapters)"))
         return self.scheduler.submit(request)
 
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -239,10 +271,21 @@ class ServingEngine:
                              generator=self._generator)
         return toks.cpu().numpy(), ok.cpu().numpy()
 
-    def _forward(self, ids: np.ndarray, rows, pos: np.ndarray):
+    def _forward(self, ids: np.ndarray, states, pos: np.ndarray):
+        """One forward over the paged view; ``states`` has one entry per
+        batch row, None for a padded prefill row or an empty slot (an
+        all-scratch table row and the zero adapter)."""
         dev = self.device
-        view = PagedCacheView(self.cache.k, self.cache.v,
-                              self.cache.table_array(rows))
+        c = self.cache
+        lora = (None, None, None)
+        if self.lora is not None:
+            lora = (self.lora.a, self.lora.b, self.lora.rows_for(
+                [None if st is None else st.request.adapter
+                 for st in states]))
+        view = PagedCacheView(
+            c.k, c.v, c.table_array([None if st is None else st.slot
+                                     for st in states]),
+            c.k_scale, c.v_scale, *lora)
         return self.model(torch.from_numpy(ids).to(dev), caches=view,
                           cache_pos=torch.from_numpy(pos).to(dev))
 
@@ -252,20 +295,18 @@ class ServingEngine:
         states += [None] * (nb - len(states))
         ids = np.zeros((nb, sp), np.int64)
         lens = np.ones((nb,), np.int64)
-        # padded rows map to None -> an all-scratch table row (their K/V
-        # writes never land in a live slot's pages)
-        rows: List[Optional[int]] = [None] * nb
+        # padded rows (None) get an all-scratch table row, so their K/V
+        # writes never land in a live slot's pages
         for i, st in enumerate(states):
             if st is None:
                 continue
             eff = st.effective_prompt()
             ids[i, :eff.size] = eff
             lens[i] = eff.size
-            rows[i] = st.slot
         t0 = self.clock()
         if self._t_first_work is None:
             self._t_first_work = t0
-        logits = self._forward(ids, rows, np.zeros((nb,), np.int32))
+        logits = self._forward(ids, states, np.zeros((nb,), np.int32))
         last = logits[torch.arange(nb, device=self.device),
                       torch.from_numpy(lens - 1).to(self.device)]
         toks, ok = self._sample(last, states)
@@ -293,8 +334,7 @@ class ServingEngine:
             tokens[slot, 0] = st.generated[-1]
             per_slot[slot] = st
         t0 = self.clock()
-        logits = self._forward(tokens, [None if st is None else st.slot
-                                        for st in per_slot], pos)
+        logits = self._forward(tokens, per_slot, pos)
         toks, ok = self._sample(logits[:, -1], per_slot)
         now = self.clock()
         st_ = self._stats
@@ -344,6 +384,15 @@ class ServingEngine:
         d["queue_depth"] = self.scheduler.queue_depth
         d["active_slots"] = len(self.scheduler.active())
         d["kv_pages_in_use"] = self.cache.allocator.pages_in_use
+        if self.lora is not None:
+            d["lora"] = {
+                "loaded": self.lora.loaded(),
+                "swaps": self.lora.swaps,
+                "refcounts": {n: self.lora.refcount(n)
+                              for n in self.lora.loaded()},
+            }
+        if self.scheduler.tenant_quota is not None:
+            d["tenant_deferrals"] = dict(self.scheduler.tenant_deferrals)
         return d
 
     def metrics_summary(self) -> dict:
@@ -377,4 +426,6 @@ class ServingEngine:
             "mean_decode_occupancy": (
                 s["decode_slot_steps"] / s["decode_dispatches"]
                 if s["decode_dispatches"] else None),
+            "kv_bytes_per_token": self.cache.kv_bytes_per_token(),
+            "quota_deferred": self.scheduler.stats["quota_deferred"],
         }

@@ -1,12 +1,17 @@
 """Paged KV cache: block-structured decode state.
 
-Counterpart of ``paddle_tpu/serving/kv_cache.py`` (full-precision pools,
-no prefix cache). K/V live in one pool per layer,
+Counterpart of ``paddle_tpu/serving/kv_cache.py`` (no prefix cache).
+K/V live in one pool per layer,
 ``[num_pages, block_size, H, D]``, stacked ``[L, ...]``; each batch slot
 owns a row of a block table ``[slots, MB]`` mapping logical block ``j``
 to a physical page; unallocated entries point at the reserved scratch
 page 0, which takes the writes of inactive slots and padded prefill
 tails and is masked out of every read.
+
+Under ``FLAGS_serve_kv_quant=int8`` (read once, when the cache is built)
+the pools hold int8 with a per-(position, head) f32 absmax scale pool
+``[L, P, bs, H]`` beside each (``write_pages_quant``), and decode
+dequantizes them as it reads.
 
 Where the JAX engine donated the pools to each compiled step and got new
 ones back, the port writes them in place (``write_pages``).
@@ -22,9 +27,11 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
+from ..core.flags import get_flag
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PagedCacheView",
            "PagedLayerCache", "write_pages", "gather_pages",
+           "write_pages_quant", "gather_pages_quant", "dequant_pages",
            "blocks_needed", "SCRATCH_PAGE"]
 
 #: physical page 0 is never allocated: the shared scratch target for
@@ -38,19 +45,56 @@ def blocks_needed(num_tokens: int, block_size: int) -> int:
 
 class PagedCacheView(NamedTuple):
     """What ``GPTModel.forward`` receives as ``caches``: layer-stacked
-    pools ``[L, P, bs, H, D]`` and the ``[B, MB]`` int32 block table."""
+    pools ``[L, P, bs, H, D]`` and the ``[B, MB]`` int32 block table.
+
+    The trailing fields default to ``None``: ``k_scale``/``v_scale`` are
+    the ``[L, P, bs, H]`` f32 scale pools of an int8 cache;
+    ``lora_a``/``lora_b`` the stacked LoRA pools ``[L, A, r, E]`` /
+    ``[L, A, r, O]`` and ``lora_ids`` the ``[B]`` int32 adapter row of
+    each batch row (``serving.lora``)."""
 
     k: torch.Tensor
     v: torch.Tensor
     block_table: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    lora_a: Optional[torch.Tensor] = None
+    lora_b: Optional[torch.Tensor] = None
+    lora_ids: Optional[torch.Tensor] = None
+
+    def layer(self, i: int) -> "PagedLayerCache":
+        """Layer ``i``'s slice (views, no copies)."""
+        pick = lambda t: None if t is None else t[i]     # noqa: E731
+        return PagedLayerCache(self.k[i], self.v[i], self.block_table,
+                               pick(self.k_scale), pick(self.v_scale),
+                               pick(self.lora_a), pick(self.lora_b),
+                               self.lora_ids)
 
 
 class PagedLayerCache(NamedTuple):
-    """One layer's slice of the view (``[P, bs, H, D]`` pools)."""
+    """One layer's slice of the view (``[P, bs, H, D]`` pools,
+    ``[P, bs, H]`` scales, ``[A, r, E]`` / ``[A, r, O]`` LoRA pools)."""
 
     k_pages: torch.Tensor
     v_pages: torch.Tensor
     block_table: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    lora_a: Optional[torch.Tensor] = None
+    lora_b: Optional[torch.Tensor] = None
+    lora_ids: Optional[torch.Tensor] = None
+
+
+def _page_slots(pages, block_table, pos, S):
+    """Physical page and offset ``[B, S]`` of logical positions
+    ``pos[b] + 0..S-1``; positions past ``MB*bs`` go to scratch."""
+    bs = pages.shape[1]
+    mb = block_table.shape[1]
+    idx = pos[:, None].long() + torch.arange(S, device=pos.device)[None, :]
+    blk_logical = torch.clamp(idx // bs, max=mb - 1)
+    blk = torch.gather(block_table.long(), 1, blk_logical)     # [B, S]
+    blk = torch.where(idx >= bs * mb, SCRATCH_PAGE, blk)
+    return blk, idx % bs
 
 
 def write_pages(pages, new, block_table, pos):
@@ -64,14 +108,7 @@ def write_pages(pages, new, block_table, pos):
     the ones redirected to scratch). Several rows may write the scratch
     page at once; their order is undefined, as in JAX, and nothing reads
     those writes as live data."""
-    bs = pages.shape[1]
-    mb = block_table.shape[1]
-    S = new.shape[1]
-    idx = pos[:, None].long() + torch.arange(S, device=pos.device)[None, :]
-    blk_logical = torch.clamp(idx // bs, max=mb - 1)
-    blk = torch.gather(block_table.long(), 1, blk_logical)     # [B, S]
-    blk = torch.where(idx >= bs * mb, SCRATCH_PAGE, blk)
-    off = idx % bs
+    blk, off = _page_slots(pages, block_table, pos, new.shape[1])
     pages[blk, off] = new.to(pages.dtype)
     return pages
 
@@ -80,6 +117,44 @@ def gather_pages(pages, block_table):
     """A slot-contiguous context ``[B, MB*bs, H, D]`` gathered out of
     the pool through the block table (the PagedAttention read)."""
     g = pages[block_table.long()]                  # [B, MB, bs, H, D]
+    B, MB, bs, H, D = g.shape
+    return g.reshape(B, MB * bs, H, D)
+
+
+#: int8 range: symmetric -127..127, so negation keeps the scale exact
+_QMAX = 127.0
+#: absmax floor: an all-zero row quantizes with scale eps, not 0/0
+_QEPS = 1e-8
+
+
+def write_pages_quant(pages, scales, new, block_table, pos):
+    """Quantizing scatter, IN PLACE: the indexing of :func:`write_pages`,
+    with ``new`` ``[B, S, H, D]`` stored as int8 in ``pages`` and a
+    per-(row, head) absmax scale in ``scales`` ``[P, bs, H]``. The JAX
+    order of operations, so the result is bit-equal:
+    ``max(absmax, eps) / 127``, then ``x / scale`` rounded half to even
+    and clipped to -127..127. Returns ``(pages, scales)``."""
+    blk, off = _page_slots(pages, block_table, pos, new.shape[1])
+    newf = new.float()
+    scale = torch.clamp(newf.abs().amax(dim=-1), min=_QEPS) / _QMAX
+    q = torch.clamp(torch.round(newf / scale[..., None]), -_QMAX, _QMAX)
+    pages[blk, off] = q.to(torch.int8)
+    scales[blk, off] = scale.to(scales.dtype)
+    return pages, scales
+
+
+def dequant_pages(pages, scales):
+    """An int8 pool (or any gathered slice of one) back in f32:
+    ``pages [..., H, D] * scales [..., H, None]``."""
+    return pages.float() * scales.float()[..., None]
+
+
+def gather_pages_quant(pages, scales, block_table):
+    """The quantized PagedAttention read: int8 pages and their scales
+    gathered through the block table and dequantized into a
+    slot-contiguous f32 context ``[B, MB*bs, H, D]``."""
+    t = block_table.long()
+    g = dequant_pages(pages[t], scales[t])         # [B, MB, bs, H, D]
     B, MB, bs, H, D = g.shape
     return g.reshape(B, MB * bs, H, D)
 
@@ -146,7 +221,11 @@ class PagedKVCache:
     """Device page pools + host block tables for a fixed slot batch.
 
     The pools are written in place by the model's forward; the host
-    tables are snapshot per dispatch by :meth:`table_array`."""
+    tables are snapshot per dispatch by :meth:`table_array`. ``quant``
+    is ``FLAGS_serve_kv_quant`` as it stood at construction: ``""``
+    gives ``dtype`` pools and ``k_scale``/``v_scale`` None, ``"int8"``
+    gives int8 pools ``[L, P, bs, H, D]`` and f32 scale pools
+    ``[L, P, bs, H]``."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  *, num_pages: int, block_size: int, max_slots: int,
@@ -160,13 +239,35 @@ class PagedKVCache:
         self.max_slots = int(max_slots)
         self.max_blocks_per_slot = int(max_blocks_per_slot)
         self.dtype = dtype
+        self.quant = str(get_flag("serve_kv_quant") or "")
+        if self.quant not in ("", "int8"):
+            raise ValueError(
+                f"FLAGS_serve_kv_quant={self.quant!r}: supported modes "
+                "are '' (full precision) and 'int8'")
         shape = (num_layers, num_pages, block_size, num_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        pool = torch.int8 if self.quant else dtype
+        self.k = torch.zeros(shape, dtype=pool, device=self.device)
+        self.v = torch.zeros(shape, dtype=pool, device=self.device)
+        self.k_scale = self.v_scale = None
+        if self.quant:
+            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
         self.allocator = BlockAllocator(num_pages)
         self._tables = np.full((max_slots, max_blocks_per_slot),
                                SCRATCH_PAGE, np.int32)
         self._slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
+
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one token position costs over all layers: int8
+        pays ``H*D`` payload and ``H`` f32 scales a pool, full precision
+        ``H*D*itemsize``."""
+        H, D, L = self.num_heads, self.head_dim, self.num_layers
+        if self.quant == "int8":
+            per_pool = H * D + H * 4
+        else:
+            per_pool = H * D * self.dtype.itemsize
+        return 2 * L * per_pool
 
     def table_array(self, rows: Optional[Sequence[Optional[int]]] = None):
         """Block tables as the dispatch's int32 argument: all slots, or

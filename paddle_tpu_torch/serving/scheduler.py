@@ -2,12 +2,18 @@
 batch slots.
 
 Counterpart of ``paddle_tpu/serving/scheduler.py`` with the
-``reject-new`` FIFO policy (no deadlines, priorities, tenant quotas,
-LoRA, drain or traces). Scheduling happens between decode steps:
+``reject-new`` FIFO policy (no deadlines, priorities, drain or traces).
+Scheduling happens between decode steps:
 
 - a FIFO queue feeds ``max_batch_slots`` fixed slots; a request is
   admitted the step a slot AND enough KV pages free up, and its slot is
   released the step it finishes;
+- with a ``tenant_quota``, a tenant holding that many slots waits while
+  requests of other tenants behind it are admitted (each skip counts in
+  ``stats["quota_deferred"]`` and ``tenant_deferrals``);
+- with a LoRA manager, admission acquires the request's adapter and
+  both ways a slot is released (termination, preemption) release it, so
+  a reference is held exactly while the request is resident;
 - admitted requests prefill in bucketed groups (``BucketTable``);
 - when the page pool runs dry mid-decode, the newest-admitted request is
   preempted (recompute policy): its pages are freed, its prompt +
@@ -22,7 +28,7 @@ from __future__ import annotations
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,7 +59,10 @@ class Request:
     the step it is produced (``text`` is None unless the engine has a
     detokenizer). ``eos_token_id`` ends the stream early; the eos token
     itself is reported and included. ``stop(generated_ids) -> bool`` is
-    an optional custom stop condition evaluated after every token."""
+    an optional custom stop condition evaluated after every token.
+    ``tenant`` names the submitting tenant for the per-tenant quota
+    (None: never quota-limited); ``adapter`` names a loaded LoRA adapter
+    the request decodes against (None: the base model)."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 16
@@ -61,6 +70,8 @@ class Request:
     eos_token_id: Optional[int] = None
     on_token: Optional[Callable] = None
     stop: Optional[Callable] = None
+    tenant: Optional[str] = None
+    adapter: Optional[str] = None
     request_id: int = field(default_factory=lambda: next(_request_ids))
 
     def __post_init__(self):
@@ -163,9 +174,16 @@ class Scheduler:
 
     def __init__(self, cache: PagedKVCache, buckets: BucketTable,
                  max_queue: int = 1024, clock=time.perf_counter,
-                 max_seq_len: Optional[int] = None):
+                 max_seq_len: Optional[int] = None,
+                 tenant_quota: Optional[int] = None, lora=None):
         self.cache = cache
         self.buckets = buckets
+        #: most slots one tenant may hold at a time; None = no cap
+        self.tenant_quota = (int(tenant_quota)
+                             if tenant_quota is not None else None)
+        #: optional serving.lora.LoRAManager whose references admission
+        #: and slot release keep
+        self.lora = lora
         # the admission limit is the configured context window, not the
         # cache's block-rounded physical capacity
         self.max_seq_len = int(max_seq_len if max_seq_len is not None
@@ -175,7 +193,9 @@ class Scheduler:
         self.waiting: List[RequestState] = []
         self.slots: List[Optional[RequestState]] = [None] * cache.max_slots
         self.stats = {"submitted": 0, "completed": 0, "preemptions": 0,
-                      "admitted": 0, "failed": 0}
+                      "admitted": 0, "failed": 0, "quota_deferred": 0}
+        #: cumulative quota deferrals per tenant
+        self.tenant_deferrals: Dict[str, int] = {}
 
     # -- terminal transitions ----------------------------------------------
     def _terminate(self, st: RequestState, outcome: str,
@@ -186,6 +206,7 @@ class Scheduler:
             raise RuntimeError(f"request {st.request.request_id} already "
                                f"{st.outcome}")
         if st.slot is not None:
+            self._release_adapter(st)
             self.cache.free_slot(st.slot)
             self.slots[st.slot] = None
             st.slot = None
@@ -246,22 +267,47 @@ class Scheduler:
     def plan_admissions(self) -> List[RequestState]:
         """Admit waiting requests FIFO while slots and pages allow: slot
         assigned, pages allocated for the effective prompt,
-        ``prefill_len`` stamped. Returns the newly admitted states in
-        admission order (the engine groups them into prefills)."""
+        ``prefill_len`` stamped, adapter acquired. A request whose
+        tenant is at its quota is skipped (later tenants still admit); a
+        request whose adapter is no longer loaded fails alone. Returns
+        the newly admitted states in admission order (the engine groups
+        them into prefills)."""
         admitted: List[RequestState] = []
         free_slots = [i for i, st in enumerate(self.slots) if st is None]
-        while free_slots and self.waiting:
-            st = self.waiting[0]
+        # idx passes quota-blocked requests; without a quota it stays 0
+        # and the loop is the plain FIFO
+        idx = 0
+        while free_slots and idx < len(self.waiting):
+            st = self.waiting[idx]
+            tenant = st.request.tenant
+            if self.tenant_quota is not None and tenant is not None \
+                    and self._tenant_active(tenant) >= self.tenant_quota:
+                self.stats["quota_deferred"] += 1
+                self.tenant_deferrals[tenant] = \
+                    self.tenant_deferrals.get(tenant, 0) + 1
+                idx += 1
+                continue
+            adapter = st.request.adapter
+            if adapter and (self.lora is None
+                            or self.lora.row(adapter) is None):
+                # unloaded between submit and admission: fail this
+                # request rather than serve it the zero adapter
+                self.waiting.pop(idx)
+                self._terminate(st, "failed",
+                                reason=f"adapter {adapter!r} not loaded")
+                continue
             slot = free_slots[0]
             eff = st.effective_prompt()
             if not self.cache.alloc_slot(slot, eff.size):
                 break                      # page pool dry: FIFO blocks
-            self.waiting.pop(0)
+            self.waiting.pop(idx)
             free_slots.pop(0)
             st.slot = slot
             st.admitted_t = self.clock()
             st.prefill_len = int(eff.size)
             self.slots[slot] = st
+            if self.lora is not None and adapter:
+                self.lora.acquire(adapter)
             admitted.append(st)
             self.stats["admitted"] += 1
         return admitted
@@ -298,7 +344,19 @@ class Scheduler:
             return None
         return max(cands, key=lambda s: s.admitted_t)
 
+    def _release_adapter(self, st: RequestState) -> None:
+        """Drop the slot's adapter reference; called on both ways a slot
+        is released (:meth:`_terminate`, :meth:`_preempt`)."""
+        if self.lora is not None and st.request.adapter:
+            self.lora.release(st.request.adapter)
+
+    def _tenant_active(self, tenant: str) -> int:
+        """Slots ``tenant`` holds (the quota currency)."""
+        return sum(1 for st in self.slots
+                   if st is not None and st.request.tenant == tenant)
+
     def _preempt(self, st: RequestState) -> None:
+        self._release_adapter(st)
         self.cache.free_slot(st.slot)
         self.slots[st.slot] = None
         st.slot = None

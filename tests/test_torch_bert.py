@@ -530,4 +530,5 @@ def test_tiny_bert_trainstep_on_card_launches_the_bias_kernels(cuda):
                  "paged_decode_attention": 0,
                  "flash_attention_bias_fwd": 2 * L,
                  "flash_attention_bias_bwd_dq": 2 * L,
-                 "flash_attention_bias_bwd_dkv": 2 * L}
+                 "flash_attention_bias_bwd_dkv": 2 * L,
+                 "paged_decode_attention_quant": 0, "bgmv": 0}

@@ -136,7 +136,8 @@ def test_registry_names_sources_and_tpu_kernels():
         "flash_attention_fwd", "flash_attention_bwd", "chunked_ce_lse",
         "chunked_ce_dlogits", "fused_dropout", "paged_decode_attention",
         "flash_attention_bias_fwd", "flash_attention_bias_bwd_dq",
-        "flash_attention_bias_bwd_dkv"]
+        "flash_attention_bias_bwd_dkv", "paged_decode_attention_quant",
+        "bgmv"]
     for r in rows:
         assert (REPO / r["source"]).is_file()
         path, line = r["replaces"].split(":")

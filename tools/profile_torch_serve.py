@@ -4,18 +4,21 @@
 Serves the same 16 greedy requests as ``chip_smoke.py`` (GPT-2 345M with
 seeded random weights, the ``bench.py --serve`` full configuration)
 through ``paddle_tpu_torch.serving.ServingEngine`` under
-``torch.profiler``, and prints:
+``torch.profiler`` -- or, with ``--mt``, the 24 requests of
+``chip_smoke.py``'s multi-tenant phase through its engine (int8 paged KV,
+eight LoRA adapters, tenant quota 4), submitted at once -- and prints:
 
 - the host wall time of the run, with and without the profiler, the
   device's busy and idle share (summed kernel time over the profiled
   wall time; one stream, so kernels never overlap) and the kernel
   launches per dispatch;
 - device time by kernel, the top rows of ``key_averages()``;
-- host time by operator, the top rows by self CPU time.
+- host time by operator, the top rows by self CPU time;
+- the launches of each hand-written kernel in the profiled run.
 
 Run from the root of a checkout::
 
-    python3 tools/profile_torch_serve.py [--rows 15]
+    python3 tools/profile_torch_serve.py [--rows 15] [--mt]
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=15,
                     help="rows of each table")
+    ap.add_argument("--mt", action="store_true",
+                    help="profile the multi-tenant engine and traffic")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -41,17 +46,30 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
-    from paddle_tpu_torch.serving import (Request, SamplingParams,
-                                          ServingConfig, ServingEngine)
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (LoadSpec, Request, SamplingParams,
+                                          ServingConfig, ServingEngine,
+                                          build_requests)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = gpt2_medium()
-    engine = ServingEngine(GPTForPretraining(cfg, device="cuda", seed=0),
-                           ServingConfig(**smoke.SERVE_CFG), device="cuda")
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    if args.mt:
+        engine = smoke._mt_engine(model, True)
+    else:
+        engine = ServingEngine(model, ServingConfig(**smoke.SERVE_CFG),
+                               device="cuda")
     engine.warmup()
 
+    def mt_requests(seed):
+        # seed 23 is the phase's traffic; the warm-up pass takes another
+        spec = dict(smoke.MT_SPEC, seed=smoke.MT_SPEC["seed"] + seed)
+        return [r for _, r in build_requests(LoadSpec(**spec))]
+
     def requests(seed):
+        if args.mt:
+            return mt_requests(seed)
         rng = np.random.RandomState(seed)
         out = []
         for _ in range(smoke.NUM_REQUESTS):
@@ -78,6 +96,7 @@ def main() -> int:
     bare = time.perf_counter() - t0
 
     steps0 = engine.stats()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -113,6 +132,12 @@ def main() -> int:
         ms = a.self_device_time_total / 1e3
         print(f"{ms:10.3f} {100 * ms / 1e3 / busy:7.2f} {a.count:7d}  "
               f"{a.key[:90]}")
+    print(f"\nhand-written kernel launches in the profiled run "
+          f"({n_disp} dispatches):")
+    for k in kernels.kernels():
+        if k["launches"]:
+            print(f"{k['launches']:7d} {k['launches'] / n_disp:7.2f} per "
+                  f"dispatch  {k['name']}")
     host = sorted(avgs, key=lambda a: -a.self_cpu_time_total)
     print(f"\nhost time by operator, self (top {args.rows}):")
     print(f"{'ms':>10} {'%wall':>7} {'calls':>7}  name")
