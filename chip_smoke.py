@@ -7,14 +7,16 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Twelve phases, in order:
+result line. Fourteen phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
               ``nvcc`` (one process per source, all at once);
 2. kernels -- hold each kernel against its plain PyTorch version on the
-              card at the serving, multi-tenant serving, GPT training and
-              BERT paths' shapes, in float32 and bfloat16 (the biased
+              card at the serving, multi-tenant serving, GPT training,
+              BERT and int8 inference paths' shapes, in float32 and
+              bfloat16 (the int8 matmul bit-equal at its four shapes with
+              a dynamic activation scale; the biased
               flash kernels also on a batch row with every key masked,
               bgmv also on rows of the zero adapter, which must be exactly
               0.0), and time the kernel, the plain version, the card's
@@ -69,13 +71,32 @@ result line. Twelve phases, in order:
               ``bench_ernie``'s configuration on the same kind of batch,
               each held against the plain versions as in phase 9, with
               exact launch counts, then three timed steps;
-12. summary -- print one JSON line describing every ported kernel, then
+12. predict -- BERT-base MLM inference on phase 10's padded batch
+              through ``inference.create_predictor``: f32, ``enable_int8``,
+              ``enable_int8`` + ``enable_tpu_bf16`` and static
+              ``PostTrainingQuantization`` (two calibration batches)
+              predictors, each with exact launch counts (74 int8 matmuls
+              and 12 biased flash forwards a run, no shape fallback),
+              each replayed with every plain version (the f32 one within
+              1e-4 of its largest score, the quantized ones printed),
+              the quantized ones also with int8_matmul's plain version
+              (bit-equal), the first three timed (median of 10 runs after
+              2), one f32 and one int8 run profiled, quality against f32
+              printed;
+13. amp_int8 -- three O1 ``TrainStep`` steps of phase 7's GPT-2 345M
+              under ``FLAGS_amp_int8_matmul`` (its MLP linears through the
+              int8 kernel, 48 a step), each held against int8_matmul's
+              plain version and, as in phase 6, against every plain
+              version;
+14. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of phases 3, 4, 7, 10 and 11
-and read just after; the kernel JSON line gives each kernel's launches
-per path (``serve``, ``mt``, ``train``, ``bert``, ``ernie``). Each phase
-prints its seconds, and the run its total.
+Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11
+and 13, and before each predictor of phase 12, and read just after
+(a witness's reference runs are taken back out of them); the
+kernel JSON line gives each kernel's launches per path (``serve``,
+``mt``, ``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``). Each
+phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
@@ -94,9 +115,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+# published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit;
+# int8 in tensor-core operations a second)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 # tolerances of kernel vs plain version at the serving shapes, max abs
 # error
@@ -769,6 +791,52 @@ def _bias_flash_case(B, S, H, D, dtype, mask, rate=0.1, seed=10,
     return out_rows
 
 
+# the int8 predictor's shapes (M, K, N): q/k/v/out and transform,
+# linear1, linear2 at B*S = 24576 rows, and the pooler's 48 rows
+INT8_SHAPES = ((BERT_B * BERT_S, 768, 768), (BERT_B * BERT_S, 768, 3072),
+               (BERT_B * BERT_S, 3072, 768), (BERT_B, 768, 768))
+
+
+def _int8_matmul_case(M, K, N, dtype):
+    """Kernel 12 on activations quantized on the card with their
+    dynamic absmax (a device scalar) and per-channel weights, as
+    ``slim.QuantizedLinear`` feeds it: equal to the plain version bit for
+    bit. ``library_ms`` is ``torch._int_mm`` plus the epilogue multiply,
+    two calls."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    x_q, a_s = qm.quantize_per_tensor(
+        torch.randn(M, K, device="cuda", generator=g))
+    w_q, w_s = qm.quantize_per_channel(
+        torch.randn(K, N, device="cuda", generator=g) * 0.02)
+    out = qm.int8_matmul(x_q, w_q, w_s, a_s, out_dtype=dtype)
+    ref = qm.int8_matmul_plain(x_q, w_q, w_s, a_s, out_dtype=dtype)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    equal = torch.equal(out, ref)
+    name = _name(dtype)
+    shape = f"M={M} K={K} N={N} {name} out, dynamic act_scale"
+    _log(f"kernels: int8_matmul [{shape}]: bit-equal to plain {equal}, "
+         f"max|out-plain| {err:.3e} (must be 0)")
+    _require(equal, f"int8_matmul differs from its plain version at {shape}")
+    ms = _median_ms(lambda: qm.int8_matmul(x_q, w_q, w_s, a_s, dtype))
+    plain_ms = _median_ms(lambda: qm.int8_matmul_plain(x_q, w_q, w_s, a_s,
+                                                       dtype), iters=10)
+    scale = a_s * w_s
+    lib = torch.mul(torch._int_mm(x_q, w_q), scale).to(dtype)
+    _log(f"kernels: torch._int_mm + epilogue equals the kernel: "
+         f"{torch.equal(lib, out)}")
+    lib_ms = _median_ms(lambda: torch.mul(torch._int_mm(x_q, w_q),
+                                          scale).to(dtype))
+    out_bytes = torch.empty((), dtype=dtype).element_size()
+    bound, by = _bound_ms(M * K + K * N + 4 * N + 4 + M * N * out_bytes,
+                          2 * M * K * N, "int8")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "shape": shape}
+
+
 def phase_kernels() -> dict:
     import torch
     rows = {}
@@ -821,7 +889,17 @@ def phase_kernels() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         _bias_flash_case(3, 200, 4, 64, dtype, small, seed=11, full_row=2)
     torch.cuda.empty_cache()
-    for name, r in {**rows, **bgmv_cases}.items():
+    # the int8 predictor's four shapes, float32 (predictor b) and bf16
+    # (predictor c) out; the row is the most launched shape in float32
+    int8_cases = {}
+    for M, K, N in INT8_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            int8_cases[f"int8_matmul M={M} K={K} N={N} {_name(dtype)}"] = \
+                _int8_matmul_case(M, K, N, dtype)
+    rows["int8_matmul"] = int8_cases[
+        f"int8_matmul M={BERT_B * BERT_S} K=768 N=768 float32"]
+    torch.cuda.empty_cache()
+    for name, r in {**rows, **bgmv_cases, **int8_cases}.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         _log(f"kernels: {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1226,10 +1304,11 @@ def phase_parity() -> None:
 
 # -- phase 6 -----------------------------------------------------------------
 @contextlib.contextmanager
-def _plain_versions():
-    """Inside the block every kernel wrapper that the training and
-    serving paths call computes its plain version, on CUDA tensors too:
-    the reference of phases 4, 6, 9 and 11. Only this script swaps them;
+def _plain_versions(names=None):
+    """Inside the block every kernel wrapper that the training, serving
+    and inference paths call computes its plain version, on CUDA tensors
+    too: the reference of phases 4, 6, 9, 11, 12 and 13; with ``names``
+    only the wrappers of those names. Only this script swaps them;
     the port has no such switch. ``models.gpt`` binds the serving
     wrappers by name, so they are swapped there as well."""
     from paddle_tpu_torch.models import gpt
@@ -1238,7 +1317,11 @@ def _plain_versions():
     from paddle_tpu_torch.ops.kernels import dropout as dr
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import paged_decode as pd
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+    # slim and nn.functional reach int8_matmul through quant_matmul's own
+    # int8_linear and int8_amp_linear, so one swap covers both
     swaps = ((pd, "paged_decode_attention", pd.paged_decode_plain),
+             (qm, "int8_matmul", qm.int8_matmul_plain),
              (gpt, "paged_decode_attention", pd.paged_decode_plain),
              (pd, "paged_decode_attention_quant",
               pd.paged_decode_quant_plain),
@@ -1262,6 +1345,8 @@ def _plain_versions():
               lambda q, k, v, bias, o, lse, do, *a:
               fa.flash_attention_bwd_plain(q, k, v, o, lse, do, *a,
                                            bias=bias)[1:]))
+    if names is not None:
+        swaps = tuple(sw for sw in swaps if sw[1] in names)
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -1303,18 +1388,27 @@ def _train_setup(amp: bool):
 
 
 def _witness(tag: str, step, loss_fn, batch, n: int,
-             loss_tol: float = AMP_LOSS_TOL) -> list:
+             loss_tol: float = AMP_LOSS_TOL, refs=None,
+             readings=None) -> list:
     """``n`` steps of ``step`` on ``batch`` (numpy arrays), each held
-    against the plain versions on the card: before every step the same
-    loss and gradients are computed from the same parameters and seed
-    words with every kernel wrapper swapped for its plain version, and
-    the step's loss and gradients must agree within ``loss_tol`` and
-    ``AMP_GRAD_TOL``. A parameter the loss does not reach has a zero
-    gradient on both sides, as ``TrainStep`` gives it. Returns the
-    losses."""
+    against references on the card: before every step the same loss
+    and gradients are computed from the same parameters and seed words
+    with kernel wrappers swapped for their plain versions, and the
+    step's loss and gradients must agree with each reference. ``refs``
+    holds ``(label, names, loss_tol, grad_tol)``: ``names`` None swaps
+    every wrapper (the default reference, held to ``loss_tol`` and
+    ``AMP_GRAD_TOL``; it must launch no kernel), else only those, and
+    the kernels such a reference launches are taken back out of the
+    launch counts, so that the counts read after the steps are the
+    steps' own. A parameter the loss does not reach has a zero gradient
+    on both sides, as ``TrainStep`` gives it. Each step's ``(label,
+    step, loss error, gradient error)`` is appended to ``readings`` when
+    it is given. Returns the losses."""
     import torch
     from paddle_tpu_torch.core.random import dropout_generator
     from paddle_tpu_torch.ops import kernels
+    if refs is None:
+        refs = (("plain", None, loss_tol, AMP_GRAD_TOL),)
     model, opt = step.layer, step.optimizer
     named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
     n_zero = sum(_zero_in_exact_arithmetic(k) for k, _ in named)
@@ -1329,57 +1423,68 @@ def _witness(tag: str, step, loss_fn, batch, n: int,
 
     opt.step = keep_grads_then_update
     batch_t = [torch.from_numpy(a).cuda() for a in batch]
-    losses, plain_losses = [], []
+    losses, plain_losses = [], {label: [] for label, *_ in refs}
     try:
         for t in range(1, n + 1):
-            gen = torch.Generator()
-            gen.set_state(step.generator.get_state())
-            before = sum(k["launches"] for k in kernels.kernels())
-            with _plain_versions():
-                with dropout_generator(gen):
-                    ref = loss_fn(model, *batch_t)
-                ref.backward()
-            _require(sum(k["launches"] for k in kernels.kernels()) == before,
-                     "the plain reference launched a kernel")
-            plain_grads = {k: torch.zeros_like(p) if p.grad is None
-                           else p.grad for k, p in named}
-            opt.clear_grad()
+            results = []
+            for label, names, l_tol, g_tol in refs:
+                gen = torch.Generator()
+                gen.set_state(step.generator.get_state())
+                counts = {k: v.launches for k, v in kernels.KERNELS.items()}
+                with _plain_versions(names):
+                    with dropout_generator(gen):
+                        ref = loss_fn(model, *batch_t)
+                    ref.backward()
+                _require(names is not None or all(
+                    v.launches == counts[k]
+                    for k, v in kernels.KERNELS.items()),
+                    "the plain reference launched a kernel")
+                for k, v in kernels.KERNELS.items():
+                    v.launches = counts[k]
+                results.append((label, l_tol, g_tol, ref.item(), {
+                    k: torch.zeros_like(p) if p.grad is None else p.grad
+                    for k, p in named}))
+                opt.clear_grad()
+                del ref
             losses.append(float(step(*batch)))
-            plain_losses.append(ref.item())
-            num = den = 0.0
-            worst, worst_name = 0.0, ""
-            for k, ref_g in plain_grads.items():
-                d = kernel_grads[k] - ref_g
-                num += float(d.square().sum())
-                den += float(ref_g.square().sum())
-                if _zero_in_exact_arithmetic(k):
-                    continue
-                r = float(d.abs().max() / ref_g.abs().max().clamp(min=1e-30))
-                if r > worst:
-                    worst, worst_name = r, k
-            del plain_grads, ref
+            for label, l_tol, g_tol, ref_loss, plain_grads in results:
+                plain_losses[label].append(ref_loss)
+                num = den = 0.0
+                worst, worst_name = 0.0, ""
+                for k, ref_g in plain_grads.items():
+                    d = kernel_grads[k] - ref_g
+                    num += float(d.square().sum())
+                    den += float(ref_g.square().sum())
+                    if _zero_in_exact_arithmetic(k):
+                        continue
+                    r = float(d.abs().max()
+                              / ref_g.abs().max().clamp(min=1e-30))
+                    if r > worst:
+                        worst, worst_name = r, k
+                loss_err = abs(losses[-1] - ref_loss) / abs(ref_loss)
+                g_err = math.sqrt(num / den)
+                if readings is not None:
+                    readings.append((label, t, loss_err, g_err))
+                _log(f"{tag}: step {t} loss {losses[-1]:.5f}, {label} "
+                     f"{ref_loss:.5f} (rel err {loss_err:.3e}, tol "
+                     f"{l_tol:g}); gradients |kernel-{label}|/|{label}| "
+                     f"{g_err:.3e} (tol {g_tol:g}), worst tensor "
+                     f"{worst_name} max abs err / max |{label}| "
+                     f"{worst:.3e}{skipped}")
+                _require(math.isfinite(losses[-1]) and loss_err <= l_tol,
+                         f"{tag} step {t}: O1 loss {losses[-1]} vs {label} "
+                         f"{ref_loss}")
+                _require(g_err <= g_tol,
+                         f"{tag} step {t}: O1 gradients differ from the "
+                         f"{label} ones by {g_err} of their norm")
+            del results
             kernel_grads.clear()
-            loss_err = abs(losses[-1] - plain_losses[-1]) / \
-                abs(plain_losses[-1])
-            g_err = math.sqrt(num / den)
-            _log(f"{tag}: step {t} loss {losses[-1]:.5f}, plain "
-                 f"{plain_losses[-1]:.5f} (rel err {loss_err:.3e}, tol "
-                 f"{loss_tol:g}); "
-                 f"gradients |kernel-plain|/|plain| {g_err:.3e} (tol "
-                 f"{AMP_GRAD_TOL:g}), worst tensor {worst_name} max abs err "
-                 f"/ max |plain| {worst:.3e}{skipped}")
-            _require(math.isfinite(losses[-1]) and loss_err <= loss_tol,
-                     f"{tag} step {t}: O1 loss {losses[-1]} vs plain "
-                     f"{plain_losses[-1]}")
-            _require(g_err <= AMP_GRAD_TOL,
-                     f"{tag} step {t}: O1 gradients differ from the plain "
-                     f"ones by {g_err} of their norm")
     finally:
         del opt.step   # the wrapper held the optimizer in a cycle
     _log(f"{tag}: O1 losses with the kernels " + " ".join(
         f"{x:.5f}" for x in losses))
-    _log(f"{tag}: O1 losses, plain versions " + " ".join(
-        f"{x:.5f}" for x in plain_losses))
+    for label, xs in plain_losses.items():
+        _log(f"{tag}: O1 losses, {label} " + " ".join(f"{x:.5f}" for x in xs))
     return losses
 
 
@@ -1417,6 +1522,7 @@ PROFILE_GROUPS = (
     ("flash backward", ("dkv_kernel", "dq_kernel", "delta_kernel",
                         "db_sum_kernel")),
     ("chunked CE", ("lse_kernel", "dlogits_kernel")),
+    ("int8 matmul", ("int8_matmul_kernel",)),
     ("dropout", ("dropout_kernel",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("layer norm", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -1426,9 +1532,10 @@ PROFILE_GROUPS = (
 )
 
 
-def _profile_step(tag: str, step, batch) -> None:
-    """Device time by kernel over one more step (torch.profiler), as
-    ``tools/profile_torch_serve.py`` reads it."""
+def _profile_step(tag: str, fn) -> None:
+    """Device time by kernel over one more call of ``fn`` (a step or a
+    predictor run; torch.profiler), as ``tools/profile_torch_serve.py``
+    reads it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1436,7 +1543,8 @@ def _profile_step(tag: str, step, batch) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(step(*batch))
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
     dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
@@ -1490,7 +1598,7 @@ def phase_train(amp_losses: list) -> dict:
             "fused_dropout": 2 * drops * n, "paged_decode_attention": 0,
             "flash_attention_bias_fwd": 0, "flash_attention_bias_bwd_dq": 0,
             "flash_attention_bias_bwd_dkv": 0,
-            "paged_decode_attention_quant": 0, "bgmv": 0}
+            "paged_decode_attention_quant": 0, "bgmv": 0, "int8_matmul": 0}
     _require(launches == want, f"launch counts {launches} != {want}")
 
     step_s = float(np.median(times[2:]))
@@ -1503,7 +1611,7 @@ def phase_train(amp_losses: list) -> dict:
          f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} (against 989 "
          f"TFLOP/s bf16 dense), peak device memory "
          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    _profile_step("train", step, (ids, labels))
+    _profile_step("train", lambda: float(step(ids, labels)))
     return launches
 
 
@@ -1598,7 +1706,7 @@ def _encoder_launches(cfg, n: int) -> dict:
             "flash_attention_bias_fwd": L * n,
             "flash_attention_bias_bwd_dq": L * n,
             "flash_attention_bias_bwd_dkv": L * n,
-            "paged_decode_attention_quant": 0, "bgmv": 0}
+            "paged_decode_attention_quant": 0, "bgmv": 0, "int8_matmul": 0}
 
 
 def phase_bert_witness() -> list:
@@ -1655,7 +1763,7 @@ def phase_bert_train(witness: list) -> dict:
          f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} (against 989 "
          f"TFLOP/s bf16 dense), peak device memory "
          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    _profile_step("bert", step, batch)
+    _profile_step("bert", lambda: float(step(*batch)))
     del step
     gc.collect()
     torch.cuda.empty_cache()
@@ -1689,6 +1797,205 @@ def phase_ernie() -> dict:
          + f", median {step_s * 1e3:.2f} ms/step, "
          f"{BERT_B * BERT_S / step_s:.1f} tokens/s")
     _require(all(math.isfinite(x) for x in losses), "non-finite ERNIE loss")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phases 12-13: int8 inference and the AMP int8 linear -------------------
+# predictor runs timed after the warm-up runs. The f32 predictor is
+# replayed with every plain version and held to PREDICT_F32_PLAIN_TOL of
+# the largest score: the flash kernel against plain attention on the
+# model's own path. Each quantized predictor is replayed with
+# int8_matmul's plain version alone, which must give the same scores bit
+# for bit (every one of the 74 products sees the activations the kernel
+# saw), and with every plain version, printed only: there the flash
+# kernel's last bits may round an activation of the next layer to the
+# other int8 neighbour, and the layers after it carry that quantum
+PREDICT_WARMUP, PREDICT_RUNS = 2, 10
+PREDICT_F32_PLAIN_TOL = 1e-4
+# the O1 steps under FLAGS_amp_int8_matmul, held against two references:
+# int8_matmul's plain version alone (every other kernel the same, so the
+# step must repeat it to float32 noise), and every plain version (phase
+# 6's witness), where the MLP inputs' quantization flips as in the
+# predictor replay. tools/amp_int8_witness_spread.py measured on one
+# H100 the gradients of 4 batches x 3 sound steps at most 3.652e-02 of
+# their norm off (every first step 3.52e-02 to 3.65e-02), and one step
+# with a fault planted in a kernel at 5.333e-02 (the flash backward
+# without its dropout) to 8.794e-01 (the fused dropout on another mask)
+AMP_INT8_STEPS = 3
+AMP_INT8_EXACT_TOL = 1e-6
+AMP_INT8_GRAD_TOL = 4.5e-2
+
+
+def _predictor(kind: str, calib=()):
+    """A ``create_predictor`` over a fresh BERT-base MLM (seed 0) on the
+    card: ``f32``, ``int8`` (``enable_int8``), ``int8+bf16`` (also
+    ``enable_tpu_bf16``) or ``ptq`` (static activation scales from the
+    ``calib`` batches, in eval mode). Returns it and its layer."""
+    import torch
+    from paddle_tpu_torch import inference, slim
+    from paddle_tpu_torch.models import BertForMaskedLM, bert_base
+    model = BertForMaskedLM(bert_base(), device="cuda", seed=0)
+    if kind == "ptq":
+        model.eval()
+        ptq = slim.PostTrainingQuantization(model)
+        for b in calib:
+            ptq.collect(*(torch.from_numpy(a).cuda() for a in b))
+        model = ptq.run()
+    cfg = inference.Config.from_layer(
+        model, [(BERT_B, BERT_S)] * 3 + [(BERT_B, BERT_M)])
+    if kind != "f32" and kind != "ptq":
+        cfg.enable_int8()
+    if kind == "int8+bf16":
+        cfg.enable_tpu_bf16()
+    return inference.create_predictor(cfg), model
+
+
+def phase_predict() -> dict:
+    """BERT-base MLM inference through ``inference.create_predictor`` on
+    the BERT path's padded batch: f32, int8, int8 + bf16 and static PTQ
+    predictors, each with exact launch counts; the f32 one held against
+    its replay with every plain version, the quantized ones against their
+    replay with int8_matmul's plain version (bit-equal); the first three
+    timed; quality against f32 printed."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.ops import kernels
+    batch, _ = pretraining_batch(BERT_B, BERT_S, BERT_M, 30528)
+    inputs, real = list(batch[:4]), batch[5] > 0
+    calib = [pretraining_batch(BERT_B, BERT_S, BERT_M, 30528, seed=s)[0][:4]
+             for s in (1, 2)]
+    n_lin, L = 74, 12
+    total = {k.name: 0 for k in kernels.KERNELS.values()}
+    scores = {}
+    for kind in ("f32", "int8", "int8+bf16", "ptq"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pred, layer = _predictor(kind, calib if kind == "ptq" else ())
+        n_q = sum(isinstance(m, slim.QuantizedLinear) for m in layer.modules())
+        _require(n_q == (0 if kind == "f32" else n_lin),
+                 f"predict {kind}: {n_q} QuantizedLinear layers")
+        kernels.reset_launch_counts()
+        out = pred.run(inputs)[0]
+        runs = 1
+        _require(out.shape == (BERT_B, BERT_M, 30528)
+                 and out.dtype == np.float32 and np.isfinite(out).all(),
+                 f"predict {kind}: scores {out.shape} {out.dtype}, finite "
+                 f"{np.isfinite(out).all()}")
+        times = []
+        if kind != "ptq":
+            for i in range(PREDICT_WARMUP + PREDICT_RUNS):
+                t0 = time.perf_counter()
+                pred.run(inputs)                  # numpy out: synced
+                if i >= PREDICT_WARMUP:
+                    times.append(time.perf_counter() - t0)
+            runs += PREDICT_WARMUP + PREDICT_RUNS
+        if kind in ("f32", "int8"):
+            _profile_step(f"predict {kind}", lambda: pred.run(inputs))
+            runs += 1
+        launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+        want = {k: 0 for k in launches}
+        want["flash_attention_bias_fwd"] = L * runs
+        want["int8_matmul"] = 0 if kind == "f32" else n_lin * runs
+        _require(launches == want and not kernels.FALLBACKS,
+                 f"predict {kind}: launches {launches} != {want}, shape "
+                 f"fallbacks {kernels.FALLBACKS}")
+        for k, n in launches.items():
+            total[k] += n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        msg = (f"predict {kind}: {runs} runs, launches int8_matmul "
+               f"{launches['int8_matmul']}, flash_attention_bias_fwd "
+               f"{launches['flash_attention_bias_fwd']}, every other kernel "
+               f"0, shape fallbacks 0; peak device memory {peak:.3f} GiB")
+        if times:
+            med = float(np.median(times))
+            msg += (f"; median {med * 1e3:.2f} ms a run over "
+                    f"{PREDICT_RUNS} after {PREDICT_WARMUP} warm-up "
+                    f"(min {min(times) * 1e3:.2f}, max "
+                    f"{max(times) * 1e3:.2f}), "
+                    f"{BERT_B * BERT_S / med:.1f} tokens/s")
+        _log(msg)
+        if kind != "f32":
+            with _plain_versions({"int8_matmul"}):
+                ref = pred.run(inputs)[0]
+            _require(kernels.INT8_MATMUL.launches == want["int8_matmul"],
+                     "the int8 replay launched the int8 kernel")
+            _log(f"predict {kind}: replay with int8_matmul's plain version "
+                 f"bit-equal: {np.array_equal(out, ref)}")
+            _require(np.array_equal(out, ref),
+                     f"predict {kind} differs from its int8 plain replay by "
+                     f"{np.abs(out - ref).max()}")
+        before = sum(k["launches"] for k in kernels.kernels())
+        with _plain_versions():
+            ref = pred.run(inputs)[0]
+        _require(sum(k["launches"] for k in kernels.kernels()) == before,
+                 "the plain replay launched a kernel")
+        d = np.abs(out - ref)
+        big = np.abs(ref).max()
+        rel = float(d.max() / big)
+        agree = float((out.argmax(-1) == ref.argmax(-1))[real].mean())
+        gate = (f"tol {PREDICT_F32_PLAIN_TOL:g}" if kind == "f32"
+                else "not gated")
+        _log(f"predict {kind}: against the replay with every plain "
+             f"version: max |score-plain| / max|plain| {rel:.3e} ({gate}), "
+             f"mean {d.mean() / big:.3e}, 99.9th percentile "
+             f"{np.percentile(d, 99.9) / big:.3e}, argmax agrees at "
+             f"{agree:.4f} of the masked positions")
+        _require(kind != "f32" or rel <= PREDICT_F32_PLAIN_TOL,
+                 f"predict f32 differs from its plain replay by {rel}")
+        del ref, d
+        scores[kind] = out
+        del pred, layer
+        gc.collect()
+        torch.cuda.empty_cache()
+    a = scores["f32"]
+    top = a.argmax(-1)
+    for kind in ("int8", "int8+bf16", "ptq"):
+        rel = float(np.abs(scores[kind] - a).max() / np.abs(a).max())
+        agree = float((scores[kind].argmax(-1) == top)[real].mean())
+        _log(f"predict {kind} against f32 (not gated): max |diff| / max|f32| "
+             f"{rel:.3e}, argmax agrees at {agree:.4f} of the "
+             f"{int(real.sum())} masked positions")
+    return total
+
+
+def phase_amp_int8() -> dict:
+    """Phase 7's O1 GPT-2 345M steps under ``FLAGS_amp_int8_matmul``:
+    each MLP linear runs through the int8 kernel, each step held against
+    int8_matmul's plain version and against every plain version (phase
+    6's witness), exact launch counts."""
+    import torch
+    from paddle_tpu_torch.core import flag_scope
+    from paddle_tpu_torch.ops import kernels
+    cfg, _, loss_fn, step, ids, labels = _train_setup(amp=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    refs = (("int8 plain", {"int8_matmul"}, AMP_INT8_EXACT_TOL,
+             AMP_INT8_EXACT_TOL),
+            ("plain", None, AMP_LOSS_TOL, AMP_INT8_GRAD_TOL))
+    with flag_scope("amp_int8_matmul", True):
+        losses = _witness("amp_int8", step, loss_fn, (ids, labels),
+                          AMP_INT8_STEPS, refs=refs)
+    # the steps' own launches: _witness takes the int8-plain
+    # references' launches back out of the counts
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    L, n = cfg.num_layers, AMP_INT8_STEPS
+    want = {"flash_attention_fwd": L * n, "flash_attention_bwd": L * n,
+            "chunked_ce_lse": n, "chunked_ce_dlogits": n,
+            "fused_dropout": 2 * (1 + 2 * L) * n,
+            "paged_decode_attention": 0, "flash_attention_bias_fwd": 0,
+            "flash_attention_bias_bwd_dq": 0,
+            "flash_attention_bias_bwd_dkv": 0,
+            "paged_decode_attention_quant": 0, "bgmv": 0,
+            "int8_matmul": 2 * L * n}
+    _log(f"amp_int8: launches over {n} steps {launches}")
+    _require(all(math.isfinite(x) for x in losses), "non-finite loss")
+    _require(launches == want and not kernels.FALLBACKS,
+             f"launch counts {launches} != {want}, shape fallbacks "
+             f"{kernels.FALLBACKS}")
     del step
     gc.collect()
     torch.cuda.empty_cache()
@@ -1733,6 +2040,8 @@ def main() -> int:
     witness = timed("bert witness", phase_bert_witness)
     by_path["bert"] = timed("bert", phase_bert_train, witness)
     by_path["ernie"] = timed("ernie", phase_ernie)
+    by_path["predict"] = timed("predict", phase_predict)
+    by_path["amp_int8"] = timed("amp_int8", phase_amp_int8)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

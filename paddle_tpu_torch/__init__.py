@@ -11,7 +11,12 @@ First slice: GPT served end to end (``models``, ``serving``) through the
 flash-prefill and paged-decode kernels (``ops.kernels``). Second slice:
 GPT pretrained through ``jit.TrainStep`` (``nn``, ``amp``,
 ``optimizer``), with the flash backward, chunked cross-entropy and fused
-dropout kernels.
+dropout kernels. Third: BERT and ERNIE trained on padded batches
+through the biased flash kernels. Fourth: multi-tenant GPT serving
+(int8 paged KV, LoRA) through the quantized paged-decode and bgmv
+kernels. Fifth: int8 inference (``inference``, ``slim``, ``nn.quant``)
+through the int8 matmul kernel, the last of the JAX package's TPU
+kernels.
 """
 
 from .core import make_generator, resolve_device

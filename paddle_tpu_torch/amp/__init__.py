@@ -1,3 +1,3 @@
-from .auto_cast import auto_cast, cast_inputs
+from .auto_cast import auto_cast, cast_inputs, is_active
 
-__all__ = ["auto_cast", "cast_inputs"]
+__all__ = ["auto_cast", "cast_inputs", "is_active"]

@@ -22,7 +22,8 @@ from typing import Iterator, Optional
 
 import torch
 
-__all__ = ["white_list", "black_list", "auto_cast", "cast_inputs"]
+__all__ = ["white_list", "black_list", "auto_cast", "cast_inputs",
+           "is_active"]
 
 # Ops whose inputs are cast to low precision in O1 (matmul-class ops;
 # `embedding` so the activation stream starts in low precision)
@@ -62,9 +63,14 @@ def auto_cast(level: str = "O1", dtype: str = "bfloat16") -> Iterator[None]:
         _tls.active = prev
 
 
+def is_active() -> bool:
+    """True inside an :func:`auto_cast` block."""
+    return getattr(_tls, "active", False)
+
+
 def _cast_target(op_name: str) -> Optional[torch.dtype]:
     """Target dtype for the op's floating inputs, or None (leave them)."""
-    if not getattr(_tls, "active", False):
+    if not is_active():
         return None
     if op_name in white_list:
         return torch.bfloat16

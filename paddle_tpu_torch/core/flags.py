@@ -3,7 +3,8 @@
 Counterpart of ``paddle_tpu/core/flags.py``: one registry, each value
 read from the environment (``FLAGS_<name>``) unless :func:`set_flags`
 or :func:`flag_scope` set it. The port defines only the flags whose
-behaviour it has; it has no kernel kill switches (the JAX package's
+behaviour it has (``serve_kv_quant``, ``amp_int8_matmul``); it has no
+kernel kill switches (the JAX package's
 ``pallas_*`` flags), because a kernel wrapper on the card launches its
 kernel or raises.
 """
@@ -93,3 +94,11 @@ define_flag("serve_kv_quant", "",
             "absmax scale pool beside them; decode reads them through "
             "the quantized paged-decode kernel. Empty (default) = the "
             "full-precision pools. Read once at cache construction.")
+define_flag("amp_int8_matmul", False,
+            "EXPERIMENTAL: under an active amp.auto_cast region, run "
+            "nn.functional.linear matmuls whose 2-D weight tiles (K and N "
+            "multiples of 128) through the int8 kernel "
+            "(ops.kernels.quant_matmul.int8_amp_linear): dynamic "
+            "per-tensor activation and per-channel weight quantization, "
+            "a straight-through dense backward. Off by default; read at "
+            "every call.")

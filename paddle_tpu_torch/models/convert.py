@@ -31,7 +31,11 @@ def load_jax_weights(model: nn.Module,
                      named_arrays: Mapping[str, np.ndarray]) -> nn.Module:
     """Load JAX weights into ``model`` strictly: every key of both sides
     must match and every shape must be equal. Values land on the
-    model's own device and dtype. Returns ``model``."""
+    model's own device; a floating value takes the model's floating
+    dtype, any other value must have the model's dtype already (a
+    quantized model's int8 ``weight_q`` buffers beside their float32
+    ``scale``), so an integer buffer is never filled by a cast. Returns
+    ``model``."""
     src = torch_state_dict_from_jax(named_arrays)
     dst = model.state_dict()
     missing = sorted(set(dst) - set(src))
@@ -43,6 +47,11 @@ def load_jax_weights(model: nn.Module,
            for k in dst if tuple(src[k].shape) != tuple(dst[k].shape)]
     if bad:
         raise ValueError("shape mismatch: " + "; ".join(bad))
+    bad = [f"{k}: {src[k].dtype} vs {t.dtype}" for k, t in dst.items()
+           if src[k].dtype != t.dtype
+           and not (src[k].is_floating_point() and t.is_floating_point())]
+    if bad:
+        raise TypeError("dtype mismatch: " + "; ".join(bad))
     for k, t in dst.items():
         t.copy_(src[k])
     return model

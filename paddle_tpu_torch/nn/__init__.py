@@ -1,3 +1,3 @@
-from . import chunked_ce, functional, layers
+from . import chunked_ce, functional, layers, quant
 
-__all__ = ["chunked_ce", "functional", "layers"]
+__all__ = ["chunked_ce", "functional", "layers", "quant"]

@@ -2,7 +2,8 @@
 precision semantics.
 
 Counterpart of ``paddle_tpu/nn/functional.py``: ``linear`` (:func:`linear`,
-Paddle's ``[in, out]`` weight), ``embedding``, ``gelu``, ``tanh``,
+Paddle's ``[in, out]`` weight, with the ``FLAGS_amp_int8_matmul`` route
+of :222-266), ``embedding``, ``gelu``, ``tanh``,
 ``layer_norm`` (:1014), ``dropout`` (:1115), the dense
 hard-label ``cross_entropy`` (:1222) and ``scaled_dot_product_attention``
 (``ops/attention.py``). Each casts its inputs under AMP by the JAX op
@@ -28,18 +29,40 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..amp import cast_inputs
+from ..amp import cast_inputs, is_active
+from ..core.flags import get_flag
 from ..core.random import next_seed_words
 from ..ops.attention import scaled_dot_product_attention
+from ..ops.kernels import note_fallback
 from ..ops.kernels.dropout import fused_dropout
+from ..ops.kernels.quant_matmul import (int8_amp_linear,
+                                        matmul_shapes_supported)
 
 __all__ = ["linear", "embedding", "gelu", "tanh", "layer_norm",
            "dropout", "cross_entropy", "scaled_dot_product_attention"]
 
 
+def _amp_int8_active(weight) -> bool:
+    """The ``FLAGS_amp_int8_matmul`` gate of :func:`linear`
+    (``functional.py:222-245``): the flag set, an ``amp.auto_cast``
+    region active, a 2-D weight whose K and N tile. A weight that does
+    not tile is counted as the reference counts it."""
+    if not get_flag("amp_int8_matmul") or not is_active() \
+            or weight.dim() != 2:
+        return False
+    if not matmul_shapes_supported(*weight.shape):
+        note_fallback("int8_matmul", "shape")
+        return False
+    return True
+
+
 def linear(x, weight, bias=None):
-    """``x @ weight (+ bias)`` with ``weight [in, out]``."""
+    """``x @ weight (+ bias)`` with ``weight [in, out]``; under
+    ``FLAGS_amp_int8_matmul`` and an active autocast region the product
+    runs through the int8 kernel (``int8_amp_linear``)."""
     x, weight, bias = cast_inputs("linear", x, weight, bias)
+    if _amp_int8_active(weight):
+        return int8_amp_linear(x, weight, bias)
     y = x @ weight
     return y if bias is None else y + bias
 

@@ -21,6 +21,10 @@ minutes. :func:`build` compiles every missing library at once, one
 source (the two chunked-CE entries, the flash forward with and without
 a key bias, the three flash backward entries, paged decode over full
 or int8 pools) share its library.
+
+The registry also counts the calls that the JAX package's routing sends
+to a plain composition by shape (:func:`note_fallback`): a run can show
+that none of its calls took that route.
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
-__all__ = ["Kernel", "KERNELS", "kernels", "reset_launch_counts", "build",
-           "build_log", "function", "check", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["Kernel", "KERNELS", "FALLBACKS", "kernels", "reset_launch_counts",
+           "note_fallback", "build", "build_log", "function", "check",
+           "BUILD_DIR", "CSRC_DIR"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -127,11 +132,23 @@ BGMV = Kernel(
     # x, a, b, ids, out, B, S, E, r, O, dtype, stream
     (_P,) * 5 + (_I,) * 6 + (_P,))
 
+INT8_MATMUL = Kernel(
+    "int8_matmul", "paddle_tpu_torch/csrc/quant_matmul.cu",
+    "paddle_tpu/ops/pallas/quant_matmul.py:168",
+    # x_q, w_q, w_scale, act_scale (a device pointer to one f32), out, M,
+    # K, N, dtype, stream
+    (_P,) * 5 + (_I,) * 4 + (_P,))
+
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     FLASH_ATTENTION_FWD, FLASH_ATTENTION_BWD, CHUNKED_CE_LSE,
     CHUNKED_CE_DLOGITS, FUSED_DROPOUT, PAGED_DECODE,
     FLASH_ATTENTION_BIAS_FWD, FLASH_ATTENTION_BIAS_BWD_DQ,
-    FLASH_ATTENTION_BIAS_BWD_DKV, PAGED_DECODE_QUANT, BGMV)}
+    FLASH_ATTENTION_BIAS_BWD_DKV, PAGED_DECODE_QUANT, BGMV, INT8_MATMUL)}
+
+#: calls that the JAX package's own routing sends past a kernel (today
+#: only ``("int8_matmul", "shape")``: a ``slim.QuantizedLinear`` or AMP
+#: int8 linear whose K or N does not tile), by (kernel, reason)
+FALLBACKS: Dict[tuple, int] = {}
 
 
 def kernels() -> List[dict]:
@@ -141,8 +158,18 @@ def kernels() -> List[dict]:
 
 
 def reset_launch_counts() -> None:
+    """Set every launch count and every :data:`FALLBACKS` count to 0."""
     for k in KERNELS.values():
         k.launches = 0
+    FALLBACKS.clear()
+
+
+def note_fallback(kernel: str, reason: str) -> None:
+    """Count a call that the reference's routing sends past ``kernel``
+    for ``reason`` (``paddle_tpu/ops/pallas/__init__.py::note_fallback``).
+    It counts a choice by shape, never a failure: on the card a wrapper
+    launches its kernel or raises."""
+    FALLBACKS[(kernel, reason)] = FALLBACKS.get((kernel, reason), 0) + 1
 
 
 _LOCK = threading.Lock()

@@ -531,4 +531,5 @@ def test_tiny_bert_trainstep_on_card_launches_the_bias_kernels(cuda):
                  "flash_attention_bias_fwd": 2 * L,
                  "flash_attention_bias_bwd_dq": 2 * L,
                  "flash_attention_bias_bwd_dkv": 2 * L,
-                 "paged_decode_attention_quant": 0, "bgmv": 0}
+                 "paged_decode_attention_quant": 0, "bgmv": 0,
+                 "int8_matmul": 0}

@@ -137,7 +137,7 @@ def test_registry_names_sources_and_tpu_kernels():
         "chunked_ce_dlogits", "fused_dropout", "paged_decode_attention",
         "flash_attention_bias_fwd", "flash_attention_bias_bwd_dq",
         "flash_attention_bias_bwd_dkv", "paged_decode_attention_quant",
-        "bgmv"]
+        "bgmv", "int8_matmul"]
     for r in rows:
         assert (REPO / r["source"]).is_file()
         path, line = r["replaces"].split(":")

@@ -502,7 +502,8 @@ def test_tiny_trainstep_on_card_launches_every_training_kernel(cuda):
                  "flash_attention_bias_fwd": 0,
                  "flash_attention_bias_bwd_dq": 0,
                  "flash_attention_bias_bwd_dkv": 0,
-                 "paged_decode_attention_quant": 0, "bgmv": 0}
+                 "paged_decode_attention_quant": 0, "bgmv": 0,
+                 "int8_matmul": 0}
 
 
 @pytest.mark.cuda
