@@ -19,9 +19,13 @@ result line. Fourteen phases, in order:
               a dynamic activation scale; the biased
               flash kernels also on a batch row with every key masked,
               bgmv also on rows of the zero adapter, which must be exactly
-              0.0), and time the kernel, the plain version, the card's
-              bound and, where one exists, the one PyTorch call that
-              computes the same function;
+              0.0; the bf16 flash backward, whose tensor-core products
+              take p.V and ds rounded to bf16 as the TPU kernels do, also
+              against the plain version that rounds the same operands),
+              and time the kernel, the plain version, the card's bound
+              and, where one exists, the one PyTorch call that computes
+              the same function (the flash backward's earlier CUDA-core
+              design's time printed beside it);
 3. slice   -- serve 16 greedy requests on GPT-2 345M (random weights
               from a seed) through ``ServingEngine`` at the full serving
               configuration, check the launch counts against the
@@ -134,6 +138,12 @@ TOL = {
 # may differ by one bf16 ulp, at most 2^-7 of the largest (1.064e-03
 # measured, on dk); f32 as TOL
 TRAIN_FLASH_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# the bf16 flash backward's time at the same shapes when it ran its
+# products on the CUDA cores in f32 (this script's last run of that
+# design, on an H100 80GB HBM3 at 700 W); printed beside today's
+CUDA_CORE_BWD_MS = {"flash_attention_bwd": 3.6618,
+                    "flash_attention_bias_bwd_dq": 2.5911,
+                    "flash_attention_bias_bwd_dkv": 3.5730}
 # the lse kernel and its plain version sum 50304 exponentials in
 # another order: relative to the largest lse
 LSE_TOL = 1e-5
@@ -577,6 +587,25 @@ def _ce_case(dtype, timed=False):
             "library_ms": lib_d, "shape": shape}}
 
 
+def _mxu_errs(grads, plain_mxu, dtype) -> list:
+    """In bfloat16 the backward kernels round p.V and ds to bf16 before
+    their second products, as the TPU kernels' ``_dot`` does under the
+    default precision policy: each gradient's max abs error / max |plain|
+    against the plain version that rounds the same operands
+    (``plain_mxu()``); in float32 nothing (no such rounding)."""
+    import torch
+    if dtype != torch.bfloat16:
+        return []
+    return [_rel_err(a, r) for a, r in zip(grads, plain_mxu())]
+
+
+def _mxu_note(errs: list, names) -> str:
+    if not errs:
+        return ""
+    return ("; against the plain version with bf16 MXU operands " + ", ".join(
+        f"{n} {e:.3e}" for n, e in zip(names, errs)))
+
+
 def _flash_train_case(dtype, timed=False):
     """Forward with dropout and backward at the training shapes, against
     the plain versions; the backward's is fed the kernel's o and lse, so
@@ -599,13 +628,17 @@ def _flash_train_case(dtype, timed=False):
     refs = flash_attention_bwd_plain(q, k, v, o, lse, do, True, None, rate,
                                      words)
     errs = [_rel_err(a, r) for a, r in zip(grads, refs)]
+    mxu = _mxu_errs(grads, lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, True, None, rate, words,
+        mxu_dtype=torch.bfloat16), dtype)
     _log(f"kernels: flash B={B} S={S} H={H} D={D} {name} causal dropout "
          f"{rate}: o {o_err:.3e}, dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
          f"dv {errs[2]:.3e} (max abs error / max |plain|, tol "
-         f"{TRAIN_FLASH_TOL[name]:g})")
-    _require(max([o_err] + errs) <= TRAIN_FLASH_TOL[name],
+         f"{TRAIN_FLASH_TOL[name]:g})" + _mxu_note(mxu, ("dq", "dk", "dv")))
+    _require(max([o_err] + errs + mxu) <= TRAIN_FLASH_TOL[name],
              f"flash forward/backward with dropout disagree with their "
-             f"plain versions in {name}: o {o_err}, grads {errs}")
+             f"plain versions in {name}: o {o_err}, grads {errs}, against "
+             f"bf16 MXU operands {mxu}")
     del grads, refs
     if not timed:
         return None
@@ -722,18 +755,24 @@ def _bias_flash_case(B, S, H, D, dtype, mask, rate=0.1, seed=10,
                                         bias=bias)
     errs.update((n, _rel_err(a, r)) for n, a, r in
                 zip(("dq", "dk", "dv", "db"), (dq, dk, dv, db), refs))
+    del refs
+    mxu = _mxu_errs((dq, dk, dv), lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, *args, bias=bias,
+        mxu_dtype=torch.bfloat16)[:3], dtype)
     tol = TRAIN_FLASH_TOL[name]
     shape = (f"B={B} S={S} H={H} D={D} {name} key bias "
              f"({int((mask == 0).any(1).sum())} padded rows) dropout {rate}")
     _log(f"kernels: flash bias [{shape}]: " + ", ".join(
         f"{n} {e:.3e}" for n, e in errs.items())
         + f" (max abs error / max |plain|, tol {tol:g}; db f32 tol "
-        f"{TRAIN_FLASH_TOL['float32']:g}), max|lse-plain| {lse_err:.3e}")
-    _require(max(e for n, e in errs.items() if n != "db") <= tol
+        f"{TRAIN_FLASH_TOL['float32']:g}), max|lse-plain| {lse_err:.3e}"
+        + _mxu_note(mxu, ("dq", "dk", "dv")))
+    _require(max([e for n, e in errs.items() if n != "db"] + mxu) <= tol
              and errs["db"] <= TRAIN_FLASH_TOL["float32"]
              and lse_err <= TOL["float32"] * 10,
              f"biased flash kernels disagree with their plain versions in "
-             f"{name}: {errs}, lse {lse_err}")
+             f"{name}: {errs}, lse {lse_err}, against bf16 MXU operands "
+             f"{mxu}")
     if full_row is not None:
         zero = bool((o[full_row] == 0).all()) and \
             bool((lse[full_row] == -1e30).all())
@@ -741,7 +780,7 @@ def _bias_flash_case(B, S, H, D, dtype, mask, rate=0.1, seed=10,
              f"-1e30 bias: o == 0 and lse == -1e30: {zero}")
         _require(zero, "a fully masked row did not give o = 0, "
                  "lse = -1e30")
-    del dq, dk, dv, db, refs
+    del dq, dk, dv, db
     if not timed:
         return None
     elem = q.element_size()
@@ -901,9 +940,12 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     for name, r in {**rows, **bgmv_cases, **int8_cases}.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        old = (f", the earlier CUDA-core design "
+               f"{CUDA_CORE_BWD_MS[name]:.4f} ms" if name in CUDA_CORE_BWD_MS
+               else "")
         _log(f"kernels: {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-             f"({r['bound_by']}), library {lib} ms")
+             f"({r['bound_by']}), library {lib} ms{old}")
     return rows
 
 
@@ -1519,8 +1561,8 @@ def gpt_flops_per_token(h=1024, L=24, V=50304, S=1024) -> float:
 # group whose fragment a kernel's name holds takes it
 PROFILE_GROUPS = (
     ("flash forward", ("flash_fwd_kernel",)),
-    ("flash backward", ("dkv_kernel", "dq_kernel", "delta_kernel",
-                        "db_sum_kernel")),
+    ("flash backward", ("dkv_kernel", "dq_kernel", "dkv_tc_kernel",
+                        "dq_tc_kernel", "delta_kernel", "db_sum_kernel")),
     ("chunked CE", ("lse_kernel", "dlogits_kernel")),
     ("int8 matmul", ("int8_matmul_kernel",)),
     ("dropout", ("dropout_kernel",)),

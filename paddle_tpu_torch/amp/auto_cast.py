@@ -6,8 +6,9 @@ lists are copied, and :func:`cast_inputs` applies the O1 rule of
 ``_cast_target``. The JAX package casts the floating inputs of a named
 op inside its dispatch layer; the port's model calls :func:`cast_inputs`
 with the same op names at the same places, so the two packages round at
-the same points. Other levels, float16 and custom lists are not ported:
-every kernel of the port takes float32 or bfloat16 only.
+the same points. Other levels, float16 and non-empty custom lists are
+not ported (they raise): every kernel of the port takes float32 or
+bfloat16 only. ``enable=False`` and ``amp_guard`` are.
 
 ``torch.autocast`` is not used: its op lists differ (it never casts
 ``embedding``, and its ``layer_norm`` returns float32), so the residual
@@ -22,8 +23,8 @@ from typing import Iterator, Optional
 
 import torch
 
-__all__ = ["white_list", "black_list", "auto_cast", "cast_inputs",
-           "is_active"]
+__all__ = ["white_list", "black_list", "auto_cast", "amp_guard",
+           "cast_inputs", "is_active"]
 
 # Ops whose inputs are cast to low precision in O1 (matmul-class ops;
 # `embedding` so the activation stream starts in low precision)
@@ -48,19 +49,32 @@ _tls = threading.local()
 
 
 @contextlib.contextmanager
-def auto_cast(level: str = "O1", dtype: str = "bfloat16") -> Iterator[None]:
-    """``paddle.amp.auto_cast(level="O1", dtype="bfloat16")``: inside the
-    block, :func:`cast_inputs` casts the inputs of listed ops."""
-    if level != "O1" or dtype != "bfloat16":
-        raise NotImplementedError(
-            f"only level='O1' with dtype='bfloat16' is ported, got "
-            f"level={level!r}, dtype={dtype!r}")
+def auto_cast(enable: bool = True, custom_white_list=None,
+              custom_black_list=None, level: str = "O1",
+              dtype: str = "bfloat16") -> Iterator[None]:
+    """``paddle.amp.auto_cast(enable=True, custom_white_list=None,
+    custom_black_list=None, level="O1", dtype="bfloat16")``, the JAX
+    package's signature (:85): inside an enabled block,
+    :func:`cast_inputs` casts the inputs of listed ops; inside
+    ``enable=False`` nothing is cast, also within an enclosing enabled
+    block, as the JAX package's disabled state does."""
+    if enable:
+        if level != "O1" or dtype != "bfloat16":
+            raise NotImplementedError(
+                f"only level='O1' with dtype='bfloat16' is ported, got "
+                f"level={level!r}, dtype={dtype!r}")
+        if custom_white_list or custom_black_list:
+            raise NotImplementedError(
+                "custom white and black lists are not ported")
     prev = getattr(_tls, "active", False)
-    _tls.active = True
+    _tls.active = bool(enable)
     try:
         yield
     finally:
         _tls.active = prev
+
+
+amp_guard = auto_cast
 
 
 def is_active() -> bool:

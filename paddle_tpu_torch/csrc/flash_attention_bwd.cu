@@ -44,18 +44,56 @@
 // Scores and dp are computed in both 2 and 3 (14 D operations per
 // visible (row, column) pair against the fused TPU kernel's 10).
 //
-// What bounds it on this card: arithmetic (about 10 D operations per
-// visible pair against 4 D * 4 bytes of q/k/v/o/dO per row). This first
-// version runs the products on the CUDA cores in f32 (bf16 is widened on
-// load), so its ceiling is the card's f32 rate; wgmma comes later. What
-// the design does about it: tiles live in shared memory in rows of D + 4
-// floats (16-byte aligned, and consecutive rows fall in different banks),
-// each thread computes a 4x4 microtile of s and dp with 16-byte loads
-// along D (rows ty + 16 i, columns tx + 16 j) and keeps a 4 x D/16 share
-// of its accumulators in registers; causal tiles that no row can see are
-// never loaded. The sequence edge is masked in-kernel, so any S works.
-// dbias needs 4 more registers a thread for its column partial sums,
-// merged once through shared memory at the end.
+// What bounds it on this card: operations. The function does five
+// products a visible (row, column) pair, 10 D operations (s, dp, dq, dk,
+// dv), against 8 D * 2 bytes a row (q, k, v, o, dO read once, dq, dk,
+// dv written once): at GPT-2 345M's training shape 60 GFLOP (the split
+// does seven products, 14 D) against 0.13 GB, so the bound is the bf16
+// tensor-core rate of 989 TFLOP/s, far above the card's 3.35 TB/s line.
+//
+// float32 inputs (variants 0, 1) run the products on the CUDA cores in
+// f32: tiles live in shared memory in rows of D + 4 floats (16-byte
+// aligned, consecutive rows in different banks), each of 256 threads
+// computes a 4x4 microtile of s and dp with 16-byte loads along D (rows
+// ty + 16 i, columns tx + 16 j) and keeps a 4 x D/16 share of its
+// accumulators in registers. Its ceiling is the card's f32 rate (67
+// TFLOP/s); it is the reference path the f32 parity tests hold.
+//
+// bfloat16 inputs (variants 2, 3) run every product on the tensor cores
+// (dkv_tc_kernel, dq_tc_kernel), as the TPU kernels run theirs on the
+// MXU: `_dot` (:115) casts both operands to `_mxu_dtype` (bf16 under the
+// default precision policy) and sums in f32, so p.V's and ds's operands
+// enter the MXU rounded to bf16 (:476-478, :601, :645, :647). Here:
+//   - operands stay bf16 in shared memory, in rows of D + 8 elements
+//     (the 16 bytes of padding put the 8 rows an ldmatrix phase reads
+//     in 8 distinct 4-bank groups, so its reads are conflict-free);
+//     tiles arrive by 16-byte cp.async, and the swept operand (Q and dO
+//     in dkv, K and V in dq) is double-buffered, so the next tile's copy
+//     overlaps this tile's math (commit_group / wait_group 1);
+//   - products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
+//     operands fed by ldmatrix (.trans where an operand is used
+//     transposed), sums in f32;
+//   - a block is 4 warps; each warp owns 16 rows of the block's 64
+//     (keys in dkv, queries in dq). dkv computes S^T = K Q^T and dP^T =
+//     V dO^T, dq computes S = Q K^T and dP = dO V^T, into f32 fragments;
+//     p, pv, dsr and ds are formed in registers from each fragment's
+//     (row, column): the lse shift (lse == -1e30 -> 0), the bias, the
+//     causal and sequence-edge mask (only on tiles that cross an edge or
+//     the diagonal), and the dropout keep bit of dropout_hash.cuh, so the
+//     mask stays bit-equal to the forward's;
+//   - pv and ds are rounded to bf16 and the accumulator fragments are
+//     used directly as the A operands of dV += Pv^T dO, dK += dS^T Q and
+//     dQ += dS K (an m16n8 f32 fragment pair is an m16k16 bf16 A
+//     fragment), with no shared-memory round trip;
+//   - dbias sums the f32 dsr, never the rounded ds, per key row in
+//     registers over the sweep, then over the row's four lanes by quad
+//     shuffles in a fixed order; db_sum_kernel sums the heads as before;
+//   - the bias entries' delta: dkv_tc_kernel stages each query tile's o
+//     rows beside its dO rows and sums delta from shared memory; dq_tc
+//     sums it once from its dO tile and the o rows.
+// The sweep tile is 64 rows, and 32 in dkv at D = 128, which keeps its
+// dK/dV accumulators (128 floats a thread) clear of spills.
+// wgmma, TMA and warp specialisation are a later redesign.
 //
 // Plain C interface, bound from Python with ctypes; each entry returns
 // cudaGetLastError() after its launches.
@@ -63,6 +101,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "dropout_hash.cuh"
 
@@ -85,9 +125,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
@@ -475,6 +512,563 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 path on the tensor cores
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TC_THREADS = 128;   // 4 warps, 16 rows each
+constexpr int TC_ROWS = 64;       // rows a block owns
+
+template <int D>
+__host__ __device__ constexpr int tc_ld() {
+  return D + 8;  // bf16 elements a shared-memory row
+}
+
+// the swept query tile of dkv_tc_kernel
+template <int D>
+__host__ __device__ constexpr int dkv_qt() {
+  return D == 128 ? 32 : 64;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (4 with cp_async4), zero-filled where ok is false
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b, a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 values rounded to nearest-even bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the m16k16 A fragment of columns 16 kk .. 16 kk + 15 of a warp's 16-row
+// band held as m16n8 accumulator fragments c[2 kk], c[2 kk + 1]
+template <int N>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const float (&c)[N][4],
+                                       int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// rows r0 .. r0 + ROWS - 1 of a [*, H, D] bf16 tensor (`src` at batch b,
+// head h) into a [ROWS][D + 8] tile; rows at or past n are zeros
+template <int ROWS, int D>
+__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int r0,
+                                           int n, long long ld_row) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  static_assert(ROWS * CH % TC_THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / TC_THREADS; ++it) {
+    const int i = threadIdx.x + it * TC_THREADS;
+    const int r = i / CH, c = i % CH;
+    const int row = r0 + r;
+    const bool ok = row < n;
+    cp_async16(dst + r * tc_ld<D>() + c * 8,
+               src + (ok ? row * ld_row + c * 8 : 0), ok);
+  }
+}
+
+// dst[i] = src[r0 + i] for i < ROWS; zeros at or past n
+template <int ROWS>
+__device__ __forceinline__ void vec_async(float* dst, const float* src, int r0,
+                                          int n) {
+  for (int i = threadIdx.x; i < ROWS; i += TC_THREADS) {
+    const bool ok = r0 + i < n;
+    cp_async4(dst + i, src + (ok ? r0 + i : 0), ok);
+  }
+}
+
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    acc += u.x * w.x + u.y * w.y;
+  }
+  return acc;
+}
+
+// delta_s[r] = rowsum(dO * o) of ROWS rows, dO from a shared tile and o
+// from a shared tile (os_shared) or from device memory (o_rows at row 0,
+// rows at or past n read as zeros)
+template <int ROWS, int D>
+__device__ __forceinline__ void tc_delta(float* delta_s, const bf16* dOs,
+                                         const bf16* os_shared,
+                                         const bf16* o_rows, int r0, int n,
+                                         long long ld_row) {
+  constexpr int TPR = TC_THREADS / ROWS;  // threads a row, adjacent lanes
+  constexpr int PART = D / TPR;
+  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
+  const bf16* d = dOs + r * tc_ld<D>() + part * PART;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < PART; i += 8) {
+    const uint4 dv = *reinterpret_cast<const uint4*>(d + i);
+    uint4 ov;
+    if (os_shared != nullptr) {
+      ov = *reinterpret_cast<const uint4*>(os_shared + r * tc_ld<D>() +
+                                           part * PART + i);
+    } else {
+      const int row = r0 + r;
+      ov = row < n ? *reinterpret_cast<const uint4*>(o_rows + row * ld_row +
+                                                     part * PART + i)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+    acc += dot8(dv, ov);
+  }
+#pragma unroll
+  for (int m = TPR / 2; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (part == 0) delta_s[r] = acc;
+}
+
+template <int D, bool BIAS>
+constexpr int dkv_tc_smem_bytes() {
+  // K and V tiles, then two stages of the swept Q, dO (and o) tiles, all
+  // bf16; then two stages of lse and delta
+  return (2 * TC_ROWS + 2 * (BIAS ? 3 : 2) * dkv_qt<D>()) * tc_ld<D>() * 2 +
+         2 * 2 * dkv_qt<D>() * 4;
+}
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(TC_THREADS)
+    dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const float* __restrict__ bias,
+                  const bf16* __restrict__ o, const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  const bf16* __restrict__ dout, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, float* __restrict__ db_h, int Sq,
+                  int Sk, int H, int causal, float scale, Dropout drop) {
+  constexpr int QT = dkv_qt<D>();
+  constexpr int LD = tc_ld<D>();
+  constexpr int NQ = QT / 8;        // n8 tiles across a query tile
+  constexpr int ND = D / 8;         // n8 tiles across D
+  constexpr int NT = BIAS ? 3 : 2;  // tiles a stage
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + TC_ROWS * LD;
+  bf16* stages = Vs + TC_ROWS * LD;  // stage s at stages + s * NT * QT * LD
+  float* vecs = reinterpret_cast<float*>(stages + 2 * NT * QT * LD);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * TC_ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  drop.bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  const long long ld_row = (long long)H * D;
+  const long long qoff = ((long long)b * Sq * H + h) * D;
+  const long long koff = ((long long)b * Sk * H + h) * D;
+  const float* lse_bh = lse + ((long long)b * H + h) * Sq;
+  const float* delta_bh = BIAS ? nullptr : delta + ((long long)b * H + h) * Sq;
+  const int off = Sk - Sq;
+  const int kr = warp * 16 + g;  // this thread's key rows: kr, kr + 8
+
+  float brow[2] = {0.f, 0.f};
+  if (BIAS) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int key = k0 + kr + 8 * rr;
+      brow[rr] = key < Sk ? bias[(long long)b * Sk + key] : 0.f;
+    }
+  }
+
+  auto prefetch = [&](int tq, int s) {
+    bf16* st = stages + s * NT * QT * LD;
+    const int q0 = tq * QT;
+    tile_async<QT, D>(st, q + qoff, q0, Sq, ld_row);
+    tile_async<QT, D>(st + QT * LD, dout + qoff, q0, Sq, ld_row);
+    if (BIAS) tile_async<QT, D>(st + 2 * QT * LD, o + qoff, q0, Sq, ld_row);
+    float* vs = vecs + s * 2 * QT;
+    vec_async<QT>(vs, lse_bh, q0, Sq);
+    if (!BIAS) vec_async<QT>(vs + QT, delta_bh, q0, Sq);
+  };
+
+  // the first query row that sees key k0 is k0 - (Sk - Sq)
+  const int first = causal ? max(0, k0 - off) / QT : 0;
+  const int n_q = (Sq + QT - 1) / QT;
+  tile_async<TC_ROWS, D>(Ks, k + koff, k0, Sk, ld_row);
+  tile_async<TC_ROWS, D>(Vs, v + koff, k0, Sk, ld_row);
+  if (first < n_q) prefetch(first, 0);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4], db[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int tq = first; tq < n_q; ++tq) {
+    const int s = (tq - first) & 1;
+    __syncthreads();  // the stage refilled next was read last iteration
+    if (tq + 1 < n_q) prefetch(tq + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qs = stages + s * NT * QT * LD;
+    const bf16* dOs = Qs + QT * LD;
+    const float* lse_s = vecs + s * 2 * QT;
+    float* delta_s = vecs + s * 2 * QT + QT;
+    if (BIAS) {
+      tc_delta<QT, D>(delta_s, dOs, dOs + QT * LD, nullptr, 0, 0, 0);
+      __syncthreads();
+    }
+
+    // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      const int arow = (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(ka, Ks + arow);
+      ldsm_x4(va, Vs + arow);
+#pragma unroll
+      for (int j = 0; j < NQ; j += 2) {
+        uint32_t qb[4], ob[4];
+        const int brow_i = (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                           kk * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4(qb, Qs + brow_i);
+        ldsm_x4(ob, dOs + brow_i);
+        mma_bf16(st[j], ka, qb[0], qb[1]);
+        mma_bf16(st[j + 1], ka, qb[2], qb[3]);
+        mma_bf16(dpt[j], va, ob[0], ob[1]);
+        mma_bf16(dpt[j + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    // pv and ds in the fragments; element (j, e) is key k0 + kr + 8 (e / 2),
+    // query q0 + 8 j + 2 t + e % 2
+    const int q0 = tq * QT;
+    const bool edge = q0 + QT > Sq || k0 + TC_ROWS > Sk ||
+                      (causal && q0 + off < k0 + TC_ROWS - 1);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        const int rr = e >> 1;
+        const int qrow = q0 + c, key = k0 + kr + 8 * rr;
+        const float l = lse_s[c] == NEG_INF ? 0.f : lse_s[c];
+        const float x = BIAS ? st[j][e] * scale + brow[rr] : st[j][e] * scale;
+        const bool visible =
+            !edge || (qrow < Sq && key < Sk && (!causal || qrow + off >= key));
+        const float p = visible ? expf(x - l) : 0.f;
+        const float keep = drop.keep(qrow, key);
+        const float dsr = p * (dpt[j][e] * keep - delta_s[c]);
+        st[j][e] = p * keep;      // pv
+        dpt[j][e] = dsr * scale;  // ds
+        if (BIAS) db[rr] += dsr;
+      }
+
+    // dV += Pv^T dO and dK += dS^T Q, the fragments as A operands
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      frag_a(pa, st, kk);
+      frag_a(da, dpt, kk);
+#pragma unroll
+      for (int jd = 0; jd < ND; jd += 2) {
+        uint32_t ob[4], qb[4];
+        const int brow_i = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                           jd * 8 + (lane >> 4) * 8;
+        ldsm_x4_t(ob, dOs + brow_i);
+        ldsm_x4_t(qb, Qs + brow_i);
+        mma_bf16(dv_acc[jd], pa, ob[0], ob[1]);
+        mma_bf16(dv_acc[jd + 1], pa, ob[2], ob[3]);
+        mma_bf16(dk_acc[jd], da, qb[0], qb[1]);
+        mma_bf16(dk_acc[jd + 1], da, qb[2], qb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = k0 + kr + 8 * rr;
+    if (key < Sk) {
+      bf16* dkrow = dk + koff + key * ld_row + 2 * t;
+      bf16* dvrow = dv + koff + key * ld_row + 2 * t;
+#pragma unroll
+      for (int jd = 0; jd < ND; ++jd) {
+        *reinterpret_cast<uint32_t*>(dkrow + jd * 8) =
+            pack_bf16(dk_acc[jd][2 * rr], dk_acc[jd][2 * rr + 1]);
+        *reinterpret_cast<uint32_t*>(dvrow + jd * 8) =
+            pack_bf16(dv_acc[jd][2 * rr], dv_acc[jd][2 * rr + 1]);
+      }
+    }
+    if (BIAS) {
+      // the row's four lanes, in a fixed order
+      float acc = db[rr];
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (t == 0 && key < Sk) db_h[((long long)b * H + h) * Sk + key] = acc;
+    }
+  }
+}
+
+template <int D, bool BIAS>
+constexpr int dq_tc_smem_bytes() {
+  // Q and dO tiles, two stages of the swept K and V tiles, all bf16; then
+  // two stages of the key tile's bias and the block's delta
+  return (2 * TC_ROWS + 2 * 2 * TC_ROWS) * tc_ld<D>() * 2 +
+         (2 * TC_ROWS + TC_ROWS) * 4;
+}
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(TC_THREADS)
+    dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ bias,
+                 const bf16* __restrict__ o, const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const bf16* __restrict__ dout, bf16* __restrict__ dq, int Sq,
+                 int Sk, int H, int causal, float scale, Dropout drop) {
+  constexpr int KT = TC_ROWS;  // the swept key tile
+  constexpr int LD = tc_ld<D>();
+  constexpr int NK = KT / 8;   // n8 tiles across a key tile
+  constexpr int ND = D / 8;    // n8 tiles across D
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dOs = Qs + TC_ROWS * LD;
+  bf16* stages = dOs + TC_ROWS * LD;  // stage s: K, V at stages + s * 2 KT LD
+  float* bias_st = reinterpret_cast<float*>(stages + 2 * 2 * KT * LD);
+  float* delta_s = bias_st + 2 * KT;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * TC_ROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  drop.bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  const long long ld_row = (long long)H * D;
+  const long long qoff = ((long long)b * Sq * H + h) * D;
+  const long long koff = ((long long)b * Sk * H + h) * D;
+  const float* lse_bh = lse + ((long long)b * H + h) * Sq;
+  const int off = Sk - Sq;
+  const int qr = warp * 16 + g;  // this thread's query rows: qr, qr + 8
+
+  auto prefetch = [&](int tk, int s) {
+    bf16* st = stages + s * 2 * KT * LD;
+    const int k0 = tk * KT;
+    tile_async<KT, D>(st, k + koff, k0, Sk, ld_row);
+    tile_async<KT, D>(st + KT * LD, v + koff, k0, Sk, ld_row);
+    if (BIAS) vec_async<KT>(bias_st + s * KT, bias + (long long)b * Sk, k0, Sk);
+  };
+
+  // the last key column any row of this tile may see
+  int last_col = Sk - 1;
+  if (causal) last_col = min(last_col, min(q0 + TC_ROWS, Sq) - 1 + off);
+  const int n_k = last_col < 0 ? 0 : last_col / KT + 1;
+  tile_async<TC_ROWS, D>(Qs, q + qoff, q0, Sq, ld_row);
+  tile_async<TC_ROWS, D>(dOs, dout + qoff, q0, Sq, ld_row);
+  if (n_k > 0) prefetch(0, 0);
+  cp_async_commit();
+
+  float l_r[2], d_r[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + qr + 8 * rr;
+    const float l = row < Sq ? lse_bh[row] : 0.f;
+    l_r[rr] = l == NEG_INF ? 0.f : l;
+    d_r[rr] = (!BIAS && row < Sq) ? delta[((long long)b * H + h) * Sq + row]
+                                  : 0.f;
+  }
+  if (BIAS) {
+    cp_async_wait<0>();
+    __syncthreads();
+    tc_delta<TC_ROWS, D>(delta_s, dOs, nullptr, o + qoff, q0, Sq, ld_row);
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) d_r[rr] = delta_s[qr + 8 * rr];
+  }
+
+  float dq_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+
+  for (int tk = 0; tk < n_k; ++tk) {
+    const int s = tk & 1;
+    __syncthreads();  // the stage refilled next was read last iteration
+    if (tk + 1 < n_k) prefetch(tk + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Ks = stages + s * 2 * KT * LD;
+    const bf16* Vs = Ks + KT * LD;
+    const float* bias_s = bias_st + s * KT;
+
+    // S = Q K^T and dP = dO V^T over this warp's 16 query rows
+    float sc[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], oa[4];
+      const int arow = (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(qa, Qs + arow);
+      ldsm_x4(oa, dOs + arow);
+#pragma unroll
+      for (int j = 0; j < NK; j += 2) {
+        uint32_t kb[4], vb[4];
+        const int brow_i = (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                           kk * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4(kb, Ks + brow_i);
+        ldsm_x4(vb, Vs + brow_i);
+        mma_bf16(sc[j], qa, kb[0], kb[1]);
+        mma_bf16(sc[j + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[j], oa, vb[0], vb[1]);
+        mma_bf16(dp[j + 1], oa, vb[2], vb[3]);
+      }
+    }
+
+    // ds in the fragments; element (j, e) is query q0 + qr + 8 (e / 2),
+    // key k0 + 8 j + 2 t + e % 2
+    const int k0 = tk * KT;
+    const bool edge = q0 + TC_ROWS > Sq || k0 + KT > Sk ||
+                      (causal && q0 + off < k0 + KT - 1);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        const int rr = e >> 1;
+        const int qrow = q0 + qr + 8 * rr, key = k0 + c;
+        const float x = BIAS ? sc[j][e] * scale + bias_s[c] : sc[j][e] * scale;
+        const bool visible =
+            !edge || (qrow < Sq && key < Sk && (!causal || qrow + off >= key));
+        const float p = visible ? expf(x - l_r[rr]) : 0.f;
+        const float keep = drop.keep(qrow, key);
+        sc[j][e] = p * (dp[j][e] * keep - d_r[rr]) * scale;  // ds
+      }
+
+    // dQ += dS K, the fragments as A operands
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t da[4];
+      frag_a(da, sc, kk);
+#pragma unroll
+      for (int jd = 0; jd < ND; jd += 2) {
+        uint32_t kb[4];
+        const int brow_i = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                           jd * 8 + (lane >> 4) * 8;
+        ldsm_x4_t(kb, Ks + brow_i);
+        mma_bf16(dq_acc[jd], da, kb[0], kb[1]);
+        mma_bf16(dq_acc[jd + 1], da, kb[2], kb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + qr + 8 * rr;
+    if (row >= Sq) continue;
+    bf16* dqrow = dq + qoff + row * ld_row + 2 * t;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd)
+      *reinterpret_cast<uint32_t*>(dqrow + jd * 8) =
+          pack_bf16(dq_acc[jd][2 * rr], dq_acc[jd][2 * rr + 1]);
+  }
+}
+
+template <int D, bool BIAS>
+int launch_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* bias, const void* o, const void* lse,
+                  const void* delta, const void* dout, void* dk, void* dv,
+                  void* db_h, int B, int Sq, int Sk, int H, int causal,
+                  float scale, Dropout drop, cudaStream_t stream) {
+  constexpr int bytes = dkv_tc_smem_bytes<D, BIAS>();
+  cudaFuncSetAttribute(dkv_tc_kernel<D, BIAS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  dkv_tc_kernel<D, BIAS><<<dim3((Sk + TC_ROWS - 1) / TC_ROWS, H, B),
+                           TC_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<const bf16*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<float*>(db_h), Sq, Sk, H, causal, scale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool BIAS>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* bias, const void* o, const void* lse,
+                 const void* delta, const void* dout, void* dq, int B, int Sq,
+                 int Sk, int H, int causal, float scale, Dropout drop,
+                 cudaStream_t stream) {
+  constexpr int bytes = dq_tc_smem_bytes<D, BIAS>();
+  cudaFuncSetAttribute(dq_tc_kernel<D, BIAS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  dq_tc_kernel<D, BIAS><<<dim3((Sq + TC_ROWS - 1) / TC_ROWS, H, B),
+                          TC_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<const bf16*>(o), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dq), Sq, Sk, H, causal, scale, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // db[b, c] = sum over h of db_h[b, h, c], heads in order
 __global__ void db_sum_kernel(const float* __restrict__ db_h,
                               float* __restrict__ db, int B, int H, int Sk) {
@@ -492,18 +1086,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* bias,
                const void* dout, void* dk, void* dv, void* db_h, int B,
                int Sq, int Sk, int H, int causal, float scale, Dropout drop,
                cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_floats<D>() * 4;
-  cudaFuncSetAttribute(dkv_kernel<T, D, BIAS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  dkv_kernel<T, D, BIAS><<<dim3((Sk + BK - 1) / BK, H, B), THREADS, bytes,
-                           stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const T*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const T*>(dout),
-      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(db_h),
-      Sq, Sk, H, causal, scale, drop);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_dkv_tc<D, BIAS>(q, k, v, bias, o, lse, delta, dout, dk, dv,
+                                  db_h, B, Sq, Sk, H, causal, scale, drop,
+                                  stream);
+  } else {
+    constexpr int bytes = dkv_smem_floats<D>() * 4;
+    cudaFuncSetAttribute(dkv_kernel<T, D, BIAS>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    dkv_kernel<T, D, BIAS><<<dim3((Sk + BK - 1) / BK, H, B), THREADS, bytes,
+                             stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(bias),
+        static_cast<const T*>(o), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<const T*>(dout),
+        static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(db_h),
+        Sq, Sk, H, causal, scale, drop);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D, bool BIAS>
@@ -511,17 +1111,22 @@ int launch_dq(const void* q, const void* k, const void* v, const void* bias,
               const void* o, const void* lse, const void* delta,
               const void* dout, void* dq, int B, int Sq, int Sk, int H,
               int causal, float scale, Dropout drop, cudaStream_t stream) {
-  constexpr int bytes = dq_smem_floats<D>() * 4;
-  cudaFuncSetAttribute(dq_kernel<T, D, BIAS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  dq_kernel<T, D, BIAS><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS, bytes,
-                          stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const T*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const T*>(dout),
-      static_cast<T*>(dq), Sq, Sk, H, causal, scale, drop);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_dq_tc<D, BIAS>(q, k, v, bias, o, lse, delta, dout, dq, B,
+                                 Sq, Sk, H, causal, scale, drop, stream);
+  } else {
+    constexpr int bytes = dq_smem_floats<D>() * 4;
+    cudaFuncSetAttribute(dq_kernel<T, D, BIAS>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    dq_kernel<T, D, BIAS><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS, bytes,
+                            stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(bias),
+        static_cast<const T*>(o), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<const T*>(dout),
+        static_cast<T*>(dq), Sq, Sk, H, causal, scale, drop);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int D>

@@ -8,9 +8,11 @@ live layer. Building it applies the requested passes: ``layer.eval()``;
 with ``enable_int8()`` ``slim.quantize_weights``, so every eligible
 ``Linear`` becomes a ``slim.QuantizedLinear`` whose product runs on the
 int8 kernel; with ``enable_tpu_bf16()`` the floating parameters are cast
-to bfloat16 in the predictor's own dict (the layer keeps float32). A
-run calls the layer with ``torch.func.functional_call`` on those
-parameters under ``torch.inference_mode()``, casts floating inputs to
+to bfloat16 in the predictor's own dict (the layer keeps float32). The
+predictor keeps a detached copy of the layer's parameters and buffers,
+taken when it is built, as the JAX predictor does. A run calls the
+layer with ``torch.func.functional_call`` on that copy under
+``torch.inference_mode()``, casts floating inputs to
 bfloat16 under bf16, and returns float32 numpy arrays. The inputs go to
 the layer's device: the card unless the layer was built with
 ``device="cpu"``.
@@ -155,12 +157,18 @@ class Predictor:
         if config._weight_quant:
             quantize_weights(layer)
         self._bf16 = config._precision == PrecisionType.Bfloat16
-        params = dict(layer.named_parameters())
+        # a detached copy of the parameters and buffers taken now, as the
+        # JAX predictor's param_arrays / buffer_arrays are
+        # (paddle_tpu/inference/__init__.py:181-182): a layer that goes
+        # on training, or that a later enable_int8() quantizes in place,
+        # does not change this predictor; under bf16 the floating
+        # parameters are cast, the buffers kept as they are
+        params = {k: v.detach().clone() for k, v in layer.named_parameters()}
         if self._bf16:
-            params = {k: v.detach().to(torch.bfloat16)
-                      if v.is_floating_point() else v
-                      for k, v in params.items()}
-        self._params = params
+            params = {k: v.to(torch.bfloat16) if v.is_floating_point()
+                      else v for k, v in params.items()}
+        self._state = {**params, **{k: b.detach().clone()
+                                    for k, b in layer.named_buffers()}}
         self._device = next(layer.parameters()).device
         for i, s in enumerate(config.input_spec):
             # an object with .shape (the JAX InputSpec) or the shape
@@ -174,7 +182,7 @@ class Predictor:
                 t = t.to(torch.bfloat16)
             inputs.append(t)
         with torch.inference_mode():
-            out = functional_call(self._config.layer, self._params,
+            out = functional_call(self._config.layer, self._state,
                                   tuple(inputs))
         outs = list(out) if isinstance(out, (tuple, list)) else [out]
         return [o.float() if self._bf16 and o.is_floating_point() else o

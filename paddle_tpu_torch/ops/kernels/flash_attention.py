@@ -30,7 +30,9 @@ broadcasts a ``[B, 1, 1, Sk]`` mask to it, as the JAX entry does (:956).
 Their plain versions are :func:`flash_attention_plain` and
 :func:`flash_attention_bwd_plain`, each with an optional ``bias``: the
 backward reads the saved o and lse as the kernels do and returns ``db``
-when given a bias. They follow the kernels' online softmax, whose
+when given a bias; the backward's ``mxu_dtype=torch.bfloat16`` rounds
+the operands of its products to bf16 as the bf16 kernels (and the TPU
+kernels' ``_dot``) do. They follow the kernels' online softmax, whose
 running max starts at ``NEG_INF``: a row whose every score is
 ``NEG_INF`` or below (a fully masked row, with an f32 or a
 bf16-rounded ``-1e30`` bias) gets ``o = 0`` and ``lse = NEG_INF``.
@@ -110,7 +112,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
                               scale: Optional[float] = None,
                               dropout_rate: float = 0.0,
                               seed_words: SeedWords = None,
-                              bias: Optional[torch.Tensor] = None):
+                              bias: Optional[torch.Tensor] = None,
+                              mxu_dtype: Optional[torch.dtype] = None):
     """The backward kernels' function in plain PyTorch, as ``_bwd2`` and
     ``_bwd_v1`` compute it: ``p = exp(s - lse)`` from the saved ``lse``
     (shift 0 where it is ``NEG_INF``), ``delta = rowsum(dO * o)`` from the
@@ -119,23 +122,35 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
     ``bias [B, Sk]`` also ``db [B, Sk]`` float32 (the score gradient
     summed over heads and query rows, ``:651`` and ``:769``). Given the
     ``o`` and ``lse`` of :func:`flash_attention_plain` in float32, it is
-    that function's gradient."""
+    that function's gradient.
+
+    ``mxu_dtype`` is the operand dtype of the five products (``_dot``'s
+    ``cd``, :115): None keeps float32; ``torch.bfloat16`` rounds every
+    operand, ``pv`` and ``ds`` included, to bf16 and sums in float32, as
+    the TPU kernels do under the default precision policy and as the bf16
+    tensor-core kernels do. ``db`` sums the unrounded ``ds / scale``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if mxu_dtype is None or mxu_dtype == torch.float32:
+        def mx(t):
+            return t
+    else:
+        def mx(t):
+            return t.to(mxu_dtype).float()
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
-    s = _scores(qf, kf, bias, causal, scale)
+    s = _scores(mx(qf), mx(kf), bias, causal, scale)
     p = torch.exp(s - torch.where(lse == NEG_INF, 0.0, lse)[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", mx(dof), mx(vf))
     pv = p
     if dropout_rate > 0.0:
         mult = _dropout_mult(*s.shape, dropout_rate, seed_words, q.device)
         pv, dp = p * mult, dp * mult
     delta = (dof * of).sum(-1).transpose(1, 2)               # [B, H, Sq]
     dsr = p * (dp - delta[..., None])
-    ds = dsr * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dv = torch.einsum("bhqk,bqhd->bkhd", pv, dof)
+    ds = mx(dsr * scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, mx(kf))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, mx(qf))
+    dv = torch.einsum("bhqk,bqhd->bkhd", mx(pv), mx(dof))
     grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
     if bias is None:
         return grads
@@ -195,6 +210,17 @@ def _check_saved(q, o, lse, do, cuda_args):
                          "and lse in float32, all on one device")
     if not all(t.is_contiguous() for t in cuda_args):
         raise ValueError("flash backward takes contiguous arguments")
+    # the bf16 kernels copy rows in 16-byte pieces
+    if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16
+           for t in cuda_args):
+        raise ValueError("the bf16 flash backward takes 16-byte aligned "
+                         "tensors")
+
+
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (a copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _dropout_args(dropout_rate: float, seed_words: SeedWords):
@@ -376,7 +402,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale, dropout_rate, seed_words):
-        q, k, v = (t.contiguous() for t in (q, k, v))
+        q, k, v = (_aligned(t) for t in (q, k, v))
         args = (causal, scale, True, dropout_rate, seed_words)
         if bias is None:
             o, lse = flash_attention_fwd(q, k, v, *args)
@@ -390,7 +416,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
-        do = do.contiguous()
+        do = _aligned(do)
         if bias is None:
             dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
             db = None

@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.random import make_generator
@@ -130,6 +131,14 @@ class ServingEngine:
             raise ValueError("ServingEngine needs a model with a .cfg "
                              "(num_heads/head_dim/num_layers)")
         self.model = model.to(self.device).eval()
+        # the weights served: a detached copy of the parameters and
+        # buffers taken now, as the JAX engine's param_arrays /
+        # buffer_arrays are (paddle_tpu/serving/engine.py:224-225), so a
+        # layer that goes on training does not change this engine
+        self.params = {k: p.detach().clone()
+                       for k, p in self.model.named_parameters()}
+        self.buffers = {k: b.detach().clone()
+                        for k, b in self.model.named_buffers()}
         # resolve() fills model-dependent defaults on a copy, so a
         # caller-owned config can be reused across engines
         self.config = dataclasses.replace(config) if config is not None \
@@ -286,8 +295,10 @@ class ServingEngine:
             c.k, c.v, c.table_array([None if st is None else st.slot
                                      for st in states]),
             c.k_scale, c.v_scale, *lora)
-        return self.model(torch.from_numpy(ids).to(dev), caches=view,
-                          cache_pos=torch.from_numpy(pos).to(dev))
+        return functional_call(
+            self.model, (self.params, self.buffers),
+            (torch.from_numpy(ids).to(dev),),
+            {"caches": view, "cache_pos": torch.from_numpy(pos).to(dev)})
 
     def _run_prefill(self, group: AdmissionGroup) -> None:
         nb, sp = group.batch_bucket, group.len_bucket

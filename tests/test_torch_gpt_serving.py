@@ -203,6 +203,41 @@ def test_engine_greedy_token_exact_vs_jax_engine(wide, num_pages):
     assert m["decode_step_p99_s"] >= m["decode_step_p50_s"] > 0
 
 
+def test_engines_serve_the_weights_they_were_built_with():
+    """Both engines snapshot the model's parameters and buffers when they
+    are built: negating every weight afterwards changes no token of
+    either, and they still agree token for token; an engine built after
+    the change serves the new weights."""
+    jax_model, named, port_model = _models(WIDE)
+    rng = np.random.RandomState(3)
+    specs = [(rng.randint(0, 256, (int(rng.randint(8, 25)),)),
+              int(rng.randint(4, 13))) for _ in range(4)]
+
+    def port_tokens(engine):
+        reqs = [engine.submit(Request(p, max_new_tokens=n,
+                                      sampling=SamplingParams()))
+                for p, n in specs]
+        engine.run()
+        return [r.generated for r in reqs]
+
+    before = port_tokens(ServingEngine(port_model, ServingConfig(**QUICK),
+                                       device="cpu"))
+    je = JaxServingEngine(jax_model, JaxServingConfig(**QUICK))
+    te = ServingEngine(port_model, ServingConfig(**QUICK), device="cpu")
+    jax_model.set_state_dict({k: -v for k, v in named.items()})
+    with torch.no_grad():
+        for t in (*port_model.parameters(), *port_model.buffers()):
+            if t.is_floating_point():
+                t.neg_()
+    js = [je.submit(JaxRequest(p, max_new_tokens=n,
+                               sampling=JaxSamplingParams()))
+          for p, n in specs]
+    je.run()
+    assert port_tokens(te) == [r.generated for r in js] == before
+    assert port_tokens(ServingEngine(port_model, ServingConfig(**QUICK),
+                                     device="cpu")) != before
+
+
 def test_engine_without_device_never_runs_on_the_cpu(tiny):
     port_model = tiny[2]
     if torch.cuda.is_available():

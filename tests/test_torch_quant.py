@@ -586,6 +586,39 @@ def test_predictor_matches_jax_predictor(mode):
         np.testing.assert_array_equal(tpred.run(list(batch))[0], got)
 
 
+@pytest.mark.pallas
+@pytest.mark.parametrize("mode", ["f32", "int8+bf16"])
+def test_predictors_keep_the_weights_they_were_built_with(mode):
+    """Both predictors snapshot the layer's parameters and buffers when
+    they are built (the bf16 one casts its copy): halving every floating
+    tensor and negating every int8 one afterwards leaves both outputs
+    bit for bit as they were, still within the parity tolerance of each
+    other; a predictor built after the change reads the new weights."""
+    from paddle_tpu.jit.input_spec import InputSpec
+    jm, pm = _bert_pair(ALIGNED)
+    batch = list(_bert_batch(ALIGNED["vocab_size"]))
+    specs = [InputSpec(a.shape, "int32") for a in batch]
+    jpred = _jax_predictor(jm, mode, specs)
+    tpred = _port_predictor(pm, mode, specs)
+    ref, got = jpred.run(batch)[0], tpred.run(batch)[0]
+    jm.set_state_dict({k: v * 0.5 if v.dtype.kind == "f" else -v
+                       for k, v in _named(jm).items()})
+    with torch.no_grad():
+        for t in (*pm.parameters(), *pm.buffers()):
+            if t.is_floating_point():
+                t.mul_(0.5)
+            elif t.dtype == torch.int8:
+                t.neg_()
+    np.testing.assert_array_equal(jpred.run(batch)[0], ref)
+    np.testing.assert_array_equal(tpred.run(batch)[0], got)
+    kind, tol = PREDICTOR_TOL[mode]
+    atol = tol if kind == "abs" else tol * np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
+    cfg = inference.Config.from_layer(pm, [a.shape for a in batch])
+    assert not np.array_equal(inference.create_predictor(cfg).run(batch)[0],
+                              got)
+
+
 def test_predictor_handles_and_config_surface():
     """The zero-copy handle surface gives what run([arrays]) gives; an
     unset input raises; a model path and save_optimized_model wait for

@@ -16,6 +16,7 @@ without a card; they also run where JAX is not installed::
     python -m pytest --noconftest -m cuda tests/test_torch_training.py
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -115,6 +116,51 @@ def test_flash_dropout_forward_and_grads_match_jax_kernel():
     for t, r in zip((tq, tk, tv), ref_grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=2e-5,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("causal,padded", [(True, False), (False, True)])
+def test_plain_backward_with_bf16_mxu_operands_matches_jax_kernel(
+        monkeypatch, causal, padded):
+    """``mxu_dtype=torch.bfloat16`` rounds the operands of the five
+    products to bf16 and sums in f32, as the TPU kernels' ``_dot`` does
+    when ``_mxu_dtype`` gives bf16 (the default precision policy on a TPU;
+    the interpreter keeps f32, so it is patched here). The plain version
+    is fed the JAX forward's o and its own lse: they differ from the
+    kernel's in the last f32 bit, which flips the bf16 rounding of a few
+    p.V and ds entries, so the gradients agree within 2e-4 of the
+    largest (7.2e-5 measured), and on average to a hundredth of the
+    float32 plain version's distance from the kernel (5.6e-4 measured)."""
+    import importlib
+
+    import jax
+    import jax.numpy as jnp
+    jmod = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
+    monkeypatch.setattr(jmod, "_mxu_dtype", lambda dtype: jnp.bfloat16)
+    key, words = _jax_words(7)
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 256, 2, 64)
+                                    .astype(np.float32))
+                   .to(torch.bfloat16).float() for _ in range(4))
+    bias = None
+    if padded:
+        bias = torch.zeros(1, 256)
+        bias[0, 200:] = -1e30
+    o, vjp = jax.vjp(lambda a, b, c: jmod.flash_attention(
+        a, b, c, bias=None if bias is None else jnp.asarray(
+            bias.numpy())[:, None, None, :],
+        causal=causal, block_q=128, block_k=128, dropout_rate=0.1,
+        dropout_key=key), *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(do.numpy()))]
+    lse = flash_attention_plain(q, k, v, causal, None, True, 0.1, words,
+                                bias)[1]
+    args = (q, k, v, torch.from_numpy(np.array(o)), lse, do, causal, None,
+            0.1, words, bias)
+    mxu = flash_attention_bwd_plain(*args, mxu_dtype=torch.bfloat16)[:3]
+    f32 = flash_attention_bwd_plain(*args)[:3]
+    for a, b, r in zip(mxu, f32, ref):
+        assert np.abs(a.numpy() - r).max() <= 2e-4 * np.abs(r).max()
+        assert np.abs(a.numpy() - r).mean() <= \
+            1e-2 * np.abs(b.numpy() - r).mean()
 
 
 def test_flash_backward_wrapper_is_the_plain_gradient():
@@ -334,6 +380,54 @@ def test_trainstep_o1_matches_jax_trainstep_and_its_dtypes():
     assert tl[2] < tl[0]
 
 
+def test_auto_cast_signature_enable_and_amp_guard_match_jax():
+    """``auto_cast(enable=False)`` casts nothing, also inside an enabled
+    block; a positional ``auto_cast(True)`` and ``amp_guard`` are O1
+    bf16; the logits agree with the JAX package's under each (f32: 1e-4,
+    bf16: the O1 test's 2e-2); custom lists raise in the port."""
+    import paddle_tpu as paddle
+    from paddle_tpu_torch.amp import amp_guard
+    jm, _, pm, _ = _jax_and_port(SLICE, amp=False)
+    ids = _batch(SLICE["vocab_size"])[0]
+    jids, tids = paddle.to_tensor(ids), torch.from_numpy(ids)
+
+    cases = {
+        "disabled": (lambda: paddle.amp.auto_cast(enable=False),
+                     lambda: auto_cast(enable=False), "float32", 1e-4),
+        "disabled inside O1": (
+            lambda: _nested(paddle.amp.auto_cast(level="O1"),
+                            paddle.amp.auto_cast(enable=False)),
+            lambda: _nested(auto_cast(level="O1"), auto_cast(False)),
+            "float32", 1e-4),
+        "positional True": (lambda: paddle.amp.auto_cast(True),
+                            lambda: auto_cast(True), "bfloat16", 2e-2),
+        "amp_guard": (lambda: paddle.amp.amp_guard(level="O1"),
+                      lambda: amp_guard(level="O1"), "bfloat16", 2e-2)}
+    with torch.no_grad():
+        plain = pm(tids)
+    for name, (jctx, tctx, dtype, tol) in cases.items():
+        with jctx():
+            jout = jm(jids)
+        with tctx(), torch.no_grad():
+            tout = pm(tids)
+        assert str(jout.dtype) == dtype, name
+        assert str(tout.dtype) == f"torch.{dtype}", name
+        np.testing.assert_allclose(
+            tout.float().numpy(), np.asarray(jout._data).astype(np.float32),
+            atol=tol, rtol=0, err_msg=name)
+        if dtype == "float32":
+            assert torch.equal(tout, plain), name
+    with pytest.raises(NotImplementedError, match="custom"):
+        with auto_cast(custom_white_list={"softmax"}):
+            pass
+
+
+@contextlib.contextmanager
+def _nested(a, b):
+    with a, b:
+        yield
+
+
 def test_dropout_dtypes_under_o1(monkeypatch):
     """dropout1 sees the bf16 attention branch, dropout2 the f32 MLP
     branch, and the embedding dropout the bf16 embeddings."""
@@ -475,6 +569,44 @@ def test_flash_forward_and_backward_match_plain_on_card(cuda, dtype, tol, S,
     for got, ref in zip(grads, refs):
         assert got.dtype == dtype
         assert _rel_err(got, ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,rate", [(200, 200, 64, 0.0),
+                                          (200, 200, 64, 0.1),
+                                          (256, 256, 128, 0.1),
+                                          (200, 200, 128, 0.0),
+                                          (72, 200, 64, 0.1),
+                                          (130, 333, 128, 0.1)])
+def test_bf16_backward_on_tensor_cores_matches_plain_on_card(cuda, Sq, Sk, D,
+                                                             rate):
+    """The bf16 backward runs its products on the tensor cores with p.V
+    and ds rounded to bf16, as the TPU kernels' ``_dot`` does: a ragged S,
+    D = 128 and causal attention with Sk != Sq (offset Sk - Sq), with and
+    without dropout. Held at 2^-7 of the largest against the plain
+    version with bf16 MXU operands and against the float32 one; a second
+    call repeats the first bit for bit (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q, do = (torch.randn(2, Sq, 4, D, device=cuda, generator=g)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(2, Sk, 4, D, device=cuda, generator=g)
+            .to(torch.bfloat16) for _ in range(2))
+    words = (31, 32)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True,
+                                 dropout_rate=rate, seed_words=words)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, dropout_rate=rate,
+                                seed_words=words)
+    again = flash_attention_bwd(q, k, v, o, lse, do, dropout_rate=rate,
+                                seed_words=words)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    for mxu in (torch.bfloat16, None):
+        refs = flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                         dropout_rate=rate, seed_words=words,
+                                         mxu_dtype=mxu)
+        for got, ref in zip(grads, refs):
+            assert got.dtype == torch.bfloat16
+            assert _rel_err(got, ref) <= 2.0 ** -7
 
 
 @pytest.mark.cuda
