@@ -65,11 +65,11 @@
 // default precision policy) and sums in f32, so p.V's and ds's operands
 // enter the MXU rounded to bf16 (:476-478, :601, :645, :647). Here:
 //   - operands stay bf16 in shared memory, in rows of D + 8 elements
-//     (the 16 bytes of padding put the 8 rows an ldmatrix phase reads
-//     in 8 distinct 4-bank groups, so its reads are conflict-free);
-//     tiles arrive by 16-byte cp.async, and the swept operand (Q and dO
-//     in dkv, K and V in dq) is double-buffered, so the next tile's copy
-//     overlaps this tile's math (commit_group / wait_group 1);
+//     (mma_bf16.cuh holds these building blocks, shared with the bf16
+//     forward); tiles arrive by 16-byte cp.async, and the swept operand
+//     (Q and dO in dkv, K and V in dq) is double-buffered, so the next
+//     tile's copy overlaps this tile's math (commit_group / wait_group
+//     1);
 //   - products are mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 //     operands fed by ldmatrix (.trans where an operand is used
 //     transposed), sums in f32;
@@ -105,6 +105,7 @@
 #include <type_traits>
 
 #include "dropout_hash.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -516,118 +517,13 @@ __global__ void __launch_bounds__(THREADS)
 // the bf16 path on the tensor cores
 // ---------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int TC_THREADS = 128;   // 4 warps, 16 rows each
 constexpr int TC_ROWS = 64;       // rows a block owns
-
-template <int D>
-__host__ __device__ constexpr int tc_ld() {
-  return D + 8;  // bf16 elements a shared-memory row
-}
 
 // the swept query tile of dkv_tc_kernel
 template <int D>
 __host__ __device__ constexpr int dkv_qt() {
   return D == 128 ? 32 : 64;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes (4 with cp_async4), zero-filled where ok is false
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a b, a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 values rounded to nearest-even bf16, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// the m16k16 A fragment of columns 16 kk .. 16 kk + 15 of a warp's 16-row
-// band held as m16n8 accumulator fragments c[2 kk], c[2 kk + 1]
-template <int N>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const float (&c)[N][4],
-                                       int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// rows r0 .. r0 + ROWS - 1 of a [*, H, D] bf16 tensor (`src` at batch b,
-// head h) into a [ROWS][D + 8] tile; rows at or past n are zeros
-template <int ROWS, int D>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int r0,
-                                           int n, long long ld_row) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  static_assert(ROWS * CH % TC_THREADS == 0, "whole chunks a thread");
-#pragma unroll
-  for (int it = 0; it < ROWS * CH / TC_THREADS; ++it) {
-    const int i = threadIdx.x + it * TC_THREADS;
-    const int r = i / CH, c = i % CH;
-    const int row = r0 + r;
-    const bool ok = row < n;
-    cp_async16(dst + r * tc_ld<D>() + c * 8,
-               src + (ok ? row * ld_row + c * 8 : 0), ok);
-  }
-}
-
-// dst[i] = src[r0 + i] for i < ROWS; zeros at or past n
-template <int ROWS>
-__device__ __forceinline__ void vec_async(float* dst, const float* src, int r0,
-                                          int n) {
-  for (int i = threadIdx.x; i < ROWS; i += TC_THREADS) {
-    const bool ok = r0 + i < n;
-    cp_async4(dst + i, src + (ok ? r0 + i : 0), ok);
-  }
 }
 
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
@@ -729,19 +625,22 @@ __global__ void __launch_bounds__(TC_THREADS)
   auto prefetch = [&](int tq, int s) {
     bf16* st = stages + s * NT * QT * LD;
     const int q0 = tq * QT;
-    tile_async<QT, D>(st, q + qoff, q0, Sq, ld_row);
-    tile_async<QT, D>(st + QT * LD, dout + qoff, q0, Sq, ld_row);
-    if (BIAS) tile_async<QT, D>(st + 2 * QT * LD, o + qoff, q0, Sq, ld_row);
+    tile_async<QT, D, TC_THREADS>(st, q + qoff, q0, Sq, ld_row);
+    tile_async<QT, D, TC_THREADS>(st + QT * LD, dout + qoff, q0, Sq,
+                                  ld_row);
+    if (BIAS)
+      tile_async<QT, D, TC_THREADS>(st + 2 * QT * LD, o + qoff, q0, Sq,
+                                    ld_row);
     float* vs = vecs + s * 2 * QT;
-    vec_async<QT>(vs, lse_bh, q0, Sq);
-    if (!BIAS) vec_async<QT>(vs + QT, delta_bh, q0, Sq);
+    vec_async<QT, TC_THREADS>(vs, lse_bh, q0, Sq);
+    if (!BIAS) vec_async<QT, TC_THREADS>(vs + QT, delta_bh, q0, Sq);
   };
 
   // the first query row that sees key k0 is k0 - (Sk - Sq)
   const int first = causal ? max(0, k0 - off) / QT : 0;
   const int n_q = (Sq + QT - 1) / QT;
-  tile_async<TC_ROWS, D>(Ks, k + koff, k0, Sk, ld_row);
-  tile_async<TC_ROWS, D>(Vs, v + koff, k0, Sk, ld_row);
+  tile_async<TC_ROWS, D, TC_THREADS>(Ks, k + koff, k0, Sk, ld_row);
+  tile_async<TC_ROWS, D, TC_THREADS>(Vs, v + koff, k0, Sk, ld_row);
   if (first < n_q) prefetch(first, 0);
   cp_async_commit();
 
@@ -905,17 +804,20 @@ __global__ void __launch_bounds__(TC_THREADS)
   auto prefetch = [&](int tk, int s) {
     bf16* st = stages + s * 2 * KT * LD;
     const int k0 = tk * KT;
-    tile_async<KT, D>(st, k + koff, k0, Sk, ld_row);
-    tile_async<KT, D>(st + KT * LD, v + koff, k0, Sk, ld_row);
-    if (BIAS) vec_async<KT>(bias_st + s * KT, bias + (long long)b * Sk, k0, Sk);
+    tile_async<KT, D, TC_THREADS>(st, k + koff, k0, Sk, ld_row);
+    tile_async<KT, D, TC_THREADS>(st + KT * LD, v + koff, k0, Sk,
+                                  ld_row);
+    if (BIAS)
+      vec_async<KT, TC_THREADS>(bias_st + s * KT, bias + (long long)b * Sk,
+                                k0, Sk);
   };
 
   // the last key column any row of this tile may see
   int last_col = Sk - 1;
   if (causal) last_col = min(last_col, min(q0 + TC_ROWS, Sq) - 1 + off);
   const int n_k = last_col < 0 ? 0 : last_col / KT + 1;
-  tile_async<TC_ROWS, D>(Qs, q + qoff, q0, Sq, ld_row);
-  tile_async<TC_ROWS, D>(dOs, dout + qoff, q0, Sq, ld_row);
+  tile_async<TC_ROWS, D, TC_THREADS>(Qs, q + qoff, q0, Sq, ld_row);
+  tile_async<TC_ROWS, D, TC_THREADS>(dOs, dout + qoff, q0, Sq, ld_row);
   if (n_k > 0) prefetch(0, 0);
   cp_async_commit();
 

@@ -1,11 +1,12 @@
-// Flash-attention forward for Hopper (sm_90a), f32 or bf16 in, f32 math.
+// Flash-attention forward for Hopper (sm_90a): float32 inputs on the
+// CUDA cores, bfloat16 inputs on the tensor cores.
 //
 // Replaces two TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 // _fwd2 (_fwd2_kernel, pallas_call at :399), exported as
 // flash_attention_fwd, and _fwd_v1 (_fwd_kernel, pallas_call at :239),
 // the same forward plus an additive f32 key bias [B, Sk] (the
 // [B, 1, 1, Sk] padding mask of BERT and ERNIE), exported as
-// flash_attention_bias_fwd. The bias is a template parameter of one
+// flash_attention_bias_fwd. The bias is a template parameter of each
 // kernel; it is added after the scale and before the causal mask, as
 // _fwd_kernel does (:144-148), as the number it is: an f32 -1e30 absorbs
 // any score below 3e22 and a fully masked row then has m == -1e30, so
@@ -24,27 +25,78 @@
 // softmax denominator l sums the undropped p (:320-333), so the backward
 // regenerates the same mask from the same words.
 //
-// What bounds it on this card: at the serving shapes (D = 64, S <= 512)
-// the work is ~4*S*D operations per byte of q/k/v, far above the card's
-// ratio of operations to bytes, so arithmetic bounds it. This first
-// version does the products on the CUDA cores in f32 (bf16 inputs are
-// widened on load), so its ceiling is the card's f32 rate, not the
-// tensor cores'; wgmma and TMA come later. What the design does about
-// it: one block per (b, h, 64-row q tile); q, k and v tiles live in
-// shared memory and each thread keeps a 4x4 score microtile and its
-// 4 x D/16 share of the output in registers, so every shared-memory
-// float4 feeds 16 fused multiply-adds; the online (m, l) statistics stay
-// in registers; causal tiles wholly above the diagonal are never loaded.
-// The sequence edge is masked in-kernel, so any S works.
+// What bounds it on this card: the function does two products a visible
+// (row, column) pair, 4 D operations, against 8 D bytes a row in bf16 (q,
+// k, v read once, o written once), so with n visible keys a row it does
+// n / 2 operations a byte: about 256 at GPT-2 345M's training shape
+// (causal S = 1024, 512 keys a row on average) and 242 at BERT-base's
+// padded batch (S = 512, 485), just below the card's 295 bf16 operations
+// a byte of device memory. So the memory rate bounds it by a little and
+// the tensor-core rate close behind (chip_smoke.py's bound_ms). Beside
+// the products, every visible pair costs an exp, a max, a sum and, with
+// dropout, a hash on the CUDA cores, which take about as long as its
+// tensor-core work (longer with dropout): a kernel that keeps both
+// units busy is the target.
+//
+// float32 inputs (flash_fwd_kernel) do the products on the CUDA cores in
+// f32, so their ceiling is the card's f32 rate (67 TFLOP/s): one block per
+// (b, h, 64-row q tile); q, k and v tiles live in shared memory and each
+// thread keeps a 4x4 score microtile and its 4 x D/16 share of the output
+// in registers, so every shared-memory float4 feeds 16 fused
+// multiply-adds; the online (m, l) statistics stay in registers; causal
+// tiles wholly above the diagonal are never loaded. It is the path of the
+// f32 serving prefill and the f32 and int8 predictors, and the reference
+// the f32 parity checks hold.
+//
+// bfloat16 inputs (flash_fwd_tc_kernel) run both products on the tensor
+// cores, as the TPU kernels run theirs on the MXU: `_dot` (:115) casts
+// both operands to `_mxu_dtype` (bf16 under the default precision
+// policy) and sums in f32, so q.k takes bf16 q and k and p.V takes pv = p
+// * keep rounded to bf16 (:144, :164, :313, :333); l sums the unrounded
+// f32 p. FlashAttention-2's forward, from the building blocks the bf16
+// backward uses (mma_bf16.cuh):
+//   - one block per (b, h, 64-row query tile), 4 warps of 16 rows;
+//     causal grids start with the bottom (heaviest) tiles, which keeps
+//     the grid's tail short. At D = 64 __launch_bounds__ asks for 4
+//     blocks an SM (16 warps, so at most 128 registers a thread; ptxas:
+//     128, no spills without the bias, 20 bytes spilled with it); at
+//     D = 128 the compiler chooses (227 and 238 registers, no spills),
+//     as a cap of 3 or 4 blocks there spilled 44 to 620 bytes. Measured on an H100 80GB
+//     HBM3 at 700 W with dropout 0.1 (PERF.md, PR 7): 8 warps a block
+//     took 9.3% longer at GPT-2 345M's causal training shape and 5.9%
+//     longer at BERT-base's padded batch; without the D = 64 cap the
+//     BERT shape took 0.3183 ms against 0.2997;
+//   - Q arrives once by 16-byte cp.async into rows of D + 8 bf16 and
+//     goes by ldmatrix into A fragments that stay in registers for the
+//     whole sweep;
+//   - K, V (and the key tile's 64 bias floats) are double-buffered: the
+//     next key tile's cp.async copies overlap this tile's math
+//     (commit_group / wait_group 1);
+//   - S = Q K^T with mma.sync m16n8k16 (K by ldmatrix), O += Pv V with V
+//     by ldmatrix.trans, Pv being the S accumulator fragments rounded to
+//     bf16 and repacked as A fragments, with no shared-memory round trip;
+//   - the online softmax runs on the accumulator fragments in registers:
+//     row max and the causal / sequence-edge mask (to -1e30, only on
+//     tiles that cross the diagonal or an edge) in natural units,
+//     p = exp(x - shift) as exp2 with log2(e) folded into one FMA, the
+//     row's four lanes reduced by quad shuffles, the per-lane share of l
+//     reduced once at the end; causal tiles that no row of the block sees
+//     are never loaded; dropout is attention_keep's hash with each row's
+//     term computed once, and scales only pv;
+//   - the epilogue divides by l, rounds o to bf16 and stages it in the
+//     warp's own Q rows, then stores it in 16-byte pieces.
+// wgmma, TMA and warp specialisation are a later redesign.
 //
 // Plain C interface, bound from Python with ctypes; returns
-// cudaGetLastError() after the launch. The bias entry reads one 64-float
-// bias slice per key tile into shared memory with the K and V tiles.
+// cudaGetLastError() after the launch. The bf16 path copies rows in
+// 16-byte pieces, so its q, k, v and o must be 16-byte aligned (the
+// wrappers check it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "dropout_hash.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -55,13 +107,7 @@ constexpr int LD = BQ + 4;        // transposed row stride, float4-aligned
 constexpr float NEG_INF = -1e30f; // the TPU kernel's mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
@@ -259,6 +305,264 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 path on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARPS = 4;
+constexpr int TC_MIN_BLOCKS_64 = 4;  // blocks an SM at D = 64
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_BQ = 16 * TC_WARPS;  // query rows a block
+constexpr int TC_BK = 64;             // key rows a tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x; ftz: a p below 2^-126 counts as 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D, bool BIAS>
+constexpr int fwd_tc_smem_bytes() {
+  // the Q tile and two stages of the K and V tiles, all bf16; then two
+  // stages of the key tile's bias
+  return (TC_BQ + 2 * 2 * TC_BK) * tc_ld<D>() * 2 + (BIAS ? 2 * TC_BK * 4 : 0);
+}
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(TC_THREADS, D == 64 ? TC_MIN_BLOCKS_64 : 1)
+    flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ bias, bf16* __restrict__ o,
+                        float* __restrict__ lse, int Sq, int Sk, int H,
+                        int causal, float scale, int dropout, uint32_t thr,
+                        uint32_t seed, float keep_scale) {
+  constexpr int LD = tc_ld<D>();
+  constexpr int NK = TC_BK / 8;  // n8 tiles across a key tile
+  constexpr int ND = D / 8;      // n8 tiles across D
+  constexpr int KD = D / 16;     // k16 steps across D
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* stages = Qs + TC_BQ * LD;  // stage s: K, V at stages + s * 2 BK LD
+  float* bias_st = reinterpret_cast<float*>(stages + 2 * 2 * TC_BK * LD);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // the bottom query tiles, which see the most keys under a causal mask,
+  // start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long ld_row = (long long)H * D;
+  const long long qoff = ((long long)b * Sq * H + h) * D;
+  const long long koff = ((long long)b * Sk * H + h) * D;
+  const int off = Sk - Sq;
+  const int w0 = q0 + warp * 16;  // the warp's rows: w0 .. w0 + 15
+  const int qr = w0 + g;          // this thread's rows: qr, qr + 8
+
+  auto prefetch = [&](int tk, int s) {
+    bf16* st = stages + s * 2 * TC_BK * LD;
+    const int k0 = tk * TC_BK;
+    tile_async<TC_BK, D, TC_THREADS>(st, k + koff, k0, Sk, ld_row);
+    tile_async<TC_BK, D, TC_THREADS>(st + TC_BK * LD, v + koff, k0, Sk,
+                                     ld_row);
+    if (BIAS)
+      vec_async<TC_BK, TC_THREADS>(bias_st + s * TC_BK,
+                                   bias + (long long)b * Sk, k0, Sk);
+  };
+
+  // the last key column any row of this tile may see: causal tiles
+  // wholly above the diagonal are skipped, loads included
+  int last_col = Sk - 1;
+  if (causal) last_col = min(last_col, min(q0 + TC_BQ, Sq) - 1 + off);
+  const int n_k = last_col < 0 ? 0 : last_col / TC_BK + 1;
+  tile_async<TC_BQ, D, TC_THREADS>(Qs, q + qoff, q0, Sq, ld_row);
+  if (n_k > 0) prefetch(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's 16 Q rows as A fragments, for the whole sweep
+  uint32_t qa[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                        (lane >> 4) * 8);
+
+  // the dropout hash's row terms: attention_keep(row, col, bh, seed, thr)
+  // is fmix32(row_h ^ col * 0x85EBCA6B) >= thr
+  const uint32_t bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  uint32_t row_h[2];
+  float m_r[2], shl_r[2], l_r[2];  // running max, its exp2 shift, lane's l
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    row_h[rr] = (uint32_t)(qr + 8 * rr) * 0x9E3779B1u ^ bh ^ seed;
+    m_r[rr] = NEG_INF;
+    shl_r[rr] = 0.f;
+    l_r[rr] = 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int tk = 0; tk < n_k; ++tk) {
+    const int s = tk & 1;
+    __syncthreads();  // the stage refilled next was read last iteration
+    if (tk + 1 < n_k) prefetch(tk + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Ks = stages + s * 2 * TC_BK * LD;
+    const bf16* Vs = Ks + TC_BK * LD;
+    const float* bias_s = bias_st + s * TC_BK;
+
+    // S = Q K^T over this warp's 16 rows; element (j, e) is row
+    // qr + 8 (e / 2), key k0 + 8 j + 2 t + e % 2
+    float sc[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < NK; j += 2) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Ks + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[j], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[j + 1], qa[kk], kb[2], kb[3]);
+      }
+
+    // scale, bias, then the mask, in natural units; only a tile that
+    // crosses the sequence edge or this warp's diagonal is masked
+    const int k0 = tk * TC_BK;
+    const bool edge =
+        k0 + TC_BK > Sk || (causal && w0 + off < k0 + TC_BK - 1);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        float x = sc[j][e] * scale;
+        if (BIAS) x += bias_s[c];
+        if (edge) {
+          const int row = qr + 8 * (e >> 1), key = k0 + c;
+          if (key >= Sk || (causal && row + off < key)) x = NEG_INF;
+        }
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(m_r[rr], mx[rr]);
+      // a row with nothing visible yet keeps shift 0, so masked columns
+      // give exactly 0 and never NaN (the TPU kernel's guard)
+      const float shl = (m_new == NEG_INF ? 0.f : m_new) * LOG2E;
+      // exp(m_prev - shift), in the same exp2 units as p; 0 while nothing
+      // was visible (l and acc are 0 then)
+      alpha[rr] = m_r[rr] == NEG_INF ? 0.f : ex2(shl_r[rr] - shl);
+      m_r[rr] = m_new;
+      shl_r[rr] = shl;
+      l_r[rr] *= alpha[rr];
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+
+    // p = exp(x - shift) = 2^(x log2(e) - shift log2(e)); l sums the
+    // unrounded p
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(sc[j][e], LOG2E, -shl_r[e >> 1]));
+        l_r[e >> 1] += p;
+        sc[j][e] = p;
+      }
+    // dropout scales what reaches p.V; l above kept the undropped p
+    if (dropout) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t col = k0 + j * 8 + 2 * t + (e & 1);
+          sc[j][e] *= fmix32(row_h[e >> 1] ^ col * 0x85EBCA6Bu) >= thr
+                          ? keep_scale
+                          : 0.f;
+        }
+    }
+
+    // O += Pv V: Pv rounded to bf16 in the fragments, V transposed
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t pa[4];
+      frag_a(pa, sc, kk);
+#pragma unroll
+      for (int jd = 0; jd < ND; jd += 2) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              LD + jd * 8 + (lane >> 4) * 8);
+        mma_bf16(acc[jd], pa, vb[0], vb[1]);
+        mma_bf16(acc[jd + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // o = acc / l in bf16, staged in the warp's own Q rows (no other warp
+  // reads them), then stored in 16-byte pieces
+  bf16* Os = Qs + warp * 16 * LD;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = l_r[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float safe_l = l == 0.f ? 1.f : l;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd)
+      *reinterpret_cast<uint32_t*>(Os + (g + 8 * rr) * LD + jd * 8 + 2 * t) =
+          pack_bf16(acc[jd][2 * rr] / safe_l, acc[jd][2 * rr + 1] / safe_l);
+    const int row = qr + 8 * rr;
+    if (lse != nullptr && t == 0 && row < Sq)
+      lse[((long long)b * H + h) * Sq + row] =
+          l == 0.f ? NEG_INF : m_r[rr] + logf(safe_l);
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;  // 16-byte pieces a row
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = i % CH;
+    if (w0 + r < Sq)
+      *reinterpret_cast<uint4*>(o + qoff + (w0 + r) * ld_row + c * 8) =
+          *reinterpret_cast<const uint4*>(Os + r * LD + c * 8);
+  }
+}
+
+template <int D, bool BIAS>
+int launch_tc(const void* q, const void* k, const void* v, const void* bias,
+              void* o, void* lse, int B, int Sq, int Sk, int H, int causal,
+              float scale, int dropout, uint32_t thr, uint32_t seed,
+              float keep_scale, cudaStream_t stream) {
+  constexpr int bytes = fwd_tc_smem_bytes<D, BIAS>();
+  cudaFuncSetAttribute(flash_fwd_tc_kernel<D, BIAS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const dim3 grid((Sq + TC_BQ - 1) / TC_BQ, H, B);
+  flash_fwd_tc_kernel<D, BIAS><<<grid, TC_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Sk, H, causal,
+      scale, dropout, thr, seed, keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool BIAS>
 int run(const void* q, const void* k, const void* v, const void* bias,
         void* o, void* lse, int B, int Sq, int Sk, int H, int D, int causal,
@@ -270,10 +574,8 @@ int run(const void* q, const void* k, const void* v, const void* bias,
       keep_scale, st
   if (dtype == 0 && D == 64) return launch<float, 64, BIAS>(FLASH_FWD_ARGS);
   if (dtype == 0 && D == 128) return launch<float, 128, BIAS>(FLASH_FWD_ARGS);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64, BIAS>(FLASH_FWD_ARGS);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128, BIAS>(FLASH_FWD_ARGS);
+  if (dtype == 1 && D == 64) return launch_tc<64, BIAS>(FLASH_FWD_ARGS);
+  if (dtype == 1 && D == 128) return launch_tc<128, BIAS>(FLASH_FWD_ARGS);
 #undef FLASH_FWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

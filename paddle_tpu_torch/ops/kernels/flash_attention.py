@@ -5,9 +5,10 @@ Replace five TPU kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
 ``_fwd2`` (pallas_call at :399) and ``_bwd2`` (:532) without a bias, and
 the ``v1`` kernels that take an additive key bias ``[B, 1, 1, Sk]`` (the
 padding mask of BERT and ERNIE): ``_fwd_v1`` (:239), the ``_bwd_v1`` dq
-kernel (:702) and its dk/dv/dbias kernel (:753). The card bounds all of
-them by arithmetic; each source's header says what its design does
-about it.
+kernel (:702) and its dk/dv/dbias kernel (:753). Each source's header
+says what bounds it on the card and what its design does about it;
+bfloat16 inputs run on the tensor cores, float32 ones on the CUDA
+cores.
 
 All functions take ``[B, S, H, D]`` tensors and an optional in-kernel
 attention dropout (``dropout_rate`` with two ``seed_words``): the keep
@@ -30,9 +31,9 @@ broadcasts a ``[B, 1, 1, Sk]`` mask to it, as the JAX entry does (:956).
 Their plain versions are :func:`flash_attention_plain` and
 :func:`flash_attention_bwd_plain`, each with an optional ``bias``: the
 backward reads the saved o and lse as the kernels do and returns ``db``
-when given a bias; the backward's ``mxu_dtype=torch.bfloat16`` rounds
-the operands of its products to bf16 as the bf16 kernels (and the TPU
-kernels' ``_dot``) do. They follow the kernels' online softmax, whose
+when given a bias; ``mxu_dtype=torch.bfloat16`` rounds the operands of
+their products to bf16 as the bf16 kernels (and the TPU kernels'
+``_dot``) do. They follow the kernels' online softmax, whose
 running max starts at ``NEG_INF``: a row whose every score is
 ``NEG_INF`` or below (a fully masked row, with an f32 or a
 bf16-rounded ``-1e30`` bias) gets ``o = 0`` and ``lse = NEG_INF``.
@@ -73,6 +74,15 @@ def _scores(qf, kf, bias, causal, scale):
                             else bias[:, None, None, :], causal, scale)
 
 
+def _mxu_round(mxu_dtype):
+    """The operand cast of the products (``_dot``'s ``cd``, :115): the
+    identity for None or float32, else a round trip through
+    ``mxu_dtype``."""
+    if mxu_dtype is None or mxu_dtype == torch.float32:
+        return lambda t: t
+    return lambda t: t.to(mxu_dtype).float()
+
+
 def _dropout_mult(B, H, Sq, Sk, dropout_rate, seed_words, device):
     return torch.where(attention_keep(B, H, Sq, Sk, dropout_rate, seed_words,
                                       device=device),
@@ -84,14 +94,22 @@ def flash_attention_plain(q, k, v, causal: bool = True,
                           return_lse: bool = False,
                           dropout_rate: float = 0.0,
                           seed_words: SeedWords = None,
-                          bias: Optional[torch.Tensor] = None):
+                          bias: Optional[torch.Tensor] = None,
+                          mxu_dtype: Optional[torch.dtype] = None):
     """The kernels' function in plain PyTorch, computed in float32 and
     returned in q's dtype (plus ``lse [B, H, Sq]`` in float32); ``bias``
-    is ``[B, Sk]``."""
+    is ``[B, Sk]``.
+
+    ``mxu_dtype`` is the operand dtype of the two products (``_dot``'s
+    ``cd``, :115): None keeps float32; ``torch.bfloat16`` rounds q, k, v
+    and ``pv = p * keep`` to bf16 and sums in float32, as the TPU kernels
+    do under the default precision policy and as the bf16 tensor-core
+    kernel does. ``l`` and ``lse`` sum the unrounded ``p``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    mx = _mxu_round(mxu_dtype)
     qf, kf, vf = q.float(), k.float(), v.float()
-    s = _scores(qf, kf, bias, causal, scale)
+    s = _scores(mx(qf), mx(kf), bias, causal, scale)
     # the kernels' running max starts at NEG_INF; a row with nothing
     # above it keeps shift 0, so its exponentials are 0
     m = s.detach().amax(-1).clamp(min=NEG_INF)
@@ -100,7 +118,7 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     safe_l = torch.where(l == 0.0, 1.0, l)
     if dropout_rate > 0.0:
         p = p * _dropout_mult(*s.shape, dropout_rate, seed_words, q.device)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, vf) / \
+    o = torch.einsum("bhqk,bkhd->bqhd", mx(p), mx(vf)) / \
         safe_l.transpose(1, 2)[..., None]
     o = o.to(q.dtype)
     if not return_lse:
@@ -131,12 +149,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
     tensor-core kernels do. ``db`` sums the unrounded ``ds / scale``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if mxu_dtype is None or mxu_dtype == torch.float32:
-        def mx(t):
-            return t
-    else:
-        def mx(t):
-            return t.to(mxu_dtype).float()
+    mx = _mxu_round(mxu_dtype)
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     s = _scores(mx(qf), mx(kf), bias, causal, scale)
     p = torch.exp(s - torch.where(lse == NEG_INF, 0.0, lse)[..., None])
@@ -208,13 +221,16 @@ def _check_saved(q, o, lse, do, cuda_args):
             or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError("flash backward takes q, k, v, o, do in one dtype "
                          "and lse in float32, all on one device")
+    _check_layout("flash backward", cuda_args)
+
+
+def _check_layout(what, cuda_args):
     if not all(t.is_contiguous() for t in cuda_args):
-        raise ValueError("flash backward takes contiguous arguments")
+        raise ValueError(f"{what} takes contiguous arguments")
     # the bf16 kernels copy rows in 16-byte pieces
     if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16
            for t in cuda_args):
-        raise ValueError("the bf16 flash backward takes 16-byte aligned "
-                         "tensors")
+        raise ValueError(f"the bf16 {what} takes 16-byte aligned tensors")
 
 
 def _aligned(t):
@@ -250,8 +266,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, return_lse,
                                      dropout_rate, seed_words)
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash kernel takes contiguous q, k, v")
+    _check_layout("flash forward", (q, k, v))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -311,8 +326,7 @@ def flash_attention_bias_fwd(q, k, v, bias, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, return_lse,
                                      dropout_rate, seed_words, bias)
-    if not all(t.is_contiguous() for t in (q, k, v, bias)):
-        raise ValueError("flash kernel takes contiguous q, k, v and bias")
+    _check_layout("flash forward", (q, k, v, bias))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)

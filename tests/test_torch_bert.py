@@ -552,6 +552,40 @@ def test_bf16_bias_backward_on_tensor_cores_matches_plain(cuda, Sq, Sk, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,causal", [(200, 200, 64, False),
+                                            (333, 333, 128, False),
+                                            (130, 333, 64, True),
+                                            (72, 200, 128, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("neg", [NEG, NEG_BF16], ids=["f32", "bf16"])
+def test_bf16_bias_forward_on_tensor_cores_matches_plain(cuda, Sq, Sk, D,
+                                                         causal, rate, neg):
+    """The bf16 biased forward on the tensor cores: padded keys and a
+    fully masked batch row (o == 0 and lse == -1e30 exactly, with the
+    f32 and the bf16-rounded -1e30), D = 128, causal Sk != Sq, with and
+    without dropout. o within 2^-7 of the largest of the plain version
+    with bf16 MXU operands and of the float32 one, lse within 1e-4 of
+    both; a second call repeats the first bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D + 2)
+    q = torch.randn(3, Sq, 4, D, device=cuda, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(3, Sk, 4, D, device=cuda, generator=g)
+            .to(torch.bfloat16) for _ in range(2))
+    bias = torch.from_numpy(_key_bias([Sk, Sk // 3, 0], Sk, neg)).to(cuda)
+    args = (causal, None, True, rate, (43, 44))
+    before = kernels.FLASH_ATTENTION_BIAS_FWD.launches
+    o, lse = flash_attention_bias_fwd(q, k, v, bias, *args)
+    assert kernels.FLASH_ATTENTION_BIAS_FWD.launches == before + 1
+    assert (o[2] == 0).all() and (lse[2] == -1e30).all()
+    again = flash_attention_bias_fwd(q, k, v, bias, *args)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    for mxu in (torch.bfloat16, None):
+        o_ref, lse_ref = flash_attention_plain(q, k, v, *args, bias,
+                                               mxu_dtype=mxu)
+        assert _rel_err(o, o_ref) <= 2.0 ** -7
+        assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
 def test_tiny_bert_trainstep_on_card_launches_the_bias_kernels(cuda):
     cfg = bert_tiny(**SLICE, hidden_dropout_prob=0.1,
                     attention_dropout_prob=0.1)

@@ -33,8 +33,8 @@ from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import chunked_ce as tce
 from paddle_tpu_torch.ops.kernels.dropout import dropout_plain, fused_dropout
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_plain)
+    flash_attention, flash_attention_bias_fwd, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
 from paddle_tpu_torch.optimizer import Adam, AdamW, ClipGradByGlobalNorm
 
 # a vocab above the chunked-CE threshold (4096) and not a multiple of
@@ -161,6 +161,49 @@ def test_plain_backward_with_bf16_mxu_operands_matches_jax_kernel(
         assert np.abs(a.numpy() - r).max() <= 2e-4 * np.abs(r).max()
         assert np.abs(a.numpy() - r).mean() <= \
             1e-2 * np.abs(b.numpy() - r).mean()
+
+
+@pytest.mark.parametrize("causal,padded", [(True, False), (False, True)])
+def test_plain_forward_with_bf16_mxu_operands_matches_jax_kernel(
+        monkeypatch, causal, padded):
+    """``flash_attention_plain(..., mxu_dtype=torch.bfloat16)`` rounds q,
+    k, v and ``pv = p * keep`` to bf16 and sums in f32, as the TPU
+    kernels' ``_dot`` does when ``_mxu_dtype`` gives bf16 (patched here,
+    as above); l and lse keep the unrounded p. At S=256 the JAX kernel's
+    default block takes a row's keys in one tile, so both versions round
+    p relative to the same row max, and only the last f32 bits of s and p
+    differ, which may flip the bf16 rounding of a pv entry: o agrees
+    within 1e-5 of the largest (9.5e-8 causal, 3.2e-7 padded measured),
+    and on average to a thousandth of the float32 plain version's
+    distance from the kernel (6.7e-5 and 7.8e-5 of it measured; that
+    distance is 1.5e-3 of the largest)."""
+    import importlib
+
+    import jax
+    import jax.numpy as jnp
+    jmod = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
+    monkeypatch.setattr(jmod, "_mxu_dtype", lambda dtype: jnp.bfloat16)
+    key, words = _jax_words(8)
+    rng = np.random.RandomState(6)
+    q, k, v = (torch.from_numpy(rng.randn(2, 256, 2, 64).astype(np.float32))
+               .to(torch.bfloat16).float() for _ in range(3))
+    bias = None
+    if padded:
+        bias = torch.zeros(2, 256)
+        bias[0, 200:] = -1e30
+        bias[1, 77:] = -1e30
+    ref = np.asarray(jmod.flash_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)),
+        bias=None if bias is None else jnp.asarray(
+            bias.numpy())[:, None, None, :],
+        causal=causal, dropout_rate=0.1, dropout_key=key))
+    args = (q, k, v, causal, None, True, 0.1, words, bias)
+    mxu, lse_mxu = flash_attention_plain(*args, mxu_dtype=torch.bfloat16)
+    f32, lse_f32 = flash_attention_plain(*args)
+    assert torch.equal(lse_mxu, lse_f32)
+    err, err_f32 = np.abs(mxu.numpy() - ref), np.abs(f32.numpy() - ref)
+    assert err.max() <= 1e-5 * np.abs(ref).max()
+    assert err.mean() <= 1e-3 * err_f32.mean()
 
 
 def test_flash_backward_wrapper_is_the_plain_gradient():
@@ -607,6 +650,60 @@ def test_bf16_backward_on_tensor_cores_matches_plain_on_card(cuda, Sq, Sk, D,
         for got, ref in zip(grads, refs):
             assert got.dtype == torch.bfloat16
             assert _rel_err(got, ref) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,rate", [(200, 200, 64, 0.0),
+                                          (333, 333, 64, 0.1),
+                                          (200, 200, 128, 0.1),
+                                          (333, 333, 128, 0.0),
+                                          (72, 200, 64, 0.1),
+                                          (130, 333, 128, 0.1)])
+def test_bf16_forward_on_tensor_cores_matches_plain_on_card(cuda, Sq, Sk, D,
+                                                            rate):
+    """The bf16 forward runs both products on the tensor cores with pv =
+    p * keep rounded to bf16, as the TPU kernels' ``_dot`` does: a ragged
+    S, D = 128 and causal attention with Sk != Sq (offset Sk - Sq), with
+    and without dropout. o within 2^-7 of the largest of the plain
+    version with bf16 MXU operands and of the float32 one (the kernel
+    rounds p relative to each 64-key tile's running max, the plain
+    version relative to the row's max), lse within 1e-4 of both; a
+    second call repeats the first bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D + 1)
+    q = torch.randn(2, Sq, 4, D, device=cuda, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(2, Sk, 4, D, device=cuda, generator=g)
+            .to(torch.bfloat16) for _ in range(2))
+    words = (33, 34)
+    before = kernels.FLASH_ATTENTION_FWD.launches
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True,
+                                 dropout_rate=rate, seed_words=words)
+    assert kernels.FLASH_ATTENTION_FWD.launches == before + 1
+    again = flash_attention_fwd(q, k, v, return_lse=True,
+                                dropout_rate=rate, seed_words=words)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert o.dtype == torch.bfloat16
+    for mxu in (torch.bfloat16, None):
+        o_ref, lse_ref = flash_attention_plain(q, k, v, True, None, True,
+                                               rate, words, mxu_dtype=mxu)
+        assert _rel_err(o, o_ref) <= 2.0 ** -7
+        assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bf16_flash_forward_raises_on_unaligned_tensors(cuda):
+    """The bf16 kernel copies rows in 16-byte pieces: a contiguous bf16
+    tensor that starts 2 bytes past an aligned address is refused, with
+    and without a bias; the autograd entry copies it and runs."""
+    buf = torch.randn(2 * 64 * 2 * 64 + 1, device=cuda).to(torch.bfloat16)
+    q = buf[1:].view(2, 64, 2, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bias_fwd(q, q, q, torch.zeros(2, 64, device=cuda))
+    o = flash_attention(q, q, q)
+    assert torch.equal(o, flash_attention_fwd(q.clone(), q.clone(),
+                                              q.clone()))
 
 
 @pytest.mark.cuda
