@@ -16,7 +16,8 @@ result line. Fourteen phases, in order:
               card at the serving, multi-tenant serving, GPT training,
               BERT and int8 inference paths' shapes, in float32 and
               bfloat16 (the int8 matmul bit-equal at its four shapes with
-              a dynamic activation scale; the biased
+              a dynamic activation scale, its weight given K-major and as
+              a contiguous [K, N]; the biased
               flash kernels also on a batch row with every key masked,
               bgmv also on rows of the zero adapter, which must be exactly
               0.0; the bf16 flash kernels, whose tensor-core products
@@ -25,8 +26,10 @@ result line. Fourteen phases, in order:
               the same operands), and time the kernel, the plain
               version, the card's bound and, where one exists, the one
               PyTorch call that computes the same function (the bf16
-              flash kernels' earlier CUDA-core design's times printed
-              beside them);
+              flash kernels' earlier CUDA-core design's times and the
+              paged-decode and int8 kernels' first design's times printed
+              beside them, with the redesigned kernels' registers and
+              spills from the build log);
 3. slice   -- serve 16 greedy requests on GPT-2 345M (random weights
               from a seed) through ``ServingEngine`` at the full serving
               configuration, check the launch counts against the
@@ -151,6 +154,18 @@ CUDA_CORE_BWD_MS = {"flash_attention_bwd": 3.6618,
                     "flash_attention_bias_bwd_dkv": 3.5730}
 CUDA_CORE_FWD_MS = {"flash_attention_fwd": 0.8267,
                     "flash_attention_bias_fwd": 1.5209}
+# the paged-decode kernels' and the int8 matmul's times at the same shapes
+# in their first design (one block per (slot, head) walking its positions
+# row by row; mma.sync fed by byte gathers from an N-major weight), this
+# script's last run of it on an H100 80GB HBM3 at 700 W; printed beside
+# today's
+FIRST_DESIGN_MS = {"paged_decode_attention": 0.0278,
+                   "paged_decode_attention_quant": 0.0481,
+                   "int8_matmul": 0.1056}
+# the redesigned kernels' entry functions, whose ptxas lines (registers,
+# spills) phase 2 prints
+PTXAS_ENTRIES = {"paged_decode_attention": "paged_decode_kernel",
+                 "int8_matmul": "int8_matmul_kernel"}
 # the lse kernel and its plain version sum 50304 exponentials in
 # another order: relative to the largest lse
 LSE_TOL = 1e-5
@@ -862,9 +877,11 @@ INT8_SHAPES = ((BERT_B * BERT_S, 768, 768), (BERT_B * BERT_S, 768, 3072),
 def _int8_matmul_case(M, K, N, dtype):
     """Kernel 12 on activations quantized on the card with their
     dynamic absmax (a device scalar) and per-channel weights, as
-    ``slim.QuantizedLinear`` feeds it: equal to the plain version bit for
-    bit. ``library_ms`` is ``torch._int_mm`` plus the epilogue multiply,
-    two calls."""
+    ``slim.QuantizedLinear`` feeds it (the weight K-major: the transposed
+    view of a contiguous [N, K]; also given as a contiguous [K, N], which
+    the wrapper copies K-major): equal to the plain version bit for bit.
+    The kernel is timed on the K-major view. ``library_ms`` is
+    ``torch._int_mm`` plus the epilogue multiply, two calls."""
     import torch
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     g = torch.Generator(device="cuda").manual_seed(M + K + N)
@@ -872,17 +889,20 @@ def _int8_matmul_case(M, K, N, dtype):
         torch.randn(M, K, device="cuda", generator=g))
     w_q, w_s = qm.quantize_per_channel(
         torch.randn(K, N, device="cuda", generator=g) * 0.02)
-    out = qm.int8_matmul(x_q, w_q, w_s, a_s, out_dtype=dtype)
+    w_k = w_q.t().contiguous().t()
+    out = qm.int8_matmul(x_q, w_k, w_s, a_s, out_dtype=dtype)
+    out_copied = qm.int8_matmul(x_q, w_q, w_s, a_s, out_dtype=dtype)
     ref = qm.int8_matmul_plain(x_q, w_q, w_s, a_s, out_dtype=dtype)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    equal = torch.equal(out, ref)
+    err = max((o.float() - ref.float()).abs().max().item()
+              for o in (out, out_copied))
+    equal = torch.equal(out, ref) and torch.equal(out_copied, ref)
     name = _name(dtype)
     shape = f"M={M} K={K} N={N} {name} out, dynamic act_scale"
-    _log(f"kernels: int8_matmul [{shape}]: bit-equal to plain {equal}, "
-         f"max|out-plain| {err:.3e} (must be 0)")
+    _log(f"kernels: int8_matmul [{shape}], w_q K-major and contiguous: "
+         f"bit-equal to plain {equal}, max|out-plain| {err:.3e} (must be 0)")
     _require(equal, f"int8_matmul differs from its plain version at {shape}")
-    ms = _median_ms(lambda: qm.int8_matmul(x_q, w_q, w_s, a_s, dtype))
+    ms = _median_ms(lambda: qm.int8_matmul(x_q, w_k, w_s, a_s, dtype))
     plain_ms = _median_ms(lambda: qm.int8_matmul_plain(x_q, w_q, w_s, a_s,
                                                        dtype), iters=10)
     scale = a_s * w_s
@@ -966,10 +986,30 @@ def phase_kernels() -> dict:
         cuda_core = {**CUDA_CORE_FWD_MS, **CUDA_CORE_BWD_MS}
         old = (f", the earlier CUDA-core design {cuda_core[name]:.4f} ms"
                if name in cuda_core else "")
+        if name in FIRST_DESIGN_MS:
+            old = f", the first design {FIRST_DESIGN_MS[name]:.4f} ms"
         _log(f"kernels: {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
              f"({r['bound_by']}), library {lib} ms{old}")
+    for name, entry in PTXAS_ENTRIES.items():
+        for line in _ptxas(name, entry):
+            _log(f"kernels: ptxas {line}")
     return rows
+
+
+def _ptxas(name: str, entry: str) -> list:
+    """The ``-Xptxas -v`` registers and spills of each instantiation of
+    the entry function ``entry`` in kernel ``name``'s build log (mangled
+    template arguments as ptxas prints them)."""
+    from paddle_tpu_torch.ops import kernels
+    out, current = [], None
+    for line in kernels.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+            current = fn[fn.index(entry):] if entry in fn else None
+        elif current and ("spill" in line or "registers" in line):
+            out.append(f"{current}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1636,7 +1676,8 @@ def _profile_step(tag: str, fn) -> None:
                  key=lambda a: -a.self_device_time_total)
     busy = sum(a.self_device_time_total for a in dev) / 1e3     # us -> ms
     n_launch = sum(a.count for a in avgs
-                   if a.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+                   if a.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernel", "cuLaunchKernelEx"))
     _log(f"{tag}: profiled step {wall * 1e3:.1f} ms wall, kernels busy "
          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), {n_launch} "
          f"kernel launches")
@@ -1951,6 +1992,7 @@ def phase_predict() -> dict:
     import torch
     from paddle_tpu_torch import slim
     from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import quant_matmul
     batch, _ = pretraining_batch(BERT_B, BERT_S, BERT_M, 30528)
     inputs, real = list(batch[:4]), batch[5] > 0
     calib = [pretraining_batch(BERT_B, BERT_S, BERT_M, 30528, seed=s)[0][:4]
@@ -1966,6 +2008,7 @@ def phase_predict() -> dict:
         _require(n_q == (0 if kind == "f32" else n_lin),
                  f"predict {kind}: {n_q} QuantizedLinear layers")
         kernels.reset_launch_counts()
+        copies = quant_matmul.layout_copies
         out = pred.run(inputs)[0]
         runs = 1
         _require(out.shape == (BERT_B, BERT_M, 30528)
@@ -1993,10 +2036,14 @@ def phase_predict() -> dict:
         for k, n in launches.items():
             total[k] += n
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        copies = quant_matmul.layout_copies - copies
+        _require(copies == 0, f"predict {kind}: {copies} K-major copies of "
+                              f"a weight (QuantizedLinear holds it K-major)")
         msg = (f"predict {kind}: {runs} runs, launches int8_matmul "
                f"{launches['int8_matmul']}, flash_attention_bias_fwd "
                f"{launches['flash_attention_bias_fwd']}, every other kernel "
-               f"0, shape fallbacks 0; peak device memory {peak:.3f} GiB")
+               f"0, shape fallbacks 0, weight layout copies 0; peak device "
+               f"memory {peak:.3f} GiB")
         if times:
             med = float(np.median(times))
             msg += (f"; median {med * 1e3:.2f} ms a run over "
@@ -2057,9 +2104,11 @@ def phase_amp_int8() -> dict:
     import torch
     from paddle_tpu_torch.core import flag_scope
     from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import quant_matmul
     cfg, _, loss_fn, step, ids, labels = _train_setup(amp=True)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    copies = quant_matmul.layout_copies
     refs = (("int8 plain", {"int8_matmul"}, AMP_INT8_EXACT_TOL,
              AMP_INT8_EXACT_TOL),
             ("plain", None, AMP_LOSS_TOL, AMP_INT8_GRAD_TOL), F32_PLAIN)
@@ -2078,7 +2127,9 @@ def phase_amp_int8() -> dict:
             "flash_attention_bias_bwd_dkv": 0,
             "paged_decode_attention_quant": 0, "bgmv": 0,
             "int8_matmul": 2 * L * n}
-    _log(f"amp_int8: launches over {n} steps {launches}")
+    _log(f"amp_int8: launches over {n} steps {launches}; K-major copies "
+         f"of a quantized weight {quant_matmul.layout_copies - copies} "
+         f"(one per forward launch of the kernel, outside it)")
     _require(all(math.isfinite(x) for x in losses), "non-finite loss")
     _require(launches == want and not kernels.FALLBACKS,
              f"launch counts {launches} != {want}, shape fallbacks "

@@ -135,8 +135,8 @@ BGMV = Kernel(
 INT8_MATMUL = Kernel(
     "int8_matmul", "paddle_tpu_torch/csrc/quant_matmul.cu",
     "paddle_tpu/ops/pallas/quant_matmul.py:168",
-    # x_q, w_q, w_scale, act_scale (a device pointer to one f32), out, M,
-    # K, N, dtype, stream
+    # x_q, w_t (the weight K-major, [N, K]), w_scale, act_scale (a device
+    # pointer to one f32), out, M, K, N, dtype, stream
     (_P,) * 5 + (_I,) * 4 + (_P,))
 
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (

@@ -16,6 +16,14 @@ even, as ``jnp.round``), clip, cast. The dynamic scale stays a 0-dim
 tensor on the device and reaches the kernel as a pointer, so a linear
 makes no host round trip.
 
+The kernel reads the weight K-major (``wgmma`` takes 8-bit operands
+from shared memory only that way). ``w_q [K, N]`` comes either as the
+transposed view of a contiguous ``[N, K]`` tensor, as
+``slim.QuantizedLinear`` keeps it, which reaches the kernel as it is, or
+as a contiguous ``[K, N]``, for which the wrapper makes the K-major copy
+(one K*N-byte pass, counted in :data:`layout_copies`); any other layout
+raises, on the CPU too.
+
 Given CPU tensors :func:`int8_matmul` computes :func:`int8_matmul_plain`
 (the product in float64, exact for these K, then the same epilogue:
 bit-equal to the kernel); given CUDA tensors it launches the kernel or
@@ -32,9 +40,13 @@ from . import check, function
 
 __all__ = ["int8_matmul", "int8_matmul_plain", "int8_linear",
            "int8_amp_linear", "quantize_per_channel", "quantize_per_tensor",
-           "matmul_shapes_supported"]
+           "matmul_shapes_supported", "k_major"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: K-major weight copies the card path has made for a contiguous
+#: ``[K, N]`` w_q (the AMP linear's per-forward weights); a plain counter
+layout_copies = 0
 
 
 def matmul_shapes_supported(K: int, N: int) -> bool:
@@ -86,6 +98,16 @@ def _check_shapes(x_q, w_q, w_scale):
             f"int8_matmul needs K % 128 == 0 and N % 128 == 0, got K={K}, "
             f"N={N} (slim.QuantizedLinear routes these shapes to its "
             f"plain compositions)")
+    if not (k_major(w_q) or w_q.is_contiguous()):
+        raise ValueError(
+            f"int8_matmul takes w_q [K, N] contiguous or as the transposed "
+            f"view of a contiguous [N, K], not strides {w_q.stride()}")
+
+
+def k_major(w_q) -> bool:
+    """Whether ``w_q [K, N]`` is the transposed view of a contiguous
+    ``[N, K]``: the layout the kernel reads without a copy."""
+    return w_q.t().is_contiguous()
 
 
 def int8_matmul_plain(x_q, w_q, w_scale, act_scale,
@@ -104,8 +126,9 @@ def int8_matmul(x_q, w_q, w_scale, act_scale, out_dtype=torch.float32):
     """``x_q [M, K]`` int8 @ ``w_q [K, N]`` int8 with the epilogue
     ``acc * act_scale * w_scale[n]``, ``[M, N]`` in ``out_dtype``
     (float32 or bfloat16 on the card). K and N must be multiples of
-    128. ``act_scale`` is a one-element float32 tensor (on the CPU also
-    a float)."""
+    128; ``w_q`` contiguous or K-major (:func:`k_major`). ``act_scale``
+    is a one-element float32 tensor (on the CPU also a float)."""
+    global layout_copies
     _check_shapes(x_q, w_q, w_scale)
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, w_q, w_scale, act_scale, out_dtype)
@@ -124,18 +147,23 @@ def int8_matmul(x_q, w_q, w_scale, act_scale, out_dtype=torch.float32):
     ts = (x_q, w_q, w_scale, act_scale)
     if any(t.device != x_q.device for t in ts):
         raise ValueError("all arguments must be on one device")
-    if not all(t.is_contiguous() for t in ts) \
-            or x_q.data_ptr() % 16 or w_q.data_ptr() % 16:
-        raise ValueError("int8_matmul takes contiguous arguments, x_q and "
-                         "w_q 16-byte aligned")
     M, K = x_q.shape
     N = w_q.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
     if M == 0:
         return out
+    if k_major(w_q):
+        w_t = w_q.t()
+    else:
+        w_t = w_q.t().contiguous()
+        layout_copies += 1
+    if not all(t.is_contiguous() for t in (x_q, w_t, w_scale, act_scale)) \
+            or x_q.data_ptr() % 16 or w_t.data_ptr() % 16:
+        raise ValueError("int8_matmul takes contiguous arguments, x_q and "
+                         "w_q 16-byte aligned")
     fn = function(_KERNEL.name)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    err = fn(x_q.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+    err = fn(x_q.data_ptr(), w_t.data_ptr(), w_scale.data_ptr(),
              act_scale.data_ptr(), out.data_ptr(), M, K, N,
              _DTYPES[out_dtype], stream)
     check(_KERNEL.name, err)
@@ -157,9 +185,10 @@ def int8_linear(x, w_q, w_scale, bias=None, act_scale=None):
 
 
 class _AmpMatmul(torch.autograd.Function):
-    """Both operands quantized dynamically, then the kernel; the
-    backward is the straight-through dense pair on the unquantized
-    operands (``quant_matmul.py:211-242``)."""
+    """Both operands quantized dynamically, then the kernel (on the card
+    with the K-major copy of the freshly quantized weight); the backward
+    is the straight-through dense pair on the unquantized operands
+    (``quant_matmul.py:211-242``)."""
 
     @staticmethod
     def forward(ctx, x2, w):

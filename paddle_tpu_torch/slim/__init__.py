@@ -48,17 +48,21 @@ def _channel_scales(w: np.ndarray, bits: int = 8) -> np.ndarray:
 class QuantizedLinear(nn.Module):
     """Linear with int8 weights: ``weight_q [in, out]`` int8 and ``scale
     [out]`` float32 buffers and the ``bias`` parameter (the JAX state
-    dict's keys). ``act_scale`` is the calibrated static activation scale
-    (a float) or None (dynamic per-tensor); a static scale is also held
-    on the device as the non-persistent one-element buffer
+    dict's keys). ``weight_q`` is the transposed view of ``[out, in]``
+    storage: the K-major layout the int8 kernel reads (its ``wgmma``
+    takes 8-bit operands only so), held once, with the JAX layer's
+    shape and values. ``act_scale`` is the calibrated static activation
+    scale (a float) or None (dynamic per-tensor); a static scale is also
+    held on the device as the non-persistent one-element buffer
     ``act_scale_tensor``, which the kernel reads by pointer."""
 
     def __init__(self, weight_q, scale, bias=None,
                  act_scale: Optional[float] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
+        k_major = np.ascontiguousarray(np.asarray(weight_q, np.int8).T)
         self.register_buffer("weight_q", torch.as_tensor(
-            np.asarray(weight_q, np.int8), device=device))
+            k_major, device=device).t())
         self.register_buffer("scale", torch.as_tensor(
             np.asarray(scale, np.float32), device=device))
         self.bias = None

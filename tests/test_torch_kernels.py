@@ -299,6 +299,54 @@ def test_paged_decode_kernel_matches_plain_on_card(cuda, dtype, tol):
     assert (got.float() - ref.float()).abs().max().item() <= tol
 
 
+# positions at the edges of the kernel's split of a slot over the blocks of
+# its cluster (up to 8: fewer positions than blocks, one each, a page edge,
+# the last position), then an inactive slot (pos 0, all-scratch row)
+EDGE_POS = [0, 1, 7, 8, 63, 64, 200, 511, 0]
+
+
+def _edge_table(pos, bs, MB, seed):
+    """Block-table rows for slots at ``pos``, each slot's pages drawn
+    from a permutation of pages 1..P-1, the last row all scratch page 0.
+    Returns the table and P."""
+    need = [int(p) // bs + 1 for p in pos[:-1]]
+    P = sum(need) + 1
+    perm = np.random.RandomState(seed).permutation(np.arange(1, P))
+    tbl = np.zeros((len(pos), MB), np.int32)
+    used = 0
+    for b, n in enumerate(need):
+        tbl[b, :n] = perm[used:used + n]
+        used += n
+    return tbl, P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_decode_cluster_split_edges_on_card(cuda, dtype, tol, D):
+    """Every slot of :data:`EDGE_POS` within the kernel's tolerance of
+    the plain version (random data on scratch page 0 too), and two
+    launches give identical bits."""
+    H, bs, MB = 2, 16, 32
+    pos = np.array(EDGE_POS, np.int32)
+    tbl, P = _edge_table(pos, bs, MB, seed=D)
+    g = torch.Generator(device=cuda).manual_seed(D)
+    kp, vp = (torch.randn(P, bs, H, D, device=cuda, generator=g).to(dtype)
+              for _ in range(2))
+    q = torch.randn(len(pos), H, D, device=cuda, generator=g).to(dtype)
+    args = (q, kp, vp, torch.from_numpy(tbl).to(cuda),
+            torch.from_numpy(pos).to(cuda), 1.0 / math.sqrt(D))
+    before = kernels.PAGED_DECODE.launches
+    got = paged_decode_attention(*args)
+    again = paged_decode_attention(*args)
+    assert kernels.PAGED_DECODE.launches == before + 2
+    ref = paged_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 2, 32, device=cuda)

@@ -483,6 +483,60 @@ def test_quant_paged_decode_kernel_matches_plain_on_card(cuda):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
+# positions at the edges of the kernel's split of a slot over the blocks of
+# its cluster (up to 8: fewer positions than blocks, one each, a page edge,
+# the last position), then an inactive slot (pos 0, all-scratch row)
+EDGE_POS = [0, 1, 7, 8, 63, 64, 200, 511, 0]
+
+
+def _edge_table(pos, bs, MB, seed):
+    """Block-table rows for slots at ``pos``, each slot's pages drawn
+    from a permutation of pages 1..P-1, the last row all scratch page 0.
+    Returns the table and P."""
+    need = [int(p) // bs + 1 for p in pos[:-1]]
+    P = sum(need) + 1
+    perm = np.random.RandomState(seed).permutation(np.arange(1, P))
+    tbl = np.zeros((len(pos), MB), np.int32)
+    used = 0
+    for b, n in enumerate(need):
+        tbl[b, :n] = perm[used:used + n]
+        used += n
+    return tbl, P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_quant_paged_decode_cluster_split_edges_on_card(cuda, D):
+    """Every slot of :data:`EDGE_POS` within 1e-4 of the plain version,
+    over int8 pools written by the quantizing scatter (scratch page 0
+    holds data too), and two launches give identical bits."""
+    H, bs, MB = 2, 16, 32
+    pos = np.array(EDGE_POS, np.int32)
+    tbl, P = _edge_table(pos, bs, MB, seed=D)
+    g = torch.Generator(device=cuda).manual_seed(D)
+    every = torch.arange(P, dtype=torch.int32, device=cuda)[None]
+    start = torch.zeros(1, dtype=torch.int32, device=cuda)
+    pools = []
+    for _ in range(2):
+        pages = torch.zeros(P, bs, H, D, dtype=torch.int8, device=cuda)
+        scales = torch.zeros(P, bs, H, device=cuda)
+        tkv.write_pages_quant(pages, scales, torch.randn(
+            1, P * bs, H, D, device=cuda, generator=g), every, start)
+        pools.append((pages, scales))
+    (kp, ks), (vp, vs) = pools
+    q = torch.randn(len(pos), H, D, device=cuda, generator=g)
+    args = (q, kp, ks, vp, vs, torch.from_numpy(tbl).to(cuda),
+            torch.from_numpy(pos).to(cuda), 1.0 / math.sqrt(D))
+    before = kernels.PAGED_DECODE_QUANT.launches
+    got = paged_decode_attention_quant(*args)
+    again = paged_decode_attention_quant(*args)
+    assert kernels.PAGED_DECODE_QUANT.launches == before + 2
+    ref = paged_decode_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2.0 ** -7)])

@@ -227,6 +227,53 @@ def test_quantized_linear_shape_fallbacks_equal_jax(static):
     assert kernels.FALLBACKS == {("int8_matmul", "shape"): 1}
 
 
+def test_quantized_linear_holds_its_weight_k_major_with_jax_values():
+    """``weight_q`` is ``[K, N]`` with the JAX layer's values, stored
+    K-major (the transposed view of a contiguous ``[N, K]``), and the
+    state dict keeps the JAX layer's names, shapes and values; a copy
+    through ``load_jax_weights`` and a clone keep the layout."""
+    from paddle_tpu import slim as jslim
+    jl, tl, _ = _linear_pair(256, 128, 6)
+    jq_ = jslim.QuantizedLinear.from_linear(jl)
+    tq = slim.QuantizedLinear.from_linear(tl)
+    assert tq.weight_q.shape == (256, 128)
+    assert qm.k_major(tq.weight_q) and not tq.weight_q.is_contiguous()
+    ref = _named(jq_)
+    sd = tq.state_dict()
+    assert set(sd) == set(ref)
+    for k, v in ref.items():
+        assert tuple(sd[k].shape) == v.shape, k
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+    loaded = slim.QuantizedLinear(np.zeros((256, 128), np.int8),
+                                  np.ones(128, np.float32))
+    load_jax_weights(loaded, {k: v for k, v in ref.items() if k != "bias"})
+    assert qm.k_major(loaded.weight_q) and qm.k_major(sd["weight_q"].clone())
+    np.testing.assert_array_equal(loaded.weight_q.numpy(), ref["weight_q"])
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+def test_int8_linear_same_bits_from_k_major_view(static):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 256)).astype(np.float32))
+    wq, ws = qm.quantize_per_channel(torch.from_numpy(
+        (rng.standard_normal((256, 384)) * 0.05).astype(np.float32)))
+    view = wq.t().contiguous().t()
+    assert qm.k_major(view) and wq.is_contiguous()
+    act = 0.03 if static else None
+    assert torch.equal(qm.int8_linear(x, view, ws, act_scale=act),
+                       qm.int8_linear(x, wq, ws, act_scale=act))
+
+
+def test_int8_matmul_rejects_a_weight_neither_contiguous_nor_k_major():
+    xq = torch.zeros(4, 128, dtype=torch.int8)
+    wide = torch.zeros(128, 256, dtype=torch.int8)
+    for wq in (wide[:, :128], wide[:, ::2],
+               torch.zeros(256, 256, dtype=torch.int8).t()[:128, :128]):
+        assert not (qm.k_major(wq) or wq.is_contiguous())
+        with pytest.raises(ValueError, match="transposed view"):
+            qm.int8_matmul(xq, wq, torch.ones(128), 1.0)
+
+
 # -- 5. quantize_weights, PTQ, QAT, nn.quant ---------------------------------------
 def _bert_pair(cfg_kw, scan=True):
     """The JAX BertForMaskedLM from ``paddle.seed(0)`` and the port's with
@@ -803,6 +850,36 @@ def test_int8_matmul_bit_equal_to_plain_on_card(cuda, M, K, N, out):
     ref = qm.int8_matmul_plain(xq, wq, ws, act, out_dtype=out)
     torch.cuda.synchronize()
     assert got.dtype == out
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "k_major"])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 63, 65, 130, 24577])
+def test_int8_matmul_tile_edges_and_weight_layouts_on_card(cuda, M, out,
+                                                           layout):
+    """M off the 128-row tile (TMA's zero fill, masked stores) at K =
+    3072, w_q as a contiguous [K, N] (the wrapper's K-major copy,
+    counted) and as the K-major view (no copy): bit-equal to the plain
+    version either way."""
+    K, N = 3072, 768
+    g = torch.Generator(device=cuda).manual_seed(M)
+    xq = torch.randint(-127, 128, (M, K), device=cuda, generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (K, N), device=cuda, generator=g,
+                       dtype=torch.int8)
+    if layout == "k_major":
+        wq = wq.t().contiguous().t()
+    ws = torch.rand(N, device=cuda, generator=g) * 1e-2 + 1e-4
+    act = torch.tensor([0.0173], device=cuda)
+    before, copies = kernels.INT8_MATMUL.launches, qm.layout_copies
+    got = qm.int8_matmul(xq, wq, ws, act, out_dtype=out)
+    assert kernels.INT8_MATMUL.launches == before + 1
+    assert qm.layout_copies == copies + (layout == "contiguous")
+    ref = qm.int8_matmul_plain(xq, wq, ws, act, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and got.dtype == out
     assert torch.equal(got, ref)
 
 

@@ -114,8 +114,10 @@ def main() -> int:
     dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
                  key=lambda a: -a.self_device_time_total)
     busy = sum(a.self_device_time_total for a in dev) / 1e6   # us -> s
+    # cudaLaunchKernelExC: the cluster launches of the paged-decode kernel
     n_launch = sum(a.count for a in avgs
-                   if a.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+                   if a.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernel", "cuLaunchKernelEx"))
     n_disp = steps["prefill_dispatches"] + steps["decode_dispatches"]
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"run: {wall:.4f} s wall under the profiler ({bare:.4f} s "

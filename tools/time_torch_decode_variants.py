@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""What bounds the paged-decode kernels on the card: time variants of
-``paddle_tpu_torch/csrc/paged_decode.cu``.
+"""Choose the paged-decode kernels' schedule on the card: time variants
+of ``paddle_tpu_torch/csrc/paged_decode.cu``.
 
-Each variant is the checkout's source with one change made by text
-substitution: 8 or 16 positions a warp step instead of 4 (``step8``,
-``step16``), no scale loads in the int8 kernel (``noscale``: its output
-is wrong and is not checked), the block size fixed at 16 when compiled,
-so no integer division (``bs16``), 4 warps a block instead of 8
-(``warps4``). Every variant is built with the repository's ``nvcc``
-flags into ``paddle_tpu_torch/_build/variants/`` and both of its entries
-are timed at ``chip_smoke.py``'s row-9/row-10 shape (B=8, MB=32, bs=16,
+Each variant is the checkout's source with its schedule constants
+changed by text substitution: the blocks of a (slot, head)'s cluster
+(``CLUSTER``), the warps a block (``WARPS``) and the row loads a lane
+keeps in flight (``STEPS``); variant ``cCwWsS`` sets them to C, W and S,
+``base`` is the source as it is. A cluster of 1 is one block per (slot,
+head), the wider-block design. Every variant is built with the
+repository's ``nvcc`` flags into ``paddle_tpu_torch/_build/variants/``
+(one process each, all at once), both of its entries
+are checked against their plain versions (max abs error 1e-4) and
+timed at ``chip_smoke.py``'s row-9/row-10 shape (B=8, MB=32, bs=16,
 H=16, D=64, P=257, 1057 visible positions): the int8 kernel with the L2
 cache flushed before every launch and warm, the float32 kernel flushed.
 Two rounds, so the spread shows. Run from the root of a checkout::
@@ -29,26 +31,23 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# (CLUSTER, WARPS, STEPS) of each variant
+SCHEDULES = ((1, 8, 4), (1, 16, 4), (2, 4, 4), (2, 8, 4), (4, 2, 4),
+             (4, 4, 2), (4, 4, 4), (4, 8, 4), (8, 2, 4), (8, 4, 4),
+             (16, 4, 4))
+
 
 def variants(src: str) -> dict:
-    def sub(text, old, new):
-        if old not in text:
-            raise RuntimeError(f"variant anchor not in the source: {old!r}")
-        return text.replace(old, new)
-    return {
-        "base": src,
-        "step8": sub(src, "constexpr int STEP = 4;",
-                     "constexpr int STEP = 8;"),
-        "step16": sub(src, "constexpr int STEP = 4;",
-                      "constexpr int STEP = 16;"),
-        "noscale": sub(sub(src, "ks[srow], kv[u]", "1.f, kv[u]"),
-                       "vs[srow], vv[u]", "1.f, vv[u]"),
-        "bs16": sub(src, "int H, int bs, int MB, float scale) {\n",
-                    "int H, int bs_, int MB, float scale) {\n"
-                    "  constexpr int bs = 16;\n"),
-        "warps4": sub(src, "constexpr int WARPS = 8;",
-                      "constexpr int WARPS = 4;"),
-    }
+    def sub(text, name, value):
+        old = f"constexpr int {name} = "
+        start = text.index(old) + len(old)   # raises if the anchor is gone
+        end = text.index(";", start)
+        return text[:start] + str(value) + text[end:]
+    out = {"base": src}
+    for c, w, s in SCHEDULES:
+        out[f"c{c}w{w}s{s}"] = sub(sub(sub(src, "CLUSTER", c), "WARPS", w),
+                                   "STEPS", s)
+    return out
 
 
 def main() -> int:
@@ -60,6 +59,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
     from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels.paged_decode import (
+        paged_decode_plain, paged_decode_quant_plain)
     from paddle_tpu_torch.serving.kv_cache import write_pages_quant
     out_dir = os.path.join(kernels.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
@@ -114,21 +115,42 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     scale = 1.0 / math.sqrt(D)
     print(f"card: {torch.cuda.get_device_name(0)}")
-    for rnd in range(2):
-        for name, (q8, f32) in fns.items():
-            def int8():
-                q8(q.data_ptr(), kp.data_ptr(), ks.data_ptr(), vp.data_ptr(),
-                   vs.data_ptr(), tbl.data_ptr(), pos_t.data_ptr(),
-                   out.data_ptr(), B, H, D, bs, MB, scale, stream)
+    ref8 = paged_decode_quant_plain(q, kp, ks, vp, vs, tbl, pos_t, scale)
+    ref32 = paged_decode_plain(q, kf, vf, tbl, pos_t, scale)
 
-            def full():
-                f32(q.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                    tbl.data_ptr(), pos_t.data_ptr(), out.data_ptr(), B, H,
-                    D, bs, MB, scale, 0, stream)
+    def calls(q8, f32):
+        def int8():
+            return q8(q.data_ptr(), kp.data_ptr(), ks.data_ptr(),
+                      vp.data_ptr(), vs.data_ptr(), tbl.data_ptr(),
+                      pos_t.data_ptr(), out.data_ptr(), B, H, D, bs, MB,
+                      scale, stream)
+
+        def full():
+            return f32(q.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                       tbl.data_ptr(), pos_t.data_ptr(), out.data_ptr(), B,
+                       H, D, bs, MB, scale, 0, stream)
+        return int8, full
+
+    for name in list(fns):
+        errs = []
+        for call, ref in zip(calls(*fns[name]), (ref8, ref32)):
+            out.zero_()
+            err = call()
+            torch.cuda.synchronize()
+            errs.append(float("inf") if err else
+                        (out - ref).abs().max().item())
+        print(f"{name:9s} max|o-plain| int8 {errs[0]:.3e}, float32 "
+              f"{errs[1]:.3e}")
+        if not max(errs) <= 1e-4:
+            print(f"{name:9s} did not launch or disagrees: left out")
+            del fns[name]
+    for rnd in range(2):
+        for name, lib_fns in fns.items():
+            int8, full = calls(*lib_fns)
             cold = smoke._median_ms(int8, flush=scrub.zero_)
             warm = smoke._median_ms(int8)
             f32_ms = smoke._median_ms(full, flush=scrub.zero_)
-            print(f"round {rnd} {name:8s} int8 {cold:.4f} ms (L2 warm "
+            print(f"round {rnd} {name:9s} int8 {cold:.4f} ms (L2 warm "
                   f"{warm:.4f}), float32 {f32_ms:.4f} ms")
     return 0
 
