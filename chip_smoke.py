@@ -26,10 +26,16 @@ result line. Fourteen phases, in order:
               the same operands), and time the kernel, the plain
               version, the card's bound and, where one exists, the one
               PyTorch call that computes the same function (the bf16
-              flash kernels' earlier CUDA-core design's times and the
-              paged-decode and int8 kernels' first design's times printed
-              beside them, with the redesigned kernels' registers and
-              spills from the build log);
+              flash kernels' and the f32 forward's earlier CUDA-core
+              design's times and the paged-decode, int8 and bgmv
+              kernels' first design's times printed beside them, with
+              the redesigned kernels' registers and spills from the build
+              log). The f32 forward, which runs three TF32 tensor-core
+              products an f32 product, is timed at the serving prefill
+              and at BERT-base's padded batch against SDPA in f32 and a
+              bound at a third of the TF32 rate; bgmv at the decode and
+              prefill dispatches; each redesigned kernel's two launches
+              must give the same bits;
 3. slice   -- serve 16 greedy requests on GPT-2 345M (random weights
               from a seed) through ``ServingEngine`` at the full serving
               configuration, check the launch counts against the
@@ -126,9 +132,13 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit;
-# int8 in tensor-core operations a second)
+# int8 in tensor-core operations a second). The f32 flash forward runs an
+# f32 product as three TF32 tensor-core products (the 3xTF32 split, f32
+# accuracy): its peak is a third of the 494.7 TFLOP/s TF32 rate; every
+# other f32 row keeps the CUDA cores' 67
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
+              "float32_3xtf32": 494.7e12 / 3}
 
 # tolerances of kernel vs plain version at the serving shapes, max abs
 # error
@@ -154,6 +164,16 @@ CUDA_CORE_BWD_MS = {"flash_attention_bwd": 3.6618,
                     "flash_attention_bias_bwd_dkv": 3.5730}
 CUDA_CORE_FWD_MS = {"flash_attention_fwd": 0.8267,
                     "flash_attention_bias_fwd": 1.5209}
+# the float32 flash forward's times when it ran its products on the CUDA
+# cores (flash_fwd_kernel<float>), at the f32 shapes timed below: the
+# serving prefill, and BERT-base's padded batch without dropout (the f32
+# and int8 predictors) and with rate 0.1 (tools/time_torch_flash_f32.py
+# --also on the earlier source, an H100 80GB HBM3 at 700 W); printed
+# beside today's
+CUDA_CORE_F32_FWD_MS = {"flash_attention_fwd float32": 0.0530,
+                        "flash_attention_bias_fwd float32": 1.4644,
+                        "flash_attention_bias_fwd float32 dropout 0.1":
+                            1.5340}
 # the paged-decode kernels' and the int8 matmul's times at the same shapes
 # in their first design (one block per (slot, head) walking its positions
 # row by row; mma.sync fed by byte gathers from an N-major weight), this
@@ -161,11 +181,19 @@ CUDA_CORE_FWD_MS = {"flash_attention_fwd": 0.8267,
 # today's
 FIRST_DESIGN_MS = {"paged_decode_attention": 0.0278,
                    "paged_decode_attention_quant": 0.0481,
-                   "int8_matmul": 0.1056}
+                   "int8_matmul": 0.1056,
+                   # bgmv's first design (a block per (row, 16 tokens, 1024
+                   # columns)) at its two dispatch shapes, float32: decode
+                   # from this script's last run of it, prefill from
+                   # tools/time_torch_bgmv_variants.py --also
+                   "bgmv": 0.0122, "bgmv B=8 S=1 float32": 0.0122,
+                   "bgmv B=4 S=256 float32": 0.0293}
 # the redesigned kernels' entry functions, whose ptxas lines (registers,
 # spills) phase 2 prints
 PTXAS_ENTRIES = {"paged_decode_attention": "paged_decode_kernel",
-                 "int8_matmul": "int8_matmul_kernel"}
+                 "int8_matmul": "int8_matmul_kernel",
+                 "flash_attention_fwd": "flash_fwd_f32_kernel",
+                 "bgmv": "bgmv_kernel"}
 # the lse kernel and its plain version sum 50304 exponentials in
 # another order: relative to the largest lse
 LSE_TOL = 1e-5
@@ -324,9 +352,12 @@ def _flash_case(B, S, H, D, dtype, seed, timed=False):
     q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=g)
                .to(dtype) for _ in range(3))
     o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    again = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
     o_ref, lse_ref = flash_attention_plain(q, k, v, causal=True,
                                            return_lse=True)
     torch.cuda.synchronize()
+    _require(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+             "two launches of flash_attention_fwd gave different bits")
     err = _abs_err(o, o_ref)
     lse_err = (lse - lse_ref).abs().max().item()
     name = str(dtype).replace("torch.", "")
@@ -355,10 +386,59 @@ def _flash_case(B, S, H, D, dtype, seed, timed=False):
     nbytes = 4 * B * S * H * D * elem          # q, k, v read; o written
     pairs = S * (S + 1) // 2                   # causal (row, col) pairs
     flops = 4 * B * H * D * pairs              # q.k and p.v
-    bound, by = _bound_ms(nbytes, flops, name)
+    # f32 runs three TF32 tensor-core products an f32 product
+    bound, by = _bound_ms(nbytes, flops, "float32_3xtf32"
+                          if name == "float32" else name)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             "shape": f"B={B} S={S} H={H} D={D} {name} causal"}
+
+
+def _f32_bias_fwd_case(mask, rate):
+    """The f32 biased forward at BERT-base's padded batch, as the f32 and
+    int8 predictors run it (rate 0) and as f32 training would (rate
+    0.1), the f32 -1e30 key bias: o within TOL["float32"] of the plain
+    version, two launches bit-equal; timed beside SDPA in f32 with the
+    float mask, against the 3xTF32 bound."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    B, S, H, D = BERT_B, BERT_S, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=g)
+               for _ in range(3))
+    bias = _key_bias(mask, torch.float32)
+    args = (False, None, True, rate, (0x0BADF00D, 0x5EED5EED))
+    o, lse = fa.flash_attention_bias_fwd(q, k, v, bias, *args)
+    again = fa.flash_attention_bias_fwd(q, k, v, bias, *args)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, *args, bias)
+    err = _abs_err(o, o_ref)
+    lse_err = (lse - lse_ref).abs().max().item()
+    equal = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    del o_ref, lse_ref, again
+    shape = (f"B={B} S={S} H={H} D={D} float32 key bias "
+             f"({int((mask == 0).any(1).sum())} padded rows) dropout {rate}")
+    _log(f"kernels: flash_attention_bias_fwd [{shape}]: max|o-plain| "
+         f"{err:.3e}, max|lse-plain| {lse_err:.3e} (tol "
+         f"{TOL['float32']:g}); two launches bit-equal {equal}")
+    _require(err <= TOL["float32"] and lse_err <= TOL["float32"] * 10,
+             f"the f32 biased forward disagrees with its plain version "
+             f"({err}, lse {lse_err})")
+    _require(equal, "two launches of the f32 biased forward differ")
+    ms = _median_ms(lambda: fa.flash_attention_bias_fwd(q, k, v, bias,
+                                                        *args))
+    plain_ms = _median_ms(lambda: fa.flash_attention_plain(q, k, v, *args,
+                                                           bias),
+                          iters=5, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias[:, None, None, :], dropout_p=rate))
+    pairs = H * S * int(mask.sum())         # every row sees its row's keys
+    bound, by = _bound_ms(4 * B * S * H * D * 4 + B * S * 4 + B * H * S * 4,
+                          4 * D * pairs, "float32_3xtf32")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "shape": shape}
 
 
 def _paged_case(dtype, seed, timed=False):
@@ -495,20 +575,24 @@ def _bgmv_case(B, S, dtype, ids, timed=False):
     b[0] = 0.0
     ids_t = torch.tensor(ids, dtype=torch.int32, device="cuda")
     out = bgmv(x, a, b, ids_t)
+    again = bgmv(x, a, b, ids_t)
     ref = bgmv_plain(x, a, b, ids_t)
     torch.cuda.synchronize()
     name = _name(dtype)
     err = _rel_err(out, ref)
     zero = [i for i, k in enumerate(ids) if k == 0]
-    exact = bool((out[zero] == 0).all())
+    exact = bool((out[zero] == 0).all()) and \
+        not bool(out[zero].signbit().any())
+    equal = torch.equal(out, again)
     _log(f"kernels: bgmv B={B} S={S} E={E} r={r} O={O} {name} ids={ids}: "
          f"max|d-plain|/max|plain| {err:.3e} (tol "
-         f"{BGMV_TOL[name]:g}); zero-adapter rows {zero} exactly 0.0: "
-         f"{exact}")
+         f"{BGMV_TOL[name]:g}); zero-adapter rows {zero} exactly +0.0: "
+         f"{exact}; two launches bit-equal {equal}")
     _require(math.isfinite(err) and err <= BGMV_TOL[name],
              f"bgmv disagrees with its plain version ({err}) at B={B} "
              f"S={S} {name}")
-    _require(exact, f"bgmv rows {zero} on the zero adapter are not 0.0")
+    _require(exact, f"bgmv rows {zero} on the zero adapter are not +0.0")
+    _require(equal, "two launches of bgmv gave different bits")
     if not timed:
         return None
     scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -930,11 +1014,7 @@ def phase_kernels() -> dict:
     # the serving path runs float32 (the engine's cache dtype)
     serve_flash = _flash_case(4, 256, 16, 64, torch.float32, seed=256,
                               timed=True)
-    _log(f"kernels: flash_attention_fwd at the serving shape "
-         f"[{serve_flash['shape']}]: {serve_flash['ms']:.4f} ms, plain "
-         f"{serve_flash['plain_ms']:.4f} ms, bound "
-         f"{serve_flash['bound_ms']:.4f} ms, library "
-         f"{serve_flash['library_ms']:.4f} ms")
+    f32_rows = {"flash_attention_fwd float32": serve_flash}
     _paged_case(torch.bfloat16, seed=1)
     rows["paged_decode_attention"] = _paged_case(torch.float32, seed=1,
                                                  timed=True)
@@ -963,6 +1043,12 @@ def phase_kernels() -> dict:
     mask = pretraining_batch(BERT_B, BERT_S, BERT_M, 30528)[0][2]
     _require((mask == 0).any(), "the BERT batch has no padded row")
     _bias_flash_case(BERT_B, BERT_S, 12, 64, torch.float32, mask)
+    # the f32 and int8 predictors' attention (and f32 training's, rate 0.1)
+    for rate in (0.0, 0.1):
+        f32_rows["flash_attention_bias_fwd float32"
+                 + (f" dropout {rate}" if rate else "")] = \
+            _f32_bias_fwd_case(mask, rate)
+    torch.cuda.empty_cache()
     rows.update(_bias_flash_case(BERT_B, BERT_S, 12, 64, torch.bfloat16,
                                  mask, timed=True))
     small = np.ones((3, 200), np.int32)
@@ -981,9 +1067,10 @@ def phase_kernels() -> dict:
     rows["int8_matmul"] = int8_cases[
         f"int8_matmul M={BERT_B * BERT_S} K=768 N=768 float32"]
     torch.cuda.empty_cache()
-    for name, r in {**rows, **bgmv_cases, **int8_cases}.items():
+    for name, r in {**rows, **f32_rows, **bgmv_cases, **int8_cases}.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        cuda_core = {**CUDA_CORE_FWD_MS, **CUDA_CORE_BWD_MS}
+        cuda_core = {**CUDA_CORE_FWD_MS, **CUDA_CORE_BWD_MS,
+                     **CUDA_CORE_F32_FWD_MS}
         old = (f", the earlier CUDA-core design {cuda_core[name]:.4f} ms"
                if name in cuda_core else "")
         if name in FIRST_DESIGN_MS:

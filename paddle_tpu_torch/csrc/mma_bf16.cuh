@@ -1,8 +1,9 @@
 // The bf16 tensor-core building blocks shared by the flash-attention
 // kernels (flash_attention_fwd.cu, flash_attention_bwd.cu): 16-byte
-// cp.async tile copies into padded shared-memory rows, ldmatrix loads of
-// mma.sync m16n8k16 operand fragments, and the repacking of f32
-// accumulator fragments into bf16 A fragments.
+// cp.async tile copies into padded shared-memory rows (of f32 too, for
+// the f32 forward), ldmatrix loads of mma.sync m16n8k16 operand
+// fragments, and the repacking of f32 accumulator fragments into bf16 A
+// fragments.
 //
 // Tiles live in shared memory in rows of D + 8 bf16 elements: the 16
 // bytes of padding put the 8 rows an ldmatrix phase reads in 8 distinct
@@ -90,13 +91,15 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const float (&c)[N][4],
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
-// rows r0 .. r0 + ROWS - 1 of a [*, H, D] bf16 tensor (`src` at batch b,
-// head h) into a [ROWS][D + 8] tile by a block of THREADS threads; rows
-// at or past n are zeros
-template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int r0,
+// rows r0 .. r0 + ROWS - 1 of a [*, H, D] tensor of T (`src` at batch b,
+// head h) into a [ROWS][D + 16 / sizeof(T)] tile (16 bytes of padding a
+// row: tc_ld<D>() for bf16) by a block of THREADS threads; rows at or past
+// n are zeros
+template <int ROWS, int D, int THREADS, typename T>
+__device__ __forceinline__ void tile_async(T* dst, const T* src, int r0,
                                            int n, long long ld_row) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
+  constexpr int E = 16 / sizeof(T);  // elements a 16-byte chunk
+  constexpr int CH = D / E;          // 16-byte chunks a row
   static_assert(ROWS * CH % THREADS == 0, "whole chunks a thread");
 #pragma unroll
   for (int it = 0; it < ROWS * CH / THREADS; ++it) {
@@ -104,8 +107,8 @@ __device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int r0,
     const int r = i / CH, c = i % CH;
     const int row = r0 + r;
     const bool ok = row < n;
-    cp_async16(dst + r * tc_ld<D>() + c * 8,
-               src + (ok ? row * ld_row + c * 8 : 0), ok);
+    cp_async16(dst + r * (D + E) + c * E,
+               src + (ok ? row * ld_row + c * E : 0), ok);
   }
 }
 

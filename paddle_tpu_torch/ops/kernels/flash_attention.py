@@ -6,9 +6,10 @@ Replace five TPU kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
 the ``v1`` kernels that take an additive key bias ``[B, 1, 1, Sk]`` (the
 padding mask of BERT and ERNIE): ``_fwd_v1`` (:239), the ``_bwd_v1`` dq
 kernel (:702) and its dk/dv/dbias kernel (:753). Each source's header
-says what bounds it on the card and what its design does about it;
-bfloat16 inputs run on the tensor cores, float32 ones on the CUDA
-cores.
+says what bounds it on the card and what its design does about it.
+The forward runs both dtypes on the tensor cores (float32 by the
+error-compensated 3xTF32 split, at f32 accuracy); the backward runs
+bfloat16 on the tensor cores and float32 on the CUDA cores.
 
 All functions take ``[B, S, H, D]`` tensors and an optional in-kernel
 attention dropout (``dropout_rate`` with two ``seed_words``): the keep
@@ -224,13 +225,16 @@ def _check_saved(q, o, lse, do, cuda_args):
     _check_layout("flash backward", cuda_args)
 
 
-def _check_layout(what, cuda_args):
+def _check_layout(what, cuda_args, rows=None):
+    """Contiguous arguments, and 16-byte aligned ``rows``: the tensors
+    whose rows the kernel copies in 16-byte pieces (by default every bf16
+    argument; the forward's q, k and v in either dtype)."""
     if not all(t.is_contiguous() for t in cuda_args):
         raise ValueError(f"{what} takes contiguous arguments")
-    # the bf16 kernels copy rows in 16-byte pieces
-    if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16
-           for t in cuda_args):
-        raise ValueError(f"the bf16 {what} takes 16-byte aligned tensors")
+    if rows is None:
+        rows = [t for t in cuda_args if t.dtype == torch.bfloat16]
+    if any(t.data_ptr() % 16 for t in rows):
+        raise ValueError(f"the {what} takes 16-byte aligned tensors")
 
 
 def _aligned(t):
@@ -266,7 +270,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, return_lse,
                                      dropout_rate, seed_words)
-    _check_layout("flash forward", (q, k, v))
+    _check_layout("flash forward", (q, k, v), (q, k, v))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -326,7 +330,7 @@ def flash_attention_bias_fwd(q, k, v, bias, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, return_lse,
                                      dropout_rate, seed_words, bias)
-    _check_layout("flash forward", (q, k, v, bias))
+    _check_layout("flash forward", (q, k, v, bias), (q, k, v))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)

@@ -93,6 +93,38 @@ def test_bias_forward_matches_jax_kernel(rate, neg):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("neg", [NEG, NEG_BF16], ids=["f32", "bf16"])
+def test_bias_forward_at_ragged_tile_edges_matches_jax_kernel(rate, neg):
+    """S = 65 and D = 128, where the f32 tensor-core kernel's tiles end
+    ragged (a second key tile of one row, 32 16-byte copies a row), with a
+    padded row and a fully masked one: o and lse of the plain version,
+    which the kernel is held to on the card, against the JAX v1 kernel
+    run by the Pallas interpreter with one 65-row block. The tolerance is
+    test_bias_forward_matches_jax_kernel's scaled by D: this JAX build's
+    CPU dots may run f32 as bf16 passes (conftest.py), whose error grows
+    with the 128-term sums."""
+    import jax.numpy as jnp
+    from paddle_tpu.ops.pallas.flash_attention import _fwd
+    S, D = 65, 128
+    q, k, v, _ = _attn_inputs(4, S=S, D=D)
+    bias = _key_bias([S, 40, 0], S, neg)
+    _, words = _jax_words(5)
+    seed = jnp.asarray(np.array(words, np.uint32).view(np.int32))
+    o_ref, lse_ref = _fwd(*map(jnp.asarray, (q, k, v)),
+                          jnp.asarray(bias)[:, None, None, :],
+                          1.0 / math.sqrt(D), False, S, S, seed=seed,
+                          rate=rate)
+    o, lse = flash_attention_bias_fwd(
+        *map(torch.from_numpy, (q, k, v)), torch.from_numpy(bias),
+        return_lse=True, dropout_rate=rate, seed_words=words)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=4e-5,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[..., 0],
+                               atol=1e-4, rtol=0)
+    assert np.all(o.numpy()[2] == 0.0) and np.all(lse.numpy()[2] == NEG)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_bias_gradients_match_jax_vjp(rate):
     """dq, dk, dv and dbias of the differentiable entry against
     ``jax.vjp`` of the JAX one, the mask given as ``[B, 1, 1, Sk]``."""
@@ -583,6 +615,41 @@ def test_bf16_bias_forward_on_tensor_cores_matches_plain(cuda, Sq, Sk, D,
                                                mxu_dtype=mxu)
         assert _rel_err(o, o_ref) <= 2.0 ** -7
         assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,causal", [(65, 65, 128, False),
+                                            (65, 65, 64, False),
+                                            (200, 200, 64, False),
+                                            (512, 512, 64, False),
+                                            (333, 333, 128, False),
+                                            (130, 333, 64, True),
+                                            (72, 200, 128, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("neg", [NEG, NEG_BF16], ids=["f32", "bf16"])
+def test_f32_bias_forward_on_tensor_cores_matches_plain(cuda, Sq, Sk, D,
+                                                        causal, rate, neg):
+    """The f32 biased forward on the tensor cores (3xTF32): padded keys
+    and a fully masked batch row (o == 0 and lse == -1e30 exactly, with
+    the f32 and the bf16-rounded -1e30: the split never sees the bias),
+    ragged S, D = 128, causal Sk != Sq, with and without dropout. o within
+    1e-4 of the float32 plain version (chip_smoke.py's TOL["float32"]),
+    lse within 1e-5; a second call repeats the first bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D + 3)
+    q = torch.randn(3, Sq, 4, D, device=cuda, generator=g)
+    k, v = (torch.randn(3, Sk, 4, D, device=cuda, generator=g)
+            for _ in range(2))
+    bias = torch.from_numpy(_key_bias([Sk, Sk // 3, 0], Sk, neg)).to(cuda)
+    args = (causal, None, True, rate, (45, 46))
+    before = kernels.FLASH_ATTENTION_BIAS_FWD.launches
+    o, lse = flash_attention_bias_fwd(q, k, v, bias, *args)
+    again = flash_attention_bias_fwd(q, k, v, bias, *args)
+    assert kernels.FLASH_ATTENTION_BIAS_FWD.launches == before + 2
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert (o[2] == 0).all() and (lse[2] == -1e30).all()
+    o_ref, lse_ref = flash_attention_plain(q, k, v, *args, bias)
+    assert (o - o_ref).abs().max().item() <= 1e-4
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda

@@ -206,6 +206,23 @@ def test_bgmv_plain_matches_jax_kernel_and_oracle(S):
         got.numpy(), bgmv_plain(*map(torch.from_numpy, inputs)).numpy())
 
 
+@pytest.mark.parametrize("S", [1, 3], ids=["decode", "prefill"])
+def test_bgmv_plain_at_ragged_rank_and_widths_matches_jax_kernel(S):
+    """r = 7 and E = O = 1000, which the kernel's cluster splits into
+    slices that are not multiples of its tiles (and takes with 4-byte
+    copies): the plain version, which the kernel is held to on the card,
+    against the JAX kernel run by the Pallas interpreter."""
+    import jax.numpy as jnp
+    from paddle_tpu.ops.pallas.bgmv import bgmv as jax_bgmv
+    inputs = _bgmv_inputs(7 + S, S=S, E=1000, r=7, O=1000, A=5)
+    inputs[3][:] = [4, 0, 2, 4]
+    ref = np.asarray(jax_bgmv(*map(jnp.asarray, inputs)))
+    got = bgmv(*map(torch.from_numpy, inputs)).numpy()
+    assert got.shape == (4, S, 1000)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert np.all(got[1] == 0.0) and not np.signbit(got[1]).any()
+
+
 def test_bgmv_wrapper_checks_arguments():
     x, a, b, ids = map(torch.from_numpy, _bgmv_inputs(0))
     with pytest.raises(ValueError, match=r"\[A,r,E\]"):
@@ -558,3 +575,37 @@ def test_bgmv_kernel_matches_plain_on_card(cuda, dtype, tol, S):
         r = MAX_RANK + 1
         bgmv(x, torch.zeros(3, r, 1024, device=cuda),
              torch.zeros(3, r, 3072, device=cuda), ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 7, 8, 64])
+@pytest.mark.parametrize("E,O", [(1000, 1000), (1024, 3072), (1000, 3072),
+                                 (1024, 1000)])
+@pytest.mark.parametrize("S", [1, 17, 256])
+@pytest.mark.parametrize("ids", [[2, 0, 1, 2], [1, 1, 1, 1]],
+                         ids=["mixed", "one-adapter"])
+def test_bgmv_cluster_edges_on_card(cuda, r, E, O, S, ids):
+    """The cluster kernel where its slices do not tile: r not a multiple
+    of 8, E and O not multiples of the cluster's slices (4-byte copies),
+    token counts past and short of a tile, and every row on one adapter.
+    Within BGMV_TOL of the plain version (1e-5 of the largest value in
+    f32, one bf16 ulp in bf16); a zero-adapter row is exactly +0.0; two
+    launches give the same bits."""
+    x, a, b, ids_t = (torch.from_numpy(t).to(cuda) for t in _bgmv_inputs(
+        r + E + O + S, S=S, E=E, r=r, O=O))
+    ids_t.copy_(torch.tensor(ids, dtype=torch.int32))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        xd = x.to(dtype)
+        before = kernels.BGMV.launches
+        got = bgmv(xd, a, b, ids_t)
+        again = bgmv(xd, a, b, ids_t)
+        assert kernels.BGMV.launches == before + 2
+        ref = bgmv_plain(xd, a, b, ids_t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        err = (got.float() - ref.float()).abs().max() / \
+            ref.float().abs().max()
+        assert err.item() <= tol
+        for i, k in enumerate(ids):
+            if k == 0:
+                assert (got[i] == 0).all() and not got[i].signbit().any()

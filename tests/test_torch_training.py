@@ -690,6 +690,59 @@ def test_bf16_forward_on_tensor_cores_matches_plain_on_card(cuda, Sq, Sk, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,causal", [(65, 65, 64, True),
+                                            (65, 65, 128, False),
+                                            (200, 200, 64, False),
+                                            (200, 200, 128, True),
+                                            (512, 512, 64, True),
+                                            (512, 512, 128, False),
+                                            (72, 200, 64, True),
+                                            (130, 512, 128, True),
+                                            (65, 200, 64, False)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_forward_on_tensor_cores_matches_plain_on_card(cuda, Sq, Sk, D,
+                                                           causal, rate):
+    """The f32 forward runs both products on the tensor cores by the
+    3xTF32 split, P feeding P V as an A fragment in the accumulator's own
+    layout: ragged S (partial last tiles), D = 128, causal with Sk != Sq,
+    with and without dropout. o within 1e-4 of the float32 plain version
+    (chip_smoke.py's TOL["float32"]), lse within 1e-5, both far inside
+    what plain TF32 (10 mantissa bits) would give; a second call repeats
+    the first bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D + 5)
+    q = torch.randn(2, Sq, 4, D, device=cuda, generator=g)
+    k, v = (torch.randn(2, Sk, 4, D, device=cuda, generator=g)
+            for _ in range(2))
+    args = (causal, None, True, rate, (35, 36))
+    before = kernels.FLASH_ATTENTION_FWD.launches
+    o, lse = flash_attention_fwd(q, k, v, *args)
+    again = flash_attention_fwd(q, k, v, *args)
+    assert kernels.FLASH_ATTENTION_FWD.launches == before + 2
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert o.dtype == torch.float32
+    o_ref, lse_ref = flash_attention_plain(q, k, v, *args)
+    assert (o - o_ref).abs().max().item() <= 1e-4
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_f32_flash_forward_raises_on_unaligned_tensors(cuda):
+    """The f32 forward copies rows in 16-byte pieces too: a contiguous f32
+    tensor that starts 4 bytes past an aligned address is refused, with
+    and without a bias; the autograd entry copies it and runs."""
+    buf = torch.randn(2 * 64 * 2 * 64 + 1, device=cuda)
+    q = buf[1:].view(2, 64, 2, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bias_fwd(q, q, q, torch.zeros(2, 64, device=cuda))
+    o = flash_attention(q, q, q)
+    assert torch.equal(o, flash_attention_fwd(q.clone(), q.clone(),
+                                              q.clone()))
+
+
+@pytest.mark.cuda
 def test_bf16_flash_forward_raises_on_unaligned_tensors(cuda):
     """The bf16 kernel copies rows in 16-byte pieces: a contiguous bf16
     tensor that starts 2 bytes past an aligned address is refused, with
