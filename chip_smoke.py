@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Fourteen phases, in order:
+result line. Sixteen phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -35,12 +35,19 @@ result line. Fourteen phases, in order:
               and at BERT-base's padded batch against SDPA in f32 and a
               bound at a third of the TF32 rate; bgmv at the decode and
               prefill dispatches; each redesigned kernel's two launches
-              must give the same bits;
+              must give the same bits; the biased forward also causal at
+              Sq < Sk as the chat path's context prefills launch it (Sq =
+              128 and 5 over a 512-token right-aligned context, f32 and
+              bf16, a row that sees one key and a fully masked row),
+              timed at the chat context shape against SDPA f32 given the
+              same float mask;
 3. slice   -- serve 16 greedy requests on GPT-2 345M (random weights
               from a seed) through ``ServingEngine`` at the full serving
               configuration, check the launch counts against the
               dispatch counts and cross-check every generated token
-              against a teacher-forced no-cache forward;
+              against a teacher-forced no-cache forward, then profile one
+              more run of the same requests (the device busy share
+              phase 14 prints beside its own);
 4. mt      -- multi-tenant serving of GPT-2 345M at the configuration of
               ``bench.py``'s ``serve_multitenant_metrics`` (full): int8
               paged KV, eight LoRA adapters of four tenants, at most four
@@ -104,14 +111,38 @@ result line. Fourteen phases, in order:
               int8 kernel, 48 a step), each held against int8_matmul's
               plain version and, as in phase 6, against every plain
               version;
-14. summary -- print one JSON line describing every ported kernel, then
+14. bf16   -- phase 3's requests through ``inference.create_serving_engine``
+              under ``enable_tpu_bf16`` with bf16 pools
+              (``cache_dtype="bfloat16"``): layer norm's one-launch bf16
+              path bit-equal to its f32 casts, exact launch counts (the
+              flash and paged-decode kernels in bf16), every token against
+              a teacher-forced no-cache forward of the engine's bf16
+              parameters (near-ties under ``BF16_TIE_GAP``), KV bytes a
+              token half of f32's; its TTFT, decode p50/p99, peak memory
+              and the device busy share of one profiled run printed beside
+              phase 3's (which profiles one more f32 run for it);
+15. chat   -- ``bench.py``'s ``serve_throughput_features`` at full size:
+              its MMPP shared-prefix chat traffic (24 requests after a warm
+              burst of 4) served open-loop by the flags-off engine and by
+              one with the radix prefix cache, chunked prefill at 128 and
+              speculative decoding at k = 4; bench.py's three parity
+              prompts token-identical (near-ties at the first divergence
+              under ``TIE_GAP``), every request completed and every token
+              checked against a teacher-forced forward, exact launch counts
+              (the biased flash kernel, causal, once per layer per context
+              prefill and verify dispatch; the plain flash kernel per fresh
+              prefill; paged decode per plain decode), every page's
+              refcount the tree's at the end; tokens/s and TTFT p99 on and
+              off, prefix hit %, spec accept %, chunks;
+16. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11
-and 13, and before each predictor of phase 12, and read just after
-(a witness's reference runs are taken back out of them); the
+Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
+13, 14 and 15, and before each predictor of phase 12, and read just
+after (a witness's reference runs are taken back out of them); the
 kernel JSON line gives each kernel's launches per path (``serve``,
-``mt``, ``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``). Each
+``mt``, ``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``,
+``bf16_serve``, ``chat``). Each
 phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
@@ -262,11 +293,25 @@ MT_SPEC = dict(num_requests=24, rate_rps=6.0, prompt_len_range=(16, 64),
                max_new_range=(8, 24), vocab_size=50304, seed=23,
                shared_prefix_len=32, prefix_pool_size=2, tenants=MT_TENANTS,
                adapter_pool=MT_PER_TENANT)
+# the chat path: bench.py's serve_throughput_features (full) on SERVE_CFG,
+# float32: its MMPP shared-prefix traffic, chunked prefill at 128 and
+# speculative decoding at k = 4 with the radix prefix cache
+CHAT_SPEC = dict(num_requests=24, rate_rps=4.0, prompt_len_range=(16, 64),
+                 max_new_range=(16, 48), seed=7, arrival="mmpp",
+                 burstiness=2.0, shared_prefix_len=256, prefix_pool_size=4,
+                 prefix_zipf=1.2)
+CHAT_FLAGS = {"serve_prefix_cache": True, "serve_prefill_chunk": 128,
+              "serve_spec_k": 4}
 # a teacher-forced position may pick another token than the engine only
 # where the engine's token is within this of the maximum logit (a tie
 # that the summation order of the paged and no-cache paths may break
 # either way)
 TIE_GAP = 1e-3
+# the same for the bf16 engine against a no-cache forward of its own bf16
+# parameters: both paths round every activation to bf16 (8 bits of
+# mantissa) at other points, so their logits, near 3 at most at this
+# init, differ by a few bf16 ulps (2^-6 = 0.0156 at [2, 4)); four ulps
+BF16_TIE_GAP = 4 * 2.0 ** -6
 
 
 def _require(cond, msg: str) -> None:
@@ -952,6 +997,95 @@ def _bias_flash_case(B, S, H, D, dtype, mask, rate=0.1, seed=10,
     return out_rows
 
 
+def _context_flash_case(B, Sq, H, D, dtype, pos, seed, masked_row=None,
+                        timed=False):
+    """Row 2's kernel as the chat path's context prefills launch it:
+    causal with a key bias at Sq < Sk = SERVE_CFG's 512-token context,
+    each row's positions ``0 .. pos + Sq - 1`` right-aligned and the
+    left padding at ``-1e30`` (``serving.kv_cache.context_index``); with
+    ``masked_row`` that batch row's every key is masked (a padded row),
+    which must give o = 0 and lse = -1e30. o within ``TOL`` of the plain
+    version (in bf16 also of the one that rounds pv as the kernel does),
+    lse within ``10 * TOL["float32"]``, two launches bit-equal; timed
+    against SDPA given the same mask as one float ``[B, 1, Sq, Sk]``
+    tensor."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.attention import NEG_INF
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    Sk = SERVE_CFG["max_context_len"]
+    bias = torch.zeros(B, Sk)
+    for b, p in enumerate(pos):
+        bias[b, :Sk - Sq - p] = NEG_INF
+    if masked_row is not None:
+        bias[masked_row] = NEG_INF
+    bias = bias.cuda()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(B, Sk, H, D, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    o, lse = fa.flash_attention_bias_fwd(q, k, v, bias, True, None, True)
+    again = fa.flash_attention_bias_fwd(q, k, v, bias, True, None, True)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, True, None, True,
+                                              bias=bias)
+    torch.cuda.synchronize()
+    equal = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    err = _abs_err(o, o_ref)
+    live = [b for b in range(B) if b != masked_row]
+    lse_err = (lse[live] - lse_ref[live]).abs().max().item()
+    name = _name(dtype)
+    mxu = _mxu_errs((o,), lambda: (fa.flash_attention_plain(
+        q, k, v, True, bias=bias, mxu_dtype=torch.bfloat16),), dtype,
+        _abs_err)
+    shape = (f"B={B} Sq={Sq} Sk={Sk} H={H} D={D} {name} causal, key bias, "
+             f"pos {list(pos)}"
+             + (f", row {masked_row} fully masked"
+                if masked_row is not None else ""))
+    _log(f"kernels: flash_attention_bias_fwd context [{shape}]: "
+         f"max|o-plain| {err:.3e}, max|lse-plain| {lse_err:.3e} (tol "
+         f"{TOL[name]:g}); two launches bit-equal {equal}"
+         + _mxu_note(mxu, ("max|o-plain|",)))
+    _require(math.isfinite(err) and max([err] + mxu) <= TOL[name]
+             and lse_err <= TOL["float32"] * 10,
+             f"the causal biased forward at Sq={Sq} < Sk={Sk} disagrees "
+             f"with its plain version in {name}: {err}, against bf16 MXU "
+             f"operands {mxu}, lse {lse_err}")
+    _require(equal, "two launches of the causal biased forward differ")
+    if masked_row is not None:
+        _require(bool((o[masked_row] == 0).all())
+                 and bool((lse[masked_row] == NEG_INF).all()),
+                 "a fully masked context row did not give o = 0, "
+                 "lse = -1e30")
+    if not timed:
+        return None
+    ms = _median_ms(lambda: fa.flash_attention_bias_fwd(q, k, v, bias,
+                                                        True))
+    plain_ms = _median_ms(lambda: fa.flash_attention_plain(
+        q, k, v, True, bias=bias), iters=5, warmup=1)
+    causal = torch.ones(Sq, Sk, dtype=torch.bool,
+                        device="cuda").tril(Sk - Sq)
+    mask = (bias[:, None, None, :]
+            + torch.where(causal, 0.0, NEG_INF)).to(dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    # what this data needs: query row i of row b sees pos_b + i + 1
+    # keys, so K and V are read over each row's pos_b + Sq visible
+    # columns only (the left padding is masked), q read and o written
+    # once, and the bias read whole
+    pairs = H * sum(Sq * (p + 1) + Sq * (Sq - 1) // 2 for p in pos)
+    elem = q.element_size()
+    visible = sum(min(p + Sq, Sk) for b, p in enumerate(pos)
+                  if b != masked_row)
+    bound, by = _bound_ms(2 * H * D * elem * visible
+                          + 2 * B * Sq * H * D * elem + B * Sk * 4,
+                          4 * D * pairs, "float32_3xtf32"
+                          if name == "float32" else name)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "shape": shape}
+
+
 # the int8 predictor's shapes (M, K, N): q/k/v/out and transform,
 # linear1, linear2 at B*S = 24576 rows, and the pooler's 48 rows
 INT8_SHAPES = ((BERT_B * BERT_S, 768, 768), (BERT_B * BERT_S, 768, 3072),
@@ -1010,12 +1144,14 @@ def phase_kernels() -> dict:
         for S in (128, 200):
             _flash_case(4, S, 16, 64, dtype, seed=S)
     _flash_case(2, 256, 8, 128, torch.float32, seed=3)
-    _flash_case(4, 256, 16, 64, torch.bfloat16, seed=256)
-    # the serving path runs float32 (the engine's cache dtype)
-    serve_flash = _flash_case(4, 256, 16, 64, torch.float32, seed=256,
-                              timed=True)
-    f32_rows = {"flash_attention_fwd float32": serve_flash}
-    _paged_case(torch.bfloat16, seed=1)
+    # rows printed beside the JSON line's: the serving path's f32 and
+    # bf16 engines (phases 3 and 14) time rows 1 and 9 in both dtypes
+    more_rows = {"flash_attention_fwd bfloat16 serve": _flash_case(
+        4, 256, 16, 64, torch.bfloat16, seed=256, timed=True)}
+    more_rows["flash_attention_fwd float32"] = _flash_case(
+        4, 256, 16, 64, torch.float32, seed=256, timed=True)
+    more_rows["paged_decode_attention bfloat16"] = _paged_case(
+        torch.bfloat16, seed=1, timed=True)
     rows["paged_decode_attention"] = _paged_case(torch.float32, seed=1,
                                                  timed=True)
     # the multi-tenant path: int8 decode, and bgmv at the decode (B=8,
@@ -1045,7 +1181,7 @@ def phase_kernels() -> dict:
     _bias_flash_case(BERT_B, BERT_S, 12, 64, torch.float32, mask)
     # the f32 and int8 predictors' attention (and f32 training's, rate 0.1)
     for rate in (0.0, 0.1):
-        f32_rows["flash_attention_bias_fwd float32"
+        more_rows["flash_attention_bias_fwd float32"
                  + (f" dropout {rate}" if rate else "")] = \
             _f32_bias_fwd_case(mask, rate)
     torch.cuda.empty_cache()
@@ -1056,6 +1192,18 @@ def phase_kernels() -> dict:
     small[2] = 0
     for dtype in (torch.float32, torch.bfloat16):
         _bias_flash_case(3, 200, 4, 64, dtype, small, seed=11, full_row=2)
+    # the chat path's context prefills: chunks and prefix-hit tails (Sq =
+    # 128) and verify windows (Sq = 5) over the 512-token context, row 0
+    # at pos 0 (its first query sees one key), a padded row fully masked;
+    # the row times a prefix-hit tail of the 256-token system prompt
+    for dtype in (torch.float32, torch.bfloat16):
+        _context_flash_case(5, 128, 16, 64, dtype, (0, 128, 256, 384, 0),
+                            seed=21, masked_row=4)
+        _context_flash_case(5, 5, 16, 64, dtype, (0, 131, 300, 507, 0),
+                            seed=22, masked_row=4)
+    more_rows["flash_attention_bias_fwd float32 context"] = \
+        _context_flash_case(4, 128, 16, 64, torch.float32, (256,) * 4,
+                            seed=23, timed=True)
     torch.cuda.empty_cache()
     # the int8 predictor's four shapes, float32 (predictor b) and bf16
     # (predictor c) out; the row is the most launched shape in float32
@@ -1067,7 +1215,7 @@ def phase_kernels() -> dict:
     rows["int8_matmul"] = int8_cases[
         f"int8_matmul M={BERT_B * BERT_S} K=768 N=768 float32"]
     torch.cuda.empty_cache()
-    for name, r in {**rows, **f32_rows, **bgmv_cases, **int8_cases}.items():
+    for name, r in {**rows, **more_rows, **bgmv_cases, **int8_cases}.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         cuda_core = {**CUDA_CORE_FWD_MS, **CUDA_CORE_BWD_MS,
                      **CUDA_CORE_F32_FWD_MS}
@@ -1115,17 +1263,14 @@ def phase_slice() -> dict:
                            device="cuda")
     n_kernels = engine.warmup()
     torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
     _log(f"slice: gpt2_medium ({sum(p.numel() for p in model.parameters())}"
          f" parameters, {cfg.num_layers} layers) and engine ready in "
          f"{time.perf_counter() - t0:.2f} s; {n_kernels} kernels loaded; "
          f"config {engine.config.prefill_buckets} x "
          f"{engine.config.batch_buckets}, {engine.config.num_pages} pages")
-    rng = np.random.RandomState(0)
-    specs = []
-    for _ in range(NUM_REQUESTS):
-        n = int(rng.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1))
-        new = int(rng.randint(NEW_TOKENS_RANGE[0], NEW_TOKENS_RANGE[1] + 1))
-        specs.append((rng.randint(0, cfg.vocab_size, (n,)), new))
+    specs = _slice_specs(cfg.vocab_size)
 
     kernels.reset_launch_counts()
     states = [engine.submit(Request(p, max_new_tokens=new,
@@ -1156,15 +1301,43 @@ def phase_slice() -> dict:
              f"paged-decode launches {launches['paged_decode_attention']}"
              f" != {L} x {n_dec} decode dispatches")
 
-    # teacher-forced cross-check: a no-cache forward over prompt +
-    # generated must pick every generated token, up to near-ties
+    peak = (build_peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+    _teacher_forced("slice", model, states, TIE_GAP)
+    _log(f"slice: {_serve_line(summary, peak)}")
+    busy = _profile_serve("slice", engine, specs)
+    return launches, {"summary": summary, "peak": peak, "busy": busy}
+
+
+def _slice_specs(vocab_size):
+    """Phase 3's 16 greedy requests: (prompt, max_new_tokens), seed 0."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    specs = []
+    for _ in range(NUM_REQUESTS):
+        n = int(rng.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1))
+        new = int(rng.randint(NEW_TOKENS_RANGE[0], NEW_TOKENS_RANGE[1] + 1))
+        specs.append((rng.randint(0, vocab_size, (n,)), new))
+    return specs
+
+
+def _teacher_forced(tag, model, states, tie_gap, params=None):
+    """A no-cache forward over prompt + generated (of ``params``, the
+    engine's parameter copy, when given) must pick every generated
+    token, up to near-ties: where it picks another one, the engine's
+    token must lie within ``tie_gap`` of the maximum logit. Returns the
+    tokens checked."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
     ties, checked, worst_gap = 0, 0, 0.0
     with torch.no_grad():
         for st in states:
             seq = np.concatenate([st.request.prompt,
                                   np.asarray(st.generated, np.int32)])
             ids = torch.from_numpy(seq[None].astype(np.int64)).cuda()
-            logits = model(ids)[0].float()                     # [S, V]
+            out = (model(ids) if params is None else functional_call(
+                model, params, (ids,)))
+            logits = out[0].float()                            # [S, V]
             _require(bool(torch.isfinite(logits).all()),
                      "non-finite logits in the teacher-forced forward")
             P = st.prompt_len
@@ -1177,21 +1350,301 @@ def phase_slice() -> dict:
                 g = gap[miss]
                 ties += int(miss.sum())
                 worst_gap = max(worst_gap, float(g.max()))
-    _log(f"slice: teacher-forced check over {checked} generated tokens: "
+    _log(f"{tag}: teacher-forced check over {checked} generated tokens: "
          f"{ties} positions pick another token, largest logit gap there "
-         f"{worst_gap:.3e} (allowed < {TIE_GAP:g})")
-    _require(worst_gap < TIE_GAP,
-             f"teacher-forced forward disagrees with the engine by a logit"
-             f" gap of {worst_gap} >= {TIE_GAP}")
+         f"{worst_gap:.3e} (allowed < {tie_gap:g})")
+    _require(worst_gap < tie_gap,
+             f"{tag}: teacher-forced forward disagrees with the engine by a "
+             f"logit gap of {worst_gap} >= {tie_gap}")
+    return checked
 
-    def ms(x):
-        return "n/a" if x is None else f"{x * 1e3:.3f} ms"
-    _log(f"slice: {summary['tokens_per_sec']:.2f} tokens/s, TTFT p50 "
-         f"{ms(summary['ttft_p50_s'])} p99 {ms(summary['ttft_p99_s'])}, "
-         f"decode step p50 {ms(summary['decode_step_p50_s'])} p99 "
-         f"{ms(summary['decode_step_p99_s'])}, mean decode occupancy "
-         f"{summary['mean_decode_occupancy']:.3f}, peak device memory "
-         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+def _ms(x):
+    return "n/a" if x is None else f"{x * 1e3:.3f} ms"
+
+
+def _serve_line(summary, peak) -> str:
+    """``peak``: the device memory peaks (GiB) of the build and warm-up
+    (the model, the engine's parameter copy, the pools) and of the
+    serving run after it."""
+    return (f"{summary['tokens_per_sec']:.2f} tokens/s, TTFT p50 "
+            f"{_ms(summary['ttft_p50_s'])} p99 {_ms(summary['ttft_p99_s'])}"
+            f", decode step p50 {_ms(summary['decode_step_p50_s'])} p99 "
+            f"{_ms(summary['decode_step_p99_s'])}, mean decode occupancy "
+            f"{summary['mean_decode_occupancy']:.3f}, peak device memory "
+            f"{max(peak):.3f} GiB (build {peak[0]:.3f}, serving "
+            f"{peak[1]:.3f})")
+
+
+def _profile_serve(tag, engine, specs) -> float:
+    """The device busy share of one more run of ``specs`` through
+    ``engine`` under torch.profiler (``_profile_step``); its launches
+    are not read by any count."""
+    from paddle_tpu_torch.serving import Request, SamplingParams
+
+    def run():
+        for p, new in specs:
+            engine.submit(Request(p, max_new_tokens=new,
+                                  sampling=SamplingParams()))
+        engine.run()
+    return _profile_step(f"{tag} profile", run)
+
+
+# -- phase 14: bf16 serving ---------------------------------------------------
+def _layer_norm_one_launch(params: dict, E: int) -> None:
+    """``nn.functional.layer_norm`` on bf16 input with the bf16 copy's
+    weight and bias takes PyTorch's one-launch kernel on the card; it
+    must equal the float32 casts it replaces bit for bit at the decode
+    and prefill shapes."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.nn import functional as pf
+    w = params["gpt.layers.0.ln1.weight"]
+    b = params["gpt.layers.0.ln1.bias"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():
+        # the model's unit scale and zero shift, perturbed
+        w, b = ((t + 0.1 * torch.randn(E, device="cuda", generator=g))
+                .to(t.dtype) for t in (w, b))
+        for shape in ((8, 1, E), (4, 256, E)):
+            x = (3 * torch.randn(*shape, device="cuda", generator=g)
+                 + 0.5).to(torch.bfloat16)
+            one = pf.layer_norm(x, E, w, b)
+            cast = F.layer_norm(x.float(), (E,), w.float(), b.float(),
+                                1e-5).to(x.dtype)
+            _require(one.dtype == torch.bfloat16 and torch.equal(one, cast),
+                     f"bf16 layer norm's one launch differs from the f32 "
+                     f"casts at {shape}: "
+                     f"{(one.float() - cast.float()).abs().max().item()}")
+    _log("bf16: layer norm's one-launch kernel equals the f32 casts bit "
+         "for bit at [8, 1, E] and [4, 256, E]")
+
+
+def phase_bf16_serve(f32: dict) -> dict:
+    """Phase 3's 16 greedy requests through ``create_serving_engine`` on a
+    bf16 parameter copy over bf16 pools: exact launch counts, every
+    token against a teacher-forced no-cache forward of the same bf16
+    copy, KV bytes a token half of f32's, and phase 3's f32 numbers
+    printed beside the bf16 ones."""
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import Request, SamplingParams, ServingConfig
+    cfg = gpt2_medium()
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    config = inference.Config.from_layer(model, [])
+    config.enable_tpu_bf16()
+    engine = inference.create_serving_engine(
+        config, ServingConfig(**SERVE_CFG, cache_dtype="bfloat16"),
+        device="cuda")
+    dtypes = {p.dtype for p in engine.params.values()}
+    _require(dtypes == {torch.bfloat16}
+             and engine.cache.k.dtype == torch.bfloat16
+             and engine.cache.v.dtype == torch.bfloat16
+             and all(p.dtype == torch.float32 for p in model.parameters()),
+             f"bf16 engine: parameters {dtypes}, pools {engine.cache.k.dtype}"
+             ", or the layer was cast")
+    _layer_norm_one_launch(engine.params, cfg.hidden_size)
+    engine.warmup()
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    specs = _slice_specs(cfg.vocab_size)
+    kernels.reset_launch_counts()
+    states = [engine.submit(Request(p, max_new_tokens=new,
+                                    sampling=SamplingParams()))
+              for p, new in specs]
+    engine.run()
+    torch.cuda.synchronize()
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    stats = engine.stats()
+    summary = engine.metrics_summary()
+    peak = (build_peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+    for st, (p, new) in zip(states, specs):
+        _require(st.outcome == "completed" and len(st.generated) == new,
+                 f"bf16: request {st.request.request_id} ended {st.outcome}"
+                 f" with {len(st.generated)} of {new} tokens")
+    n_pre, n_dec = stats["prefill_dispatches"], stats["decode_dispatches"]
+    _log(f"bf16: {len(states)} requests, {stats['tokens_generated']} "
+         f"tokens, {n_pre} prefill and {n_dec} decode dispatches; launches "
+         f"{launches}")
+    _require(launches["flash_attention_fwd"] >= L * n_pre > 0,
+             f"bf16: flash launches {launches['flash_attention_fwd']} < "
+             f"{L} x {n_pre} prefill dispatches")
+    _require(launches["paged_decode_attention"] == L * n_dec > 0,
+             f"bf16: paged-decode launches "
+             f"{launches['paged_decode_attention']} != {L} x {n_dec}")
+    kv, kv32 = summary["kv_bytes_per_token"], \
+        f32["summary"]["kv_bytes_per_token"]
+    _require(kv == 2 * L * cfg.num_heads * cfg.head_dim * 2 == kv32 // 2,
+             f"bf16 KV costs {kv} bytes a token (f32 {kv32})")
+    _teacher_forced("bf16", model, states, BF16_TIE_GAP,
+                    params={**engine.params, **engine.buffers})
+    _log(f"bf16: {_serve_line(summary, peak)}; KV {kv} bytes a token")
+    _log(f"bf16: f32 (phase 3) {_serve_line(f32['summary'], f32['peak'])};"
+         f" KV {kv32} bytes a token")
+    busy = _profile_serve("bf16", engine, specs)
+    _log(f"bf16: device busy share of one profiled run {100 * busy:.2f}% "
+         f"(f32, phase 3: {100 * f32['busy']:.2f}%)")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 15: chat serving --------------------------------------------------
+def _capture_submits(engine) -> list:
+    """Every state ``engine.submit`` returns from now on, in order (the
+    open-loop driver keeps them to itself)."""
+    states = []
+    submit = engine.submit
+
+    def keep(request):
+        st = submit(request)
+        states.append(st)
+        return st
+    engine.submit = keep
+    return states
+
+
+def phase_chat() -> dict:
+    """``bench.py``'s ``serve_throughput_features`` at full size: the
+    chat traffic (a 256-token system prompt of four, zipf reuse, MMPP
+    arrivals) served by the flags-off engine and by one with the radix
+    prefix cache, chunked prefill at 128 and speculative decoding at
+    k = 4, f32 as the bench runs it. The parity prompts token-identical
+    between the two, every request completed, every generated token a
+    teacher-forced pick, exact launch counts, and every page's
+    refcount back to the tree's references at the end."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.core import flag_scope
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (LoadSpec, ServingConfig,
+                                          ServingEngine, run_open_loop)
+    cfg = gpt2_medium()
+    L = cfg.num_layers
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    chat = LoadSpec(**CHAT_SPEC, vocab_size=cfg.vocab_size)
+    # bench.py's parity prompts: a shared-prefix pair and a
+    # self-repetitive tail
+    rng = np.random.default_rng(11)
+    pre = rng.integers(0, cfg.vocab_size, (32,)).tolist()
+    parity = [pre + rng.integers(0, cfg.vocab_size, (8,)).tolist(),
+              pre + rng.integers(0, cfg.vocab_size, (5,)).tolist(),
+              [3, 4, 5, 3, 4, 5, 3, 4]]
+    engines = {}
+    for tag, flags in (("off", {}), ("on", CHAT_FLAGS)):
+        with contextlib.ExitStack() as stack:
+            for name, value in flags.items():
+                stack.enter_context(flag_scope(name, value))
+            engines[tag] = ServingEngine(model, ServingConfig(**SERVE_CFG),
+                                         device="cuda")
+        engines[tag].warmup()
+    kernels.reset_launch_counts()
+    out, runs = {}, {}
+    for tag, eng in engines.items():
+        out[tag] = [o[-8:].tolist() for o in eng.generate(
+            parity, max_new_tokens=8)]
+        states = _capture_submits(eng)
+        # the prefix tree warm as production's is: a burst of the same
+        # seed's traffic first, in both engines
+        run_open_loop(eng, dataclasses.replace(
+            chat, num_requests=chat.prefix_pool_size, rate_rps=1e6))
+        tok0, n_ttft0 = eng.stats()["tokens_generated"], len(eng._lat["ttft"])
+        t0 = time.perf_counter()
+        summary = run_open_loop(eng, chat)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ttft = eng._lat["ttft"][n_ttft0:]
+        runs[tag] = {"summary": summary, "states": states,
+                     "tps": (eng.stats()["tokens_generated"] - tok0) / wall,
+                     "ttft99": float(np.percentile(ttft, 99))}
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    st_on, st_off = engines["on"].stats(), engines["off"].stats()
+    n_ctx = n_fresh = n_plain = 0
+    for st_ in (st_on, st_off):
+        n_ctx += st_["context_prefill_dispatches"] + st_["verify_dispatches"]
+        n_fresh += st_["prefill_dispatches"] \
+            - st_["context_prefill_dispatches"]
+        n_plain += st_["decode_dispatches"] - st_["verify_dispatches"]
+    _log(f"chat: {n_fresh} fresh and {st_on['context_prefill_dispatches']} "
+         f"context prefill, {st_on['verify_dispatches']} verify and "
+         f"{n_plain} decode dispatches over both engines; launches "
+         f"{launches}")
+    _require(launches["flash_attention_bias_fwd"] == L * n_ctx > 0,
+             f"chat: causal biased flash launches "
+             f"{launches['flash_attention_bias_fwd']} != {L} x {n_ctx} "
+             "context prefill and verify dispatches")
+    _require(launches["flash_attention_fwd"] == L * n_fresh > 0,
+             f"chat: flash launches {launches['flash_attention_fwd']} != "
+             f"{L} x {n_fresh} fresh prefill dispatches")
+    _require(launches["paged_decode_attention"] == L * n_plain > 0,
+             f"chat: paged-decode launches "
+             f"{launches['paged_decode_attention']} != {L} x {n_plain} "
+             "decode dispatches")
+    # parity: token-identical up to a near-tie at the first divergence
+    # of a prompt, whose gap a no-cache forward of the off stream reads
+    ties, worst = 0, 0.0
+    with torch.no_grad():
+        for p, a, b in zip(parity, out["off"], out["on"]):
+            d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if d is None:
+                continue
+            seq = torch.tensor([p + a[:d]], device="cuda")
+            row = model(seq)[0, -1].float()
+            ties += 1
+            worst = max(worst, abs(float(row[a[d]] - row[b[d]])))
+    _log(f"chat: parity prompts off {out['off']} on {out['on']}: {ties} "
+         f"diverge, at a logit gap of at most {worst:.3e} (allowed < "
+         f"{TIE_GAP:g})")
+    _require(worst < TIE_GAP, f"chat: the features change greedy tokens "
+             f"beyond a near-tie (gap {worst})")
+    checked = 0
+    for tag, run in runs.items():
+        done = [st for st in run["states"] if st.outcome == "completed"]
+        _require(len(run["states"]) == chat.prefix_pool_size
+                 + chat.num_requests == len(done),
+                 f"chat ({tag}): {len(done)} of {len(run['states'])} "
+                 "requests completed")
+        checked += _teacher_forced(f"chat ({tag})", model, run["states"],
+                                   TIE_GAP)
+    pc = engines["on"].prefix_cache
+    alloc = engines["on"].cache.allocator
+    _require(alloc.pages_in_use == pc.cached_pages
+             and all(alloc.refcount(p) == 1 for p in pc._nodes),
+             f"chat: {alloc.pages_in_use} pages in use, the tree holds "
+             f"{pc.cached_pages}")
+    s_on, s_off = runs["on"]["summary"], runs["off"]["summary"]
+    _log(f"chat: tokens/s {runs['off']['tps']:.2f} off, "
+         f"{runs['on']['tps']:.2f} on; TTFT p99 "
+         f"{runs['off']['ttft99'] * 1e3:.3f} ms off, "
+         f"{runs['on']['ttft99'] * 1e3:.3f} ms on; prefix hit "
+         f"{s_on['prefix_hit_pct']:.2f}% ({s_on['prefix_hit_tokens']} "
+         f"tokens); spec accept "
+         + ("n/a" if s_on["spec_accept_pct"] is None
+            else f"{s_on['spec_accept_pct']:.2f}%")
+         + f" ({s_on['spec_accepted']} accepted of {s_on['spec_proposed']}"
+         f" proposed, {s_on['spec_rolled_back']} rolled back); "
+         f"{s_on['prefill_chunks']} chunks; decode step p50/p99 "
+         f"{_ms(s_off['decode_step_p50_s'])}/"
+         f"{_ms(s_off['decode_step_p99_s'])} off, "
+         f"{_ms(s_on['decode_step_p50_s'])}/"
+         f"{_ms(s_on['decode_step_p99_s'])} on; {pc.cached_pages} pages "
+         f"cached, their refcounts the tree's")
+    for eng in engines.values():
+        eng.shutdown()
+    del engines, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1744,10 +2197,11 @@ PROFILE_GROUPS = (
 )
 
 
-def _profile_step(tag: str, fn) -> None:
+def _profile_step(tag: str, fn) -> float:
     """Device time by kernel over one more call of ``fn`` (a step or a
     predictor run; torch.profiler), as ``tools/profile_torch_serve.py``
-    reads it."""
+    reads it. Returns the device busy share of the call (summed kernel
+    time over its wall time; one stream, so kernels never overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1780,6 +2234,7 @@ def _profile_step(tag: str, fn) -> None:
         ms = a.self_device_time_total / 1e3
         _log(f"{tag}:   {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}% "
              f"x{a.count:<5d} {a.key[:90]}")
+    return busy / (wall * 1e3)
 
 
 def phase_train(amp_losses: list) -> dict:
@@ -2256,7 +2711,8 @@ def main() -> int:
 
     timed("card", phase_card)
     rows = timed("kernels", phase_kernels)
-    by_path = {"serve": timed("slice", phase_slice)}
+    by_path = {}
+    by_path["serve"], f32_serve = timed("slice", phase_slice)
     by_path["mt"] = timed("mt", phase_multitenant)
     timed("parity", phase_parity)
     amp_losses = timed("amp", phase_amp)
@@ -2267,6 +2723,8 @@ def main() -> int:
     by_path["ernie"] = timed("ernie", phase_ernie)
     by_path["predict"] = timed("predict", phase_predict)
     by_path["amp_int8"] = timed("amp_int8", phase_amp_int8)
+    by_path["bf16_serve"] = timed("bf16", phase_bf16_serve, f32_serve)
+    by_path["chat"] = timed("chat", phase_chat)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

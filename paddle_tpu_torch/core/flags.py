@@ -3,7 +3,9 @@
 Counterpart of ``paddle_tpu/core/flags.py``: one registry, each value
 read from the environment (``FLAGS_<name>``) unless :func:`set_flags`
 or :func:`flag_scope` set it. The port defines only the flags whose
-behaviour it has (``serve_kv_quant``, ``amp_int8_matmul``); it has no
+behaviour it has (``serve_kv_quant``, ``amp_int8_matmul`` and the
+serving throughput features ``serve_prefix_cache``,
+``serve_prefill_chunk``, ``serve_spec_k``, ``serve_spec_ngram``); it has no
 kernel kill switches (the JAX package's
 ``pallas_*`` flags), because a kernel wrapper on the card launches its
 kernel or raises.
@@ -102,3 +104,36 @@ define_flag("amp_int8_matmul", False,
             "per-tensor activation and per-channel weight quantization, "
             "a straight-through dense backward. Off by default; read at "
             "every call.")
+define_flag("serve_prefix_cache", False,
+            "Radix-tree prefix cache over the serving KV page pools "
+            "(serving.prefix_cache): completed/evicted requests donate "
+            "their full pages into a token-keyed radix tree with per-page "
+            "refcounts; admission walks the tree and maps shared pages "
+            "copy-on-write into the new slot's block table, so chat "
+            "traffic with shared system prompts skips the redundant "
+            "prefix prefill. Off (default) = every admission prefills "
+            "from token 0. Read at ServingEngine construction.")
+define_flag("serve_prefill_chunk", 0,
+            "Chunked prefill (serving.engine): > 0 = long prompts prefill "
+            "in chunks of at most this many tokens, one chunk per engine "
+            "iteration interleaved with the decode dispatches, so a long "
+            "admission no longer stalls running decodes for its whole "
+            "prompt. Later chunks attend over the pages earlier chunks "
+            "wrote (the context-prefill path). 0 (default) = one-shot "
+            "prefill. Read at ServingEngine construction.")
+define_flag("serve_spec_k", 0,
+            "Speculative decoding draft length (serving.spec_decode): > 0 "
+            "= an n-gram/prompt-lookup drafter (no second model) proposes "
+            "up to k tokens per slot and ONE batched verify dispatch "
+            "scores all k+1 positions against the paged cache; the "
+            "accepted prefix plus one bonus token commit, rejected tails "
+            "roll back by block-table truncation. Greedy output is "
+            "token-identical to the non-speculative path; sampled slots "
+            "run stochastic residual accept/reject, distribution-"
+            "identical to plain sampled decode. 0 (default) = one decode "
+            "dispatch per token. Read at ServingEngine construction.")
+define_flag("serve_spec_ngram", 3,
+            "Longest suffix n-gram the speculative drafter matches "
+            "against the request's own prompt+generated history "
+            "(prompt-lookup decoding); it backs off to shorter n-grams "
+            "down to 1 before giving up on a slot for the iteration.")

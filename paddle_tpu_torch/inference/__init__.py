@@ -18,9 +18,8 @@ the layer's device: the card unless the layer was built with
 ``device="cpu"``.
 
 Not ported yet (ROADMAP Queue 1): ``Config(model_path)`` and
-``save_optimized_model`` wait for ``jit.save``/``io``; bf16 in
-``create_serving_engine`` waits for a serving engine that keeps other
-dtypes than float32. ``switch_ir_optim``'s conv+BatchNorm fold
+``save_optimized_model`` wait for ``jit.save``/``io``.
+``switch_ir_optim``'s conv+BatchNorm fold
 (``inference/passes.py``) waits for the port's convolution and
 BatchNorm layers: the port has neither, so no model of it has anything
 to fold.
@@ -238,16 +237,16 @@ def create_serving_engine(config_or_layer, serving_config=None,
     ``Config.from_layer`` whose ``enable_int8()`` applies
     ``slim.quantize_weights`` first (GPT keeps its weights as raw
     parameters, so no layer of it is quantized, as in the JAX package).
-    ``enable_tpu_bf16()`` raises: the port's engine keeps float32
-    parameters and pools only."""
+    ``enable_tpu_bf16()`` has the engine copy its parameters in bfloat16
+    and leaves the layer untouched, as the JAX entry does; the engine
+    then needs ``ServingConfig(cache_dtype="bfloat16")`` and refuses
+    anything else (see ``ServingEngine``)."""
     from ..serving import ServingConfig, ServingEngine
+    param_dtype = None
     if isinstance(config_or_layer, Config):
         cfg = config_or_layer
         if cfg._precision == PrecisionType.Bfloat16:
-            raise NotImplementedError(
-                "create_serving_engine with enable_tpu_bf16: the port's "
-                "serving engine keeps float32 parameters and pools only "
-                "(serving/engine.py); bf16 serving waits for its port")
+            param_dtype = torch.bfloat16
         layer = cfg.layer
         if cfg._weight_quant:
             from ..slim import quantize_weights
@@ -255,4 +254,4 @@ def create_serving_engine(config_or_layer, serving_config=None,
     else:
         layer = config_or_layer
     return ServingEngine(layer, serving_config or ServingConfig(),
-                         device=device)
+                         device=device, param_dtype=param_dtype)

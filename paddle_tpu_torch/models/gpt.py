@@ -25,9 +25,17 @@ entered it, as the JAX package's ``lax.scan`` over layers casts its
 carry (``nn/scan.py:286``).
 
 Attention routes through ``ops.attention.sdpa_array`` (the flash
-kernels on the card) for the causal no-cache and prefill paths and
+kernels on the card) for the causal no-cache and prefill paths, through
+``ops.attention.context_attention`` (the biased flash forward, causal,
+over the right-aligned gathered context) for context prefills (a
+paged view with its ``context`` set: a chunk continuation, a prefix-hit tail, a speculative verify window) and
 through the paged-decode kernel for single-token decode steps, or its
 quantized twin when the paged cache is int8 (``FLAGS_serve_kv_quant``).
+With a bfloat16 parameter copy (``inference.create_serving_engine``
+under ``enable_tpu_bf16``) every activation is bf16, as in the JAX
+model under its bf16 snapshot: the embeddings' sum, the residual
+stream, the QKV, attention and MLP outputs and the logits; layer norm
+computes its statistics in f32 and returns bf16.
 A paged cache that carries LoRA pools adds each batch row's adapter
 delta to the fused QKV projection through the bgmv kernel.
 
@@ -51,11 +59,12 @@ from ..core.random import dropout_generator, make_generator
 from ..nn import functional as F
 from ..nn.chunked_ce import enabled_for, hard_nll
 from ..nn.layers import Dropout, LayerNorm
-from ..ops.attention import sdpa_array
+from ..ops.attention import context_attention, sdpa_array
 from ..ops.kernels.bgmv import bgmv
 from ..ops.kernels.paged_decode import (paged_decode_attention,
                                         paged_decode_attention_quant)
 from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
+                                gather_context, gather_context_quant,
                                 write_pages, write_pages_quant)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
@@ -140,9 +149,14 @@ class GPTAttention(nn.Module):
         int8 on the way when the cache has scale pools. Prefill (S > 1,
         fresh slots at pos 0) attends causally over its own chunk, as
         computed, never read back from the pages — the math of the
-        full-context forward; decode (S == 1) reads the slot's pages
-        through the block table (dequantizing int8 rows as it reads) and
-        attends to positions ``<= pos``."""
+        full-context forward. A context prefill (S > 1 under a
+        cache whose ``context`` is set) gathers each row's positions
+        ``0 .. pos + S - 1`` back out of the pages, just written chunk
+        included (dequantized from int8), into the right-aligned context
+        of ``cache.context`` and attends causally with its key bias, so
+        row ``i`` sees positions ``<= pos + i``. Decode (S == 1) reads
+        the slot's pages through the block table (dequantizing int8 rows
+        as it reads) and attends to positions ``<= pos``."""
         quant = cache.k_scale is not None
         if quant:
             write_pages_quant(cache.k_pages, cache.k_scale, k,
@@ -152,6 +166,15 @@ class GPTAttention(nn.Module):
         else:
             write_pages(cache.k_pages, k, cache.block_table, pos)
             write_pages(cache.v_pages, v, cache.block_table, pos)
+        ctx = cache.context
+        if q.shape[1] > 1 and ctx is not None:
+            if quant:
+                kc = gather_context_quant(cache.k_pages, cache.k_scale, ctx)
+                vc = gather_context_quant(cache.v_pages, cache.v_scale, ctx)
+            else:
+                kc = gather_context(cache.k_pages, ctx)
+                vc = gather_context(cache.v_pages, ctx)
+            return context_attention(q, kc, vc, ctx.bias)
         if q.shape[1] > 1:
             return sdpa_array(q, k, v, is_causal=True)
         scale = 1.0 / math.sqrt(self.head_dim)

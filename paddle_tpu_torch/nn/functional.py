@@ -83,9 +83,16 @@ def tanh(x):
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,
                epsilon: float = 1e-5):
-    """Float32 statistics and affine, output in ``x``'s dtype."""
+    """Float32 statistics and affine, output in ``x``'s dtype. On the
+    card, with weight and bias in ``x``'s dtype (a bf16 serving
+    engine's parameter copy), PyTorch's kernel does just that in one
+    launch, where the casts below would add four."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
+    if x.is_cuda and all(t is None or t.dtype == x.dtype
+                         for t in (weight, bias)):
+        return F.layer_norm(x, tuple(normalized_shape), weight, bias,
+                            epsilon)
     w = weight.float() if weight is not None else None
     b = bias.float() if bias is not None else None
     return F.layer_norm(x.float(), tuple(normalized_shape), w, b,

@@ -18,6 +18,16 @@ mask. Any other call (a boolean mask, another mask shape) raises
 ``NotImplementedError`` naming what is missing: nothing on the card
 quietly runs the plain version.
 
+:func:`context_attention` is the serving engine's **context prefill**
+route (a chunk continuation, a prefix-hit tail, a speculative verify
+window): S query rows over a right-aligned gathered context with a
+``[B, Sk]`` key bias, causal aligned bottom-right. It is row 2's biased
+flash forward with ``causal=True`` at ``Sq < Sk`` on the card, the
+plain composition on the CPU. The JAX package gives the same rows an
+additive ``[B, 1, S, Lk]`` mask and the XLA composition
+(``models/gpt.py::_ctx_mask``); ``sdpa_array`` still raises for such a
+mask.
+
 :func:`scaled_dot_product_attention` is the layer-level entry: it casts
 q, k, v and the mask under AMP as one op, as the JAX package's ``apply``
 casts every floating input (``core/tensor.py:568-576``), and draws the
@@ -34,7 +44,7 @@ from ..amp import cast_inputs
 from ..core.random import next_seed_words
 
 __all__ = ["sdpa_array", "scaled_dot_product_attention",
-           "attention_scores", "NEG_INF"]
+           "context_attention", "attention_scores", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -104,6 +114,18 @@ def sdpa_array(q, k, v, mask=None, dropout_p: float = 0.0,
     from .kernels.flash_attention import flash_attention
     return flash_attention(q, k, v, causal=is_causal, dropout_rate=dropout_p,
                            seed_words=seed_words, bias=mask)
+
+
+def context_attention(q, k_ctx, v_ctx, key_bias):
+    """Context-prefill attention: ``q [B, S, H, D]`` over ``k_ctx`` /
+    ``v_ctx [B, Sk, H, D]`` (``serving.kv_cache.gather_context``) with
+    ``key_bias [B, Sk]`` float32 (``-1e30`` on the left padding),
+    causal aligned bottom-right: query row ``i`` sees key columns
+    ``<= Sk - S + i``. The flash kernel with a key bias and
+    ``causal=True`` on the card, :func:`_sdpa_plain` with the same mask
+    on the CPU."""
+    return sdpa_array(q, k_ctx, v_ctx, key_bias[:, None, None, :],
+                      is_causal=True)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

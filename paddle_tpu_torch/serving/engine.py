@@ -1,23 +1,38 @@
 """LLM serving engine: paged decode + continuous batching, PyTorch port.
 
-Counterpart of ``paddle_tpu/serving/engine.py`` (single device, no
-admin plane, drain, hot swap, speculative/prefix/chunked prefill or
-mesh). Each :meth:`ServingEngine.step`:
+Counterpart of ``paddle_tpu/serving/engine.py`` on one device (no
+admin plane, drain, hot swap, resilience or mesh). Each
+:meth:`ServingEngine.step`:
 
-1. admits waiting requests into free slots (``Scheduler``);
-2. prefills them in bucketed groups — each group one forward of
-   ``[batch_bucket, len_bucket]`` token ids over the paged pools, padded
-   rows writing only to the scratch page — and samples each request's
-   first token;
-3. runs ONE decode forward over the full slot batch (inactive slots
-   masked), after making room for every slot's next position and
-   recompute-preempting the newest requests when the pool runs dry.
+1. admits waiting requests into free slots (``Scheduler``), mapping the
+   longest cached prefix copy-on-write when the prefix cache is on;
+2. prefills every prefilling slot's next chunk in bucketed groups, each
+   group one forward of ``[batch_bucket, len_bucket]`` token ids over
+   the paged pools (padded rows writing only to the scratch page), and
+   samples the first token of each request whose prefill is done;
+3. stages speculative drafts (``serve_spec_k``), makes room for every
+   decoding slot's next positions (recompute-preempting the newest
+   requests when the pool runs dry) and runs ONE decode, or verify,
+   forward over the full slot batch (other slots masked).
 
-The JAX engine compiled one program per prefill bucket and one for
-decode, donating the KV pools to each; the port runs the same forwards
-eagerly and writes the pools in place. The attention of every prefill
-launches the flash kernel and every decode step the paged-decode
-kernel when the engine lives on the card.
+The JAX engine compiled one program per signature, donating the KV
+pools to each; the port runs the same forwards eagerly and writes the
+pools in place. On the card a fresh prefill's attention launches the
+flash kernel, a context prefill's (a chunk continuation or a prefix-hit
+tail, at ``pos > 0``) and a verify window's the biased flash kernel with
+``causal=1`` over the right-aligned gathered context, and a decode
+step the paged-decode kernel.
+
+Throughput features, each behind its flag and read once, at
+construction (``flag_scope`` around the constructor): the radix prefix
+cache (``serve_prefix_cache``), chunked prefill
+(``serve_prefill_chunk``) and n-gram speculative decoding
+(``serve_spec_k``, ``serve_spec_ngram``). With all three off an engine
+makes exactly the dispatches it made without them.
+
+``ServingConfig.cache_dtype`` is ``"float32"`` or ``"bfloat16"``; a
+bf16 engine (``inference.create_serving_engine`` under
+``enable_tpu_bf16``) serves bf16 parameters over bf16 pools.
 
 Multi-tenant serving: an engine built under ``flag_scope(
 "serve_kv_quant", "int8")`` keeps int8 pools and decodes through the
@@ -39,13 +54,17 @@ import torch
 from torch.func import functional_call
 
 from ..core.device import DeviceLike, resolve_device
+from ..core.flags import get_flag
 from ..core.random import make_generator
 from .detok import StreamingDetokenizer
-from .kv_cache import PagedCacheView, PagedKVCache, blocks_needed
+from .kv_cache import (PagedCacheView, PagedKVCache, blocks_needed,
+                       context_index)
 from .lora import LoRAManager
-from .sampling import SamplingParams, sample_tokens
+from .prefix_cache import RadixPrefixCache
+from .sampling import SamplingParams, sample_tokens, verify_draws
 from .scheduler import (AdmissionGroup, BucketTable, Request, RequestState,
                         Scheduler)
+from .spec_decode import propose_ngram
 
 __all__ = ["ServingConfig", "ServingEngine"]
 
@@ -60,6 +79,10 @@ def _pow2_buckets(lo: int, hi: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
+#: the pool dtypes the paged-decode and flash kernels take
+_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @dataclass
 class ServingConfig:
     """Engine sizing + policy.
@@ -68,7 +91,9 @@ class ServingConfig:
     ``num_pages`` sizes the shared KV pool (default: every slot fully
     resident, so no preemption — shrink it to trade memory for
     recompute-preemptions). ``prefill_buckets``/``batch_buckets`` are the
-    prefill shapes. ``lora_adapters > 0`` builds a LoRA manager with that
+    prefill shapes. ``cache_dtype`` is the pools' dtype, ``"float32"``
+    or ``"bfloat16"`` (``FLAGS_serve_kv_quant=int8`` overrides it with
+    int8 pools). ``lora_adapters > 0`` builds a LoRA manager with that
     many loadable adapters of rank ``lora_rank``; ``tenant_quota`` caps
     the slots one tenant may hold at a time (None: no cap)."""
 
@@ -87,11 +112,10 @@ class ServingConfig:
     tenant_quota: Optional[int] = None
 
     def resolve(self, model_max_positions: Optional[int]) -> None:
-        if self.cache_dtype != "float32":
+        if self.cache_dtype not in _CACHE_DTYPES:
             raise ValueError(
-                f"cache_dtype={self.cache_dtype!r}: the port serves "
-                "float32 pools (the JAX engine's default); other pool "
-                "dtypes are not ported yet")
+                f"cache_dtype={self.cache_dtype!r}: the port's pools are "
+                f"one of {sorted(_CACHE_DTYPES)}")
         if model_max_positions is not None:
             self.max_context_len = min(self.max_context_len,
                                        int(model_max_positions))
@@ -113,6 +137,25 @@ class ServingConfig:
             self.num_pages = 1 + self.max_batch_slots * per_slot
 
 
+def _check_dtypes(params: Dict[str, torch.Tensor], cache_dtype: str):
+    """The kernels take q and the pools in one dtype, float32 over int8
+    pools: refuse a parameter copy whose floating dtype differs, rather
+    than fail at the first decode on the card (and a bf16 engine never
+    upcasts its pools)."""
+    quant = str(get_flag("serve_kv_quant") or "")
+    want = torch.float32 if quant else _CACHE_DTYPES[cache_dtype]
+    got = {p.dtype for p in params.values() if p.is_floating_point()}
+    if got - {want}:
+        raise ValueError(
+            f"parameters in {sorted(map(str, got))} over "
+            + (f"serve_kv_quant={quant!r} pools, which take float32 "
+               "queries" if quant else f"cache_dtype={cache_dtype!r} "
+               "pools")
+            + ": the parameter copy and the pools are served in one "
+            "dtype (a bf16 engine: param_dtype=torch.bfloat16 with "
+            "ServingConfig(cache_dtype='bfloat16'))")
+
+
 class ServingEngine:
     """Serve a decoder-only model — ``forward(input_ids,
     caches=<PagedCacheView>, cache_pos=<[B] int32 positions>)`` returning
@@ -120,7 +163,8 @@ class ServingEngine:
     card unless ``device="cpu"`` is passed)."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
-                 device: DeviceLike = None, clock=time.perf_counter):
+                 device: DeviceLike = None, clock=time.perf_counter, *,
+                 param_dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         # full-float32 products on the card, as the JAX package's
         # "highest" matmul precision (this is PyTorch's default; set
@@ -134,9 +178,14 @@ class ServingEngine:
         # the weights served: a detached copy of the parameters and
         # buffers taken now, as the JAX engine's param_arrays /
         # buffer_arrays are (paddle_tpu/serving/engine.py:224-225), so a
-        # layer that goes on training does not change this engine
-        self.params = {k: p.detach().clone()
-                       for k, p in self.model.named_parameters()}
+        # layer that goes on training does not change this engine;
+        # ``param_dtype`` casts the floating parameters as they are
+        # copied (the layer keeps its own)
+        self.params = {
+            k: p.detach().to(dtype=param_dtype if param_dtype is not None
+                             and p.is_floating_point() else p.dtype,
+                             copy=True)
+            for k, p in self.model.named_parameters()}
         self.buffers = {k: b.detach().clone()
                         for k, b in self.model.named_buffers()}
         # resolve() fills model-dependent defaults on a copy, so a
@@ -146,13 +195,14 @@ class ServingEngine:
         self.config.resolve(getattr(cfg, "max_position_embeddings", None))
         self.clock = clock
         c = self.config
+        _check_dtypes(self.params, c.cache_dtype)
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_heads, cfg.head_dim,
             num_pages=c.num_pages, block_size=c.block_size,
             max_slots=c.max_batch_slots,
             max_blocks_per_slot=blocks_needed(c.max_context_len,
                                               c.block_size),
-            dtype=getattr(torch, c.cache_dtype), device=self.device)
+            dtype=_CACHE_DTYPES[c.cache_dtype], device=self.device)
         self.buckets = BucketTable(c.prefill_buckets, c.batch_buckets)
         self.lora = None
         if c.lora_adapters > 0:
@@ -167,24 +217,59 @@ class ServingEngine:
                                    max_seq_len=c.max_context_len,
                                    tenant_quota=c.tenant_quota,
                                    lora=self.lora)
+        # the throughput features, each read once here so an engine's
+        # behaviour is fixed for its lifetime
+        self._chunk = int(get_flag("serve_prefill_chunk") or 0)
+        self._spec_k = int(get_flag("serve_spec_k") or 0)
+        self._spec_ngram = max(1, int(get_flag("serve_spec_ngram") or 1))
+        self.prefix_cache = None
+        if bool(get_flag("serve_prefix_cache")):
+            self.prefix_cache = RadixPrefixCache(self.cache)
+            self.cache.prefix_cache = self.prefix_cache
         self._generator = make_generator(c.seed, self.device)
+        # the accept/reject coin of stochastic speculative sampling: a
+        # host stream of its own (the JAX engine's seed formula), apart
+        # from the generator the sampled tokens draw from
+        self._spec_rng = np.random.default_rng((int(c.seed) << 1) ^ 0x51EC)
         self._stats = {"prefill_dispatches": 0, "decode_dispatches": 0,
                        "decode_slot_steps": 0, "decode_batch_max": 0,
-                       "tokens_generated": 0, "prefill_tokens": 0}
+                       "tokens_generated": 0, "prefill_tokens": 0,
+                       "prefill_chunks": 0, "context_prefill_dispatches": 0,
+                       "verify_dispatches": 0, "spec_proposed": 0,
+                       "spec_accepted": 0, "spec_rolled_back": 0}
         self._lat: Dict[str, List[float]] = {
             "ttft": [], "tpot": [], "decode_step": []}
         self._t_first_work: Optional[float] = None
         self._t_last_token: Optional[float] = None
 
+    @torch.no_grad()
     def warmup(self) -> int:
-        """Build every kernel library before traffic arrives (on the
-        card; nothing to build on the CPU). Returns the number of kernels
-        now loaded."""
-        if self.device.type != "cuda":
-            return 0
-        from ..ops import kernels
-        kernels.build()
-        return len(kernels.KERNELS)
+        """Build every kernel library (on the card), then run one
+        forward of each dispatch signature this engine can issue before
+        traffic arrives: the decode batch, every ``(batch, length)``
+        prefill bucket and, with chunking or the prefix cache on, its
+        context twin, and with ``serve_spec_k`` the verify window.
+        Every row is padding (an all-scratch table row, the zero
+        adapter), so only the scratch page is written and no engine
+        counter moves (the kernels' launch counts do). Returns the
+        number of kernels loaded (0 on the CPU)."""
+        n_kernels = 0
+        if self.device.type == "cuda":
+            from ..ops import kernels
+            kernels.build()
+            n_kernels = len(kernels.KERNELS)
+        B = self.config.max_batch_slots
+        sigs = [(B, 1, False)]
+        for nb, sp in self.buckets.signatures():
+            sigs.append((nb, sp, False))
+            if self._chunk > 0 or self.prefix_cache is not None:
+                sigs.append((nb, sp, True))
+        if self._spec_k > 0:
+            sigs.append((B, self._spec_k + 1, True))
+        for nb, sp, ctx in sigs:
+            self._forward(np.zeros((nb, sp), np.int64), [None] * nb,
+                          np.zeros((nb,), np.int32), context=ctx)
+        return n_kernels
 
     # -- request surface ----------------------------------------------------
     def submit(self, request: Request) -> RequestState:
@@ -225,38 +310,64 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self) -> bool:
-        """One scheduler iteration: admit + prefill, then one decode
-        dispatch over every active slot. Returns has_work."""
+        """One scheduler iteration: admit, one prefill pass over every
+        prefilling slot (fresh admissions and chunked prefills carried
+        from earlier iterations), then one decode or verify dispatch
+        over every decoding slot. Returns has_work."""
         sched = self.scheduler
-        admitted = sched.plan_admissions()
-        for group in self._plan_prefill_groups(admitted):
+        sched.plan_admissions()
+        for group in self._plan_prefill_groups():
             self._run_prefill(group)
-        if sched.active():
+        if self._decodable():
+            if self._spec_k > 0:
+                # drafts staged before the capacity pass, so the verify
+                # window's K/V writes land in real pages, never scratch
+                self._stage_drafts()
             sched.ensure_decode_capacity()
-            pairs = sched.active()
+            pairs = self._decodable()
             if pairs:
-                self._run_decode(pairs)
+                if any(st.draft for _, st in pairs):
+                    self._run_verify(pairs)
+                else:
+                    self._run_decode(pairs)
         return sched.has_work
 
+    def _decodable(self) -> List[Tuple[int, RequestState]]:
+        """Active slots that take a decode/verify row this iteration;
+        chunked prefills still mid-prompt do not."""
+        return [(slot, st) for slot, st in self.scheduler.active()
+                if not st.prefilling]
+
     # -- dispatches ---------------------------------------------------------
-    def _plan_prefill_groups(self, admitted: Sequence[RequestState]) \
-            -> List[AdmissionGroup]:
-        """Group freshly admitted requests by length bucket, up to the
-        largest batch bucket per dispatch, in admission order within a
-        bucket."""
-        by_len: Dict[int, List[RequestState]] = {}
-        for st in admitted:
-            by_len.setdefault(self.buckets.len_bucket(st.prefill_len),
-                              []).append(st)
+    def _chunk_len(self, st: RequestState) -> int:
+        remaining = st.prefill_len - st.prefill_pos
+        return min(self._chunk, remaining) if self._chunk > 0 else remaining
+
+    def _plan_prefill_groups(self) -> List[AdmissionGroup]:
+        """Group every prefilling slot's next chunk into bucketed
+        dispatches, keyed by (context, length bucket): a chunk at
+        ``pos > 0`` runs the context path, ``pos == 0`` chunks the
+        fresh one. Chunk length is ``min(serve_prefill_chunk,
+        remaining)``. Within a key, admission order, up to the largest
+        batch bucket a dispatch. With chunking and the prefix cache off
+        every prefilling slot is a fresh admission with its whole
+        effective prompt, the grouping of the engine without them."""
+        by_key: Dict[Tuple[bool, int], List[RequestState]] = {}
+        for _, st in self.scheduler.active():
+            if not st.prefilling:
+                continue
+            key = (st.prefill_pos > 0,
+                   self.buckets.len_bucket(self._chunk_len(st)))
+            by_key.setdefault(key, []).append(st)
         groups: List[AdmissionGroup] = []
         mb = self.buckets.max_batch
-        for lb in sorted(by_len):
-            sts = sorted(by_len[lb], key=lambda s: (s.admitted_t,
-                                                    s.request.request_id))
+        for key in sorted(by_key):
+            sts = sorted(by_key[key], key=lambda s: (s.admitted_t,
+                                                     s.request.request_id))
             for i in range(0, len(sts), mb):
                 chunk = sts[i:i + mb]
                 groups.append(AdmissionGroup(
-                    lb, self.buckets.batch_bucket(len(chunk)), chunk))
+                    key[1], self.buckets.batch_bucket(len(chunk)), chunk))
         return groups
 
     def _sampling_arrays(self, states: Sequence[Optional[RequestState]]):
@@ -280,10 +391,13 @@ class ServingEngine:
                              generator=self._generator)
         return toks.cpu().numpy(), ok.cpu().numpy()
 
-    def _forward(self, ids: np.ndarray, states, pos: np.ndarray):
+    def _forward(self, ids: np.ndarray, states, pos: np.ndarray,
+                 context: bool = False):
         """One forward over the paged view; ``states`` has one entry per
-        batch row, None for a padded prefill row or an empty slot (an
-        all-scratch table row and the zero adapter)."""
+        batch row, None for a padded row or a slot that takes no row (an
+        all-scratch table row and the zero adapter). ``context`` selects
+        the context-prefill path: rows start at ``pos`` and attend over
+        every page-resident position before them."""
         dev = self.device
         c = self.cache
         lora = (None, None, None)
@@ -291,10 +405,12 @@ class ServingEngine:
             lora = (self.lora.a, self.lora.b, self.lora.rows_for(
                 [None if st is None else st.request.adapter
                  for st in states]))
-        view = PagedCacheView(
-            c.k, c.v, c.table_array([None if st is None else st.slot
-                                     for st in states]),
-            c.k_scale, c.v_scale, *lora)
+        table = c.table_rows([None if st is None else st.slot
+                              for st in states])
+        args = (c.k, c.v, torch.from_numpy(table).to(dev), c.k_scale,
+                c.v_scale, *lora)
+        view = PagedCacheView(*args, context_index(
+            table, pos, ids.shape[1], c.block_size, dev) if context else None)
         return functional_call(
             self.model, (self.params, self.buffers),
             (torch.from_numpy(ids).to(dev),),
@@ -306,31 +422,156 @@ class ServingEngine:
         states += [None] * (nb - len(states))
         ids = np.zeros((nb, sp), np.int64)
         lens = np.ones((nb,), np.int64)
+        pos = np.zeros((nb,), np.int32)
+        chunked = False
         # padded rows (None) get an all-scratch table row, so their K/V
         # writes never land in a live slot's pages
         for i, st in enumerate(states):
             if st is None:
                 continue
             eff = st.effective_prompt()
-            ids[i, :eff.size] = eff
-            lens[i] = eff.size
+            clen = self._chunk_len(st)
+            chunked = chunked or clen < st.prefill_len - st.prefill_pos
+            # copy-on-write: writes start at prefill_pos, never below
+            # the shared prefix, so a shared page is read-only here
+            if st.prefill_pos < (self.cache.slot_shared_blocks(st.slot)
+                                 * self.cache.block_size):
+                raise RuntimeError(
+                    f"slot {st.slot} would write into its shared prefix")
+            ids[i, :clen] = eff[st.prefill_pos:st.prefill_pos + clen]
+            lens[i] = clen
+            pos[i] = st.prefill_pos
+        ctx = bool(pos.any())
         t0 = self.clock()
         if self._t_first_work is None:
             self._t_first_work = t0
-        logits = self._forward(ids, states, np.zeros((nb,), np.int32))
+        logits = self._forward(ids, states, pos, context=ctx)
         last = logits[torch.arange(nb, device=self.device),
                       torch.from_numpy(lens - 1).to(self.device)]
         toks, ok = self._sample(last, states)
         now = self.clock()
-        self._stats["prefill_dispatches"] += 1
+        st_ = self._stats
+        st_["prefill_dispatches"] += 1
+        st_["context_prefill_dispatches"] += int(ctx)
+        if chunked or self._chunk > 0:
+            st_["prefill_chunks"] += len(group.states)
         for i, st in enumerate(states):
             if st is None:
                 continue
-            self._stats["prefill_tokens"] += int(lens[i])
+            st.prefill_pos += int(lens[i])
+            st_["prefill_tokens"] += int(lens[i])
             if not ok[i]:
                 self.scheduler.fail(st, "non-finite logits at prefill")
                 continue
-            self._accept_token(st, int(toks[i]), now)
+            if st.prefill_pos >= st.prefill_len:
+                self._accept_token(st, int(toks[i]), now)
+
+    def _stage_drafts(self) -> None:
+        """Prompt-lookup drafting: up to ``k`` draft tokens per decoding
+        slot from its own history, never past its token budget (the
+        bonus token needs one). No draft anywhere: the iteration runs
+        the plain decode dispatch."""
+        proposed = 0
+        for _, st in self._decodable():
+            st.draft = []
+            budget = min(self._spec_k, st.remaining_new_tokens() - 1)
+            if budget <= 0:
+                continue
+            hist = np.concatenate([st.request.prompt,
+                                   np.asarray(st.generated, np.int32)])
+            st.draft = [int(t) for t in propose_ngram(
+                hist, budget, max_ngram=self._spec_ngram)]
+            proposed += len(st.draft)
+        self._stats["spec_proposed"] += proposed
+
+    def _run_verify(self, pairs) -> None:
+        """ONE verify dispatch over the decoding slots: row 0 is each
+        slot's plain decode step, rows 1..k score its staged draft. A
+        greedy slot commits the accepted prefix plus one bonus token
+        (token-exact with plain decode); a sampled slot accepts draft
+        ``i`` with probability ``p_i(d_i)`` under its filtered
+        distribution and, on a reject, commits the residual redraw and
+        stops (the same marginal distribution as plain sampled decode).
+        Pages holding only the rejected tail's K/V roll back by
+        block-table truncation."""
+        B = self.config.max_batch_slots
+        S = self._spec_k + 1
+        pos = np.zeros((B,), np.int32)
+        ids = np.zeros((B, S), np.int64)
+        per_slot: List[Optional[RequestState]] = [None] * B
+        for slot, st in pairs:
+            pos[slot] = st.seq_len - 1
+            ids[slot, 0] = st.generated[-1]
+            ids[slot, 1:1 + len(st.draft)] = st.draft
+            per_slot[slot] = st
+        t0 = self.clock()
+        logits = self._forward(ids, per_slot, pos, context=True)  # [B,S,V]
+        samp = self._sampling_arrays(per_slot)
+        ok_rows = torch.isfinite(logits).all(dim=-1)
+        tok0 = sample_tokens(logits[:, 0], *samp, generator=self._generator)
+        greedy = torch.argmax(logits, dim=-1)
+        sampled_any = any(st.request.sampling.temperature > 0.0
+                          for _, st in pairs)
+        if sampled_any:
+            drafts = torch.from_numpy(ids[:, 1:]).to(self.device)
+            p_draft, tok_full, tok_resid = (
+                t.cpu().numpy() for t in verify_draws(
+                    logits, drafts, *samp, generator=self._generator))
+        tok0, greedy, ok_rows = (t.cpu().numpy()
+                                 for t in (tok0, greedy, ok_rows))
+        now = self.clock()
+        st_ = self._stats
+        st_["decode_dispatches"] += 1
+        st_["verify_dispatches"] += 1
+        st_["decode_slot_steps"] += len(pairs)
+        st_["decode_batch_max"] = max(st_["decode_batch_max"], len(pairs))
+        self._lat["decode_step"].append(now - t0)
+        for slot, st in pairs:
+            n = len(st.draft)
+            if not ok_rows[slot, 0]:
+                self.scheduler.fail(st, "non-finite logits at decode")
+                continue
+            sampled = st.request.sampling.temperature > 0.0
+            if not sampled:
+                # draft i survives iff it equals the previous row's
+                # argmax and that row is finite
+                n_acc = 0
+                while n_acc < n and ok_rows[slot, n_acc] \
+                        and st.draft[n_acc] == int(greedy[slot, n_acc]):
+                    n_acc += 1
+                commit = [int(tok0[slot])] + \
+                    [int(greedy[slot, i]) for i in range(1, n_acc + 1)
+                     if ok_rows[slot, i]]
+            else:
+                commit = []
+                n_acc = 0
+                for i in range(n):
+                    if not ok_rows[slot, i]:
+                        break
+                    if self._spec_rng.random() < float(p_draft[slot, i]):
+                        commit.append(int(st.draft[i]))
+                        n_acc += 1
+                    else:
+                        commit.append(int(tok_resid[slot, i]))
+                        break
+                else:
+                    if n == 0:
+                        commit.append(int(tok0[slot]))
+                    elif ok_rows[slot, n]:
+                        commit.append(int(tok_full[slot, n]))
+            committed = 0
+            for t in commit:
+                self._accept_token(st, t, now)
+                committed += 1
+                if st.terminal or st.is_done():
+                    break
+            acc = min(n_acc, committed) if sampled \
+                else max(0, committed - 1)
+            st_["spec_accepted"] += acc
+            st_["spec_rolled_back"] += n - acc
+            st.draft = []
+            if not st.terminal:
+                self.cache.truncate_slot(st.slot, st.seq_len)
 
     def _run_decode(self, pairs) -> None:
         B = self.config.max_batch_slots
@@ -395,6 +636,10 @@ class ServingEngine:
         d["queue_depth"] = self.scheduler.queue_depth
         d["active_slots"] = len(self.scheduler.active())
         d["kv_pages_in_use"] = self.cache.allocator.pages_in_use
+        if self.prefix_cache is not None:
+            d["prefix_cache"] = dict(self.prefix_cache.stats,
+                                     cached_pages=
+                                     self.prefix_cache.cached_pages)
         if self.lora is not None:
             d["lora"] = {
                 "loaded": self.lora.loaded(),
@@ -417,6 +662,8 @@ class ServingEngine:
         if self._t_first_work is not None and self._t_last_token is not None:
             elapsed = max(self._t_last_token - self._t_first_work, 1e-9)
         lat, s = self._lat, self._stats
+        hit = (self.prefix_cache.stats["hit_tokens"]
+               if self.prefix_cache is not None else 0)
         return {
             "requests_submitted": self.scheduler.stats["submitted"],
             "requests_completed": self.scheduler.stats["completed"],
@@ -437,6 +684,30 @@ class ServingEngine:
             "mean_decode_occupancy": (
                 s["decode_slot_steps"] / s["decode_dispatches"]
                 if s["decode_dispatches"] else None),
+            "prefill_tokens": s["prefill_tokens"],
+            "prefill_chunks": s["prefill_chunks"],
+            "verify_dispatches": s["verify_dispatches"],
+            # share of prompt positions served from cached pages instead
+            # of prefill compute (None without a prefix cache)
+            "prefix_hit_pct": (100.0 * hit / max(1, hit
+                                                 + s["prefill_tokens"])
+                               if self.prefix_cache is not None else None),
+            "prefix_hit_tokens": hit,
+            # committed draft tokens per proposed
+            "spec_accept_pct": (100.0 * s["spec_accepted"]
+                                / s["spec_proposed"]
+                                if s["spec_proposed"] else None),
+            "spec_proposed": s["spec_proposed"],
+            "spec_accepted": s["spec_accepted"],
+            "spec_rolled_back": s["spec_rolled_back"],
             "kv_bytes_per_token": self.cache.kv_bytes_per_token(),
             "quota_deferred": self.scheduler.stats["quota_deferred"],
         }
+
+    def shutdown(self) -> None:
+        """Drop every page the prefix cache holds (the only pages an
+        idle engine keeps) and detach it."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+            self.cache.prefix_cache = None
+            self.prefix_cache = None

@@ -1,17 +1,35 @@
 """Paged KV cache: block-structured decode state.
 
-Counterpart of ``paddle_tpu/serving/kv_cache.py`` (no prefix cache).
-K/V live in one pool per layer,
-``[num_pages, block_size, H, D]``, stacked ``[L, ...]``; each batch slot
-owns a row of a block table ``[slots, MB]`` mapping logical block ``j``
-to a physical page; unallocated entries point at the reserved scratch
-page 0, which takes the writes of inactive slots and padded prefill
-tails and is masked out of every read.
+Counterpart of ``paddle_tpu/serving/kv_cache.py``. K/V live in one pool
+per layer, ``[num_pages, block_size, H, D]``, stacked ``[L, ...]``, in
+the cache's dtype (float32 or bfloat16; a write casts to it); each
+batch slot owns a row of a block table ``[slots, MB]`` mapping logical
+block ``j`` to a physical page; unallocated entries point at the
+reserved scratch page 0, which takes the writes of inactive slots and
+padded prefill tails and is masked out of every read.
 
 Under ``FLAGS_serve_kv_quant=int8`` (read once, when the cache is built)
 the pools hold int8 with a per-(position, head) f32 absmax scale pool
-``[L, P, bs, H]`` beside each (``write_pages_quant``), and decode
-dequantizes them as it reads.
+``[L, P, bs, H]`` beside each (``write_pages_quant``), and every read
+dequantizes them.
+
+Pages are refcounted (:class:`BlockAllocator`): with a radix prefix
+cache attached (``serving.prefix_cache``) a slot may map cached pages
+copy-on-write at the head of its table (``alloc_slot(shared_pages=)``),
+a finished slot donates its full pages to the tree
+(``free_slot(donate_tokens=)``), allocation pressure evicts the tree
+before any preemption (``_alloc``), and a speculative rollback drops a
+slot's tail pages (``truncate_slot``).
+
+A **context dispatch** (a chunked-prefill continuation, the tail after
+a prefix hit, a speculative verify window: S > 1 rows starting at
+``pos > 0``) runs with a view whose ``context`` field holds a
+:class:`ContextIndex` (the JAX package's ``ContextPagedCacheView``):
+each row's first ``pos + S`` positions gathered
+into the right end of a ``[B, C]`` context (:func:`context_index`,
+:func:`gather_context`) with a ``-1e30`` key bias on the left padding,
+so causal attention aligned bottom-right lets query row ``i`` see
+exactly the positions ``<= pos + i``.
 
 Where the JAX engine donated the pools to each compiled step and got new
 ones back, the port writes them in place (``write_pages``).
@@ -30,7 +48,10 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.flags import get_flag
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PagedCacheView",
-           "PagedLayerCache", "write_pages", "gather_pages",
+           "PagedLayerCache", "ContextPagedCacheView",
+           "ContextPagedLayerCache", "ContextIndex", "context_index",
+           "gather_context", "gather_context_quant", "write_pages",
+           "gather_pages",
            "write_pages_quant", "gather_pages_quant", "dequant_pages",
            "blocks_needed", "SCRATCH_PAGE"]
 
@@ -62,13 +83,19 @@ class PagedCacheView(NamedTuple):
     lora_b: Optional[torch.Tensor] = None
     lora_ids: Optional[torch.Tensor] = None
 
+    #: the dispatch's :class:`ContextIndex`: set, it selects the
+    #: **context prefill** attention path (an S > 1 chunk at per-row
+    #: positions ``pos`` attends over every page-resident position
+    #: ``< pos`` as well as causally over itself)
+    context: Optional["ContextIndex"] = None
+
     def layer(self, i: int) -> "PagedLayerCache":
         """Layer ``i``'s slice (views, no copies)."""
         pick = lambda t: None if t is None else t[i]     # noqa: E731
         return PagedLayerCache(self.k[i], self.v[i], self.block_table,
                                pick(self.k_scale), pick(self.v_scale),
                                pick(self.lora_a), pick(self.lora_b),
-                               self.lora_ids)
+                               self.lora_ids, self.context)
 
 
 class PagedLayerCache(NamedTuple):
@@ -83,6 +110,69 @@ class PagedLayerCache(NamedTuple):
     lora_a: Optional[torch.Tensor] = None
     lora_b: Optional[torch.Tensor] = None
     lora_ids: Optional[torch.Tensor] = None
+    context: Optional["ContextIndex"] = None
+
+
+#: the JAX package's names for a view and a layer slice that carry a
+#: ``context`` (there marker subtypes; here the field alone selects the
+#: path)
+ContextPagedCacheView = PagedCacheView
+ContextPagedLayerCache = PagedLayerCache
+
+
+class ContextIndex(NamedTuple):
+    """Where each column of a dispatch's right-aligned context comes
+    from, the same for every layer: physical ``pages`` and ``offsets``
+    ``[B, C]`` (int64) and the additive key ``bias`` ``[B, C]`` float32,
+    ``-1e30`` on the left padding and 0 elsewhere."""
+
+    pages: torch.Tensor
+    offsets: torch.Tensor
+    bias: torch.Tensor
+
+
+def context_index(block_table: np.ndarray, pos: np.ndarray, S: int,
+                  block_size: int, device: DeviceLike = None) \
+        -> ContextIndex:
+    """The :class:`ContextIndex` of an S-row dispatch at host positions
+    ``pos [B]`` over host block tables ``[B, MB]``: row ``b``'s positions
+    ``0 .. pos[b] + S - 1`` fill the right end of ``C`` columns, ``C =
+    max(MB * bs, max(pos + S))``, so that causal attention aligned
+    bottom-right (query row ``i`` sees columns ``<= C - S + i``) sees
+    exactly positions ``<= pos[b] + i``, the JAX package's
+    ``cols <= pos + i`` mask (``models/gpt.py::_ctx_mask``). Columns left
+    of position 0 read the scratch page under a ``-1e30`` bias; positions
+    past the table (only padded rows reach them) read the scratch page
+    too."""
+    table = np.asarray(block_table, np.int64)
+    pos = np.asarray(pos, np.int64)
+    B, MB = table.shape
+    C = max(MB * block_size, int((pos + S).max()) if B else 0)
+    j = np.arange(C)[None, :] - (C - S - pos)[:, None]        # [B, C]
+    inside = (j >= 0) & (j < MB * block_size)
+    jc = np.clip(j, 0, MB * block_size - 1)
+    pages = np.where(inside, np.take_along_axis(table, jc // block_size,
+                                                axis=1), SCRATCH_PAGE)
+    offsets = np.where(inside, jc % block_size, 0)
+    bias = np.where(j < 0, np.float32(-1e30), np.float32(0.0))
+    dev = resolve_device(device)
+    return ContextIndex(torch.from_numpy(pages).to(dev),
+                        torch.from_numpy(offsets).to(dev),
+                        torch.from_numpy(bias.astype(np.float32)).to(dev))
+
+
+def gather_context(pages, ctx: ContextIndex):
+    """Layer pool ``[P, bs, H, D]`` gathered into the right-aligned
+    context ``[B, C, H, D]`` of ``ctx``."""
+    return pages[ctx.pages, ctx.offsets]
+
+
+def gather_context_quant(pages, scales, ctx: ContextIndex):
+    """The int8 twin of :func:`gather_context`: pages and scales
+    gathered, then dequantized into an f32 context, as
+    ``gather_pages_quant`` does."""
+    return dequant_pages(pages[ctx.pages, ctx.offsets],
+                         scales[ctx.pages, ctx.offsets])
 
 
 def _page_slots(pages, block_table, pos, S):
@@ -257,6 +347,14 @@ class PagedKVCache:
         self._tables = np.full((max_slots, max_blocks_per_slot),
                                SCRATCH_PAGE, np.int32)
         self._slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
+        #: leading pages of each slot mapped copy-on-write from the
+        #: prefix cache (never written by this slot: every write lands
+        #: at positions >= shared * block_size)
+        self._slot_shared: List[int] = [0] * max_slots
+        #: optional serving.prefix_cache.RadixPrefixCache: evicted from
+        #: when the free list cannot cover an allocation, and fed the
+        #: pages free_slot donates
+        self.prefix_cache = None
 
     def kv_bytes_per_token(self) -> int:
         """Device bytes one token position costs over all layers: int8
@@ -269,36 +367,74 @@ class PagedKVCache:
             per_pool = H * D * self.dtype.itemsize
         return 2 * L * per_pool
 
-    def table_array(self, rows: Optional[Sequence[Optional[int]]] = None):
-        """Block tables as the dispatch's int32 argument: all slots, or
-        one row per entry of ``rows`` — a ``None`` entry (a padded
-        prefill row) gets an all-scratch row."""
+    def table_rows(self, rows: Optional[Sequence[Optional[int]]] = None) \
+            -> np.ndarray:
+        """Host block tables: all slots, or one row per entry of
+        ``rows`` — a ``None`` entry (a padded prefill row) gets an
+        all-scratch row."""
         if rows is None:
-            t = self._tables
-        else:
-            t = np.full((len(rows), self.max_blocks_per_slot),
-                        SCRATCH_PAGE, np.int32)
-            for i, s in enumerate(rows):
-                if s is not None:
-                    t[i] = self._tables[s]
-        return torch.from_numpy(np.ascontiguousarray(t)).to(self.device)
+            return self._tables.copy()
+        t = np.full((len(rows), self.max_blocks_per_slot), SCRATCH_PAGE,
+                    np.int32)
+        for i, s in enumerate(rows):
+            if s is not None:
+                t[i] = self._tables[s]
+        return t
+
+    def table_array(self, rows: Optional[Sequence[Optional[int]]] = None):
+        """:meth:`table_rows` as the dispatch's int32 device argument."""
+        return torch.from_numpy(self.table_rows(rows)).to(self.device)
 
     @property
     def max_context_len(self) -> int:
         return self.max_blocks_per_slot * self.block_size
 
-    def alloc_slot(self, slot: int, num_tokens: int) -> bool:
+    def slot_blocks(self, slot: int) -> int:
+        return len(self._slot_pages[slot])
+
+    def slot_shared_blocks(self, slot: int) -> int:
+        """Leading copy-on-write pages mapped from the prefix cache
+        (writes to this slot start at or after ``shared * block_size``)."""
+        return self._slot_shared[slot]
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """Allocator alloc with prefix-cache relief: when the free list
+        cannot cover ``n``, evict LRU radix-tree pages until it can (or
+        the tree runs out). Cached prefixes leave before any
+        recompute-preemption fires."""
+        pages = self.allocator.alloc(n)
+        while pages is None and self.prefix_cache is not None:
+            if self.prefix_cache.evict_for(
+                    n - self.allocator.free_pages) <= 0:
+                break
+            pages = self.allocator.alloc(n)
+        return pages
+
+    def alloc_slot(self, slot: int, num_tokens: int,
+                   shared_pages: Sequence[int] = ()) -> bool:
         """Allocate blocks covering ``num_tokens`` positions for a fresh
-        slot; False when the pool cannot cover them."""
+        slot. ``shared_pages`` are prefix-cache hits (already incref'd
+        by the match) mapped read-only at the head of the table; only
+        the remainder is allocated. False when the pool cannot cover the
+        remainder, with the shared references dropped again, so a
+        failed admission leaks nothing."""
         if self._slot_pages[slot]:
             raise RuntimeError(f"slot {slot} already holds pages; "
                                "free_slot first")
+        shared = list(shared_pages)
         need = blocks_needed(num_tokens, self.block_size)
-        pages = self.allocator.alloc(need)
+        if len(shared) > need:
+            raise ValueError(
+                f"slot {slot}: {len(shared)} shared pages exceed the "
+                f"{need} blocks {num_tokens} tokens need")
+        pages = self._alloc(need - len(shared))
         if pages is None:
+            if shared:
+                self.allocator.free(shared)
             return False
-        self._slot_pages[slot] = pages
-        self._tables[slot, :need] = pages
+        self._slot_pages[slot] = shared + pages
+        self._slot_shared[slot] = len(shared)
+        self._tables[slot, :need] = self._slot_pages[slot]
         return True
 
     def extend_slot(self, slot: int, num_tokens: int) -> bool:
@@ -312,16 +448,47 @@ class PagedKVCache:
             raise ValueError(
                 f"slot {slot}: {num_tokens} tokens exceed the "
                 f"{self.max_context_len}-token slot capacity")
-        pages = self.allocator.alloc(need - have)
+        pages = self._alloc(need - have)
         if pages is None:
             return False
         self._slot_pages[slot].extend(pages)
         self._tables[slot, have:need] = pages
         return True
 
-    def free_slot(self, slot: int) -> None:
+    def truncate_slot(self, slot: int, num_tokens: int) -> int:
+        """Shrink the slot to cover only ``num_tokens`` positions (the
+        speculative rollback): pages holding only rejected draft K/V
+        leave the table and drop their reference. Never cuts into the
+        shared prefix. Returns the number of pages released."""
+        keep = blocks_needed(num_tokens, self.block_size)
+        pages = self._slot_pages[slot]
+        if keep >= len(pages):
+            return 0
+        if keep < self._slot_shared[slot]:
+            raise ValueError(
+                f"slot {slot}: truncation to {num_tokens} tokens would "
+                f"cut into the {self._slot_shared[slot]} shared prefix "
+                "pages")
+        tail = pages[keep:]
+        self.allocator.free(tail)
+        self._slot_pages[slot] = pages[:keep]
+        self._tables[slot, keep:] = SCRATCH_PAGE
+        return len(tail)
+
+    def free_slot(self, slot: int,
+                  donate_tokens: Optional[Sequence[int]] = None) -> None:
+        """Release the slot's pages (one reference each). With a prefix
+        cache attached and ``donate_tokens`` (the token ids whose K/V
+        the pages validly hold, in order), full pages are donated to the
+        radix tree instead: the slot's reference passes to the tree, and
+        a duplicate of a cached path is dropped."""
         pages = self._slot_pages[slot]
         if pages:
-            self.allocator.free(pages)
+            donated = 0
+            if self.prefix_cache is not None and donate_tokens is not None:
+                donated = self.prefix_cache.donate(donate_tokens, pages)
+            if donated < len(pages):
+                self.allocator.free(pages[donated:])
         self._slot_pages[slot] = []
+        self._slot_shared[slot] = 0
         self._tables[slot, :] = SCRATCH_PAGE

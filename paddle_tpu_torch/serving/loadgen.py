@@ -6,7 +6,14 @@ to measure serving latency), and the same :class:`LoadSpec` with the
 same seed gives the JAX package's schedule byte for byte: arrival
 times, prompts, token budgets, tenants and adapters.
 
-Arrivals are Poisson (exponential gaps at ``rate_rps``). Chat-style
+Arrival processes (``LoadSpec.arrival``), each at the mean rate
+``rate_rps``: ``poisson`` (exponential gaps); ``gamma`` (Gamma gaps
+whose squared coefficient of variation is ``burstiness``: > 1 clumps
+arrivals, < 1 smooths them); ``mmpp`` (a 2-state Markov-modulated
+Poisson process: a hidden state flips between a hot rate
+``rate * (1 + burstiness)`` and a cold one ``rate / (1 + burstiness)``
+with probability ``mmpp_switch`` per arrival, the gaps rescaled so the
+mean rate stays ``rate_rps``). Chat-style
 shared prefixes (``shared_prefix_len``) open every prompt with one of
 ``prefix_pool_size`` fixed prefixes drawn with bounded-zipf reuse; with
 ``tenants`` each tenant owns its own prefix pool, and ``adapter_pool``
@@ -14,10 +21,9 @@ stamps each request with its tenant and one of that tenant's adapters
 (``tenant{t}/adapter{k}``), drawn from a side generator so that arming
 it changes none of the other draws.
 
-Not ported: the gamma and MMPP arrival processes, deadlines, priorities
-and lifecycle tags (the port's ``Request`` has none of them), the
-client-side token bucket and ``run_fleet_open_loop`` (the port has no
-fleet router yet). The port has no decode watchdog, so
+Not ported: deadlines, priorities and lifecycle tags (the port's
+``Request`` has none of them), the client-side token bucket and
+``run_fleet_open_loop`` (the port has no fleet router yet). The port has no decode watchdog, so
 ``watchdog_trips`` is always 0.
 """
 
@@ -34,6 +40,9 @@ from .scheduler import Request, ServerOverloaded
 
 __all__ = ["LoadSpec", "build_requests", "run_open_loop"]
 
+_ARRIVALS = ("poisson", "gamma", "mmpp")
+
+
 @dataclass
 class LoadSpec:
     num_requests: int = 16
@@ -43,6 +52,12 @@ class LoadSpec:
     vocab_size: int = 50304
     seed: int = 0
     sampling: Optional[SamplingParams] = None
+    #: arrival process: poisson | gamma | mmpp
+    arrival: str = "poisson"
+    #: gamma: squared CV of the gaps; mmpp: the hot/cold rate swing
+    burstiness: float = 1.0
+    #: mmpp: per-arrival probability of flipping the hidden rate state
+    mmpp_switch: float = 0.1
     #: > 0: every prompt opens with one of ``prefix_pool_size`` fixed
     #: prefixes of this many tokens, drawn zipf(``prefix_zipf``)
     shared_prefix_len: int = 0
@@ -63,6 +78,37 @@ def _zipf_cdf(n: int, exponent: float) -> np.ndarray:
     return np.cumsum(w / w.sum())
 
 
+def _arrival_gaps(spec: LoadSpec, rng) -> np.ndarray:
+    """Inter-arrival gaps (seconds) of ``num_requests`` arrivals at the
+    mean rate ``rate_rps``, in the JAX package's order of draws."""
+    if spec.arrival not in _ARRIVALS:
+        raise ValueError(f"unknown arrival mode {spec.arrival!r}; one "
+                         f"of {_ARRIVALS}")
+    mean = 1.0 / max(spec.rate_rps, 1e-9)
+    n = spec.num_requests
+    if spec.arrival == "gamma" and spec.burstiness <= 0.0:
+        raise ValueError("gamma arrival needs burstiness > 0 "
+                         "(= the squared CV of the gaps)")
+    if spec.arrival == "poisson" or \
+            (spec.arrival == "gamma" and spec.burstiness == 1.0):
+        return rng.exponential(mean, n)
+    if spec.arrival == "gamma":
+        shape = 1.0 / float(spec.burstiness)
+        return rng.gamma(shape, mean / shape, n)
+    swing = 1.0 + max(float(spec.burstiness), 0.0)
+    rates = (spec.rate_rps * swing, spec.rate_rps / swing)
+    state = 0
+    gaps = np.empty((n,), np.float64)
+    for i in range(n):
+        gaps[i] = rng.exponential(1.0 / max(rates[state], 1e-9))
+        if rng.random() < spec.mmpp_switch:
+            state = 1 - state
+    # symmetric switching spends half the arrivals in each state, so the
+    # raw mean gap is (1/swing + swing) / (2 rate): rescale to the mean
+    gaps *= 2.0 / (swing + 1.0 / swing)
+    return gaps
+
+
 def build_requests(spec: LoadSpec) -> List[Tuple[float, Request]]:
     """``[(arrival_offset_s, Request), ...]`` sorted by arrival,
     deterministic per seed, in the JAX package's order of draws."""
@@ -74,8 +120,7 @@ def build_requests(spec: LoadSpec) -> List[Tuple[float, Request]]:
     # every draw from ``rng`` as it was
     arng = (np.random.default_rng(spec.seed ^ 0xADA9)
             if spec.adapter_pool > 0 else None)
-    arrivals = np.cumsum(rng.exponential(1.0 / max(spec.rate_rps, 1e-9),
-                                         spec.num_requests))
+    arrivals = np.cumsum(_arrival_gaps(spec, rng))
     arrivals[0] = 0.0                       # the first request at t=0
     lo_p, hi_p = spec.prompt_len_range
     lo_n, hi_n = spec.max_new_range

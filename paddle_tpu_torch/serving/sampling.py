@@ -5,6 +5,14 @@ Counterpart of ``paddle_tpu/serving/sampling.py``. Conventions:
 ``jnp.argmax``); ``top_k <= 0`` disables the top-k filter;
 ``top_p >= 1`` disables nucleus filtering. Sampled rows draw from the
 caller's ``torch.Generator``.
+
+:func:`verify_draws` is what a speculative verify dispatch needs for
+its sampled slots (the JAX engine's verify program,
+``serving/engine.py:711-760``): each row's filtered softmax mass on the
+drafted token, a full fresh sample per row and a residual redraw per
+row with the draft masked out. The port cannot reproduce JAX's threefry
+stream, so sampled parity between the packages is a distribution test,
+not a bit test.
 """
 
 from __future__ import annotations
@@ -14,7 +22,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["SamplingParams", "filtered_logits", "sample_tokens"]
+__all__ = ["SamplingParams", "filtered_logits", "sample_tokens",
+           "verify_draws"]
 
 _NEG = -1e30
 
@@ -71,3 +80,30 @@ def sample_tokens(logits, temperature, top_k, top_p,
                           dim=-1)
     sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
     return torch.where(sampling, sampled, greedy)
+
+
+def verify_draws(logits, drafts, temperature, top_k, top_p,
+                 generator: Optional[torch.Generator] = None):
+    """The stochastic-acceptance ingredients of a verify window:
+    ``logits [B, S, V]`` scored over ``[last, d_1 .. d_{S-1}]`` and
+    ``drafts [B, S-1]`` (int64). Returns ``(p_draft [B, S-1],
+    tok_full [B, S], tok_resid [B, S-1])``: row ``i``'s filtered softmax
+    mass on ``d_{i+1}``, a fresh sample from every row's filtered
+    distribution, and a redraw from rows ``0 .. S-2`` with the drafted
+    token masked out (the residual of a point-mass drafter)."""
+    B, S, V = logits.shape
+    flat = filtered_logits(logits.reshape(B * S, V).float(),
+                           temperature.repeat_interleave(S),
+                           top_k.repeat_interleave(S),
+                           top_p.repeat_interleave(S))
+    probs = torch.softmax(flat, dim=-1)
+    p_draft = torch.gather(probs.reshape(B, S, V)[:, :-1], 2,
+                           drafts[..., None])[..., 0]
+    tok_full = torch.multinomial(probs, 1, generator=generator)
+    resid = flat.reshape(B, S, V)[:, :-1].scatter(2, drafts[..., None],
+                                                  _NEG)
+    tok_resid = torch.multinomial(
+        torch.softmax(resid.reshape(B * (S - 1), V), dim=-1), 1,
+        generator=generator)
+    return (p_draft, tok_full.reshape(B, S),
+            tok_resid.reshape(B, S - 1))

@@ -8,6 +8,15 @@ Scheduling happens between decode steps:
 - a FIFO queue feeds ``max_batch_slots`` fixed slots; a request is
   admitted the step a slot AND enough KV pages free up, and its slot is
   released the step it finishes;
+- with a radix prefix cache on the cache (``serving.prefix_cache``),
+  admission maps the longest cached page-aligned prefix of the
+  effective prompt copy-on-write into the slot (``prefill_pos`` starts
+  at the hit), and both ways a slot is released donate the tokens its
+  pages validly hold, except after a failure;
+- a request prefills from ``prefill_pos`` to ``prefill_len``, in one
+  dispatch or in chunks (``prefilling`` until it is done), and then
+  decodes; a staged speculative ``draft`` gets its pages before the
+  verify dispatch;
 - with a ``tenant_quota``, a tenant holding that many slots waits while
   requests of other tenants behind it are admitted (each skip counts in
   ``stats["quota_deferred"]`` and ``tenant_deferrals``);
@@ -101,6 +110,17 @@ class RequestState:
         #: effective-prompt length this residency prefills (stamped at
         #: admission; effective_prompt() grows as tokens generate)
         self.prefill_len: Optional[int] = None
+        #: prompt positions whose K/V are already in the slot's pages:
+        #: admission seeds it with the prefix-cache hit, each prefill
+        #: chunk advances it; reset on preemption
+        self.prefill_pos = 0
+        #: speculative draft tokens staged for the next verify dispatch
+        #: (never part of ``generated`` until the verifier accepts them)
+        self.draft: List[int] = []
+
+    @property
+    def terminal(self) -> bool:
+        return self.outcome is not None
 
     @property
     def seq_len(self) -> int:
@@ -114,6 +134,26 @@ class RequestState:
             return self.request.prompt
         return np.concatenate([self.request.prompt,
                                np.asarray(self.generated, np.int32)])
+
+    def remaining_new_tokens(self) -> int:
+        return self.request.max_new_tokens - len(self.generated)
+
+    @property
+    def prefilling(self) -> bool:
+        """Holds a slot but has not finished its (possibly chunked)
+        prefill: it takes no decode row yet."""
+        return self.slot is not None and self.prefill_len is not None \
+            and self.prefill_pos < self.prefill_len
+
+    def written_tokens(self) -> np.ndarray:
+        """The token ids whose K/V the slot's pages validly hold now,
+        the prefix-cache donation: mid-prefill the chunk progress;
+        decoding, everything but the newest generated token (whose K/V
+        the next dispatch writes)."""
+        eff = self.effective_prompt()
+        if self.prefilling or not self.generated:
+            return eff[:self.prefill_pos]
+        return eff[:self.seq_len - 1]
 
     def is_done(self) -> bool:
         if self.stop_hit:
@@ -156,6 +196,9 @@ class BucketTable:
             if n <= b:
                 return b
         return self.max_batch
+
+    def signatures(self) -> List[Tuple[int, int]]:
+        return [(b, s) for s in self.prefill_lens for b in self.batch_sizes]
 
 
 @dataclass
@@ -207,9 +250,14 @@ class Scheduler:
                                f"{st.outcome}")
         if st.slot is not None:
             self._release_adapter(st)
-            self.cache.free_slot(st.slot)
+            # the K/V this residency computed seeds later prefix hits,
+            # except a failed request's (a non-finite forward may have
+            # written garbage)
+            donate = st.written_tokens() if outcome != "failed" else None
+            self.cache.free_slot(st.slot, donate_tokens=donate)
             self.slots[st.slot] = None
             st.slot = None
+        st.draft = []
         st.outcome = outcome
         st.failure = reason
         self.stats[outcome] += 1
@@ -266,7 +314,8 @@ class Scheduler:
     # -- admission ----------------------------------------------------------
     def plan_admissions(self) -> List[RequestState]:
         """Admit waiting requests FIFO while slots and pages allow: slot
-        assigned, pages allocated for the effective prompt,
+        assigned, pages allocated for the effective prompt (with any
+        prefix-cache hit mapped copy-on-write), ``prefill_pos`` /
         ``prefill_len`` stamped, adapter acquired. A request whose
         tenant is at its quota is skipped (later tenants still admit); a
         request whose adapter is no longer loaded fails alone. Returns
@@ -298,12 +347,19 @@ class Scheduler:
                 continue
             slot = free_slots[0]
             eff = st.effective_prompt()
-            if not self.cache.alloc_slot(slot, eff.size):
+            # match() increfs the hit pages; a failed alloc_slot drops
+            # them again, so the retry next iteration re-matches
+            n_hit, shared = 0, ()
+            if self.cache.prefix_cache is not None:
+                n_hit, shared = self.cache.prefix_cache.match(eff)
+            if not self.cache.alloc_slot(slot, eff.size,
+                                         shared_pages=shared):
                 break                      # page pool dry: FIFO blocks
             self.waiting.pop(idx)
             free_slots.pop(0)
             st.slot = slot
             st.admitted_t = self.clock()
+            st.prefill_pos = n_hit
             st.prefill_len = int(eff.size)
             self.slots[slot] = st
             if self.lora is not None and adapter:
@@ -315,17 +371,20 @@ class Scheduler:
     # -- decode-time growth / preemption ------------------------------------
     def ensure_decode_capacity(self) -> List[RequestState]:
         """Before a decode step, make sure every active slot has a page
-        for the position it is about to write (``seq_len - 1``). On a
-        dry pool, preempt newest-admitted requests (recompute policy)
-        until the older ones fit. Returns the preempted states (already
-        requeued at the queue front)."""
+        for the position it is about to write (``seq_len - 1``) and for
+        a staged draft's positions after it (a draft's K/V must never
+        spill into the scratch page: the verify window's rows read them
+        back). On a dry pool, preempt newest-admitted requests
+        (recompute policy) until the older ones fit. Returns the
+        preempted states (already requeued at the queue front)."""
         preempted: List[RequestState] = []
         # oldest first: earlier-admitted requests keep their pages
         order = sorted(self.active(), key=lambda p: p[1].admitted_t)
         for slot, st in order:
             if self.slots[slot] is not st:
                 continue                       # preempted below, skip
-            while not self.cache.extend_slot(slot, st.seq_len):
+            while not self.cache.extend_slot(slot,
+                                             st.seq_len + len(st.draft)):
                 victim = self._newest_active(exclude=st)
                 if victim is None:
                     raise RuntimeError(
@@ -357,11 +416,15 @@ class Scheduler:
 
     def _preempt(self, st: RequestState) -> None:
         self._release_adapter(st)
-        self.cache.free_slot(st.slot)
+        # an evicted residency donates too: its pages stay warm in the
+        # tree for its re-admission or a sibling sharing the prefix
+        self.cache.free_slot(st.slot, donate_tokens=st.written_tokens())
         self.slots[st.slot] = None
         st.slot = None
         st.admitted_t = None
+        st.prefill_pos = 0
         st.prefill_len = None
+        st.draft = []
         st.preemptions += 1
         self.stats["preemptions"] += 1
         self.waiting.insert(0, st)         # reclaims FIFO priority

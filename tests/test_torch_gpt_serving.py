@@ -328,4 +328,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert {"paddle_tpu_torch.serving.engine",
+            "paddle_tpu_torch.serving.prefix_cache",
+            "paddle_tpu_torch.serving.spec_decode",
             "paddle_tpu_torch.ops.kernels.paged_decode"} <= set(mods)

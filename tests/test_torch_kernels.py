@@ -363,3 +363,50 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q64.transpose(1, 2).contiguous().transpose(1, 2),
                             q64, q64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("Sq", [1, 5, 128])
+@pytest.mark.parametrize("D", [64, 128])
+def test_biased_causal_forward_at_short_queries_matches_plain_on_card(
+        cuda, dtype, tol, Sq, D):
+    """Row 2's kernel as the context-prefill route launches it: causal
+    with a key bias at Sq < Sk = 512, each row's context right-aligned
+    (``-1e30`` on the left padding). Row 0 at pos 0 leaves its first
+    query one visible key; row 1 a ragged pos; row 2 a full context; row
+    3 is a padded batch row whose every key is masked, which gives o = 0
+    and lse = -1e30. Within ``tol`` of the plain version (2e-2 in bf16:
+    both round o to bf16 from f32 sums in other orders, the kernel pv
+    too), lse within 1e-4, two launches bit-equal, through the
+    ``context_attention`` route as well."""
+    from paddle_tpu_torch.ops.attention import NEG_INF, context_attention
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bias_fwd)
+    B, Sk, H = 4, 512, 4
+    pos = [0, 37, Sk - Sq, 0]
+    bias = torch.zeros(B, Sk)
+    for b, p in enumerate(pos):
+        bias[b, :Sk - Sq - p] = NEG_INF
+    bias[3] = NEG_INF
+    bias = bias.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(Sq * D)
+    q = torch.randn(B, Sq, H, D, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(B, Sk, H, D, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    before = kernels.FLASH_ATTENTION_BIAS_FWD.launches
+    o, lse = flash_attention_bias_fwd(q, k, v, bias, causal=True,
+                                      return_lse=True)
+    again = flash_attention_bias_fwd(q, k, v, bias, causal=True,
+                                     return_lse=True)
+    routed = context_attention(q, k, v, bias)
+    assert kernels.FLASH_ATTENTION_BIAS_FWD.launches == before + 3
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=True,
+                                           return_lse=True, bias=bias)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(routed, o)
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol
+    assert (lse[:3] - lse_ref[:3]).abs().max().item() <= 1e-4
+    assert bool((o[3] == 0).all()) and bool((lse[3] == NEG_INF).all())

@@ -818,8 +818,13 @@ def test_create_serving_engine_int8_quantizes_no_gpt_layer():
     out = eng.generate([[3, 4, 5]], max_new_tokens=2)
     assert len(out[0]) == 5
     cfg.enable_tpu_bf16()
-    with pytest.raises(NotImplementedError, match="float32"):
+    # bf16 serving casts the engine's parameter copy and needs bf16 pools
+    with pytest.raises(ValueError, match="cache_dtype='bfloat16'"):
         inference.create_serving_engine(cfg, sc, device="cpu")
+    sc.cache_dtype = "bfloat16"
+    eng = inference.create_serving_engine(cfg, sc, device="cpu")
+    assert {p.dtype for p in eng.params.values()} == {torch.bfloat16}
+    assert len(eng.generate([[3, 4, 5]], max_new_tokens=2)[0]) == 5
 
 
 # -- 9. the kernel on the card -------------------------------------------------------------

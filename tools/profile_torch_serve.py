@@ -1,12 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving path goes, on one NVIDIA card.
 
-Serves the same 16 greedy requests as ``chip_smoke.py`` (GPT-2 345M with
-seeded random weights, the ``bench.py --serve`` full configuration)
-through ``paddle_tpu_torch.serving.ServingEngine`` under
-``torch.profiler`` -- or, with ``--mt``, the 24 requests of
-``chip_smoke.py``'s multi-tenant phase through its engine (int8 paged KV,
-eight LoRA adapters, tenant quota 4), submitted at once -- and prints:
+Serves a path of ``chip_smoke.py`` on GPT-2 345M (seeded random weights,
+the ``bench.py --serve`` full configuration) under ``torch.profiler``,
+its requests submitted at once (``--path``):
+
+- ``serve`` (the default): phase 3's 16 greedy requests, f32;
+- ``bf16``: the same through ``inference.create_serving_engine`` under
+  ``enable_tpu_bf16`` with bf16 pools (phase 14);
+- ``mt``: the 24 requests of the multi-tenant phase through its engine
+  (int8 paged KV, eight LoRA adapters, tenant quota 4);
+- ``chat``: the 24 requests of the chat phase's traffic (a 256-token
+  system prompt of four) through the engine with the radix prefix
+  cache, chunked prefill at 128 and spec decode at k = 4, f32, its
+  prefix tree warm from the unprofiled pass; ``chat-off``: the same
+  traffic through the flags-off engine;
+
+and prints:
 
 - the host wall time of the run, with and without the profiler, the
   device's busy and idle share (summed kernel time over the profiled
@@ -18,12 +28,13 @@ eight LoRA adapters, tenant quota 4), submitted at once -- and prints:
 
 Run from the root of a checkout::
 
-    python3 tools/profile_torch_serve.py [--rows 15] [--mt]
+    python3 tools/profile_torch_serve.py [--rows 15] [--path serve]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -35,8 +46,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=15,
                     help="rows of each table")
-    ap.add_argument("--mt", action="store_true",
-                    help="profile the multi-tenant engine and traffic")
+    ap.add_argument("--path", default="serve",
+                    choices=("serve", "bf16", "mt", "chat", "chat-off"),
+                    help="the engine and traffic to profile")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -45,6 +57,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import chip_smoke as smoke
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.core import flag_scope
     from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.serving import (LoadSpec, Request, SamplingParams,
@@ -55,11 +69,21 @@ def main() -> int:
 
     cfg = gpt2_medium()
     model = GPTForPretraining(cfg, device="cuda", seed=0)
-    if args.mt:
+    if args.path == "mt":
         engine = smoke._mt_engine(model, True)
+    elif args.path == "bf16":
+        config = inference.Config.from_layer(model, [])
+        config.enable_tpu_bf16()
+        engine = inference.create_serving_engine(
+            config, ServingConfig(**smoke.SERVE_CFG, cache_dtype="bfloat16"),
+            device="cuda")
     else:
-        engine = ServingEngine(model, ServingConfig(**smoke.SERVE_CFG),
-                               device="cuda")
+        flags = smoke.CHAT_FLAGS if args.path == "chat" else {}
+        with contextlib.ExitStack() as stack:
+            for name, value in flags.items():
+                stack.enter_context(flag_scope(name, value))
+            engine = ServingEngine(model, ServingConfig(**smoke.SERVE_CFG),
+                                   device="cuda")
     engine.warmup()
 
     def mt_requests(seed):
@@ -68,8 +92,12 @@ def main() -> int:
         return [r for _, r in build_requests(LoadSpec(**spec))]
 
     def requests(seed):
-        if args.mt:
+        if args.path == "mt":
             return mt_requests(seed)
+        if args.path.startswith("chat"):
+            # one seed for every pass: the prefixes derive from it
+            return [r for _, r in build_requests(LoadSpec(
+                **smoke.CHAT_SPEC, vocab_size=cfg.vocab_size))]
         rng = np.random.RandomState(seed)
         out = []
         for _ in range(smoke.NUM_REQUESTS):
@@ -107,7 +135,8 @@ def main() -> int:
         wall = time.perf_counter() - t0
     steps = {k: engine.stats()[k] - steps0[k]
              for k in ("prefill_dispatches", "decode_dispatches",
-                       "tokens_generated")}
+                       "tokens_generated", "context_prefill_dispatches",
+                       "verify_dispatches")}
 
     avgs = prof.key_averages()
     # kernels only: an operator's device time repeats its kernels'
@@ -122,8 +151,10 @@ def main() -> int:
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(f"run: {wall:.4f} s wall under the profiler ({bare:.4f} s "
           f"without), {steps['tokens_generated']} tokens, "
-          f"{steps['prefill_dispatches']} prefill and "
-          f"{steps['decode_dispatches']} decode dispatches")
+          f"{steps['prefill_dispatches']} prefill "
+          f"({steps['context_prefill_dispatches']} context) and "
+          f"{steps['decode_dispatches']} decode dispatches "
+          f"({steps['verify_dispatches']} verify)")
     print(f"device: busy {busy:.4f} s = {100 * busy / wall:.2f}% of the "
           f"profiled wall, idle {100 * (1 - busy / wall):.2f}%; "
           f"{n_launch} kernel launches, {n_launch / n_disp:.1f} per "
