@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Sixteen phases, in order:
+result line. Eighteen phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -134,16 +134,51 @@ result line. Sixteen phases, in order:
               prefill; paged decode per plain decode), every page's
               refcount the tree's at the end; tokens/s and TTFT p99 on and
               off, prefix hit %, spec accept %, chunks;
-16. summary -- print one JSON line describing every ported kernel, then
+16. bf16 pools -- phase 3's requests through ``create_serving_engine``
+              under ``enable_tpu_bf16`` over the default float32 pools,
+              then over ``serve_kv_quant`` int8 pools (the model casts q
+              to the pools' dtype at the decode kernels and the output
+              back): every request completed, every token against a
+              teacher-forced forward of the engine's bf16 parameters
+              (over int8 pools a replay through a one-slot int8 cache
+              with the plain versions; near-ties under
+              ``BF16_TIE_GAP``), exact launch counts (the f32 paged-decode
+              kernel, or the quantized one, once per layer per decode
+              dispatch, the other never); TTFT, decode p50 and peak
+              memory printed beside phase 14's bf16-over-bf16 run;
+17. io     -- save, load and feed at BERT-base MLM full width on phase
+              10's padded batch shape: (a) three O1 ``TrainStep`` steps
+              fed by ``io.DataLoader`` (two spawned workers, batches
+              through the native C++ queue, pinned copies on a side
+              stream, ``prefetch_factor`` 2) over a dataset of phase 10's
+              synthetic records, ``TrainStep.save``, a fresh model and
+              step that ``TrainStep.load`` the file and three more steps:
+              the six losses bit-equal to six uninterrupted steps from the
+              same seed on the same records, with exact launch counts; the
+              fed step time beside phase 10's on a resident batch and the
+              seconds the consumer waited on the loader; (b) phase 12's
+              f32, int8 and int8 + bf16 predictors through
+              ``save_optimized_model`` and ``create_predictor(Config(
+              path))``: scores bit-equal to the live predictor's with phase
+              12's exact launches (74 int8 matmuls and 12 biased flash
+              forwards a run, no shape fallback), each save's and load's
+              seconds and the bundle's bytes; (c) an encrypted
+              ``framework.save`` / ``load`` of the int8 model's state
+              dict, bit-equal, and a flipped byte raises. The native
+              queue's library builds with g++ into
+              ``paddle_tpu_torch/_build/``; the phase prints which queue
+              served;
+18. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
-13, 14 and 15, and before each predictor of phase 12, and read just
+13, 14 and 15, before each engine of phase 16, before the fed run of
+phase 17 and before each predictor of phases 12 and 17, and read just
 after (a witness's reference runs are taken back out of them); the
 kernel JSON line gives each kernel's launches per path (``serve``,
 ``mt``, ``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``,
-``bf16_serve``, ``chat``). Each
-phase prints its seconds, and the run its total.
+``bf16_serve``, ``chat``, ``bf16_pools``, ``io_train``,
+``io_predict``). Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
@@ -1492,7 +1527,7 @@ def phase_bf16_serve(f32: dict) -> dict:
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"summary": summary, "peak": peak}
 
 
 # -- phase 15: chat serving --------------------------------------------------
@@ -1678,15 +1713,19 @@ def _mt_engine(model, multitenant: bool):
     return eng
 
 
-def _mt_replay(model, engine, states) -> None:
+def _mt_replay(model, engine, states, tag="mt", tie_gap=TIE_GAP,
+               params=None) -> None:
     """Teacher-forced replay of every request through the paged path
     with the plain versions: a one-slot int8 cache and the request's
-    adapter row, the prompt prefilled at the engine's length bucket,
-    then one S=1 decode step for each generated token but the last,
-    feeding the engine's tokens. Every generated token must be the
-    replay's argmax or within ``TIE_GAP`` of its largest logit."""
+    adapter row (when the engine has LoRA pools), the prompt prefilled
+    at the engine's length bucket, then one S=1 decode step for each
+    generated token but the last, feeding the engine's tokens; of
+    ``params`` (the engine's parameter copy) when given. Every
+    generated token must be the replay's argmax or within ``tie_gap``
+    of its largest logit."""
     import numpy as np
     import torch
+    from torch.func import functional_call
     from paddle_tpu_torch.core import flag_scope
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.serving import PagedCacheView, PagedKVCache
@@ -1697,6 +1736,11 @@ def _mt_replay(model, engine, states) -> None:
             num_pages=1 + ec.max_blocks_per_slot, block_size=ec.block_size,
             max_slots=1, max_blocks_per_slot=ec.max_blocks_per_slot,
             device="cuda")
+    def fwd(ids, **kw):
+        return model(ids, **kw) if params is None else \
+            functional_call(model, params, (ids,), kw)
+
+    lora = engine.lora
     before = sum(k["launches"] for k in kernels.kernels())
     ties, checked, worst_gap = 0, 0, 0.0
     with torch.no_grad(), _plain_versions():
@@ -1706,18 +1750,19 @@ def _mt_replay(model, engine, states) -> None:
             _require(cache.alloc_slot(0, P + len(gen)), "replay cache full")
             view = PagedCacheView(
                 cache.k, cache.v, cache.table_array([0]), cache.k_scale,
-                cache.v_scale, engine.lora.a, engine.lora.b,
-                engine.lora.rows_for([st.request.adapter]))
+                cache.v_scale, *((lora.a, lora.b,
+                                  lora.rows_for([st.request.adapter]))
+                                 if lora is not None else ()))
             ids = np.zeros((1, engine.buckets.len_bucket(P)), np.int64)
             ids[0, :P] = prompt
             zero = torch.zeros(1, dtype=torch.int32, device="cuda")
-            preds = [model(torch.from_numpy(ids).cuda(), caches=view,
-                           cache_pos=zero)[0, P - 1]]
+            preds = [fwd(torch.from_numpy(ids).cuda(), caches=view,
+                         cache_pos=zero)[0, P - 1]]
             for i, tok in enumerate(gen[:-1]):
                 pos = torch.tensor([P + i], dtype=torch.int32,
                                    device="cuda")
-                preds.append(model(torch.tensor([[tok]], device="cuda"),
-                                   caches=view, cache_pos=pos)[0, 0])
+                preds.append(fwd(torch.tensor([[tok]], device="cuda"),
+                                 caches=view, cache_pos=pos)[0, 0])
             cache.free_slot(0)
             pred = torch.stack(preds).float()
             _require(bool(torch.isfinite(pred).all()),
@@ -1731,13 +1776,14 @@ def _mt_replay(model, engine, states) -> None:
                 worst_gap = max(worst_gap, float(gap[miss].max()))
     _require(sum(k["launches"] for k in kernels.kernels()) == before,
              "the plain replay launched a kernel")
-    _log(f"mt: teacher-forced replay (plain versions, one-slot int8 "
-         f"cache, each request's adapter) over {checked} generated "
+    adapters = ", each request's adapter" if lora is not None else ""
+    _log(f"{tag}: teacher-forced replay (plain versions, one-slot int8 "
+         f"cache{adapters}) over {checked} generated "
          f"tokens: {ties} positions pick another token, largest logit "
-         f"gap there {worst_gap:.3e} (allowed < {TIE_GAP:g})")
-    _require(worst_gap < TIE_GAP,
-             f"the replay disagrees with the engine by a logit gap of "
-             f"{worst_gap} >= {TIE_GAP}")
+         f"gap there {worst_gap:.3e} (allowed < {tie_gap:g})")
+    _require(worst_gap < tie_gap,
+             f"{tag}: the replay disagrees with the engine by a logit gap "
+             f"of {worst_gap} >= {tie_gap}")
 
 
 def phase_multitenant() -> dict:
@@ -2435,7 +2481,7 @@ def phase_bert_train(witness: list) -> dict:
     del step
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, step_s
 
 
 def phase_ernie() -> dict:
@@ -2482,6 +2528,8 @@ def phase_ernie() -> dict:
 # kernel's last bits may round an activation of the next layer to the
 # other int8 neighbour, and the layers after it carry that quantum
 PREDICT_WARMUP, PREDICT_RUNS = 2, 10
+# phase 17's DataLoader-fed BERT steps before and after the resume
+IO_STEPS = 3
 PREDICT_F32_PLAIN_TOL = 1e-4
 # the O1 steps under FLAGS_amp_int8_matmul, held against two references:
 # int8_matmul's plain version alone (every other kernel the same, so the
@@ -2682,6 +2730,319 @@ def phase_amp_int8() -> dict:
     return launches
 
 
+# -- phase 16: bf16 parameters over f32 and int8 pools -----------------------
+def phase_bf16_pools(bf16: dict) -> dict:
+    """Phase 3's requests through ``create_serving_engine`` under
+    ``enable_tpu_bf16`` over the default float32 pools, then over
+    ``serve_kv_quant`` int8 pools: every request completes, every token
+    is checked (over f32 pools against a teacher-forced no-cache forward
+    of the engine's bf16 parameters, over int8 pools against the same
+    replay through a one-slot int8 cache with the plain versions; near-
+    ties under ``BF16_TIE_GAP``), and the launches are exact: the f32
+    paged-decode kernel (row 9) or the quantized one (row 10) once a
+    layer per decode dispatch, the other never. TTFT, decode p50 and
+    peak memory are printed beside phase 14's bf16-over-bf16 run."""
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.core import flag_scope
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import Request, SamplingParams, ServingConfig
+    cfg = gpt2_medium()
+    L = cfg.num_layers
+    specs = _slice_specs(cfg.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    _log(f"bf16 pools: {held:.3f} GiB held before the phase, "
+         f"{torch.cuda.memory_allocated() / 2 ** 30 - held:.3f} GiB the "
+         f"f32 model")
+    total = {k.name: 0 for k in kernels.KERNELS.values()}
+    for pools in ("float32", "int8"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        config = inference.Config.from_layer(model, [])
+        config.enable_tpu_bf16()
+        with contextlib.ExitStack() as stack:
+            if pools == "int8":
+                stack.enter_context(flag_scope("serve_kv_quant", "int8"))
+            engine = inference.create_serving_engine(
+                config, ServingConfig(**SERVE_CFG), device="cuda")
+        want_pool = torch.int8 if pools == "int8" else torch.float32
+        _require({p.dtype for p in engine.params.values()}
+                 == {torch.bfloat16} and engine.cache.k.dtype == want_pool,
+                 f"bf16 over {pools}: pools {engine.cache.k.dtype}")
+        engine.warmup()
+        torch.cuda.synchronize()
+        build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        states = [engine.submit(Request(p, max_new_tokens=new,
+                                        sampling=SamplingParams()))
+                  for p, new in specs]
+        engine.run()
+        torch.cuda.synchronize()
+        launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+        for k, n in launches.items():
+            total[k] += n
+        stats = engine.stats()
+        summary = engine.metrics_summary()
+        peak = (build_peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        for st, (p, new) in zip(states, specs):
+            _require(st.outcome == "completed" and len(st.generated) == new,
+                     f"bf16 over {pools}: request {st.request.request_id} "
+                     f"ended {st.outcome} with {len(st.generated)} of {new}"
+                     " tokens")
+        n_pre, n_dec = stats["prefill_dispatches"], \
+            stats["decode_dispatches"]
+        row, other = (("paged_decode_attention_quant",
+                       "paged_decode_attention") if pools == "int8" else
+                      ("paged_decode_attention",
+                       "paged_decode_attention_quant"))
+        _log(f"bf16 over {pools}: {len(states)} requests, "
+             f"{stats['tokens_generated']} tokens, {n_pre} prefill and "
+             f"{n_dec} decode dispatches; launches {launches}")
+        _require(launches[row] == L * n_dec > 0 and launches[other] == 0,
+                 f"bf16 over {pools}: {row} launched {launches[row]} != "
+                 f"{L} x {n_dec}, {other} {launches[other]} != 0")
+        _require(launches["flash_attention_fwd"] >= L * n_pre > 0,
+                 f"bf16 over {pools}: flash launches "
+                 f"{launches['flash_attention_fwd']} < {L} x {n_pre}")
+        params = {**engine.params, **engine.buffers}
+        if pools == "int8":
+            _mt_replay(model, engine, states, tag="bf16 over int8",
+                       tie_gap=BF16_TIE_GAP, params=params)
+        else:
+            _teacher_forced("bf16 over float32", model, states,
+                            BF16_TIE_GAP, params=params)
+        _log(f"bf16 over {pools}: {_serve_line(summary, peak)}; KV "
+             f"{summary['kv_bytes_per_token']} bytes a token")
+        del engine, params, states
+        gc.collect()
+        torch.cuda.empty_cache()
+    _log(f"bf16 over bfloat16 (phase 14): "
+         f"{_serve_line(bf16['summary'], bf16['peak'])}; KV "
+         f"{bf16['summary']['kv_bytes_per_token']} bytes a token")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# -- phase 17: save, load and feed ----------------------------------------------
+class _Records:
+    """Phase 10's synthetic padded pretraining records, one batch of
+    ``BERT_B`` rows from each seed, as a map-style dataset of the port's
+    ``io`` (a top-level class: the DataLoader's spawned workers unpickle
+    it)."""
+
+    def __init__(self, seeds, vocab_size):
+        import numpy as np
+        parts = [pretraining_batch(BERT_B, BERT_S, BERT_M, vocab_size,
+                                   seed=s)[0] for s in seeds]
+        self.arrays = [np.concatenate(a) for a in zip(*parts)]
+
+    def __getitem__(self, i):
+        return tuple(a[i] for a in self.arrays)
+
+    def __len__(self):
+        return len(self.arrays[0])
+
+
+def _bytes(prefix: str) -> int:
+    return sum(os.path.getsize(prefix + ext)
+               for ext in (".pdiparams", ".pdmodel.meta"))
+
+
+def _io_train(tmp: str, bert_step_s: float) -> dict:
+    """Three O1 BERT-base steps fed by ``io.DataLoader`` (two workers,
+    pinned copies, ``prefetch_factor`` 2), ``TrainStep.save``, then a
+    fresh model and step that ``TrainStep.load`` the file and take three
+    more from the same loader: the six losses must equal six
+    uninterrupted steps from the same seed on the same records bit for
+    bit."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.ops import kernels
+    records = _Records(range(2 * IO_STEPS), 30528)
+    ref = []
+    cfg, _, step, _ = _encoder_setup("bert")
+    for b in range(2 * IO_STEPS):
+        rows = range(b * BERT_B, (b + 1) * BERT_B)
+        batch = io.default_collate_fn([records[i] for i in rows])
+        ref.append(float(step(*batch)))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    loader = io.DataLoader(records, batch_size=BERT_B, num_workers=2,
+                           prefetch_factor=2, places="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    it = iter(loader)
+    first_wait = time.perf_counter() - t0
+    queue = "native C++ queue" if it.inner._native_q is not None \
+        else "multiprocessing queue (g++ build failed)"
+    losses, waits, steps = [], [], []
+    _, _, step, _ = _encoder_setup("bert")
+    path = os.path.join(tmp, "bert_step.pd")
+    for half in range(2):
+        if half == 1:
+            t = time.perf_counter()
+            step.save(path)
+            save_s = time.perf_counter() - t
+            del step
+            gc.collect()
+            _, _, step, _ = _encoder_setup("bert")
+            t = time.perf_counter()
+            step.load(path)
+            load_s = time.perf_counter() - t
+            _require(step.step_count == IO_STEPS,
+                     f"resumed at step {step.step_count}")
+        for _ in range(IO_STEPS):
+            t = time.perf_counter()
+            batch = next(it)
+            t1 = time.perf_counter()
+            losses.append(float(step(*batch)))      # syncs on the loss
+            waits.append(t1 - t)
+            steps.append(time.perf_counter() - t)
+    with contextlib.suppress(StopIteration):
+        next(it)
+        raise RuntimeError("the loader gave more batches than records")
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    want = _encoder_launches(cfg, 2 * IO_STEPS)
+    _log(f"io train: losses fed/resumed " + " ".join(f"{x:.6f}" for x in
+                                                     losses))
+    _log(f"io train: losses uninterrupted " + " ".join(f"{x:.6f}" for x in
+                                                       ref))
+    _require(losses == ref, "the resumed DataLoader-fed run differs from "
+             "the uninterrupted one")
+    _require(launches == want, f"io train: launches {launches} != {want}")
+    nbytes = os.path.getsize(path)
+    _log(f"io train: six losses bit-equal to the uninterrupted run; batches "
+         f"through the {queue}; TrainStep.save {save_s:.3f} s, load "
+         f"{load_s:.3f} s, {nbytes} bytes")
+    warm = [s for i, s in enumerate(steps) if i % IO_STEPS]
+    _log(f"io train: DataLoader-fed step (steps 2-3 and 5-6, consumer wait "
+         f"included) median {np.median(warm) * 1e3:.2f} ms, min "
+         f"{min(warm) * 1e3:.2f} ms; phase 10 resident batch "
+         f"{bert_step_s * 1e3:.2f} ms/step; consumer waited on the loader "
+         f"{sum(waits):.4f} s over {len(waits)} batches (per batch "
+         + " ".join(f"{w * 1e3:.2f}" for w in waits)
+         + f" ms) and {first_wait:.3f} s for the first fill (two spawned "
+         f"workers)")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _io_predict(tmp: str) -> dict:
+    """Phase 12's f32, int8 and int8 + bf16 predictors saved with
+    ``save_optimized_model`` and loaded with ``create_predictor(Config(
+    path))``: the loaded predictor's scores equal the live one's bit for
+    bit, with phase 12's exact launches; then an encrypted
+    ``framework.save`` / ``load`` round trip of the int8 model's state
+    dict, bit-equal, and a flipped byte of the file raises."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import framework, inference
+    from paddle_tpu_torch.framework.crypto import DecryptionError
+    from paddle_tpu_torch.ops import kernels
+    batch, _ = pretraining_batch(BERT_B, BERT_S, BERT_M, 30528)
+    inputs = list(batch[:4])
+    n_lin, L = 74, 12
+    total = {k.name: 0 for k in kernels.KERNELS.values()}
+    for kind in ("f32", "int8", "int8+bf16"):
+        pred, layer = _predictor(kind)
+        live = pred.run(inputs)[0]
+        path = os.path.join(tmp, kind.replace("+", "_"))
+        t = time.perf_counter()
+        pred.save_optimized_model(path)
+        save_s = time.perf_counter() - t
+        state = None
+        if kind == "int8":
+            state = {k: v.detach().clone() for k, v in
+                     layer.state_dict().items()}
+        del pred, layer
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        loaded = inference.create_predictor(
+            inference.Config(path, device="cuda"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        kernels.reset_launch_counts()
+        out = loaded.run(inputs)[0]
+        launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+        want = {k: 0 for k in launches}
+        want["flash_attention_bias_fwd"] = L
+        want["int8_matmul"] = 0 if kind == "f32" else n_lin
+        _require(launches == want and not kernels.FALLBACKS,
+                 f"io predict {kind}: launches {launches} != {want}, shape "
+                 f"fallbacks {kernels.FALLBACKS}")
+        for k, n in launches.items():
+            total[k] += n
+        _require(np.array_equal(out, live),
+                 f"io predict {kind}: the loaded predictor differs from the "
+                 f"live one by {np.abs(out - live).max()}")
+        _log(f"io predict {kind}: Config(path) scores bit-equal to the live "
+             f"predictor's; launches int8_matmul {launches['int8_matmul']}, "
+             f"flash_attention_bias_fwd "
+             f"{launches['flash_attention_bias_fwd']}, no shape fallback; "
+             f"save_optimized_model {save_s:.3f} s, load (Config(path) + "
+             f"create_predictor) {load_s:.3f} s, bundle {_bytes(path)} bytes")
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        if state is not None:
+            key = bytes(range(32))
+            enc = os.path.join(tmp, "int8_state.pd")
+            t = time.perf_counter()
+            framework.save(state, enc, encryption_key=key)
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            back = framework.load(enc, encryption_key=key)
+            load_s = time.perf_counter() - t
+            _require(set(back) == set(state) and all(
+                np.array_equal(back[k], framework.io.to_numpy(v))
+                for k, v in state.items()),
+                "the encrypted round trip changed the state dict")
+            with open(enc, "r+b") as f:
+                f.seek(os.path.getsize(enc) // 2)
+                byte = f.read(1)
+                f.seek(-1, 1)
+                f.write(bytes([byte[0] ^ 1]))
+            try:
+                framework.load(enc, encryption_key=key)
+            except DecryptionError:
+                tampered = "raised DecryptionError"
+            else:
+                raise RuntimeError("a flipped byte of an encrypted file "
+                                   "loaded without error")
+            _log(f"io crypto: the int8 model's state dict ({len(state)} "
+                 f"tensors, {os.path.getsize(enc)} bytes encrypted) round "
+                 f"trips bit-equal: save {save_s:.3f} s, load "
+                 f"{load_s:.3f} s; a flipped byte {tampered}")
+            del state, back
+    return total
+
+
+def phase_io(bert_step_s: float):
+    """Save, load and feed at BERT-base MLM full width with phase 10's
+    padded batch shape: a DataLoader-fed training run resumed from
+    ``TrainStep.save``, predictors from disk, an encrypted state dict.
+    Returns the launches of the fed run and of the loaded predictors."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        train = _io_train(tmp, bert_step_s)
+        predict = _io_predict(tmp)
+    return train, predict
+
+
 # -- main --------------------------------------------------------------------
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
@@ -2719,12 +3080,17 @@ def main() -> int:
     by_path["train"] = timed("train", phase_train, amp_losses)
     timed("bert parity", phase_bert_parity)
     witness = timed("bert witness", phase_bert_witness)
-    by_path["bert"] = timed("bert", phase_bert_train, witness)
+    by_path["bert"], bert_step_s = timed("bert", phase_bert_train, witness)
     by_path["ernie"] = timed("ernie", phase_ernie)
     by_path["predict"] = timed("predict", phase_predict)
     by_path["amp_int8"] = timed("amp_int8", phase_amp_int8)
-    by_path["bf16_serve"] = timed("bf16", phase_bf16_serve, f32_serve)
+    by_path["bf16_serve"], bf16_serve = timed("bf16", phase_bf16_serve,
+                                              f32_serve)
     by_path["chat"] = timed("chat", phase_chat)
+    by_path["bf16_pools"] = timed("bf16 pools", phase_bf16_pools,
+                                  bf16_serve)
+    by_path["io_train"], by_path["io_predict"] = timed(
+        "io", phase_io, bert_step_s)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

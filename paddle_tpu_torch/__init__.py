@@ -7,18 +7,20 @@ in CUDA C++ for ``sm_90a``. It imports torch, never jax, and nothing of
 ``device="cpu"``; on CPU tensors every kernel wrapper computes its plain
 PyTorch version.
 
-First slice: GPT served end to end (``models``, ``serving``) through the
-flash-prefill and paged-decode kernels (``ops.kernels``). Second slice:
-GPT pretrained through ``jit.TrainStep`` (``nn``, ``amp``,
-``optimizer``), with the flash backward, chunked cross-entropy and fused
-dropout kernels. Third: BERT and ERNIE trained on padded batches
-through the biased flash kernels. Fourth: multi-tenant GPT serving
-(int8 paged KV, LoRA) through the quantized paged-decode and bgmv
-kernels. Fifth: int8 inference (``inference``, ``slim``, ``nn.quant``)
-through the int8 matmul kernel, the last of the JAX package's TPU
-kernels.
+What it runs: GPT served end to end (``models``, ``serving``: paged KV,
+continuous batching, int8 pools, LoRA adapters, bf16, the radix prefix
+cache, chunked prefill and speculative decoding) through the flash,
+paged-decode and bgmv kernels (``ops.kernels``); GPT, BERT and ERNIE
+trained through ``jit.TrainStep`` (``nn``, ``amp``, ``optimizer``) on
+the flash forward and backward, chunked cross-entropy and fused dropout
+kernels; int8 inference (``inference``, ``slim``, ``nn.quant``) through
+the int8 matmul kernel. Models are saved and loaded as the JAX package
+saves them (``save`` / ``load``, ``jit.save`` / ``jit.load``,
+``inference.Config(model_path)``, ``TrainStep.save`` / ``load``), and
+``io`` feeds a training loop from a dataset.
 """
 
 from .core import make_generator, resolve_device
+from .framework import load, save
 
-__all__ = ["make_generator", "resolve_device"]
+__all__ = ["load", "make_generator", "resolve_device", "save"]

@@ -1,37 +1,47 @@
-"""paddle.inference: ``Config`` + ``create_predictor`` for a live layer.
+"""paddle.inference: ``Config`` + ``create_predictor``.
 
 Counterpart of ``paddle_tpu/inference/__init__.py``: the deployment
 surface (``Config``, ``create_predictor``, the zero-copy handles
 ``get_input_handle`` / ``copy_from_cpu`` / ``run`` / ``get_output_handle``
 / ``copy_to_cpu``, and ``run([arrays])``) over a predictor built from a
-live layer. Building it applies the requested passes: ``layer.eval()``;
-with ``enable_int8()`` ``slim.quantize_weights``, so every eligible
-``Linear`` becomes a ``slim.QuantizedLinear`` whose product runs on the
-int8 kernel; with ``enable_tpu_bf16()`` the floating parameters are cast
-to bfloat16 in the predictor's own dict (the layer keeps float32). The
-predictor keeps a detached copy of the layer's parameters and buffers,
-taken when it is built, as the JAX predictor does. A run calls the
-layer with ``torch.func.functional_call`` on that copy under
-``torch.inference_mode()``, casts floating inputs to
+live layer (``Config.from_layer``) or from a ``jit.save`` bundle
+(``Config(model_path)``).
+
+From a live layer, building the predictor applies the requested passes:
+``layer.eval()``; with ``enable_int8()`` ``slim.quantize_weights``, so
+every eligible ``Linear`` becomes a ``slim.QuantizedLinear`` whose
+product runs on the int8 kernel; with ``enable_tpu_bf16()`` the floating
+parameters are cast to bfloat16 in the predictor's own dict (the layer
+keeps float32). The predictor keeps a detached copy of the layer's
+parameters and buffers, taken when it is built, as the JAX predictor
+does. A run calls the layer with ``torch.func.functional_call`` on that
+copy under ``torch.inference_mode()``, casts floating inputs to
 bfloat16 under bf16, and returns float32 numpy arrays. The inputs go to
 the layer's device: the card unless the layer was built with
 ``device="cpu"``.
 
-Not ported yet (ROADMAP Queue 1): ``Config(model_path)`` and
-``save_optimized_model`` wait for ``jit.save``/``io``.
-``switch_ir_optim``'s conv+BatchNorm fold
-(``inference/passes.py``) waits for the port's convolution and
-BatchNorm layers: the port has neither, so no model of it has anything
-to fold.
+From a bundle, ``jit.load`` rebuilds the model the bundle's recipe
+names on ``Config(model_path, device=...)``'s device, and the predictor
+runs it as it ran when saved: ``save_optimized_model`` writes what a
+predictor runs (quantized ``Linear``s, bf16 weights under
+``enable_tpu_bf16``), so the loaded predictor gives the live one's
+outputs.
+
+``switch_ir_optim``'s conv+BatchNorm fold (``inference/passes.py``)
+waits for the port's convolution and BatchNorm layers: the port has
+neither, so no model of it has anything to fold.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.func import functional_call
+
+from ..core.device import DeviceLike
+from ..jit.save_load import run_layer
 
 __all__ = ["Config", "Predictor", "create_predictor",
            "create_serving_engine", "PrecisionType"]
@@ -45,16 +55,18 @@ class PrecisionType:
 
 
 class Config:
-    """Predictor configuration; build it from a live layer with
+    """Predictor configuration: from a ``jit.save`` path prefix
+    (``Config("dir/model")``, loaded on ``device``: the card unless
+    ``device="cpu"`` is passed), or from a live layer with
     ``Config.from_layer(layer, input_spec=[...])``."""
 
     def __init__(self, model_path: Optional[str] = None,
-                 params_path: Optional[str] = None):
-        if model_path is not None:
-            raise NotImplementedError(
-                "Config(model_path): loading a saved model waits for the "
-                "port of jit.save and io (ROADMAP Queue 1); use "
-                "Config.from_layer")
+                 params_path: Optional[str] = None,
+                 device: DeviceLike = None):
+        # params_path kept for API parity; the bundle is one prefix
+        self.model_path = model_path
+        self.params_path = params_path
+        self.device = device
         self.layer = None
         self.input_spec = None
         self._precision = PrecisionType.Float32
@@ -98,7 +110,7 @@ class Config:
         pass
 
     def summary(self) -> str:
-        src = f"layer:{type(self.layer).__name__}"
+        src = self.model_path or f"layer:{type(self.layer).__name__}"
         return (f"source: {src}\nprecision: {self._precision}\n"
                 f"weight_quant: {self._weight_quant}")
 
@@ -138,20 +150,45 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 
 class Predictor:
-    """Runs a live layer with the configured passes applied."""
+    """Runs a live layer with the configured passes applied, or a model
+    loaded from a ``jit.save`` bundle."""
 
     def __init__(self, config: Config):
-        if config.layer is None:
-            raise ValueError("Config needs a layer (Config.from_layer)")
         self._config = config
         self._inputs: Dict[str, _Handle] = {}
         self._outputs: Dict[str, _Handle] = {}
         self._out_names: List[str] = []
-        self._init_from_layer(config)
+        if config.layer is not None:
+            self._init_from_layer(config)
+        elif config.model_path is not None:
+            self._init_from_export(config)
+        else:
+            raise ValueError("Config needs a model path or a layer")
+
+    def _init_from_export(self, config: Config):
+        from ..jit.save_load import load as jload
+        translated = jload(config.model_path, device=config.device)
+        if isinstance(translated, dict):
+            raise ValueError(
+                f"{config.model_path!r} is a weights-only save (no "
+                ".jaxexport executable); re-save with input_spec or use "
+                "Config.from_layer")
+        if config._weight_quant or \
+                config._precision != PrecisionType.Float32:
+            warnings.warn(
+                "a serialized executable is already compiled; precision/"
+                "quantization options apply only to Config.from_layer",
+                stacklevel=3)
+        self._layer = translated.layer
+        self._bf16 = translated.bf16
+        self._state = {**dict(self._layer.named_parameters()),
+                       **dict(self._layer.named_buffers())}
+        for i, (shape, _) in enumerate(translated._meta["input_spec"]):
+            self._inputs[f"x{i}"] = _Handle(f"x{i}", shape)
 
     def _init_from_layer(self, config: Config):
         from ..slim import quantize_weights
-        layer = config.layer
+        layer = self._layer = config.layer
         layer.eval()
         if config._weight_quant:
             quantize_weights(layer)
@@ -168,24 +205,12 @@ class Predictor:
                       else v for k, v in params.items()}
         self._state = {**params, **{k: b.detach().clone()
                                     for k, b in layer.named_buffers()}}
-        self._device = next(layer.parameters()).device
         for i, s in enumerate(config.input_spec):
             # an object with .shape (the JAX InputSpec) or the shape
             self._inputs[f"x{i}"] = _Handle(f"x{i}", getattr(s, "shape", s))
 
     def _runner(self, *raw):
-        inputs = []
-        for a in raw:
-            t = torch.as_tensor(a).to(self._device)
-            if self._bf16 and t.is_floating_point():
-                t = t.to(torch.bfloat16)
-            inputs.append(t)
-        with torch.inference_mode():
-            out = functional_call(self._config.layer, self._state,
-                                  tuple(inputs))
-        outs = list(out) if isinstance(out, (tuple, list)) else [out]
-        return [o.float() if self._bf16 and o.is_floating_point() else o
-                for o in outs]
+        return run_layer(self._layer, self._state, raw, self._bf16)
 
     # -- API surface ---------------------------------------------------------
     def get_input_names(self) -> List[str]:
@@ -221,9 +246,18 @@ class Predictor:
         return outs if inputs is not None else None
 
     def save_optimized_model(self, path: str):
-        raise NotImplementedError(
-            "save_optimized_model waits for the port of jit.save and io "
-            "(ROADMAP Queue 1)")
+        """Write what this predictor runs as a ``jit.save`` bundle at
+        ``path``: its quantized ``Linear``s, and under
+        ``enable_tpu_bf16`` its bf16 weights, so a ``Config(path)``
+        predictor gives this one's outputs. The JAX method casts the
+        caller's live layer to bf16 in place before it saves; the port
+        saves the predictor's own copy and leaves the layer as it is.
+        The saved bundle is the same."""
+        if self._config.layer is None:
+            raise ValueError("already a serialized executable")
+        from ..jit.save_load import save as jsave
+        jsave(self._layer, path, input_spec=self._config.input_spec,
+              state=self._state)
 
 
 def create_predictor(config: Config) -> Predictor:
@@ -238,9 +272,9 @@ def create_serving_engine(config_or_layer, serving_config=None,
     ``slim.quantize_weights`` first (GPT keeps its weights as raw
     parameters, so no layer of it is quantized, as in the JAX package).
     ``enable_tpu_bf16()`` has the engine copy its parameters in bfloat16
-    and leaves the layer untouched, as the JAX entry does; the engine
-    then needs ``ServingConfig(cache_dtype="bfloat16")`` and refuses
-    anything else (see ``ServingEngine``)."""
+    and leaves the layer untouched, as the JAX entry does; the pools
+    keep ``ServingConfig.cache_dtype`` (float32 by default) or int8
+    under ``serve_kv_quant`` (see ``ServingEngine``)."""
     from ..serving import ServingConfig, ServingEngine
     param_dtype = None
     if isinstance(config_or_layer, Config):
@@ -248,6 +282,10 @@ def create_serving_engine(config_or_layer, serving_config=None,
         if cfg._precision == PrecisionType.Bfloat16:
             param_dtype = torch.bfloat16
         layer = cfg.layer
+        if layer is None:
+            raise ValueError(
+                "create_serving_engine needs a live layer "
+                "(Config.from_layer), not a saved bundle")
         if cfg._weight_quant:
             from ..slim import quantize_weights
             quantize_weights(layer)

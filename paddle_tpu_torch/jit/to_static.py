@@ -14,7 +14,12 @@ The step owns its dropout generator (a CPU ``torch.Generator`` seeded
 from ``seed``): every dropout of the forward draws its seed words from
 it, so a run repeats itself from the same seed and resumes exactly from
 ``state_dict()``, which holds the parameters, the optimizer's slots, the
-step count and the generator's state.
+step count and the generator's state. ``state_dict()`` is host
+numpy, as the JAX package's is (bf16 widened to float32, the
+generator's state as a ``uint8`` array); ``save(path)`` /
+``load(path)`` write and read it through ``framework.save`` / ``load``,
+so a run resumed in another process repeats the uninterrupted one bit
+for bit.
 
 Not ported: the mesh and its shardings, gradient accumulation, the
 monitor hooks, and capturing the step in a CUDA graph.
@@ -28,6 +33,9 @@ import numpy as np
 import torch
 
 from ..core.random import dropout_generator
+from ..framework.io import load as fload
+from ..framework.io import save as fsave
+from ..framework.io import to_numpy
 
 __all__ = ["TrainStep"]
 
@@ -67,18 +75,29 @@ class TrainStep:
     # -- checkpoint/resume -------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
         return {
-            "params": {k: v.detach().cpu().clone()
+            "params": {k: to_numpy(v)
                        for k, v in self.layer.state_dict().items()},
-            "opt_state": self.optimizer.state_dict(),
+            "opt_state": {k: to_numpy(v) if isinstance(v, torch.Tensor)
+                          else v
+                          for k, v in self.optimizer.state_dict().items()},
             "step_count": self.step_count,
-            "rng_state": self.generator.get_state(),
+            "rng_state": to_numpy(self.generator.get_state()),
             "lr": self.optimizer.get_lr(),
         }
 
     @torch.no_grad()
     def set_state_dict(self, state: Dict[str, Any]) -> None:
-        self.layer.load_state_dict(state["params"])
-        self.optimizer.set_state_dict(state["opt_state"])
+        def tensors(d):
+            return {k: torch.as_tensor(v) if isinstance(v, np.ndarray)
+                    else v for k, v in d.items()}
+        self.layer.load_state_dict(tensors(state["params"]))
+        self.optimizer.set_state_dict(tensors(state["opt_state"]))
         self.optimizer.set_lr(state["lr"])
         self.step_count = int(state["step_count"])
-        self.generator.set_state(state["rng_state"])
+        self.generator.set_state(torch.as_tensor(state["rng_state"]))
+
+    def save(self, path: str) -> None:
+        fsave(self.state_dict(), path)
+
+    def load(self, path: str) -> None:
+        self.set_state_dict(fload(path))

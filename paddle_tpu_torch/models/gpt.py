@@ -174,11 +174,19 @@ class GPTAttention(nn.Module):
             else:
                 kc = gather_context(cache.k_pages, ctx)
                 vc = gather_context(cache.v_pages, ctx)
-            return context_attention(q, kc, vc, ctx.bias)
+            # the flash kernel takes one dtype: the promotion of the
+            # JAX composition's einsums (bf16 q over f32 context: f32)
+            ct = torch.promote_types(q.dtype, kc.dtype)
+            return context_attention(q.to(ct), kc.to(ct), vc.to(ct),
+                                     ctx.bias).to(q.dtype)
         if q.shape[1] > 1:
             return sdpa_array(q, k, v, is_causal=True)
         scale = 1.0 / math.sqrt(self.head_dim)
-        q1 = q[:, 0].contiguous()
+        # the decode kernels read q in the pools' dtype (float32 over
+        # int8 pools) and the output returns in q's, as the JAX kernel
+        # lifts q and the pages to f32 and writes q's dtype
+        q1 = q[:, 0].to(torch.float32 if quant else cache.k_pages.dtype)
+        q1 = q1.contiguous()
         if quant:
             o = paged_decode_attention_quant(
                 q1, cache.k_pages, cache.k_scale, cache.v_pages,
@@ -186,7 +194,7 @@ class GPTAttention(nn.Module):
         else:
             o = paged_decode_attention(q1, cache.k_pages, cache.v_pages,
                                        cache.block_table, pos, scale)
-        return o[:, None]
+        return o.to(q.dtype)[:, None]
 
 
 class GPTMLP(nn.Module):

@@ -32,7 +32,10 @@ makes exactly the dispatches it made without them.
 
 ``ServingConfig.cache_dtype`` is ``"float32"`` or ``"bfloat16"``; a
 bf16 engine (``inference.create_serving_engine`` under
-``enable_tpu_bf16``) serves bf16 parameters over bf16 pools.
+``enable_tpu_bf16``) serves bf16 parameters over bf16, float32 or int8
+pools, as the JAX engine does: the KV scatter casts k and v to the
+pools' dtype, and the model casts q to it at the kernels and the
+output back. Float32 parameters over bf16 pools are refused.
 
 Multi-tenant serving: an engine built under ``flag_scope(
 "serve_kv_quant", "int8")`` keeps int8 pools and decodes through the
@@ -138,22 +141,22 @@ class ServingConfig:
 
 
 def _check_dtypes(params: Dict[str, torch.Tensor], cache_dtype: str):
-    """The kernels take q and the pools in one dtype, float32 over int8
-    pools: refuse a parameter copy whose floating dtype differs, rather
-    than fail at the first decode on the card (and a bf16 engine never
-    upcasts its pools)."""
-    quant = str(get_flag("serve_kv_quant") or "")
-    want = torch.float32 if quant else _CACHE_DTYPES[cache_dtype]
-    got = {p.dtype for p in params.values() if p.is_floating_point()}
-    if got - {want}:
+    """Refuse a float32 parameter copy over bfloat16 pools. The model
+    casts a bf16 copy's q to the pools' dtype at the decode kernels,
+    exactly, and the output back (``GPTAttention._paged_attention``);
+    but the bf16 decode kernel would round a float32 q to bf16, where
+    the JAX kernel lifts q and the pages to f32, so the tokens would
+    not be the JAX engine's."""
+    if get_flag("serve_kv_quant") or cache_dtype != "bfloat16":
+        return
+    wide = {p.dtype for p in params.values() if p.is_floating_point()
+            and torch.finfo(p.dtype).bits > 16}
+    if wide:
         raise ValueError(
-            f"parameters in {sorted(map(str, got))} over "
-            + (f"serve_kv_quant={quant!r} pools, which take float32 "
-               "queries" if quant else f"cache_dtype={cache_dtype!r} "
-               "pools")
-            + ": the parameter copy and the pools are served in one "
-            "dtype (a bf16 engine: param_dtype=torch.bfloat16 with "
-            "ServingConfig(cache_dtype='bfloat16'))")
+            f"parameters in {sorted(map(str, wide))} over "
+            f"cache_dtype={cache_dtype!r} pools: the bf16 decode kernel "
+            "would round q to bf16 (serve bf16 pools with "
+            "param_dtype=torch.bfloat16, or keep cache_dtype='float32')")
 
 
 class ServingEngine:

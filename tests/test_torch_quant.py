@@ -24,6 +24,8 @@ they also run where JAX is not installed::
 On the CPU: ``JAX_PLATFORMS=cpu python -m pytest tests/test_torch_quant.py``.
 """
 
+import contextlib
+import dataclasses
 import math
 
 import numpy as np
@@ -666,10 +668,11 @@ def test_predictors_keep_the_weights_they_were_built_with(mode):
                               got)
 
 
-def test_predictor_handles_and_config_surface():
+def test_predictor_handles_and_config_surface(tmp_path):
     """The zero-copy handle surface gives what run([arrays]) gives; an
-    unset input raises; a model path and save_optimized_model wait for
-    jit.save/io."""
+    unset input raises; save_optimized_model writes a bundle that a
+    Config(model_path) predictor runs to the same scores, and a path
+    with no bundle raises."""
     _, pm = _bert_pair(ALIGNED)
     batch = _bert_batch(ALIGNED["vocab_size"])
     cfg = inference.Config.from_layer(pm, [a.shape for a in batch])
@@ -691,10 +694,14 @@ def test_predictor_handles_and_config_surface():
     assert pred.run() is None
     out = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
     np.testing.assert_array_equal(out, pred.run(list(batch))[0])
-    with pytest.raises(NotImplementedError, match="jit.save"):
-        inference.Config("some/model")
-    with pytest.raises(NotImplementedError, match="jit.save"):
-        pred.save_optimized_model("some/model")
+    pred.save_optimized_model(str(tmp_path / "model"))
+    loaded = inference.create_predictor(
+        inference.Config(str(tmp_path / "model"), device="cpu"))
+    assert loaded.get_input_names() == names
+    np.testing.assert_array_equal(loaded.run(list(batch))[0], out)
+    with pytest.raises(FileNotFoundError):
+        inference.create_predictor(
+            inference.Config(str(tmp_path / "none"), device="cpu"))
 
 
 # -- 7. the AMP int8 linear ------------------------------------------------------------
@@ -818,13 +825,38 @@ def test_create_serving_engine_int8_quantizes_no_gpt_layer():
     out = eng.generate([[3, 4, 5]], max_new_tokens=2)
     assert len(out[0]) == 5
     cfg.enable_tpu_bf16()
-    # bf16 serving casts the engine's parameter copy and needs bf16 pools
-    with pytest.raises(ValueError, match="cache_dtype='bfloat16'"):
-        inference.create_serving_engine(cfg, sc, device="cpu")
-    sc.cache_dtype = "bfloat16"
-    eng = inference.create_serving_engine(cfg, sc, device="cpu")
-    assert {p.dtype for p in eng.params.values()} == {torch.bfloat16}
-    assert len(eng.generate([[3, 4, 5]], max_new_tokens=2)[0]) == 5
+    # bf16 serving casts the engine's parameter copy; the pools stay
+    # float32 by default, or int8 under serve_kv_quant, as in the JAX
+    # engine, whose greedy tokens the port's equal
+    from paddle_tpu import inference as jinf
+    from paddle_tpu.core.flags import flag_scope as jax_flag_scope
+    from paddle_tpu.serving import ServingConfig as JaxServingConfig
+    paddle.seed(0)
+    jm = JaxGPT(jax_gpt_tiny())
+    gpt = load_jax_weights(GPTForPretraining(gpt_tiny(), device="cpu"),
+                           _named(jm))
+    jcfg = jinf.Config.from_layer(jm, [])
+    jcfg.enable_int8()
+    jcfg.enable_tpu_bf16()
+    cfg = inference.Config.from_layer(gpt, [])
+    cfg.enable_int8()
+    cfg.enable_tpu_bf16()
+    prompts = [[3, 4, 5], [7, 1, 9, 2]]
+    for quant, pool in ((None, torch.float32), ("int8", torch.int8)):
+        with contextlib.ExitStack() as stack:
+            if quant:
+                stack.enter_context(jax_flag_scope("serve_kv_quant", quant))
+            je = jinf.create_serving_engine(jcfg, JaxServingConfig(
+                **dataclasses.asdict(sc)))
+        with contextlib.ExitStack() as stack:
+            if quant:
+                stack.enter_context(flag_scope("serve_kv_quant", quant))
+            eng = inference.create_serving_engine(cfg, sc, device="cpu")
+        assert {p.dtype for p in eng.params.values()} == {torch.bfloat16}
+        assert eng.cache.k.dtype == pool
+        ref = [o.tolist() for o in je.generate(prompts, max_new_tokens=4)]
+        got = [o.tolist() for o in eng.generate(prompts, max_new_tokens=4)]
+        assert got == ref, quant
 
 
 # -- 9. the kernel on the card -------------------------------------------------------------

@@ -772,34 +772,42 @@ def test_bf16_model_dtypes_follow_the_jax_model(wide):
         assert seen[name] == torch.bfloat16, name
 
 
-def test_bf16_and_pool_dtype_refusals():
-    """What the port does not take raises at the engine's construction,
-    on the CPU as on the card: a pool dtype the kernels do not read, a
-    parameter copy whose dtype is not the pools' (either way round), and
-    a bf16 copy over int8 pools; ``create_serving_engine`` reaches the
-    same refusals through the engine."""
+def test_bf16_and_pool_dtype_refusals(wide):
+    """bf16 parameters over float32 pools and over int8 pools serve, as
+    in the JAX engine (``create_serving_engine`` under
+    ``enable_tpu_bf16`` keeps the default float32 ``cache_dtype``): the
+    greedy tokens equal the JAX engine's, exactly, in both. What the
+    port still refuses raises at the engine's construction, on the CPU
+    as on the card: a pool dtype the kernels do not read, and a float32
+    parameter copy over bf16 pools (the bf16 decode kernel would round
+    q)."""
+    from paddle_tpu import inference as jinf
     model = GPTForPretraining(gpt_tiny(**TINY), device="cpu")
     with pytest.raises(ValueError, match="cache_dtype"):
         ServingEngine(model, ServingConfig(cache_dtype="float16"),
                       device="cpu")
-    with pytest.raises(ValueError, match="one dtype"):
+    with pytest.raises(ValueError, match="round q"):
         ServingEngine(model, ServingConfig(cache_dtype="bfloat16"),
                       device="cpu")
-    with pytest.raises(ValueError, match="one dtype"):
-        ServingEngine(model, ServingConfig(), device="cpu",
-                      param_dtype=torch.bfloat16)
-    engine = ServingEngine(model, ServingConfig(cache_dtype="bfloat16"),
-                           device="cpu", param_dtype=torch.bfloat16)
-    assert {p.dtype for p in engine.params.values()} == {torch.bfloat16}
-    assert {p.dtype for p in model.parameters()} == {torch.float32}
-    cfg = inference.Config.from_layer(model, [])
-    cfg.enable_tpu_bf16()
-    with pytest.raises(ValueError, match="bfloat16"):
-        inference.create_serving_engine(cfg, ServingConfig(), device="cpu")
-    with flag_scope("serve_kv_quant", "int8"), \
-            pytest.raises(ValueError, match="serve_kv_quant"):
-        inference.create_serving_engine(
-            cfg, ServingConfig(cache_dtype="bfloat16"), device="cpu")
+    jax_model, port_model = wide
+    prompts = _prompt_set(3)
+    for quant, pool in ((None, torch.float32), ("int8", torch.int8)):
+        flags = {"serve_kv_quant": quant} if quant else {}
+        with _flags(jax_flag_scope, flags):
+            jcfg = jinf.Config.from_layer(jax_model, [])
+            jcfg.enable_tpu_bf16()
+            je = jinf.create_serving_engine(jcfg, JaxServingConfig(**SMALL))
+        with _flags(flag_scope, flags):
+            tcfg = inference.Config.from_layer(port_model, [])
+            tcfg.enable_tpu_bf16()
+            te = inference.create_serving_engine(
+                tcfg, ServingConfig(**SMALL), device="cpu")
+        assert {v.dtype for v in te.params.values()} == {torch.bfloat16}
+        assert te.cache.k.dtype == pool
+        ref = _generate(je, prompts, False, max_new_tokens=6)
+        assert _generate(te, prompts, False, max_new_tokens=6) == ref, quant
+        for k in COUNTERS:
+            assert te._stats[k] == je._stats[k], k
 
 
 def test_flags_off_engine_issues_no_new_dispatch_kinds(wide, monkeypatch):
