@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Eighteen phases, in order:
+result line. Nineteen phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -168,17 +168,50 @@ result line. Eighteen phases, in order:
               queue's library builds with g++ into
               ``paddle_tpu_torch/_build/``; the phase prints which queue
               served;
-18. summary -- print one JSON line describing every ported kernel, then
+18. monitor -- the monitor plane (``paddle_tpu_torch.monitor``,
+              ``.testing.chaos``, ``.profiler``, ``.cost_model``): (a)
+              phase 3's f32 engine and requests run off, on, on, off,
+              twice (on: ``FLAGS_monitor``, ``FLAGS_trace`` at sample 1.0,
+              ``FLAGS_flight_recorder``, the admin plane on an
+              ephemeral 127.0.0.1 port, an availability SLO and chaos
+              ``serve.request.poison@3``): the poisoned request fails
+              alone with non-finite logits, the other 15 give the off
+              run's tokens (near-ties under ``TIE_GAP``),
+              ``serve_requests_total`` equals the scheduler's counts and
+              ``serve_ttft_seconds`` counts the requests that had a
+              first token, a ``/metrics`` scrape passes the exposition
+              lint, ``/healthz`` and ``/readyz`` answer 200, the poisoned
+              requests' traces are kept with anomaly ``chaos`` and
+              exported to Perfetto, the flight ring holds
+              ``request_failed``; decode p50/p99, tokens/s and the
+              device busy share off and on; (b) phase 10's BERT-base
+              step with each monitor feature alone and all together
+              against none, then eight DataLoader-fed steps (two
+              workers) under ``FLAGS_monitor``, ``FLAGS_train_goodput``,
+              ``FLAGS_train_health_every=2``, ``check_numerics="warn"``,
+              ``skip_nonfinite_budget=1`` and chaos ``grad.nonfinite@4``:
+              the fourth step skipped with every parameter, slot and the
+              step count bit-identical, one ``nonfinite_skips_total``,
+              the goodput buckets summing to the run's wall time within
+              1% with ``data_wait`` above 0, every
+              ``train_layer_grad_norm`` finite, no ``LeakMonitor``
+              growth over steps 5-8, the memory summary and census, a
+              profiler window over steps 6-7 whose chrome trace names
+              the hand-written kernels, and the cost model's count of
+              one step (the kernel wrappers' own counts included) beside
+              the analytic FLOPs, with exact launch counts;
+19. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
 13, 14 and 15, before each engine of phase 16, before the fed run of
-phase 17 and before each predictor of phases 12 and 17, and read just
-after (a witness's reference runs are taken back out of them); the
-kernel JSON line gives each kernel's launches per path (``serve``,
-``mt``, ``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``,
-``bf16_serve``, ``chat``, ``bf16_pools``, ``io_train``,
-``io_predict``). Each phase prints its seconds, and the run its total.
+phase 17, before each predictor of phases 12 and 17 and before each
+half of phase 18, and read just after (a witness's reference runs are
+taken back out of them); the kernel JSON line gives each kernel's
+launches per path (``serve``, ``mt``, ``train``, ``bert``, ``ernie``,
+``predict``, ``amp_int8``, ``bf16_serve``, ``chat``, ``bf16_pools``,
+``io_train``, ``io_predict``, ``monitor_serve``, ``monitor_train``).
+Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
@@ -3043,6 +3076,482 @@ def phase_io(bert_step_s: float):
     return train, predict
 
 
+# -- phase 18: the monitor plane ------------------------------------------------
+# the hand-written kernels phase 19's profiler window must name (rows 2,
+# 4, 5, 6, 7, 8 in bf16 at BERT-base O1): their __global__ functions
+MONITOR_TRAIN_KERNELS = ("flash_fwd_tc_kernel", "dq_tc_kernel",
+                         "dkv_tc_kernel", "lse_kernel", "dlogits_kernel",
+                         "dropout_kernel")
+MONITOR_TRAIN_STEPS = 8
+# timed steps a configuration in the per-feature step-time table, and
+# the table's passes (forward, then reverse order)
+FEATURE_STEPS = 8
+FEATURE_PASSES = 2
+# the serving "all on" run's flags (its admin plane on an ephemeral
+# 127.0.0.1 port), read when the engine is built and at every submit
+MONITOR_SERVE_FLAGS = {"monitor": True, "trace": True, "trace_sample": 1.0,
+                       "flight_recorder": True, "monitor_port": -1}
+# the serving runs off and all on, interleaved (one engine's runs spread
+# by 10-20% on this host, so the comparison takes several a side)
+MONITOR_SERVE_ORDER = ("off", "on", "on", "off") * 2
+
+
+@contextlib.contextmanager
+def _flags(flags: dict):
+    from paddle_tpu_torch.core import flag_scope
+    with contextlib.ExitStack() as stack:
+        for name, value in flags.items():
+            stack.enter_context(flag_scope(name, value))
+        yield
+
+
+def _monitor_serve_run(engine, specs, on: bool):
+    """One run of phase 3's requests through ``engine``: with ``on`` the
+    monitor flags set and the third request poisoned. Returns the
+    states, the summary, the run's registry, the scheduler's counts of
+    the run and, for an on run, the admin plane's answers after it
+    (``_scrape``; the server reads the run's registry)."""
+    from paddle_tpu_torch.monitor import scoped_registry
+    from paddle_tpu_torch.serving import Request, SamplingParams
+    from paddle_tpu_torch.testing import chaos
+    before = dict(engine.scheduler.stats)
+    with _flags(MONITOR_SERVE_FLAGS if on else {}), \
+            scoped_registry() as reg:
+        if on:
+            chaos.configure("serve.request.poison@3", seed=0)
+        # this run's latencies only
+        engine._lat = {k: [] for k in engine._lat}
+        engine._t_first_work = engine._t_last_token = None
+        states = [engine.submit(Request(p, max_new_tokens=new,
+                                        sampling=SamplingParams()))
+                  for p, new in specs]
+        engine.run()
+        chaos.reset()
+        scrape = _scrape() if on else None
+    sched = {k: v - before[k] for k, v in engine.scheduler.stats.items()}
+    # the engine's counters run over its lifetime: this run's tokens/s
+    # from this run's requests
+    summary = dict(engine.metrics_summary())
+    summary["tokens_per_sec"] = sum(len(st.generated) for st in states) \
+        / summary["elapsed_s"]
+    return (states, summary, reg, sched, scrape,
+            list(engine._lat["decode_step"]))
+
+
+def _registry_write_us() -> str:
+    """Microseconds a registry counter write and histogram observe take
+    on this host, each the median of 5 batches of 20000."""
+    import numpy as np
+    from paddle_tpu_torch.monitor import MetricsRegistry
+    reg = MetricsRegistry()
+    out = []
+    for name, fn in (
+            ("counter", lambda: reg.counter(
+                "serve_tokens_generated_total", "tokens").inc()),
+            ("histogram", lambda: reg.histogram(
+                "serve_ttft_seconds", "ttft").observe(0.01, exemplar=None))):
+        batches = []
+        for _ in range(5):
+            t = time.perf_counter()
+            for _ in range(20000):
+                fn()
+            batches.append((time.perf_counter() - t) / 20000 * 1e6)
+        out.append(f"{name} {np.median(batches):.3f} us")
+    return ", ".join(out)
+
+
+def _scrape() -> dict:
+    """The admin plane's endpoints, each as (status, body, ms)."""
+    from paddle_tpu_torch.monitor import server
+    srv = server.get_server()
+    _require(srv is not None, "monitor serve: no admin server")
+    out = {}
+    for path in ("/metrics", "/healthz", "/readyz", "/statusz",
+                 "/debug/flight"):
+        t = time.perf_counter()
+        code, body = _http_get(f"http://127.0.0.1:{srv.port}{path}")
+        out[path] = (code, body, (time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _http_get(url: str):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _monitor_serve(tmp: str) -> dict:
+    """(a) Phase 3's engine and requests run off and on in
+    ``MONITOR_SERVE_ORDER``. The on
+    runs must fail the poisoned request alone, agree with the off run's
+    tokens (near-ties under ``TIE_GAP``), count their requests as the
+    scheduler does, and leave a lint-clean scrape, a kept chaos trace, a
+    Perfetto file and a ``request_failed`` flight event."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+    from paddle_tpu_torch.monitor import (flight_recorder, lint_exposition,
+                                          server, trace)
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    cfg = gpt2_medium()
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    off = ServingEngine(model, ServingConfig(**SERVE_CFG), device="cuda")
+    with _flags(MONITOR_SERVE_FLAGS):
+        on = ServingEngine(model, ServingConfig(slo_availability=0.99,
+                                                **SERVE_CFG),
+                           device="cuda")
+    off.warmup()
+    on.warmup()
+    specs = _slice_specs(cfg.vocab_size)
+    # one untimed run through each engine first: a first run pays for
+    # cuBLAS's and the allocator's first-use work
+    for eng, flags in ((off, {}), (on, MONITOR_SERVE_FLAGS)):
+        with _flags(flags):
+            _monitor_serve_run(eng, specs, False)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    runs = {"off": [], "on": []}
+    for tag in MONITOR_SERVE_ORDER:
+        runs[tag].append(_monitor_serve_run(
+            on if tag == "on" else off, specs, tag == "on"))
+    torch.cuda.synchronize()
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    L = cfg.num_layers
+    _log(f"monitor serve: launches over the {len(MONITOR_SERVE_ORDER)} "
+         f"runs {launches}")
+    _require(launches["flash_attention_fwd"] > 0
+             and launches["paged_decode_attention"] > 0
+             and launches["paged_decode_attention"] % L == 0,
+             "monitor serve: rows 1 (f32) and 9 were not launched")
+    ref_states = runs["off"][0][0]
+    _require(all(st.outcome == "completed" for r in runs["off"]
+                 for st in r[0]), "monitor serve: an off request failed")
+    for i, (states, summary, reg, sched, scrape, _) in enumerate(
+            runs["on"]):
+        failed = [st for st in states if st.outcome == "failed"]
+        _require(len(failed) == 1 and failed[0] is states[2]
+                 and "non-finite logits" in (failed[0].failure or ""),
+                 "monitor serve: failures " + str(
+                     [(s.request.request_id, s.failure) for s in failed]))
+        done = [st for st in states if st.outcome == "completed"]
+        _require(len(done) == NUM_REQUESTS - 1,
+                 f"monitor serve: {len(done)} completed")
+        same = sum(a.generated == b.generated
+                   for a, b in zip(ref_states, states)
+                   if b.outcome == "completed")
+        _log(f"monitor serve: on run {i + 1}: {same} of {len(done)} "
+             "completed requests give the off run's tokens exactly")
+        if same < len(done):
+            _teacher_forced("monitor serve", model, done, TIE_GAP)
+        events = {lab["event"]: int(v) for lab, v in
+                  reg.get("serve_requests_total").samples()}
+        _require(events == {k: sched[k] for k in events} == {
+            "submitted": NUM_REQUESTS, "completed": NUM_REQUESTS - 1,
+            "failed": 1},
+            f"monitor serve: serve_requests_total {events}, scheduler "
+            f"{sched}")
+        first = sum(1 for st in states if st.first_token_t is not None)
+        ttft = reg.get("serve_ttft_seconds").count()
+        _require(ttft == first == NUM_REQUESTS - 1,
+                 f"monitor serve: serve_ttft_seconds count {ttft}, "
+                 f"{first} requests had a first token")
+        code, text, scrape_ms = scrape["/metrics"]
+        lint = lint_exposition(text)
+        _require(code == 200 and not lint and 'serve_requests_total{event='
+                 '"failed"} 1' in text,
+                 f"monitor serve: /metrics {code}, lint {lint[:3]}")
+        codes = {p: v[0] for p, v in scrape.items()}
+        _require(all(c == 200 for c in codes.values()),
+                 f"monitor serve: admin plane {codes}")
+        _log(f"monitor serve: on run {i + 1}: /metrics {len(text)} bytes in "
+             f"{scrape_ms:.2f} ms (scraped after the run's timed window), "
+             f"exposition lint clean; " + ", ".join(
+                 f"{p} {v[0]} in {v[2]:.2f} ms" for p, v in scrape.items()))
+    _log(f"monitor serve: serve_requests_total {events}, as the "
+         f"scheduler's counts of the run {sched}")
+    kept = [d for d in trace.get_tracer().snapshot()
+            if d.get("anomaly") == "chaos"]
+    n_on = MONITOR_SERVE_ORDER.count("on")
+    _require(len(kept) == n_on and all(
+        d["spans"][0]["attrs"].get("outcome") == "failed" for d in kept),
+        f"monitor serve: {len(kept)} chaos traces kept")
+    path = trace.export_perfetto(os.path.join(tmp, "serve_trace.json"))
+    n_retained = len(trace.get_tracer().retained())
+    events_fr = [e["event"] for e in
+                 flight_recorder.get_flight_recorder().events]
+    _require(events_fr.count("request_failed") == n_on,
+             f"monitor serve: flight events {events_fr}")
+    _log(f"monitor serve: {n_retained} traces retained, the {n_on} "
+         f"poisoned requests' with anomaly 'chaos'; Perfetto file "
+         f"{os.path.getsize(path)} bytes; flight ring events {events_fr}")
+    for tag in ("off", "on"):
+        s = [r[1] for r in runs[tag]]
+        pooled = np.concatenate([r[5] for r in runs[tag]])
+        tps = [x["tokens_per_sec"] for x in s]
+        _log(f"monitor serve: {tag}, runs in order: tokens/s "
+             + ", ".join(f"{x:.2f}" for x in tps)
+             + f" (median {np.median(tps):.2f}); decode p50 " + ", ".join(
+                 _ms(x["decode_step_p50_s"]) for x in s)
+             + "; decode p99 " + ", ".join(
+                 _ms(x["decode_step_p99_s"]) for x in s)
+             + f"; over all {len(pooled)} decode steps p50 "
+             f"{_ms(float(np.percentile(pooled, 50)))}, p99 "
+             f"{_ms(float(np.percentile(pooled, 99)))}")
+    busy_off = _profile_serve("monitor serve off", off, specs)
+    with _flags(MONITOR_SERVE_FLAGS):
+        busy_on = _profile_serve("monitor serve on", on, specs)
+    _log(f"monitor serve: device busy share off {100 * busy_off:.2f}%, "
+         f"on {100 * busy_on:.2f}% (one more run of each, no poison)")
+    _log("monitor serve: host cost of one registry write "
+         + _registry_write_us() + " (lookup by name plus the locked "
+         "update; the engine does a few a token and a few a dispatch)")
+    on.shutdown()
+    off.shutdown()
+    server.stop_server()
+    del on, off, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# each feature alone, then all together, for the step-time table
+MONITOR_FEATURES = (
+    ("none", {}, False),
+    ("monitor", {"monitor": True}, False),
+    ("trace", {"trace": True, "trace_sample": 1.0}, False),
+    ("flight_recorder", {"flight_recorder": True}, False),
+    ("train_goodput", {"train_goodput": True}, False),
+    ("train_health_every=2", {"train_health_every": 2}, False),
+    ("check_numerics", {}, True),
+    ("all", {"monitor": True, "trace": True, "trace_sample": 1.0,
+             "flight_recorder": True, "train_goodput": True,
+             "train_health_every": 2}, True),
+    ("none", {}, False),
+)
+
+
+def _feature_step_ms(step, batch, flags: dict, check: bool) -> float:
+    """Mean step time over ``FEATURE_STEPS`` steps queued back to back
+    (one sync at the end, so a feature's own syncs show), after one
+    warm step."""
+    import torch
+    step._check_numerics = "warn" if check else False
+    with _flags(flags):
+        step(*batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FEATURE_STEPS):
+            loss = step(*batch)
+        float(loss)
+        ms = (time.perf_counter() - t0) / FEATURE_STEPS * 1e3
+    step._check_numerics = False
+    return ms
+
+
+def _monitor_features() -> None:
+    """Phase 10's BERT-base step on a resident batch with each monitor
+    feature alone and all together, against none, in one run: the
+    table twice, forward and in reverse order."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.monitor import goodput, scoped_registry
+    _, _, step, batch = _encoder_setup("bert")
+    with _flags({"monitor": True}), scoped_registry():
+        step(*batch)                    # the monitored step's attribution
+    torch.cuda.synchronize()
+    rows = {}
+    order = list(MONITOR_FEATURES)
+    for p in range(FEATURE_PASSES):
+        for name, flags, check in (order if p % 2 == 0 else order[::-1]):
+            goodput.reset()
+            with scoped_registry():
+                rows.setdefault(name, []).append(
+                    _feature_step_ms(step, batch, flags, check))
+    goodput.reset()
+    none = float(np.median(rows["none"]))
+    _log(f"monitor train: step ms with each feature ({FEATURE_STEPS} steps "
+         f"queued back to back, one sync; {FEATURE_PASSES} passes, forward "
+         "and reverse): " + "; ".join(
+             f"{n} " + "/".join(f"{x:.2f}" for x in v)
+             + f" (median {np.median(v):.2f}, "
+             f"{100 * (np.median(v) / none - 1):+.1f}% on none)"
+             for n, v in rows.items()))
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _state_snapshot(step):
+    """Clones of every parameter and optimizer slot, and the step count."""
+    return ([p.detach().clone() for p in step.layer.parameters()],
+            [s.clone() for slots in step.optimizer._accumulators.values()
+             for s in slots], step.step_count)
+
+
+def _same_state(a, b) -> bool:
+    import torch
+    return a[2] == b[2] and len(a[0]) == len(b[0]) and all(
+        torch.equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1]))
+
+
+def _monitor_train(tmp: str) -> dict:
+    """(b) Eight DataLoader-fed BERT-base O1 steps with the monitor on,
+    the goodput ledger, layer health every 2 steps, the watchdog in warn
+    mode with a budget of one skip and ``grad.nonfinite@4``: the fourth
+    step is skipped with the state bit-identical, the ledger sums to the
+    run's wall time, every layer's gradient norm is finite, no leak over
+    steps 5-8, a profiler window over steps 6-7 names the hand-written
+    kernels, and the first step's cost count beside the analytic
+    FLOPs."""
+    import warnings
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch import profiler as prof
+    from paddle_tpu_torch.monitor import (LeakMonitor, goodput,
+                                          live_buffer_census, memory_summary,
+                                          scoped_registry)
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.testing import chaos
+    records = _Records(range(MONITOR_TRAIN_STEPS), 30528)
+    loader = io.DataLoader(records, batch_size=BERT_B, num_workers=2,
+                           prefetch_factor=2, places="cuda")
+    flags = {"monitor": True, "train_goodput": True,
+             "train_health_every": 2}
+    trace_dir = os.path.join(tmp, "profile")
+    window = prof.Profiler(scheduler=(5, 7),
+                           on_trace_ready=prof.export_chrome_tracing(
+                               trace_dir))
+    leak = LeakMonitor(window=3)
+    torch.cuda.synchronize()
+    with _flags(flags), scoped_registry() as reg, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        goodput.reset()
+        t_start = time.perf_counter()
+        goodput.active_ledger()
+        cfg, _, step, _ = _encoder_setup("bert")
+        step._check_numerics = "warn"
+        step.skip_nonfinite_budget = 1
+        chaos.configure("grad.nonfinite@4")
+        t_build = time.perf_counter() - t_start
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        it = iter(loader)
+        t_fill = time.perf_counter() - t
+        window.start()
+        losses, skipped, leaked = [], None, False
+        for i in range(1, MONITOR_TRAIN_STEPS + 1):
+            batch = next(it)
+            before = _state_snapshot(step) if i == 4 else None
+            losses.append(float(step(*batch)))
+            if before is not None:
+                skipped = _same_state(before, _state_snapshot(step))
+                del before
+            if i >= 5:
+                leaked = leak.observe(step=i) or leaked
+            window.step()
+        window.stop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+        chaos.reset()
+        snap = goodput.get_ledger().snapshot()
+        stats = step.stats()
+        skips = reg.get("nonfinite_skips_total").value()
+        norms = [v for _, v in reg.get("train_layer_grad_norm").samples()]
+        census = live_buffer_census(step)
+        summary = memory_summary(step)
+    _log("monitor train: losses " + " ".join(f"{x:.4f}" for x in losses)
+         + f"; step_count {step.step_count}")
+    _require(np.isnan(losses[3]) and all(
+        math.isfinite(x) for j, x in enumerate(losses) if j != 3),
+        f"monitor train: losses {losses}")
+    _require(skipped is True, "monitor train: the skipped step changed the "
+             "parameters, the slots or the step count")
+    _require(step.step_count == MONITOR_TRAIN_STEPS - 1 and skips == 1
+             and stats["nonfinite_skips"] == 1,
+             f"monitor train: step_count {step.step_count}, "
+             f"nonfinite_skips_total {skips}")
+    _require(any("update skipped" in str(w.message) for w in caught),
+             "monitor train: the skip was not warned")
+    total = sum(snap["buckets"].values())
+    _require(abs(total - wall) <= 0.01 * wall,
+             f"monitor train: goodput buckets {total:.3f} s against the "
+             f"run's {wall:.3f} s")
+    _require(snap["buckets"]["data_wait"] > 0, "monitor train: no data_wait")
+    _log(f"monitor train: goodput {snap['goodput_pct']:.2f}% of "
+         f"{snap['elapsed_s']:.3f} s (run {wall:.3f} s); buckets " + ", ".join(
+             f"{b} {v:.4f}" for b, v in snap["buckets"].items())
+         + f"; host_other holds the model's build ({t_build:.3f} s) and "
+         f"the loader's first fill in iter() ({t_fill:.3f} s, two spawned "
+         "workers), which the JAX DataLoader too leaves outside data_wait")
+    _require(norms and all(math.isfinite(x) for x in norms),
+             f"monitor train: layer grad norms {norms}")
+    _log(f"monitor train: {len(norms)} train_layer_grad_norm gauges, all "
+         f"finite ({min(norms):.4g} to {max(norms):.4g})")
+    _require(not leaked and leak.suspected == 0,
+             "monitor train: LeakMonitor saw growth over steps 5-8")
+    _log(f"monitor train: LeakMonitor over steps 5-8: no growth "
+         f"({leak._history})")
+    _log("monitor train: live_buffer_census " + json.dumps(census))
+    for ln in summary.splitlines():
+        _log(f"monitor train: {ln}")
+    want = _encoder_launches(cfg, MONITOR_TRAIN_STEPS)
+    _log(f"monitor train: launches over {MONITOR_TRAIN_STEPS} calls "
+         f"{launches}")
+    _require(launches == want, f"monitor train: launches {launches} != "
+             f"{want} (the skipped step launches what a step does)")
+    files = sorted(os.listdir(trace_dir))
+    _require(window.windows == 1 and files,
+             f"monitor train: profiler windows {window.windows}, {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: sorted(n for n in names if k in n)[:1]
+             for k in MONITOR_TRAIN_KERNELS}
+    _log(f"monitor train: profiler window over steps 6-7 ({len(names)} "
+         f"event names) names " + "; ".join(
+             f"{k}: {v[0][:70] if v else None}" for k, v in found.items()))
+    _require(all(found.values()), f"monitor train: kernels missing from "
+             f"the chrome trace: {[k for k, v in found.items() if not v]}")
+    prog = stats["programs"]["step"]
+    analytic = bert_flops_per_token(cfg) * BERT_B * BERT_S
+    _log(f"monitor train: CostModel count of the first step: "
+         f"{prog['flops']:.4e} FLOPs ({prog['torch_flops']:.4e} in torch "
+         f"operators, {prog['kernel_flops']:.4e} reported by the kernel "
+         f"wrappers: " + ", ".join(
+             f"{k} x{v['calls']} {v['flops']:.3e}"
+             for k, v in step._programs["step"]["kernels"].items())
+         + f"), {prog['bytes_accessed']:.4e} bytes, peak "
+         f"{(prog['peak_bytes'] or 0) / 2**30:.3f} GiB; analytic "
+         f"{analytic:.4e} FLOPs (bench.py's count, "
+         f"{bert_flops_per_token(cfg):.4e} a token), counted/analytic "
+         f"{prog['flops'] / analytic:.4f}; MFU gauge "
+         f"{stats['programs']['step']['mfu']}")
+    _require(prog["kernel_flops"] > 0 and prog["flops"] > 0,
+             "monitor train: the cost count saw no kernel")
+    del step, loader, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_monitor():
+    """The monitor plane on the f32 serving path and the DataLoader-fed
+    BERT-base training path. Returns the launches of each."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = _monitor_serve(tmp)
+        _monitor_features()
+        train = _monitor_train(tmp)
+    return serve, train
+
+
 # -- main --------------------------------------------------------------------
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
@@ -3091,6 +3600,8 @@ def main() -> int:
                                   bf16_serve)
     by_path["io_train"], by_path["io_predict"] = timed(
         "io", phase_io, bert_step_s)
+    by_path["monitor_serve"], by_path["monitor_train"] = timed(
+        "monitor", phase_monitor)
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

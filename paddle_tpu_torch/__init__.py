@@ -17,7 +17,9 @@ kernels; int8 inference (``inference``, ``slim``, ``nn.quant``) through
 the int8 matmul kernel. Models are saved and loaded as the JAX package
 saves them (``save`` / ``load``, ``jit.save`` / ``jit.load``,
 ``inference.Config(model_path)``, ``TrainStep.save`` / ``load``), and
-``io`` feeds a training loop from a dataset.
+``io`` feeds a training loop from a dataset. ``monitor``,
+``testing.chaos``, ``profiler`` and ``cost_model`` observe all of it
+with the JAX package's metric names, flags and fault-injection sites.
 """
 
 from .core import make_generator, resolve_device

@@ -8,7 +8,10 @@ serving throughput features ``serve_prefix_cache``,
 ``serve_prefill_chunk``, ``serve_spec_k``, ``serve_spec_ngram``); it has no
 kernel kill switches (the JAX package's
 ``pallas_*`` flags), because a kernel wrapper on the card launches its
-kernel or raises.
+kernel or raises. The monitor flags (``monitor``, ``trace``,
+``flight_recorder``, ``chaos``, ``monitor_port``, ``train_goodput``,
+``train_health_every`` and their companions) keep the JAX package's
+names and defaults.
 """
 
 from __future__ import annotations
@@ -137,3 +140,103 @@ define_flag("serve_spec_ngram", 3,
             "against the request's own prompt+generated history "
             "(prompt-lookup decoding); it backs off to shorter n-grams "
             "down to 1 before giving up on a slot for the iteration.")
+
+# -- the monitor plane (paddle_tpu_torch.monitor, .testing.chaos) -----------
+define_flag("monitor", False,
+            "Stream hot-path telemetry into the paddle_tpu_torch.monitor metrics "
+            "registry: per-step TrainStep wall/dispatch timings, compile/"
+            "recompile counters. "
+            "Off (default) = ZERO per-step registry writes on the train "
+            "step hot path (tests pin this). Eager collective tracing is "
+            "the check_numerics watchdog is its own TrainStep argument "
+            "and is not gated by this flag; the serving engine's "
+            "request metrics are always on.")
+define_flag("memory_preflight", "",
+            "OOM pre-flight check: when a TrainStep is built, compare the "
+            "bytes known before the first step (parameters, gradients, "
+            "optimizer slots; monitor.memory) against the card's free "
+            "memory (torch.cuda.mem_get_info) BEFORE step 1 runs. '' (default) = off; "
+            "'warn' = RuntimeWarning when the estimate exceeds the "
+            "budget; 'raise' = MemoryBudgetError. No-op when the budget "
+            "is unknown (CPU test backend) and no explicit limit is set.")
+define_flag("memory_preflight_limit_mb", 0,
+            "Explicit device-memory budget (MiB) for the pre-flight check; "
+            "0 = ask the card (torch.cuda.mem_get_info). Set it to a "
+            "target card's memory to answer 'will this config fit?' "
+            "from any machine.")
+define_flag("flight_recorder", False,
+            "Record every TrainStep into the crash flight recorder ring "
+            "buffer even with FLAGS_monitor off, and install the "
+            "unhandled-exception + faulthandler dump hooks at the first "
+            "TrainStep construction. (FLAGS_monitor on also records "
+            "steps; this flag adds the hooks and keeps recording when "
+            "the registry stream is off.)")
+define_flag("flight_recorder_dir", "",
+            "Directory for flight-recorder dump files "
+            "(flight_recorder_*.json); empty = current directory.")
+define_flag("flight_recorder_capacity", 256,
+            "Ring-buffer size of the flight recorder: how many recent "
+            "step records survive to a crash dump.")
+define_flag("chaos", "",
+            "Deterministic fault-injection spec for "
+            "paddle_tpu_torch.testing.chaos (tests, chip_smoke.py): "
+            "comma-separated 'site[@N|:prob][*times]' entries, e.g. "
+            "'ckpt.write.torn@2,collective.hang:0.1'. Empty (default) = "
+            "no injection, zero probe overhead.")
+define_flag("chaos_seed", 0,
+            "Seed for probability-based chaos sites: the same "
+            "(seed, site, occurrence) triple always makes the same "
+            "fire/no-fire decision, so chaos runs replay exactly.")
+define_flag("trace", False,
+            "Structured request/step tracing (monitor/trace.py): span "
+            "trees with trace ids through the serving request lifecycle "
+            "and the training step. Off (default) = zero span "
+            "allocations and zero trace registry writes — the same "
+            "zero-overhead contract as FLAGS_monitor, pinned by test.")
+define_flag("trace_sample", 0.01,
+            "Head sampling rate for structured traces (fraction of "
+            "traces retained at random). Tail-based sampling keeps any "
+            "trace containing an expired/shed/failed/watchdog/chaos/"
+            "nonfinite event REGARDLESS of this rate, so anomalies "
+            "always ship a full span tree.")
+define_flag("trace_ring", 64,
+            "Capacity of the retained-trace ring (flight-recorder "
+            "model: newest N traces survive to a dump/export).")
+define_flag("monitor_port", 0,
+            "TCP port for the embedded admin/telemetry HTTP server "
+            "(paddle_tpu_torch.monitor.server): GET /metrics (Prometheus "
+            "text with exemplars), /healthz, /readyz (503 while the "
+            "serving engine is draining/shedding/watchdog-tripped), "
+            "/statusz (fingerprint, flags, program table, occupancy, "
+            "rates, SLO burn), /debug/flight, /debug/trace "
+            "(?format=perfetto) and /debug/profile?seconds=N (arms a "
+            "live profiler window, returns the chrome trace). Started "
+            "by the serving engine and (opt-in) TrainStep when set; "
+            "-1 = an ephemeral OS-assigned port (tests). 0 (default) "
+            "= OFF: no thread, no socket, no registry writes — the "
+            "zero-overhead contract, pinned by test.")
+define_flag("monitor_host", "127.0.0.1",
+            "Bind address for the admin server. Loopback by default — "
+            "the plane exposes flags, program tables and profiles, so "
+            "exposing it beyond the host is an explicit operator "
+            "decision (front it with real auth if you must).")
+define_flag("train_goodput", False,
+            "Training goodput ledger (monitor/goodput.py): attribute "
+            "every second of trainer wall-clock to one exclusive "
+            "bucket (productive_dispatch / compile / data_wait / "
+            "checkpoint_stall / nonfinite_rollback / restart_gap / "
+            "host_other) and publish "
+            "train_goodput_pct + train_badput_seconds_total{bucket} "
+            "under FLAGS_monitor. Off (default) = one flag read per "
+            "seam, no ledger allocation, no registry series — the "
+            "zero-overhead contract.")
+define_flag("train_health_every", 0,
+            "Per-layer model-health telemetry cadence: N > 0 computes "
+            "f32 per-layer grad-norm / param-norm / update-ratio "
+            "on every Nth optimizer step (the update ratio from a copy "
+            "of the parameters taken before that step's update) and "
+            "publishes train_layer_* gauges, with an EWMA spike detector that "
+            "tail-marks the step trace (reason 'health_spike') and "
+            "attaches the last vector to flight-recorder dumps. "
+            "0 (default) = OFF: the step launches exactly what it did and "
+            "nothing is computed or published.")

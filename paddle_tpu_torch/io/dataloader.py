@@ -25,8 +25,9 @@ batch is used. On the CPU there is no pinning and no stream. Batches
 are torch tensors (``return_list`` either way: the port has no
 ``Tensor`` wrapper). ``places`` is the card unless ``"cpu"`` is passed.
 
-Not ported yet: the goodput ledger's ``data_wait`` span around the
-consumer's wait, which waits for the port of ``monitor/``.
+The consumer's wait for a batch is the goodput ledger's ``data_wait``
+bucket (``monitor.goodput.measure``, one flag read with
+``FLAGS_train_goodput`` off), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..monitor import goodput as _goodput
 from .dataset import IterableDataset
 from .sampler import BatchSampler
 
@@ -342,17 +344,19 @@ class _DevicePrefetcher:
             self.buffer.append(self._launch(batch))
 
     def __next__(self):
-        if not self.buffer:
-            raise StopIteration
-        out, pending = self.buffer.pop(0)
-        if pending is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(pending[0])
-            # memory allocated on the side stream, used on the
-            # consumer's: the allocator must not reuse it before then
-            _map(lambda t: t.record_stream(consumer), out)
-        self._fill()
-        return out
+        # the consumer-facing wait: the goodput ledger's data_wait
+        with _goodput.measure("data_wait"):
+            if not self.buffer:
+                raise StopIteration
+            out, pending = self.buffer.pop(0)
+            if pending is not None:
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(pending[0])
+                # memory allocated on the side stream, used on the
+                # consumer's: the allocator must not reuse it before then
+                _map(lambda t: t.record_stream(consumer), out)
+            self._fill()
+            return out
 
     def __iter__(self):
         return self
@@ -367,8 +371,9 @@ class _PlainIter:
         self.device = device
 
     def __next__(self):
-        return _map(lambda x: _host_tensor(x).to(self.device),
-                    next(self.inner))
+        with _goodput.measure("data_wait"):
+            return _map(lambda x: _host_tensor(x).to(self.device),
+                        next(self.inner))
 
     def __iter__(self):
         return self

@@ -23,12 +23,23 @@ a key bias, the three flash backward entries, paged decode over full
 or int8 pools) share its library.
 
 The registry also counts the calls that the JAX package's routing sends
-to a plain composition by shape (:func:`note_fallback`): a run can show
-that none of its calls took that route.
+to a plain composition by shape (:func:`note_fallback`; under
+``FLAGS_monitor`` also into ``pallas_fallback_total{kernel,reason}``,
+the JAX metric): a run can show that none of its calls took that route.
+
+Cost accounting: a ``ctypes`` launch is invisible to
+``torch.utils.flop_counter.FlopCounterMode``, so while a cost model
+counts (:func:`cost_sink`, used by ``cost_model.CostModel``) each
+wrapper reports its own work through :func:`note_cost`, with the
+formulas of ``chip_smoke.py``'s bounds (``PERF.md`` §6, "Bounds"), and
+runs its plain version inside :func:`uncounted`, so that the torch
+operators of the plain version are not counted a second time. Outside a
+count the wrappers compute nothing for it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,7 +53,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 __all__ = ["Kernel", "KERNELS", "FALLBACKS", "kernels", "reset_launch_counts",
            "note_fallback", "build", "build_log", "function", "check",
-           "BUILD_DIR", "CSRC_DIR"]
+           "costing", "note_cost", "cost_sink", "uncounted",
+           "attention_pairs", "BUILD_DIR", "CSRC_DIR"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -170,6 +182,77 @@ def note_fallback(kernel: str, reason: str) -> None:
     It counts a choice by shape, never a failure: on the card a wrapper
     launches its kernel or raises."""
     FALLBACKS[(kernel, reason)] = FALLBACKS.get((kernel, reason), 0) + 1
+    from ...monitor import enabled as _monitor_enabled
+    if _monitor_enabled():
+        from ...monitor import get_registry
+        get_registry().counter(
+            "pallas_fallback_total",
+            "calls routed past a kernel to its plain composition, by "
+            "kernel and reason").inc(kernel=kernel, reason=reason)
+
+
+# -- cost accounting ----------------------------------------------------------
+#: the active cost sinks: {kernel name: [calls, flops, bytes]}
+_COST_SINKS: List[Dict[str, List[float]]] = []
+
+
+def costing() -> bool:
+    """True while a cost model counts: only then does a wrapper compute
+    its work (some formulas read the data back, to count what this
+    data needs)."""
+    return bool(_COST_SINKS)
+
+
+def note_cost(name: str, flops: float, nbytes: float) -> None:
+    """Add one call of kernel ``name`` with its FLOPs and bytes to every
+    active sink."""
+    for sink in _COST_SINKS:
+        e = sink.setdefault(name, [0, 0.0, 0.0])
+        e[0] += 1
+        e[1] += float(flops)
+        e[2] += float(nbytes)
+
+
+@contextlib.contextmanager
+def cost_sink():
+    """Collect the kernel wrappers' reports for the body into a dict
+    ``{kernel: [calls, flops, bytes]}``."""
+    sink: Dict[str, List[float]] = {}
+    _COST_SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _COST_SINKS.remove(sink)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Run a wrapper's plain version out of sight of the active
+    dispatch modes (a ``FlopCounterMode``) while a cost model counts:
+    the wrapper has reported the work already. A no-op otherwise."""
+    if not _COST_SINKS:
+        yield
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        yield
+
+
+def attention_pairs(B: int, H: int, Sq: int, Sk: int, causal: bool,
+                    bias=None) -> int:
+    """(query, key) pairs an attention call computes: causal rows see
+    the keys up to ``Sk - Sq + i`` (aligned bottom-right), and a key
+    whose ``bias [B, Sk]`` entry lies below half of ``NEG_INF`` is
+    masked. With a bias this reads the data back (one sync), out of a
+    cost model's sight."""
+    if bias is None:
+        per = Sq * (Sk - Sq) + Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        return B * H * per
+    with uncounted():
+        visible = (bias > -0.5e30).long()
+        if not causal:
+            return H * Sq * int(visible.sum())
+        return H * int(visible.cumsum(1)[:, Sk - Sq:].sum())
 
 
 _LOCK = threading.Lock()
@@ -199,10 +282,15 @@ def _lib_path(kernel: Kernel) -> Path:
 
 def build(names: Optional[Sequence[str]] = None) -> float:
     """Compile every missing kernel library (all of them, or ``names``)
-    in parallel and load them. Returns the seconds spent."""
+    in parallel and load them. Returns the seconds spent. The time is
+    the goodput ledger's ``compile`` bucket (``FLAGS_train_goodput``):
+    the port's only compile."""
     t0 = time.perf_counter()
     todo = [KERNELS[n] for n in (names or KERNELS)]
-    with _LOCK:
+    if all(k.name in _FUNCS for k in todo):
+        return time.perf_counter() - t0
+    from ...monitor import goodput as _goodput
+    with _goodput.measure("compile"), _LOCK:
         # one nvcc per library, however many entries it holds
         missing = {_lib_path(k): k for k in todo
                    if k.name not in _FUNCS and not _lib_path(k).exists()}

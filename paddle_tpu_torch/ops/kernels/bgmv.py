@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import BGMV as _KERNEL
-from . import check, function
+from . import check, costing, function, note_cost, uncounted
 
 __all__ = ["bgmv", "bgmv_plain", "MAX_RANK"]
 
@@ -52,8 +52,16 @@ def bgmv(x, a, b, ids):
     r, O = b.shape[1], b.shape[2]
     if ids.shape != (B,):
         raise ValueError(f"ids {tuple(ids.shape)} do not match B={B}")
+    if costing():
+        # the adapter rows gathered: reads the ids back (one sync)
+        with uncounted():
+            rows = int(torch.unique(ids).numel())
+        note_cost(_KERNEL.name, 2 * B * S * r * (E + O),
+                  (B * S * E + B * S * O) * x.element_size()
+                  + rows * r * (E + O) * a.element_size() + 4 * B)
     if x.device.type == "cpu":
-        return bgmv_plain(x, a, b, ids)
+        with uncounted():
+            return bgmv_plain(x, a, b, ids)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _DTYPES or a.dtype != torch.float32 \

@@ -27,7 +27,7 @@ import torch
 from ..attention import NEG_INF
 from . import CHUNKED_CE_DLOGITS as _DLOGITS
 from . import CHUNKED_CE_LSE as _LSE
-from . import check, function
+from . import check, costing, function, note_cost, uncounted
 
 __all__ = ["online_lse", "dlogits", "online_lse_plain", "dlogits_plain",
            "chunked_ce_loss"]
@@ -74,8 +74,12 @@ def _check(logits):
 def online_lse(logits: torch.Tensor) -> torch.Tensor:
     """Row logsumexp ``[N]`` float32 of ``logits [N, V]``."""
     _check(logits)
+    if costing():
+        N, V = logits.shape
+        note_cost(_LSE.name, 0, N * V * logits.element_size() + N * 4)
     if logits.device.type == "cpu":
-        return online_lse_plain(logits)
+        with uncounted():
+            return online_lse_plain(logits)
     logits = logits.contiguous()
     N, V = logits.shape
     lse = torch.empty((N,), dtype=torch.float32, device=logits.device)
@@ -96,8 +100,12 @@ def dlogits(logits, labels, lse, g) -> torch.Tensor:
         raise ValueError(f"labels {tuple(labels.shape)}, lse "
                          f"{tuple(lse.shape)} and g {tuple(g.shape)} must "
                          f"be [N={N}]")
+    if costing():
+        note_cost(_DLOGITS.name, 0,
+                  2 * N * V * logits.element_size() + N * 12)
     if logits.device.type == "cpu":
-        return dlogits_plain(logits, labels, lse, g)
+        with uncounted():
+            return dlogits_plain(logits, labels, lse, g)
     logits = logits.contiguous()
     labels = labels.to(torch.int32).contiguous()
     lse = lse.float().contiguous()

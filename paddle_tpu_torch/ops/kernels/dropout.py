@@ -23,7 +23,7 @@ import torch
 
 from ..rng import dropout_keep, keep_threshold, seed_mix
 from . import FUSED_DROPOUT as _KERNEL
-from . import check, function
+from . import check, costing, function, note_cost, uncounted
 
 __all__ = ["fused_dropout", "dropout_plain", "dropout_apply"]
 
@@ -49,8 +49,11 @@ def dropout_apply(x: torch.Tensor, rate: float,
     """One launch of the kernel on a CUDA tensor (the plain version on a
     CPU tensor); not differentiable. Both passes of
     :func:`fused_dropout` call it."""
+    if costing():
+        note_cost(_KERNEL.name, 0, 2 * x.numel() * x.element_size())
     if x.device.type == "cpu":
-        return dropout_plain(x, rate, seed_words)
+        with uncounted():
+            return dropout_plain(x, rate, seed_words)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _DTYPES:

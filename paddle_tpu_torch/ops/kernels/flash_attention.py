@@ -57,7 +57,8 @@ from . import FLASH_ATTENTION_BIAS_BWD_DQ as _BIAS_DQ
 from . import FLASH_ATTENTION_BIAS_FWD as _BIAS_FWD
 from . import FLASH_ATTENTION_BWD as _BWD
 from . import FLASH_ATTENTION_FWD as _KERNEL
-from . import check, function
+from . import (attention_pairs, check, costing, function, note_cost,
+               uncounted)
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bias_fwd", "flash_attention_bias_bwd_dq",
@@ -255,6 +256,35 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _note_fwd(name, q, k, causal, bias, return_lse):
+    """A forward's work (``chip_smoke.py``'s bound): q.k and p.v over the
+    visible pairs; q, k, v read, o written, the bias and lse rows."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    nbytes = 2 * B * (Sq + Sk) * H * D * q.element_size()
+    if bias is not None:
+        nbytes += B * Sk * 4
+    if return_lse:
+        nbytes += B * H * Sq * 4
+    note_cost(name, 4 * D * attention_pairs(B, H, Sq, Sk, causal, bias),
+              nbytes)
+
+
+def _note_bias_bwd(name, q, k, causal, bias, flops_per, q_rows, k_rows,
+                   bias_rows):
+    """A biased backward kernel's work: ``flops_per * D`` a visible
+    pair; ``q_rows`` tensors of q's shape (q, o, dO, dq) and ``k_rows``
+    of k's (k, v, dk, dv), ``bias_rows`` f32 ``[B, Sk]`` rows (bias, db)
+    and the lse read."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    elem = q.element_size()
+    note_cost(name, flops_per * D * attention_pairs(B, H, Sq, Sk, causal,
+                                                    bias),
+              (q_rows * Sq + k_rows * Sk) * B * H * D * elem
+              + bias_rows * B * Sk * 4 + B * H * Sq * 4)
+
+
 def flash_attention_fwd(q, k, v, causal: bool = True,
                         scale: Optional[float] = None,
                         return_lse: bool = False,
@@ -267,9 +297,12 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     B, Sq, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if costing():
+        _note_fwd(_KERNEL.name, q, k, causal, None, return_lse)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, scale, return_lse,
-                                     dropout_rate, seed_words)
+        with uncounted():
+            return flash_attention_plain(q, k, v, causal, scale, return_lse,
+                                         dropout_rate, seed_words)
     _check_layout("flash forward", (q, k, v), (q, k, v))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -297,9 +330,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     B, Sq, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if costing():
+        Sk = k.shape[1]
+        note_cost(_BWD.name, 10 * D * attention_pairs(B, H, Sq, Sk, causal),
+                  4 * B * (Sq + Sk) * H * D * q.element_size()
+                  + B * H * Sq * 4)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
-                                         dropout_rate, seed_words)
+        with uncounted():
+            return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             scale, dropout_rate, seed_words)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = function(_BWD.name)(
@@ -327,9 +366,12 @@ def flash_attention_bias_fwd(q, k, v, bias, causal: bool = False,
     B, Sq, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if costing():
+        _note_fwd(_BIAS_FWD.name, q, k, causal, bias, return_lse)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, scale, return_lse,
-                                     dropout_rate, seed_words, bias)
+        with uncounted():
+            return flash_attention_plain(q, k, v, causal, scale, return_lse,
+                                         dropout_rate, seed_words, bias)
     _check_layout("flash forward", (q, k, v, bias), (q, k, v))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -367,9 +409,13 @@ def flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do,
     B, Sq, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if costing():
+        _note_bias_bwd(_BIAS_DQ.name, q, k, causal, bias, 6, 4, 2, 1)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
-                                         dropout_rate, seed_words, bias)[0]
+        with uncounted():
+            return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             scale, dropout_rate, seed_words,
+                                             bias)[0]
     dq = torch.empty_like(q)
     err = function(_BIAS_DQ.name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -395,9 +441,13 @@ def flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
     Sk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if costing():
+        _note_bias_bwd(_BIAS_DKV.name, q, k, causal, bias, 8, 3, 4, 2)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
-                                         dropout_rate, seed_words, bias)[1:]
+        with uncounted():
+            return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             scale, dropout_rate, seed_words,
+                                             bias)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     db_h = torch.empty((B, H, Sk), dtype=torch.float32, device=q.device)
     db = torch.empty((B, Sk), dtype=torch.float32, device=q.device)

@@ -24,7 +24,7 @@ from ...serving.kv_cache import gather_pages, gather_pages_quant
 from ..attention import NEG_INF, _sdpa_plain
 from . import PAGED_DECODE as _KERNEL
 from . import PAGED_DECODE_QUANT as _QKERNEL
-from . import check, function
+from . import check, costing, function, note_cost, uncounted
 
 __all__ = ["paged_decode_attention", "paged_decode_plain",
            "paged_decode_attention_quant", "paged_decode_quant_plain"]
@@ -53,6 +53,21 @@ def paged_decode_quant_plain(q, k_pages, k_scales, v_pages, v_scales,
     return _attend_gathered(
         q, gather_pages_quant(k_pages, k_scales, block_table),
         gather_pages_quant(v_pages, v_scales, block_table), pos, scale)
+
+
+def _note_decode(name, q, k_pages, block_table, pos, row_bytes):
+    """A decode step's work (``chip_smoke.py``'s bound): q.k and p.v
+    over each row's visible positions, whose K and V rows (``row_bytes``
+    a position and head each) are read; q read, out written, the table
+    and positions read. Reads the positions back (one sync)."""
+    B, H, D = q.shape
+    cap = block_table.shape[1] * k_pages.shape[1]
+    with uncounted():
+        visible = int((pos.long().clamp(max=cap - 1) + 1).sum())
+    note_cost(name, 4 * H * D * visible,
+              visible * H * row_bytes * 2 + 2 * B * H * D * q.element_size()
+              + block_table.numel() * block_table.element_size()
+              + pos.numel() * pos.element_size())
 
 
 def _check_common(q, k_pages, v_pages, block_table, pos):
@@ -96,9 +111,13 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, pos, scale):
     inclusively. Returns ``[B, H, D]`` in q's dtype."""
     _check_common(q, k_pages, v_pages, block_table, pos)
     B, H, D = q.shape
+    if costing():
+        _note_decode(_KERNEL.name, q, k_pages, block_table, pos,
+                     D * k_pages.element_size())
     if q.device.type == "cpu":
-        return paged_decode_plain(q, k_pages, v_pages, block_table, pos,
-                                  scale)
+        with uncounted():
+            return paged_decode_plain(q, k_pages, v_pages, block_table, pos,
+                                      scale)
     ts = (q, k_pages, v_pages, block_table, pos)
     _check_card(ts, D)
     if not (q.dtype == k_pages.dtype == v_pages.dtype) \
@@ -132,9 +151,14 @@ def paged_decode_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
         raise ValueError(f"scales {tuple(k_scales.shape)} / "
                          f"{tuple(v_scales.shape)} are not [P,bs,H] = "
                          f"{(P, bs, H)}")
+    if costing():
+        # an int8 row and its f32 scale
+        _note_decode(_QKERNEL.name, q, k_pages, block_table, pos, D + 4)
     if q.device.type == "cpu":
-        return paged_decode_quant_plain(q, k_pages, k_scales, v_pages,
-                                        v_scales, block_table, pos, scale)
+        with uncounted():
+            return paged_decode_quant_plain(q, k_pages, k_scales, v_pages,
+                                            v_scales, block_table, pos,
+                                            scale)
     ts = (q, k_pages, k_scales, v_pages, v_scales, block_table, pos)
     _check_card(ts, D)
     if q.dtype != torch.float32 or k_pages.dtype != torch.int8 \

@@ -36,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import INT8_MATMUL as _KERNEL
-from . import check, function
+from . import check, costing, function, note_cost, uncounted
 
 __all__ = ["int8_matmul", "int8_matmul_plain", "int8_linear",
            "int8_amp_linear", "quantize_per_channel", "quantize_per_tensor",
@@ -130,8 +130,16 @@ def int8_matmul(x_q, w_q, w_scale, act_scale, out_dtype=torch.float32):
     is a one-element float32 tensor (on the CPU also a float)."""
     global layout_copies
     _check_shapes(x_q, w_q, w_scale)
+    if costing():
+        M, K = x_q.shape
+        N = w_q.shape[1]
+        out_bytes = torch.empty((), dtype=out_dtype).element_size()
+        note_cost(_KERNEL.name, 2 * M * K * N,
+                  M * K + K * N + 4 * N + 4 + M * N * out_bytes)
     if x_q.device.type == "cpu":
-        return int8_matmul_plain(x_q, w_q, w_scale, act_scale, out_dtype)
+        with uncounted():
+            return int8_matmul_plain(x_q, w_q, w_scale, act_scale,
+                                     out_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"unsupported device {x_q.device}")
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:

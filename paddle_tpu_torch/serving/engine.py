@@ -1,8 +1,7 @@
 """LLM serving engine: paged decode + continuous batching, PyTorch port.
 
 Counterpart of ``paddle_tpu/serving/engine.py`` on one device (no
-admin plane, drain, hot swap, resilience or mesh). Each
-:meth:`ServingEngine.step`:
+drain, hot swap, resilience or mesh). Each :meth:`ServingEngine.step`:
 
 1. admits waiting requests into free slots (``Scheduler``), mapping the
    longest cached prefix copy-on-write when the prefix cache is on;
@@ -43,12 +42,27 @@ quantized paged-decode kernel; ``ServingConfig.lora_adapters > 0``
 builds a :class:`~.lora.LoRAManager` whose pools and per-row adapter ids
 ride every prefill and decode view (the bgmv kernel, once per layer per
 dispatch); ``tenant_quota`` caps the slots one tenant holds.
+
+Observability, as in the JAX engine ("an engine exists to be
+observed"): the ``serve_*`` request, latency, dispatch and gauge series
+are always on (``monitor.get_registry()``); under ``FLAGS_trace`` each
+request is one trace (queued, admitted, prefill, decode[i] / verify[i],
+detok spans; failures tail-retained); terminal events other than
+completion land in the flight recorder as ``request_*`` events;
+``ServingConfig.slo_availability`` arms an availability burn tracker;
+``FLAGS_monitor_port`` registers ``/readyz`` and ``/statusz`` on the
+admin plane. Chaos: ``serve.request.poison`` marks a request at submit,
+whose logits rows turn NaN ahead of the finiteness checks, so it fails
+alone; ``serve.detok.raise`` raises in a token's callback. Not ported:
+the ``serve_program_*`` series (the port compiles no programs).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -59,6 +73,13 @@ from torch.func import functional_call
 from ..core.device import DeviceLike, resolve_device
 from ..core.flags import get_flag
 from ..core.random import make_generator
+from ..monitor import enabled as _monitor_enabled
+from ..monitor import flight_recorder as _flight
+from ..monitor import get_registry
+from ..monitor import memory as _memory
+from ..monitor import trace as _trace
+from ..monitor.slo import SLOTracker
+from ..testing import chaos
 from .detok import StreamingDetokenizer
 from .kv_cache import (PagedCacheView, PagedKVCache, blocks_needed,
                        context_index)
@@ -66,7 +87,7 @@ from .lora import LoRAManager
 from .prefix_cache import RadixPrefixCache
 from .sampling import SamplingParams, sample_tokens, verify_draws
 from .scheduler import (AdmissionGroup, BucketTable, Request, RequestState,
-                        Scheduler)
+                        Scheduler, ServerOverloaded)
 from .spec_decode import propose_ngram
 
 __all__ = ["ServingConfig", "ServingEngine"]
@@ -98,7 +119,11 @@ class ServingConfig:
     or ``"bfloat16"`` (``FLAGS_serve_kv_quant=int8`` overrides it with
     int8 pools). ``lora_adapters > 0`` builds a LoRA manager with that
     many loadable adapters of rank ``lora_rank``; ``tenant_quota`` caps
-    the slots one tenant may hold at a time (None: no cap)."""
+    the slots one tenant may hold at a time (None: no cap).
+    ``slo_availability`` in (0, 1) arms the multi-window error-budget
+    burn tracker over request outcomes (``slo_windows`` seconds); 0.0
+    (default) = no tracker. The JAX ``slo_deadline`` comes with
+    ``Request.deadline_s``."""
 
     max_batch_slots: int = 8
     block_size: int = 16
@@ -113,6 +138,8 @@ class ServingConfig:
     lora_adapters: int = 0
     lora_rank: int = 8
     tenant_quota: Optional[int] = None
+    slo_availability: float = 0.0
+    slo_windows: Tuple[float, ...] = (60.0, 300.0, 3600.0)
 
     def resolve(self, model_max_positions: Optional[int]) -> None:
         if self.cache_dtype not in _CACHE_DTYPES:
@@ -219,7 +246,12 @@ class ServingEngine:
                                    max_queue=c.max_queue, clock=clock,
                                    max_seq_len=c.max_context_len,
                                    tenant_quota=c.tenant_quota,
-                                   lora=self.lora)
+                                   lora=self.lora,
+                                   on_event=self._on_request_event)
+        self._slo_avail = (SLOTracker(
+            "serve_availability", c.slo_availability,
+            windows=c.slo_windows, clock=clock)
+            if c.slo_availability > 0 else None)
         # the throughput features, each read once here so an engine's
         # behaviour is fixed for its lifetime
         self._chunk = int(get_flag("serve_prefill_chunk") or 0)
@@ -241,9 +273,20 @@ class ServingEngine:
                        "verify_dispatches": 0, "spec_proposed": 0,
                        "spec_accepted": 0, "spec_rolled_back": 0}
         self._lat: Dict[str, List[float]] = {
-            "ttft": [], "tpot": [], "decode_step": []}
+            "ttft": [], "tpot": [], "e2e": [], "decode_step": []}
         self._t_first_work: Optional[float] = None
         self._t_last_token: Optional[float] = None
+        #: delta-publish cursors: host stats are the source of truth,
+        #: the registry sees monotone deltas
+        self._prefix_published: Dict[str, float] = {}
+        self._quota_published: Dict[str, int] = {}
+        #: the kinds whose first dispatch's device-memory peak is
+        #: recorded under FLAGS_monitor (monitor.memory.ProgramMemory)
+        self._measured_kinds: set = set()
+        if get_flag("memory_preflight"):
+            _memory.preflight_check(_memory.known_bytes(engine=self),
+                                    device=self.device)
+        self._attach_admin()
 
     @torch.no_grad()
     def warmup(self) -> int:
@@ -274,18 +317,179 @@ class ServingEngine:
                           np.zeros((nb,), np.int32), context=ctx)
         return n_kernels
 
+    # -- admin plane (monitor/server.py) --------------------------------------
+    def _attach_admin(self) -> None:
+        """Join the admin plane when ``FLAGS_monitor_port`` is set:
+        ``/readyz`` reads this engine's state and ``/statusz`` gains its
+        section. The providers hold a weakref: a collected engine returns
+        the STALE sentinel and the server prunes it. Flag unset = one
+        flag read, no thread, no socket."""
+        from ..monitor import server as monitor_server
+        self._admin = monitor_server.maybe_start_from_flags()
+        self._admin_key = f"serving_engine_{id(self)}"
+        if self._admin is None:
+            return
+        ref = weakref.ref(self)
+        stale = monitor_server.STALE
+        self._admin.register_readiness(
+            self._admin_key,
+            lambda: (lambda e: stale if e is None else e._readiness())(
+                ref()))
+        self._admin.register_status(
+            self._admin_key,
+            lambda: (lambda e: stale if e is None
+                     else e._admin_status())(ref()))
+
+    def _readiness(self) -> Optional[dict]:
+        """None while this engine should receive traffic. The port's
+        engine has no drain, overload shedding or dispatch watchdog yet,
+        so a live engine is always ready."""
+        return None
+
+    def _admin_status(self) -> dict:
+        """/statusz section: occupancy, outcome stats, SLO burn."""
+        d: dict = {
+            "scheduler": dict(self.scheduler.stats,
+                              queue_depth=self.scheduler.queue_depth,
+                              active_slots=len(self.scheduler.active())),
+            "kv_pages_in_use": self.cache.allocator.pages_in_use,
+            "kv_pages_total": self.cache.allocator.num_pages,
+            "engine_stats": dict(self._stats),
+        }
+        if self.lora is not None:
+            d["lora"] = self.stats()["lora"]
+        if self.scheduler.tenant_quota is not None:
+            d["tenant_deferrals"] = dict(self.scheduler.tenant_deferrals)
+        if self._slo_avail is not None:
+            d["slo_availability"] = self._slo_avail.snapshot()
+        return d
+
+    def _detach_admin(self) -> None:
+        admin = getattr(self, "_admin", None)
+        if admin is not None:
+            admin.unregister_readiness(self._admin_key)
+            admin.unregister_status(self._admin_key)
+            self._admin = None
+
+    # -- request lifecycle telemetry -----------------------------------------
+    @staticmethod
+    def _requests_counter():
+        return get_registry().counter(
+            "serve_requests_total",
+            "serving requests by lifecycle event")
+
+    def _on_request_event(self, outcome: str, st: RequestState) -> None:
+        """Scheduler terminal-transition hook: metrics, flight event, SLO
+        and span-tree closure. Fires on lifecycle events only."""
+        self._requests_counter().inc(event=outcome)
+        if st.request.tenant:
+            get_registry().counter(
+                "serve_tenant_requests_total",
+                "serving requests by tenant and lifecycle event").inc(
+                tenant=st.request.tenant, event=outcome)
+        if outcome != "completed":
+            _flight.safe_record_event(
+                "request_failed" if outcome == "failed"
+                else f"request_{outcome}",
+                request_id=st.request.request_id,
+                reason=st.failure, tokens=len(st.generated),
+                preemptions=st.preemptions)
+        if self._slo_avail is not None:
+            if outcome == "completed":
+                self._slo_avail.record(good=1)
+            elif outcome == "failed":
+                self._slo_avail.record(bad=1)
+            self._slo_avail.publish()
+        self._close_trace(st, outcome)
+
+    def _close_trace(self, st: RequestState, outcome: str) -> None:
+        """Terminal span and retention decision of a traced request."""
+        tr = st.trace
+        if tr is None:
+            return
+        now = self.clock()
+        for key in ("queued", "admitted"):
+            sp = st.trace_spans.pop(key, None)
+            if sp is not None:
+                tr.end_span(sp, t=now)
+        tr.event("terminal", t=now, outcome=outcome,
+                 reason=st.failure, tokens=len(st.generated),
+                 preemptions=st.preemptions)
+        if outcome == "failed":
+            reason = st.failure or ""
+            tr.mark_anomaly(
+                "nonfinite" if "non-finite" in reason
+                else ("chaos" if st.poisoned else "failed"),
+                failure=st.failure)
+        tr.root.set_attrs(outcome=outcome)
+        _trace.get_tracer().finish_trace(tr, t=now)
+        st.trace_spans.clear()
+
+    def _trace_requeue(self, st: RequestState, reason: str) -> None:
+        """A preempted request keeps its trace: the admitted span closes
+        and a new queued one opens."""
+        tr = st.trace
+        if tr is None:
+            return
+        now = self.clock()
+        spn = st.trace_spans.pop("admitted", None)
+        if spn is not None:
+            tr.end_span(spn, t=now, requeued=reason)
+        old_q = st.trace_spans.pop("queued", None)
+        if old_q is not None:
+            tr.end_span(old_q, t=now, requeued=reason)
+        st.trace_spans["queued"] = tr.start_span(
+            "queued", t=now, reason=reason, preemptions=st.preemptions)
+
     # -- request surface ----------------------------------------------------
     def submit(self, request: Request) -> RequestState:
         if request.adapter and (self.lora is None
                                 or self.lora.row(request.adapter) is None):
             # the scheduler checks again at admission, for an unload
             # between now and then
+            self._requests_counter().inc(event="rejected")
             raise ValueError(
                 f"adapter {request.adapter!r} is not loaded"
                 + ("" if self.lora is not None
                    else " (engine has no LoRA manager; set "
                         "ServingConfig.lora_adapters)"))
-        return self.scheduler.submit(request)
+        try:
+            st = self.scheduler.submit(request)
+        except ServerOverloaded:
+            self._requests_counter().inc(event="rejected")
+            raise
+        if chaos.active() and chaos.probe("serve.request.poison"):
+            st.poisoned = True
+        if _trace.enabled():
+            # one trace per request, buffered whatever the head coin says
+            # (tail retention needs it); a bare trace_id resumes an
+            # identity, one with a parent is upstream context
+            resumed = (request.trace_id is not None
+                       and request.trace_parent is None)
+            tr = _trace.get_tracer().start_trace(
+                "serve.request", trace_id=request.trace_id,
+                sample=(request.trace_sampled
+                        if request.trace_sampled is not None
+                        else (True if resumed else None)),
+                t=st.submitted_t, process=request.trace_process,
+                parent=request.trace_parent,
+                request_id=request.request_id,
+                prompt_len=st.prompt_len,
+                max_new_tokens=request.max_new_tokens, resumed=resumed)
+            st.trace = tr
+            st.trace_spans["queued"] = tr.start_span(
+                "queued", t=st.submitted_t)
+            if st.poisoned:
+                tr.mark_anomaly("chaos",
+                                chaos_site="serve.request.poison")
+        self._requests_counter().inc(event="submitted")
+        if request.tenant:
+            get_registry().counter(
+                "serve_tenant_requests_total",
+                "serving requests by tenant and lifecycle event").inc(
+                tenant=request.tenant, event="submitted")
+        self._publish_gauges()
+        return st
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int = 16,
@@ -326,13 +530,16 @@ class ServingEngine:
                 # drafts staged before the capacity pass, so the verify
                 # window's K/V writes land in real pages, never scratch
                 self._stage_drafts()
-            sched.ensure_decode_capacity()
+            for st in sched.ensure_decode_capacity():
+                # recompute-preemption: back to the queue, same trace
+                self._trace_requeue(st, "preemption")
             pairs = self._decodable()
             if pairs:
                 if any(st.draft for _, st in pairs):
                     self._run_verify(pairs)
                 else:
                     self._run_decode(pairs)
+        self._publish_gauges()
         return sched.has_work
 
     def _decodable(self) -> List[Tuple[int, RequestState]]:
@@ -387,11 +594,37 @@ class ServingEngine:
         return (torch.from_numpy(temps).to(dev), torch.from_numpy(tks).to(dev),
                 torch.from_numpy(tps).to(dev))
 
+    @staticmethod
+    def _poison(logits, states, row: Optional[int] = None):
+        """NaN into the logits of the requests chaos marked
+        (``serve.request.poison``; at sequence position ``row`` of a
+        ``[B, S, V]`` tensor), ahead of the finiteness checks, as the JAX
+        engine's additive poison array does. Without a marked request it
+        returns ``logits`` untouched and launches nothing."""
+        idx = [i for i, st in enumerate(states)
+               if st is not None and st.poisoned]
+        if not idx:
+            return logits
+        logits = logits.clone()
+        if row is None:
+            logits[idx] = float("nan")
+        else:
+            logits[idx, row] = float("nan")
+        return logits
+
+    def _measure(self, kind: str):
+        """The device-memory peak of this kind's first dispatch, under
+        ``FLAGS_monitor`` (``monitor.memory.ProgramMemory``)."""
+        if kind in self._measured_kinds or not _monitor_enabled():
+            return contextlib.nullcontext()
+        self._measured_kinds.add(kind)
+        return _memory.measure_program(kind, self.device)
+
     def _sample(self, rows, states):
         """Next token and finiteness per row, on the host."""
         ok = torch.isfinite(rows).all(dim=-1)
         toks = sample_tokens(rows, *self._sampling_arrays(states),
-                             generator=self._generator)
+                             generator=self._generator, finite=ok)
         return toks.cpu().numpy(), ok.cpu().numpy()
 
     def _forward(self, ids: np.ndarray, states, pos: np.ndarray,
@@ -448,21 +681,46 @@ class ServingEngine:
         t0 = self.clock()
         if self._t_first_work is None:
             self._t_first_work = t0
-        logits = self._forward(ids, states, pos, context=ctx)
-        last = logits[torch.arange(nb, device=self.device),
-                      torch.from_numpy(lens - 1).to(self.device)]
-        toks, ok = self._sample(last, states)
+        for st in group.states:
+            tr = st.trace
+            if tr is not None and "admitted" not in st.trace_spans:
+                # queued ends and admitted opens at the admission stamp
+                # (a chunked prefill opens them at its first chunk)
+                qs = st.trace_spans.pop("queued", None)
+                if qs is not None:
+                    tr.end_span(qs, t=st.admitted_t)
+                st.trace_spans["admitted"] = tr.start_span(
+                    "admitted", t=st.admitted_t, slot=st.slot,
+                    prefix_hit_tokens=st.prefill_pos)
+        with self._measure("prefill"):
+            logits = self._forward(ids, states, pos, context=ctx)
+            last = logits[torch.arange(nb, device=self.device),
+                          torch.from_numpy(lens - 1).to(self.device)]
+            toks, ok = self._sample(self._poison(last, states), states)
         now = self.clock()
         st_ = self._stats
         st_["prefill_dispatches"] += 1
         st_["context_prefill_dispatches"] += int(ctx)
+        reg = get_registry()
         if chunked or self._chunk > 0:
             st_["prefill_chunks"] += len(group.states)
+            reg.counter("serve_prefill_chunks_total",
+                        "chunked-prefill chunk rows dispatched"
+                        ).inc(len(group.states))
+        reg.histogram("serve_prefill_seconds",
+                      "prefill dispatch wall time").observe(
+            now - t0, bucket=f"b{nb}_s{sp}")
         for i, st in enumerate(states):
             if st is None:
                 continue
             st.prefill_pos += int(lens[i])
             st_["prefill_tokens"] += int(lens[i])
+            tr = st.trace
+            if tr is not None:
+                tr.end_span(tr.start_span(
+                    "prefill", parent=st.trace_spans.get("admitted"),
+                    t=t0, bucket=f"b{nb}_s{sp}", pos=int(pos[i]),
+                    tokens=int(lens[i])), t=now)
             if not ok[i]:
                 self.scheduler.fail(st, "non-finite logits at prefill")
                 continue
@@ -485,7 +743,11 @@ class ServingEngine:
             st.draft = [int(t) for t in propose_ngram(
                 hist, budget, max_ngram=self._spec_ngram)]
             proposed += len(st.draft)
-        self._stats["spec_proposed"] += proposed
+        if proposed:
+            self._stats["spec_proposed"] += proposed
+            get_registry().counter(
+                "serve_spec_proposed_total",
+                "speculative draft tokens proposed").inc(proposed)
 
     def _run_verify(self, pairs) -> None:
         """ONE verify dispatch over the decoding slots: row 0 is each
@@ -509,9 +771,11 @@ class ServingEngine:
             per_slot[slot] = st
         t0 = self.clock()
         logits = self._forward(ids, per_slot, pos, context=True)  # [B,S,V]
+        logits = self._poison(logits, per_slot, row=0)
         samp = self._sampling_arrays(per_slot)
         ok_rows = torch.isfinite(logits).all(dim=-1)
-        tok0 = sample_tokens(logits[:, 0], *samp, generator=self._generator)
+        tok0 = sample_tokens(logits[:, 0], *samp, generator=self._generator,
+                             finite=ok_rows[:, 0])
         greedy = torch.argmax(logits, dim=-1)
         sampled_any = any(st.request.sampling.temperature > 0.0
                           for _, st in pairs)
@@ -529,9 +793,18 @@ class ServingEngine:
         st_["decode_slot_steps"] += len(pairs)
         st_["decode_batch_max"] = max(st_["decode_batch_max"], len(pairs))
         self._lat["decode_step"].append(now - t0)
+        self._observe_decode(now - t0, len(pairs))
+        accepted = rolled_back = 0
         for slot, st in pairs:
             n = len(st.draft)
+            tr = st.trace
+            if tr is not None:
+                tr.end_span(tr.start_span(
+                    f"verify[{len(st.generated)}]",
+                    parent=st.trace_spans.get("admitted"), t=t0,
+                    batch=len(pairs), proposed=n), t=now)
             if not ok_rows[slot, 0]:
+                st.draft = []
                 self.scheduler.fail(st, "non-finite logits at decode")
                 continue
             sampled = st.request.sampling.temperature > 0.0
@@ -570,11 +843,22 @@ class ServingEngine:
                     break
             acc = min(n_acc, committed) if sampled \
                 else max(0, committed - 1)
-            st_["spec_accepted"] += acc
-            st_["spec_rolled_back"] += n - acc
+            accepted += acc
+            rolled_back += n - acc
             st.draft = []
             if not st.terminal:
                 self.cache.truncate_slot(st.slot, st.seq_len)
+        reg = get_registry()
+        if accepted:
+            st_["spec_accepted"] += accepted
+            reg.counter("serve_spec_accepted_total",
+                        "speculative draft tokens accepted and "
+                        "committed").inc(accepted)
+        if rolled_back:
+            st_["spec_rolled_back"] += rolled_back
+            reg.counter("serve_spec_rolled_back_total",
+                        "speculative draft tokens rejected and rolled "
+                        "back by block-table truncation").inc(rolled_back)
 
     def _run_decode(self, pairs) -> None:
         B = self.config.max_batch_slots
@@ -589,30 +873,70 @@ class ServingEngine:
             tokens[slot, 0] = st.generated[-1]
             per_slot[slot] = st
         t0 = self.clock()
-        logits = self._forward(tokens, per_slot, pos)
-        toks, ok = self._sample(logits[:, -1], per_slot)
+        with self._measure("decode"):
+            logits = self._forward(tokens, per_slot, pos)
+            toks, ok = self._sample(
+                self._poison(logits[:, -1], per_slot), per_slot)
         now = self.clock()
         st_ = self._stats
         st_["decode_dispatches"] += 1
         st_["decode_slot_steps"] += len(pairs)
         st_["decode_batch_max"] = max(st_["decode_batch_max"], len(pairs))
         self._lat["decode_step"].append(now - t0)
+        self._observe_decode(now - t0, len(pairs))
         for slot, st in pairs:
+            tr = st.trace
+            if tr is not None:
+                # decode[i]: this request's share of the batched dispatch
+                # that produced its token i
+                tr.end_span(tr.start_span(
+                    f"decode[{len(st.generated)}]",
+                    parent=st.trace_spans.get("admitted"), t=t0,
+                    batch=len(pairs)), t=now)
             if not ok[slot]:
                 self.scheduler.fail(st, "non-finite logits at decode")
                 continue
             self._accept_token(st, int(toks[slot]), now)
 
+    def _observe_decode(self, dt: float, n_active: int) -> None:
+        reg = get_registry()
+        reg.histogram("serve_decode_step_seconds",
+                      "decode dispatch wall time (all slots)").observe(dt)
+        reg.histogram("serve_decode_occupancy",
+                      "active slots per decode dispatch",
+                      buckets=tuple(range(1, self.config.max_batch_slots
+                                          + 1))).observe(n_active)
+
     def _accept_token(self, st: RequestState, token: int,
                       now: float) -> None:
+        tr = st.trace
+        # histogram exemplars link a latency bucket to the trace that
+        # landed in it (None: no trace)
+        ex = tr.trace_id if tr is not None else None
         if st.first_token_t is None:
             st.first_token_t = now
-            self._lat["ttft"].append(now - st.submitted_t)
+            ttft = now - st.submitted_t
+            self._lat["ttft"].append(ttft)
+            get_registry().histogram(
+                "serve_ttft_seconds",
+                "submit -> first token latency").observe(
+                ttft, exemplar=ex)
         st.generated.append(token)
         self._stats["tokens_generated"] += 1
         self._t_last_token = now
+        get_registry().counter(
+            "serve_tokens_generated_total",
+            "tokens sampled across all requests").inc()
         req = st.request
+        det_sp = None
+        if tr is not None and (req.on_token is not None
+                               or req.stop is not None
+                               or self.config.detokenizer is not None):
+            det_sp = tr.start_span("detok", t=self.clock(),
+                                   parent=st.trace_spans.get("admitted"))
         try:
+            if chaos.active() and chaos.probe("serve.detok.raise"):
+                raise chaos.ChaosFault("serve.detok.raise")
             if req.on_token is not None:
                 text = None
                 if self.config.detokenizer is not None:
@@ -622,15 +946,84 @@ class ServingEngine:
             if req.stop is not None and req.stop(list(st.generated)):
                 st.stop_hit = True
         except Exception as e:
-            # a raising client callback or stop condition fails ONLY its
-            # own request; the rest of the batch streams on
-            self.scheduler.fail(st, f"callback error: {e!r}")
+            # a raising detokenizer, client callback or stop condition
+            # fails ONLY its own request; the rest of the batch streams on
+            if det_sp is not None:
+                tr.end_span(det_sp, t=self.clock(), error=repr(e))
+            self.scheduler.fail(st,
+                                f"detokenizer/callback error: {e!r}")
             return
+        if det_sp is not None:
+            tr.end_span(det_sp, t=self.clock())
         if st.is_done():
             self.scheduler.finish(st)
+            e2e = now - st.submitted_t
+            self._lat["e2e"].append(e2e)
             n = len(st.generated)
+            reg = get_registry()
             if n > 1:
-                self._lat["tpot"].append((now - st.first_token_t) / (n - 1))
+                tpot = (now - st.first_token_t) / (n - 1)
+                self._lat["tpot"].append(tpot)
+                reg.histogram(
+                    "serve_tpot_seconds",
+                    "mean per-token decode latency per request"
+                ).observe(tpot, exemplar=ex)
+            reg.histogram("serve_e2e_seconds",
+                          "submit -> completion latency").observe(
+                e2e, exemplar=ex)
+
+    def _publish_gauges(self) -> None:
+        reg = get_registry()
+        reg.gauge("serve_queue_depth",
+                  "requests waiting for a batch slot").set(
+            self.scheduler.queue_depth)
+        reg.gauge("serve_active_slots", "requests holding a batch slot"
+                  ).set(len(self.scheduler.active()))
+        reg.gauge("serve_kv_pages_in_use",
+                  "allocated KV pages (of the shared pool)").set(
+            self.cache.allocator.pages_in_use)
+        if self.cache.quant:
+            reg.gauge(
+                "serve_kv_quant_bytes_per_token",
+                "HBM bytes per cached token position under "
+                "FLAGS_serve_kv_quant (int8 pages + f32 per-head "
+                "scales)").set(float(self.cache.kv_bytes_per_token()))
+        if self.scheduler.tenant_quota is not None:
+            # delta-publish the per-tenant quota deferrals
+            for tenant, n in self.scheduler.tenant_deferrals.items():
+                delta = n - self._quota_published.get(tenant, 0)
+                if delta > 0:
+                    reg.counter(
+                        "serve_tenant_quota_deferrals_total",
+                        "admissions deferred by the per-tenant slot "
+                        "quota").inc(delta, tenant=tenant)
+                    self._quota_published[tenant] = n
+        if self.prefix_cache is not None:
+            self._publish_prefix_metrics(reg)
+
+    def _publish_prefix_metrics(self, reg) -> None:
+        """Delta-publish the prefix cache's host-side stats (the cache
+        never touches the registry). Prefix cache off: never called."""
+        pc = self.prefix_cache
+        reg.gauge("serve_prefix_cached_pages",
+                  "KV pages resident in the radix prefix cache").set(
+            pc.cached_pages)
+        for stat, name, help_ in (
+                ("hits", "serve_prefix_hits_total",
+                 "admissions that matched a cached prefix"),
+                ("misses", "serve_prefix_misses_total",
+                 "admissions with no cached prefix"),
+                ("hit_tokens", "serve_prefix_hit_tokens_total",
+                 "prompt tokens served from cached pages instead of "
+                 "prefill"),
+                ("evicted_pages", "serve_prefix_evicted_pages_total",
+                 "cached pages evicted under allocation pressure")):
+            delta = pc.stats[stat] - self._prefix_published.get(stat, 0)
+            if delta > 0:
+                # emits-metrics: serve_prefix_hits_total, serve_prefix_misses_total
+                # emits-metrics: serve_prefix_hit_tokens_total, serve_prefix_evicted_pages_total
+                reg.counter(name, help_).inc(delta)
+                self._prefix_published[stat] = pc.stats[stat]
 
     # -- observability -------------------------------------------------------
     def stats(self) -> dict:
@@ -709,7 +1102,8 @@ class ServingEngine:
 
     def shutdown(self) -> None:
         """Drop every page the prefix cache holds (the only pages an
-        idle engine keeps) and detach it."""
+        idle engine keeps) and detach it, and leave the admin plane."""
+        self._detach_admin()
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
             self.cache.prefix_cache = None

@@ -125,6 +125,7 @@ class LoRAManager:
         self._rows[name] = row
         self._refs[name] = 0
         self.swaps += 1
+        self._publish(swapped=True)
         return row
 
     def unload_adapter(self, name: str) -> None:
@@ -144,6 +145,25 @@ class LoRAManager:
         self.a[:, row].zero_()
         self.b[:, row].zero_()
         self._free.append(row)
+        self._publish()
+
+    def _publish(self, swapped: bool = False) -> None:
+        """``serve_lora_swaps_total`` and ``serve_lora_adapters_loaded``
+        under ``FLAGS_monitor`` (one flag read otherwise)."""
+        from ..monitor import enabled as _mon_enabled
+        if not _mon_enabled():
+            return
+        from ..monitor import get_registry
+        reg = get_registry()
+        if swapped:
+            reg.counter(
+                "serve_lora_swaps_total",
+                "LoRA adapter hot-swaps (loads) into the serving "
+                "pools").inc()
+        reg.gauge(
+            "serve_lora_adapters_loaded",
+            "LoRA adapters currently resident in the serving pools "
+            "(zero adapter excluded)").set(float(self.num_loaded))
 
     # -- slot references -----------------------------------------------------
     def acquire(self, name: str) -> int:

@@ -66,16 +66,30 @@ def filtered_logits(logits, temperature, top_k, top_p):
     return torch.where(lg < cutoff, _NEG, lg)
 
 
+def _finite_rows(logits, finite=None):
+    """Zero every row of ``[N, V]`` logits that holds a NaN or Inf
+    (``finite``: the rows' flags, where the caller has them). The
+    engine fails such a row's request on its own finiteness check; the
+    draw must not stop the other rows from sampling (``multinomial``
+    refuses non-finite probabilities, where JAX's ``categorical`` draws
+    anyway)."""
+    if finite is None:
+        finite = torch.isfinite(logits).all(-1)
+    return torch.where(finite[:, None], logits, 0.0)
+
+
 def sample_tokens(logits, temperature, top_k, top_p,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  finite: Optional[torch.Tensor] = None):
     """Next token per row of ``[B, V]`` logits, as int64 ``[B]``. Greedy
     rows take the argmax; the filtered sampling lane runs only when some
-    row samples."""
+    row samples (``finite``: the rows' finiteness flags, if known)."""
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
     sampling = temperature > 0.0
     if not bool(sampling.any()):
         return greedy
+    logits = _finite_rows(logits, finite)
     probs = torch.softmax(filtered_logits(logits, temperature, top_k, top_p),
                           dim=-1)
     sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
@@ -92,7 +106,7 @@ def verify_draws(logits, drafts, temperature, top_k, top_p,
     distribution, and a redraw from rows ``0 .. S-2`` with the drafted
     token masked out (the residual of a point-mass drafter)."""
     B, S, V = logits.shape
-    flat = filtered_logits(logits.reshape(B * S, V).float(),
+    flat = filtered_logits(_finite_rows(logits.reshape(B * S, V).float()),
                            temperature.repeat_interleave(S),
                            top_k.repeat_interleave(S),
                            top_p.repeat_interleave(S))

@@ -2,7 +2,7 @@
 batch slots.
 
 Counterpart of ``paddle_tpu/serving/scheduler.py`` with the
-``reject-new`` FIFO policy (no deadlines, priorities, drain or traces).
+``reject-new`` FIFO policy (no deadlines, priorities or drain).
 Scheduling happens between decode steps:
 
 - a FIFO queue feeds ``max_batch_slots`` fixed slots; a request is
@@ -29,18 +29,23 @@ Scheduling happens between decode steps:
   tokens-so-far go back to the FRONT of the queue and it re-prefills
   later — for greedy decoding the continuation is token-identical.
 
-All of this is host-side bookkeeping over ints.
+Every terminal transition fires ``on_event(outcome, state)`` (the
+engine's metrics, flight events, SLO and trace closure); the chaos site
+``serve.pages.exhaust`` makes admission wait, or recompute-preempts the
+newest request, for one decision, as in the JAX scheduler. All of this
+is host-side bookkeeping over ints.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
-from dataclasses import dataclass, field
+from dataclasses import KW_ONLY, dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..testing import chaos
 from .kv_cache import PagedKVCache, blocks_needed
 from .sampling import SamplingParams
 
@@ -71,14 +76,27 @@ class Request:
     an optional custom stop condition evaluated after every token.
     ``tenant`` names the submitting tenant for the per-tenant quota
     (None: never quota-limited); ``adapter`` names a loaded LoRA adapter
-    the request decodes against (None: the base model)."""
+    the request decodes against (None: the base model). ``trace_*``
+    carry a caller's trace context (``FLAGS_trace``): an identity to
+    resume, a parent span, the producing process's label and the
+    upstream head-sampling decision.
+
+    Every field after ``on_token`` is keyword-only: the JAX ``Request``
+    has ``deadline_s`` and ``priority`` there, which the port does not
+    have yet, so a positional call past ``on_token`` raises here instead
+    of binding another field than in the JAX package."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 16
     sampling: SamplingParams = field(default_factory=SamplingParams)
     eos_token_id: Optional[int] = None
     on_token: Optional[Callable] = None
+    _: KW_ONLY
     stop: Optional[Callable] = None
+    trace_id: Optional[str] = None
+    trace_parent: Optional[str] = None
+    trace_process: Optional[str] = None
+    trace_sampled: Optional[bool] = None
     tenant: Optional[str] = None
     adapter: Optional[str] = None
     request_id: int = field(default_factory=lambda: next(_request_ids))
@@ -117,6 +135,13 @@ class RequestState:
         #: speculative draft tokens staged for the next verify dispatch
         #: (never part of ``generated`` until the verifier accepts them)
         self.draft: List[int] = []
+        #: chaos serve.request.poison marked this request
+        self.poisoned = False
+        #: structured-tracing context: the engine attaches a Trace and
+        #: its open spans under FLAGS_trace; the scheduler never reads
+        #: them
+        self.trace = None
+        self.trace_spans: dict = {}
 
     @property
     def terminal(self) -> bool:
@@ -218,7 +243,8 @@ class Scheduler:
     def __init__(self, cache: PagedKVCache, buckets: BucketTable,
                  max_queue: int = 1024, clock=time.perf_counter,
                  max_seq_len: Optional[int] = None,
-                 tenant_quota: Optional[int] = None, lora=None):
+                 tenant_quota: Optional[int] = None, lora=None,
+                 on_event: Optional[Callable] = None):
         self.cache = cache
         self.buckets = buckets
         #: most slots one tenant may hold at a time; None = no cap
@@ -239,12 +265,14 @@ class Scheduler:
                       "admitted": 0, "failed": 0, "quota_deferred": 0}
         #: cumulative quota deferrals per tenant
         self.tenant_deferrals: Dict[str, int] = {}
+        #: ``on_event(outcome, state)`` fires on every terminal transition
+        self.on_event = on_event
 
     # -- terminal transitions ----------------------------------------------
     def _terminate(self, st: RequestState, outcome: str,
                    reason: Optional[str] = None) -> None:
-        """The one exit path: frees any held slot/pages and stamps
-        exactly one outcome."""
+        """The one exit path: frees any held slot/pages, stamps exactly
+        one outcome, counts it and fires ``on_event``."""
         if st.outcome is not None:
             raise RuntimeError(f"request {st.request.request_id} already "
                                f"{st.outcome}")
@@ -261,6 +289,8 @@ class Scheduler:
         st.outcome = outcome
         st.failure = reason
         self.stats[outcome] += 1
+        if self.on_event is not None:
+            self.on_event(outcome, st)
 
     # -- queue --------------------------------------------------------------
     def submit(self, request: Request) -> RequestState:
@@ -323,6 +353,9 @@ class Scheduler:
         them into prefills)."""
         admitted: List[RequestState] = []
         free_slots = [i for i, st in enumerate(self.slots) if st is None]
+        if self.waiting and free_slots and chaos.active() \
+                and chaos.probe("serve.pages.exhaust"):
+            return []                  # injected dry pool: admission waits
         # idx passes quota-blocked requests; without a quota it stays 0
         # and the loop is the plain FIFO
         idx = 0
@@ -378,6 +411,15 @@ class Scheduler:
         (recompute policy) until the older ones fit. Returns the
         preempted states (already requeued at the queue front)."""
         preempted: List[RequestState] = []
+        if len(self.active()) >= 2 and chaos.active() \
+                and chaos.probe("serve.pages.exhaust"):
+            # injected pool pressure: recompute-preempt the newest
+            # admitted request, the oldest kept so the batch progresses
+            oldest = min(self.active(), key=lambda p: p[1].admitted_t)[1]
+            victim = self._newest_active(exclude=oldest)
+            if victim is not None:
+                self._preempt(victim)
+                preempted.append(victim)
         # oldest first: earlier-admitted requests keep their pages
         order = sorted(self.active(), key=lambda p: p[1].admitted_t)
         for slot, st in order:
