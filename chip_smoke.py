@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Nineteen phases, in order:
+result line. Twenty phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -200,17 +200,45 @@ result line. Nineteen phases, in order:
               the hand-written kernels, and the cost model's count of
               one step (the kernel wrappers' own counts included) beside
               the analytic FLOPs, with exact launch counts;
-19. summary -- print one JSON line describing every ported kernel, then
+19. resilience -- the checkpoint protocol and the serving resilience
+              plane on phase 3's engine configuration (a fresh GPT-2 345M
+              from seed 0): (a) phase 3's requests with every knob off,
+              with phase 3's launches and tokens exactly and no
+              resilience series, then off, armed (``serve_watchdog_s``
+              5), armed, off, twice, with the same tokens and launches,
+              decode p50 off against armed and the guarded dispatch's
+              own host cost; (b) 48 requests at once (priorities 0-2, deadlines
+              0.5-4 s) into a queue of 16 under the ``priority`` policy
+              with the overload detector at 0.25 s, a queued and an
+              in-flight cancel and a probe submit once the detector
+              trips: every request one terminal outcome, offered =
+              submitted + rejected, completed requests teacher-forced,
+              availability and shed rate as ``bench.py`` computes them;
+              (c) a drain latched after six steps, its snapshot resumed
+              by a successor engine (each stream the uninterrupted
+              run's, near-ties at a divergence under ``TIE_GAP``), then
+              a drain torn by ``ckpt.write.torn`` whose snapshot is
+              skipped; (d) ``serve.decode.hang`` under a 2 s watchdog:
+              a retry-safe ``DecodeWatchdogError``, ``/readyz`` 503
+              ``watchdog-tripped`` and the retried run's tokens exactly;
+              (e) four adapters through ``save_adapter_checkpoint`` and
+              ``load_adapter(path=)``, bit-equal to ``weights=``, and
+              phase 10's BERT-base step through ``save_train_step`` /
+              ``load_train_step``, bit-equal to an uninterrupted run,
+              with each commit's milliseconds and bytes;
+20. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
 13, 14 and 15, before each engine of phase 16, before the fed run of
-phase 17, before each predictor of phases 12 and 17 and before each
-half of phase 18, and read just after (a witness's reference runs are
-taken back out of them); the kernel JSON line gives each kernel's
-launches per path (``serve``, ``mt``, ``train``, ``bert``, ``ernie``,
-``predict``, ``amp_int8``, ``bf16_serve``, ``chat``, ``bf16_pools``,
-``io_train``, ``io_predict``, ``monitor_serve``, ``monitor_train``).
+phase 17, before each predictor of phases 12 and 17, before each half
+of phase 18 and before each run of phase 19, and read just after (a
+witness's reference runs are taken back out of them); the kernel JSON
+line gives each kernel's launches per path (``serve``, ``mt``,
+``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``,
+``bf16_serve``, ``chat``, ``bf16_pools``, ``io_train``, ``io_predict``,
+``monitor_serve``, ``monitor_train``, ``resilience``,
+``resilience_train``).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
@@ -1373,7 +1401,8 @@ def phase_slice() -> dict:
     _teacher_forced("slice", model, states, TIE_GAP)
     _log(f"slice: {_serve_line(summary, peak)}")
     busy = _profile_serve("slice", engine, specs)
-    return launches, {"summary": summary, "peak": peak, "busy": busy}
+    return launches, {"summary": summary, "peak": peak, "busy": busy,
+                      "tokens": [st.generated for st in states]}
 
 
 def _slice_specs(vocab_size):
@@ -3552,6 +3581,599 @@ def phase_monitor():
     return serve, train
 
 
+# -- phase 19: the checkpoint and the resilience plane -------------------------
+# part (b): phase 3's engine under the priority policy with a queue of 16
+# and the overload detector at 0.25 s; 48 requests of bench-like lengths,
+# priorities 0-2 and deadlines 0.5-4 s, submitted at once
+RES_SPEC = dict(num_requests=48, rate_rps=1e6, prompt_len_range=PROMPT_RANGE,
+                max_new_range=NEW_TOKENS_RANGE, vocab_size=50304, seed=19,
+                deadline_range=(0.5, 4.0), priority_choices=(0, 1, 2))
+RES_QUEUE, RES_OVERLOAD_S = 16, 0.25
+# part (c): steps before the drain latch triggers, and the grace budget
+RES_DRAIN_AFTER, RES_DRAIN_BUDGET_S = 6, 0.25
+# part (d): the watchdog's budget and the decode dispatch that hangs
+RES_WATCHDOG_S, RES_HANG_AT = 2.0, 5
+# the armed watchdog of part (a), and the order of its timed runs
+RES_ARMED_S = 5.0
+RES_ARMED_ORDER = ("off", "armed", "armed", "off") * 2
+# part (e): the LoRA engine and the BERT-base steps
+RES_ADAPTERS, RES_RANK, RES_LORA_REQUESTS = 4, 8, 8
+RES_TRAIN_STEPS = 3
+# the resilience plane's registry series: none may appear with it off
+RES_SERIES = ("serve_overload", "serve_deadline", "serve_watchdog", "slo_")
+
+
+def _res_counted(acc: dict, fn):
+    """``fn()`` with the launch counts set to 0 before and added to
+    ``acc`` after; returns (``fn()``'s result, this run's counts)."""
+    import torch
+    from paddle_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    run = {k["name"]: k["launches"] for k in kernels.kernels()}
+    for name, n in run.items():
+        acc[name] = acc.get(name, 0) + n
+    return out, run
+
+
+def _res_serve(engine, specs, **kw):
+    """Submit phase 3's requests and run them; this run's states and
+    decode step times."""
+    from paddle_tpu_torch.serving import Request, SamplingParams
+    n0 = len(engine._lat["decode_step"])
+    states = [engine.submit(Request(p, max_new_tokens=new,
+                                    sampling=SamplingParams(), **kw))
+              for p, new in specs]
+    engine.run()
+    return states, engine._lat["decode_step"][n0:]
+
+
+def _res_guard_us(engine, n: int = 2000) -> tuple:
+    """Host microseconds of one ``_guarded_dispatch`` of an empty job,
+    off and armed (the worker handoff and the event wait), each the
+    median of 5 batches of ``n``."""
+    import numpy as np
+    from paddle_tpu_torch.core import flag_scope
+    out = []
+    for armed in (0.0, RES_ARMED_S):
+        batches = []
+        with flag_scope("serve_watchdog_s", armed):
+            for _ in range(5):
+                t = time.perf_counter()
+                for _ in range(n):
+                    engine._guarded_dispatch("decode", lambda: None)
+                batches.append((time.perf_counter() - t) / n * 1e6)
+        out.append(float(np.median(batches)))
+    return tuple(out)
+
+
+def _res_off(model, specs, serve: tuple, acc: dict) -> list:
+    """(a) Phase 3's requests with every knob off: phase 3's launches
+    exactly, phase 3's tokens, no resilience series and only submitted
+    and completed events; then off, armed (``serve_watchdog_s`` 5),
+    armed, off: the same tokens and launches, decode p50 off against
+    armed, and the guarded dispatch's own host cost."""
+    import numpy as np
+    from paddle_tpu_torch.core import flag_scope
+    from paddle_tpu_torch.monitor import scoped_registry
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    serve_launches, f32 = serve
+    eng = ServingEngine(model, ServingConfig(**SERVE_CFG), device="cuda")
+    eng.warmup()
+    with scoped_registry() as reg:
+        (states, _), run = _res_counted(acc, lambda: _res_serve(eng, specs))
+        names = [n for n in reg.names() if n.startswith(RES_SERIES)]
+        events = {lab["event"]: int(v) for lab, v in
+                  reg.get("serve_requests_total").samples()}
+    tokens = [st.generated for st in states]
+    _require(run == serve_launches,
+             f"resilience off: launches {run} != phase 3's {serve_launches}")
+    _require(tokens == f32["tokens"], "resilience off: tokens differ from "
+             "phase 3's")
+    _require(not names and events == {"submitted": NUM_REQUESTS,
+                                       "completed": NUM_REQUESTS},
+             f"resilience off: series {names}, events {events}")
+    _require(eng._watchdog_worker is None, "resilience off: a watchdog "
+             "worker started")
+    _log(f"resilience off: launches equal phase 3's {run}; tokens equal "
+         "phase 3's; no resilience series, events {submitted, completed}")
+    decode = {"off": [], "armed": []}
+    for tag in RES_ARMED_ORDER:
+        with flag_scope("serve_watchdog_s",
+                        RES_ARMED_S if tag == "armed" else 0.0):
+            (sts, steps), run2 = _res_counted(
+                acc, lambda: _res_serve(eng, specs))
+        _require([st.generated for st in sts] == tokens,
+                 f"resilience {tag}: tokens differ from the first off run")
+        _require(run2 == run, f"resilience {tag}: launches {run2} != {run}")
+        decode[tag].append(steps)
+    _require(len(eng._watchdog_threads) == 1, "resilience armed: "
+             f"{len(eng._watchdog_threads)} dispatcher threads")
+    off_us, armed_us = _res_guard_us(eng)
+    p50 = {k: float(np.percentile(np.concatenate(v), 50)) * 1e3
+           for k, v in decode.items()}
+    n = RES_ARMED_ORDER.count("off")
+    _log(f"resilience armed: the same tokens and launches as off over {n} "
+         f"runs each ({', '.join(RES_ARMED_ORDER)}), one dispatcher "
+         f"thread; decode p50 over each side's {len(decode['off'][0]) * n} "
+         "steps "
+         f"off {p50['off']:.3f} ms, armed {p50['armed']:.3f} ms "
+         f"({p50['armed'] - p50['off']:+.3f} ms); runs "
+         + "; ".join(k + " " + ", ".join(
+             f"{float(np.percentile(x, 50)) * 1e3:.3f}" for x in decode[k])
+             for k in ("off", "armed"))
+         + f" ms; one guarded dispatch of an empty job costs "
+         f"{off_us:.2f} us off, {armed_us:.2f} us armed (worker handoff "
+         f"+ event wait: {armed_us - off_us:.2f} us a dispatch)")
+    eng.shutdown()
+    return tokens
+
+
+def _res_overload(model, acc: dict) -> None:
+    """(b) 48 requests with priorities and deadlines at once into a
+    queue of 16 under the priority policy, a queued and an in-flight
+    cancel, the overload detector at 0.25 s and a probe submit once it
+    trips: every request one terminal outcome, offered = submitted +
+    rejected, completed requests teacher-forced."""
+    from paddle_tpu_torch.monitor import scoped_registry
+    from paddle_tpu_torch.serving import (TERMINAL_OUTCOMES, LoadSpec,
+                                          Request, ServerOverloaded,
+                                          ServingConfig, ServingEngine,
+                                          build_requests)
+    eng = ServingEngine(model, ServingConfig(
+        **SERVE_CFG, queue_policy="priority", max_queue=RES_QUEUE,
+        overload_threshold_s=RES_OVERLOAD_S), device="cuda")
+    reqs = [r for _, r in build_requests(LoadSpec(**RES_SPEC))]
+    states, refused, probes, ready = [], {}, [], set()
+
+    def run():
+        for r in reqs:
+            try:
+                states.append(eng.submit(r))
+            except ServerOverloaded as e:
+                refused[e.reason] = refused.get(e.reason, 0) + 1
+        cancels = []
+        steps = 0
+        while eng.scheduler.has_work:
+            eng.step()
+            steps += 1
+            if steps == 1:
+                queued = eng.scheduler.waiting[-1]
+                flight = eng.scheduler.active()[0][1]
+                for st in (queued, flight):
+                    _require(eng.cancel(st.request.request_id),
+                             "resilience overload: cancel missed")
+                    cancels.append(st)
+            r = eng._readiness()
+            ready.add(r["state"] if r else "ready")
+            if eng._overload.overloaded and not probes:
+                probe = Request(reqs[0].prompt, max_new_tokens=16)
+                try:
+                    states.append(eng.submit(probe))
+                except ServerOverloaded as e:
+                    probes.append(e.reason)
+                    refused[e.reason] = refused.get(e.reason, 0) + 1
+        return cancels, steps
+
+    with scoped_registry() as reg:
+        t0 = time.perf_counter()
+        (cancels, steps), _ = _res_counted(acc, run)
+        wall = time.perf_counter() - t0
+        events = {lab["event"]: int(v) for lab, v in
+                  reg.get("serve_requests_total").samples()}
+        transitions = reg.get("serve_overload_transitions_total")
+        n_enter = transitions.value(state="enter") if transitions else 0
+    stats = eng.scheduler.stats
+    offered = len(reqs) + len(probes)
+    rejected = sum(refused.values())
+    outcomes = {o: sum(st.outcome == o for st in states)
+                for o in TERMINAL_OUTCOMES}
+    _require(all(st.outcome in TERMINAL_OUTCOMES for st in states),
+             "resilience overload: a request without a terminal outcome")
+    _require(offered == stats["submitted"] + rejected == len(states)
+             + rejected, f"resilience overload: offered {offered}, "
+             f"submitted {stats['submitted']}, rejected {rejected}")
+    _require(outcomes == {o: stats[o] for o in TERMINAL_OUTCOMES}
+             and sum(outcomes.values()) == stats["submitted"],
+             f"resilience overload: outcomes {outcomes}, stats {stats}")
+    _require(events.get("rejected", 0) == rejected and sum(
+        events.get(o, 0) for o in TERMINAL_OUTCOMES) == events["submitted"],
+        f"resilience overload: events {events}")
+    _require([st.outcome for st in cancels] == ["cancelled", "cancelled"],
+             "resilience overload: cancels ended "
+             f"{[st.outcome for st in cancels]}")
+    _require(probes == ["overload"] and n_enter >= 1
+             and "shedding" in ready,
+             f"resilience overload: probes {probes}, transitions "
+             f"{n_enter}, readiness {sorted(ready)}")
+    _require(eng.cache.allocator.pages_in_use == 0,
+             "resilience overload: pages leaked")
+    done = [st for st in states if st.outcome == "completed"]
+    _require(done, "resilience overload: nothing completed")
+    _teacher_forced("resilience overload", model, done, TIE_GAP)
+    summary = dict(eng.metrics_summary(), num_requests=offered,
+                   requests_rejected=rejected)
+    avail, shed = _serve_resilience_metrics(summary)
+    _log(f"resilience overload: {offered} offered ({len(reqs)} at once + "
+         f"{len(probes)} probe), {stats['submitted']} submitted, "
+         f"{rejected} rejected {refused}; outcomes {outcomes} "
+         f"({stats['expired_queued']} expired queued); {steps} steps in "
+         f"{wall:.2f} s; overload entered {int(n_enter)} time(s), readiness "
+         f"states seen {sorted(ready)}; availability {avail:.2f}%, shed "
+         f"rate {shed:.2f}% (bench.py's serve_resilience_metrics)")
+    eng.shutdown()
+
+
+def _serve_resilience_metrics(summary: dict) -> tuple:
+    """bench.py's ``serve_resilience_metrics``: availability = completed
+    / offered; shed rate = (rejected + shed + queued expiries) /
+    offered, in percent."""
+    offered = max(int(summary.get("num_requests") or 0), 1)
+    completed = int(summary.get("requests_completed") or 0)
+    shed = (int(summary.get("requests_rejected") or 0)
+            + int(summary.get("requests_shed") or 0)
+            + int(summary.get("requests_expired_queued") or 0))
+    return 100.0 * completed / offered, 100.0 * shed / offered
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _same_streams(tag, model, got, want, prompts) -> int:
+    """Greedy streams ``got`` against ``want`` (both generated tokens
+    after ``prompts``): equal, or diverging at a near-tie (the two
+    tokens within ``TIE_GAP`` of each other in a no-cache forward of the
+    shared prefix). Returns the count of equal streams."""
+    import numpy as np
+    import torch
+    same = 0
+    for g, w, p in zip(got, want, prompts):
+        if g == w:
+            same += 1
+            continue
+        i = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        seq = np.concatenate([p, np.asarray(w[:i], np.int32)])
+        with torch.no_grad():
+            lg = model(torch.from_numpy(seq[None].astype(np.int64)).cuda()
+                       )[0, -1].float()
+        gap = abs(float(lg[g[i]] - lg[w[i]]))
+        _require(gap < TIE_GAP, f"{tag}: streams diverge at token {i} by "
+                 f"a logit gap of {gap} >= {TIE_GAP}")
+    return same
+
+
+def _res_drain(model, specs, tokens, tmp: str, acc: dict) -> None:
+    """(c) ``enable_drain``, the latch triggered after six steps, the
+    engine drained; a successor built from the same weights resumes the
+    snapshot, each greedy stream (prompt + before + after) the
+    uninterrupted run's; then a drain of the successor torn by
+    ``ckpt.write.torn`` leaves the first snapshot the one that loads."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.serving.engine as engine_mod
+    from paddle_tpu_torch.serving import (EngineDrained, Request,
+                                          SamplingParams, ServingConfig,
+                                          ServingEngine, load_drain_snapshot,
+                                          requests_from_snapshot)
+    from paddle_tpu_torch.testing import chaos
+    root = os.path.join(tmp, "drain")
+    commits = []
+    real_save = engine_mod.save_drain_snapshot
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        path = real_save(*a, **kw)
+        commits.append((path, (time.perf_counter() - t) * 1e3))
+        return path
+    engine_mod.save_drain_snapshot = timed_save
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng = ServingEngine(model, ServingConfig(**SERVE_CFG),
+                            device="cuda")
+        latch = eng.enable_drain(root, budget_s=RES_DRAIN_BUDGET_S)
+
+        def first():
+            sts = [eng.submit(Request(p, max_new_tokens=new,
+                                      sampling=SamplingParams()))
+                   for p, new in specs]
+            for _ in range(RES_DRAIN_AFTER):
+                eng.step()
+            latch.trigger()
+            t = time.perf_counter()
+            try:
+                eng.run()
+            except EngineDrained as e:
+                return sts, e.report, time.perf_counter() - t
+            raise RuntimeError("resilience drain: no EngineDrained")
+        (sts, report, drain_s), _ = _res_counted(acc, first)
+        _require(eng._readiness()["state"] == "drained",
+                 f"resilience drain: readiness {eng._readiness()}")
+        _require(all(st.outcome in ("completed", "drained") for st in sts)
+                 and sum(st.outcome == "drained" for st in sts)
+                 == report.snapshotted > 0,
+                 f"resilience drain: report {report}")
+        path, snap = load_drain_snapshot(root)
+        _require(path == report.path and len(snap) == report.snapshotted,
+                 f"resilience drain: loaded {path}")
+        eng.shutdown()
+        del eng
+        gc.collect()
+        succ = ServingEngine(model, ServingConfig(**SERVE_CFG),
+                             device="cuda")
+        by_id = {st.request.request_id: i for i, st in enumerate(sts)}
+
+        def resume():
+            states = [succ.submit(r) for r in requests_from_snapshot(snap)]
+            succ.run()
+            return states
+        resumed, _ = _res_counted(acc, resume)
+        _require(all(st.outcome == "completed" for st in resumed),
+                 "resilience drain: a resumed request did not complete")
+        got, want, prompts = [], [], []
+        for d, st in zip(snap, resumed):
+            i = by_id[d["request_id"]]
+            got.append(list(d["generated"]) + st.generated)
+            want.append(tokens[i])
+            prompts.append(np.asarray(d["prompt"], np.int32))
+        for st in sts:
+            if st.outcome == "completed":
+                _require(st.generated == tokens[by_id[st.request.request_id]],
+                         "resilience drain: a request completed in the "
+                         "grace budget differs from the uninterrupted run")
+        same = _same_streams("resilience drain", model, got, want, prompts)
+        ttft = succ.metrics_summary()
+        # the torn second drain: the first snapshot stays the valid one
+        extra = [succ.submit(Request(p, max_new_tokens=new))
+                 for p, new in specs[:2]]
+        with chaos.chaos_scope("ckpt.write.torn@1"):
+            torn = succ.drain(snapshot_dir=root, budget_s=0.0)
+        path2, snap2 = load_drain_snapshot(root)
+        _require(torn.path.endswith("drain_2") and path2 == report.path
+                 and snap2 == snap and all(st.outcome == "drained"
+                                           for st in extra),
+                 f"resilience drain: torn {torn.path}, loaded {path2}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        succ.shutdown()
+    finally:
+        engine_mod.save_drain_snapshot = real_save
+    (p1, ms1), (p2, ms2) = commits
+    _log(f"resilience drain: after {RES_DRAIN_AFTER} steps the latch "
+         f"drained in {drain_s:.3f} s (grace budget {RES_DRAIN_BUDGET_S} "
+         f"s): {report.completed} completed, {report.snapshotted} "
+         f"snapshotted; snapshot commit {ms1:.3f} ms, {_dir_bytes(p1)} "
+         f"bytes; the successor resumed {len(resumed)} requests, "
+         f"{same} of {len(got)} streams equal to the uninterrupted run's "
+         f"exactly" + ("" if same == len(got) else
+                       f" (the rest diverge at a near-tie under "
+                       f"{TIE_GAP:g})") + ", "
+         f"TTFT p50 {_ms(ttft['ttft_p50_s'])} p99 "
+         f"{_ms(ttft['ttft_p99_s'])}; torn drain_2 commit {ms2:.3f} ms, "
+         f"{_dir_bytes(p2)} bytes on disk, skipped: drain_1 loads; peak "
+         f"device memory {peak:.3f} GiB (the first engine shut down "
+         "before the successor was built)")
+
+
+def _res_watchdog(model, specs, tokens, acc: dict) -> None:
+    """(d) ``serve_watchdog_s`` 2 and ``serve.decode.hang`` at the fifth
+    decode dispatch: ``DecodeWatchdogError(retry_safe=True)``, /readyz
+    503 ``watchdog-tripped``, and the retried run's tokens are the
+    untripped run's."""
+    from paddle_tpu_torch.core import flag_scope
+    from paddle_tpu_torch.monitor import server
+    from paddle_tpu_torch.serving import (DecodeWatchdogError, Request,
+                                          SamplingParams, ServingConfig,
+                                          ServingEngine)
+    from paddle_tpu_torch.testing import chaos
+    with flag_scope("monitor_port", -1):
+        eng = ServingEngine(model, ServingConfig(**SERVE_CFG),
+                            device="cuda")
+    url = f"http://127.0.0.1:{server.get_server().port}/readyz"
+
+    def run():
+        sts = [eng.submit(Request(p, max_new_tokens=new,
+                                  sampling=SamplingParams()))
+               for p, new in specs]
+        with flag_scope("serve_watchdog_s", RES_WATCHDOG_S):
+            chaos.configure(f"serve.decode.hang@{RES_HANG_AT}")
+            trip = None
+            while eng.scheduler.has_work:
+                t = time.perf_counter()
+                try:
+                    eng.step()
+                except DecodeWatchdogError as e:
+                    trip = (e, time.perf_counter() - t,
+                            _http_get(url), eng._readiness())
+            chaos.reset()
+        return sts, trip
+    try:
+        (sts, trip), _ = _res_counted(acc, run)
+    finally:
+        chaos.reset()
+        eng.shutdown()
+        server.stop_server()
+    _require(trip is not None, "resilience watchdog: no trip")
+    err, trip_s, (code, body), ready = trip
+    _require(err.kind == "decode" and err.retry_safe
+             and err.timeout_s == RES_WATCHDOG_S,
+             f"resilience watchdog: {err!r}")
+    _require(code == 503 and "watchdog-tripped" in body
+             and ready["state"] == "watchdog-tripped",
+             f"resilience watchdog: /readyz {code} {body[:200]}")
+    _require([st.generated for st in sts] == tokens,
+             "resilience watchdog: the retried run's tokens differ from "
+             "the untripped run's")
+    _log(f"resilience watchdog: decode dispatch #{err.dispatch_seq} hung "
+         f"(serve.decode.hang@{RES_HANG_AT}); DecodeWatchdogError after "
+         f"{trip_s:.3f} s (budget {RES_WATCHDOG_S} s), retry_safe "
+         f"{err.retry_safe}, {err.active_slots} active slots; /readyz "
+         f"{code} watchdog-tripped; the retried step and the rest of the "
+         f"run gave the untripped run's {sum(map(len, tokens))} tokens "
+         "exactly")
+
+
+def _res_lora(model, tmp: str, acc: dict) -> None:
+    """(e) Four rank-8 adapters through ``save_adapter_checkpoint`` and
+    ``load_adapter(path=)``: the pools and eight requests' tokens
+    bit-equal to the engine loaded with ``weights=``; bgmv once per
+    layer per dispatch."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.serving import (Request, SamplingParams,
+                                          ServingConfig, ServingEngine,
+                                          save_adapter_checkpoint)
+    L, E = model.cfg.num_layers, model.cfg.hidden_size
+    rng = np.random.default_rng(41)
+    weights = {f"a{i}": (rng.standard_normal((L, RES_RANK, E)).astype(
+        np.float32) * 1e-2, rng.standard_normal((L, RES_RANK, 3 * E)).astype(
+        np.float32) * 1e-2) for i in range(RES_ADAPTERS)}
+    paths, save_ms, nbytes = {}, [], 0
+    for name, (a, b) in weights.items():
+        paths[name] = os.path.join(tmp, f"adapter_{name}")
+        t = time.perf_counter()
+        save_adapter_checkpoint(paths[name], a, b)
+        save_ms.append((time.perf_counter() - t) * 1e3)
+        nbytes += _dir_bytes(paths[name])
+        _require(ckpt.verify_checkpoint(paths[name], level="full") is None,
+                 f"resilience lora: {paths[name]} does not verify")
+    specs = _slice_specs(model.cfg.vocab_size)[:RES_LORA_REQUESTS]
+    out = {}
+    for source in ("path", "weights"):
+        eng = ServingEngine(model, ServingConfig(
+            **SERVE_CFG, lora_adapters=RES_ADAPTERS, lora_rank=RES_RANK),
+            device="cuda")
+        t = time.perf_counter()
+        for name in weights:
+            if source == "path":
+                eng.lora.load_adapter(name, path=paths[name])
+            else:
+                eng.lora.load_adapter(name, weights=weights[name])
+        load_ms = (time.perf_counter() - t) * 1e3
+        names = list(weights)
+
+        def serve():
+            sts = [eng.submit(Request(p, max_new_tokens=n,
+                                      sampling=SamplingParams(),
+                                      adapter=names[i % len(names)]))
+                   for i, (p, n) in enumerate(specs)]
+            eng.run()
+            return sts
+        sts, run = _res_counted(acc, serve)
+        s = eng.stats()
+        _require(all(st.outcome == "completed" for st in sts),
+                 f"resilience lora ({source}): a request failed")
+        n_disp = s["prefill_dispatches"] + s["decode_dispatches"]
+        _require(run["bgmv"] == L * n_disp > 0,
+                 f"resilience lora ({source}): bgmv {run['bgmv']} != "
+                 f"{L} x {n_disp} dispatches")
+        out[source] = ([st.generated for st in sts], eng.lora.a.clone(),
+                       eng.lora.b.clone(), load_ms)
+        eng.shutdown()
+        del eng
+    (tp, ap, bp, ms_p), (tw, aw, bw, ms_w) = out["path"], out["weights"]
+    _require(tp == tw and torch.equal(ap, aw) and torch.equal(bp, bw),
+             "resilience lora: the path-loaded engine differs from the "
+             "weights-loaded one")
+    _log(f"resilience lora: {RES_ADAPTERS} rank-{RES_RANK} adapters saved "
+         f"as checkpoints ({nbytes} bytes, commit "
+         + ", ".join(f"{x:.2f}" for x in save_ms)
+         + f" ms) and loaded by path in {ms_p:.2f} ms (by weights "
+         f"{ms_w:.2f} ms): pools and {RES_LORA_REQUESTS} requests' tokens "
+         "bit-equal, bgmv once per layer per dispatch")
+
+
+def _res_train(tmp: str) -> dict:
+    """(e) Phase 10's BERT-base O1 step: three steps, ``save_train_step``,
+    three more; a fresh step (its parameters and generator scrambled)
+    restored by ``load_train_step`` takes the same three. Losses and
+    every parameter bit-equal; exact launches."""
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    cfg, _, step, batch = _encoder_setup("bert")
+    path = os.path.join(tmp, "step_bert")
+    for _ in range(RES_TRAIN_STEPS):
+        float(step(*batch))
+    t = time.perf_counter()
+    ckpt.save_train_step(step, path)
+    save_s = time.perf_counter() - t
+    ref = [float(step(*batch)) for _ in range(RES_TRAIN_STEPS)]
+    ref_params = {k: v.detach().clone()
+                  for k, v in step.layer.named_parameters()}
+    del step
+    gc.collect()
+    _, _, fresh, _ = _encoder_setup("bert")
+    with torch.no_grad():
+        for p in fresh.layer.parameters():
+            p.add_(1.0)
+    fresh.generator.manual_seed(12345)
+    t = time.perf_counter()
+    ckpt.load_train_step(fresh, path)
+    load_s = time.perf_counter() - t
+    got = [float(fresh(*batch)) for _ in range(RES_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    launches = {k["name"]: k["launches"] for k in kernels.kernels()}
+    want = _encoder_launches(cfg, 3 * RES_TRAIN_STEPS)
+    _require(got == ref, f"resilience train: resumed losses {got} != {ref}")
+    _require(all(torch.equal(v, ref_params[k])
+                 for k, v in fresh.layer.named_parameters()),
+             "resilience train: resumed parameters differ")
+    _require(launches == want, f"resilience train: launches {launches} != "
+             f"{want}")
+    nbytes = _dir_bytes(path)
+    _log(f"resilience train: BERT-base save_train_step {save_s:.3f} s, "
+         f"load_train_step {load_s:.3f} s, {nbytes} bytes "
+         f"({nbytes / save_s / 1e9:.3f} GB/s saved, fsync'd); the "
+         f"{RES_TRAIN_STEPS} resumed steps' losses and every parameter "
+         "bit-equal to the uninterrupted run's; launches exact")
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_resilience(serve: tuple):
+    """The checkpoint protocol and the serving resilience plane on phase
+    3's engine (parts a-d), a LoRA engine and phase 10's step (e).
+    Returns the launches of the serving parts and of the train part."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+    acc: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = gpt2_medium()
+        model = GPTForPretraining(cfg, device="cuda", seed=0)
+        specs = _slice_specs(cfg.vocab_size)
+
+        def collect():
+            # an engine is a reference cycle (its scheduler calls back
+            # into it): free the last part's before the next one builds
+            gc.collect()
+            torch.cuda.empty_cache()
+        collect()
+        tokens = _res_off(model, specs, serve, acc)
+        collect()
+        _res_overload(model, acc)
+        collect()
+        _res_drain(model, specs, tokens, tmp, acc)
+        collect()
+        _res_watchdog(model, specs, tokens, acc)
+        collect()
+        _res_lora(model, tmp, acc)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = _res_train(tmp)
+    _log(f"resilience: launches of the serving parts {acc}")
+    return acc, train
+
+
 # -- main --------------------------------------------------------------------
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
@@ -3602,6 +4224,8 @@ def main() -> int:
         "io", phase_io, bert_step_s)
     by_path["monitor_serve"], by_path["monitor_train"] = timed(
         "monitor", phase_monitor)
+    by_path["resilience"], by_path["resilience_train"] = timed(
+        "resilience", phase_resilience, (by_path["serve"], f32_serve))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

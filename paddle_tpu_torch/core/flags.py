@@ -3,9 +3,10 @@
 Counterpart of ``paddle_tpu/core/flags.py``: one registry, each value
 read from the environment (``FLAGS_<name>``) unless :func:`set_flags`
 or :func:`flag_scope` set it. The port defines only the flags whose
-behaviour it has (``serve_kv_quant``, ``amp_int8_matmul`` and the
+behaviour it has (``serve_kv_quant``, ``amp_int8_matmul``, the
 serving throughput features ``serve_prefix_cache``,
-``serve_prefill_chunk``, ``serve_spec_k``, ``serve_spec_ngram``); it has no
+``serve_prefill_chunk``, ``serve_spec_k``, ``serve_spec_ngram``, the
+serving watchdog ``serve_watchdog_s`` and ``checkpoint_verify``); it has no
 kernel kill switches (the JAX package's
 ``pallas_*`` flags), because a kernel wrapper on the card launches its
 kernel or raises. The monitor flags (``monitor``, ``trace``,
@@ -107,6 +108,28 @@ define_flag("amp_int8_matmul", False,
             "per-tensor activation and per-channel weight quantization, "
             "a straight-through dense backward. Off by default; read at "
             "every call.")
+define_flag("checkpoint_verify", "manifest",
+            "Checkpoint validation level for distributed.checkpoint "
+            "restores and latest_step scans. 'manifest' (default) = a "
+            "committed manifest must exist and every file it lists must "
+            "be present with the recorded size (catches uncommitted and "
+            "torn directories); 'full' = additionally re-checksum every "
+            "file against the manifest CRCs (catches silent bit "
+            "corruption, costs one read of the checkpoint); 'off' = "
+            "existence check only (restores legacy pre-manifest "
+            "checkpoints). CRCs are RECORDED at commit time only under "
+            "'full' (they cost a full re-read of the staged tree); "
+            "manifests without CRCs still verify at 'manifest' level.")
+define_flag("serve_watchdog_s", 0.0,
+            "Wall-clock watchdog (seconds) for serving prefill/decode "
+            "dispatches (serving.engine): a dispatch that "
+            "does not return within the budget raises "
+            "DecodeWatchdogError (with a decode_watchdog flight event "
+            "and dump) instead of stalling the serving loop forever. "
+            "0 (default) = no watchdog, direct dispatch — zero "
+            "overhead. The budget covers a whole dispatch including a "
+            "cold compile; warmup() first, or set it well above "
+            "cold-start time. Modeled on FLAGS_collective_timeout_s.")
 define_flag("serve_prefix_cache", False,
             "Radix-tree prefix cache over the serving KV page pools "
             "(serving.prefix_cache): completed/evicted requests donate "

@@ -1,8 +1,12 @@
 """LLM serving engine: paged decode + continuous batching, PyTorch port.
 
-Counterpart of ``paddle_tpu/serving/engine.py`` on one device (no
-drain, hot swap, resilience or mesh). Each :meth:`ServingEngine.step`:
+Counterpart of ``paddle_tpu/serving/engine.py`` on one device (no hot
+swap or mesh). Each :meth:`ServingEngine.step`:
 
+0. honours a latched drain signal (``enable_drain``: the engine drains
+   and raises ``EngineDrained``), expires queued requests past their
+   deadline, cancels or expires in-flight ones (``cancel``,
+   ``Request.deadline_s``) and feeds the overload detector;
 1. admits waiting requests into free slots (``Scheduler``), mapping the
    longest cached prefix copy-on-write when the prefix cache is on;
 2. prefills every prefilling slot's next chunk in bucketed groups, each
@@ -43,6 +47,20 @@ builds a :class:`~.lora.LoRAManager` whose pools and per-row adapter ids
 ride every prefill and decode view (the bgmv kernel, once per layer per
 dispatch); ``tenant_quota`` caps the slots one tenant holds.
 
+Resilience, as in the JAX engine, each off by default: bounded-queue
+shedding by ``ServingConfig.queue_policy``; the queue-delay overload
+detector (``overload_threshold_s``), which sheds every submit while it
+is tripped; graceful drain (``enable_drain`` / ``drain``), which stops
+admission, decodes in-flight requests for ``drain_budget_s`` and
+commits the rest as a snapshot a successor engine resumes
+(``resilience.requests_from_snapshot``); the dispatch watchdog
+(``FLAGS_serve_watchdog_s``), which runs every prefill, context, verify
+and decode dispatch on one worker thread and turns one that outlives
+its budget into ``DecodeWatchdogError``; ``/readyz`` reports
+``drained``, ``draining``, ``shedding`` and ``watchdog-tripped``. With
+every knob at its default an engine writes no new registry series and
+launches what it launched without them.
+
 Observability, as in the JAX engine ("an engine exists to be
 observed"): the ``serve_*`` request, latency, dispatch and gauge series
 are always on (``monitor.get_registry()``); under ``FLAGS_trace`` each
@@ -61,6 +79,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import signal
+import threading
 import time
 import weakref
 from dataclasses import dataclass
@@ -85,12 +105,53 @@ from .kv_cache import (PagedCacheView, PagedKVCache, blocks_needed,
                        context_index)
 from .lora import LoRAManager
 from .prefix_cache import RadixPrefixCache
+from .resilience import (DecodeWatchdogError, DispatchWorker, DrainLatch,
+                         DrainReport, EngineDrained, OverloadDetector,
+                         ServerOverloaded, request_spec,
+                         save_drain_snapshot)
 from .sampling import SamplingParams, sample_tokens, verify_draws
-from .scheduler import (AdmissionGroup, BucketTable, Request, RequestState,
-                        Scheduler, ServerOverloaded)
+from .scheduler import (QUEUE_POLICIES, AdmissionGroup, BucketTable,
+                        Request, RequestState, Scheduler)
 from .spec_decode import propose_ngram
 
 __all__ = ["ServingConfig", "ServingEngine"]
+
+#: live engines, for test isolation (``serving.reset`` shuts them down)
+_LIVE_ENGINES: "weakref.WeakSet[ServingEngine]" = weakref.WeakSet()
+
+#: the launch gate of the guarded dispatch running on this thread (the
+#: watchdog's worker), read by ``ServingEngine._forward``
+_LAUNCH = threading.local()
+
+
+class _DispatchAbandoned(RuntimeError):
+    """A guarded dispatch reached its first launch after the watchdog
+    abandoned it; it stops there."""
+
+
+class _LaunchGate:
+    """Whether a guarded dispatch has started launching, decided under a
+    lock against its abandonment: the job passes the gate before its
+    first launch, and once the caller has abandoned it the gate raises
+    instead, so an abandoned job that had not started never will."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._started = False
+        self._abandoned = False
+
+    def enter(self) -> None:
+        with self._lock:
+            if self._abandoned:
+                raise _DispatchAbandoned("dispatch abandoned by the "
+                                         "watchdog before its first launch")
+            self._started = True
+
+    def abandon(self) -> bool:
+        """Abandon the job; returns whether it had started launching."""
+        with self._lock:
+            self._abandoned = True
+            return self._started
 
 
 def _pow2_buckets(lo: int, hi: int) -> Tuple[int, ...]:
@@ -120,10 +181,16 @@ class ServingConfig:
     int8 pools). ``lora_adapters > 0`` builds a LoRA manager with that
     many loadable adapters of rank ``lora_rank``; ``tenant_quota`` caps
     the slots one tenant may hold at a time (None: no cap).
-    ``slo_availability`` in (0, 1) arms the multi-window error-budget
-    burn tracker over request outcomes (``slo_windows`` seconds); 0.0
-    (default) = no tracker. The JAX ``slo_deadline`` comes with
-    ``Request.deadline_s``."""
+    ``queue_policy`` sheds a full queue (``reject-new``, ``drop-oldest``
+    or ``priority``); ``overload_threshold_s > 0`` arms the queue-delay
+    EWMA detector (``overload_alpha``, exit at ``overload_exit_frac`` of
+    the threshold), which sheds every submit while tripped.
+    ``slo_availability`` / ``slo_deadline`` in (0, 1) arm the
+    multi-window error-budget burn trackers over request outcomes and
+    completion slack (``slo_windows`` seconds); 0.0 (default) = no
+    tracker. ``drain_budget_s`` is how long a drain keeps decoding
+    in-flight requests before it snapshots the rest into ``drain_dir``
+    (None: a drain with pending work refuses)."""
 
     max_batch_slots: int = 8
     block_size: int = 16
@@ -138,10 +205,21 @@ class ServingConfig:
     lora_adapters: int = 0
     lora_rank: int = 8
     tenant_quota: Optional[int] = None
+    queue_policy: str = "reject-new"
+    overload_threshold_s: float = 0.0
+    overload_alpha: float = 0.3
+    overload_exit_frac: float = 0.5
     slo_availability: float = 0.0
+    slo_deadline: float = 0.0
     slo_windows: Tuple[float, ...] = (60.0, 300.0, 3600.0)
+    drain_budget_s: float = 5.0
+    drain_dir: Optional[str] = None
 
     def resolve(self, model_max_positions: Optional[int]) -> None:
+        if self.queue_policy not in QUEUE_POLICIES:
+            raise ValueError(
+                f"unknown queue_policy {self.queue_policy!r}; one of "
+                f"{QUEUE_POLICIES}")
         if self.cache_dtype not in _CACHE_DTYPES:
             raise ValueError(
                 f"cache_dtype={self.cache_dtype!r}: the port's pools are "
@@ -245,13 +323,32 @@ class ServingEngine:
         self.scheduler = Scheduler(self.cache, self.buckets,
                                    max_queue=c.max_queue, clock=clock,
                                    max_seq_len=c.max_context_len,
+                                   policy=c.queue_policy,
+                                   on_event=self._on_request_event,
                                    tenant_quota=c.tenant_quota,
-                                   lora=self.lora,
-                                   on_event=self._on_request_event)
+                                   lora=self.lora)
+        self._overload = (OverloadDetector(
+            c.overload_threshold_s, alpha=c.overload_alpha,
+            exit_frac=c.overload_exit_frac)
+            if c.overload_threshold_s > 0 else None)
         self._slo_avail = (SLOTracker(
             "serve_availability", c.slo_availability,
             windows=c.slo_windows, clock=clock)
             if c.slo_availability > 0 else None)
+        self._slo_deadline = (SLOTracker(
+            "serve_deadline", c.slo_deadline,
+            windows=c.slo_windows, clock=clock)
+            if c.slo_deadline > 0 else None)
+        self._drain_latch: Optional[DrainLatch] = None
+        self._draining = False
+        self._drained = False
+        self._watchdog_threads: List[threading.Thread] = []
+        self._watchdog_worker: Optional[DispatchWorker] = None
+        #: the last watchdog trip; /readyz reports it until a later
+        #: guarded dispatch returns
+        self._watchdog_tripped: Optional[dict] = None
+        #: serving dispatches so far (prefill, verify, decode)
+        self._dispatch_seq = 0
         # the throughput features, each read once here so an engine's
         # behaviour is fixed for its lifetime
         self._chunk = int(get_flag("serve_prefill_chunk") or 0)
@@ -286,6 +383,7 @@ class ServingEngine:
         if get_flag("memory_preflight"):
             _memory.preflight_check(_memory.known_bytes(engine=self),
                                     device=self.device)
+        _LIVE_ENGINES.add(self)
         self._attach_admin()
 
     @torch.no_grad()
@@ -341,9 +439,26 @@ class ServingEngine:
                      else e._admin_status())(ref()))
 
     def _readiness(self) -> Optional[dict]:
-        """None while this engine should receive traffic. The port's
-        engine has no drain, overload shedding or dispatch watchdog yet,
-        so a live engine is always ready."""
+        """None while this engine should receive traffic; otherwise a
+        JSON reason from the serving state machine, the load balancer's
+        signal to pull this replica. Reads live state only, so a
+        transition shows within the iteration it happens."""
+        if self._drained:
+            return {"state": "drained",
+                    "detail": "engine drained; hand traffic to the "
+                              "successor"}
+        if self._draining or (self._drain_latch is not None
+                              and self._drain_latch.triggered):
+            return {"state": "draining",
+                    "queue_depth": self.scheduler.queue_depth,
+                    "active_slots": len(self.scheduler.active())}
+        if self._overload is not None and self._overload.overloaded:
+            return {"state": "shedding",
+                    "ewma_s": round(self._overload.ewma_s, 4),
+                    "threshold_s": self._overload.threshold_s,
+                    "queue_depth": self.scheduler.queue_depth}
+        if self._watchdog_tripped is not None:
+            return dict(self._watchdog_tripped, state="watchdog-tripped")
         return None
 
     def _admin_status(self) -> dict:
@@ -355,6 +470,11 @@ class ServingEngine:
             "kv_pages_in_use": self.cache.allocator.pages_in_use,
             "kv_pages_total": self.cache.allocator.num_pages,
             "engine_stats": dict(self._stats),
+            "draining": self._draining,
+            "drained": self._drained,
+            "overloaded": (self._overload.overloaded
+                           if self._overload is not None else False),
+            "watchdog_tripped": self._watchdog_tripped,
         }
         if self.lora is not None:
             d["lora"] = self.stats()["lora"]
@@ -362,6 +482,8 @@ class ServingEngine:
             d["tenant_deferrals"] = dict(self.scheduler.tenant_deferrals)
         if self._slo_avail is not None:
             d["slo_availability"] = self._slo_avail.snapshot()
+        if self._slo_deadline is not None:
+            d["slo_deadline"] = self._slo_deadline.snapshot()
         return d
 
     def _detach_admin(self) -> None:
@@ -372,6 +494,10 @@ class ServingEngine:
             self._admin = None
 
     # -- request lifecycle telemetry -----------------------------------------
+    #: deadline-slack buckets: negative = finished past the deadline
+    DEADLINE_SLACK_BUCKETS = (-1.0, -0.1, 0.0, 0.05, 0.1, 0.25, 0.5,
+                              1.0, 2.0, 5.0, 30.0)
+
     @staticmethod
     def _requests_counter():
         return get_registry().counter(
@@ -395,11 +521,18 @@ class ServingEngine:
                 reason=st.failure, tokens=len(st.generated),
                 preemptions=st.preemptions)
         if self._slo_avail is not None:
+            # cancelled and drained are the client's and the operator's
+            # choices: they spend no budget
             if outcome == "completed":
                 self._slo_avail.record(good=1)
-            elif outcome == "failed":
+            elif outcome in ("expired", "failed", "shed"):
                 self._slo_avail.record(bad=1)
             self._slo_avail.publish()
+        if self._slo_deadline is not None and outcome == "expired":
+            # a blown deadline, queued or in flight (completions are fed
+            # from _accept_token)
+            self._slo_deadline.record(bad=1)
+            self._slo_deadline.publish()
         self._close_trace(st, outcome)
 
     def _close_trace(self, st: RequestState, outcome: str) -> None:
@@ -415,19 +548,22 @@ class ServingEngine:
         tr.event("terminal", t=now, outcome=outcome,
                  reason=st.failure, tokens=len(st.generated),
                  preemptions=st.preemptions)
-        if outcome == "failed":
+        if outcome in ("expired", "shed", "failed"):
             reason = st.failure or ""
             tr.mark_anomaly(
                 "nonfinite" if "non-finite" in reason
-                else ("chaos" if st.poisoned else "failed"),
+                else ("chaos" if st.poisoned
+                      else ("failed" if outcome == "failed"
+                            else outcome)),
                 failure=st.failure)
         tr.root.set_attrs(outcome=outcome)
         _trace.get_tracer().finish_trace(tr, t=now)
         st.trace_spans.clear()
 
     def _trace_requeue(self, st: RequestState, reason: str) -> None:
-        """A preempted request keeps its trace: the admitted span closes
-        and a new queued one opens."""
+        """A request that lost its slot (recompute-preemption, watchdog
+        rollback) keeps its trace: the admitted span closes and a new
+        queued one opens."""
         tr = st.trace
         if tr is None:
             return
@@ -443,6 +579,23 @@ class ServingEngine:
 
     # -- request surface ----------------------------------------------------
     def submit(self, request: Request) -> RequestState:
+        if self._draining or self._drained:
+            self._requests_counter().inc(event="rejected")
+            raise ServerOverloaded("draining")
+        if self._overload is not None and self._overload.overloaded:
+            # step() feeds the detector only while there is work: an idle
+            # engine folds the empty queue's zero delay in here, or a
+            # tripped detector would shed all future traffic
+            if not self.scheduler.has_work:
+                transition = self._overload.observe(0.0)
+                if transition is not None:
+                    self._overload_transition(transition)
+            if self._overload.overloaded:
+                self._requests_counter().inc(event="rejected")
+                raise ServerOverloaded(
+                    "overload", queue_depth=self.scheduler.queue_depth,
+                    ewma_s=self._overload.ewma_s,
+                    threshold_s=self._overload.threshold_s)
         if request.adapter and (self.lora is None
                                 or self.lora.row(request.adapter) is None):
             # the scheduler checks again at admission, for an unload
@@ -456,6 +609,9 @@ class ServingEngine:
         try:
             st = self.scheduler.submit(request)
         except ServerOverloaded:
+            # a refused newcomer is "rejected"; "shed" is a policy
+            # victim that had been queued, so offered = submitted +
+            # rejected stays exact
             self._requests_counter().inc(event="rejected")
             raise
         if chaos.active() and chaos.probe("serve.request.poison"):
@@ -491,6 +647,15 @@ class ServingEngine:
         self._publish_gauges()
         return st
 
+    def cancel(self, request_id: int) -> bool:
+        """Client disconnect: cancel a queued request now or an in-flight
+        one at the next iteration boundary (its pages are freed there).
+        False for an unknown or terminal id."""
+        hit = self.scheduler.cancel(request_id)
+        if hit:
+            self._publish_gauges()
+        return hit
+
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: int = 16,
                  sampling: Optional[SamplingParams] = None,
@@ -507,7 +672,9 @@ class ServingEngine:
                 for st in states]
 
     def run(self, max_steps: Optional[int] = None) -> None:
-        """Drive the scheduler until the queue and slots drain."""
+        """Drive the scheduler until the queue and slots drain. Raises
+        :class:`EngineDrained` when a latched drain signal is honoured
+        mid-run."""
         steps = 0
         while self.scheduler.has_work:
             self.step()
@@ -515,16 +682,115 @@ class ServingEngine:
             if max_steps is not None and steps >= max_steps:
                 return
 
-    @torch.no_grad()
-    def step(self) -> bool:
-        """One scheduler iteration: admit, one prefill pass over every
-        prefilling slot (fresh admissions and chunked prefills carried
-        from earlier iterations), then one decode or verify dispatch
-        over every decoding slot. Returns has_work."""
+    # -- graceful drain ------------------------------------------------------
+    def enable_drain(self, snapshot_dir: str,
+                     budget_s: Optional[float] = None,
+                     signals=(signal.SIGTERM,)) -> DrainLatch:
+        """Install the shutdown latch: SIGTERM (default) is latched by a
+        thin handler and honoured at the next iteration boundary, where
+        :meth:`step` drains and raises :class:`EngineDrained`. Returns
+        the latch (``trigger()`` arms it from code; :meth:`shutdown`
+        restores the handlers)."""
+        self.config.drain_dir = snapshot_dir
+        if budget_s is not None:
+            self.config.drain_budget_s = float(budget_s)
+        if self._drain_latch is not None:
+            self._drain_latch.close()
+        self._drain_latch = DrainLatch(signals)
+        return self._drain_latch
+
+    def drain(self, snapshot_dir: Optional[str] = None,
+              budget_s: Optional[float] = None) -> DrainReport:
+        """Graceful shutdown: stop admission, decode in-flight requests
+        up to the drain budget, then commit all undone work (queued and
+        still in flight) as a snapshot. Every submitted request either
+        completed, ended by the client's or its deadline's doing, or is
+        in the snapshot."""
+        if snapshot_dir is None:
+            snapshot_dir = self.config.drain_dir
+        budget = (self.config.drain_budget_s if budget_s is None
+                  else float(budget_s))
+        self._draining = True            # submit() now sheds
         sched = self.scheduler
-        sched.plan_admissions()
-        for group in self._plan_prefill_groups():
-            self._run_prefill(group)
+        completed_before = sched.stats["completed"]
+        deadline = self.clock() + max(0.0, budget)
+        while sched.active() and self.clock() < deadline:
+            try:
+                self.step(admit=False)
+            except DecodeWatchdogError:
+                break                    # a hung card: snapshot the rest
+        # a request the client left ends "cancelled", never resurrected
+        # on the successor as drained work
+        sched.sweep_active()
+        sched.honour_queued_cancels()
+        specs = [request_spec(st) for _, st in sched.active()]
+        specs += [request_spec(st) for st in sched.waiting]
+        if specs and snapshot_dir is None:
+            self._draining = False
+            raise ValueError(
+                f"drain: {len(specs)} request(s) still pending but no "
+                "snapshot_dir is configured — refusing to discard work "
+                "(pass snapshot_dir or ServingConfig.drain_dir)")
+        path = None
+        if specs:
+            path = save_drain_snapshot(snapshot_dir, specs)
+        for _, st in list(sched.active()):
+            sched.drain_release(st)
+        for st in list(sched.waiting):
+            sched.drain_release(st)
+        completed = sched.stats["completed"] - completed_before
+        _flight.safe_record_event("drained", completed=completed,
+                                  snapshotted=len(specs), path=path)
+        self._drained = True
+        self._publish_gauges()
+        return DrainReport(completed=completed, snapshotted=len(specs),
+                           path=path)
+
+    @torch.no_grad()
+    def step(self, admit: bool = True) -> bool:
+        """One scheduler iteration: honour a latched drain, cancels and
+        deadlines at the boundary, feed the overload detector, admit
+        (unless ``admit=False``, as a drain steps), one prefill pass over
+        every prefilling slot (fresh admissions and chunked prefills
+        carried from earlier iterations), then one decode or verify
+        dispatch over every decoding slot. Returns has_work. Raises
+        :class:`EngineDrained` when a latched drain was honoured, and
+        :class:`DecodeWatchdogError` on a watchdog trip (after a prefill
+        trip every planned state not yet prefilled is back in the
+        queue)."""
+        if self._drain_latch is not None and self._drain_latch.triggered \
+                and not self._draining:
+            raise EngineDrained(self.drain())
+        sched = self.scheduler
+        # both sweeps cost nothing without deadlines or cancels, and
+        # write the registry only on a lifecycle event
+        sched.expire_queued()
+        sched.sweep_active()
+        if self._overload is not None:
+            oldest_t = sched.oldest_waiting_t()
+            delay = (self.clock() - oldest_t
+                     if oldest_t is not None else 0.0)
+            transition = self._overload.observe(delay)
+            if transition is not None:
+                self._overload_transition(transition)
+        if admit:
+            sched.plan_admissions()
+        groups = self._plan_prefill_groups()
+        for gi, group in enumerate(groups):
+            try:
+                self._run_prefill(group)
+            except DecodeWatchdogError:
+                # every state of this plan not yet prefilled (the tripped
+                # group and the ones after it) holds a slot but has no
+                # token: un-admit them in admission order, or a retried
+                # step would decode slots with nothing to feed
+                pending = [st for g in groups[gi:] for st in g.states]
+                pending.sort(key=lambda st: (st.admitted_t,
+                                             st.request.request_id))
+                sched.rollback_admission(pending)
+                for st in pending:
+                    self._trace_requeue(st, "watchdog_rollback")
+                raise
         if self._decodable():
             if self._spec_k > 0:
                 # drafts staged before the capacity pass, so the verify
@@ -547,6 +813,95 @@ class ServingEngine:
         chunked prefills still mid-prompt do not."""
         return [(slot, st) for slot, st in self.scheduler.active()
                 if not st.prefilling]
+
+    def _overload_transition(self, transition: str) -> None:
+        reg = get_registry()
+        on = transition == "enter"
+        reg.gauge("serve_overload",
+                  "1 while the queue-delay overload detector is "
+                  "tripped (new submits are shed)").set(float(on))
+        reg.counter("serve_overload_transitions_total",
+                    "overload detector state changes").inc(
+            state=transition)
+        _flight.safe_record_event("overload", state=transition,
+                                  ewma_s=round(self._overload.ewma_s, 4),
+                                  threshold_s=self._overload.threshold_s,
+                                  queue_depth=self.scheduler.queue_depth)
+
+    def _guarded_dispatch(self, kind: str, job, hang: bool = False):
+        """Run one serving dispatch, ``job()`` (forward, sampling and the
+        tokens' copy to the host), under the wall-clock watchdog
+        (``FLAGS_serve_watchdog_s``). Flag unset and no chaos hang: a
+        direct call. Armed: the job runs on the engine's one worker
+        thread, under ``torch.no_grad()`` and on the caller's stream and
+        device (grad mode and the current stream are per thread). On a
+        trip the worker is abandoned and :class:`DecodeWatchdogError`
+        raised, its ``retry_safe`` True exactly when the job had not yet
+        passed its launch gate (then it never will). An error inside the
+        job is raised here as it was."""
+        self._dispatch_seq += 1
+        timeout_s = float(get_flag("serve_watchdog_s") or 0.0)
+        if timeout_s <= 0.0 and not hang:
+            return job()
+        if hang and timeout_s <= 0.0:
+            raise RuntimeError(
+                "chaos site 'serve.decode.hang' fired but "
+                "FLAGS_serve_watchdog_s is unset — set a watchdog "
+                "budget so the hang can be converted into "
+                "DecodeWatchdogError (the path this site exercises)")
+        gate = _LaunchGate()
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def guarded():
+            if hang:
+                # a host-side hang before the dispatch launches anything
+                chaos.hang_loop(max(timeout_s, 1.0) * 20 + 60.0)
+            _LAUNCH.gate = gate
+            try:
+                with torch.no_grad(), (
+                        torch.cuda.stream(stream) if stream is not None
+                        else contextlib.nullcontext()):
+                    return job()
+            finally:
+                _LAUNCH.gate = None
+
+        worker = self._watchdog_worker
+        if worker is None or not worker.usable:
+            worker = DispatchWorker()
+            self._watchdog_worker = worker
+            self._watchdog_threads = [x for x in self._watchdog_threads
+                                      if x.is_alive()]
+            self._watchdog_threads.append(worker.thread)
+        result = worker.dispatch(guarded, timeout_s)
+        if result is None:
+            retry_safe = not gate.abandon()
+            # /readyz reports the trip until a later guarded dispatch
+            # returns: a replica whose card hangs leaves the balancer
+            self._watchdog_tripped = {
+                "kind": kind, "timeout_s": timeout_s,
+                "dispatch": self._dispatch_seq}
+            n_active = len(self.scheduler.active())
+            for _, st in self.scheduler.active():
+                if st.trace is not None:
+                    st.trace.mark_anomaly("watchdog", watchdog_kind=kind)
+            get_registry().counter(
+                "serve_watchdog_trips_total",
+                "serving dispatch watchdog trips").inc(kind=kind)
+            _flight.safe_record_event(
+                "decode_watchdog", kind=kind, timeout_s=timeout_s,
+                dispatch=self._dispatch_seq, active_slots=n_active,
+                retry_safe=retry_safe)
+            if _flight.enabled():
+                _flight.trip_dump(step=self._dispatch_seq,
+                                  reason="serve_watchdog", kind=kind,
+                                  timeout_s=timeout_s)
+            raise DecodeWatchdogError(kind, timeout_s, self._dispatch_seq,
+                                      n_active, retry_safe=retry_safe)
+        self._watchdog_tripped = None      # the card answers again
+        if "error" in result:
+            raise result["error"]
+        return result["value"]
 
     # -- dispatches ---------------------------------------------------------
     def _chunk_len(self, st: RequestState) -> int:
@@ -633,7 +988,11 @@ class ServingEngine:
         batch row, None for a padded row or a slot that takes no row (an
         all-scratch table row and the zero adapter). ``context`` selects
         the context-prefill path: rows start at ``pos`` and attend over
-        every page-resident position before them."""
+        every page-resident position before them. Inside a guarded
+        dispatch it passes the dispatch's launch gate first."""
+        gate = getattr(_LAUNCH, "gate", None)
+        if gate is not None:
+            gate.enter()
         dev = self.device
         c = self.cache
         lora = (None, None, None)
@@ -692,11 +1051,16 @@ class ServingEngine:
                 st.trace_spans["admitted"] = tr.start_span(
                     "admitted", t=st.admitted_t, slot=st.slot,
                     prefix_hit_tokens=st.prefill_pos)
-        with self._measure("prefill"):
-            logits = self._forward(ids, states, pos, context=ctx)
-            last = logits[torch.arange(nb, device=self.device),
-                          torch.from_numpy(lens - 1).to(self.device)]
-            toks, ok = self._sample(self._poison(last, states), states)
+
+        def job():
+            with self._measure("prefill"):
+                logits = self._forward(ids, states, pos, context=ctx)
+                last = logits[torch.arange(nb, device=self.device),
+                              torch.from_numpy(lens - 1).to(self.device)]
+                return self._sample(self._poison(last, states), states)
+        # a DecodeWatchdogError here reaches step(), which rolls back
+        # every planned state not yet prefilled
+        toks, ok = self._guarded_dispatch("prefill", job)
         now = self.clock()
         st_ = self._stats
         st_["prefill_dispatches"] += 1
@@ -770,22 +1134,28 @@ class ServingEngine:
             ids[slot, 1:1 + len(st.draft)] = st.draft
             per_slot[slot] = st
         t0 = self.clock()
-        logits = self._forward(ids, per_slot, pos, context=True)  # [B,S,V]
-        logits = self._poison(logits, per_slot, row=0)
-        samp = self._sampling_arrays(per_slot)
-        ok_rows = torch.isfinite(logits).all(dim=-1)
-        tok0 = sample_tokens(logits[:, 0], *samp, generator=self._generator,
-                             finite=ok_rows[:, 0])
-        greedy = torch.argmax(logits, dim=-1)
         sampled_any = any(st.request.sampling.temperature > 0.0
                           for _, st in pairs)
-        if sampled_any:
-            drafts = torch.from_numpy(ids[:, 1:]).to(self.device)
-            p_draft, tok_full, tok_resid = (
-                t.cpu().numpy() for t in verify_draws(
+
+        def job():
+            logits = self._forward(ids, per_slot, pos, context=True)
+            logits = self._poison(logits, per_slot, row=0)   # [B, S, V]
+            samp = self._sampling_arrays(per_slot)
+            ok_rows = torch.isfinite(logits).all(dim=-1)
+            tok0 = sample_tokens(logits[:, 0], *samp,
+                                 generator=self._generator,
+                                 finite=ok_rows[:, 0])
+            greedy = torch.argmax(logits, dim=-1)
+            draws = (None, None, None)
+            if sampled_any:
+                drafts = torch.from_numpy(ids[:, 1:]).to(self.device)
+                draws = tuple(t.cpu().numpy() for t in verify_draws(
                     logits, drafts, *samp, generator=self._generator))
-        tok0, greedy, ok_rows = (t.cpu().numpy()
-                                 for t in (tok0, greedy, ok_rows))
+            return tuple(t.cpu().numpy()
+                         for t in (tok0, greedy, ok_rows)) + draws
+        hang = chaos.active() and chaos.probe("serve.decode.hang")
+        tok0, greedy, ok_rows, p_draft, tok_full, tok_resid = \
+            self._guarded_dispatch("verify", job, hang=hang)
         now = self.clock()
         st_ = self._stats
         st_["decode_dispatches"] += 1
@@ -873,10 +1243,14 @@ class ServingEngine:
             tokens[slot, 0] = st.generated[-1]
             per_slot[slot] = st
         t0 = self.clock()
-        with self._measure("decode"):
-            logits = self._forward(tokens, per_slot, pos)
-            toks, ok = self._sample(
-                self._poison(logits[:, -1], per_slot), per_slot)
+
+        def job():
+            with self._measure("decode"):
+                logits = self._forward(tokens, per_slot, pos)
+                return self._sample(
+                    self._poison(logits[:, -1], per_slot), per_slot)
+        hang = chaos.active() and chaos.probe("serve.decode.hang")
+        toks, ok = self._guarded_dispatch("decode", job, hang=hang)
         now = self.clock()
         st_ = self._stats
         st_["decode_dispatches"] += 1
@@ -971,6 +1345,19 @@ class ServingEngine:
             reg.histogram("serve_e2e_seconds",
                           "submit -> completion latency").observe(
                 e2e, exemplar=ex)
+            if st.deadline_t is not None:
+                slack = st.deadline_t - now
+                reg.histogram(
+                    "serve_deadline_slack_seconds",
+                    "deadline minus completion time for deadline-"
+                    "carrying requests (negative = finished late)",
+                    buckets=self.DEADLINE_SLACK_BUCKETS).observe(
+                    slack, exemplar=ex)
+                if self._slo_deadline is not None:
+                    self._slo_deadline.record(
+                        good=1 if slack >= 0 else 0,
+                        bad=0 if slack >= 0 else 1)
+                    self._slo_deadline.publish()
 
     def _publish_gauges(self) -> None:
         reg = get_registry()
@@ -1063,7 +1450,13 @@ class ServingEngine:
         return {
             "requests_submitted": self.scheduler.stats["submitted"],
             "requests_completed": self.scheduler.stats["completed"],
+            "requests_expired": self.scheduler.stats["expired"],
+            "requests_expired_queued":
+                self.scheduler.stats["expired_queued"],
+            "requests_shed": self.scheduler.stats["shed"],
+            "requests_cancelled": self.scheduler.stats["cancelled"],
             "requests_failed": self.scheduler.stats["failed"],
+            "requests_drained": self.scheduler.stats["drained"],
             "preemptions": self.scheduler.stats["preemptions"],
             "tokens_generated": s["tokens_generated"],
             "elapsed_s": elapsed,
@@ -1101,10 +1494,34 @@ class ServingEngine:
         }
 
     def shutdown(self) -> None:
-        """Drop every page the prefix cache holds (the only pages an
-        idle engine keeps) and detach it, and leave the admin plane."""
+        """Tear the engine down: leave the admin plane, restore the drain
+        latch's signal handlers, stop the watchdog's worker and join
+        abandoned ones (their chaos hangs cancelled first), drop every
+        request and page (the prefix cache's too) and release the pools'
+        device memory. The engine serves nothing afterwards."""
         self._detach_admin()
+        if self._drain_latch is not None:
+            self._drain_latch.close()
+            self._drain_latch = None
+        if self._watchdog_worker is not None:
+            self._watchdog_worker.close()
+            self._watchdog_worker = None
+        if self._watchdog_threads:
+            # a thread abandoned in a chaos hang exits once the hang is
+            # cancelled; one stuck in real work is a daemon
+            chaos.cancel_hangs()
+            for t in self._watchdog_threads:
+                t.join(timeout=0.5)
+            self._watchdog_threads = []
+            # leave hang sites armed for other live engines
+            chaos.rearm_hangs()
+        self.scheduler.waiting.clear()
+        for slot, _ in list(self.scheduler.active()):
+            self.cache.free_slot(slot)
+            self.scheduler.slots[slot] = None
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
             self.cache.prefix_cache = None
             self.prefix_cache = None
+        self.cache.k = self.cache.v = None
+        self.cache.k_scale = self.cache.v_scale = None

@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu/serving/loadgen.py``: arrivals follow a
 fixed, seeded schedule however fast the engine drains (the honest way
 to measure serving latency), and the same :class:`LoadSpec` with the
 same seed gives the JAX package's schedule byte for byte: arrival
-times, prompts, token budgets, tenants and adapters.
+times, prompts, deadlines, priorities, token budgets, tenants and
+adapters.
 
 Arrival processes (``LoadSpec.arrival``), each at the mean rate
 ``rate_rps``: ``poisson`` (exponential gaps); ``gamma`` (Gamma gaps
@@ -19,12 +20,21 @@ shared prefixes (``shared_prefix_len``) open every prompt with one of
 ``tenants`` each tenant owns its own prefix pool, and ``adapter_pool``
 stamps each request with its tenant and one of that tenant's adapters
 (``tenant{t}/adapter{k}``), drawn from a side generator so that arming
-it changes none of the other draws.
+it changes none of the other draws. ``deadline_range`` and
+``priority_choices`` draw each request's ``deadline_s`` and
+``priority`` from the main generator, after the prefix draws and before
+the token budget, only when they are set.
 
-Not ported: deadlines, priorities and lifecycle tags (the port's
-``Request`` has none of them), the client-side token bucket and
-``run_fleet_open_loop`` (the port has no fleet router yet). The port has no decode watchdog, so
-``watchdog_trips`` is always 0.
+:class:`TokenBucket` is client-side rate limiting:
+``run_open_loop(..., token_bucket=...)`` counts arrivals over the bucket
+as throttled instead of submitting them. The server's refusals
+(``ServerOverloaded``) and watchdog trips (``DecodeWatchdogError``) are
+counted too; a trip is retried, up to
+``MAX_CONSECUTIVE_WATCHDOG_TRIPS`` in a row, and re-raised when the
+dispatch is not safe to retry.
+
+Not ported: lifecycle tags and ``run_fleet_open_loop`` (the port has no
+fleet router yet).
 """
 
 from __future__ import annotations
@@ -35,12 +45,18 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .resilience import DecodeWatchdogError, ServerOverloaded
 from .sampling import SamplingParams
-from .scheduler import Request, ServerOverloaded
+from .scheduler import Request
 
-__all__ = ["LoadSpec", "build_requests", "run_open_loop"]
+__all__ = ["LoadSpec", "TokenBucket", "build_requests", "run_open_loop"]
 
 _ARRIVALS = ("poisson", "gamma", "mmpp")
+
+#: run_open_loop re-raises after this many watchdog trips in a row with
+#: no successful step between them: a backend that hangs on every retry
+#: is down, not slow
+MAX_CONSECUTIVE_WATCHDOG_TRIPS = 8
 
 
 @dataclass
@@ -58,6 +74,10 @@ class LoadSpec:
     burstiness: float = 1.0
     #: mmpp: per-arrival probability of flipping the hidden rate state
     mmpp_switch: float = 0.1
+    #: uniform per-request deadline_s sample; None = no deadlines
+    deadline_range: Optional[Tuple[float, float]] = None
+    #: uniform per-request priority sample; None = all priority 0
+    priority_choices: Optional[Tuple[int, ...]] = None
     #: > 0: every prompt opens with one of ``prefix_pool_size`` fixed
     #: prefixes of this many tokens, drawn zipf(``prefix_zipf``)
     shared_prefix_len: int = 0
@@ -70,6 +90,31 @@ class LoadSpec:
     #: > 0: every tenanted request names one of this many adapters of
     #: its tenant and carries its tenant name (needs ``tenants > 0``)
     adapter_pool: int = 0
+
+
+class TokenBucket:
+    """Deterministic client-side rate limiter: ``rate`` tokens/s refill
+    up to a ``burst`` cap; :meth:`admit` spends one token or answers
+    False. Driven by the caller's clock values, so tests replay
+    exactly."""
+
+    def __init__(self, rate: float, burst: float):
+        if rate <= 0 or burst < 1:
+            raise ValueError("token bucket needs rate > 0 and burst >= 1")
+        self.rate = float(rate)
+        self.capacity = float(burst)
+        self.tokens = float(burst)
+        self._last: Optional[float] = None
+
+    def admit(self, now: float) -> bool:
+        if self._last is not None:
+            self.tokens = min(self.capacity,
+                              self.tokens + (now - self._last) * self.rate)
+        self._last = now
+        if self.tokens >= 1.0:
+            self.tokens -= 1.0
+            return True
+        return False
 
 
 def _zipf_cdf(n: int, exponent: float) -> np.ndarray:
@@ -162,33 +207,58 @@ def build_requests(spec: LoadSpec) -> List[Tuple[float, Request]]:
             pi = int(np.searchsorted(prefix_cdf, rng.random()))
             prompt = np.concatenate([prefixes[min(pi, len(prefix_cdf)
                                                   - 1)], prompt])
+        deadline = None
+        if spec.deadline_range is not None:
+            lo_d, hi_d = spec.deadline_range
+            deadline = float(rng.uniform(lo_d, hi_d))
+        priority = 0
+        if spec.priority_choices:
+            priority = int(spec.priority_choices[
+                int(rng.integers(0, len(spec.priority_choices)))])
         req = Request(prompt,
                       max_new_tokens=int(rng.integers(lo_n, hi_n + 1)),
                       sampling=spec.sampling or SamplingParams(),
+                      deadline_s=deadline, priority=priority,
                       tenant=tenant, adapter=adapter)
         out.append((float(arrivals[i]), req))
     return out
 
 
-def run_open_loop(engine, spec: LoadSpec) -> dict:
+def run_open_loop(engine, spec: LoadSpec,
+                  token_bucket: Optional[TokenBucket] = None) -> dict:
     """Drive ``engine`` through the schedule of ``spec`` on the host
     clock and return ``engine.metrics_summary()`` with the offered load
-    and the requests the engine refused (``ServerOverloaded``, counted,
-    not raised)."""
+    and the client-visible refusals: ``requests_rejected`` (the engine's
+    ``ServerOverloaded``), ``requests_throttled`` (over
+    ``token_bucket``) and ``watchdog_trips``, counted, not raised."""
     schedule = build_requests(spec)
     t0 = time.perf_counter()
     i = 0
-    rejected = 0
+    rejected = throttled = watchdog_trips = 0
+    consecutive_trips = 0
     while i < len(schedule) or engine.scheduler.has_work:
         now = time.perf_counter() - t0
         while i < len(schedule) and schedule[i][0] <= now:
-            try:
-                engine.submit(schedule[i][1])
-            except ServerOverloaded:
-                rejected += 1
+            if token_bucket is not None and not token_bucket.admit(now):
+                throttled += 1
+            else:
+                try:
+                    engine.submit(schedule[i][1])
+                except ServerOverloaded:
+                    rejected += 1
             i += 1
         if engine.scheduler.has_work:
-            engine.step()
+            try:
+                engine.step()
+                consecutive_trips = 0
+            except DecodeWatchdogError as e:
+                # retry the step (token-exact when retry-safe), but a
+                # backend that hangs on every retry must not loop forever
+                watchdog_trips += 1
+                consecutive_trips += 1
+                if not e.retry_safe or consecutive_trips \
+                        >= MAX_CONSECUTIVE_WATCHDOG_TRIPS:
+                    raise
         elif i < len(schedule):
             # idle until the next arrival
             wait = schedule[i][0] - (time.perf_counter() - t0)
@@ -198,5 +268,6 @@ def run_open_loop(engine, spec: LoadSpec) -> dict:
     summary["offered_rate_rps"] = spec.rate_rps
     summary["num_requests"] = spec.num_requests
     summary["requests_rejected"] = rejected
-    summary["watchdog_trips"] = 0
+    summary["requests_throttled"] = throttled
+    summary["watchdog_trips"] = watchdog_trips
     return summary

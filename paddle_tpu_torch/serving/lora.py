@@ -15,9 +15,11 @@ references: admission acquires, slot release drops, and
 
 A load writes its row of the pools in place, between steps, on the
 engine's stream, so no dispatch ever sees half an adapter; nothing keeps
-a host copy that could go stale. Loading from a checkpoint directory
-(``path=``, :func:`save_adapter_checkpoint`) waits for the port of
-``distributed/`` checkpointing.
+a host copy that could go stale. Adapters also load from a checkpoint
+directory (``path=``, written by :func:`save_adapter_checkpoint` through
+``distributed.checkpoint``): the manifest is verified and every shape
+checked before the pools change, so a torn or mismatched checkpoint
+leaves the manager as it was.
 """
 
 from __future__ import annotations
@@ -31,13 +33,16 @@ from ..core.device import DeviceLike, resolve_device
 
 __all__ = ["LoRAManager", "save_adapter_checkpoint"]
 
-_CKPT_LATER = ("adapter checkpoints go through distributed/ checkpointing, "
-               "which a later slice of the port brings; pass weights=")
-
 
 def save_adapter_checkpoint(path: str, lora_a, lora_b) -> None:
-    """Not ported yet: raises ``NotImplementedError``."""
-    raise NotImplementedError(_CKPT_LATER)
+    """Commit adapter weights (``a [L, r, E]``, ``b [L, r, O]``) as a
+    manifest-covered checkpoint directory that
+    :meth:`LoRAManager.load_adapter` loads (synchronous: durable when
+    the call returns)."""
+    from ..distributed import checkpoint as ckpt
+    ckpt.save({"lora_a": torch.as_tensor(lora_a),
+               "lora_b": torch.as_tensor(lora_b)}, path, asynchronous=False)
+    ckpt.wait()
 
 
 class LoRAManager:
@@ -91,9 +96,11 @@ class LoRAManager:
                      path: Optional[str] = None) -> int:
         """Load an adapter and return its pool row.
 
-        ``weights``: ``(a [L, r, E], b [L, r, O])`` arrays or tensors.
-        Shapes are checked before the pools change, so a bad adapter
-        leaves the manager as it was. Loading a name that is already
+        ``weights``: ``(a [L, r, E], b [L, r, O])`` arrays or tensors,
+        or ``path``: a committed checkpoint directory of
+        :func:`save_adapter_checkpoint`. The manifest is verified and the
+        shapes checked before the pools change, so a bad source leaves
+        the manager as it was. Loading a name that is already
         loaded returns its row and changes nothing: replacing an adapter
         takes an explicit unload, because in-flight requests may use the
         row."""
@@ -105,7 +112,19 @@ class LoRAManager:
         if (weights is None) == (path is None):
             raise ValueError("pass exactly one of weights= or path=")
         if path is not None:
-            raise NotImplementedError(_CKPT_LATER)
+            from ..distributed import checkpoint as ckpt
+            reason = ckpt.verify_checkpoint(path, level="manifest")
+            if reason is not None:
+                raise ValueError(
+                    f"adapter {name!r}: checkpoint {path} failed "
+                    f"verification: {reason}")
+            state = ckpt.load(path)
+            try:
+                weights = state["lora_a"], state["lora_b"]
+            except (KeyError, TypeError):
+                raise ValueError(
+                    f"adapter {name!r}: checkpoint {path} holds no "
+                    "lora_a/lora_b entries")
         a, b = (torch.as_tensor(w) for w in weights)
         L, r = self.num_layers, self.rank
         want_a = (L, r, self.hidden_size)

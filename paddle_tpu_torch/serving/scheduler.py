@@ -1,13 +1,20 @@
 """Continuous-batching scheduler: iteration-level admission into fixed
 batch slots.
 
-Counterpart of ``paddle_tpu/serving/scheduler.py`` with the
-``reject-new`` FIFO policy (no deadlines, priorities or drain).
-Scheduling happens between decode steps:
+Counterpart of ``paddle_tpu/serving/scheduler.py``. Scheduling happens
+between decode steps:
 
-- a FIFO queue feeds ``max_batch_slots`` fixed slots; a request is
+- a bounded queue feeds ``max_batch_slots`` fixed slots; a request is
   admitted the step a slot AND enough KV pages free up, and its slot is
   released the step it finishes;
+- a full queue sheds by policy (``QUEUE_POLICIES``): ``reject-new``
+  refuses the newcomer, ``drop-oldest`` sheds the head of the queue,
+  ``priority`` keeps the queue in priority lanes (FIFO within a lane)
+  and sheds the lowest-priority, oldest waiter for a newcomer that
+  outranks it;
+- a request with ``deadline_s`` expires in the queue before it touches
+  a slot (``expire_queued``) or at the next iteration boundary in
+  flight (``sweep_active``), which also honours latched cancels;
 - with a radix prefix cache on the cache (``serving.prefix_cache``),
   admission maps the longest cached page-aligned prefix of the
   effective prompt copy-on-write into the slot (``prefill_pos`` starts
@@ -29,7 +36,8 @@ Scheduling happens between decode steps:
   tokens-so-far go back to the FRONT of the queue and it re-prefills
   later — for greedy decoding the continuation is token-identical.
 
-Every terminal transition fires ``on_event(outcome, state)`` (the
+Every request ends in exactly one of ``TERMINAL_OUTCOMES``, and every
+terminal transition fires ``on_event(outcome, state)`` (the
 engine's metrics, flight events, SLO and trace closure); the chaos site
 ``serve.pages.exhaust`` makes admission wait, or recompute-preempts the
 newest request, for one decision, as in the JAX scheduler. All of this
@@ -40,29 +48,34 @@ from __future__ import annotations
 
 import itertools
 import time
-from dataclasses import KW_ONLY, dataclass, field
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..testing import chaos
 from .kv_cache import PagedKVCache, blocks_needed
+from .resilience import ServerOverloaded
 from .sampling import SamplingParams
 
 __all__ = ["Request", "RequestState", "BucketTable", "Scheduler",
-           "AdmissionGroup", "ServerOverloaded"]
+           "AdmissionGroup", "ServerOverloaded", "QUEUE_POLICIES",
+           "TERMINAL_OUTCOMES"]
+
+#: bounded-queue shedding policies (ServingConfig.queue_policy)
+QUEUE_POLICIES = ("reject-new", "drop-oldest", "priority")
+
+#: every request ends in exactly one of these; "completed" is the only
+#: success
+TERMINAL_OUTCOMES = ("completed", "expired", "shed", "cancelled",
+                     "failed", "drained")
 
 _request_ids = itertools.count()
 
 
-class ServerOverloaded(RuntimeError):
-    """The bounded queue refused a request (``reject-new`` policy)."""
-
-    def __init__(self, reason: str, queue_depth: int = 0):
-        super().__init__(f"server overloaded: {reason} "
-                         f"(queue depth {queue_depth})")
-        self.reason = reason
-        self.queue_depth = queue_depth
+def _reset_request_ids() -> None:
+    global _request_ids
+    _request_ids = itertools.count()
 
 
 @dataclass
@@ -72,26 +85,28 @@ class Request:
     ``on_token(request, token_id, text)`` streams every generated token
     the step it is produced (``text`` is None unless the engine has a
     detokenizer). ``eos_token_id`` ends the stream early; the eos token
-    itself is reported and included. ``stop(generated_ids) -> bool`` is
-    an optional custom stop condition evaluated after every token.
+    itself is reported and included. ``deadline_s`` is a time to live
+    from submission: a queued request past it expires before it touches
+    a slot, an in-flight one at the next iteration boundary (its pages
+    freed then). ``priority`` feeds the ``priority`` queue policy
+    (higher is more important; ties stay FIFO). ``stop(generated_ids)
+    -> bool`` is an optional custom stop condition evaluated after every
+    token.
     ``tenant`` names the submitting tenant for the per-tenant quota
     (None: never quota-limited); ``adapter`` names a loaded LoRA adapter
     the request decodes against (None: the base model). ``trace_*``
     carry a caller's trace context (``FLAGS_trace``): an identity to
     resume, a parent span, the producing process's label and the
-    upstream head-sampling decision.
-
-    Every field after ``on_token`` is keyword-only: the JAX ``Request``
-    has ``deadline_s`` and ``priority`` there, which the port does not
-    have yet, so a positional call past ``on_token`` raises here instead
-    of binding another field than in the JAX package."""
+    upstream head-sampling decision. The fields bind positionally in
+    the JAX ``Request``'s order."""
 
     prompt: Sequence[int]
     max_new_tokens: int = 16
     sampling: SamplingParams = field(default_factory=SamplingParams)
     eos_token_id: Optional[int] = None
     on_token: Optional[Callable] = None
-    _: KW_ONLY
+    deadline_s: Optional[float] = None
+    priority: int = 0
     stop: Optional[Callable] = None
     trace_id: Optional[str] = None
     trace_parent: Optional[str] = None
@@ -107,6 +122,8 @@ class Request:
             raise ValueError("empty prompt")
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0 (None = no deadline)")
 
 
 class RequestState:
@@ -120,10 +137,19 @@ class RequestState:
         self.submitted_t = now
         self.admitted_t: Optional[float] = None
         self.first_token_t: Optional[float] = None
+        self.finished_t: Optional[float] = None
         self.preemptions = 0
-        #: "completed" or "failed" once the request ends
+        self.finished = False
+        #: one of TERMINAL_OUTCOMES once the request ends
         self.outcome: Optional[str] = None
+        #: human-readable reason for outcome == "failed"
         self.failure: Optional[str] = None
+        #: absolute deadline on the scheduler's clock
+        self.deadline_t: Optional[float] = (
+            now + request.deadline_s if request.deadline_s is not None
+            else None)
+        #: client disconnect latched; honoured at the iteration boundary
+        self.cancel_requested = False
         self.stop_hit = False
         #: effective-prompt length this residency prefills (stamped at
         #: admission; effective_prompt() grows as tokens generate)
@@ -238,13 +264,14 @@ class AdmissionGroup:
 
 
 class Scheduler:
-    """FIFO queue + slot/page admission control (host-side only)."""
+    """Bounded queue + slot/page admission control (host-side only)."""
 
     def __init__(self, cache: PagedKVCache, buckets: BucketTable,
                  max_queue: int = 1024, clock=time.perf_counter,
                  max_seq_len: Optional[int] = None,
-                 tenant_quota: Optional[int] = None, lora=None,
-                 on_event: Optional[Callable] = None):
+                 policy: str = "reject-new",
+                 on_event: Optional[Callable] = None,
+                 tenant_quota: Optional[int] = None, lora=None):
         self.cache = cache
         self.buckets = buckets
         #: most slots one tenant may hold at a time; None = no cap
@@ -258,15 +285,24 @@ class Scheduler:
         self.max_seq_len = int(max_seq_len if max_seq_len is not None
                                else cache.max_context_len)
         self.max_queue = int(max_queue)
+        if policy not in QUEUE_POLICIES:
+            raise ValueError(f"unknown queue policy {policy!r}; one of "
+                             f"{QUEUE_POLICIES}")
+        self.policy = policy
         self.clock = clock
         self.waiting: List[RequestState] = []
         self.slots: List[Optional[RequestState]] = [None] * cache.max_slots
         self.stats = {"submitted": 0, "completed": 0, "preemptions": 0,
-                      "admitted": 0, "failed": 0, "quota_deferred": 0}
+                      "admitted": 0, "expired": 0, "expired_queued": 0,
+                      "shed": 0, "cancelled": 0, "failed": 0,
+                      "drained": 0, "quota_deferred": 0}
         #: cumulative quota deferrals per tenant
         self.tenant_deferrals: Dict[str, int] = {}
         #: ``on_event(outcome, state)`` fires on every terminal transition
         self.on_event = on_event
+        # deadline sweeps cost nothing until the first request with a
+        # deadline arrives
+        self._saw_deadline = False
 
     # -- terminal transitions ----------------------------------------------
     def _terminate(self, st: RequestState, outcome: str,
@@ -288,9 +324,27 @@ class Scheduler:
         st.draft = []
         st.outcome = outcome
         st.failure = reason
+        st.finished = outcome == "completed"
+        st.finished_t = self.clock()
         self.stats[outcome] += 1
         if self.on_event is not None:
             self.on_event(outcome, st)
+
+    def _shed_victim(self, request: Request) -> Optional[RequestState]:
+        """Who leaves the full queue so ``request`` can enter (None:
+        nobody, the newcomer is refused)."""
+        if self.policy == "drop-oldest":
+            return self.waiting[0] if self.waiting else None
+        if self.policy == "priority":
+            # the lowest priority, the oldest within it (min keeps the
+            # first of equals, and lanes are FIFO), and only when the
+            # newcomer outranks it
+            victim = min(self.waiting, default=None,
+                         key=lambda s: s.request.priority)
+            if victim is not None \
+                    and victim.request.priority < request.priority:
+                return victim
+        return None
 
     # -- queue --------------------------------------------------------------
     def submit(self, request: Request) -> RequestState:
@@ -313,13 +367,90 @@ class Scheduler:
         # after a worst-case preemption (prompt + all generated tokens)
         self.buckets.len_bucket(
             request.prompt.size + request.max_new_tokens - 1)
+        # the queue-full policy runs after validation (an invalid request
+        # never sheds a valid waiter), and after the expiry sweep (a dead
+        # waiter holds no capacity and is never mis-counted as shed)
+        self.expire_queued()
         if len(self.waiting) >= self.max_queue:
-            raise ServerOverloaded("queue_full",
-                                   queue_depth=len(self.waiting))
+            victim = self._shed_victim(request)
+            if victim is None:
+                raise ServerOverloaded("queue_full",
+                                       queue_depth=len(self.waiting))
+            self.waiting.remove(victim)
+            self._terminate(victim, "shed")
         st = RequestState(request, self.clock())
-        self.waiting.append(st)
+        if st.deadline_t is not None:
+            self._saw_deadline = True
+        if self.policy == "priority":
+            # behind the last waiter of >= priority
+            idx = next((i for i, w in enumerate(self.waiting)
+                        if w.request.priority < request.priority),
+                       len(self.waiting))
+            self.waiting.insert(idx, st)
+        else:
+            self.waiting.append(st)
         self.stats["submitted"] += 1
         return st
+
+    def cancel(self, request_id: int) -> bool:
+        """Client disconnect: a queued request is cancelled on the spot,
+        an in-flight one latched and cancelled at the next iteration
+        boundary (``sweep_active``), its pages freed then. False when
+        the id is unknown or already terminal."""
+        for st in self.waiting:
+            if st.request.request_id == request_id:
+                self.waiting.remove(st)
+                self._terminate(st, "cancelled")
+                return True
+        for _, st in self.active():
+            if st.request.request_id == request_id:
+                st.cancel_requested = True
+                return True
+        return False
+
+    def expire_queued(self) -> List[RequestState]:
+        """Drop queued requests past their deadline before they touch a
+        slot. Free until the first request with a deadline exists."""
+        if not self._saw_deadline or not self.waiting:
+            return []
+        now = self.clock()
+        out = []
+        for st in [w for w in self.waiting
+                   if w.deadline_t is not None and now >= w.deadline_t]:
+            self.waiting.remove(st)
+            self._terminate(st, "expired")
+            # a queued expiry cost the engine no work: shed-rate
+            # accounting counts it with the admission drops
+            self.stats["expired_queued"] += 1
+            out.append(st)
+        return out
+
+    def sweep_active(self) -> List[RequestState]:
+        """Iteration-boundary sweep over the slots: honour latched
+        cancels and expire in-flight requests past their deadline,
+        freeing their pages now."""
+        out = []
+        for _, st in list(self.active()):
+            if st.cancel_requested:
+                self._terminate(st, "cancelled")
+                out.append(st)
+            elif st.deadline_t is not None \
+                    and self.clock() >= st.deadline_t:
+                self._terminate(st, "expired")
+                out.append(st)
+        return out
+
+    def honour_queued_cancels(self) -> List[RequestState]:
+        """Terminate waiting requests whose in-flight cancel was latched
+        before a preemption put them back in the queue (admission honours
+        the latch lazily; a drain calls this so that a disconnected
+        client's work is never snapshotted)."""
+        out = []
+        for st in [w for w in self.waiting if w.cancel_requested]:
+            self.waiting.remove(st)
+            self._terminate(st, "cancelled")
+            out.append(st)
+        return out
 
     def fail(self, st: RequestState, reason: str) -> None:
         """Fault isolation: a bad request fails alone (its slot and
@@ -328,9 +459,28 @@ class Scheduler:
             self.waiting.remove(st)
         self._terminate(st, "failed", reason=reason)
 
+    def drain_release(self, st: RequestState) -> None:
+        """Graceful drain: release a queued or in-flight request with
+        outcome ``drained``; its undone work is in the snapshot."""
+        if st in self.waiting:
+            self.waiting.remove(st)
+        self._terminate(st, "drained")
+
     @property
     def queue_depth(self) -> int:
         return len(self.waiting)
+
+    def oldest_waiting_t(self) -> Optional[float]:
+        """``submitted_t`` of the oldest waiter, None for an empty
+        queue. Under the ``priority`` policy the queue is in lanes, so the
+        oldest waiter (the one the overload detector must see, or a
+        starving low-priority request could age without tripping it) need
+        not be ``waiting[0]``."""
+        if not self.waiting:
+            return None
+        if self.policy == "priority":
+            return min(st.submitted_t for st in self.waiting)
+        return self.waiting[0].submitted_t
 
     def active(self) -> List[Tuple[int, RequestState]]:
         return [(i, st) for i, st in enumerate(self.slots)
@@ -361,6 +511,12 @@ class Scheduler:
         idx = 0
         while free_slots and idx < len(self.waiting):
             st = self.waiting[idx]
+            if st.cancel_requested:
+                # a cancel latched in flight survives a preemption back
+                # to the queue: honour it, never prefill it again
+                self.waiting.pop(idx)
+                self._terminate(st, "cancelled")
+                continue
             tenant = st.request.tenant
             if self.tenant_quota is not None and tenant is not None \
                     and self._tenant_active(tenant) >= self.tenant_quota:
@@ -456,7 +612,7 @@ class Scheduler:
         return sum(1 for st in self.slots
                    if st is not None and st.request.tenant == tenant)
 
-    def _preempt(self, st: RequestState) -> None:
+    def _preempt(self, st: RequestState, count: bool = True) -> None:
         self._release_adapter(st)
         # an evicted residency donates too: its pages stay warm in the
         # tree for its re-admission or a sibling sharing the prefix
@@ -467,9 +623,29 @@ class Scheduler:
         st.prefill_pos = 0
         st.prefill_len = None
         st.draft = []
-        st.preemptions += 1
-        self.stats["preemptions"] += 1
-        self.waiting.insert(0, st)         # reclaims FIFO priority
+        if count:
+            st.preemptions += 1
+            self.stats["preemptions"] += 1
+        if self.policy == "priority":
+            # the front of its lane: it held a slot once
+            idx = next((i for i, w in enumerate(self.waiting)
+                        if w.request.priority <= st.request.priority),
+                       len(self.waiting))
+            self.waiting.insert(idx, st)
+        else:
+            self.waiting.insert(0, st)         # reclaims FIFO priority
+
+    def rollback_admission(self, sts: Sequence[RequestState]) -> None:
+        """Un-admit states whose prefill never produced a token (a
+        watchdog trip abandoned the dispatch): each goes back to the
+        queue front with everything its admission took released (pages,
+        prefix-cache references, the adapter reference, chunk progress),
+        so a retried ``step()`` re-admits and re-prefills it. Reversed so
+        the front inserts keep admission order. Not counted as a
+        preemption: a watchdog incident is not a dry KV pool."""
+        for st in reversed(list(sts)):
+            if st.slot is not None and self.slots[st.slot] is st:
+                self._preempt(st, count=False)
 
     # -- completion ---------------------------------------------------------
     def finish(self, st: RequestState) -> None:

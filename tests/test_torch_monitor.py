@@ -575,21 +575,37 @@ def test_memory_preflight_refuses_work_over_budget(wide):
 
 # -- the Request repair and the names -------------------------------------------------
 def test_request_fields_match_jax_and_past_on_token_is_keyword_only():
+    """The port's ``Request`` has the JAX ``Request``'s fields in the
+    JAX order, each binding positionally as there, with the same
+    defaults and the same ``deadline_s`` check."""
+    import dataclasses
+
     from paddle_tpu.serving import Request as JaxRequest
-    kw = dict(max_new_tokens=5, eos_token_id=2, trace_id="t-1",
-              trace_parent="p/1", trace_process="r0", trace_sampled=True,
-              tenant="a", adapter="x", request_id=7)
-    j, t = JaxRequest([1, 2, 3], **kw), Request([1, 2, 3], **kw)
-    for f in ("max_new_tokens", "eos_token_id", "on_token", "stop",
-              "trace_id", "trace_parent", "trace_process", "trace_sampled",
-              "tenant", "adapter", "request_id"):
-        assert getattr(t, f) == getattr(j, f), f
-    d = Request([1])
-    assert (d.trace_id, d.trace_parent, d.trace_process,
-            d.trace_sampled) == (None, None, None, None)
-    Request([1], 4, None, None, None)            # through on_token
-    with pytest.raises(TypeError):
-        Request([1], 4, None, None, None, lambda ids: False)
+    from paddle_tpu.serving import SamplingParams as JaxSamplingParams
+    from paddle_tpu_torch.serving import SamplingParams
+    names = [f.name for f in dataclasses.fields(JaxRequest)]
+    assert [f.name for f in dataclasses.fields(Request)] == names
+    on_token, stop = (lambda r, t, x: None), (lambda ids: False)
+    # every field given positionally, sampling apart (each package's own)
+    args = [[1, 2, 3], 5, None, 2, on_token, 1.5, 3, stop, "t-1", "p/1",
+            "r0", True, "a", "x", 7]
+    j = JaxRequest(*args[:2], JaxSamplingParams(top_k=4), *args[3:])
+    t = Request(*args[:2], SamplingParams(top_k=4), *args[3:])
+    for f in names:
+        if f == "sampling":
+            assert t.sampling.top_k == j.sampling.top_k == 4
+        elif f == "prompt":
+            assert t.prompt.tolist() == j.prompt.tolist() == [1, 2, 3]
+        else:
+            assert getattr(t, f) == getattr(j, f), f
+    assert (t.deadline_s, t.priority, t.stop) == (1.5, 3, stop)
+    d, jd = Request([1]), JaxRequest([1])
+    for f in names[3:-1]:
+        assert getattr(d, f) == getattr(jd, f), f
+    for bad in (0.0, -1.0):
+        for cls in (Request, JaxRequest):
+            with pytest.raises(ValueError, match="deadline_s"):
+                cls([1], deadline_s=bad)
 
 
 def test_port_metric_names_are_the_documented_jax_names(monkeypatch):
@@ -602,8 +618,22 @@ def test_port_metric_names_are_the_documented_jax_names(monkeypatch):
     emitted = check_metrics.emitted_metrics(str(REPO))
     documented = check_metrics.documented_metrics(str(REPO))
     assert {"serve_requests_total", "train_layer_grad_norm",
-            "pallas_fallback_total", "nonfinite_skips_total"} <= set(emitted)
+            "pallas_fallback_total", "nonfinite_skips_total",
+            "serve_overload", "serve_overload_transitions_total",
+            "serve_watchdog_trips_total",
+            "serve_deadline_slack_seconds"} <= set(emitted)
     assert set(emitted) - documented == set()
+    # the resilience plane's request and flight events: JAX names, each
+    # emitted by both packages, documented but for checkpoint_commit
+    doc = "".join((REPO / "docs" / f).read_text() for f in (
+        "OBSERVABILITY.md", "SERVING.md", "FAULT_TOLERANCE.md"))
+    srcs = ["".join(p.read_text() for p in (REPO / pkg).rglob("*.py"))
+            for pkg in ("paddle_tpu", "paddle_tpu_torch")]
+    for name in ("expired", "shed", "cancelled", "drained", "rejected",
+                 "decode_watchdog", "overload", "checkpoint_fallback",
+                 "checkpoint_commit"):
+        assert name == "checkpoint_commit" or name in doc, name
+        assert all(f'"{name}"' in src for src in srcs), name
 
 
 def test_monitor_packages_import_no_jax():

@@ -288,7 +288,7 @@ def test_lora_manager_load_unload_refcount():
     assert rows.dtype == torch.int32 and rows.tolist() == [0, r2, r1]
 
 
-def test_lora_manager_rejects_bad_shapes_and_sources():
+def test_lora_manager_rejects_bad_shapes_and_sources(tmp_path):
     rng = np.random.default_rng(6)
     mgr = LoRAManager(2, 64, 192, max_adapters=1, rank=4, device="cpu")
     a, b = _adapter(rng)
@@ -296,12 +296,14 @@ def test_lora_manager_rejects_bad_shapes_and_sources():
         mgr.load_adapter("bad", weights=(a[:, :2], b))
     with pytest.raises(ValueError, match="exactly one"):
         mgr.load_adapter("bad", weights=(a, b), path="/nope")
-    with pytest.raises(NotImplementedError, match="distributed/"):
-        mgr.load_adapter("ck", path="/nope")
+    with pytest.raises(ValueError, match="failed verification: missing"):
+        mgr.load_adapter("ck", path=str(tmp_path / "nope"))
     assert mgr.num_loaded == 0 and float(mgr.a.abs().max()) == 0.0
     from paddle_tpu_torch.serving import save_adapter_checkpoint
-    with pytest.raises(NotImplementedError, match="distributed/"):
-        save_adapter_checkpoint("/nope", a, b)
+    save_adapter_checkpoint(str(tmp_path / "ad"), a[:, :2], b)
+    with pytest.raises(ValueError, match="this manager serves"):
+        mgr.load_adapter("ck", path=str(tmp_path / "ad"))
+    assert mgr.num_loaded == 0 and float(mgr.a.abs().max()) == 0.0
 
 
 # -- the slice as a whole -----------------------------------------------------
