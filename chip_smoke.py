@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Twenty phases, in order:
+result line. Twenty-one phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -170,8 +170,8 @@ result line. Twenty phases, in order:
               served;
 18. monitor -- the monitor plane (``paddle_tpu_torch.monitor``,
               ``.testing.chaos``, ``.profiler``, ``.cost_model``): (a)
-              phase 3's f32 engine and requests run off, on, on, off,
-              twice (on: ``FLAGS_monitor``, ``FLAGS_trace`` at sample 1.0,
+              phase 3's f32 engine and requests run off, on, on, off
+              (on: ``FLAGS_monitor``, ``FLAGS_trace`` at sample 1.0,
               ``FLAGS_flight_recorder``, the admin plane on an
               ephemeral 127.0.0.1 port, an availability SLO and chaos
               ``serve.request.poison@3``): the poisoned request fails
@@ -226,23 +226,54 @@ result line. Twenty phases, in order:
               phase 10's BERT-base step through ``save_train_step`` /
               ``load_train_step``, bit-equal to an uninterrupted run,
               with each commit's milliseconds and bytes;
-20. summary -- print one JSON line describing every ported kernel, then
+20. fleet  -- the rest of serving on GPT-2 345M (f32, random weights from
+              seed 0): (a) ``models.generate`` greedy over the static
+              cache, 4 prompts of 64 tokens and 32 new: exact launches (the
+              flash forward once a layer for the prefill, the paged-decode
+              kernel once a layer a step over the buffers read as pages),
+              every token a teacher-forced forward's pick and the
+              engine's greedy token (near-ties under ``TIE_GAP``),
+              sampling at top-k 50 / top-p 0.9 in range and reproducible
+              per seed, ms per decode step and the device busy share, row
+              9 timed at this static shape; (b) ``dynamic_decode`` of a
+              ``BeamSearchDecoder`` over a cell that runs the GPT over
+              static caches (2 prompts, 4 beams, 16 steps; states the
+              caches and position, reordered by parent): beam 1 gives
+              (a)'s greedy tokens, each top score its teacher-forced
+              log-probability within ``BEAM_SCORE_TOL``; (c)
+              ``bench.py``'s ``serve_fleet_metrics`` (full) through 1 and
+              4 replicas behind the ``FleetRouter``: parity prompts
+              token-identical, measured wall tokens/s beside the JAX
+              summary's busy-time model, prefix hit %, route p99,
+              availability, the same with a 1 Hz ``FleetFederator``, and a
+              ``kill_replica`` drill losing and duplicating nothing with
+              every stream teacher-forced; (d) ``serve_lifecycle_metrics``
+              (full): three identity pushes on both replicas under MMPP
+              traffic (availability at least 99.9%, accounting closed), a
+              torn push refused with the old weights serving, and a NaN
+              candidate rolled back by the ``LifecycleController``;
+21. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
 13, 14 and 15, before each engine of phase 16, before the fed run of
 phase 17, before each predictor of phases 12 and 17, before each half
-of phase 18 and before each run of phase 19, and read just after (a
-witness's reference runs are taken back out of them); the kernel JSON
-line gives each kernel's launches per path (``serve``, ``mt``,
-``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``,
+of phase 18, before each run of phase 19 and before each part of phase
+20, and read just after (a witness's reference runs are taken back out
+of them, and phase 20 reads them before its teacher-forced references);
+the kernel JSON line gives each kernel's launches per path (``serve``,
+``mt``, ``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``,
 ``bf16_serve``, ``chat``, ``bf16_pools``, ``io_train``, ``io_predict``,
 ``monitor_serve``, ``monitor_train``, ``resilience``,
-``resilience_train``).
+``resilience_train``, ``generate``, ``beam``, ``fleet``,
+``lifecycle``).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
+
+``tools/run_chip_phase.py monitor|fleet`` runs phase 1 and phase 18 or
+20 alone.
 """
 
 from __future__ import annotations
@@ -3113,16 +3144,17 @@ MONITOR_TRAIN_KERNELS = ("flash_fwd_tc_kernel", "dq_tc_kernel",
                          "dropout_kernel")
 MONITOR_TRAIN_STEPS = 8
 # timed steps a configuration in the per-feature step-time table, and
-# the table's passes (forward, then reverse order)
+# the table's passes (forward order; a second pass would run in reverse)
 FEATURE_STEPS = 8
-FEATURE_PASSES = 2
+FEATURE_PASSES = 1
 # the serving "all on" run's flags (its admin plane on an ephemeral
 # 127.0.0.1 port), read when the engine is built and at every submit
 MONITOR_SERVE_FLAGS = {"monitor": True, "trace": True, "trace_sample": 1.0,
                        "flight_recorder": True, "monitor_port": -1}
-# the serving runs off and all on, interleaved (one engine's runs spread
-# by 10-20% on this host, so the comparison takes several a side)
-MONITOR_SERVE_ORDER = ("off", "on", "on", "off") * 2
+# the serving runs off and all on, interleaved: two a side (one engine's
+# runs spread by 10-20% on this host, more than telemetry's cost, so
+# tools/time_monitor_serve.py takes more runs a side where that matters)
+MONITOR_SERVE_ORDER = ("off", "on", "on", "off")
 
 
 @contextlib.contextmanager
@@ -3385,7 +3417,8 @@ def _feature_step_ms(step, batch, flags: dict, check: bool) -> float:
 def _monitor_features() -> None:
     """Phase 10's BERT-base step on a resident batch with each monitor
     feature alone and all together, against none, in one run: the
-    table twice, forward and in reverse order."""
+    table in ``FEATURE_PASSES`` passes, alternately forward and in
+    reverse order."""
     import numpy as np
     import torch
     from paddle_tpu_torch.monitor import goodput, scoped_registry
@@ -3404,8 +3437,8 @@ def _monitor_features() -> None:
     goodput.reset()
     none = float(np.median(rows["none"]))
     _log(f"monitor train: step ms with each feature ({FEATURE_STEPS} steps "
-         f"queued back to back, one sync; {FEATURE_PASSES} passes, forward "
-         "and reverse): " + "; ".join(
+         f"queued back to back, one sync; {FEATURE_PASSES} pass(es), "
+         "alternately forward and reverse): " + "; ".join(
              f"{n} " + "/".join(f"{x:.2f}" for x in v)
              + f" (median {np.median(v):.2f}, "
              f"{100 * (np.median(v) / none - 1):+.1f}% on none)"
@@ -4174,6 +4207,581 @@ def phase_resilience(serve: tuple):
     return acc, train
 
 
+# -- phase 20: the rest of serving -----------------------------------------------
+# (a) generate over the static cache: bench-sized prompts, greedy; the
+# prompts share their last token, the start token of (b)'s beam search
+GEN_B, GEN_S0, GEN_NEW, GEN_LAST = 4, 64, 32, 50256
+GEN_SAMPLING = dict(top_k=50, top_p=0.9)
+# (b) beam search over the same model: 2 prompts, 4 beams, 16 steps; an
+# end token random weights rarely pick
+BEAM_B, BEAM_K, BEAM_STEPS, BEAM_END = 2, 4, 16, 50303
+BEAM_SCORE_TOL = 1e-3
+# (c) bench.py's serve_fleet_metrics (full): 4-slot replicas at context
+# 256 with the prefix cache, the tenanted shared-prefix traffic, and its
+# router config
+FLEET_CFG = dict(SERVE_CFG, max_batch_slots=4, max_context_len=256)
+FLEET_SPEC = dict(num_requests=48, rate_rps=24.0, prompt_len_range=(16, 64),
+                  max_new_range=(8, 24), vocab_size=50304, seed=13,
+                  shared_prefix_len=64, prefix_pool_size=4, prefix_zipf=1.05,
+                  tenants=16)
+FLEET_ROUTER = dict(seed=3, saturation_queue_depth=12)
+FLEET_SIZES = (1, 4)
+# (d) bench.py's serve_lifecycle_metrics (full): 2 hot-swap-armed
+# replicas under MMPP traffic, three identity pushes at its quarters
+LIFE_SPEC = dict(FLEET_SPEC, seed=17, arrival="mmpp", burstiness=3.0,
+                 mmpp_switch=0.2, tenants=8)
+LIFE_AVAILABILITY = 99.9
+
+
+class _Stream:
+    """A generated stream in the shape ``_teacher_forced`` reads."""
+
+    def __init__(self, prompt, generated):
+        import numpy as np
+        self.request = type("Req", (), {})()
+        self.request.prompt = np.asarray(prompt, np.int32)
+        self.generated = [int(t) for t in generated]
+        self.prompt_len = len(prompt)
+
+
+def _path_launches(want: dict, tag: str) -> dict:
+    """Every kernel's launches since the last reset; each kernel in
+    ``want`` must show that many (None: more than 0), every other none."""
+    from paddle_tpu_torch.ops import kernels
+    got = {k["name"]: k["launches"] for k in kernels.kernels()}
+    bad = {k: v for k, v in got.items()
+           if (k in want and (v == 0 if want[k] is None else v != want[k]))
+           or (k not in want and v)}
+    _require(not bad, f"{tag}: launches {got}, expected {want}")
+    return got
+
+
+def _static_decode_case(B, L, H, D, pos):
+    """Row 9 at ``generate``'s decode shape: the contiguous float32 buffer
+    ``[B, L, H, D]`` read as ``L / STATIC_BLOCK`` pages a row, against its
+    plain version, timed beside the bytes bound and SDPA over the same
+    visible slots, L2 flushed before each launch as phase 2 times row 9
+    (a step reads each layer's buffers once)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.models.gpt import STATIC_BLOCK
+    from paddle_tpu_torch.ops.kernels.paged_decode import (
+        paged_decode_attention, paged_decode_plain)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    kb, vb = (torch.randn(B, L, H, D, device="cuda", generator=g)
+              for _ in range(2))
+    q = torch.randn(B, H, D, device="cuda", generator=g)
+    n = L // STATIC_BLOCK
+    pages = (B * n, STATIC_BLOCK, H, D)
+    table = torch.arange(B * n, dtype=torch.int32, device="cuda").view(B, n)
+    pos_t = torch.full((B,), pos, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(D)
+    args = (q, kb.view(pages), vb.view(pages), table, pos_t, scale)
+    out = paged_decode_attention(*args)
+    ref = paged_decode_plain(*args)
+    err = (out - ref).abs().max().item()
+    _require(err <= TOL["float32"], f"static decode: kernel against plain "
+             f"{err} > {TOL['float32']}")
+    scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    ms = _median_ms(lambda: paged_decode_attention(*args), flush=scrub.zero_)
+    plain_ms = _median_ms(lambda: paged_decode_plain(*args),
+                          flush=scrub.zero_)
+    vis = pos + 1
+    qs = q[:, :, None]                                   # [B, H, 1, D]
+    ks = kb[:, :vis].transpose(1, 2)
+    vs = vb[:, :vis].transpose(1, 2)
+    lib_ms = _median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs),
+                        flush=scrub.zero_)
+    nbytes = B * vis * H * D * 4 * 2 + 2 * B * H * D * 4 \
+        + table.numel() * 4 + B * 4
+    bound, by = _bound_ms(nbytes, 4 * B * H * D * vis, "float32")
+    _log(f"generate: row 9 (static) B={B} L={L} H={H} D={D} f32 at pos "
+         f"{pos} (pages of {STATIC_BLOCK}): max|o-plain| {err:.3e}; "
+         f"{ms:.4f} ms, plain {plain_ms:.4f}, bound {bound:.4f} ({by}), "
+         f"SDPA f32 over the {vis} visible slots {lib_ms:.4f} (L2 flushed)")
+
+
+def _gen_part(model, cfg) -> tuple:
+    """(a) ``generate`` greedy over the static cache: exact launches (row
+    1 once a layer for the prefill, row 9 once a layer a step), every
+    token a teacher-forced forward's pick (near-ties under ``TIE_GAP``)
+    and the engine's greedy token; sampling in range and reproducible
+    per seed; ms per decode step; row 9 timed at this shape. Returns the
+    prompts, the greedy tokens and the launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import generate
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    rng = np.random.RandomState(20)
+    prompts = rng.randint(0, cfg.vocab_size, (GEN_B, GEN_S0))
+    prompts[:, -1] = GEN_LAST
+    L = cfg.num_layers
+
+    def run(new, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = generate(model, prompts, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    run(2, decode_strategy="greedy_search")              # first use
+    kernels.reset_launch_counts()
+    out, wall = run(GEN_NEW, decode_strategy="greedy_search")
+    launches = _path_launches({"flash_attention_fwd": L,
+                               "paged_decode_attention": L * (GEN_NEW - 1)},
+                              "generate")
+    tokens = out[:, GEN_S0:].cpu().numpy()
+    _require(tuple(out.shape) == (GEN_B, GEN_S0 + GEN_NEW)
+             and out.dtype == torch.int32
+             and (out[:, :GEN_S0].cpu().numpy() == prompts).all(),
+             f"generate: output {tuple(out.shape)} {out.dtype}")
+    _teacher_forced("generate", model,
+                    [_Stream(p, t) for p, t in zip(prompts, tokens)],
+                    TIE_GAP)
+    full = sorted(run(GEN_NEW, decode_strategy="greedy_search")[1]
+                  for _ in range(3))
+    one = sorted(run(1, decode_strategy="greedy_search")[1]
+                 for _ in range(3))
+    step_ms = (full[1] - one[1]) / (GEN_NEW - 1) * 1e3
+    _log(f"generate: B={GEN_B} S0={GEN_S0} {GEN_NEW} new tokens greedy in "
+         f"{wall * 1e3:.1f} ms (first timed run); median of 3: "
+         f"{full[1] * 1e3:.1f} ms for {GEN_NEW}, {one[1] * 1e3:.1f} ms for "
+         f"the prefill and one token, so {step_ms:.3f} ms a decode step; "
+         f"launches {launches}")
+    busy = _profile_step("generate", lambda: run(
+        GEN_NEW, decode_strategy="greedy_search"))
+    _log(f"generate: device busy share {100 * busy:.2f}%")
+    eng = ServingEngine(model, ServingConfig(**SERVE_CFG), device="cuda")
+    eng.warmup()
+    seqs = eng.generate([list(p) for p in prompts], max_new_tokens=GEN_NEW)
+    eng.shutdown()
+    del eng
+    same = _same_streams("generate vs engine", model,
+                         [t.tolist() for t in tokens],
+                         [s[GEN_S0:].tolist() for s in seqs], prompts)
+    _log(f"generate: {same} of {GEN_B} streams equal to the engine's greedy "
+         "tokens (any other diverges at a near-tie)")
+    draws = [run(GEN_NEW, decode_strategy="sampling", seed=s,
+                 **GEN_SAMPLING)[0].cpu().numpy() for s in (1, 1, 2)]
+    _require((draws[0] == draws[1]).all() and not (draws[0] ==
+                                                   draws[2]).all()
+             and draws[0].min() >= 0 and draws[0].max() < cfg.vocab_size,
+             "generate: sampling not reproducible per seed or out of range")
+    _log(f"generate: sampling at {GEN_SAMPLING}: seed 1 twice equal, seed 2 "
+         f"differs, ids in [0, {cfg.vocab_size})")
+    _static_decode_case(GEN_B, -(-(GEN_S0 + GEN_NEW) // 16) * 16,
+                        cfg.num_heads, cfg.head_dim, GEN_S0 + GEN_NEW - 1)
+    # row 1 (f32, causal) held against its plain version at the shapes
+    # this phase gives it: generate's prefill, beam search's prefill
+    # (one partial 64-row tile) and the teacher-forced references of
+    # (a) and (b) (the longest top beam)
+    for b, s in ((GEN_B, GEN_S0), (BEAM_B, GEN_S0 - 1),
+                 (GEN_B, GEN_S0 + GEN_NEW), (1, GEN_S0 + BEAM_STEPS)):
+        _flash_case(b, s, cfg.num_heads, cfg.head_dim, torch.float32,
+                    seed=20 + s)
+    return prompts, tokens, launches
+
+
+def _beam_part(model, cfg, prompts, greedy) -> dict:
+    """(b) ``dynamic_decode(BeamSearchDecoder)`` over a cell that runs the
+    GPT one token a step over static caches, its states the caches and
+    the position, reordered by parent. Prompts end in ``GEN_LAST``, so
+    the cell prefills all but that token and the decoder starts from it.
+    ``beam_size=1`` must give (a)'s greedy tokens; each top beam's score
+    must be its teacher-forced log-probability within
+    ``BEAM_SCORE_TOL``. Returns the launches of both decodes."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.gpt import STATIC_BLOCK, GPTAttention
+    from paddle_tpu_torch.nn import BeamSearchDecoder, dynamic_decode
+    from paddle_tpu_torch.ops import kernels
+    B, S = BEAM_B, GEN_S0 - 1
+    Lb = -(-(GEN_S0 + BEAM_STEPS) // STATIC_BLOCK) * STATIC_BLOCK
+    ids = torch.from_numpy(prompts[:B].astype(np.int64)).cuda()
+
+    def cell(inputs, states):
+        pos = int(states["pos"][0])
+        logits, caches = model(inputs[:, None], caches=states["caches"],
+                               cache_pos=pos)
+        return logits[:, -1], {"caches": caches, "pos": states["pos"] + 1}
+
+    def decode(beam):
+        caches = [GPTAttention.StaticCache(
+            torch.zeros(B, Lb, cfg.num_heads, cfg.head_dim, device="cuda"),
+            torch.zeros(B, Lb, cfg.num_heads, cfg.head_dim, device="cuda"))
+            for _ in range(cfg.num_layers)]
+        with torch.no_grad():
+            _, caches = model(ids[:, :S], caches=caches, cache_pos=0)
+            dec = BeamSearchDecoder(cell, start_token=GEN_LAST,
+                                    end_token=BEAM_END, beam_size=beam)
+            return dynamic_decode(
+                dec, {"caches": caches,
+                      "pos": torch.full((B,), S, device="cuda")},
+                max_step_num=BEAM_STEPS, return_length=True)
+
+    model.eval()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    out, final, lens = decode(BEAM_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    one, _, _ = decode(1)
+    L = cfg.num_layers
+    launches = _path_launches(
+        {"flash_attention_fwd": 2 * L,
+         "paged_decode_attention": 2 * L * BEAM_STEPS}, "beam")
+    same = _same_streams("beam 1 vs generate", model,
+                         one[:, :, 0].cpu().tolist(),
+                         greedy[:B, :BEAM_STEPS].tolist(), prompts[:B])
+    scores = final.log_probs.cpu().numpy()
+    ids_top = out[:, :, 0].cpu().numpy()
+    lens_top = lens[:, 0].cpu().numpy()
+    worst = 0.0
+    with torch.no_grad():
+        for b in range(B):
+            n = int(lens_top[b])
+            seq = np.concatenate([prompts[b], ids_top[b, :n]])
+            lp = torch.log_softmax(model(torch.from_numpy(
+                seq[None].astype(np.int64)).cuda())[0].float(), dim=-1)
+            tf = float(sum(lp[GEN_S0 - 1 + i, int(ids_top[b, i])]
+                           for i in range(n)))
+            worst = max(worst, abs(tf - float(scores[b, 0])))
+    _require(worst <= BEAM_SCORE_TOL, f"beam: top score against its "
+             f"teacher-forced log-probability {worst} > {BEAM_SCORE_TOL}")
+    _require((np.diff(scores, axis=1) <= 1e-5).all(),
+             f"beam: scores not sorted {scores}")
+    _log(f"beam: B={B}, {BEAM_K} beams, {BEAM_STEPS} steps in "
+         f"{wall * 1e3:.1f} ms; top scores {scores[:, 0].tolist()}, lengths "
+         f"{lens_top.tolist()}; top score against the teacher-forced "
+         f"log-probability {worst:.3e} (tol {BEAM_SCORE_TOL:g}); beam 1 "
+         f"equal to generate's greedy tokens in {same} of {B} streams; "
+         f"launches {launches}")
+    return launches
+
+
+def _fleet(model, n: int, flags: dict, router_kw=None, **cfg):
+    from paddle_tpu_torch.serving import (FleetRouter, RouterConfig,
+                                          ServingConfig, ServingEngine)
+    with _flags(flags):
+        reps = {}
+        for i in range(n):
+            eng = ServingEngine(model, ServingConfig(**dict(FLEET_CFG,
+                                                            **cfg)),
+                                device="cuda")
+            eng.warmup()
+            reps[f"r{i}"] = eng
+        return FleetRouter(reps, RouterConfig(**(router_kw or FLEET_ROUTER)))
+
+
+def _fleet_run(router, spec, parity=None) -> dict:
+    """``run_fleet_open_loop`` timed on the host clock, then the parity
+    prompts' greedy tokens. The summary gains ``wall_s`` and
+    ``wall_tokens_per_sec``: the tokens over the run's own wall time,
+    beside the JAX summary's busy-time model."""
+    import torch
+    from paddle_tpu_torch.serving import run_fleet_open_loop
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    summary = run_fleet_open_loop(router, spec)
+    torch.cuda.synchronize()
+    summary["wall_s"] = time.perf_counter() - t
+    summary["wall_tokens_per_sec"] = summary["tokens_generated"] \
+        / summary["wall_s"]
+    if parity is not None:
+        summary["parity"] = [o[-8:].tolist() for o in router.generate(
+            parity, max_new_tokens=8)]
+    return summary
+
+
+def _fleet_line(n, s) -> str:
+    return (f"{n} replica{'s' * (n > 1)}: {s['requests_completed']} of "
+            f"{s['requests_offered']} completed, {s['tokens_generated']} "
+            f"tokens; wall {s['wall_s']:.3f} s, {s['wall_tokens_per_sec']:.2f}"
+            f" tokens/s measured (one card, the replicas interleaved); "
+            f"{s['aggregate_tokens_per_sec']:.2f} tokens/s by the JAX "
+            f"summary's busy-time model (the busiest replica's busy seconds, "
+            f"as if each replica had its own card); prefix hit "
+            f"{s['fleet_prefix_hit_pct']:.2f}%; route decision p50 "
+            f"{s['route_overhead_p50_s'] * 1e6:.1f} us, p99 "
+            f"{s['route_overhead_p99_s'] * 1e6:.1f} us; availability "
+            f"{s['availability_pct']:.2f}%; affine {s['routed_affine']}, "
+            f"balanced {s['routed_balanced']}; busy s " + ", ".join(
+                f"{k} {v['busy_s']:.3f}" for k, v in s["replicas"].items()))
+
+
+def _fleet_part(model, cfg) -> dict:
+    """(c) ``bench.py``'s fleet legs: the traffic through 1 and 4
+    replicas (parity prompts token-identical, near-ties under
+    ``TIE_GAP``), 4 replicas with a 1 Hz ``FleetFederator`` attached, and
+    a ``kill_replica`` drill with every stream teacher-forced. Returns the
+    launches of all four runs."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.monitor.fleet import (FederatorConfig,
+                                                FleetFederator,
+                                                local_registry_target)
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (LoadSpec, SamplingParams,
+                                          build_requests)
+    spec = LoadSpec(sampling=SamplingParams(), **FLEET_SPEC)
+    rng = np.random.default_rng(11)
+    pre = rng.integers(0, cfg.vocab_size, (16,)).tolist()
+    parity = [pre + rng.integers(0, cfg.vocab_size, (6,)).tolist(),
+              pre + rng.integers(0, cfg.vocab_size, (4,)).tolist(),
+              [3, 4, 5, 3, 4, 5, 3, 4]]
+    flags = {"serve_prefix_cache": True}
+    runs = {}
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for n in FLEET_SIZES:
+        router = _fleet(model, n, flags)
+        try:
+            runs[n] = _fleet_run(router, spec, parity)
+        finally:
+            router.shutdown()
+        _log(f"fleet: {_fleet_line(n, runs[n])}")
+        del router
+        gc.collect()
+    one, many = runs[FLEET_SIZES[0]], runs[FLEET_SIZES[-1]]
+    router = _fleet(model, FLEET_SIZES[-1], flags)
+    fed = FleetFederator([local_registry_target()],
+                         FederatorConfig(interval_s=1.0), router=router,
+                         port=0)
+    fed.start()
+    try:
+        s = _fleet_run(router, spec)
+        scrapes = fed.registry.get("fleet_scrapes_total")
+        n_scrapes = sum(v for _, v in scrapes.samples()) if scrapes else 0
+    finally:
+        fed.close()
+        router.shutdown()
+    _log(f"fleet: with a 1 Hz FleetFederator attached ({n_scrapes:.0f} "
+         f"scrapes): {_fleet_line(FLEET_SIZES[-1], s)}; wall tokens/s "
+         f"{s['wall_tokens_per_sec']:.2f} against "
+         f"{many['wall_tokens_per_sec']:.2f} without")
+    del router, fed
+    gc.collect()
+    # the kill drill: the schedule submitted at once, a replica killed
+    # after three passes; every stream must be a teacher-forced greedy
+    # pick, the killed replica's continuations included
+    router = _fleet(model, FLEET_SIZES[-1], flags)
+    try:
+        recs = [router.submit(req) for _, req in build_requests(spec)]
+        for _ in range(3):
+            router.step_all()
+        live = {}
+        for r in recs:
+            if not r.done:
+                live[r.replica] = live.get(r.replica, 0) + 1
+        victim = max(live, key=live.get)
+        streamed = {r.request_id: list(r.tokens) for r in recs}
+        moved = router.kill_replica(victim)
+        router.run()
+        s = router.summary()
+    finally:
+        router.shutdown()
+    _require(moved > 0 and s["migrated_death"] == moved
+             and s["duplicate_request_ids"] == 0
+             and s["requests_completed"] == s["requests_offered"] == len(recs)
+             and all(r.tokens[:len(streamed[r.request_id])]
+                     == streamed[r.request_id] for r in recs),
+             f"fleet kill: {s}")
+    _log(f"fleet: kill_replica({victim}) after 3 passes moved {moved} "
+         f"requests; {s['requests_completed']} of {s['requests_offered']} "
+         f"completed, 0 duplicate ids, availability "
+         f"{s['availability_pct']:.2f}%")
+    del router
+    gc.collect()
+    torch.cuda.synchronize()
+    # read before the references below, whose no-cache forwards launch
+    # the flash forward too
+    launches = _path_launches({"flash_attention_fwd": None,
+                               "flash_attention_bias_fwd": None,
+                               "paged_decode_attention": None}, "fleet")
+    _require(launches["paged_decode_attention"] % cfg.num_layers == 0,
+             f"fleet: paged decode launches {launches}")
+    _log(f"fleet: peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+         f"({FLEET_SIZES[-1]} replicas' parameter copies and pools); "
+         f"launches {launches}")
+    checked = _teacher_forced("fleet kill", model, [
+        _Stream(r.prompt, r.tokens) for r in recs], TIE_GAP)
+    _log(f"fleet: the kill drill's {checked} tokens are teacher-forced "
+         "greedy picks")
+    for s in runs.values():
+        _require(s["requests_completed"] == s["requests_offered"] ==
+                 spec.num_requests and s["duplicate_request_ids"] == 0
+                 and s["requests_in_flight"] == 0,
+                 f"fleet: accounting {s}")
+    same = _same_streams("fleet parity", model, many["parity"],
+                         one["parity"],
+                         [np.asarray(p, np.int32) for p in parity])
+    _log(f"fleet: parity prompts {same} of {len(parity)} token-identical "
+         f"between {FLEET_SIZES[0]} and {FLEET_SIZES[-1]} replicas; fleet "
+         f"prefix hit {many['fleet_prefix_hit_pct']:.2f}% against the "
+         f"single replica's {one['fleet_prefix_hit_pct']:.2f}%")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _lifecycle_part(model, cfg, tmp: str) -> dict:
+    """(d) ``bench.py``'s lifecycle drill: two hot-swap-armed replicas
+    under its MMPP traffic, three identity pushes on every replica at the
+    schedule's quarters; availability at least ``LIFE_AVAILABILITY``%,
+    the accounting closed. Then a torn push refused with the old weights
+    serving the same tokens, and a NaN candidate rolled back by the
+    ``LifecycleController``. Returns the launches."""
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (LifecycleConfig,
+                                          LifecycleController, LoadSpec,
+                                          SamplingParams, ServerOverloaded,
+                                          WeightSwapError, build_requests)
+    from paddle_tpu_torch.testing import chaos
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    router = _fleet(model, 2, {"serve_hot_swap": True,
+                               "serve_traffic_split": True})
+    push = os.path.join(tmp, "push")
+    t = time.perf_counter()
+    dckpt.save(dict(router.replicas["r0"].engine.params), push)
+    save_s = time.perf_counter() - t
+    spec = LoadSpec(sampling=SamplingParams(), **LIFE_SPEC)
+    schedule = build_requests(spec)
+    quarters = [len(schedule) // 4, len(schedule) // 2,
+                3 * len(schedule) // 4]
+    swaps, rejected, i, swap_s, pending = 0, 0, 0, [], 0
+    try:
+        t0 = time.perf_counter()
+        while i < len(schedule) or any(
+                r.alive and r.engine.scheduler.has_work
+                for r in router.replicas.values()):
+            now = time.perf_counter() - t0
+            while i < len(schedule) and schedule[i][0] <= now:
+                try:
+                    router.submit(schedule[i][1])
+                except ServerOverloaded:
+                    rejected += 1
+                i += 1
+            if swaps < len(quarters) and i >= quarters[swaps]:
+                for rep in router.replicas.values():
+                    t = time.perf_counter()
+                    info = rep.engine.swap_weights(push)
+                    swap_s.append(time.perf_counter() - t)
+                    pending += bool(info["pending"])
+                    if not info["pending"]:
+                        rep.engine.commit_swap()
+                swaps += 1
+            if not router.step_all() and i < len(schedule):
+                wait = schedule[i][0] - (time.perf_counter() - t0)
+                if wait > 0:
+                    time.sleep(min(wait, 0.05))
+        wall = time.perf_counter() - t0
+        s = router.summary()
+        epochs = {n: r.engine.metrics_summary()["weights_epoch"]
+                  for n, r in router.replicas.items()}
+        lost = (s["requests_offered"] - s["requests_completed"]
+                - s["requests_failed"] - s["requests_rejected"])
+        _require(swaps == 3 and set(epochs.values()) == {3}
+                 and s["availability_pct"] >= LIFE_AVAILABILITY and lost == 0
+                 and s["requests_in_flight"] == 0
+                 and s["duplicate_request_ids"] == 0,
+                 f"lifecycle: swaps {swaps}, epochs {epochs}, lost {lost}, "
+                 f"{s}")
+        _log(f"lifecycle: 3 identity pushes x 2 replicas under MMPP (the "
+             f"push {save_s:.3f} s to commit, "
+             f"{_dir_bytes(push) / 1e9:.3f} GB): availability "
+             f"{s['availability_pct']:.2f}%, {s['requests_completed']} "
+             f"completed / {s['requests_failed']} failed / {rejected} "
+             f"rejected of {s['requests_offered']}, 0 lost, 0 duplicate, "
+             f"epochs {epochs}; {pending} of 6 swaps staged behind "
+             f"in-flight slots; swap_weights s (verify, load, copy to the "
+             f"card) " + ", ".join(f"{x:.3f}" for x in swap_s)
+             + f"; run wall {wall:.3f} s, {s['tokens_generated']} tokens")
+        eng = router.replicas["r0"].engine
+        prompts = [[3, 4, 5, 3, 4, 5, 3, 4], list(range(100, 140))]
+        want = [o.tolist() for o in eng.generate(prompts, max_new_tokens=8)]
+        chaos.configure("serve.swap.torn_manifest@1")
+        try:
+            eng.swap_weights(push)
+            _require(False, "lifecycle: a torn push was not refused")
+        except WeightSwapError as e:
+            reason = e.reason
+        finally:
+            chaos.reset()
+        got = [o.tolist() for o in eng.generate(prompts, max_new_tokens=8)]
+        _require(got == want and eng.metrics_summary()["weights_epoch"] == 3,
+                 "lifecycle: the torn push changed the serving weights")
+        _log(f"lifecycle: torn push refused ({reason}); the old weights "
+             "serve the same tokens")
+        with _flags({"serve_lifecycle": True}):
+            ctrl = LifecycleController(router, LifecycleConfig(
+                bake_window_s=30.0, min_requests=3,
+                incident_dir=os.path.join(tmp, "incidents")))
+        chaos.configure("serve.swap.bad_weights@1")
+        try:
+            out = ctrl.begin(push, candidate="r1")
+        finally:
+            chaos.reset()
+        _require(out["state"] == "baking", f"lifecycle: begin {out}")
+        recs = [router.submit(req) for _, req in build_requests(
+            LoadSpec(sampling=SamplingParams(),
+                     **dict(LIFE_SPEC, num_requests=10, seed=18)))]
+        router.run()
+        summ = ctrl.summary()
+        _require(ctrl.state == "rolled-back"
+                 and summ["decision"]["trigger"] == "nonfinite"
+                 and all(r.outcome == "completed" for r in recs),
+                 f"lifecycle: controller {ctrl.state} {summ['decision']}")
+        got = [o.tolist() for o in router.replicas["r1"].engine.generate(
+            prompts, max_new_tokens=8)]
+        _require(got == want, "lifecycle: the rolled-back candidate serves "
+                 "other tokens than the baseline")
+        _log(f"lifecycle: NaN candidate on r1 rolled back by the controller "
+             f"(trigger {summ['decision']['trigger']}, shadow outcomes "
+             f"{summ['arms']['shadow']['outcomes']}); the baseline's 10 "
+             f"requests completed; r1 serves the baseline's tokens again; "
+             f"timeline {[e['to'] for e in ctrl.timeline]}")
+    finally:
+        router.shutdown()
+    del router
+    gc.collect()
+    torch.cuda.synchronize()
+    # the bench's lifecycle replicas run without the prefix cache, so no
+    # context prefill
+    launches = _path_launches({"flash_attention_fwd": None,
+                               "paged_decode_attention": None},
+                              "lifecycle")
+    _log(f"lifecycle: peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (two "
+         f"replicas, a staged and a retired tree); launches {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fleet():
+    """The rest of serving: ``generate`` and beam search over static
+    caches, the fleet router with fleet monitoring and the kill drill,
+    and weight pushes under load. Returns the launches of each path."""
+    import tempfile
+    import torch
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+    cfg = gpt2_medium()
+    model = GPTForPretraining(cfg, device="cuda", seed=0).eval()
+    out = {}
+    prompts, greedy, out["generate"] = _gen_part(model, cfg)
+    out["beam"] = _beam_part(model, cfg, prompts, greedy)
+    out["fleet"] = _fleet_part(model, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["lifecycle"] = _lifecycle_part(model, cfg, tmp)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- main --------------------------------------------------------------------
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
@@ -4226,6 +4834,7 @@ def main() -> int:
         "monitor", phase_monitor)
     by_path["resilience"], by_path["resilience_train"] = timed(
         "resilience", phase_resilience, (by_path["serve"], f32_serve))
+    by_path.update(timed("fleet", phase_fleet))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

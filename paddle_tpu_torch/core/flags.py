@@ -6,13 +6,15 @@ or :func:`flag_scope` set it. The port defines only the flags whose
 behaviour it has (``serve_kv_quant``, ``amp_int8_matmul``, the
 serving throughput features ``serve_prefix_cache``,
 ``serve_prefill_chunk``, ``serve_spec_k``, ``serve_spec_ngram``, the
-serving watchdog ``serve_watchdog_s`` and ``checkpoint_verify``); it has no
+serving watchdog ``serve_watchdog_s``, ``checkpoint_verify`` and the
+model lifecycle's ``serve_hot_swap``, ``serve_traffic_split`` and
+``serve_lifecycle``); it has no
 kernel kill switches (the JAX package's
 ``pallas_*`` flags), because a kernel wrapper on the card launches its
 kernel or raises. The monitor flags (``monitor``, ``trace``,
 ``flight_recorder``, ``chaos``, ``monitor_port``, ``train_goodput``,
-``train_health_every`` and their companions) keep the JAX package's
-names and defaults.
+``train_health_every``, the fleet federator's ``fleet_monitor_*`` and
+their companions) keep the JAX package's names and defaults.
 """
 
 from __future__ import annotations
@@ -163,6 +165,34 @@ define_flag("serve_spec_ngram", 3,
             "against the request's own prompt+generated history "
             "(prompt-lookup decoding); it backs off to shorter n-grams "
             "down to 1 before giving up on a slot for the iteration.")
+define_flag("serve_hot_swap", False,
+            "Live weight hot-swap (serving.engine): arm "
+            "ServingEngine.swap_weights — load and verify a candidate "
+            "checkpoint, stage the new parameter dict beside the live "
+            "one and cut over at the next iteration boundary, slots in "
+            "flight finishing on the weights they started on (a "
+            "per-slot weights epoch; drain-and-resubmit when the card "
+            "cannot hold two trees). Off (default) = swap_weights "
+            "raises and the engine dispatches exactly as without it. "
+            "Read once at engine construction.")
+define_flag("serve_traffic_split", False,
+            "Shadow/A-B traffic splitting (serving.router): arm "
+            "FleetRouter.set_traffic_split — a TrafficSplit hash-splits "
+            "a fraction of requests onto a candidate replica (A/B) "
+            "and/or mirrors a fraction as shadow copies (responses "
+            "discarded, fully measured), with per-arm counters, "
+            "latency histograms and greedy-divergence counters. Off "
+            "(default) = set_traffic_split raises and no new series. "
+            "Read once at router construction.")
+define_flag("serve_lifecycle", False,
+            "SLO-guarded promotion controller (serving.lifecycle): arm "
+            "LifecycleController — stage a candidate checkpoint on one "
+            "replica, bake it under a traffic split while an SLOTracker "
+            "watches the candidate arm, then promote (a rolling swap, "
+            "one replica at a time) or roll back, with flight events "
+            "and an incident bundle on rollback. Off (default) = the "
+            "controller refuses to construct. Read once at controller "
+            "construction.")
 
 # -- the monitor plane (paddle_tpu_torch.monitor, .testing.chaos) -----------
 define_flag("monitor", False,
@@ -243,6 +273,35 @@ define_flag("monitor_host", "127.0.0.1",
             "the plane exposes flags, program tables and profiles, so "
             "exposing it beyond the host is an explicit operator "
             "decision (front it with real auth if you must).")
+define_flag("fleet_monitor_port", 0,
+            "TCP port for the fleet federator's admin plane "
+            "(paddle_tpu_torch.monitor.fleet): a scrape loop pulls every "
+            "configured replica /metrics page into ONE host-labelled "
+            "fleet registry and serves its own /metrics, /statusz "
+            "(per-replica table), /healthz and /readyz (quorum of "
+            "replica readiness). -1 = an ephemeral OS-assigned port. 0 "
+            "(default) = OFF: no scrape thread, no socket, no registry "
+            "series.")
+define_flag("fleet_monitor_targets", "",
+            "Comma-separated scrape targets for the fleet federator, "
+            "each 'name=http://host:port' (/metrics is implied; /readyz "
+            "and /debug/* derive from the same base). Empty (default) = "
+            "federate the local process registry under the host label "
+            "'fleet' (an in-process fleet, whose router and replicas "
+            "share one registry).")
+define_flag("fleet_monitor_interval_s", 1.0,
+            "Fleet federator scrape period in seconds.")
+define_flag("fleet_monitor_slo", 0.0,
+            "Fleet availability SLO objective as a fraction (e.g. "
+            "0.999) over the federated serve_requests_total deltas "
+            "(good = completed; bad = expired/failed/shed/rejected). 0 "
+            "(default) = no fleet SLO tracker.")
+define_flag("fleet_monitor_incident_dir", "",
+            "Directory for the fleet federator's incident bundles (on a "
+            "fleet SLO burn alert or a tail-retained anomaly trace: the "
+            "implicated replica's flight-recorder doc, the merged "
+            "Perfetto trace, the fleet statusz and the federated "
+            "metrics page, rate-limited). Empty (default) = no capture.")
 define_flag("train_goodput", False,
             "Training goodput ledger (monitor/goodput.py): attribute "
             "every second of trainer wall-clock to one exclusive "

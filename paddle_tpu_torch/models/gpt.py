@@ -31,6 +31,13 @@ over the right-aligned gathered context) for context prefills (a
 paged view with its ``context`` set: a chunk continuation, a prefix-hit tail, a speculative verify window) and
 through the paged-decode kernel for single-token decode steps, or its
 quantized twin when the paged cache is int8 (``FLAGS_serve_kv_quant``).
+The static cache of ``models.generation.generate``
+(:class:`GPTAttention.StaticCache`, ``[B, L, H, D]`` float32 buffers
+written in place at ``cache_pos``) attends on the card through the
+flash forward for a chunk at position 0 and through the paged-decode
+kernel for a one-token step, the contiguous buffer read as pages of
+``STATIC_BLOCK`` positions; on the CPU through the plain composition
+with the JAX model's mask.
 With a bfloat16 parameter copy (``inference.create_serving_engine``
 under ``enable_tpu_bf16``) every activation is bf16, as in the JAX
 model under its bf16 snapshot: the embeddings' sum, the residual
@@ -46,6 +53,7 @@ explicitly, matching the JAX package's "highest" matmul precision.
 
 from __future__ import annotations
 
+import collections
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -59,7 +67,8 @@ from ..core.random import dropout_generator, make_generator
 from ..nn import functional as F
 from ..nn.chunked_ce import enabled_for, hard_nll
 from ..nn.layers import Dropout, LayerNorm
-from ..ops.attention import context_attention, sdpa_array
+from ..ops.attention import (NEG_INF, _sdpa_plain, context_attention,
+                             sdpa_array)
 from ..ops.kernels.bgmv import bgmv
 from ..ops.kernels.paged_decode import (paged_decode_attention,
                                         paged_decode_attention_quant)
@@ -70,7 +79,12 @@ from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
            "GPTModel", "GPTForPretraining", "GPTPretrainingCriterion",
            "LayerNorm", "Dropout", "parallel_logits", "gpt_tiny",
-           "gpt2_small", "gpt2_medium", "gpt2_large", "gpt2_xl"]
+           "gpt2_small", "gpt2_medium", "gpt2_large", "gpt2_xl",
+           "STATIC_BLOCK"]
+
+#: positions a page when the paged-decode kernel reads a static cache:
+#: ``generate`` allocates its buffers' length in whole pages
+STATIC_BLOCK = 16
 
 
 @dataclass
@@ -102,6 +116,11 @@ def _param(*shape, device):
 class GPTAttention(nn.Module):
     """Causal self-attention with one fused QKV matmul."""
 
+    #: fixed-size K/V buffers ``[B, L, H, D]`` of ``models.generation``,
+    #: as in the JAX model: a chunk writes its K/V at ``pos`` and row
+    #: ``i`` attends to slots ``j <= pos + i``
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
     def __init__(self, cfg: GPTConfig, device: torch.device):
         super().__init__()
         E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
@@ -112,18 +131,20 @@ class GPTAttention(nn.Module):
         self.out_weight = _param(H, D, E, device=device)
         self.out_bias = _param(E, device=device)
 
-    def forward(self, x, cache: Optional[PagedLayerCache] = None, pos=None):
+    def forward(self, x, cache=None, pos=None):
         B, S, E = x.shape
         H, D = self.num_heads, self.head_dim
         xc, w, b = cast_inputs("fused_qkv", x, self.qkv_weight,
                                self.qkv_bias)
         qkv = (xc @ w.reshape(E, 3 * H * D)).reshape(B, S, 3, H, D) + b
-        if cache is not None and cache.lora_a is not None:
+        if isinstance(cache, PagedLayerCache) and cache.lora_a is not None:
             # multi-tenant LoRA: every batch row's adapter delta, also
             # when every row is on the zero adapter (as in JAX)
             qkv = qkv + self._lora_delta(x, cache)
         q, k, v = qkv.unbind(2)                            # [B, S, H, D]
-        if cache is not None:
+        if isinstance(cache, GPTAttention.StaticCache):
+            out = self._static_attention(q, k, v, cache, pos)
+        elif cache is not None:
             out = self._paged_attention(q, k, v, cache, pos)
         else:
             out = F.scaled_dot_product_attention(
@@ -142,6 +163,54 @@ class GPTAttention(nn.Module):
                  cache.lora_ids)
         return d.reshape(d.shape[0], d.shape[1], 3, self.num_heads,
                          self.head_dim)
+
+    def _static_attention(self, q, k, v, cache, pos: int):
+        """Static-cache attention (``generate``). The chunk's K/V are
+        written into the buffers in place at ``pos .. pos + S - 1``; row
+        ``i`` attends to slots ``j <= pos + i``, as the JAX model's
+        ``[1, 1, S, L]`` mask of 0 and -1e30 says. On the CPU: that mask
+        and the plain composition over the whole buffer. On the card
+        (slots past ``pos + i`` add exactly zero there): a chunk at
+        ``pos == 0`` attends causally over its own K/V through the flash
+        forward, and a one-token step reads the buffer as ``L /
+        STATIC_BLOCK`` pages a row through the paged-decode kernel. Any
+        other chunk raises: no kernel takes it."""
+        kb, vb = cache
+        B, S, H, D = q.shape
+        L = kb.shape[1]
+        if pos + S > L:
+            raise ValueError(f"static cache of {L} positions cannot take "
+                             f"{S} more at position {pos}")
+        kb[:, pos:pos + S] = k.to(kb.dtype)
+        vb[:, pos:pos + S] = v.to(vb.dtype)
+        # the kernels and the plain einsums take one dtype: the JAX
+        # composition's promotion of q over the f32 buffers
+        ct = torch.promote_types(q.dtype, kb.dtype)
+        if q.device.type == "cpu":
+            rows = pos + torch.arange(S)[:, None]
+            mask = torch.where(torch.arange(L)[None, :] <= rows, 0.0,
+                               NEG_INF)[None, None]
+            return _sdpa_plain(q.to(ct), kb.to(ct), vb.to(ct),
+                               mask).to(q.dtype)
+        if pos == 0:
+            return sdpa_array(q.to(ct), k.to(ct), v.to(ct),
+                              is_causal=True).to(q.dtype)
+        if S == 1 and L % STATIC_BLOCK == 0:
+            n = L // STATIC_BLOCK
+            table = torch.arange(B * n, dtype=torch.int32,
+                                 device=q.device).view(B, n)
+            pos_b = torch.full((B,), pos, dtype=torch.int32,
+                               device=q.device)
+            pages = (B * n, STATIC_BLOCK, H, D)
+            o = paged_decode_attention(
+                q[:, 0].to(ct).contiguous(), kb.view(pages), vb.view(pages),
+                table, pos_b, 1.0 / math.sqrt(D))
+            return o.to(q.dtype)[:, None]
+        raise NotImplementedError(
+            f"no kernel for a static-cache chunk of {S} tokens at position "
+            f"{pos} over {L} slots (the card takes a chunk at position 0, "
+            f"or one token over a buffer of whole {STATIC_BLOCK}-position "
+            "pages)")
 
     def _paged_attention(self, q, k, v, cache: PagedLayerCache, pos):
         """Block-table K/V path. The chunk's K/V scatter into the pools
@@ -246,13 +315,31 @@ class GPTModel(nn.Module):
             [GPTDecoderLayer(cfg, device) for _ in range(cfg.num_layers)])
         self.final_norm = LayerNorm(cfg.hidden_size, device)
 
-    def forward(self, input_ids, position_ids=None,
-                caches: Optional[PagedCacheView] = None, cache_pos=None):
+    def forward(self, input_ids, position_ids=None, caches=None,
+                cache_pos=None):
+        """Hidden states ``[B, S, E]``; with a list of
+        :class:`GPTAttention.StaticCache` (written in place) and its
+        integer write offset ``cache_pos``, ``(hidden, caches)``."""
         B, S = input_ids.shape
+        # a list of StaticCache, or the serving engine's paged view
+        static = caches is not None and not isinstance(caches,
+                                                       PagedCacheView)
+        if static:
+            if cache_pos is None:
+                raise ValueError(
+                    "StaticCache decoding needs cache_pos (the write offset "
+                    "into the fixed-size KV buffers); models/generation.py "
+                    "threads it automatically")
+            cache_pos = int(cache_pos)
         if position_ids is None:
-            start = (cache_pos[:, None].long() if caches is not None
-                     else torch.zeros((1, 1), dtype=torch.long,
-                                      device=input_ids.device))
+            if static:
+                start = torch.full((1, 1), cache_pos, dtype=torch.long,
+                                   device=input_ids.device)
+            elif caches is not None:
+                start = cache_pos[:, None].long()
+            else:
+                start = torch.zeros((1, 1), dtype=torch.long,
+                                    device=input_ids.device)
             position_ids = start + torch.arange(S, device=input_ids.device)
         # padded prefill rows can run past the table: JAX clamps the
         # gather silently, PyTorch would fault, so clamp explicitly
@@ -262,10 +349,12 @@ class GPTModel(nn.Module):
             F.embedding(position_ids, self.position_embeddings.weight)
         x = self.embedding_dropout(x)
         for i, blk in enumerate(self.layers):
-            layer_cache = caches.layer(i) if caches is not None else None
+            layer_cache = (caches[i] if static else caches.layer(i)
+                           if caches is not None else None)
             # the scan carry keeps the stream's dtype across layers
             x = blk(x, layer_cache, cache_pos).to(x.dtype)
-        return self.final_norm(x)
+        x = self.final_norm(x)
+        return (x, list(caches)) if static else x
 
 
 def parallel_logits(hidden, embedding_weight):
@@ -301,18 +390,29 @@ class GPTForPretraining(nn.Module):
             elif leaf in ("qkv_weight", "w_in") or "embeddings" in name:
                 p.normal_(0.0, std, generator=g)
 
-    def forward(self, input_ids, position_ids=None,
-                caches: Optional[PagedCacheView] = None, cache_pos=None,
-                generator: Optional[torch.Generator] = None):
-        """Logits ``[B, S, V]``. In training mode with dropout, the seed
-        words come from ``generator`` when given, else from the active
-        ``dropout_generator``."""
+    def forward(self, input_ids, position_ids=None, caches=None,
+                cache_pos=None, generator: Optional[torch.Generator] = None):
+        """Logits ``[B, S, V]``, or ``(logits, caches)`` over a list of
+        :class:`GPTAttention.StaticCache`. In training mode with
+        dropout, the seed words come from ``generator`` when given, else
+        from the active ``dropout_generator``."""
         if generator is not None:
             with dropout_generator(generator):
                 return self.forward(input_ids, position_ids, caches,
                                     cache_pos)
-        hidden = self.gpt(input_ids, position_ids, caches, cache_pos)
-        return parallel_logits(hidden, self.gpt.word_embeddings.weight)
+        out = self.gpt(input_ids, position_ids, caches, cache_pos)
+        if isinstance(out, tuple):
+            hidden, caches = out
+            return parallel_logits(hidden,
+                                   self.gpt.word_embeddings.weight), caches
+        return parallel_logits(out, self.gpt.word_embeddings.weight)
+
+    def generate(self, input_ids, max_new_tokens: int = 32, **kwargs):
+        """Decode continuations over a static KV cache
+        (:func:`..generation.generate`)."""
+        from .generation import generate
+        return generate(self, input_ids, max_new_tokens=max_new_tokens,
+                        **kwargs)
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -25,9 +25,12 @@ package's metric names, flags and zero-overhead contracts:
    (:mod:`.goodput`, ``FLAGS_train_goodput``,
    ``FLAGS_train_health_every``).
 
-Not ported here: ``fleet.py`` (``FleetFederator``,
-``merge_fleet_traces``), which federates the replicas behind the
-serving router and comes with the router's port.
+9. the **fleet federator** (:mod:`.fleet`, ``FLAGS_fleet_monitor_*``):
+   the replicas' and the router's pages in one host-labelled fleet
+   registry, the merged fleet trace (:func:`~.fleet.merge_fleet_traces`
+   joins the router's ``fleet.request`` tree with each replica's
+   ``serve.request`` tree under one trace_id), fleet SLO burn and
+   incident bundles.
 
 The registry is always importable and writable; the HOT paths only write
 to it when ``FLAGS_monitor`` is set (the serving engine's request
@@ -36,8 +39,9 @@ guard in tests/test_torch_monitor.py; the flight recorder has the same
 contract via ``FLAGS_flight_recorder`` and its ``record_count`` probe.
 """
 
-from . import (flight_recorder, goodput, memory,  # noqa: F401
+from . import (fleet, flight_recorder, goodput, memory,  # noqa: F401
                slo, timeseries, trace)
+from .fleet import FleetFederator, merge_fleet_traces  # noqa: F401
 from .goodput import GoodputLedger, LayerHealthMonitor  # noqa: F401
 from .flight_recorder import (FlightRecorder,  # noqa: F401
                               get_flight_recorder, set_flight_recorder)
@@ -67,6 +71,7 @@ __all__ = [
     "Span", "Trace", "Tracer", "get_tracer", "set_tracer",
     "start_trace", "export_perfetto", "SLOTracker",
     "GoodputLedger", "LayerHealthMonitor",
+    "FleetFederator", "merge_fleet_traces",
 ]
 
 

@@ -1,3 +1,6 @@
 from . import chunked_ce, functional, layers, quant
+from .decode import (BeamSearchDecoder, Decoder, dynamic_decode,
+                     gather_tree)
 
-__all__ = ["chunked_ce", "functional", "layers", "quant"]
+__all__ = ["BeamSearchDecoder", "Decoder", "chunked_ce", "dynamic_decode",
+           "functional", "gather_tree", "layers", "quant"]

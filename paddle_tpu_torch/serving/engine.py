@@ -1,10 +1,11 @@
 """LLM serving engine: paged decode + continuous batching, PyTorch port.
 
-Counterpart of ``paddle_tpu/serving/engine.py`` on one device (no hot
-swap or mesh). Each :meth:`ServingEngine.step`:
+Counterpart of ``paddle_tpu/serving/engine.py`` on one device (no
+mesh). Each :meth:`ServingEngine.step`:
 
 0. honours a latched drain signal (``enable_drain``: the engine drains
-   and raises ``EngineDrained``), expires queued requests past their
+   and raises ``EngineDrained``), cuts over to staged weights (see
+   below), expires queued requests past their
    deadline, cancels or expires in-flight ones (``cancel``,
    ``Request.deadline_s``) and feeds the overload detector;
 1. admits waiting requests into free slots (``Scheduler``), mapping the
@@ -16,7 +17,8 @@ swap or mesh). Each :meth:`ServingEngine.step`:
 3. stages speculative drafts (``serve_spec_k``), makes room for every
    decoding slot's next positions (recompute-preempting the newest
    requests when the pool runs dry) and runs ONE decode, or verify,
-   forward over the full slot batch (other slots masked).
+   forward over the full slot batch (other slots masked), one per
+   weights epoch while a hot swap is in transition.
 
 The JAX engine compiled one program per signature, donating the KV
 pools to each; the port runs the same forwards eagerly and writes the
@@ -73,6 +75,21 @@ admin plane. Chaos: ``serve.request.poison`` marks a request at submit,
 whose logits rows turn NaN ahead of the finiteness checks, so it fails
 alone; ``serve.detok.raise`` raises in a token's callback. Not ported:
 the ``serve_program_*`` series (the port compiles no programs).
+
+Live weight hot-swap (``FLAGS_serve_hot_swap``, read once at
+construction), as in the JAX engine: :meth:`ServingEngine.swap_weights`
+verifies a committed checkpoint of this engine's parameter dict
+(``distributed.checkpoint``, never below ``manifest``), refuses a torn
+or mismatched one with :class:`WeightSwapError` and no side effect, and
+stages the rest. The staged dict becomes the live one at the next
+iteration boundary (at once when nothing is in flight); every residency
+is stamped with the weights epoch whose tree wrote its first K/V and
+finishes on that tree, so a transition dispatches once per epoch, and
+the radix prefix cache is flushed (its pages hold the old weights' K/V).
+When the card cannot hold a second tree the swap drains the slots into
+snapshot specs, cuts over and resubmits the continuations.
+``rollback_weights`` re-stages the retained tree; ``commit_swap`` drops
+it. With the flag off an engine dispatches exactly as without it.
 """
 
 from __future__ import annotations
@@ -108,13 +125,26 @@ from .prefix_cache import RadixPrefixCache
 from .resilience import (DecodeWatchdogError, DispatchWorker, DrainLatch,
                          DrainReport, EngineDrained, OverloadDetector,
                          ServerOverloaded, request_spec,
-                         save_drain_snapshot)
+                         requests_from_snapshot, save_drain_snapshot)
 from .sampling import SamplingParams, sample_tokens, verify_draws
 from .scheduler import (QUEUE_POLICIES, AdmissionGroup, BucketTable,
                         Request, RequestState, Scheduler)
 from .spec_decode import propose_ngram
 
-__all__ = ["ServingConfig", "ServingEngine"]
+__all__ = ["ServingConfig", "ServingEngine", "WeightSwapError"]
+
+
+class WeightSwapError(RuntimeError):
+    """A candidate weight push was refused (torn manifest, parameter
+    mismatch, unreadable checkpoint) or a rollback had nothing retained
+    to roll back to. A refusal has no side effect: the serving weights
+    did not change and traffic keeps flowing on them."""
+
+    def __init__(self, manifest_dir: str, reason: str):
+        super().__init__(
+            f"weight swap refused for {manifest_dir!r}: {reason}")
+        self.manifest_dir = manifest_dir
+        self.reason = reason
 
 #: live engines, for test isolation (``serving.reset`` shuts them down)
 _LIVE_ENGINES: "weakref.WeakSet[ServingEngine]" = weakref.WeakSet()
@@ -380,6 +410,23 @@ class ServingEngine:
         #: the kinds whose first dispatch's device-memory peak is
         #: recorded under FLAGS_monitor (monitor.memory.ProgramMemory)
         self._measured_kinds: set = set()
+        # live weight hot-swap, read once: off, swap_weights raises,
+        # _retired stays empty and every dispatch takes the one-epoch path
+        self._hot_swap = bool(get_flag("serve_hot_swap"))
+        #: live weights generation, bumped at every cutover (rollbacks
+        #: included); a residency finishes on its stamped epoch's tree
+        self._weights_epoch = 0
+        #: candidate staged for the next iteration-boundary cutover
+        self._staged: Optional[dict] = None
+        #: epoch -> parameter dict still referenced by in-flight slots
+        self._retired: Dict[int, dict] = {}
+        #: the pre-swap tree, kept as the rollback anchor until
+        #: commit_swap() drops it or rollback_weights() re-stages it
+        self._previous: Optional[dict] = None
+        self._live_manifest: Optional[str] = None
+        self._swap_stats = {"staged": 0, "cutover": 0, "refused": 0,
+                            "rolled_back": 0, "committed": 0,
+                            "drain_swaps": 0}
         if get_flag("memory_preflight"):
             _memory.preflight_check(_memory.known_bytes(engine=self),
                                     device=self.device)
@@ -476,6 +523,16 @@ class ServingEngine:
                            if self._overload is not None else False),
             "watchdog_tripped": self._watchdog_tripped,
         }
+        if self._hot_swap:
+            d["weights"] = {
+                "epoch": self._weights_epoch,
+                "live_manifest": self._live_manifest,
+                "staged": (self._staged["manifest"]
+                           if self._staged is not None else None),
+                "retired_epochs": sorted(self._retired),
+                "rollback_available": self._previous is not None,
+                "swaps": dict(self._swap_stats),
+            }
         if self.lora is not None:
             d["lora"] = self.stats()["lora"]
         if self.scheduler.tenant_quota is not None:
@@ -746,6 +803,263 @@ class ServingEngine:
         return DrainReport(completed=completed, snapshotted=len(specs),
                            path=path)
 
+    # -- live weight hot-swap -------------------------------------------------
+    def _swaps_counter(self):
+        return get_registry().counter(
+            "serve_swaps_total",
+            "weight hot-swap lifecycle events (staged/cutover/refused/"
+            "rolled_back/committed/drain_fallback)")
+
+    def swap_weights(self, manifest_dir: str, mode: str = "auto") -> dict:
+        """Load, verify and swap in a candidate checkpoint without
+        dropping traffic.
+
+        The candidate must be a committed checkpoint of this engine's
+        exact parameter dict (names, shapes, dtypes). A torn or
+        mismatched push raises :class:`WeightSwapError` with no side
+        effect. A valid push is staged beside the live dict and cut over
+        at the next iteration boundary (at once when nothing is in
+        flight); slots in flight finish on the weights that wrote their
+        K/V. ``mode``: ``"auto"`` (stage when the card has room for a
+        second tree, else drain), ``"staged"`` or ``"drain"``. Returns a
+        dict with ``mode`` and ``epoch`` and each mode's detail.
+        Verification runs at ``FLAGS_checkpoint_verify``, never below
+        ``manifest``."""
+        if not self._hot_swap:
+            raise RuntimeError(
+                "FLAGS_serve_hot_swap is off — live weight swap is "
+                "disarmed for this engine (the flag is read once at "
+                "construction)")
+        if mode not in ("auto", "staged", "drain"):
+            raise ValueError(
+                f"swap mode {mode!r}: expected auto|staged|drain")
+        from ..distributed import checkpoint as ckpt
+        state = None
+        if chaos.active() and chaos.probe("serve.swap.torn_manifest"):
+            reason = ("chaos serve.swap.torn_manifest: candidate "
+                      "manifest torn mid-push")
+        else:
+            level = get_flag("checkpoint_verify")
+            reason = ckpt.verify_checkpoint(
+                manifest_dir,
+                level="manifest" if level == "off" else level)
+        if reason is None:
+            try:
+                state = ckpt.load(manifest_dir)
+            except Exception as e:
+                reason = f"load failed ({type(e).__name__}: {e})"
+        if reason is None:
+            reason = self._validate_candidate(state)
+        if reason is not None:
+            self._swap_stats["refused"] += 1
+            self._swaps_counter().inc(event="refused")
+            _flight.safe_record_event("swap_refused", manifest=manifest_dir,
+                                      reason=reason)
+            raise WeightSwapError(manifest_dir, reason)
+        tree = {name: state[name].to(live.device)
+                for name, live in self.params.items()}
+        if chaos.active() and chaos.probe("serve.swap.bad_weights"):
+            # damage that passes verification: NaN in the first floating
+            # tensor, which shows as non-finite logits in flight (the
+            # swap scans no values)
+            for name, t in tree.items():
+                if t.is_floating_point():
+                    tree[name] = torch.full_like(t, float("nan"))
+                    break
+        if mode == "auto":
+            mode = "staged" if self._swap_headroom_ok(tree) else "drain"
+        if mode == "drain":
+            return self._swap_via_drain(tree, manifest_dir)
+        return self._stage(tree, manifest_dir)
+
+    def _validate_candidate(self, state) -> Optional[str]:
+        """None when ``state`` is exactly this engine's parameter dict
+        (names, shapes, dtypes), else the refusal's reason."""
+        if not isinstance(state, dict):
+            return ("candidate is not a param dict "
+                    f"({type(state).__name__})")
+        live, cand = set(self.params), set(state)
+        if live != cand:
+            missing = sorted(live - cand)[:3]
+            extra = sorted(cand - live)[:3]
+            return ("param tree mismatch"
+                    + (f"; missing {missing}" if missing else "")
+                    + (f"; unexpected {extra}" if extra else ""))
+        for name, ref in self.params.items():
+            t = state[name]
+            if not torch.is_tensor(t):
+                return f"{name} is not a tensor ({type(t).__name__})"
+            if tuple(t.shape) != tuple(ref.shape):
+                return (f"shape mismatch at {name}: candidate "
+                        f"{tuple(t.shape)} vs serving {tuple(ref.shape)}")
+            if t.dtype != ref.dtype:
+                return (f"dtype mismatch at {name}: candidate "
+                        f"{str(t.dtype).replace('torch.', '')} vs serving "
+                        f"{str(ref.dtype).replace('torch.', '')}")
+        return None
+
+    def _swap_headroom_ok(self, tree: dict) -> bool:
+        """True when the card (``monitor.memory.device_memory_stats``)
+        has room for the candidate's bytes with a 25% margin; a CPU
+        engine, which has no such counters, stages."""
+        stats = _memory.device_memory_stats(self.device)
+        if not stats or not stats.get("bytes_limit"):
+            return True
+        need = sum(t.numel() * t.element_size() for t in tree.values())
+        free = int(stats["bytes_limit"]) - int(stats.get("bytes_in_use", 0))
+        return free >= need * 1.25
+
+    def _stage(self, tree: dict, manifest_dir: Optional[str]) -> dict:
+        self._staged = {"params": tree, "manifest": manifest_dir}
+        self._swap_stats["staged"] += 1
+        self._swaps_counter().inc(event="staged")
+        _flight.safe_record_event("weights_staged", manifest=manifest_dir,
+                                  epoch=self._weights_epoch + 1)
+        if not self.scheduler.active():
+            # nothing in flight: between steps is an iteration boundary
+            self._cutover()
+        return {"mode": "staged", "epoch": self._weights_epoch,
+                "pending": self._staged is not None}
+
+    def _swap_via_drain(self, tree: dict,
+                        manifest_dir: Optional[str]) -> dict:
+        """The fallback when the card cannot hold two trees: snapshot the
+        slots in flight as drain specs, release them (``drained``), cut
+        over with nothing in flight, then resubmit every unfinished
+        continuation with its client callbacks. Tokens already streamed
+        stand; the continuation decodes on the new weights. The waiting
+        queue never touched the old weights and stays."""
+        sched = self.scheduler
+        sched.sweep_active()
+        inflight = [(st, request_spec(st)) for _, st in sched.active()]
+        for _, st in list(sched.active()):
+            sched.drain_release(st)
+        self._swap_stats["drain_swaps"] += 1
+        self._swaps_counter().inc(event="drain_fallback")
+        self._stage(tree, manifest_dir)      # no slot left: cuts over
+        resubmitted = []
+        for st_old, spec in inflight:
+            reqs = requests_from_snapshot([spec])
+            if not reqs:
+                continue                     # it had its whole budget
+            req = reqs[0]
+            req.on_token = st_old.request.on_token
+            req.stop = st_old.request.stop
+            resubmitted.append(self.submit(req))
+        _flight.safe_record_event("weights_drain_swap",
+                                  resubmitted=len(resubmitted),
+                                  manifest=manifest_dir)
+        return {"mode": "drain", "epoch": self._weights_epoch,
+                "resubmitted": len(resubmitted), "states": resubmitted}
+
+    def _cutover(self) -> None:
+        """The swap point (top of :meth:`step`, or at once when idle):
+        the staged dict becomes the live one. Slots in flight keep the
+        tree that wrote their K/V (``_retired``) until they end; the
+        radix prefix cache is flushed, and donation into it detached
+        while old-epoch slots remain, since cached pages would carry the
+        old weights' K/V into new-epoch admissions."""
+        staged, self._staged = self._staged, None
+        old_epoch = self._weights_epoch
+        actives = [st for _, st in self.scheduler.active()]
+        for st in actives:
+            if st.weights_epoch is None:
+                # admitted before the boundary (possibly on old-weight
+                # cached pages): it belongs to the old epoch
+                st.weights_epoch = old_epoch
+        if actives:
+            self._retired[old_epoch] = self.params
+        self._previous = {"params": self.params,
+                          "manifest": self._live_manifest}
+        self._weights_epoch = old_epoch + 1
+        self.params = staged["params"]
+        self._live_manifest = staged["manifest"]
+        if self.prefix_cache is not None:
+            # the allocator counts references: clear() drops the tree's
+            self.prefix_cache.clear()
+            if actives:
+                # old-epoch slots ending now must not donate their pages
+                # into the fresh tree (free_slot donates only while the
+                # cache has one); _retire_unreferenced re-attaches it
+                self.cache.prefix_cache = None
+        self._swap_stats["cutover"] += 1
+        self._swaps_counter().inc(event="cutover")
+        get_registry().gauge(
+            "serve_weights_epoch",
+            "live weights generation (increments at every hot-swap "
+            "cutover, including rollback cutovers)").set(
+                float(self._weights_epoch))
+        _flight.safe_record_event("weights_cutover",
+                                  epoch=self._weights_epoch,
+                                  manifest=staged["manifest"],
+                                  in_flight_old_epoch=len(actives))
+
+    def rollback_weights(self) -> dict:
+        """Swap back to the pre-swap weights: the retained tree is
+        staged and cut over at the next iteration boundary (at once when
+        idle). Afterwards the bad tree is the retained one, which
+        :meth:`commit_swap` drops."""
+        if not self._hot_swap:
+            raise RuntimeError(
+                "FLAGS_serve_hot_swap is off — rollback_weights is "
+                "disarmed for this engine")
+        prev = self._previous
+        if prev is None:
+            raise WeightSwapError(
+                "<previous>", "no previous weights retained (already "
+                "committed, or never swapped)")
+        self._previous = None
+        self._swap_stats["rolled_back"] += 1
+        self._swaps_counter().inc(event="rolled_back")
+        _flight.safe_record_event("weights_rolled_back",
+                                  from_epoch=self._weights_epoch,
+                                  to_manifest=prev["manifest"])
+        return self._stage(prev["params"], prev["manifest"])
+
+    def commit_swap(self) -> None:
+        """Drop the retained pre-swap tree (the rollback anchor);
+        ``rollback_weights`` raises afterwards."""
+        if self._previous is not None:
+            self._previous = None
+            self._swap_stats["committed"] += 1
+            self._swaps_counter().inc(event="committed")
+            _flight.safe_record_event("weights_committed",
+                                      epoch=self._weights_epoch)
+
+    def _params_for(self, epoch: Optional[int]) -> dict:
+        """The parameter dict of a slot's epoch: the live one for the
+        live epoch (and unstamped slots), a retired one in a
+        transition."""
+        if epoch is None or epoch == self._weights_epoch:
+            return self.params
+        return self._retired[epoch]
+
+    def _epoch_batches(self, pairs):
+        """This iteration's decoding slots as one ``(params, pairs)``
+        dispatch per weights epoch. Outside a swap transition (always
+        with the flag off) ``_retired`` is empty and this is one batch on
+        the live dict: the dispatches of an engine without hot swap."""
+        if not self._retired:
+            return [(self.params, pairs)] if pairs else []
+        by_epoch: Dict[int, list] = {}
+        for slot, st in pairs:
+            e = self._weights_epoch if st.weights_epoch is None \
+                else st.weights_epoch
+            by_epoch.setdefault(e, []).append((slot, st))
+        return [(self._params_for(e), by_epoch[e]) for e in sorted(by_epoch)]
+
+    def _retire_unreferenced(self) -> None:
+        """Free the retired trees no slot in flight references; when the
+        last goes the transition is over and donation into the (flushed,
+        new-epoch) prefix tree re-attaches."""
+        live = {st.weights_epoch for _, st in self.scheduler.active()}
+        for e in [e for e in self._retired if e not in live]:
+            del self._retired[e]
+            _flight.safe_record_event("weights_retired", epoch=e)
+        if not self._retired and self.prefix_cache is not None \
+                and self.cache.prefix_cache is None:
+            self.cache.prefix_cache = self.prefix_cache
+
     @torch.no_grad()
     def step(self, admit: bool = True) -> bool:
         """One scheduler iteration: honour a latched drain, cancels and
@@ -761,6 +1075,10 @@ class ServingEngine:
         if self._drain_latch is not None and self._drain_latch.triggered \
                 and not self._draining:
             raise EngineDrained(self.drain())
+        if self._staged is not None:
+            # the cutover point: an iteration boundary, before anything
+            # of this step is admitted or dispatched
+            self._cutover()
         sched = self.scheduler
         # both sweeps cost nothing without deadlines or cancels, and
         # write the registry only on a lifecycle event
@@ -799,12 +1117,15 @@ class ServingEngine:
             for st in sched.ensure_decode_capacity():
                 # recompute-preemption: back to the queue, same trace
                 self._trace_requeue(st, "preemption")
-            pairs = self._decodable()
-            if pairs:
+            # one decode or verify dispatch per live weights epoch: one
+            # batch on the live dict outside a swap transition
+            for params, pairs in self._epoch_batches(self._decodable()):
                 if any(st.draft for _, st in pairs):
-                    self._run_verify(pairs)
+                    self._run_verify(pairs, params)
                 else:
-                    self._run_decode(pairs)
+                    self._run_decode(pairs, params)
+        if self._retired:
+            self._retire_unreferenced()
         self._publish_gauges()
         return sched.has_work
 
@@ -910,18 +1231,22 @@ class ServingEngine:
 
     def _plan_prefill_groups(self) -> List[AdmissionGroup]:
         """Group every prefilling slot's next chunk into bucketed
-        dispatches, keyed by (context, length bucket): a chunk at
-        ``pos > 0`` runs the context path, ``pos == 0`` chunks the
-        fresh one. Chunk length is ``min(serve_prefill_chunk,
-        remaining)``. Within a key, admission order, up to the largest
-        batch bucket a dispatch. With chunking and the prefix cache off
-        every prefilling slot is a fresh admission with its whole
-        effective prompt, the grouping of the engine without them."""
-        by_key: Dict[Tuple[bool, int], List[RequestState]] = {}
+        dispatches, keyed by (weights epoch, context, length bucket): a
+        chunk at ``pos > 0`` runs the context path, ``pos == 0`` chunks
+        the fresh one, and a chunked prefill carried across a hot-swap
+        cutover keeps its own tree. Chunk length is
+        ``min(serve_prefill_chunk, remaining)``. Within a key, admission
+        order, up to the largest batch bucket a dispatch. With chunking
+        and the prefix cache off every prefilling slot is a fresh
+        admission with its whole effective prompt, the grouping of the
+        engine without them; outside a transition the epoch is one."""
+        by_key: Dict[Tuple[int, bool, int], List[RequestState]] = {}
         for _, st in self.scheduler.active():
             if not st.prefilling:
                 continue
-            key = (st.prefill_pos > 0,
+            ep = self._weights_epoch if st.weights_epoch is None \
+                else st.weights_epoch
+            key = (ep, st.prefill_pos > 0,
                    self.buckets.len_bucket(self._chunk_len(st)))
             by_key.setdefault(key, []).append(st)
         groups: List[AdmissionGroup] = []
@@ -932,7 +1257,7 @@ class ServingEngine:
             for i in range(0, len(sts), mb):
                 chunk = sts[i:i + mb]
                 groups.append(AdmissionGroup(
-                    key[1], self.buckets.batch_bucket(len(chunk)), chunk))
+                    key[2], self.buckets.batch_bucket(len(chunk)), chunk))
         return groups
 
     def _sampling_arrays(self, states: Sequence[Optional[RequestState]]):
@@ -983,11 +1308,12 @@ class ServingEngine:
         return toks.cpu().numpy(), ok.cpu().numpy()
 
     def _forward(self, ids: np.ndarray, states, pos: np.ndarray,
-                 context: bool = False):
-        """One forward over the paged view; ``states`` has one entry per
-        batch row, None for a padded row or a slot that takes no row (an
-        all-scratch table row and the zero adapter). ``context`` selects
-        the context-prefill path: rows start at ``pos`` and attend over
+                 context: bool = False, params: Optional[dict] = None):
+        """One forward over the paged view with ``params`` (the live
+        dict by default); ``states`` has one entry per batch row, None
+        for a padded row or a slot that takes no row (an all-scratch
+        table row and the zero adapter). ``context`` selects the
+        context-prefill path: rows start at ``pos`` and attend over
         every page-resident position before them. Inside a guarded
         dispatch it passes the dispatch's launch gate first."""
         gate = getattr(_LAUNCH, "gate", None)
@@ -1007,7 +1333,8 @@ class ServingEngine:
         view = PagedCacheView(*args, context_index(
             table, pos, ids.shape[1], c.block_size, dev) if context else None)
         return functional_call(
-            self.model, (self.params, self.buffers),
+            self.model, (self.params if params is None else params,
+                         self.buffers),
             (torch.from_numpy(ids).to(dev),),
             {"caches": view, "cache_pos": torch.from_numpy(pos).to(dev)})
 
@@ -1040,6 +1367,13 @@ class ServingEngine:
         t0 = self.clock()
         if self._t_first_work is None:
             self._t_first_work = t0
+        # a residency's epoch is stamped at its first chunk: the K/V this
+        # dispatch writes belong to that tree, and its later chunks and
+        # decodes keep it across a cutover (groups have one epoch)
+        for st in group.states:
+            if st.weights_epoch is None:
+                st.weights_epoch = self._weights_epoch
+        params = self._params_for(group.states[0].weights_epoch)
         for st in group.states:
             tr = st.trace
             if tr is not None and "admitted" not in st.trace_spans:
@@ -1054,7 +1388,8 @@ class ServingEngine:
 
         def job():
             with self._measure("prefill"):
-                logits = self._forward(ids, states, pos, context=ctx)
+                logits = self._forward(ids, states, pos, context=ctx,
+                                       params=params)
                 last = logits[torch.arange(nb, device=self.device),
                               torch.from_numpy(lens - 1).to(self.device)]
                 return self._sample(self._poison(last, states), states)
@@ -1113,7 +1448,7 @@ class ServingEngine:
                 "serve_spec_proposed_total",
                 "speculative draft tokens proposed").inc(proposed)
 
-    def _run_verify(self, pairs) -> None:
+    def _run_verify(self, pairs, params: dict) -> None:
         """ONE verify dispatch over the decoding slots: row 0 is each
         slot's plain decode step, rows 1..k score its staged draft. A
         greedy slot commits the accepted prefix plus one bonus token
@@ -1138,7 +1473,8 @@ class ServingEngine:
                           for _, st in pairs)
 
         def job():
-            logits = self._forward(ids, per_slot, pos, context=True)
+            logits = self._forward(ids, per_slot, pos, context=True,
+                                   params=params)
             logits = self._poison(logits, per_slot, row=0)   # [B, S, V]
             samp = self._sampling_arrays(per_slot)
             ok_rows = torch.isfinite(logits).all(dim=-1)
@@ -1230,7 +1566,7 @@ class ServingEngine:
                         "speculative draft tokens rejected and rolled "
                         "back by block-table truncation").inc(rolled_back)
 
-    def _run_decode(self, pairs) -> None:
+    def _run_decode(self, pairs, params: dict) -> None:
         B = self.config.max_batch_slots
         pos = np.zeros((B,), np.int32)
         tokens = np.zeros((B, 1), np.int64)
@@ -1246,7 +1582,8 @@ class ServingEngine:
 
         def job():
             with self._measure("decode"):
-                logits = self._forward(tokens, per_slot, pos)
+                logits = self._forward(tokens, per_slot, pos,
+                                       params=params)
                 return self._sample(
                     self._poison(logits[:, -1], per_slot), per_slot)
         hang = chaos.active() and chaos.probe("serve.decode.hang")
@@ -1491,6 +1828,10 @@ class ServingEngine:
             "spec_rolled_back": s["spec_rolled_back"],
             "kv_bytes_per_token": self.cache.kv_bytes_per_token(),
             "quota_deferred": self.scheduler.stats["quota_deferred"],
+            "weights_epoch": self._weights_epoch,
+            "weight_swaps": self._swap_stats["cutover"],
+            "weight_swaps_refused": self._swap_stats["refused"],
+            "weight_swap_rollbacks": self._swap_stats["rolled_back"],
         }
 
     def shutdown(self) -> None:
@@ -1523,5 +1864,9 @@ class ServingEngine:
             self.prefix_cache.clear()
             self.cache.prefix_cache = None
             self.prefix_cache = None
+        # a staged, retired or retained tree must not outlive the engine
+        self._staged = None
+        self._retired.clear()
+        self._previous = None
         self.cache.k = self.cache.v = None
         self.cache.k_scale = self.cache.v_scale = None

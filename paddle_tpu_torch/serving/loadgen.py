@@ -33,8 +33,12 @@ counted too; a trip is retried, up to
 ``MAX_CONSECUTIVE_WATCHDOG_TRIPS`` in a row, and re-raised when the
 dispatch is not safe to retry.
 
-Not ported: lifecycle tags and ``run_fleet_open_loop`` (the port has no
-fleet router yet).
+Lifecycle tags (``ab_split``, ``shadow_frac``, ``split_seed``) stamp
+each request with the A/B arm and shadow decision a router under
+``TrafficSplit`` would make, through the same request-id hashes
+(``lifecycle.assign_arm`` / ``should_shadow``): no draw, so the other
+fields stay as they were. :func:`run_fleet_open_loop` drives a
+``FleetRouter`` through the same schedule.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ from .resilience import DecodeWatchdogError, ServerOverloaded
 from .sampling import SamplingParams
 from .scheduler import Request
 
-__all__ = ["LoadSpec", "TokenBucket", "build_requests", "run_open_loop"]
+__all__ = ["LoadSpec", "TokenBucket", "build_requests", "run_open_loop",
+           "run_fleet_open_loop"]
 
 _ARRIVALS = ("poisson", "gamma", "mmpp")
 
@@ -90,6 +95,15 @@ class LoadSpec:
     #: > 0: every tenanted request names one of this many adapters of
     #: its tenant and carries its tenant name (needs ``tenants > 0``)
     adapter_pool: int = 0
+    #: > 0: stamp ``lifecycle_arm``, the A/B arm a router under
+    #: ``TrafficSplit(ab_frac=ab_split, seed=split_seed)`` would place
+    #: the request in (``lifecycle.assign_arm``, no draw)
+    ab_split: float = 0.0
+    #: > 0: stamp ``lifecycle_shadow``, whether such a router would
+    #: mirror it (``lifecycle.should_shadow``)
+    shadow_frac: float = 0.0
+    #: the seed the tags hash with (``TrafficSplit.seed``)
+    split_seed: int = 0
 
 
 class TokenBucket:
@@ -220,6 +234,14 @@ def build_requests(spec: LoadSpec) -> List[Tuple[float, Request]]:
                       sampling=spec.sampling or SamplingParams(),
                       deadline_s=deadline, priority=priority,
                       tenant=tenant, adapter=adapter)
+        if spec.ab_split > 0.0 or spec.shadow_frac > 0.0:
+            # request-id hashes: no draw from ``rng``, so the tags leave
+            # every other field as it was
+            from .lifecycle import assign_arm, should_shadow
+            req.lifecycle_arm = assign_arm(
+                int(req.request_id), spec.split_seed, spec.ab_split)
+            req.lifecycle_shadow = should_shadow(
+                int(req.request_id), spec.split_seed, spec.shadow_frac)
         out.append((float(arrivals[i]), req))
     return out
 
@@ -270,4 +292,36 @@ def run_open_loop(engine, spec: LoadSpec,
     summary["requests_rejected"] = rejected
     summary["requests_throttled"] = throttled
     summary["watchdog_trips"] = watchdog_trips
+    return summary
+
+
+def run_fleet_open_loop(router, spec: LoadSpec) -> dict:
+    """Drive a :class:`~.router.FleetRouter` through the schedule of
+    ``spec`` on the host clock, as :func:`run_open_loop` drives one
+    engine (the same seeded traffic): the router places each arrival
+    and every live replica is stepped round-robin between arrivals.
+    Router refusals (no ready replica, every replica shedding) are
+    counted. Returns ``router.summary()`` with the offered load."""
+    schedule = build_requests(spec)
+    t0 = time.perf_counter()
+    i = 0
+    rejected = 0
+    while i < len(schedule) or any(
+            r.alive and r.engine.scheduler.has_work
+            for r in router.replicas.values()):
+        now = time.perf_counter() - t0
+        while i < len(schedule) and schedule[i][0] <= now:
+            try:
+                router.submit(schedule[i][1])
+            except ServerOverloaded:
+                rejected += 1
+            i += 1
+        if not router.step_all() and i < len(schedule):
+            wait = schedule[i][0] - (time.perf_counter() - t0)
+            if wait > 0:
+                time.sleep(min(wait, 0.05))
+    summary = router.summary()
+    summary["offered_rate_rps"] = spec.rate_rps
+    summary["num_requests"] = spec.num_requests
+    summary["requests_rejected_router"] = rejected
     return summary

@@ -163,6 +163,11 @@ class RequestState:
         self.draft: List[int] = []
         #: chaos serve.request.poison marked this request
         self.poisoned = False
+        #: weights epoch of the tree that wrote this residency's first
+        #: K/V (stamped at its first prefill chunk, or by a hot-swap
+        #: cutover); it finishes on that tree. None until then, and
+        #: again after a preemption
+        self.weights_epoch: Optional[int] = None
         #: structured-tracing context: the engine attaches a Trace and
         #: its open spans under FLAGS_trace; the scheduler never reads
         #: them
@@ -622,6 +627,7 @@ class Scheduler:
         st.admitted_t = None
         st.prefill_pos = 0
         st.prefill_len = None
+        st.weights_epoch = None
         st.draft = []
         if count:
             st.preemptions += 1
