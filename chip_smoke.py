@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Twenty-one phases, in order:
+result line. Twenty-two phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -170,7 +170,7 @@ result line. Twenty-one phases, in order:
               served;
 18. monitor -- the monitor plane (``paddle_tpu_torch.monitor``,
               ``.testing.chaos``, ``.profiler``, ``.cost_model``): (a)
-              phase 3's f32 engine and requests run off, on, on, off
+              phase 3's f32 engine and requests run off, then on
               (on: ``FLAGS_monitor``, ``FLAGS_trace`` at sample 1.0,
               ``FLAGS_flight_recorder``, the admin plane on an
               ephemeral 127.0.0.1 port, an availability SLO and chaos
@@ -252,28 +252,51 @@ result line. Twenty-one phases, in order:
               traffic (availability at least 99.9%, accounting closed), a
               torn push refused with the old weights serving, and a NaN
               candidate rolled back by the ``LifecycleController``;
-21. summary -- print one JSON line describing every ported kernel, then
+21. distributed -- (a) rows 1 and 3 with dropout 0.1 over [4, 1024, 16,
+              64] bf16 launched on batch rows 2-3 and heads 8-15 with
+              bases (2, 8), bit-equal to the whole launches' slices (o,
+              lse, dq, dk, dv) and held to their plain versions; row 8 on
+              rows 2-3 of [4, 1024, 1024] from its element base, bit-equal
+              to the whole launch's rows; (b) ``init_parallel_env()`` on
+              the card (NCCL at world size 1) with all_reduce, all_gather,
+              broadcast and barrier; then four ranks spawned on the one
+              card over gloo (NCCL takes one card per rank), which load
+              phase 1's libraries and build nothing: (c) float32 parity at
+              dp = 2 x mp = 2 and at dp = 4, ZeRO-1 over dp, dropout 0.1,
+              gpt2_medium widths at 2 layers, S = 1024, two steps: the
+              losses and the gathered parameters against one process's
+              TrainStep on the same weights, batch and seed; (d) the full
+              gpt2_medium at dp = 2 x mp = 2, O1, recompute, ZeRO-1,
+              B = 8 a call, two calls an update, four updates: losses
+              finite and falling, the median update, the share of it in
+              collectives (the ``comm_*`` series), peak memory per rank
+              and each rank's launches exactly the formula; every rank
+              checks that it imported no JAX;
+22. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
 13, 14 and 15, before each engine of phase 16, before the fed run of
 phase 17, before each predictor of phases 12 and 17, before each half
-of phase 18, before each run of phase 19 and before each part of phase
-20, and read just after (a witness's reference runs are taken back out
-of them, and phase 20 reads them before its teacher-forced references);
+of phase 18, before each run of phase 19, before each part of phase
+20 and, in each rank of phase 21's world, before its parity runs and
+again before its timed run, and read just after each (a witness's
+reference runs are taken back out of them, and phase 20 reads them
+before its teacher-forced references);
 the kernel JSON line gives each kernel's launches per path (``serve``,
 ``mt``, ``train``, ``bert``, ``ernie``, ``predict``, ``amp_int8``,
 ``bf16_serve``, ``chat``, ``bf16_pools``, ``io_train``, ``io_predict``,
 ``monitor_serve``, ``monitor_train``, ``resilience``,
 ``resilience_train``, ``generate``, ``beam``, ``fleet``,
-``lifecycle``).
+``lifecycle``, ``dist``: phase 21's timed run, ``dist_parity``: its
+float32 parity runs, each summed over the world's ranks).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
 
-``tools/run_chip_phase.py monitor|fleet`` runs phase 1 and phase 18 or
-20 alone.
+``tools/run_chip_phase.py monitor|fleet|distributed`` runs phase 1 and
+phase 18, 20 or 21 alone.
 """
 
 from __future__ import annotations
@@ -2122,11 +2145,12 @@ def _plain_versions(names=None, mxu: bool = True):
              (bg, "bgmv", bg.bgmv_plain),
              (gpt, "bgmv", bg.bgmv_plain),
              (fa, "flash_attention_fwd",
-              lambda q, k, v, *a: fa.flash_attention_plain(
-                  q, k, v, *a, mxu_dtype=op(q))),
+              lambda q, k, v, *a, **kw: fa.flash_attention_plain(
+                  q, k, v, *a, mxu_dtype=op(q), **kw)),
              (fa, "flash_attention_bwd",
-              lambda q, k, v, o, lse, do, *a: fa.flash_attention_bwd_plain(
-                  q, k, v, o, lse, do, *a, mxu_dtype=op(q))),
+              lambda q, k, v, o, lse, do, *a, **kw:
+              fa.flash_attention_bwd_plain(q, k, v, o, lse, do, *a,
+                                           mxu_dtype=op(q), **kw)),
              (ce, "online_lse", ce.online_lse_plain),
              (ce, "dlogits", ce.dlogits_plain),
              (dr, "dropout_apply", dr.dropout_plain),
@@ -3145,16 +3169,16 @@ MONITOR_TRAIN_KERNELS = ("flash_fwd_tc_kernel", "dq_tc_kernel",
 MONITOR_TRAIN_STEPS = 8
 # timed steps a configuration in the per-feature step-time table, and
 # the table's passes (forward order; a second pass would run in reverse)
-FEATURE_STEPS = 8
+FEATURE_STEPS = 4
 FEATURE_PASSES = 1
 # the serving "all on" run's flags (its admin plane on an ephemeral
 # 127.0.0.1 port), read when the engine is built and at every submit
 MONITOR_SERVE_FLAGS = {"monitor": True, "trace": True, "trace_sample": 1.0,
                        "flight_recorder": True, "monitor_port": -1}
-# the serving runs off and all on, interleaved: two a side (one engine's
-# runs spread by 10-20% on this host, more than telemetry's cost, so
+# the serving runs off and all on: one a side (one engine's runs spread
+# by 10-20% on this host, more than telemetry's cost, so
 # tools/time_monitor_serve.py takes more runs a side where that matters)
-MONITOR_SERVE_ORDER = ("off", "on", "on", "off")
+MONITOR_SERVE_ORDER = ("off", "on")
 
 
 @contextlib.contextmanager
@@ -4783,6 +4807,421 @@ def phase_fleet():
 
 
 # -- main --------------------------------------------------------------------
+# -- phase 21: distributed ----------------------------------------------------
+# four ranks on the one card over gloo (NCCL takes one card per rank),
+# dp = 2 x mp = 2, ZeRO-1 over dp
+DIST_RANKS, DIST_DP, DIST_MP = 4, 2, 2
+# (c) parity: gpt2_medium widths at 2 layers, S = 1024, dropout 0.1,
+# float32, a global batch of 4, two steps, against one process's step
+DIST_PARITY_LAYERS, DIST_PARITY_B, DIST_PARITY_STEPS = 2, 4, 2
+# the losses, relative: the ranks sum the row-parallel products, the
+# vocab-parallel loss and the dp mean of the gradients in another order
+# than one process does (float32, a few ulps of each sum)
+DIST_LOSS_TOL = 1e-5
+# every parameter after two AdamW steps at lr 1e-4, max abs: a step
+# moves a weight by at most about lr (Adam's normalized update), and
+# float32 reassociation moves the update by far less than a tenth of it.
+# The key bias (qkv_bias[1]) is the exception: its gradient is 0 in
+# exact arithmetic (a constant added to every score of a row), so what
+# each side holds is reassociation noise of either sign, and Adam's first
+# update divides it by its own magnitude: up to lr a step either way,
+# 2 * lr * steps apart
+DIST_PARAM_TOL = 1e-5
+DIST_KEY_BIAS_TOL = 2 * TRAIN_LR * DIST_PARITY_STEPS
+# (d) the timed run: gpt2_medium, B = 8 a call, S = 1024, O1, recompute,
+# two microsteps an update, four updates
+DIST_B, DIST_S, DIST_ACCUM, DIST_UPDATES = 8, 1024, 2, 4
+
+
+def _dist_batch(B, S, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 50304, (B, S)).astype(np.int32),
+            rng.integers(0, 50304, (B, S)).astype(np.int32))
+
+
+def _dist_offsets() -> None:
+    """(a) Rows 1 and 3 with dropout 0.1 at [4, 1024, 16, 64] bf16: the
+    launch on batch rows 2-3 and heads 8-15 with bases (2, 8) equals the
+    whole launch's slice bit for bit (o, lse, dq, dk, dv), and holds its
+    plain versions at phase 2's tolerance; row 8 over [4, 1024, 1024]
+    from element base 2 * 1024 * 1024 equals the whole launch's rows and
+    its plain version bit for bit."""
+    import torch
+    from paddle_tpu_torch.ops.kernels.dropout import (dropout_apply,
+                                                      dropout_plain)
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain)
+    B, S, H, D, rate = 4, 1024, 16, 64, 0.1
+    words = (0x0F1E2D3C, 0x4B5A6978)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, True, None, True, rate, words)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, True, None, rate, words)
+    sl = (slice(2, 4), slice(None), slice(8, 16))
+    qs, ks, vs, dos = (t[sl].contiguous() for t in (q, k, v, do))
+    bases = dict(batch_base=2, head_base=8)
+    os_, lses = flash_attention_fwd(qs, ks, vs, True, None, True, rate,
+                                    words, **bases)
+    gs = flash_attention_bwd(qs, ks, vs, os_, lses, dos, True, None, rate,
+                             words, **bases)
+    same = [torch.equal(os_, o[sl]), torch.equal(lses, lse[2:4, 8:16])] + [
+        torch.equal(a, w[sl]) for a, w in zip(gs, grads)]
+    _log("distributed: rows 1 and 3 on batch rows 2-3 and heads 8-15 of "
+         f"[{B}, {S}, {H}, {D}] bf16 with bases (2, 8), dropout {rate}: "
+         "bit-equal to the whole launches' slices (o, lse, dq, dk, dv) "
+         f"{same}")
+    _require(all(same), f"an offset launch differs from the whole "
+             f"launch's slice: {same}")
+    ref = flash_attention_plain(qs, ks, vs, True, None, False, rate, words,
+                                mxu_dtype=torch.bfloat16, **bases)
+    refs = flash_attention_bwd_plain(qs, ks, vs, os_, lses, dos, True, None,
+                                     rate, words, mxu_dtype=torch.bfloat16,
+                                     **bases)
+    errs = [_rel_err(os_, ref)] + [_rel_err(a, r) for a, r in zip(gs, refs)]
+    tol = TRAIN_FLASH_TOL["bfloat16"]
+    _log(f"distributed: the offset launches against their plain versions "
+         f"with the same bases (bf16 MXU operands): o {errs[0]:.3e}, dq "
+         f"{errs[1]:.3e}, dk {errs[2]:.3e}, dv {errs[3]:.3e} (tol {tol:g})")
+    _require(max(errs) <= tol, f"offset flash launches disagree with "
+             f"their plain versions: {errs}")
+    del q, k, v, do, o, lse, grads, gs, refs
+    x = torch.randn(B, S, 1024, device="cuda",
+                    generator=g).to(torch.bfloat16)
+    whole = dropout_apply(x, rate, words)
+    base = 2 * S * 1024
+    part = dropout_apply(x[2:].contiguous(), rate, words, base)
+    eq = (torch.equal(part, whole[2:]),
+          torch.equal(part, dropout_plain(x[2:], rate, words, base)))
+    _log(f"distributed: row 8 on rows 2-3 of [{B}, {S}, 1024] bf16 from "
+         f"element base {base}: bit-equal to the whole launch's rows and "
+         f"to its plain version {eq}")
+    _require(all(eq), f"the offset dropout differs: {eq}")
+
+
+def _dist_nccl() -> None:
+    """(b) ``init_parallel_env()`` on the card picks NCCL; all_reduce,
+    all_gather, broadcast and barrier go through it at world size 1."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.monitor import scoped_registry
+    with scoped_registry() as reg:
+        env = dist.init_parallel_env()
+        _require(env.backend == "nccl" and env.world_size == 1,
+                 f"init_parallel_env gave {env.backend} x {env.world_size}")
+        t = torch.arange(8, dtype=torch.float32, device="cuda")
+        want = t.clone()
+        dist.all_reduce(t)
+        got = dist.all_gather(t)
+        dist.broadcast(t, src=0)
+        dist.barrier()
+        torch.cuda.synchronize()
+        ops = {s[0]["op"]: s[1] for s in
+               reg.get("comm_ops_total").samples()}
+    ok = (torch.equal(t, want) and got.shape == (1, 8)
+          and torch.equal(got[0], want))
+    _log(f"distributed: NCCL at world size 1 (backend {env.backend}): "
+         f"all_reduce, all_gather, broadcast, barrier through the process "
+         f"group {ops}, values unchanged {ok}")
+    _require(ok and set(ops) == {"all_reduce", "all_gather", "broadcast",
+                                 "barrier"}, f"NCCL collectives {ops}")
+    dist.destroy_process_group()
+
+
+def _dist_model(layers, amp: bool, **cfg_kw):
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium)
+    model = GPTForPretraining(gpt2_medium(num_layers=layers, **cfg_kw),
+                              device="cuda", seed=0)
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(layer, ids, labels):
+        if not amp:
+            return crit(layer(ids), labels)
+        with auto_cast(level="O1"):
+            return crit(layer(ids), labels)
+    return model, loss_fn
+
+
+def _dist_step(dp, mp, layers, amp, step_kw=None, **cfg_kw):
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.spmd import P
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    fleet.init(strategy=strategy, backend="gloo")
+    hcg = fleet.get_hybrid_communicate_group()
+    model, loss_fn = _dist_model(layers, amp, **cfg_kw)
+    step = TrainStep(model, loss_fn, AdamW(
+        TRAIN_LR, parameters=model.parameters(), weight_decay=TRAIN_WD),
+        seed=0, mesh=hcg.mesh, data_spec=P("dp"), zero_axis="dp",
+        **(step_kw or {}))
+    return step
+
+
+def _dist_reference(path: str) -> list:
+    """(c)'s reference: one process's float32 step on the same weights,
+    batch and seed, on the card; its losses and parameters to ``path``."""
+    import gc
+    import torch
+    from paddle_tpu_torch.framework.io import save
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    model, loss_fn = _dist_model(DIST_PARITY_LAYERS, amp=False)
+    step = TrainStep(model, loss_fn, AdamW(
+        TRAIN_LR, parameters=model.parameters(), weight_decay=TRAIN_WD),
+        seed=0)
+    ids, labels = _dist_batch(DIST_PARITY_B, DIST_S, 5)
+    losses = [float(step(ids, labels)) for _ in range(DIST_PARITY_STEPS)]
+    save({"losses": losses, "params": step.state_dict()["params"]}, path)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _dist_parity(ref_path: str, rank: int, dp: int, mp: int) -> dict:
+    import gc
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io import load
+    step = _dist_step(dp, mp, DIST_PARITY_LAYERS, amp=False)
+    ids, labels = _dist_batch(DIST_PARITY_B, DIST_S, 5)
+    t0 = time.perf_counter()
+    losses = [float(step(ids, labels)) for _ in range(DIST_PARITY_STEPS)]
+    secs = time.perf_counter() - t0
+    params = step.state_dict()["params"]
+    out = {"losses": losses, "seconds": secs}
+    if rank == 0:
+        ref = load(ref_path)
+        out["ref_losses"] = ref["losses"]
+        errs = {k: float(np.abs(params[k] - v).max())
+                for k, v in ref["params"].items()}
+        key_bias = {k: float(np.abs(params[k][1] - v[1]).max())
+                    for k, v in ref["params"].items()
+                    if k.endswith("qkv_bias")}
+        rest = {}
+        for k, v in ref["params"].items():
+            d = np.abs(params[k] - v)
+            if k.endswith("qkv_bias"):
+                d = np.delete(d, 1, axis=0)
+            rest[k] = float(d.max())
+        out.update(n_params=len(errs), keys_equal=set(params) == set(
+            ref["params"]), worst=max(rest.items(), key=lambda kv: kv[1]),
+            key_bias=max(key_bias.values()))
+    fleet.reset()
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_timed(rank: int) -> dict:
+    import gc
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.monitor import scoped_registry
+    torch.cuda.reset_peak_memory_stats()
+    step = _dist_step(DIST_DP, DIST_MP, 24, amp=True,
+                      step_kw={"grad_accum_steps": DIST_ACCUM},
+                      use_recompute=True)
+    micro = [_dist_batch(DIST_B, DIST_S, 10 + i) for i in range(DIST_ACCUM)]
+    losses, times, comm = [], [], []
+    with scoped_registry() as reg:
+        for _ in range(DIST_UPDATES):
+            t0 = time.perf_counter()
+            losses.append([float(step(*b)) for b in micro])
+            times.append(time.perf_counter() - t0)
+            c = 0.0
+            for name in ("comm_latency_seconds",
+                         "comm_cold_dispatch_seconds"):
+                m = reg.get(name)
+                c += sum(s[1]["sum"] for s in m.samples()) if m else 0.0
+            comm.append(c)
+        by_op = {}
+        for name in ("comm_latency_seconds", "comm_cold_dispatch_seconds"):
+            m = reg.get(name)
+            for labels, st in (m.samples() if m else ()):
+                key = f"{labels['op']}/{labels['group']}"
+                by_op[key] = by_op.get(key, 0.0) + st["sum"]
+    out = {"losses": losses, "times": times, "by_op": by_op,
+           "comm": [b - a for a, b in zip([0.0] + comm, comm)],
+           "peak": torch.cuda.max_memory_allocated(),
+           "updates": step.step_count, "microsteps": step._micro_count}
+    fleet.reset()
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_rank(out_dir: str) -> None:
+    """One rank of phase 21's world (a spawned process: it imports no
+    JAX and builds no kernel; phase 1's libraries load from
+    ``paddle_tpu_torch/_build``). Writes ``rank<r>.pkl``."""
+    import pickle
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops import kernels
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    ref = os.path.join(out_dir, "reference.pdparams")
+
+    def launches():
+        return {k["name"]: k["launches"] for k in kernels.kernels()}
+    kernels.reset_launch_counts()
+    res = {"parity": _dist_parity(ref, rank, DIST_DP, DIST_MP),
+           "parity_dp": _dist_parity(ref, rank, DIST_RANKS, 1)}
+    res["launches_parity"] = launches()
+    kernels.reset_launch_counts()
+    res["timed"] = _dist_timed(rank)
+    res["launches"] = launches()
+    res["leaked"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "paddle_tpu"))
+    res["backend"] = dist.ParallelEnv().backend
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _dist_want(L: int) -> tuple:
+    """One rank's launches in phase 21's world: (c) 2 steps of 2 layers
+    at dp x mp (no chunked CE: the vocab-parallel loss is dense), the
+    same at dp = 4 (the chunked CE once a step); then, counted apart,
+    (d) 8 calls of L recomputed layers: the backward runs each block's
+    forward again up to its last saved activation
+    (``torch.utils.checkpoint``'s early stop), so row 1 and the first
+    hidden dropout twice a layer, the second hidden dropout (after the
+    MLP's last product) once. Returns (parity, timed)."""
+    lp, n = DIST_PARITY_LAYERS, DIST_PARITY_STEPS
+    calls = DIST_ACCUM * DIST_UPDATES
+    zero = {k: 0 for k in ("paged_decode_attention",
+                           "flash_attention_bias_fwd",
+                           "flash_attention_bias_bwd_dq",
+                           "flash_attention_bias_bwd_dkv",
+                           "paged_decode_attention_quant", "bgmv",
+                           "int8_matmul")}
+    parity = dict(zero, flash_attention_fwd=2 * lp * n,
+                  flash_attention_bwd=2 * lp * n,
+                  fused_dropout=2 * 2 * (1 + 2 * lp) * n,
+                  chunked_ce_lse=n, chunked_ce_dlogits=n)
+    timed = dict(zero, flash_attention_fwd=2 * L * calls,
+                 flash_attention_bwd=L * calls,
+                 fused_dropout=(2 + 5 * L) * calls,
+                 chunked_ce_lse=0, chunked_ce_dlogits=0)
+    return parity, timed
+
+
+def phase_distributed(smi: str) -> dict:
+    """(a) the kernels' base offsets, (b) NCCL at world size 1, then a
+    world of four ranks on the one card over gloo: (c) float32 parity
+    at dp x mp and dp = 4 against one process, (d) the timed full-width
+    O1 run. Returns the launches of (d) and those of (c), each summed
+    over the ranks."""
+    import pickle
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.distributed.spawn_mod import spawn
+    t = time.perf_counter()
+    _dist_offsets()
+    _dist_nccl()
+    _log(f"distributed: (a) and (b) took {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        ref = _dist_reference(os.path.join(tmp, "reference.pdparams"))
+        _log(f"distributed: the one-process reference, losses "
+             + " ".join(f"{x:.6f}" for x in ref)
+             + f" ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        spawn("chip_smoke:_dist_rank", args=(tmp,), nprocs=DIST_RANKS)
+        _log(f"distributed: the {DIST_RANKS}-rank world took "
+             f"{time.perf_counter() - t:.1f} s (start, parity, timed run)")
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for r, res in enumerate(ranks):
+        _require(not res["leaked"], f"rank {r} imported {res['leaked'][:5]}")
+        _require(res["backend"] == "gloo", f"rank {r}: {res['backend']}")
+    for tag, layout in (("parity", f"dp={DIST_DP} x mp={DIST_MP}"),
+                        ("parity_dp", f"dp={DIST_RANKS}")):
+        p0 = ranks[0][tag]
+        rel = max(abs(a - b) / abs(b) for r in ranks
+                  for a, b in zip(r[tag]["losses"], p0["ref_losses"]))
+        _log(f"distributed: (c) {layout}, ZeRO-1 over dp, f32, dropout 0.1, "
+             f"gpt2_medium widths x {DIST_PARITY_LAYERS} layers, B="
+             f"{DIST_PARITY_B} S={DIST_S}: losses " + " ".join(
+                 f"{x:.6f}" for x in p0["losses"])
+             + f" against one process's, largest relative difference "
+             f"{rel:.3e} (tol {DIST_LOSS_TOL:g}); {p0['n_params']} gathered "
+             f"parameters, worst {p0['worst'][0]} {p0['worst'][1]:.3e} "
+             f"(tol {DIST_PARAM_TOL:g}), the key bias {p0['key_bias']:.3e} "
+             f"(tol {DIST_KEY_BIAS_TOL:g}); {p0['seconds']:.2f} s for "
+             f"{DIST_PARITY_STEPS} steps")
+        _require(p0["keys_equal"], f"{tag}: the gathered state dict's keys")
+        _require(rel <= DIST_LOSS_TOL, f"{tag}: losses differ by {rel}")
+        _require(p0["worst"][1] <= DIST_PARAM_TOL
+                 and p0["key_bias"] <= DIST_KEY_BIAS_TOL,
+                 f"{tag}: parameters differ: {p0['worst']}, key bias "
+                 f"{p0['key_bias']}")
+    want_parity, want = _dist_want(24)
+    for r, res in enumerate(ranks):
+        _require(res["launches_parity"] == want_parity,
+                 f"rank {r}: (c)'s launch counts {res['launches_parity']} "
+                 f"!= {want_parity}")
+        _require(res["launches"] == want,
+                 f"rank {r}: (d)'s launch counts {res['launches']} != "
+                 f"{want}")
+    timed = [r["timed"] for r in ranks]
+    first = [float(np.mean(x)) for x in timed[0]["losses"]]
+    _require(all(np.isfinite(np.asarray(r["losses"])).all() for r in timed),
+             "distributed: a non-finite loss")
+    _require(all(r["losses"] == timed[0]["losses"] for r in timed),
+             "distributed: the ranks report different losses")
+    _require(first[-1] < first[0], f"distributed: loss did not decrease: "
+             f"{first}")
+    _require(all(r["updates"] == DIST_UPDATES and r["microsteps"] ==
+                 DIST_UPDATES * DIST_ACCUM for r in timed),
+             "distributed: update and microstep counts")
+    step_s = float(np.median(timed[0]["times"]))
+    comm = [float(np.median([c / w for c, w in zip(r["comm"], r["times"])]))
+            for r in timed]
+    tokens = DIST_B * DIST_S * DIST_ACCUM
+    _log(f"distributed: (d) gpt2_medium dp={DIST_DP} x mp={DIST_MP}, "
+         f"ZeRO-1, O1, recompute, B={DIST_B} S={DIST_S} a call, "
+         f"{DIST_ACCUM} calls an update, {DIST_UPDATES} updates, four "
+         f"ranks on one card with gloo collectives over host memory ({smi})"
+         f": update losses (mean of the window) " + " ".join(
+             f"{x:.4f}" for x in first)
+         + f"; median update {step_s * 1e3:.1f} ms ({tokens / step_s:.1f} "
+         f"tokens/s), updates " + " ".join(
+             f"{x * 1e3:.1f}" for x in timed[0]["times"])
+         + " ms; share in collectives (comm_* series, host time) by rank "
+         + ", ".join(f"{100 * c:.1f}%" for c in comm)
+         + "; peak memory by rank " + ", ".join(
+             f"{r['peak'] / 2**30:.3f} GiB" for r in timed))
+    _log("distributed: (d) rank 0's seconds in collectives over the "
+         f"{DIST_UPDATES} updates by op/group: " + ", ".join(
+             f"{k} {v:.2f}" for k, v in sorted(
+                 timed[0]["by_op"].items(), key=lambda kv: -kv[1])))
+    _log(f"distributed: launches a rank, (d) {ranks[0]['launches']}, (c) "
+         f"{ranks[0]['launches_parity']} (each rank exactly the formula)")
+    from paddle_tpu_torch.ops import kernels
+    return tuple({k["name"]: sum(r[key][k["name"]] for r in ranks)
+                  for k in kernels.kernels()}
+                 for key in ("launches", "launches_parity"))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -4809,7 +5248,7 @@ def main() -> int:
         _log(f"{name}: phase took {time.perf_counter() - t:.1f} s")
         return out
 
-    timed("card", phase_card)
+    card = timed("card", phase_card)
     rows = timed("kernels", phase_kernels)
     by_path = {}
     by_path["serve"], f32_serve = timed("slice", phase_slice)
@@ -4835,6 +5274,8 @@ def main() -> int:
     by_path["resilience"], by_path["resilience_train"] = timed(
         "resilience", phase_resilience, (by_path["serve"], f32_serve))
     by_path.update(timed("fleet", phase_fleet))
+    by_path["dist"], by_path["dist_parity"] = timed(
+        "distributed", phase_distributed, card["smi"])
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -20,6 +20,9 @@ saves them (``save`` / ``load``, ``jit.save`` / ``jit.load``,
 ``io`` feeds a training loop from a dataset. ``monitor``,
 ``testing.chaos``, ``profiler`` and ``cost_model`` observe all of it
 with the JAX package's metric names, flags and fault-injection sites.
+``distributed`` trains over data and tensor parallelism with ZeRO-1,
+gradient accumulation and activation recompute, one process a rank
+(``torch.distributed``).
 """
 
 from .core import make_generator, resolve_device

@@ -122,6 +122,15 @@ define_flag("checkpoint_verify", "manifest",
             "checkpoints). CRCs are RECORDED at commit time only under "
             "'full' (they cost a full re-read of the staged tree); "
             "manifests without CRCs still verify at 'manifest' level.")
+define_flag("collective_timeout_s", 0.0,
+            "Watchdog timeout (seconds) for the collectives of "
+            "distributed.collective: a call that does not return within "
+            "the budget raises CollectiveTimeoutError (with a "
+            "collective_timeout flight-recorder event) instead of "
+            "hanging the rank forever. 0 (default) = no watchdog, "
+            "direct call. The budget covers the whole call, including a "
+            "group's first (communicator set-up); set it well above "
+            "that.")
 define_flag("serve_watchdog_s", 0.0,
             "Wall-clock watchdog (seconds) for serving prefill/decode "
             "dispatches (serving.engine): a dispatch that "

@@ -15,6 +15,16 @@ same function of the words in both packages (``ops/rng.py``), but the
 words themselves come from another stream. A forward in training mode
 takes its generator from :func:`dropout_generator`, which ``TrainStep``
 and ``GPTForPretraining.forward(generator=...)`` enter.
+
+A data-parallel rank holds batch rows ``b0 .. b0 + B/dp - 1`` of the
+global batch; it enters the generator with ``batch_base=b0``
+(:func:`dropout_batch_base`), and the dropouts hash those rows'
+absolute coordinates, so every rank draws its slice of the
+single-process masks (``ops/rng.py``, the kernels' base offsets).
+:func:`dropout_state` and :func:`replay_dropout_state` let activation
+recompute (``distributed.fleet.utils.recompute``) replay a segment's
+seed words: ``torch.utils.checkpoint`` restores torch's own generators
+only.
 """
 
 from __future__ import annotations
@@ -28,7 +38,8 @@ import torch
 from .device import DeviceLike, resolve_device
 
 __all__ = ["make_generator", "seed_words", "dropout_generator",
-           "next_seed_words"]
+           "next_seed_words", "dropout_batch_base", "dropout_state",
+           "replay_dropout_state"]
 
 _SCOPE = threading.local()
 
@@ -51,21 +62,58 @@ def seed_words(generator: torch.Generator) -> Tuple[int, int]:
 
 
 @contextlib.contextmanager
-def dropout_generator(generator: torch.Generator) -> Iterator[None]:
-    """Dropout inside this block draws its seed words from ``generator``."""
+def dropout_generator(generator: torch.Generator,
+                      batch_base: int = 0) -> Iterator[None]:
+    """Dropout inside this block draws its seed words from ``generator``;
+    its tensors are batch rows ``batch_base..`` of a larger batch."""
     stack = _SCOPE.__dict__.setdefault("stack", [])
-    stack.append(generator)
+    stack.append((generator, int(batch_base)))
     try:
         yield
     finally:
         stack.pop()
 
 
+def _top():
+    stack = _SCOPE.__dict__.get("stack")
+    return stack[-1] if stack else None
+
+
+def dropout_batch_base() -> int:
+    """The global index of the first batch row of the tensors the active
+    :func:`dropout_generator` drops (0 outside of one)."""
+    top = _top()
+    return top[1] if top is not None else 0
+
+
+def dropout_state():
+    """The active generator's state and batch base, or None outside a
+    :func:`dropout_generator` (what :func:`replay_dropout_state` takes)."""
+    top = _top()
+    if top is None:
+        return None
+    return top[0].get_state(), top[1]
+
+
+@contextlib.contextmanager
+def replay_dropout_state(state) -> Iterator[None]:
+    """Dropout inside this block draws the seed words that the
+    generator of :func:`dropout_state` drew from its saved state, from a
+    copy: the original generator does not move."""
+    if state is None:
+        yield
+        return
+    g = torch.Generator(device="cpu")
+    g.set_state(state[0])
+    with dropout_generator(g, state[1]):
+        yield
+
+
 def next_seed_words() -> Tuple[int, int]:
     """Seed words for one dropout call, from the innermost
     :func:`dropout_generator`; raises outside of one."""
-    stack = _SCOPE.__dict__.get("stack")
-    g: Optional[torch.Generator] = stack[-1] if stack else None
+    top = _top()
+    g: Optional[torch.Generator] = top[0] if top is not None else None
     if g is None:
         raise RuntimeError(
             "dropout in training mode needs a generator: pass generator= "

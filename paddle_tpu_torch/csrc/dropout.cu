@@ -56,7 +56,7 @@ __device__ __forceinline__ T drop_one(T x, long long i, uint32_t seed,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-                   uint32_t seed, uint32_t thr, float inv) {
+                   uint32_t seed, uint32_t thr, float inv, long long idx0) {
   constexpr int VEC = 16 / sizeof(T);
   const long long stride = (long long)gridDim.x * THREADS * VEC;
   const bool aligned =
@@ -69,18 +69,18 @@ __global__ void __launch_bounds__(THREADS)
       *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(x + base);
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        v[e] = drop_one(v[e], base + e, seed, thr, inv);
+        v[e] = drop_one(v[e], base + e + idx0, seed, thr, inv);
       *reinterpret_cast<uint4*>(y + base) = *reinterpret_cast<uint4*>(v);
     } else {
       for (long long i = base; i < n && i < base + VEC; ++i)
-        y[i] = drop_one(x[i], i, seed, thr, inv);
+        y[i] = drop_one(x[i], i + idx0, seed, thr, inv);
     }
   }
 }
 
 template <typename T>
 int launch(const void* x, void* y, long long n, uint32_t seed, uint32_t thr,
-           float inv, cudaStream_t stream) {
+           float inv, long long base, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const long long per_block = (long long)THREADS * VEC;
   // enough blocks to fill the card several times over; the grid-stride
@@ -89,19 +89,23 @@ int launch(const void* x, void* y, long long n, uint32_t seed, uint32_t thr,
   if (blocks > 132 * 32) blocks = 132 * 32;
   if (blocks < 1) blocks = 1;
   dropout_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, seed, thr, inv);
+      static_cast<const T*>(x), static_cast<T*>(y), n, seed, thr, inv, base);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. seed = s0 ^ (s1 << 1) in uint32,
-// thr = keep_threshold(rate), inv = 1/(1-rate) rounded to x's dtype.
+// thr = keep_threshold(rate), inv = 1/(1-rate) rounded to x's dtype,
+// base the flat index of x's first element in a larger tensor (0 for a
+// whole one): element i hashes index base + i, so a slice draws the
+// whole tensor's mask.
 extern "C" int fused_dropout(const void* x, void* y, long long n,
                              unsigned int seed, unsigned int thr, float inv,
-                             int dtype, void* stream) {
+                             long long base, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, n, seed, thr, inv, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, y, n, seed, thr, inv, st);
+  if (dtype == 0) return launch<float>(x, y, n, seed, thr, inv, base, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, y, n, seed, thr, inv, base, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

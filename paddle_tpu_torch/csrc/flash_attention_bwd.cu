@@ -201,6 +201,10 @@ __device__ __forceinline__ void microtile(const float* a, const float* b,
   }
 }
 
+// bh enters a kernel as the launch's base term, b0 * 0xAC564B05 +
+// h0 * 19349663 for a launch over batch rows b0.. and heads h0.. of a
+// larger tensor (0 for a whole one); each block adds its own (b, h), so
+// the hash sees the absolute coordinates (b0 + b, h0 + h)
 struct Dropout {
   int on;
   uint32_t thr, seed, bh;
@@ -299,7 +303,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tx = tid % 16, ty = tid / 16;
   const int k0 = blockIdx.x * BK;
   const int h = blockIdx.y, b = blockIdx.z;
-  drop.bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  drop.bh += (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
   const long long ld_row = (long long)H * D;
   const long long qoff = ((long long)b * Sq * H + h) * D;
   const long long koff = ((long long)b * Sk * H + h) * D;
@@ -432,7 +436,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tx = tid % 16, ty = tid / 16;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  drop.bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  drop.bh += (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
   const long long ld_row = (long long)H * D;
   const long long qoff = ((long long)b * Sq * H + h) * D;
   const long long koff = ((long long)b * Sk * H + h) * D;
@@ -604,7 +608,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * TC_ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
-  drop.bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  drop.bh += (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
   const long long ld_row = (long long)H * D;
   const long long qoff = ((long long)b * Sq * H + h) * D;
   const long long koff = ((long long)b * Sk * H + h) * D;
@@ -793,7 +797,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * TC_ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
-  drop.bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  drop.bh += (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
   const long long ld_row = (long long)H * D;
   const long long qoff = ((long long)b * Sq * H + h) * D;
   const long long koff = ((long long)b * Sk * H + h) * D;
@@ -1063,7 +1067,8 @@ int variant(int dtype, int D) {
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o, dout [B, S, H, D]
 // contiguous; lse [B, H, Sq] f32; delta is [B, H, Sq] f32 scratch.
 // dropout != 0 regenerates the forward's mask: threshold thr, seed =
-// s0 ^ (s1 << 1), keep_scale = 1/(1-rate) in f32.
+// s0 ^ (s1 << 1), keep_scale = 1/(1-rate) in f32, bh_base the hash's
+// batch and head base (see Dropout; 0 for a whole tensor).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dout,
@@ -1071,10 +1076,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int B, int Sq, int Sk, int H, int D,
                                    int causal, float scale, int dropout,
                                    unsigned int thr, unsigned int seed,
-                                   float keep_scale, int dtype,
-                                   void* stream) {
+                                   float keep_scale, unsigned int bh_base,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{dropout, thr, seed, 0u, keep_scale};
+  const Dropout drop{dropout, thr, seed, bh_base, keep_scale};
 #define FLASH_BWD_ARGS \
   q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, causal, scale, \
       drop, st

@@ -175,7 +175,7 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? TC_MIN_BLOCKS_64 : 1)
                         const float* __restrict__ bias, bf16* __restrict__ o,
                         float* __restrict__ lse, int Sq, int Sk, int H,
                         int causal, float scale, int dropout, uint32_t thr,
-                        uint32_t seed, float keep_scale) {
+                        uint32_t seed, float keep_scale, uint32_t bh_base) {
   constexpr int LD = tc_ld<D>();
   constexpr int NK = TC_BK / 8;  // n8 tiles across a key tile
   constexpr int ND = D / 8;      // n8 tiles across D
@@ -229,7 +229,8 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? TC_MIN_BLOCKS_64 : 1)
 
   // the dropout hash's row terms: attention_keep(row, col, bh, seed, thr)
   // is fmix32(row_h ^ col * 0x85EBCA6B) >= thr
-  const uint32_t bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  const uint32_t bh =
+      (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u + bh_base;
   uint32_t row_h[2];
   float m_r[2], shl_r[2], l_r[2];  // running max, its exp2 shift, lane's l
 #pragma unroll
@@ -388,7 +389,7 @@ template <int D, bool BIAS>
 int launch_tc(const void* q, const void* k, const void* v, const void* bias,
               void* o, void* lse, int B, int Sq, int Sk, int H, int causal,
               float scale, int dropout, uint32_t thr, uint32_t seed,
-              float keep_scale, cudaStream_t stream) {
+              float keep_scale, uint32_t bh_base, cudaStream_t stream) {
   constexpr int bytes = fwd_tc_smem_bytes<D, BIAS>();
   cudaFuncSetAttribute(flash_fwd_tc_kernel<D, BIAS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -397,7 +398,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
       static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Sk, H, causal,
-      scale, dropout, thr, seed, keep_scale);
+      scale, dropout, thr, seed, keep_scale, bh_base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,7 +469,7 @@ __global__ void __launch_bounds__(TC_THREADS,
                          float* __restrict__ o, float* __restrict__ lse,
                          int Sq, int Sk, int H, int causal, float scale,
                          int dropout, uint32_t thr, uint32_t seed,
-                         float keep_scale) {
+                         float keep_scale, uint32_t bh_base) {
   constexpr int LD = f32_ld<D>();
   constexpr int BK = F32_BK;
   constexpr int NK = BK / 8;  // n8 tiles across a key tile (Q K^T)
@@ -526,7 +527,8 @@ __global__ void __launch_bounds__(TC_THREADS,
 
   // the dropout hash's row terms: attention_keep(row, col, bh, seed, thr)
   // is fmix32(row_h ^ col * 0x85EBCA6B) >= thr
-  const uint32_t bh = (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  const uint32_t bh =
+      (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u + bh_base;
   uint32_t row_h[2];
   float m_r[2], shl_r[2], l_r[2];  // running max, its exp2 shift, lane's l
 #pragma unroll
@@ -687,7 +689,7 @@ template <int D, bool BIAS>
 int launch_f32(const void* q, const void* k, const void* v, const void* bias,
                void* o, void* lse, int B, int Sq, int Sk, int H, int causal,
                float scale, int dropout, uint32_t thr, uint32_t seed,
-               float keep_scale, cudaStream_t stream) {
+               float keep_scale, uint32_t bh_base, cudaStream_t stream) {
   constexpr int bytes = fwd_f32_smem_bytes<D, BIAS>();
   cudaFuncSetAttribute(flash_fwd_f32_kernel<D, BIAS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -696,7 +698,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, causal,
-      scale, dropout, thr, seed, keep_scale);
+      scale, dropout, thr, seed, keep_scale, bh_base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -704,11 +706,11 @@ template <bool BIAS>
 int run(const void* q, const void* k, const void* v, const void* bias,
         void* o, void* lse, int B, int Sq, int Sk, int H, int D, int causal,
         float scale, int dropout, uint32_t thr, uint32_t seed,
-        float keep_scale, int dtype, void* stream) {
+        float keep_scale, uint32_t bh_base, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_FWD_ARGS \
   q, k, v, bias, o, lse, B, Sq, Sk, H, causal, scale, dropout, thr, seed, \
-      keep_scale, st
+      keep_scale, bh_base, st
   if (dtype == 0 && D == 64) return launch_f32<64, BIAS>(FLASH_FWD_ARGS);
   if (dtype == 0 && D == 128) return launch_f32<128, BIAS>(FLASH_FWD_ARGS);
   if (dtype == 1 && D == 64) return launch_tc<64, BIAS>(FLASH_FWD_ARGS);
@@ -721,15 +723,19 @@ int run(const void* q, const void* k, const void* v, const void* bias,
 
 // dtype: 0 = float32, 1 = bfloat16. lse may be null. dropout != 0 drops
 // with threshold thr (keep_threshold(rate)), seed = s0 ^ (s1 << 1) and
-// keep_scale = 1/(1-rate) in f32.
+// keep_scale = 1/(1-rate) in f32. bh_base is the hash's batch and head
+// base, b0 * 0xAC564B05 + h0 * 19349663 for a launch over batch rows
+// b0.. and heads h0.. of a larger tensor (0 for a whole one), so a slice
+// draws the whole tensor's mask.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int Sq, int Sk, int H, int D, int causal,
                                    float scale, int dropout, unsigned int thr,
                                    unsigned int seed, float keep_scale,
-                                   int dtype, void* stream) {
+                                   unsigned int bh_base, int dtype,
+                                   void* stream) {
   return run<false>(q, k, v, nullptr, o, lse, B, Sq, Sk, H, D, causal, scale,
-                    dropout, thr, seed, keep_scale, dtype, stream);
+                    dropout, thr, seed, keep_scale, bh_base, dtype, stream);
 }
 
 // The same with bias [B, Sk] f32 contiguous added to every query row's
@@ -743,5 +749,5 @@ extern "C" int flash_attention_bias_fwd(const void* q, const void* k,
                                         float keep_scale, int dtype,
                                         void* stream) {
   return run<true>(q, k, v, bias, o, lse, B, Sq, Sk, H, D, causal, scale,
-                   dropout, thr, seed, keep_scale, dtype, stream);
+                   dropout, thr, seed, keep_scale, 0u, dtype, stream);
 }

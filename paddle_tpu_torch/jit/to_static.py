@@ -49,8 +49,41 @@ Telemetry, as the JAX step wires it (docs/OBSERVABILITY.md):
 With every flag off and no watchdog the step launches exactly what it
 did without them: each seam is one flag read.
 
-Not ported: the mesh and its shardings, gradient accumulation, and
-capturing the step in a CUDA graph.
+Data and tensor parallelism (the JAX ``mesh=``, ``data_spec=``,
+``zero_axis=``; ``:367-400``): with a mesh (``fleet.init``'s
+``hcg.mesh``, or the active one when ``data_spec`` or ``zero_axis`` is
+given) the step cuts the model to this rank's blocks
+(``spmd.apply_param_shardings``) and each call takes the GLOBAL batch,
+as the JAX step does, and keeps this rank's rows by ``data_spec``
+(``P("dp")``: the dp rank's ``B/dp`` rows); the dropouts then hash from
+those rows' global index (``core.random.dropout_generator``'s batch
+base), so every rank draws its slice of the single-process masks. After
+the backward the gradients are averaged over the data axes (one
+all-reduce of the flattened gradients an axis), the optimizer's clip
+sums mp-sharded squares over mp, and ``zero_axis`` shards the
+optimizer's slots (ZeRO-1: each rank updates its block of every
+parameter, then one all-gather). The loss returned is the global
+batch's: averaged over the data axes, with a criterion's masked mean
+counting its mask over every data rank (``spmd.loss_average_groups``).
+
+Gradient accumulation (``grad_accum_steps=k``, ``grad_accum_avg``, or
+the ``gradient_merge`` of a strategy that
+``fleet.distributed_optimizer`` attached to the optimizer): k-1 calls
+only accumulate (``loss.backward()`` adds into ``.grad``; no
+collective), the k-th accumulates, divides by k (``avg``, the default),
+averages over the data axes and updates; ``step_count`` counts updates,
+``stats()["microsteps"]`` calls (0 without accumulation, as in JAX). The
+watchdog reads every call's loss; a skipped call, accumulating or
+updating, undoes only itself, as the JAX step restores its accumulator:
+the gradients go back to the window's sum before it, the counts back by
+one, and the next call takes its place in the window.
+
+``state_dict()`` / ``save`` / ``load`` gather every parameter and slot
+to its full host array (a collective on every rank; rank 0 writes the
+file) and cut them back on load, so the files are the single-process
+step's.
+
+Not ported: capturing the step in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -66,6 +99,8 @@ import torch
 
 from ..core.flags import get_flag
 from ..core.random import dropout_generator
+from ..distributed import env as dist_env
+from ..distributed.spmd import loss_average_groups
 from ..framework.io import load as fload
 from ..framework.io import save as fsave
 from ..framework.io import to_numpy
@@ -93,8 +128,11 @@ def _layer_key(name: str) -> str:
 
 class TrainStep:
     def __init__(self, layer: torch.nn.Module, loss_fn: Callable,
-                 optimizer, seed: int = 0, *, check_numerics=False,
-                 skip_nonfinite_budget: int = 0):
+                 optimizer, seed: int = 0, *, mesh=None, data_spec=None,
+                 zero_axis: Optional[str] = None,
+                 grad_accum_steps: Optional[int] = None,
+                 grad_accum_avg: Optional[bool] = None,
+                 check_numerics=False, skip_nonfinite_budget: int = 0):
         self.layer = layer
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -102,6 +140,29 @@ class TrainStep:
         self.generator.manual_seed(int(seed))
         self.device = next(layer.parameters()).device
         self.step_count = 0
+        if grad_accum_steps is None:
+            # gradient merge comes only from the strategy snapshot that
+            # fleet.distributed_optimizer attached to this optimizer
+            grad_accum_steps = 1
+            strat = getattr(optimizer, "_fleet_strategy", None)
+            if strat is not None and strat.gradient_merge:
+                cfg = strat.gradient_merge_configs
+                grad_accum_steps = int(cfg["k_steps"])
+                if grad_accum_avg is None:
+                    grad_accum_avg = bool(cfg.get("avg", True))
+        self.grad_accum_steps = max(1, int(grad_accum_steps))
+        self.grad_accum_avg = True if grad_accum_avg is None \
+            else bool(grad_accum_avg)
+        self._micro_count = 0
+        self.mesh = mesh if mesh is not None else (
+            dist_env.get_mesh() if data_spec is not None or zero_axis
+            else None)
+        self.data_spec = data_spec
+        self.zero_axis = zero_axis
+        self._batch_base = 0
+        self._data_groups = []
+        if self.mesh is not None:
+            self._lay_on_mesh()
         optimizer.init_state()
         if check_numerics not in (False, True, "raise", "warn"):
             raise ValueError(f"check_numerics={check_numerics!r}: expected "
@@ -135,10 +196,86 @@ class TrainStep:
                              else stale)(ref()))
                 srv.register_status("goodput", _goodput.statusz_section)
 
+    # -- the mesh ------------------------------------------------------------
+    def _lay_on_mesh(self) -> None:
+        """Cut the model to this rank's blocks, pick the data axes whose
+        gradients are averaged, and lay the optimizer out (the mp
+        group for its clip; ZeRO-1 over ``zero_axis``)."""
+        from ..distributed.meta_parallel.parallel_layers.mp_layers import (
+            mp_group_of)
+        from ..distributed.spmd import (apply_param_shardings, data_axes,
+                                        degrade_spec, P)
+        mesh = self.mesh
+        if dist_env.get_mesh() is None:
+            dist_env.set_mesh(mesh)
+        apply_param_shardings(self.layer, mesh)
+        self._data_groups = [mesh.group(a) for a in data_axes(mesh)
+                             if mesh.axis_size(a) > 1]
+        params = [p for p in self.layer.parameters() if p.requires_grad]
+        mp_sharded = [p for p in params
+                      if any("mp" in axes
+                             for axes in p._dist_layout.values())]
+        zero = {}
+        if self.zero_axis and mesh.axis_size(self.zero_axis) > 1:
+            z = mesh.axis_size(self.zero_axis)
+            group = mesh.group(self.zero_axis)
+            for p in params:
+                spec = tuple(degrade_spec(getattr(p, "spec", None) or P(),
+                                          mesh))
+                spec += (None,) * (len(p._full_shape) - len(spec))
+                # the JAX _slot_spec rule: the first dimension no mesh
+                # axis names that the ZeRO axis divides
+                for i, (s, d) in enumerate(zip(spec, p._full_shape)):
+                    if s is None and d % z == 0 and d >= z:
+                        zero[p] = (i, group)
+                        break
+        self.optimizer.set_distributed(mp_group_of(mesh), mp_sharded, zero)
+
     def _place(self, b) -> torch.Tensor:
         if not isinstance(b, torch.Tensor):
             b = torch.from_numpy(np.ascontiguousarray(b))
         return b.to(self.device)
+
+    def _local_batch(self, b: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a global batch tensor by ``data_spec``
+        (the dropout batch base from its first dimension)."""
+        if self.mesh is None or self.data_spec is None:
+            return b
+        from ..distributed.spmd import degrade_spec, mesh_slice
+        spec = tuple(degrade_spec(self.data_spec, self.mesh))
+        for i, entry in enumerate(spec[:b.dim()]):
+            start, size = mesh_slice(self.mesh, entry, b.shape[i])
+            if i == 0:
+                self._batch_base = start
+            b = b.narrow(i, start, size)
+        return b
+
+    def _mean_over_data(self, t: torch.Tensor) -> torch.Tensor:
+        from ..distributed.collective import ReduceOp, all_reduce
+        for g in self._data_groups:
+            all_reduce(t, ReduceOp.AVG, g)
+        return t
+
+    @torch.no_grad()
+    def _sync_grads(self) -> None:
+        """The update's gradients: the window's sum divided by k
+        (``grad_accum_avg``), then averaged over each data axis, all
+        the gradients of a dtype flattened into one all-reduce."""
+        grads = [p.grad for p in self.layer.parameters()
+                 if p.requires_grad and p.grad is not None]
+        if self.grad_accum_steps > 1 and self.grad_accum_avg:
+            torch._foreach_div_(grads, float(self.grad_accum_steps))
+        if not self._data_groups:
+            return
+        from torch._utils import (_flatten_dense_tensors,
+                                  _unflatten_dense_tensors)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for gs in by_dtype.values():
+            flat = self._mean_over_data(_flatten_dense_tensors(gs))
+            for g, r in zip(gs, _unflatten_dense_tensors(flat, gs)):
+                g.copy_(r)
 
     def __call__(self, *batch) -> torch.Tensor:
         """One step on ``batch``; returns the float32 loss on the device
@@ -192,7 +329,11 @@ class TrainStep:
         fr = mon or bool(get_flag("flight_recorder"))
         watch = bool(self._check_numerics) or self.skip_nonfinite_budget > 0
         health_every = int(get_flag("train_health_every") or 0)
-        batch = [self._place(b) for b in batch]
+        batch = [self._local_batch(self._place(b)) for b in batch]
+        if self.grad_accum_steps > 1:
+            self._micro_count += 1
+            if self._micro_count % self.grad_accum_steps:
+                return self._accumulate(batch, mon, fr, t_wall, watch)
         self.step_count += 1
         health = health_every > 0 and self.step_count % health_every == 0
         old = self._health_copy() if health else None
@@ -202,13 +343,13 @@ class TrainStep:
                 "productive_dispatch", on_error="host_other"), \
                 self._attribution(mon and "step" not in self._programs) \
                 as attr:
-            with dropout_generator(self.generator):
-                loss = self.loss_fn(self.layer, *batch)
-            loss.backward()
+            loss = self._forward(batch)
+            held = self._backward(loss, watch)
             for p in self.layer.parameters():
                 if p.requires_grad and p.grad is None:
                     p.grad = torch.zeros_like(p)
-            loss = loss.detach().float()
+            self._sync_grads()
+            loss = self._mean_over_data(loss.detach().float())
             if chaos.active() and chaos.probe("grad.nonfinite"):
                 loss = torch.full_like(loss, float("nan"))
             # the watchdog's one host read a step, before the update
@@ -229,14 +370,88 @@ class TrainStep:
                 else None,
                 dispatch_ms=None if dispatch_s is None
                 else dispatch_s * 1e3)
-        if bad and self._watchdog(loss):
-            # warn mode without a budget: the JAX step applied the
-            # update whatever the loss read
-            hvec = self._update(old)
-        elif watch and not bad:
+        if bad:
+            def rollback():
+                # the update was never applied: the accumulator goes back
+                # to what it held before this call, the step number with it
+                self._restore_grads(held)
+                self.step_count -= 1
+                if self.grad_accum_steps > 1:
+                    self._micro_count -= 1
+            if self._watchdog(loss, self.step_count, "step", rollback):
+                # warn mode without a budget: the JAX step applied the
+                # update whatever the loss read
+                hvec = self._update(old)
+        elif watch:
             self._consecutive_skips = 0
         if hvec is not None:
             self._publish_health(hvec, mon)
+        return loss
+
+    def _forward(self, batch) -> torch.Tensor:
+        """``loss_fn`` on this rank's batch: its dropouts draw from the
+        step's generator, and a masked mean counts its positions over
+        the data axes (``spmd.loss_average_groups``)."""
+        with dropout_generator(self.generator, self._batch_base), \
+                loss_average_groups(self._data_groups):
+            return self.loss_fn(self.layer, *batch)
+
+    def _backward(self, loss, watch: bool):
+        """``loss.backward()``. Under the watchdog with accumulation the
+        accumulator is set aside first and added back after (``new +
+        old``, the bits of autograd's ``old + new``) and returned, so a
+        skipped call can put it back (:meth:`_restore_grads`); else
+        None."""
+        if not (watch and self.grad_accum_steps > 1):
+            loss.backward()
+            return None
+        params = [p for p in self.layer.parameters() if p.requires_grad]
+        held = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        loss.backward()
+        with torch.no_grad():
+            for p, h in zip(params, held):
+                if h is None:
+                    continue
+                if p.grad is None:
+                    p.grad = h.clone()
+                else:
+                    p.grad.add_(h)
+        return list(zip(params, held))
+
+    def _restore_grads(self, held) -> None:
+        """Put back the gradients :meth:`_backward` set aside; without
+        them (None) the call's gradients are dropped."""
+        if held is None:
+            self.optimizer.clear_grad()
+            return
+        for p, h in held:
+            p.grad = h
+
+    def _accumulate(self, batch, mon: bool, fr: bool, t_wall: float,
+                    watch: bool):
+        """An accumulate-only call: forward and backward into ``.grad``,
+        no collective on the gradients. The watchdog reads its loss as
+        the JAX step reads a microstep's."""
+        with _goodput.measure("productive_dispatch", on_error="host_other"):
+            loss = self._forward(batch)
+            held = self._backward(loss, watch)
+            loss = self._mean_over_data(loss.detach().float())
+        if chaos.active() and chaos.probe("grad.nonfinite"):
+            loss = torch.full_like(loss, float("nan"))
+        if mon:
+            self._record_step_metrics(t_wall, 0.0, kind="accum")
+        if fr:
+            _flight.get_flight_recorder().record_step(
+                self._micro_count, loss=loss, kind="accum")
+        if watch and not bool(torch.isfinite(loss)):
+            def rollback():
+                self._restore_grads(held)
+                self._micro_count -= 1
+            self._watchdog(loss, self._micro_count, "microstep", rollback)
+        elif watch:
+            self._consecutive_skips = 0
         return loss
 
     def _update(self, old):
@@ -248,41 +463,49 @@ class TrainStep:
         return hvec
 
     # -- the watchdog --------------------------------------------------------
-    def _watchdog(self, loss) -> bool:
+    def _watchdog(self, loss, step_index: int, step_kind: str,
+                  rollback) -> bool:
         """A non-finite loss, found before the update: nothing was
         applied. Within ``skip_nonfinite_budget`` consecutive skips the
-        step is dropped (gradients cleared, ``step_count`` back) and the
-        run goes on; past it the step is dropped and the error raised.
+        call is undone by ``rollback`` (the accumulator as it was before
+        the call, ``step_count`` and the microstep count back) and the
+        run goes on; past it the call is undone and the error raised.
         Without a budget ``"warn"`` warns and returns True (the caller
         applies the update, as the JAX step had), and ``"raise"`` drops
-        the update, keeps the step number, and raises."""
+        the update, keeps the step number, and raises; an accumulating
+        call is undone before it raises, so the window never divides a
+        missing microbatch's share. ``step_kind`` is ``"step"`` (an
+        update, ``step_index`` the step) or ``"microstep"`` (an
+        accumulate-only call, the microstep), as in JAX."""
         led = _goodput.active_ledger()
         if led is None:
-            return self._watchdog_trip(loss)
+            return self._watchdog_trip(loss, step_index, step_kind,
+                                       rollback)
         # a skipped step made no progress: its dispatch seconds move to
         # nonfinite_rollback, with the trip handling itself
         led.reattribute_last("nonfinite_rollback")
         with led.measure("nonfinite_rollback"):
-            return self._watchdog_trip(loss)
+            return self._watchdog_trip(loss, step_index, step_kind,
+                                       rollback)
 
     def _named_grads(self) -> Dict[str, torch.Tensor]:
         return {k: p.grad for k, p in self.layer.named_parameters()
                 if p.grad is not None}
 
-    def _watchdog_trip(self, loss) -> bool:
+    def _watchdog_trip(self, loss, step_index: int, step_kind: str,
+                       rollback) -> bool:
         from ..monitor.numerics import NonFiniteError, first_nonfinite
-        step_index = self.step_count
         self._stats["nonfinite_trips"] += 1
         cur_trace = _trace.current_trace()
         if cur_trace is not None:
             cur_trace.mark_anomaly("nonfinite", step=step_index,
-                                   step_kind="step")
+                                   step_kind=step_kind)
         bad_param = first_nonfinite(dict(self.layer.named_parameters()))
         bad_grad = first_nonfinite(self._named_grads())
         get_registry().counter(
             "numerics_nonfinite_total",
             "NaN/Inf watchdog trips by kind").inc(what="train_step")
-        parts = [f"non-finite loss at step {step_index}"]
+        parts = [f"non-finite loss at {step_kind} {step_index}"]
         if bad_param is not None:
             parts.append(f"parameter {bad_param!r} was already non-finite "
                          "before this step")
@@ -293,13 +516,6 @@ class TrainStep:
                "variant is FLAGS_check_nan_inf)")
         offender = bad_grad or bad_param or "loss"
         budget = self.skip_nonfinite_budget
-
-        def rollback():
-            # the update was never applied: drop the gradients and the
-            # step number; parameters and slots are as they were
-            self.optimizer.clear_grad()
-            self.step_count -= 1
-
         if budget:
             self._consecutive_skips += 1
             if self._consecutive_skips <= budget:
@@ -312,7 +528,7 @@ class TrainStep:
                 if _flight.enabled():
                     _flight.get_flight_recorder().record_event(
                         "nonfinite_skip", step=step_index,
-                        step_kind="step", offender=offender,
+                        step_kind=step_kind, offender=offender,
                         consecutive=self._consecutive_skips,
                         budget=budget)
                 warnings.warn(
@@ -326,13 +542,17 @@ class TrainStep:
                     "rolled back to the last finite step)")
         dump_path = _flight.trip_dump(step=step_index,
                                       reason="nan_watchdog",
-                                      offender=offender, step_kind="step")
+                                      offender=offender,
+                                      step_kind=step_kind)
         if dump_path:
             msg += f"; flight recorder dump: {dump_path}"
         if self._check_numerics == "warn" and not budget:
             warnings.warn(msg, RuntimeWarning, stacklevel=4)
             return True
-        self.optimizer.clear_grad()
+        if not budget and step_kind == "microstep":
+            rollback()
+        elif not budget:
+            self.optimizer.clear_grad()
         raise NonFiniteError(msg, offender=offender, step=step_index)
 
     # -- per-layer health ----------------------------------------------------
@@ -350,7 +570,9 @@ class TrainStep:
         ratio ``||new - old|| / (||old|| + eps)``: the layers and a
         ``[3, layers]`` tensor still on the device (read back in
         :meth:`_publish_health`). Multi-tensor norms, then one
-        ``index_add`` a quantity."""
+        ``index_add`` a quantity; on an mp mesh the squares of the
+        mp-sharded tensors are summed over the mp group and a replicated
+        one counts once, so the norms are the unsharded model's."""
         names = list(old)
         params = dict(self.layer.named_parameters())
         cur = [params[k].detach() for k in names]
@@ -359,10 +581,23 @@ class TrainStep:
         idx = torch.tensor([layers.index(_layer_key(k)) for k in names],
                            device=self.device)
 
+        mp_group = self.optimizer._mp_group
+
         def per_layer(ts):
             sq = torch.stack(torch._foreach_norm(ts)).float().square()
-            return torch.zeros(len(layers), device=self.device).index_add_(
-                0, idx, sq).sqrt()
+            if mp_group is None:
+                return torch.zeros(len(layers),
+                                   device=self.device).index_add_(
+                    0, idx, sq).sqrt()
+            from ..distributed.collective import all_reduce
+            sharded = torch.tensor(
+                [id(params[k]) in self.optimizer._mp_sharded for k in names],
+                device=self.device)
+            acc = torch.zeros(2, len(layers), device=self.device)
+            acc[0].index_add_(0, idx, torch.where(sharded, sq, 0.0))
+            acc[1].index_add_(0, idx, torch.where(sharded, 0.0, sq))
+            return (all_reduce(acc[0].clone(), group=mp_group)
+                    + acc[1]).sqrt()
 
         grad = per_layer([params[k].grad for k in names])
         param = per_layer(cur)
@@ -479,19 +714,61 @@ class TrainStep:
             programs[kind] = e
         d["programs"] = programs
         d["steps"] = self.step_count
+        d["microsteps"] = self._micro_count
+        d["grad_accum_steps"] = self.grad_accum_steps
         led = _goodput.get_ledger()
         if led is not None and _goodput.active():
             d["goodput"] = led.snapshot()
         return d
 
     # -- checkpoint/resume -------------------------------------------------
+    def _slot_layouts(self) -> Dict[str, Any]:
+        """``param{i}_slot{j}`` -> (its parameter, the ZeRO (dim, group)
+        or None) on a mesh."""
+        out = {}
+        opt = self.optimizer
+        for i, p in enumerate(opt._parameter_list):
+            for j in range(len(opt._accumulators.get(id(p)) or ())):
+                out[f"param{i}_slot{j}"] = (p, opt._zero.get(id(p)))
+        return out
+
+    def _gather_full(self, t, p, zero=None) -> torch.Tensor:
+        """The full tensor of a rank's block: over the ZeRO axis
+        (``zero``), then over the parameter's mesh axes."""
+        from ..distributed.collective import all_gather
+        from ..distributed.spmd import gather_tensor
+        if zero is not None:
+            dim, group = zero
+            t = torch.cat(list(all_gather(t.contiguous(),
+                                          group=group).unbind(0)), dim)
+        return gather_tensor(t, getattr(p, "_dist_layout", {}), self.mesh)
+
+    def _cut(self, full: torch.Tensor, p, zero=None) -> torch.Tensor:
+        from ..distributed.spmd import shard_tensor
+        t = shard_tensor(full, getattr(p, "_dist_layout", {}), self.mesh)
+        if zero is not None:
+            dim, group = zero
+            n = t.shape[dim] // group.nranks
+            t = t.narrow(dim, group.rank * n, n)
+        return t.contiguous()
+
     def state_dict(self) -> Dict[str, Any]:
+        """Host numpy: the full parameters, slots, step count, the
+        generator's state and lr. On a mesh every rank gathers (a
+        collective) and every rank returns the same arrays."""
+        params = self.layer.state_dict()
+        opt = self.optimizer.state_dict()
+        if self.mesh is not None:
+            named = dict(self.layer.named_parameters())
+            params = {k: self._gather_full(v, named[k]) if k in named
+                      else v for k, v in params.items()}
+            layouts = self._slot_layouts()
+            opt = {k: self._gather_full(v.to(self.device), *layouts[k]).cpu()
+                   if k in layouts else v for k, v in opt.items()}
         return {
-            "params": {k: to_numpy(v)
-                       for k, v in self.layer.state_dict().items()},
+            "params": {k: to_numpy(v) for k, v in params.items()},
             "opt_state": {k: to_numpy(v) if isinstance(v, torch.Tensor)
-                          else v
-                          for k, v in self.optimizer.state_dict().items()},
+                          else v for k, v in opt.items()},
             "step_count": self.step_count,
             "rng_state": to_numpy(self.generator.get_state()),
             "lr": self.optimizer.get_lr(),
@@ -499,17 +776,33 @@ class TrainStep:
 
     @torch.no_grad()
     def set_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`state_dict`'s full arrays; on a mesh each rank
+        keeps its blocks. A partial accumulation window is dropped."""
         def tensors(d):
             return {k: torch.as_tensor(v) if isinstance(v, np.ndarray)
                     else v for k, v in d.items()}
-        self.layer.load_state_dict(tensors(state["params"]))
-        self.optimizer.set_state_dict(tensors(state["opt_state"]))
+        params, opt = tensors(state["params"]), tensors(state["opt_state"])
+        if self.mesh is not None:
+            named = dict(self.layer.named_parameters())
+            params = {k: self._cut(v, named[k]) if k in named else v
+                      for k, v in params.items()}
+            layouts = self._slot_layouts()
+            opt = {k: self._cut(v, *layouts[k]) if k in layouts else v
+                   for k, v in opt.items()}
+        self.optimizer.clear_grad()
+        self._micro_count = 0
+        self.layer.load_state_dict(params)
+        self.optimizer.set_state_dict(opt)
         self.optimizer.set_lr(state["lr"])
         self.step_count = int(state["step_count"])
         self.generator.set_state(torch.as_tensor(state["rng_state"]))
 
     def save(self, path: str) -> None:
-        fsave(self.state_dict(), path)
+        """Write :meth:`state_dict` (on a mesh every rank gathers, rank 0
+        writes)."""
+        state = self.state_dict()
+        if self.mesh is None or dist_env.get_rank() == 0:
+            fsave(state, path)
 
     def load(self, path: str) -> None:
         self.set_state_dict(fload(path))

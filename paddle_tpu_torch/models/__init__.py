@@ -4,7 +4,8 @@ static KV cache."""
 
 from .bert import (BertConfig, BertForMaskedLM, BertModel, bert_base,
                    bert_large, bert_tiny)
-from .convert import load_jax_weights, torch_state_dict_from_jax
+from .convert import (gather_state_dict, load_jax_weights,
+                      shard_state_dict, torch_state_dict_from_jax)
 from .ernie import (ErnieConfig, ErnieForPretraining, ErnieModel,
                     ernie_base, ernie_tiny)
 from .generation import generate
@@ -16,6 +17,6 @@ __all__ = ["BertConfig", "BertForMaskedLM", "BertModel", "ErnieConfig",
            "ErnieForPretraining", "ErnieModel", "GPTConfig",
            "GPTForPretraining", "GPTModel", "GPTPretrainingCriterion",
            "bert_base", "bert_large", "bert_tiny", "ernie_base",
-           "ernie_tiny", "generate", "gpt2_large", "gpt2_medium",
+           "ernie_tiny", "gather_state_dict", "generate", "gpt2_large", "gpt2_medium",
            "gpt2_small", "gpt2_xl", "gpt_tiny", "load_jax_weights",
-           "parallel_logits", "torch_state_dict_from_jax"]
+           "parallel_logits", "shard_state_dict", "torch_state_dict_from_jax"]

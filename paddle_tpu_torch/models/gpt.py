@@ -49,6 +49,25 @@ delta to the fused QKV projection through the bgmv kernel.
 Float32 matmuls stay in full float32: ``torch.backends.cuda.matmul.
 allow_tf32`` is False by default and the serving engine sets it so
 explicitly, matching the JAX package's "highest" matmul precision.
+
+Tensor parallelism: every parameter carries the JAX model's ``.spec``
+(``qkv_weight`` P(None, None, 'mp', None), ``w_in`` P(None, 'mp'), the
+word embeddings P('mp', None), ...). ``distributed.spmd.
+apply_param_shardings`` cuts each to the rank's block (``H/mp`` heads,
+``FF/mp`` of the MLP, ``V/mp`` rows of the tied table) and tells the
+modules their mp group (``_on_mesh``); they then run Megatron's
+collectives (``meta_parallel.parallel_layers.mp_layers``): an identity
+with an all-reduced gradient before the QKV, ``w_in`` and LM-head
+products, an all-reduce after ``out_weight`` and ``w_out`` and after
+the vocab-masked lookup. The logits are the rank's vocab block, which
+``GPTPretrainingCriterion`` takes through the vocab-parallel loss.
+Attention passes its first head and the step's batch base to the flash
+kernels, so each rank draws its slice of the single-process dropout
+masks. A model on no mesh is exactly the model above. The serving
+paths (paged and static caches) take no mp group.
+
+``use_recompute`` runs each block under ``fleet.utils.recompute`` in
+training (``recompute_policy``: a JAX selective-remat policy name).
 """
 
 from __future__ import annotations
@@ -64,8 +83,12 @@ from torch import nn
 from ..amp import cast_inputs
 from ..core.device import DeviceLike, resolve_device
 from ..core.random import dropout_generator, make_generator
+from ..distributed.fleet.utils.recompute import recompute
+from ..distributed.meta_parallel.parallel_layers.mp_layers import (
+    MPModule, ParallelCrossEntropy, copy_to_model_parallel,
+    mark_mp_block, reduce_from_model_parallel, vocab_parallel_embedding)
+from ..distributed.spmd import P, count_over_data
 from ..nn import functional as F
-from ..nn.chunked_ce import enabled_for, hard_nll
 from ..nn.layers import Dropout, LayerNorm
 from ..ops.attention import (NEG_INF, _sdpa_plain, context_attention,
                              sdpa_array)
@@ -86,6 +109,8 @@ __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
 #: ``generate`` allocates its buffers' length in whole pages
 STATIC_BLOCK = 16
 
+MP = "mp"
+
 
 @dataclass
 class GPTConfig:
@@ -98,6 +123,11 @@ class GPTConfig:
     hidden_dropout_prob: float = 0.1
     attention_dropout_prob: float = 0.1
     initializer_range: float = 0.02
+    use_recompute: bool = False
+    #: selective-remat policy name for use_recompute (see
+    #: fleet.utils.recompute.resolve_checkpoint_policy); None = full
+    #: recompute
+    recompute_policy: Optional[str] = None
 
     @property
     def ffn_size(self) -> int:
@@ -108,12 +138,14 @@ class GPTConfig:
         return self.hidden_size // self.num_heads
 
 
-def _param(*shape, device):
-    return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
-                                    device=device))
+def _param(*shape, device, spec=P()):
+    p = nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
+    p.spec = spec
+    return p
 
 
-class GPTAttention(nn.Module):
+
+class GPTAttention(MPModule):
     """Causal self-attention with one fused QKV matmul."""
 
     #: fixed-size K/V buffers ``[B, L, H, D]`` of ``models.generation``,
@@ -126,14 +158,26 @@ class GPTAttention(nn.Module):
         E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
         self.cfg = cfg
         self.num_heads, self.head_dim = H, D
-        self.qkv_weight = _param(E, 3, H, D, device=device)
-        self.qkv_bias = _param(3, H, D, device=device)
-        self.out_weight = _param(H, D, E, device=device)
+        self.qkv_weight = _param(E, 3, H, D, device=device,
+                                 spec=P(None, None, MP, None))
+        self.qkv_bias = _param(3, H, D, device=device, spec=P(None, MP, None))
+        self.out_weight = _param(H, D, E, device=device,
+                                 spec=P(MP, None, None))
         self.out_bias = _param(E, device=device)
+
+    def _on_mesh(self, mesh) -> None:
+        super()._on_mesh(mesh)
+        # this rank's heads: H/mp of them from head mp_rank * H/mp
+        self.num_heads = self.qkv_weight.shape[2]
 
     def forward(self, x, cache=None, pos=None):
         B, S, E = x.shape
         H, D = self.num_heads, self.head_dim
+        if self.mp_group is not None and cache is not None:
+            raise NotImplementedError(
+                "a model laid on an mp group attends without a cache only "
+                "(tensor-parallel serving is not ported yet)")
+        x = copy_to_model_parallel(x, self.mp_group)
         xc, w, b = cast_inputs("fused_qkv", x, self.qkv_weight,
                                self.qkv_bias)
         qkv = (xc @ w.reshape(E, 3 * H * D)).reshape(B, S, 3, H, D) + b
@@ -149,10 +193,13 @@ class GPTAttention(nn.Module):
         else:
             out = F.scaled_dot_product_attention(
                 q, k, v, dropout_p=self.cfg.attention_dropout_prob,
-                is_causal=True, training=self.training)
+                is_causal=True, training=self.training,
+                head_base=self.mp_rank * H)
         out, w, b = cast_inputs("attn_out", out, self.out_weight,
                                 self.out_bias)
-        return out.reshape(B, S, H * D) @ w.reshape(H * D, E) + b
+        return reduce_from_model_parallel(
+            out.reshape(B, S, H * D) @ w.reshape(H * D, E),
+            self.mp_group) + b
 
     def _lora_delta(self, x, cache: PagedLayerCache):
         """Each batch row's adapter delta ``[B, S, 3, H, D]`` for the
@@ -266,21 +313,23 @@ class GPTAttention(nn.Module):
         return o.to(q.dtype)[:, None]
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(MPModule):
     """FFN: in-proj, tanh-approximate gelu, out-proj."""
 
     def __init__(self, cfg: GPTConfig, device: torch.device):
         super().__init__()
         E, FF = cfg.hidden_size, cfg.ffn_size
-        self.w_in = _param(E, FF, device=device)
-        self.b_in = _param(FF, device=device)
-        self.w_out = _param(FF, E, device=device)
+        self.w_in = _param(E, FF, device=device, spec=P(None, MP))
+        self.b_in = _param(FF, device=device, spec=P(MP))
+        self.w_out = _param(FF, E, device=device, spec=P(MP, None))
         self.b_out = _param(E, device=device)
 
     def forward(self, x):
+        x = copy_to_model_parallel(x, self.mp_group)
         h = F.gelu(F.linear(x, self.w_in, self.b_in), approximate=True)
         # bf16 + f32 promotes to f32 under O1, as in the JAX model
-        return F.linear(h, self.w_out) + self.b_out
+        return reduce_from_model_parallel(F.linear(h, self.w_out),
+                                          self.mp_group) + self.b_out
 
 
 class GPTDecoderLayer(nn.Module):
@@ -300,7 +349,7 @@ class GPTDecoderLayer(nn.Module):
         return x + self.dropout2(self.mlp(self.ln2(x)))
 
 
-class GPTModel(nn.Module):
+class GPTModel(MPModule):
     """Embeddings + N decoder blocks + final LN. Returns hidden states."""
 
     def __init__(self, cfg: GPTConfig, device: torch.device):
@@ -308,6 +357,7 @@ class GPTModel(nn.Module):
         self.cfg = cfg
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                             device=device)
+        self.word_embeddings.weight.spec = P(MP, None)
         self.position_embeddings = nn.Embedding(
             cfg.max_position_embeddings, cfg.hidden_size, device=device)
         self.embedding_dropout = Dropout(cfg.hidden_dropout_prob)
@@ -345,10 +395,17 @@ class GPTModel(nn.Module):
         # gather silently, PyTorch would fault, so clamp explicitly
         position_ids = position_ids.clamp(
             max=self.cfg.max_position_embeddings - 1)
-        x = F.embedding(input_ids, self.word_embeddings.weight) + \
+        wte = self.word_embeddings.weight
+        x = vocab_parallel_embedding(input_ids, wte, self.mp_rank *
+                                     wte.shape[0], self.mp_group) + \
             F.embedding(position_ids, self.position_embeddings.weight)
         x = self.embedding_dropout(x)
+        remat = self.cfg.use_recompute and self.training and caches is None
         for i, blk in enumerate(self.layers):
+            if remat:
+                x = recompute(blk, x, policy=self.cfg.recompute_policy
+                              ).to(x.dtype)
+                continue
             layer_cache = (caches[i] if static else caches.layer(i)
                            if caches is not None else None)
             # the scan carry keeps the stream's dtype across layers
@@ -357,10 +414,13 @@ class GPTModel(nn.Module):
         return (x, list(caches)) if static else x
 
 
-def parallel_logits(hidden, embedding_weight):
-    """LM head: ``hidden @ W_vocab.T`` against the tied embedding."""
+def parallel_logits(hidden, embedding_weight, mp_group=None):
+    """LM head: ``hidden @ W_vocab.T`` against the tied embedding; over
+    a vocab-sharded table (``mp_group``) the rank's logits block, the
+    hidden states' gradient all-reduced over the group."""
+    hidden = copy_to_model_parallel(hidden, mp_group)
     hidden, w = cast_inputs("lm_logits", hidden, embedding_weight)
-    return torch.matmul(hidden, w.t())
+    return mark_mp_block(torch.matmul(hidden, w.t()), mp_group)
 
 
 class GPTForPretraining(nn.Module):
@@ -405,7 +465,8 @@ class GPTForPretraining(nn.Module):
             hidden, caches = out
             return parallel_logits(hidden,
                                    self.gpt.word_embeddings.weight), caches
-        return parallel_logits(out, self.gpt.word_embeddings.weight)
+        return parallel_logits(out, self.gpt.word_embeddings.weight,
+                               self.gpt.mp_group)
 
     def generate(self, input_ids, max_new_tokens: int = 32, **kwargs):
         """Decode continuations over a static KV cache
@@ -416,30 +477,32 @@ class GPTForPretraining(nn.Module):
 
 
 class GPTPretrainingCriterion(nn.Module):
-    """Mean cross-entropy over the (non-masked) positions.
+    """Mean cross-entropy over the (non-masked) positions, through
+    ``ParallelCrossEntropy`` as in the JAX model: on one device (or mp =
+    1) at a vocab of ``CHUNKED_CE_THRESHOLD`` or more the streamed loss
+    (``nn.chunked_ce.hard_nll``, the chunked-CE kernels on the card),
+    below it the dense ``lse - tgt`` in float32 with a detached max
+    shift; over the logits block of a model laid on an mp group the
+    vocab-parallel loss. Inside a data-parallel ``TrainStep`` the
+    ``loss_mask`` is counted over every data rank, so the step's loss
+    is the global batch's masked mean, as in the JAX mesh step."""
 
-    Holds the single-device branch of the JAX ``ParallelCrossEntropy``
-    (``mp_layers.py:157-168``): at a vocab of ``CHUNKED_CE_THRESHOLD``
-    or more the streamed loss (``nn.chunked_ce.hard_nll``, the chunked-CE
-    kernels on the card), below it the dense ``lse - tgt`` in float32
-    with a detached max shift."""
+    def __init__(self):
+        super().__init__()
+        self.ce = ParallelCrossEntropy()
 
     def forward(self, logits, labels, loss_mask=None):
-        ids = labels.long()
-        if ids.dim() == logits.dim():
-            ids = ids.squeeze(-1)
-        V = logits.shape[-1]
-        if enabled_for(V):
-            losses = hard_nll(logits, ids)
-        else:
-            lg32 = logits.float()
-            z = lg32 - lg32.max(dim=-1, keepdim=True).values.detach()
-            lse = torch.log(torch.sum(torch.exp(z), dim=-1))
-            losses = lse - z.gather(-1, ids[..., None])[..., 0]
+        losses = self.ce(logits, labels)[..., 0]
         if loss_mask is None:
             return losses.mean()
         m = loss_mask.float()
-        return torch.sum(losses * m) / torch.clamp(torch.sum(m), min=1.0)
+        # in a data-parallel step the mask is counted over every rank,
+        # so the ranks' average is the global batch's masked mean
+        cnt, n = count_over_data(torch.sum(m))
+        num = torch.sum(losses * m)
+        if n > 1:
+            num = num * n
+        return num / torch.clamp(cnt, min=1.0)
 
 
 def gpt_tiny(**kw) -> GPTConfig:

@@ -21,7 +21,10 @@ name (``amp.cast_inputs``).
   JAX package's ``a.size >= 65536`` gate (:1131) was a TPU launch-cost
   heuristic, and the keep bits are the same function of the element
   index either way. Its seed words come from the active
-  ``core.random.dropout_generator``.
+  ``core.random.dropout_generator``; inside one entered with a batch
+  base (a data-parallel rank's rows), x is taken as batch-major and
+  hashes from element ``batch_base * (x.numel() / x.shape[0])``, so the
+  rank draws its rows of the whole batch's mask.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 
 from ..amp import cast_inputs, is_active
 from ..core.flags import get_flag
-from ..core.random import next_seed_words
+from ..core.random import dropout_batch_base, next_seed_words
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.kernels import note_fallback
 from ..ops.kernels.dropout import fused_dropout
@@ -67,10 +70,41 @@ def linear(x, weight, bias=None):
     return y if bias is None else y + bias
 
 
+class _Embedding(torch.autograd.Function):
+    """``F.embedding`` with a deterministic gradient. On the card
+    PyTorch's float32 embedding backward accumulates duplicate ids with
+    atomics, so a row that many ids share (a token-type or position
+    table) gets other bits run to run, and a resumed run could not
+    repeat an uninterrupted one. The backward here is the same
+    ``embedding_dense_backward`` under PyTorch's deterministic mode (its
+    sort-based reduction, the same sums to the last bits the atomics
+    give at best), switched on for this call only."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        on = torch.are_deterministic_algorithms_enabled()
+        warn = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            gw = torch.ops.aten.embedding_dense_backward(
+                g.contiguous(), ids, ctx.rows, -1, False)
+        finally:
+            torch.use_deterministic_algorithms(on, warn_only=warn)
+        return None, gw
+
+
 def embedding(ids, weight):
-    """Rows of ``weight`` at ``ids`` (weight cast under AMP first)."""
+    """Rows of ``weight`` at ``ids`` (weight cast under AMP first), with
+    a deterministic gradient (:class:`_Embedding`)."""
     (weight,) = cast_inputs("embedding", weight)
-    return F.embedding(ids, weight)
+    return _Embedding.apply(ids, weight)
 
 
 def gelu(x, approximate: bool = False):
@@ -110,7 +144,10 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
             "(the fused dropout kernel's case)")
     if p >= 1.0:
         return torch.zeros_like(x)
-    return fused_dropout(x, p, next_seed_words())
+    # rows b0.. of a larger batch hash from their first element's index
+    b0 = dropout_batch_base()
+    base = b0 * (x.numel() // x.shape[0]) if b0 else 0
+    return fused_dropout(x, p, next_seed_words(), base)
 
 
 def cross_entropy(input, label, ignore_index: int = -100):

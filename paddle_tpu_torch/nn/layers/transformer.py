@@ -9,9 +9,11 @@ card), ``TransformerEncoderLayer`` (:114-155) as BERT and ERNIE build it
 and ``TransformerEncoder`` (:161-210), whose layer loop casts each
 layer's output back to the dtype of the stream that entered it, as the
 JAX package's ``lax.scan`` over layers casts its carry
-(``nn/scan.py:286``). Pre-LN, other activations, cross-attention, the
-decoder, the caches and recompute are not ported: no model of the port
-uses them yet.
+(``nn/scan.py:286``), and which runs each layer under
+``fleet.utils.recompute`` in training when ``use_recompute`` is set (with
+``recompute_policy``), as the JAX stack does. Pre-LN, other
+activations, cross-attention, the decoder and the caches are not
+ported: no model of the port uses them yet.
 """
 
 from __future__ import annotations
@@ -100,10 +102,19 @@ class TransformerEncoder(nn.Module):
             [encoder_layer] + [copy.deepcopy(encoder_layer)
                                for _ in range(num_layers - 1)])
         self.num_layers = num_layers
+        self.use_recompute = False
+        self.recompute_policy = None
 
     def forward(self, src, src_mask=None):
         out = src
+        remat = self.use_recompute and self.training
         for layer in self.layers:
+            if remat:
+                from ...distributed.fleet.utils.recompute import recompute
+                nxt = recompute(layer, out, src_mask,
+                                policy=self.recompute_policy)
+            else:
+                nxt = layer(out, src_mask)
             # the scan carry keeps the stream's dtype across layers
-            out = layer(out, src_mask).to(out.dtype)
+            out = nxt.to(out.dtype)
         return out

@@ -41,7 +41,7 @@ import math
 import torch
 
 from ..amp import cast_inputs
-from ..core.random import next_seed_words
+from ..core.random import dropout_batch_base, next_seed_words
 
 __all__ = ["sdpa_array", "scaled_dot_product_attention",
            "context_attention", "attention_scores", "NEG_INF"]
@@ -100,9 +100,12 @@ def _flash_gap(q, mask) -> str:
 
 
 def sdpa_array(q, k, v, mask=None, dropout_p: float = 0.0,
-               is_causal: bool = False, seed_words=None):
+               is_causal: bool = False, seed_words=None,
+               batch_base: int = 0, head_base: int = 0):
     """Scaled dot-product attention over ``[B, S, H, D]`` tensors;
-    ``dropout_p > 0`` needs the two dropout ``seed_words``."""
+    ``dropout_p > 0`` needs the two dropout ``seed_words``; the mask is
+    that of batch rows ``batch_base..`` and heads ``head_base..`` of a
+    larger batch (a data- or tensor-parallel rank's slice)."""
     if q.device.type == "cpu" and dropout_p == 0.0:
         return _sdpa_plain(q, k, v, mask, is_causal)
     gap = _flash_gap(q, mask)
@@ -113,7 +116,8 @@ def sdpa_array(q, k, v, mask=None, dropout_p: float = 0.0,
     # module's attention_scores
     from .kernels.flash_attention import flash_attention
     return flash_attention(q, k, v, causal=is_causal, dropout_rate=dropout_p,
-                           seed_words=seed_words, bias=mask)
+                           seed_words=seed_words, bias=mask,
+                           batch_base=batch_base, head_base=head_base)
 
 
 def context_attention(q, k_ctx, v_ctx, key_bias):
@@ -131,12 +135,17 @@ def context_attention(q, k_ctx, v_ctx, key_bias):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True):
+                                 training: bool = True,
+                                 head_base: int = 0):
     """``F.scaled_dot_product_attention`` over ``[B, S, H, D]``: the AMP
     cast of all four inputs, the dropout only in training, with seed
-    words from the active ``dropout_generator``."""
+    words and the batch base from the active ``dropout_generator``;
+    ``head_base`` is the global index of the first head (a
+    tensor-parallel rank's)."""
     p = dropout_p if training else 0.0
     query, key, value, attn_mask = cast_inputs(
         "scaled_dot_product_attention", query, key, value, attn_mask)
+    if p <= 0.0:
+        return sdpa_array(query, key, value, attn_mask, p, is_causal)
     return sdpa_array(query, key, value, attn_mask, p, is_causal,
-                      next_seed_words() if p > 0.0 else None)
+                      next_seed_words(), dropout_batch_base(), head_base)

@@ -35,17 +35,19 @@ def _inv(rate: float, dtype: torch.dtype) -> float:
 
 
 def dropout_plain(x: torch.Tensor, rate: float,
-                  seed_words: Tuple[int, int]) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, bit for bit."""
-    keep = dropout_keep(x.numel(), rate, seed_words,
-                        device=x.device).reshape(x.shape)
+                  seed_words: Tuple[int, int], base: int = 0) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, bit for bit; ``base`` is
+    the flat index of x's first element in a larger tensor whose mask x
+    draws (0: x itself)."""
+    keep = dropout_keep(x.numel(), rate, seed_words, device=x.device,
+                        base=base).reshape(x.shape)
     inv = torch.tensor(_inv(rate, x.dtype), dtype=x.dtype, device=x.device)
     return torch.where(keep, x * inv, torch.zeros((), dtype=x.dtype,
                                                   device=x.device))
 
 
 def dropout_apply(x: torch.Tensor, rate: float,
-                  seed_words: Tuple[int, int]) -> torch.Tensor:
+                  seed_words: Tuple[int, int], base: int = 0) -> torch.Tensor:
     """One launch of the kernel on a CUDA tensor (the plain version on a
     CPU tensor); not differentiable. Both passes of
     :func:`fused_dropout` call it."""
@@ -53,7 +55,7 @@ def dropout_apply(x: torch.Tensor, rate: float,
         note_cost(_KERNEL.name, 0, 2 * x.numel() * x.element_size())
     if x.device.type == "cpu":
         with uncounted():
-            return dropout_plain(x, rate, seed_words)
+            return dropout_plain(x, rate, seed_words, base)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _DTYPES:
@@ -64,8 +66,8 @@ def dropout_apply(x: torch.Tensor, rate: float,
     fn = function(_KERNEL.name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), y.data_ptr(), x.numel(), seed_mix(seed_words),
-             keep_threshold(rate), _inv(rate, x.dtype), _DTYPES[x.dtype],
-             stream)
+             keep_threshold(rate), _inv(rate, x.dtype), int(base),
+             _DTYPES[x.dtype], stream)
     check(_KERNEL.name, err)
     _KERNEL.launches += 1
     return y
@@ -73,22 +75,25 @@ def dropout_apply(x: torch.Tensor, rate: float,
 
 class _FusedDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, rate, seed_words):
-        ctx.args = (rate, seed_words)
-        return dropout_apply(x, rate, seed_words)
+    def forward(ctx, x, rate, seed_words, base):
+        ctx.args = (rate, seed_words, base)
+        return dropout_apply(x, rate, seed_words, base)
 
     @staticmethod
     def backward(ctx, g):
         # d(drop(x))/dx is the same mask and scale: rerun it on g
-        return dropout_apply(g, *ctx.args), None, None
+        return dropout_apply(g, *ctx.args), None, None, None
 
 
 def fused_dropout(x: torch.Tensor, rate: float,
-                  seed_words: Tuple[int, int]) -> torch.Tensor:
-    """Single-pass ``upscale_in_train`` dropout of ``x`` (any shape)."""
+                  seed_words: Tuple[int, int], base: int = 0) -> torch.Tensor:
+    """Single-pass ``upscale_in_train`` dropout of ``x`` (any shape);
+    ``base`` is the flat index of x's first element in a larger tensor
+    (a data-parallel rank's batch slice), whose mask x then draws."""
     rate = float(rate)
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    return _FusedDropout.apply(x, rate, tuple(int(w) for w in seed_words))
+    return _FusedDropout.apply(x, rate, tuple(int(w) for w in seed_words),
+                               int(base))

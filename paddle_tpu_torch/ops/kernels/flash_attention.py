@@ -51,7 +51,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..attention import NEG_INF, attention_scores
-from ..rng import attention_keep, keep_scale, keep_threshold, seed_mix
+from ..rng import (attention_keep, bh_base, keep_scale, keep_threshold,
+                   seed_mix)
 from . import FLASH_ATTENTION_BIAS_BWD_DKV as _BIAS_DKV
 from . import FLASH_ATTENTION_BIAS_BWD_DQ as _BIAS_DQ
 from . import FLASH_ATTENTION_BIAS_FWD as _BIAS_FWD
@@ -85,9 +86,10 @@ def _mxu_round(mxu_dtype):
     return lambda t: t.to(mxu_dtype).float()
 
 
-def _dropout_mult(B, H, Sq, Sk, dropout_rate, seed_words, device):
+def _dropout_mult(B, H, Sq, Sk, dropout_rate, seed_words, device,
+                  batch_base=0, head_base=0):
     return torch.where(attention_keep(B, H, Sq, Sk, dropout_rate, seed_words,
-                                      device=device),
+                                      device, batch_base, head_base),
                        keep_scale(dropout_rate), 0.0)
 
 
@@ -97,10 +99,13 @@ def flash_attention_plain(q, k, v, causal: bool = True,
                           dropout_rate: float = 0.0,
                           seed_words: SeedWords = None,
                           bias: Optional[torch.Tensor] = None,
-                          mxu_dtype: Optional[torch.dtype] = None):
+                          mxu_dtype: Optional[torch.dtype] = None,
+                          batch_base: int = 0, head_base: int = 0):
     """The kernels' function in plain PyTorch, computed in float32 and
     returned in q's dtype (plus ``lse [B, H, Sq]`` in float32); ``bias``
-    is ``[B, Sk]``.
+    is ``[B, Sk]``. ``batch_base`` and ``head_base`` place the tensors'
+    batch rows and heads in a larger tensor whose dropout mask they
+    draw (the base-offset arguments of the kernels).
 
     ``mxu_dtype`` is the operand dtype of the two products (``_dot``'s
     ``cd``, :115): None keeps float32; ``torch.bfloat16`` rounds q, k, v
@@ -119,7 +124,8 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     l = p.sum(-1)
     safe_l = torch.where(l == 0.0, 1.0, l)
     if dropout_rate > 0.0:
-        p = p * _dropout_mult(*s.shape, dropout_rate, seed_words, q.device)
+        p = p * _dropout_mult(*s.shape, dropout_rate, seed_words, q.device,
+                              batch_base, head_base)
     o = torch.einsum("bhqk,bkhd->bqhd", mx(p), mx(vf)) / \
         safe_l.transpose(1, 2)[..., None]
     o = o.to(q.dtype)
@@ -133,7 +139,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
                               dropout_rate: float = 0.0,
                               seed_words: SeedWords = None,
                               bias: Optional[torch.Tensor] = None,
-                              mxu_dtype: Optional[torch.dtype] = None):
+                              mxu_dtype: Optional[torch.dtype] = None,
+                              batch_base: int = 0, head_base: int = 0):
     """The backward kernels' function in plain PyTorch, as ``_bwd2`` and
     ``_bwd_v1`` compute it: ``p = exp(s - lse)`` from the saved ``lse``
     (shift 0 where it is ``NEG_INF``), ``delta = rowsum(dO * o)`` from the
@@ -158,7 +165,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
     dp = torch.einsum("bqhd,bkhd->bhqk", mx(dof), mx(vf))
     pv = p
     if dropout_rate > 0.0:
-        mult = _dropout_mult(*s.shape, dropout_rate, seed_words, q.device)
+        mult = _dropout_mult(*s.shape, dropout_rate, seed_words, q.device,
+                             batch_base, head_base)
         pv, dp = p * mult, dp * mult
     delta = (dof * of).sum(-1).transpose(1, 2)               # [B, H, Sq]
     dsr = p * (dp - delta[..., None])
@@ -289,9 +297,12 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
                         scale: Optional[float] = None,
                         return_lse: bool = False,
                         dropout_rate: float = 0.0,
-                        seed_words: SeedWords = None):
+                        seed_words: SeedWords = None,
+                        batch_base: int = 0, head_base: int = 0):
     """Attention over ``[B, S, H, D]`` q/k/v; returns ``o`` (q's dtype)
-    or ``(o, lse)`` with ``lse [B, H, Sq]`` float32."""
+    or ``(o, lse)`` with ``lse [B, H, Sq]`` float32. The dropout mask is
+    that of batch rows ``batch_base..`` and heads ``head_base..`` of a
+    larger tensor (0, 0: the tensor itself)."""
     dropout_rate = float(dropout_rate)
     _check_args(q, k, v, causal, dropout_rate, seed_words)
     B, Sq, H, D = q.shape
@@ -301,8 +312,9 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         _note_fwd(_KERNEL.name, q, k, causal, None, return_lse)
     if q.device.type == "cpu":
         with uncounted():
-            return flash_attention_plain(q, k, v, causal, scale, return_lse,
-                                         dropout_rate, seed_words)
+            return flash_attention_plain(
+                q, k, v, causal, scale, return_lse, dropout_rate, seed_words,
+                batch_base=batch_base, head_base=head_base)
     _check_layout("flash forward", (q, k, v), (q, k, v))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -311,8 +323,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         B, Sq, k.shape[1], H, D, int(bool(causal)), float(scale),
-        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
-        _stream(q))
+        *_dropout_args(dropout_rate, seed_words),
+        bh_base(batch_base, head_base), _DTYPES[q.dtype], _stream(q))
     check(_KERNEL.name, err)
     _KERNEL.launches += 1
     return (o, lse) if return_lse else o
@@ -321,9 +333,11 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         scale: Optional[float] = None,
                         dropout_rate: float = 0.0,
-                        seed_words: SeedWords = None):
+                        seed_words: SeedWords = None,
+                        batch_base: int = 0, head_base: int = 0):
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the output
-    gradient ``do``, from its saved ``o`` and ``lse``."""
+    gradient ``do``, from its saved ``o`` and ``lse``, with the same
+    dropout bases."""
     dropout_rate = float(dropout_rate)
     _check_args(q, k, v, causal, dropout_rate, seed_words)
     _check_saved(q, o, lse, do, (q, k, v, o, do, lse))
@@ -337,8 +351,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                   + B * H * Sq * 4)
     if q.device.type == "cpu":
         with uncounted():
-            return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                             scale, dropout_rate, seed_words)
+            return flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal, scale, dropout_rate, seed_words,
+                batch_base=batch_base, head_base=head_base)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = function(_BWD.name)(
@@ -346,8 +361,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), B, Sq, k.shape[1], H, D,
         int(bool(causal)), float(scale),
-        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
-        _stream(q))
+        *_dropout_args(dropout_rate, seed_words),
+        bh_base(batch_base, head_base), _DTYPES[q.dtype], _stream(q))
     check(_BWD.name, err)
     _BWD.launches += 1
     return dq, dk, dv
@@ -469,12 +484,19 @@ class FlashAttention(torch.autograd.Function):
     gradient too."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale, dropout_rate, seed_words):
+    def forward(ctx, q, k, v, bias, causal, scale, dropout_rate, seed_words,
+                batch_base=0, head_base=0):
         q, k, v = (_aligned(t) for t in (q, k, v))
         args = (causal, scale, True, dropout_rate, seed_words)
+        ctx.bases = (batch_base, head_base)
         if bias is None:
-            o, lse = flash_attention_fwd(q, k, v, *args)
+            o, lse = flash_attention_fwd(q, k, v, *args,
+                                         batch_base=batch_base,
+                                         head_base=head_base)
         else:
+            if batch_base or head_base:
+                raise ValueError("the biased flash kernels take no dropout "
+                                 "base offsets")
             bias = bias.contiguous()
             o, lse = flash_attention_bias_fwd(q, k, v, bias, *args)
         ctx.save_for_backward(q, k, v, bias, o, lse)
@@ -486,29 +508,35 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, bias, o, lse = ctx.saved_tensors
         do = _aligned(do)
         if bias is None:
-            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
+            dq, dk, dv = flash_attention_bwd(
+                q, k, v, o, lse, do, *ctx.args, batch_base=ctx.bases[0],
+                head_base=ctx.bases[1])
             db = None
         else:
             dq = flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do,
                                              *ctx.args)
             dk, dv, db = flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse,
                                                       do, *ctx.args)
-        return dq, dk, dv, db, None, None, None, None
+        return dq, dk, dv, db, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None,
                     dropout_rate: float = 0.0,
                     seed_words: SeedWords = None,
-                    bias: Optional[torch.Tensor] = None):
+                    bias: Optional[torch.Tensor] = None,
+                    batch_base: int = 0, head_base: int = 0):
     """Differentiable flash attention over ``[B, S, H, D]``; ``bias`` is
     an additive key mask that broadcasts to ``[B, 1, 1, Sk]``, widened to
     float32 as the JAX entry does (its gradient comes back in its own
-    dtype)."""
+    dtype). ``batch_base`` / ``head_base``: the dropout mask of these
+    rows and heads in a larger batch (a data- or tensor-parallel rank's
+    slice), without a bias only."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if bias is not None:
         B, Sk = q.shape[0], k.shape[1]
         bias = bias.float().expand(B, 1, 1, Sk).reshape(B, Sk)
     return FlashAttention.apply(q, k, v, bias, bool(causal), float(scale),
-                                float(dropout_rate), seed_words)
+                                float(dropout_rate), seed_words,
+                                int(batch_base), int(head_base))

@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 
 __all__ = ["fmix32", "keep_threshold", "keep_scale", "seed_mix",
-           "dropout_keep", "attention_keep"]
+           "bh_base", "dropout_keep", "attention_keep"]
 
 _M32 = 0xFFFFFFFF
 
@@ -58,26 +58,41 @@ def seed_mix(seed_words: Tuple[int, int]) -> int:
     return (s0 ^ (s1 << 1)) & _M32
 
 
+def bh_base(batch_base: int, head_base: int) -> int:
+    """The attention hash's batch and head term of a launch over batch
+    rows ``batch_base..`` and heads ``head_base..`` of a larger tensor:
+    ``b0 * 0xAC564B05 + h0 * 19349663`` in uint32. Each block adds its
+    own ``(b, h)`` term, which sums to the absolute coordinates' term."""
+    return (int(batch_base) * 0xAC564B05 + int(head_base) * 19349663) \
+        & _M32
+
+
 def dropout_keep(n: int, rate: float, seed_words: Tuple[int, int],
-                 device=None) -> torch.Tensor:
+                 device=None, base: int = 0) -> torch.Tensor:
     """Keep bits ``[n]`` (bool) of the fused dropout kernel over the flat
-    element indices 0..n-1."""
-    idx = torch.arange(n, dtype=torch.int64, device=device) & _M32
+    element indices ``base .. base + n - 1`` (a slice of a larger tensor
+    that starts at element ``base`` draws that tensor's bits)."""
+    idx = (torch.arange(n, dtype=torch.int64, device=device)
+           + int(base)) & _M32
     h = fmix32(_mul32(idx, 0x9E3779B1) ^ seed_mix(seed_words))
     return h >= keep_threshold(rate)
 
 
 def attention_keep(B: int, H: int, Sq: int, Sk: int, rate: float,
-                   seed_words: Tuple[int, int], device=None) -> torch.Tensor:
+                   seed_words: Tuple[int, int], device=None,
+                   batch_base: int = 0, head_base: int = 0) -> torch.Tensor:
     """Keep bits ``[B, H, Sq, Sk]`` (bool) of the flash kernels'
-    attention dropout at absolute (b, h, query row, key column)."""
+    attention dropout at absolute (b, h, query row, key column): batch
+    row ``b`` and head ``h`` of the launch are ``batch_base + b`` and
+    ``head_base + h`` of the whole tensor."""
     rows = _mul32(torch.arange(Sq, dtype=torch.int64, device=device),
                   0x9E3779B1)
     cols = _mul32(torch.arange(Sk, dtype=torch.int64, device=device),
                   0x85EBCA6B)
-    b = _mul32(torch.arange(B, dtype=torch.int64, device=device),
-               0xAC564B05)
-    h = _mul32(torch.arange(H, dtype=torch.int64, device=device), 19349663)
+    b = _mul32(torch.arange(B, dtype=torch.int64, device=device)
+               + int(batch_base), 0xAC564B05)
+    h = _mul32(torch.arange(H, dtype=torch.int64, device=device)
+               + int(head_base), 19349663)
     bh = ((b[:, None] + h[None, :]) & _M32) ^ seed_mix(seed_words)
     x = rows[:, None] ^ cols[None, :]
     return fmix32(x[None, None] ^ bh[:, :, None, None]) >= \

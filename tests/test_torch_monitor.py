@@ -423,6 +423,41 @@ def test_skipped_step_keeps_state_and_later_losses_match_jax():
                                rtol=0)
 
 
+@pytest.mark.parametrize("bad_call", [1, 2], ids=["accumulating",
+                                                 "updating"])
+def test_skip_under_accumulation_undoes_only_its_own_call(bad_call):
+    """``grad_accum_steps=2``, ``skip_nonfinite_budget=1`` and
+    ``grad.nonfinite@bad_call`` over batches A, B, C, D with the bad
+    call's batch sent again after it: the skipped call undoes only
+    itself (the accumulator as before it, the counts back by one), so
+    the parameters and slots equal a clean run's over A, B, C, D bit for
+    bit, and the losses after the skip and the step and microstep counts
+    are JAX's (which restores its accumulator the same way)."""
+    jstep, _, tstep, _ = _bert_pair(skip_nonfinite_budget=1,
+                                    grad_accum_steps=2)
+    _, _, clean, _ = _bert_pair(grad_accum_steps=2)
+    batches = [_bert_batch(seed=i) for i in range(4)]
+    for b in batches:
+        clean(*b)
+    feed = batches[:bad_call] + batches[bad_call - 1:]
+    losses = []
+    for step, ch, mon in ((jstep, jchaos, jmon), (tstep, tchaos, tmon)):
+        ch.configure(f"grad.nonfinite@{bad_call}")
+        with mon.scoped_registry() as reg, warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            losses.append([float(step(*b)) for b in feed])
+            assert reg.get("nonfinite_skips_total").value() == 1
+        ch.reset()
+        assert step.step_count == 2
+        assert step.stats()["microsteps"] == 4
+        assert step.stats()["nonfinite_skips"] == 1
+    assert np.isnan(losses[0][bad_call - 1])
+    assert np.isnan(losses[1][bad_call - 1])
+    np.testing.assert_allclose(losses[1][bad_call:], losses[0][bad_call:],
+                               atol=LOSS_TOL, rtol=0)
+    assert _same_state(_checksum(tstep), _checksum(clean))
+
+
 def test_exhausted_budget_raises_with_the_state_rolled_back(tmp_path):
     _, _, tstep, _ = _bert_pair(skip_nonfinite_budget=1)
     batch = _bert_batch()

@@ -478,9 +478,9 @@ def test_dropout_dtypes_under_o1(monkeypatch):
     seen = []
     real = F.fused_dropout
 
-    def spy(x, rate, words):
+    def spy(x, *args):
         seen.append(x.dtype)
-        return real(x, rate, words)
+        return real(x, *args)
 
     monkeypatch.setattr(F, "fused_dropout", spy)
     cfg = gpt_tiny(**SLICE, hidden_dropout_prob=0.1,
@@ -808,3 +808,43 @@ def test_full_width_trainstep_on_card_tracks_the_cpu(cuda):
         curves.append([float(step(ids, labels)) for _ in range(3)])
     np.testing.assert_allclose(curves[0], curves[1], rtol=1e-6, atol=0)
     assert curves[0][2] < curves[0][0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_gradient_is_torchs_and_leaves_the_flags(dtype):
+    """``nn.functional.embedding``'s gradient (the deterministic
+    backward) is PyTorch's embedding gradient bit for bit on the CPU,
+    duplicate ids included, and the deterministic-algorithms flags are as
+    they were after it."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, 2, (6, 40), generator=g)
+    w = torch.randn(2, 16, generator=g).to(dtype).requires_grad_(True)
+    w2 = w.detach().clone().requires_grad_(True)
+    go = torch.randn(6, 40, 16, generator=g).to(dtype)
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    F.embedding(ids, w).backward(go)
+    torch.nn.functional.embedding(ids, w2).backward(go)
+    assert torch.equal(w.grad, w2.grad)
+    assert (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled()) == before
+
+
+@pytest.mark.cuda
+def test_embedding_gradient_is_deterministic_on_the_card(cuda):
+    """A two-row table read by 24576 ids (BERT-base's token types at
+    B=48, S=512) and a 512-row table read 48 times a row, float32: eight
+    backwards give the same bits (PyTorch's own backward did not)."""
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for rows, ids in ((2, (torch.rand(48, 512, device=cuda, generator=g)
+                           > 0.5).long()),
+                      (512, torch.arange(512, device=cuda).expand(48, 512))):
+        go = torch.randn(48, 512, 768, device=cuda, generator=g)
+        grads = []
+        for _ in range(8):
+            w = torch.zeros(rows, 768, device=cuda, requires_grad=True)
+            F.embedding(ids, w).backward(go)
+            grads.append(w.grad)
+        assert all(torch.equal(grads[0], x) for x in grads[1:]), rows

@@ -1,13 +1,15 @@
 """Run chip_smoke.py's card phase and one later phase alone.
 
-    python3 tools/run_chip_phase.py monitor|fleet
+    python3 tools/run_chip_phase.py monitor|fleet|distributed
 
 From the root of a checkout, on a machine with one CUDA card: builds the
 kernels (phase 1), then drives the named phase and prints its launches:
 ``monitor`` is phase 18 (the monitor plane on the f32 serving path and
 the DataLoader-fed BERT-base training path), ``fleet`` phase 20
 (``generate`` and beam search over static caches, the fleet router with
-fleet monitoring and a kill drill, weight pushes under load). Exits
+fleet monitoring and a kill drill, weight pushes under load),
+``distributed`` phase 21 (the kernels' dropout base offsets, NCCL at
+world size 1, a four-rank gloo world's parity and timed runs). Exits
 non-zero if a check fails.
 """
 
@@ -20,8 +22,10 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
-PHASES = {"monitor": chip_smoke.phase_monitor,
-          "fleet": chip_smoke.phase_fleet}
+PHASES = {"monitor": lambda card: chip_smoke.phase_monitor(),
+          "fleet": lambda card: chip_smoke.phase_fleet(),
+          "distributed": lambda card: chip_smoke.phase_distributed(
+              card["smi"])}
 
 
 def main() -> int:
@@ -36,9 +40,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    chip_smoke.phase_card()
+    card = chip_smoke.phase_card()
     t = time.perf_counter()
-    out = PHASES[sys.argv[1]]()
+    out = PHASES[sys.argv[1]](card)
     print(f"{sys.argv[1]}: phase took {time.perf_counter() - t:.1f} s")
     print(out)
     print(f"done in {time.perf_counter() - t0:.1f} s", flush=True)

@@ -226,12 +226,14 @@ def main() -> int:
     def call(fns_, t):
         q, k, v, o, lse, B, S, H, D, causal, bi, rate = t
         tail = (B, S, S, H, D, int(causal), D ** -0.5,
-                *_dropout_args(rate, WORDS), 0, stream)
+                *_dropout_args(rate, WORDS))
         if bi is None:
+            # bh_base 0, dtype 0 (f32)
             return fns_[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), lse.data_ptr(), *tail)
+                           o.data_ptr(), lse.data_ptr(), *tail, 0, 0, stream)
         return fns_[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       bi.data_ptr(), o.data_ptr(), lse.data_ptr(), *tail)
+                       bi.data_ptr(), o.data_ptr(), lse.data_ptr(), *tail, 0,
+                       stream)
 
     for name in list(fns):
         notes = []
