@@ -257,7 +257,9 @@ result line. Twenty-two phases, in order:
               bases (2, 8), bit-equal to the whole launches' slices (o,
               lse, dq, dk, dv) and held to their plain versions; row 8 on
               rows 2-3 of [4, 1024, 1024] from its element base, bit-equal
-              to the whole launch's rows; (b) ``init_parallel_env()`` on
+              to the whole launch's rows; rows 1, 3, 6-8 at the shapes
+              and bases the pipeline of (f) and (g) gives them, held to
+              their plain versions; (b) ``init_parallel_env()`` on
               the card (NCCL at world size 1) with all_reduce, all_gather,
               broadcast and barrier; then four ranks spawned on the one
               card over gloo (NCCL takes one card per rank), which load
@@ -270,8 +272,20 @@ result line. Twenty-two phases, in order:
               B = 8 a call, two calls an update, four updates: losses
               finite and falling, the median update, the share of it in
               collectives (the ``comm_*`` series), peak memory per rank
-              and each rank's launches exactly the formula; every rank
-              checks that it imported no JAX;
+              and each rank's launches exactly the formula; the
+              pipeline: (e) gloo's own point-to-point ops on CUDA tensors
+              (pairs of processes of their own) and the port's handoff
+              in the world; (f) float32 parity at pp = 2 x mp = 2 and
+              pp = 4, gpt2_medium widths x 4 layers, 4 microbatches,
+              fill-drain and 1F1B, against one process's TrainStep, 1F1B
+              bit-equal to fill-drain; (g) BASELINE config 4's model
+              (gpt2_medium at pp = 2 x mp = 2, B = 8 in 8 microbatches,
+              O1): four updates of ``pretraining_loss`` under 1F1B, then
+              three of config 4's ``crit(layer(ids), labels)``, each with
+              losses finite and falling, the median update, the
+              collective split, peak memory, in-flight maxima equal to
+              the timetable's and launches exactly the formula; every
+              rank checks that it imported no JAX;
 22. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
@@ -280,7 +294,8 @@ Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
 phase 17, before each predictor of phases 12 and 17, before each half
 of phase 18, before each run of phase 19, before each part of phase
 20 and, in each rank of phase 21's world, before its parity runs and
-again before its timed run, and read just after each (a witness's
+again before its timed run, its pipeline parity runs and each of
+its two pipeline loss styles, and read just after each (a witness's
 reference runs are taken back out of them, and phase 20 reads them
 before its teacher-forced references);
 the kernel JSON line gives each kernel's launches per path (``serve``,
@@ -289,7 +304,9 @@ the kernel JSON line gives each kernel's launches per path (``serve``,
 ``monitor_serve``, ``monitor_train``, ``resilience``,
 ``resilience_train``, ``generate``, ``beam``, ``fleet``,
 ``lifecycle``, ``dist``: phase 21's timed run, ``dist_parity``: its
-float32 parity runs, each summed over the world's ranks).
+float32 parity runs, ``pipe`` and ``pipe_forward``: (g) under 1F1B and
+in config 4's loss style, ``pipe_parity``: (f), each summed over the
+world's ranks).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
@@ -805,20 +822,21 @@ def _bgmv_case(B, S, dtype, ids, timed=False):
                      f"{rows} adapter rows"}
 
 
-def _dropout_case(dtype, timed=False):
-    """Bit-equal to the plain version at the residual stream's shape."""
+def _dropout_case(dtype, timed=False, B=TRAIN_B, base=0):
+    """Bit-equal to the plain version at the residual stream's shape (``B``
+    rows, the mask from element ``base`` on)."""
     import torch
     from paddle_tpu_torch.ops.kernels.dropout import (dropout_apply,
                                                       dropout_plain)
     g = torch.Generator(device="cuda").manual_seed(8)
-    x = torch.randn(TRAIN_B, TRAIN_S, 1024, device="cuda",
-                    generator=g).to(dtype)
+    x = torch.randn(B, TRAIN_S, 1024, device="cuda", generator=g).to(dtype)
     words = (0x12345678, 0x9ABCDEF0)
-    y = dropout_apply(x, 0.1, words)
-    equal = torch.equal(y, dropout_plain(x, 0.1, words))
+    y = dropout_apply(x, 0.1, words, base)
+    equal = torch.equal(y, dropout_plain(x, 0.1, words, base))
     kept = (y != 0).float().mean().item()
-    _log(f"kernels: fused_dropout {tuple(x.shape)} {_name(dtype)} rate 0.1: "
-         f"bit-equal to plain {equal}, kept {kept:.5f}")
+    _log(f"kernels: fused_dropout {tuple(x.shape)} {_name(dtype)} rate 0.1"
+         + (f" from element base {base}" if base else "")
+         + f": bit-equal to plain {equal}, kept {kept:.5f}")
     _require(equal, f"fused_dropout differs from its plain version in "
              f"{_name(dtype)}")
     if not timed:
@@ -832,13 +850,13 @@ def _dropout_case(dtype, timed=False):
             "shape": f"{tuple(x.shape)} {_name(dtype)}"}
 
 
-def _ce_case(dtype, timed=False):
-    """lse and dlogits at the LM head's [B*S, V] against the plain
+def _ce_case(dtype, timed=False, N=TRAIN_B * TRAIN_S):
+    """lse and dlogits at the LM head's [N = B*S, V] against the plain
     versions; returns the two rows when timed."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels import chunked_ce as ce
-    N, V = TRAIN_B * TRAIN_S, 50304
+    V = 50304
     g = torch.Generator(device="cuda").manual_seed(6)
     logits = (torch.randn(N, V, device="cuda", generator=g) * 2).to(dtype)
     labels = torch.randint(0, V, (N,), device="cuda", generator=g,
@@ -916,36 +934,44 @@ def _mxu_note(errs: list, names) -> str:
         f"{n} {e:.3e}" for n, e in zip(names, errs)))
 
 
-def _flash_train_case(dtype, timed=False):
-    """Forward with dropout and backward at the training shapes, against
-    the plain versions; the backward's is fed the kernel's o and lse, so
-    only the order of summation and the output rounding differ."""
+def _flash_train_case(dtype, timed=False, B=TRAIN_B, H=16, batch_base=0,
+                      head_base=0):
+    """Forward with dropout and backward at the training shapes (or at
+    ``B`` rows of ``H`` heads, the mask that of batch rows
+    ``batch_base..`` and heads ``head_base..``), against the plain
+    versions; the backward's is fed the kernel's o and lse, so only the
+    order of summation and the output rounding differ."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_plain)
-    B, S, H, D, rate = TRAIN_B, TRAIN_S, 16, 64, 0.1
+    S, D, rate = TRAIN_S, 64, 0.1
     words = (0x2468ACE0, 0x13579BDF)
     g = torch.Generator(device="cuda").manual_seed(9)
     q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
                    .to(dtype) for _ in range(4))
     name = _name(dtype)
-    o, lse = flash_attention_fwd(q, k, v, True, None, True, rate, words)
+    bases = dict(batch_base=batch_base, head_base=head_base)
+    o, lse = flash_attention_fwd(q, k, v, True, None, True, rate, words,
+                                 **bases)
     o_err = _rel_err(o, flash_attention_plain(q, k, v, True, None, False,
-                                              rate, words))
-    grads = flash_attention_bwd(q, k, v, o, lse, do, True, None, rate, words)
+                                              rate, words, **bases))
+    grads = flash_attention_bwd(q, k, v, o, lse, do, True, None, rate, words,
+                                **bases)
     refs = flash_attention_bwd_plain(q, k, v, o, lse, do, True, None, rate,
-                                     words)
+                                     words, **bases)
     errs = [_rel_err(a, r) for a, r in zip(grads, refs)]
     mxu = _mxu_errs((o,), lambda: (flash_attention_plain(
         q, k, v, True, None, False, rate, words,
-        mxu_dtype=torch.bfloat16),), dtype)
+        mxu_dtype=torch.bfloat16, **bases),), dtype)
     mxu += _mxu_errs(grads, lambda: flash_attention_bwd_plain(
         q, k, v, o, lse, do, True, None, rate, words,
-        mxu_dtype=torch.bfloat16), dtype)
+        mxu_dtype=torch.bfloat16, **bases), dtype)
+    where = (f", bases ({batch_base}, {head_base})"
+             if batch_base or head_base else "")
     _log(f"kernels: flash B={B} S={S} H={H} D={D} {name} causal dropout "
-         f"{rate}: o {o_err:.3e}, dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
+         f"{rate}{where}: o {o_err:.3e}, dq {errs[0]:.3e}, dk {errs[1]:.3e}, "
          f"dv {errs[2]:.3e} (max abs error / max |plain|, tol "
          f"{TRAIN_FLASH_TOL[name]:g})"
          + _mxu_note(mxu, ("o", "dq", "dk", "dv")))
@@ -977,10 +1003,17 @@ def _flash_train_case(dtype, timed=False):
     dot = do.transpose(1, 2)
     bwd_lib = _median_ms(lambda: torch.autograd.grad(
         out, (ql, kl, vl), dot, retain_graph=True))
-    # q, k, v, o, dO read and dq, dk, dv written; lse read
-    b_bwd, by_bwd = _bound_ms(8 * B * S * H * D * elem + B * H * S * 4,
-                              10 * B * H * D * pairs, name)
+    # q, k, v, o, dO read and dq, dk, dv written; lse read. In f32 the
+    # bound takes three TF32 tensor-core products an f32 product, as the
+    # f32 forward's; the CUDA-core rate's bound is kept beside it
+    bwd_bytes = 8 * B * S * H * D * elem + B * H * S * 4
+    bwd_ops = 10 * B * H * D * pairs
+    b_bwd, by_bwd = _bound_ms(bwd_bytes, bwd_ops, "float32_3xtf32"
+                              if name == "float32" else name)
     shape = f"B={B} S={S} H={H} D={D} {name} causal dropout {rate}"
+    if name == "float32":
+        shape += (f" (bound at the CUDA cores' f32 rate "
+                  f"{_bound_ms(bwd_bytes, bwd_ops, name)[0]:.4f} ms)")
     return {
         "flash_attention_fwd": {
             "max_abs_err": o_err, "ms": fwd_ms, "plain_ms": fwd_plain,
@@ -1318,6 +1351,10 @@ def phase_kernels() -> dict:
     # on bf16 and f32 activations; the rows time the bf16 case
     _flash_train_case(torch.float32)
     rows.update(_flash_train_case(torch.bfloat16, timed=True))
+    # row 3 (f32): the CUDA-core backward at a rank's shape in phase 21's
+    # f32 parity runs (dp = 2 x mp = 2: 2 rows, 8 heads)
+    more_rows["flash_attention_bwd float32"] = _flash_train_case(
+        torch.float32, timed=True, B=2, H=8)["flash_attention_bwd"]
     _ce_case(torch.float32)
     rows.update(_ce_case(torch.bfloat16, timed=True))
     _dropout_case(torch.float32)
@@ -4901,6 +4938,30 @@ def _dist_offsets() -> None:
     _require(all(eq), f"the offset dropout differs: {eq}")
 
 
+def _pipe_kernel_shapes() -> None:
+    """(a) Each kernel of (f) and (g) at the shapes and bases the pipeline
+    gives it, against its plain version at phase 2's tolerances: a
+    microbatch is one row, so rows 1 and 3 run on [1, 1024, H/mp, 64]
+    from batch base m (the microbatch) and head base mp_rank * H/mp;
+    (g)'s bf16 on stage 1, mp rank 1, microbatch 7, (f)'s f32 on its
+    last microbatch, 3, at pp = 2 x mp = 2 (8 heads from 8) and pp = 4
+    (16 heads from 0); row 8 on [1, 1024, 1024] from (g)'s element base
+    7 * 1024 * 1024, in both dtypes (O1 drops bf16 and f32 activations);
+    rows 6 and 7 on pp = 4's last stage, a microbatch's N = 1024 rows
+    over V = 50304, f32."""
+    import torch
+    _flash_train_case(torch.bfloat16, B=1, H=8, batch_base=PIPE_M - 1,
+                      head_base=8)
+    _flash_train_case(torch.float32, B=1, H=8,
+                      batch_base=PIPE_PARITY_M - 1, head_base=8)
+    _flash_train_case(torch.float32, B=1, H=16,
+                      batch_base=PIPE_PARITY_M - 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        _dropout_case(dtype, B=1, base=(PIPE_M - 1) * DIST_S * 1024)
+    _ce_case(torch.float32, N=DIST_S)
+    torch.cuda.empty_cache()
+
+
 def _dist_nccl() -> None:
     """(b) ``init_parallel_env()`` on the card picks NCCL; all_reduce,
     all_gather, broadcast and barrier go through it at world size 1."""
@@ -5061,6 +5122,358 @@ def _dist_timed(rank: int) -> dict:
     return out
 
 
+# (e)-(g): the pipeline over the same four ranks. (f) f32 parity at
+# gpt2_medium widths x 4 layers, a global batch of 4 in 4 microbatches,
+# dropout 0.1, two steps, at pp = 2 x mp = 2 and pp = 4 under both
+# schedules, against one process's step; (g) BASELINE config 4's model:
+# gpt2_medium at pp = 2 x mp = 2, 8 microbatches of one row, O1,
+# ``pretraining_loss`` under 1F1B, then config 4's own loss style,
+# ``crit(layer(ids), labels)`` (the fill-drain forward, the last stage's
+# logits broadcast over pp)
+PIPE_PARITY_LAYERS, PIPE_PARITY_M = 4, 4
+PIPE_LAYOUTS = {"pp=2 x mp=2": (2, 2), "pp=4": (4, 1)}
+PIPE_B, PIPE_M, PIPE_UPDATES, PIPE_FWD_UPDATES = 8, 8, 4, 3
+GLOO_RAW_OPS = ("send_recv", "isend_irecv", "batch_isend_irecv")
+
+
+def _gloo_raw_rank(rank: int, port: int, op: str, out: str) -> None:
+    """One rank of a two-process gloo world that hands ``op`` a CUDA
+    tensor as it is, with no staging (a subprocess of its own: gloo
+    aborts a sender it gives a device pointer)."""
+    import json
+    import torch
+    import torch.distributed as dist
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=2)
+    x = torch.arange(6, dtype=torch.float32, device="cuda") + 10 * rank
+    y = torch.zeros(6, device="cuda")
+    peer = 1 - rank
+    res = {}
+    try:
+        if op == "send_recv":
+            if rank == 0:
+                dist.send(x, 1, tag=3)
+            else:
+                dist.recv(y, 0, tag=3)
+        elif op == "isend_irecv":
+            w = (dist.isend(x, 1, tag=5) if rank == 0
+                 else dist.irecv(y, 0, tag=5))
+            w.wait()
+        else:
+            for w in dist.batch_isend_irecv(
+                    [dist.P2POp(dist.isend, x, peer),
+                     dist.P2POp(dist.irecv, y, peer)]):
+                w.wait()
+        torch.cuda.synchronize()
+        want = (torch.arange(6.0) + 10 * peer if op == "batch_isend_irecv"
+                else torch.arange(6.0))
+        res["ok"] = rank == 0 and op != "batch_isend_irecv" or bool(
+            torch.equal(y.cpu(), want))
+    except Exception as e:
+        res["error"] = f"{type(e).__name__}: {str(e)[:160]}"
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _gloo_raw_start(tmp: str) -> list:
+    """(e) first half: what gloo itself does with CUDA tensors, one pair
+    of processes a point-to-point op, all started at once (run beside
+    the world's start-up)."""
+    import subprocess
+    procs = []
+    for i, op in enumerate(GLOO_RAW_OPS):
+        port = 29700 + i
+        for r in range(2):
+            out = os.path.join(tmp, f"gloo_{op}_{r}.json")
+            code = (f"import sys; sys.path.insert(0, {REPO!r}); import "
+                    f"chip_smoke; chip_smoke._gloo_raw_rank({r}, {port}, "
+                    f"{op!r}, {out!r})")
+            procs.append((op, r, out, subprocess.Popen(
+                [sys.executable, "-c", code], stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE)))
+    return procs
+
+
+def _gloo_raw_finish(procs) -> dict:
+    """Wait for the raw pairs (60 s at most, then killed): per op, each
+    rank's exit code and what it reported."""
+    import json
+    import subprocess
+    out = {}
+    for op, r, path, p in procs:
+        try:
+            _, err = p.communicate(timeout=60)
+            rc = p.returncode
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+            rc = "timeout"
+        res = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                res = json.load(f)
+        tail = err.decode(errors="replace").strip().splitlines()
+        if rc != 0 and tail:
+            res.setdefault("error", tail[-1][:160])
+        out.setdefault(op, []).append((rc, res))
+    return out
+
+
+def _pipe_p2p(rank: int) -> dict:
+    """(e) second half, in the world: the port's isend / recv (two tags
+    received in the other order), isend / irecv and ppermute_shift on
+    CUDA tensors over gloo, their values and route; the time of a 2 MB
+    bf16 handoff (one microbatch's [1, 1024, 1024] boundary at O1)."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    peer = rank ^ 1
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + 100 * rank
+    ok = {}
+    if rank % 2 == 0:
+        # a gloo send completes once its receiver posts the receive:
+        # post both, then wait
+        for w in [collective.isend(x, peer, tag=1),
+                  collective.isend(x * 2, peer, tag=2)]:
+            w.wait()
+    else:
+        a, b = torch.zeros_like(x), torch.zeros_like(x)
+        dist.recv(b, peer, tag=2)
+        dist.recv(a, peer, tag=1)
+        want = torch.arange(8.0, device="cuda") + 100 * peer
+        ok["send_recv"] = bool(torch.equal(a, want)
+                               and torch.equal(b, want * 2))
+    y = torch.zeros_like(x)
+    w_s = collective.isend(x, peer, tag=7)
+    w_r = collective.irecv(y, peer, tag=7)
+    w_s.wait()
+    w_r.wait()
+    ok["isend_irecv"] = bool(torch.equal(
+        y, torch.arange(8.0, device="cuda") + 100 * peer))
+    z = dist.ppermute_shift(x, shift=1)
+    ok["ppermute_shift"] = bool(torch.equal(
+        z, torch.arange(8.0, device="cuda") + 100 * ((rank - 1) % 4)))
+    h = (torch.arange(1024 * 1024, device="cuda") % 251).reshape(
+        1, 1024, 1024).to(torch.bfloat16)
+    got = torch.empty_like(h)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(10):
+        if rank % 2 == 0:
+            collective.isend(h, peer, tag=100 + i).wait()
+        else:
+            dist.recv(got, peer, tag=100 + i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 100.0
+    if rank % 2:
+        ok["handoff_values"] = bool(torch.equal(got, h))
+    return {"ok": ok, "route": collective.p2p_route(h), "handoff_ms": ms}
+
+
+def _pipe_model(layers: int, M: int, **cfg_kw):
+    from paddle_tpu_torch.models import GPTForPretrainingPipe, gpt2_medium
+    return GPTForPretrainingPipe(gpt2_medium(num_layers=layers, **cfg_kw),
+                                 num_microbatches=M, device="cuda", seed=0)
+
+
+def _pipe_reference(w_path: str, ref_path: str) -> list:
+    """(f)'s reference: one process's f32 GPTForPretraining step (seed 0,
+    dropout 0.1) on the pipe model's weights (saved to ``w_path`` under
+    its stacked names), the same batch and seed; losses and parameters
+    (restacked) to ``ref_path``."""
+    import gc
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework.io import save, to_numpy
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def stacked(model):
+        out, blocks = {}, {}
+        for k, v in model.state_dict().items():
+            name = k[len("gpt."):]
+            if name.startswith("layers."):
+                _, i, rest = name.split(".", 2)
+                blocks.setdefault("blocks.stacked__" + rest.replace(
+                    ".", "__"), []).append(to_numpy(v))
+            else:
+                out[name] = to_numpy(v)
+        out.update({k: np.stack(v) for k, v in blocks.items()})
+        return out
+    model = GPTForPretraining(gpt2_medium(num_layers=PIPE_PARITY_LAYERS),
+                              device="cuda", seed=0)
+    save(stacked(model), w_path)
+    crit = GPTPretrainingCriterion()
+    step = TrainStep(model, lambda layer, i, t: crit(layer(i), t), AdamW(
+        TRAIN_LR, parameters=model.parameters(), weight_decay=TRAIN_WD),
+        seed=0)
+    ids, labels = _dist_batch(PIPE_PARITY_M, DIST_S, 7)
+    losses = [float(step(ids, labels)) for _ in range(DIST_PARITY_STEPS)]
+    save({"losses": losses, "params": stacked(model)}, ref_path)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _pipe_step(pp: int, mp: int, model, loss_fn, schedule: str):
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.spmd import P
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "pp_degree": pp,
+                               "mp_degree": mp}
+    strategy.pipeline_configs = {"schedule_mode": schedule}
+    fleet.init(strategy=strategy, backend="gloo")
+    hcg = fleet.get_hybrid_communicate_group()
+    model = fleet.distributed_model(model)
+    return hcg, TrainStep(model, loss_fn, AdamW(
+        TRAIN_LR, parameters=model.parameters(), weight_decay=TRAIN_WD),
+        seed=0, mesh=hcg.mesh, data_spec=P("dp"), zero_axis="dp")
+
+
+def _pipe_parity(w_path: str, ref_path: str, rank: int) -> dict:
+    """(f) on this rank: each layout and schedule, two f32 steps of
+    ``pretraining_loss`` on the reference's weights and batch; rank 0
+    holds the gathered parameters against the reference and the two
+    schedules against each other, bit for bit."""
+    import gc
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.meta_parallel import spmd_pipeline
+    from paddle_tpu_torch.framework.io import load
+    from paddle_tpu_torch.models import gather_state_dict, load_jax_weights
+    weights = load(w_path)
+    ids, labels = _dist_batch(PIPE_PARITY_M, DIST_S, 7)
+    ref = load(ref_path) if rank == 0 else None
+    out = {}
+    for name, (pp, mp) in PIPE_LAYOUTS.items():
+        kept = None
+        for sched in ("fill_drain", "1f1b"):
+            spmd_pipeline.reset_pipeline_stats()
+            model = _pipe_model(PIPE_PARITY_LAYERS, PIPE_PARITY_M)
+            hcg, step = _pipe_step(
+                pp, mp, model,
+                lambda layer, i, t: layer.pretraining_loss(i, t), sched)
+            load_jax_weights(step.layer, weights)
+            t0 = time.perf_counter()
+            losses = [float(step(ids, labels))
+                      for _ in range(DIST_PARITY_STEPS)]
+            secs = time.perf_counter() - t0
+            params = gather_state_dict(step.layer, hcg.mesh)
+            res = {"losses": losses, "seconds": secs,
+                   "stage": hcg.get_stage_id(),
+                   "in_flight": spmd_pipeline.PIPELINE_STATS[
+                       "max_in_flight"]}
+            if rank == 0:
+                rest, key_bias = {}, 0.0
+                for k, v in ref["params"].items():
+                    d = np.abs(params[k] - v)
+                    if k.endswith("qkv_bias"):
+                        key_bias = max(key_bias, float(d[:, 1].max()))
+                        d = np.delete(d, 1, axis=1)
+                    rest[k] = float(d.max())
+                res.update(ref_losses=ref["losses"],
+                           keys_equal=set(params) == set(ref["params"]),
+                           worst=max(rest.items(), key=lambda kv: kv[1]),
+                           key_bias=key_bias)
+                if kept is None:
+                    kept = (losses, params)
+                else:
+                    res["bit_equal"] = losses == kept[0] and all(
+                        np.array_equal(v, kept[1][k])
+                        for k, v in params.items())
+            out[(name, sched)] = res
+            fleet.reset()
+            del step, model, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_timed(rank: int, forward_style: bool = False) -> dict:
+    """(g) on this rank: BASELINE config 4's model under
+    ``auto_cast(level="O1")``, ``pretraining_loss`` under 1F1B for
+    ``PIPE_UPDATES`` updates or, with ``forward_style``, config 4's
+    ``crit(layer(ids), labels)`` for ``PIPE_FWD_UPDATES``, on one batch;
+    update times, the comm_* seconds by op and group, the peak memory,
+    the in-flight maximum."""
+    import gc
+    import torch
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.meta_parallel import spmd_pipeline
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.monitor import scoped_registry
+    torch.cuda.reset_peak_memory_stats()
+    spmd_pipeline.reset_pipeline_stats()
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(layer, ids, labels):
+        with auto_cast(level="O1"):
+            if forward_style:
+                return crit(layer(ids), labels)
+            return layer.pretraining_loss(ids, labels)
+    hcg, step = _pipe_step(2, 2, _pipe_model(24, PIPE_M), loss_fn, "1F1B")
+    ids, labels = _dist_batch(PIPE_B, DIST_S, 30)
+    losses, times = [], []
+    with scoped_registry() as reg:
+        for _ in range(PIPE_FWD_UPDATES if forward_style else PIPE_UPDATES):
+            t0 = time.perf_counter()
+            losses.append(float(step(ids, labels)))
+            times.append(time.perf_counter() - t0)
+        by_op = {}
+        for name in ("comm_latency_seconds", "comm_cold_dispatch_seconds"):
+            m = reg.get(name)
+            for labels_, st in (m.samples() if m else ()):
+                key = f"{labels_['op']}/{labels_['group']}"
+                by_op[key] = by_op.get(key, 0.0) + st["sum"]
+    out = {"losses": losses, "times": times, "by_op": by_op,
+           "peak": torch.cuda.max_memory_allocated(),
+           "stage": hcg.get_stage_id(), "updates": step.step_count,
+           "in_flight": spmd_pipeline.PIPELINE_STATS["max_in_flight"],
+           "handoffs": (spmd_pipeline.PIPELINE_STATS["sent"],
+                        spmd_pipeline.PIPELINE_STATS["received"])}
+    fleet.reset()
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_want(stage: int, S: int, mp: int, layers: int, M: int,
+               steps: int) -> dict:
+    """One rank's launches in ``steps`` pipelined steps on stage
+    ``stage`` of ``S`` (``layers / S`` layers, ``M`` microbatches, the
+    stage's layers recomputed as one segment, dropout on): each
+    microbatch runs row 1 once a layer in its forward and once in the
+    recompute, row 3 once; the hidden dropouts twice a layer forward,
+    twice backward and, in the recompute, all but the last layer's
+    second (``torch.utils.checkpoint``'s early stop), so 6 * L/S - 1;
+    the embedding dropout's two on the first stage; at mp = 1 the
+    chunked CE's two kernels once a microbatch on the last stage (the
+    vocab-parallel loss is dense at mp = 2)."""
+    ll = layers // S
+    ce = M if (mp == 1 and stage == S - 1) else 0
+    zero = {k: 0 for k in ("paged_decode_attention",
+                           "flash_attention_bias_fwd",
+                           "flash_attention_bias_bwd_dq",
+                           "flash_attention_bias_bwd_dkv",
+                           "paged_decode_attention_quant", "bgmv",
+                           "int8_matmul")}
+    return dict(zero, flash_attention_fwd=2 * ll * M * steps,
+                flash_attention_bwd=ll * M * steps,
+                fused_dropout=((6 * ll - 1) * M
+                               + (2 if stage == 0 else 0)) * steps,
+                chunked_ce_lse=ce * steps, chunked_ce_dlogits=ce * steps)
+
+
 def _dist_rank(out_dir: str) -> None:
     """One rank of phase 21's world (a spawned process: it imports no
     JAX and builds no kernel; phase 1's libraries load from
@@ -5085,6 +5498,18 @@ def _dist_rank(out_dir: str) -> None:
     kernels.reset_launch_counts()
     res["timed"] = _dist_timed(rank)
     res["launches"] = launches()
+    res["p2p"] = _pipe_p2p(rank)
+    kernels.reset_launch_counts()
+    res["pipe_parity"] = _pipe_parity(
+        os.path.join(out_dir, "pipe_weights.pdparams"),
+        os.path.join(out_dir, "pipe_reference.pdparams"), rank)
+    res["launches_pipe_parity"] = launches()
+    kernels.reset_launch_counts()
+    res["pipe"] = _pipe_timed(rank)
+    res["launches_pipe"] = launches()
+    kernels.reset_launch_counts()
+    res["pipe_forward"] = _pipe_timed(rank, forward_style=True)
+    res["launches_pipe_forward"] = launches()
     res["leaked"] = sorted(m for m in sys.modules
                            if m.split(".")[0] in ("jax", "paddle_tpu"))
     res["backend"] = dist.ParallelEnv().backend
@@ -5126,14 +5551,20 @@ def phase_distributed(smi: str) -> dict:
     """(a) the kernels' base offsets, (b) NCCL at world size 1, then a
     world of four ranks on the one card over gloo: (c) float32 parity
     at dp x mp and dp = 4 against one process, (d) the timed full-width
-    O1 run. Returns the launches of (d) and those of (c), each summed
-    over the ranks."""
+    O1 run; the pipeline: (e) the point-to-point probe (gloo's own ops
+    on CUDA tensors in pairs of processes of their own, beside the
+    world; the port's in it), (f) float32 parity at pp x mp and pp = 4
+    under both schedules against one process, (g) BASELINE config 4
+    timed under 1F1B and in config 4's own loss style. Returns the
+    launches of (d), (c), (g) under 1F1B, (g) in config 4's loss style and
+    (f), each summed over the ranks."""
     import pickle
     import tempfile
     import numpy as np
     from paddle_tpu_torch.distributed.spawn_mod import spawn
     t = time.perf_counter()
     _dist_offsets()
+    _pipe_kernel_shapes()
     _dist_nccl()
     _log(f"distributed: (a) and (b) took {time.perf_counter() - t:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
@@ -5143,9 +5574,21 @@ def phase_distributed(smi: str) -> dict:
              + " ".join(f"{x:.6f}" for x in ref)
              + f" ({time.perf_counter() - t:.1f} s)")
         t = time.perf_counter()
+        pipe_ref = _pipe_reference(
+            os.path.join(tmp, "pipe_weights.pdparams"),
+            os.path.join(tmp, "pipe_reference.pdparams"))
+        _log(f"distributed: (f)'s one-process reference, gpt2_medium widths "
+             f"x {PIPE_PARITY_LAYERS} layers, f32, dropout 0.1, B="
+             f"{PIPE_PARITY_M} S={DIST_S}: losses "
+             + " ".join(f"{x:.6f}" for x in pipe_ref)
+             + f" ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        raw = _gloo_raw_start(tmp)
         spawn("chip_smoke:_dist_rank", args=(tmp,), nprocs=DIST_RANKS)
         _log(f"distributed: the {DIST_RANKS}-rank world took "
-             f"{time.perf_counter() - t:.1f} s (start, parity, timed run)")
+             f"{time.perf_counter() - t:.1f} s (start, parity, timed run, "
+             "the pipeline's probe, parity and timed run)")
+        raw = _gloo_raw_finish(raw)
         ranks = []
         for r in range(DIST_RANKS):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -5216,10 +5659,162 @@ def phase_distributed(smi: str) -> dict:
                  timed[0]["by_op"].items(), key=lambda kv: -kv[1])))
     _log(f"distributed: launches a rank, (d) {ranks[0]['launches']}, (c) "
          f"{ranks[0]['launches_parity']} (each rank exactly the formula)")
+    _pipe_report(ranks, raw, smi)
     from paddle_tpu_torch.ops import kernels
     return tuple({k["name"]: sum(r[key][k["name"]] for r in ranks)
                   for k in kernels.kernels()}
-                 for key in ("launches", "launches_parity"))
+                 for key in ("launches", "launches_parity", "launches_pipe",
+                             "launches_pipe_forward",
+                             "launches_pipe_parity"))
+
+
+def _pipe_report(ranks, raw, smi: str) -> None:
+    """Phase 21's (e)-(g): check and print."""
+    from paddle_tpu_torch.distributed.meta_parallel.spmd_pipeline import \
+        max_in_flight
+    took = [op for op, rs in raw.items()
+            if all(rc == 0 and r.get("ok") for rc, r in rs)]
+    _log("distributed: (e) gloo's own point-to-point ops on CUDA tensors, "
+         "a pair of processes an op: " + "; ".join(
+             f"{op}: " + ", ".join(
+                 f"rank {i} exit {rc}"
+                 + (f" ({r['error']})" if r.get("error") else "")
+                 for i, (rc, r) in enumerate(rs))
+             for op, rs in raw.items())
+         + f"; gloo took {took or 'none of them'}")
+    p2p = [r["p2p"] for r in ranks]
+    _log("distributed: (e) the port's isend / recv (two tags received in "
+         "the other order), isend / irecv and ppermute_shift on CUDA "
+         "tensors over gloo, by rank: " + "; ".join(
+             f"{p['ok']}" for p in p2p)
+         + f"; the handoff's route {p2p[0]['route']}; a 2 MB bf16 handoff "
+         + ", ".join(f"{p['handoff_ms']:.3f}" for p in p2p) + " ms")
+    _require(all(all(p["ok"].values()) for p in p2p)
+             and all(p["route"] == "pinned_host" for p in p2p),
+             f"the port's point-to-point ops on CUDA tensors: {p2p}")
+    for name, (pp, mp) in PIPE_LAYOUTS.items():
+        for sched in ("fill_drain", "1f1b"):
+            res = [r["pipe_parity"][(name, sched)] for r in ranks]
+            p0 = res[0]
+            rel = max(abs(a - b) / abs(b) for r in res
+                      for a, b in zip(r["losses"], p0["ref_losses"]))
+            same = all(r["losses"] == p0["losses"] for r in res)
+            flight = [r["in_flight"] for r in res]
+            want_flight = [max_in_flight(sched, pp, PIPE_PARITY_M,
+                                         r["stage"]) for r in res]
+            _log(f"distributed: (f) {name}, {sched}, f32, dropout 0.1, "
+                 f"gpt2_medium widths x {PIPE_PARITY_LAYERS} layers, B="
+                 f"{PIPE_PARITY_M} in {PIPE_PARITY_M} microbatches, S="
+                 f"{DIST_S}: losses " + " ".join(
+                     f"{x:.6f}" for x in p0["losses"])
+                 + f" against one process's, largest relative difference "
+                 f"{rel:.3e} (tol {DIST_LOSS_TOL:g}); parameters worst "
+                 f"{p0['worst'][0]} {p0['worst'][1]:.3e} (tol "
+                 f"{DIST_PARAM_TOL:g}), the key bias {p0['key_bias']:.3e} "
+                 f"(tol {DIST_KEY_BIAS_TOL:g})"
+                 + (f"; bit-equal to fill_drain {p0['bit_equal']}"
+                    if sched == "1f1b" else "")
+                 + f"; in flight by rank {flight} (timetable {want_flight})"
+                 + f"; {p0['seconds']:.2f} s for {DIST_PARITY_STEPS} steps")
+            _require(p0["keys_equal"] and same and rel <= DIST_LOSS_TOL,
+                     f"(f) {name} {sched}: losses {rel}, same {same}")
+            _require(p0["worst"][1] <= DIST_PARAM_TOL
+                     and p0["key_bias"] <= DIST_KEY_BIAS_TOL,
+                     f"(f) {name} {sched}: parameters {p0['worst']}, key "
+                     f"bias {p0['key_bias']}")
+            _require(flight == want_flight, f"(f) in flight {flight}")
+            if sched == "1f1b":
+                _require(p0["bit_equal"], f"(f) {name}: 1f1b and "
+                         "fill_drain differ")
+    for r, res in enumerate(ranks):
+        stage_pp2, stage_pp4 = r // 2, r
+        want = {k: sum(_pipe_want(st, pp, mp, PIPE_PARITY_LAYERS,
+                                  PIPE_PARITY_M, 2 * DIST_PARITY_STEPS)[k]
+                       for st, pp, mp in ((stage_pp2, 2, 2),
+                                          (stage_pp4, 4, 1)))
+                for k in res["launches_pipe_parity"]}
+        _require(res["launches_pipe_parity"] == want,
+                 f"rank {r}: (f)'s launch counts "
+                 f"{res['launches_pipe_parity']} != {want}")
+        for key, n in (("launches_pipe", PIPE_UPDATES),
+                       ("launches_pipe_forward", PIPE_FWD_UPDATES)):
+            want = _pipe_want(r // 2, 2, 2, 24, PIPE_M, n)
+            _require(res[key] == want, f"rank {r}: (g)'s launch counts "
+                     f"({key}) {res[key]} != {want}")
+    _pipe_timed_report(ranks, "pipe", "1F1B, pretraining_loss", "1f1b",
+                       PIPE_UPDATES, smi)
+    _pipe_timed_report(ranks, "pipe_forward", "config 4's own loss style "
+                       "crit(layer(ids), labels) (the fill-drain forward, "
+                       "the last stage's logits broadcast over pp)",
+                       "fill_drain", PIPE_FWD_UPDATES, smi)
+    _log(f"distributed: launches a rank, (g) 1F1B {ranks[0]['launches_pipe']}"
+         f", (g) config 4's loss style {ranks[0]['launches_pipe_forward']}, "
+         f"(f) {ranks[0]['launches_pipe_parity']} (each rank exactly the "
+         "formula)")
+
+
+def _pipe_timed_report(ranks, key: str, style: str, sched: str,
+                       updates: int, smi: str) -> None:
+    """(g) in one loss style: check the losses, update counts and
+    in-flight maxima; print the update time, the collective split and
+    the peaks."""
+    import numpy as np
+    from paddle_tpu_torch.distributed.meta_parallel.spmd_pipeline import \
+        max_in_flight
+    timed = [r[key] for r in ranks]
+    losses = timed[0]["losses"]
+    _require(all(np.isfinite(r["losses"]).all() for r in timed)
+             and all(r["losses"] == losses for r in timed),
+             f"(g) {key}: losses by rank {[r['losses'] for r in timed]}")
+    _require(losses[-1] < losses[0], f"(g) {key}: loss did not decrease: "
+             f"{losses}")
+    _require(all(r["updates"] == updates for r in timed),
+             f"(g) {key}: update counts")
+    flight = [r["in_flight"] for r in timed]
+    want_flight = [max_in_flight(sched, 2, PIPE_M, r["stage"])
+                   for r in timed]
+    _require(flight == want_flight, f"(g) {key}: in flight {flight} != "
+             f"the timetable's {want_flight}")
+    step_s = float(np.median(timed[0]["times"]))
+
+    def share(r, pick):
+        return 100.0 * sum(v for k, v in r["by_op"].items() if pick(k)) \
+            / sum(r["times"])
+
+    def handoff(k):
+        return k.endswith("/pp") and k.split("/")[0] in (
+            "isend", "isend_wait", "recv")
+    parts = {
+        "mp all-reduce": lambda k: k == "all_reduce/mp",
+        "pp handoff": handoff,
+        "pp gradient all-reduce": lambda k: k == "all_reduce/pp",
+        # 1F1B: the loss, and in it the last stage's wait for the first
+        # stage's drain; the forward style: the logits
+        "pp broadcast": lambda k: k == "broadcast/pp",
+        "other": lambda k: k not in ("all_reduce/mp", "all_reduce/pp",
+                                     "broadcast/pp") and not handoff(k)}
+    _log(f"distributed: (g) gpt2_medium (BASELINE config 4's model) pp=2 x "
+         f"mp=2, {style}, B={PIPE_B} in {PIPE_M} microbatches, S={DIST_S}, "
+         f"O1, AdamW, dropout 0.1, four ranks on one card, the handoff "
+         f"through pinned host buffers ({smi}): losses " + " ".join(
+             f"{x:.4f}" for x in losses)
+         + f"; median update {step_s * 1e3:.1f} ms ("
+         f"{PIPE_B * DIST_S / step_s:.1f} tokens/s), updates " + " ".join(
+             f"{x * 1e3:.1f}" for x in timed[0]["times"])
+         + f" ms; share of the {updates} updates in collectives by rank: "
+         + "; ".join(f"rank {i} " + ", ".join(
+             f"{n} {share(r, f):.1f}%" for n, f in parts.items())
+             for i, r in enumerate(timed))
+         + "; peak memory by rank " + ", ".join(
+             f"{r['peak'] / 2**30:.3f} GiB" for r in timed)
+         + f"; in flight by rank {flight} (timetable {want_flight}); "
+         f"handoffs sent/received by rank {[r['handoffs'] for r in timed]}")
+    _log(f"distributed: (g) {key}: seconds in collectives over the "
+         f"{updates} updates by rank and op/group: " + "; ".join(
+             f"rank {i} " + ", ".join(
+                 f"{k} {v:.2f}" for k, v in sorted(
+                     r["by_op"].items(), key=lambda kv: -kv[1]))
+             for i, r in enumerate(timed)))
 
 
 def main() -> int:
@@ -5274,7 +5869,8 @@ def main() -> int:
     by_path["resilience"], by_path["resilience_train"] = timed(
         "resilience", phase_resilience, (by_path["serve"], f32_serve))
     by_path.update(timed("fleet", phase_fleet))
-    by_path["dist"], by_path["dist_parity"] = timed(
+    (by_path["dist"], by_path["dist_parity"], by_path["pipe"],
+     by_path["pipe_forward"], by_path["pipe_parity"]) = timed(
         "distributed", phase_distributed, card["smi"])
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")

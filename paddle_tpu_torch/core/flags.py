@@ -131,6 +131,12 @@ define_flag("collective_timeout_s", 0.0,
             "direct call. The budget covers the whole call, including a "
             "group's first (communicator set-up); set it well above "
             "that.")
+define_flag("pipeline_schedule", "",
+            "Global pipeline-schedule override for PipelineStageStack: "
+            "'1f1b' (one forward, one backward) or 'fill_drain' (every "
+            "forward, then every backward). Empty = resolve from the "
+            "model, then the fleet strategy "
+            "(pipeline_configs['schedule_mode']).")
 define_flag("serve_watchdog_s", 0.0,
             "Wall-clock watchdog (seconds) for serving prefill/decode "
             "dispatches (serving.engine): a dispatch that "

@@ -24,7 +24,10 @@ single-process masks (``ops/rng.py``, the kernels' base offsets).
 :func:`dropout_state` and :func:`replay_dropout_state` let activation
 recompute (``distributed.fleet.utils.recompute``) replay a segment's
 seed words: ``torch.utils.checkpoint`` restores torch's own generators
-only.
+only. A pipeline stage positions its layers' draws in the
+single-process call order: :func:`count_seed_draws` counts a module's
+draws a call, :func:`advance_dropout_state` moves a saved state past
+some draws, and :func:`skip_seed_words` moves the active generator.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from .device import DeviceLike, resolve_device
 
 __all__ = ["make_generator", "seed_words", "dropout_generator",
            "next_seed_words", "dropout_batch_base", "dropout_state",
-           "replay_dropout_state"]
+           "replay_dropout_state", "count_seed_draws",
+           "advance_dropout_state", "skip_seed_words"]
 
 _SCOPE = threading.local()
 
@@ -120,3 +124,33 @@ def next_seed_words() -> Tuple[int, int]:
             "to the model's forward, run it under TrainStep, or call "
             "model.eval()")
     return seed_words(g)
+
+
+def count_seed_draws(module) -> int:
+    """The seed-word pairs one call of ``module`` draws in its current
+    mode: the sum of ``seed_draws()`` over its submodules that define it
+    (every dropout site of the port does)."""
+    return sum(int(m.seed_draws()) for m in module.modules()
+               if hasattr(m, "seed_draws"))
+
+
+def advance_dropout_state(state, n: int):
+    """:func:`dropout_state`'s ``(generator state, batch base)`` after
+    ``n`` more draws of seed words (None stays None)."""
+    if state is None or n == 0:
+        return state
+    g = torch.Generator(device="cpu")
+    g.set_state(state[0])
+    for _ in range(n):
+        seed_words(g)
+    return g.get_state(), state[1]
+
+
+def skip_seed_words(n: int) -> None:
+    """Draw ``n`` pairs of seed words from the active generator and drop
+    them (nothing outside a :func:`dropout_generator`)."""
+    top = _top()
+    if top is None:
+        return
+    for _ in range(n):
+        seed_words(top[0])

@@ -6,12 +6,14 @@ between cards, gloo on the CPU or when a node's ranks outnumber its
 cards (``init_parallel_env``). The collectives take each rank's own
 tensor (:mod:`.collective`); the hybrid topology and its groups are
 :mod:`.fleet`; :mod:`.spmd` cuts parameters to a rank's block of their
-``.spec``; :mod:`.meta_parallel` holds the tensor-parallel layers;
-``fleet.utils.recompute`` is activation recompute; :mod:`.checkpoint`
-the single-process commit protocol. ``spawn`` and ``launch`` start a
-world. The pipeline, sequence parallelism, the checkpoint manager with
-resharding, LocalSGD, elastic, auto_parallel and the parameter server
-are not ported yet (``ROADMAP.md``).
+``.spec``; :mod:`.meta_parallel` holds the tensor-parallel layers and
+the pipeline (a stage a process: ``PipelineStageStack`` with 1F1B and
+fill-drain, ``PipelineParallel`` over a ``PipelineLayer``);
+``fleet.meta_optimizers`` LocalSGD; ``fleet.utils.recompute`` is
+activation recompute; :mod:`.checkpoint` the single-process commit
+protocol. ``spawn`` and ``launch`` start a world. Sequence parallelism,
+the checkpoint manager with resharding, elastic, auto_parallel and the
+parameter server are not ported yet (``ROADMAP.md``).
 """
 
 from . import checkpoint, collective, env, spmd  # noqa: F401
@@ -27,6 +29,8 @@ from .collective import (  # noqa: F401
     broadcast,
     destroy_process_group,
     get_group,
+    irecv,
+    isend,
     new_group,
     ppermute_shift,
     recv,

@@ -22,9 +22,11 @@ calls it (real NCCL calls on one card).
   list; ``alltoall`` takes the
   ``[nranks, ...]`` blocks a rank sends (block ``d`` to rank ``d``) and
   returns the blocks it received (block ``s`` from rank ``s``).
-- ``send`` / ``recv`` pair across processes; ``ppermute_shift`` moves
-  each rank's tensor to rank ``(r + shift) % n`` as one batch of
-  ``isend`` / ``irecv``.
+- ``send`` / ``recv`` pair across processes, matched by ``tag`` as
+  well as by peer; ``isend`` / ``irecv`` post them and return a
+  :class:`P2PWork` to ``wait()`` on; ``ppermute_shift`` moves each
+  rank's tensor to rank ``(r + shift) % n`` as one batch of ``isend`` /
+  ``irecv``. The pipeline's stage handoff is made of these.
 
 Every op runs through :func:`_run_collective` (the
 ``FLAGS_collective_timeout_s`` watchdog and the chaos site
@@ -41,7 +43,11 @@ Which ops a backend takes on CUDA tensors differs: gloo has no
 reduce-scatter or all-to-all over them, so the port builds what it
 needs from ``all_reduce``, ``all_gather`` and ``broadcast``, which
 gloo and NCCL both take (``alltoall`` over gloo on CUDA tensors goes
-through an ``all_gather``). Nothing is staged through the host here.
+through an ``all_gather``). gloo's point-to-point ops move host memory
+only, so on the gloo backend a CUDA tensor's ``send``, ``recv``,
+``isend``, ``irecv`` and ``ppermute_shift`` always go through a pinned
+host buffer: one device-to-host copy before the send, one host-to-device
+copy after the receive (:func:`p2p_route` names the route).
 """
 
 from __future__ import annotations
@@ -59,7 +65,8 @@ from . import env
 __all__ = [
     "ReduceOp", "Group", "new_group", "get_group", "destroy_process_group",
     "all_reduce", "all_gather", "all_gather_object", "reduce", "broadcast",
-    "scatter", "alltoall", "send", "recv", "barrier", "wait",
+    "scatter", "alltoall", "send", "recv", "isend", "irecv", "P2PWork",
+    "p2p_route", "barrier", "wait",
     "all_reduce_arrays", "ppermute_shift", "is_initialized",
     "get_world_size_of_group", "CollectiveTimeoutError",
 ]
@@ -502,30 +509,123 @@ def alltoall(in_tensor_list, out_tensor_list=None,
     return res
 
 
-def send(tensor, dst: int = 0, group: Optional[Group] = None,
-         sync_op: bool = True):
-    """Send ``tensor`` to global rank ``dst``; a matching :func:`recv`
-    on ``dst`` receives it."""
+def p2p_route(tensor, group: Optional[Group] = None) -> str:
+    """How a point-to-point op moves ``tensor`` over ``group``:
+    ``"pinned_host"`` for a CUDA tensor on the gloo backend (gloo reads
+    and writes host memory only), ``"direct"`` otherwise."""
     g = group or _default_group()
+    if (isinstance(tensor, torch.Tensor) and tensor.is_cuda
+            and g.process_group is not None and _backend(g) == "gloo"):
+        return "pinned_host"
+    return "direct"
+
+
+def _staged(tensor, route: str) -> torch.Tensor:
+    """What the backend reads for a send: ``tensor`` itself, or its copy
+    in a pinned host buffer (the copy completes before this returns)."""
+    if route == "direct":
+        return tensor.contiguous()
+    buf = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    buf.copy_(tensor)
+    return buf
+
+
+def _landing(tensor, route: str) -> torch.Tensor:
+    """Where the backend writes a receive: ``tensor``, or a pinned host
+    buffer of its shape that :func:`_land` copies in after."""
+    if route == "direct":
+        return tensor
+    return torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+
+
+def _land(tensor, buf) -> None:
+    if buf is not tensor:
+        tensor.copy_(buf, non_blocking=True)
+
+
+class P2PWork:
+    """A posted ``isend`` or ``irecv``: ``wait()`` blocks until it is
+    done (a receive then holds its data in the tensor it was given) and
+    returns that tensor. The staging buffer lives as long as the work."""
+
+    def __init__(self, op: str, group: Group, tensor, buf, work):
+        self._op, self._group = op, group
+        self._tensor, self._buf, self._work = tensor, buf, work
+        self.done = work is None
+
+    def wait(self):
+        if not self.done:
+            def run():
+                self._work.wait()
+                if self._op == "irecv":
+                    _land(self._tensor, self._buf)
+            _collective(f"{self._op}_wait", self._group, self._tensor, run)
+            self.done = True
+            self._buf = self._work = None
+        return self._tensor
+
+
+def send(tensor, dst: int = 0, group: Optional[Group] = None,
+         sync_op: bool = True, tag: int = 0):
+    """Send ``tensor`` to global rank ``dst``; a matching :func:`recv`
+    on ``dst`` (same ``tag``) receives it."""
+    g = group or _default_group()
+    route = p2p_route(tensor, g)
 
     def run():
         import torch.distributed as dist
-        dist.send(tensor.contiguous(), dst, group=g.process_group)
+        dist.send(_staged(tensor, route), dst, group=g.process_group,
+                  tag=tag)
         return tensor
     return _collective("send", g, tensor, run)
 
 
 def recv(tensor, src: int = 0, group: Optional[Group] = None,
-         sync_op: bool = True):
-    """Receive into ``tensor`` (in place) what global rank ``src``
-    sent."""
+         sync_op: bool = True, tag: int = 0):
+    """Receive into ``tensor`` (in place) what global rank ``src`` sent
+    with the same ``tag``."""
     g = group or _default_group()
+    route = p2p_route(tensor, g)
 
     def run():
         import torch.distributed as dist
-        dist.recv(tensor, src, group=g.process_group)
+        buf = _landing(tensor, route)
+        dist.recv(buf, src, group=g.process_group, tag=tag)
+        _land(tensor, buf)
         return tensor
     return _collective("recv", g, tensor, run)
+
+
+def isend(tensor, dst: int = 0, group: Optional[Group] = None,
+          tag: int = 0) -> P2PWork:
+    """Post a send of ``tensor`` to global rank ``dst``; the returned
+    work's ``wait()`` blocks until the receiver has it. On the pinned
+    route the data is copied out before this returns, so ``tensor`` may
+    change at once."""
+    g = group or _default_group()
+    route = p2p_route(tensor, g)
+
+    def run():
+        import torch.distributed as dist
+        buf = _staged(tensor, route)
+        return P2PWork("isend", g, tensor, buf, dist.isend(
+            buf, dst, group=g.process_group, tag=tag))
+    return _collective("isend", g, tensor, run)
+
+
+def irecv(tensor, src: int = 0, group: Optional[Group] = None,
+          tag: int = 0) -> P2PWork:
+    """Post a receive into ``tensor`` from global rank ``src``; its data
+    is there once the returned work's ``wait()`` returns."""
+    g = group or _default_group()
+    route = p2p_route(tensor, g)
+
+    def run():
+        import torch.distributed as dist
+        buf = _landing(tensor, route)
+        return P2PWork("irecv", g, tensor, buf, dist.irecv(
+            buf, src, group=g.process_group, tag=tag))
+    return _collective("irecv", g, tensor, run)
 
 
 def ppermute_shift(x, group: Optional[Group] = None, shift: int = 1):
@@ -540,14 +640,18 @@ def ppermute_shift(x, group: Optional[Group] = None, shift: int = 1):
     me = g.rank
     to = g.ranks[(me + shift) % n]
     frm = g.ranks[(me - shift) % n]
+    route = p2p_route(x, g)
 
     def run():
         import torch.distributed as dist
         out = torch.empty_like(x)
-        ops = [dist.P2POp(dist.isend, x, to, g.process_group),
-               dist.P2POp(dist.irecv, out, frm, g.process_group)]
+        buf = _landing(out, route)
+        ops = [dist.P2POp(dist.isend, _staged(x, route), to,
+                          g.process_group),
+               dist.P2POp(dist.irecv, buf, frm, g.process_group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+        _land(out, buf)
         return out
     return _collective("ppermute_shift", g, x, run)
 

@@ -5,14 +5,18 @@ Counterpart of ``paddle_tpu/distributed/fleet/__init__.py``:
 the hybrid topology from ``strategy.hybrid_configs`` (with no
 ``dp_degree``, data parallelism over whatever the other degrees leave of
 the world), :func:`distributed_model` wraps a model for the parallel
-mode (``TensorParallel``, ``ShardingParallel`` or ``DataParallel``),
+mode (``PipelineParallel``, ``TensorParallel``, ``ShardingParallel`` or
+``DataParallel``; a model that carries a ``PipelineStageStack`` is laid
+on the mesh as it is),
 and :func:`distributed_optimizer` attaches a snapshot of the strategy
 to the optimizer, which ``TrainStep`` reads (``gradient_merge``): a
 bare optimizer is never rewired by ``fleet.init``.
 
-The fleet dataset, the ``fs`` helpers, ``save_persistables`` /
-``load_persistables`` (sharded checkpoints) and LocalSGD come with the
-later parts of ``distributed/``.
+and LocalSGD (``strategy.localsgd`` / ``adaptive_localsgd``) makes
+``TrainStep`` a ``meta_optimizers.LocalSGDTrainStep``. The fleet
+dataset, the ``fs`` helpers and ``save_persistables`` /
+``load_persistables`` (sharded checkpoints) come with the later parts
+of ``distributed/``.
 """
 
 from __future__ import annotations
@@ -87,14 +91,24 @@ def barrier_worker() -> None:
 
 
 def distributed_model(model):
-    """Wrap ``model`` for the active parallel mode: ``TensorParallel``
-    (mp), ``ShardingParallel`` (sharding) or ``DataParallel``."""
+    """Wrap ``model`` for the active parallel mode: ``PipelineParallel``
+    (pp, over a ``PipelineLayer``; a model carrying a
+    ``PipelineStageStack`` is laid on the mesh and returned),
+    ``TensorParallel`` (mp), ``ShardingParallel`` (sharding) or
+    ``DataParallel``."""
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         init()
         hcg = get_hybrid_communicate_group()
     mode = hcg.get_parallel_mode()
     from .. import meta_parallel
+    if mode == "pipeline":
+        if not isinstance(model, meta_parallel.PipelineLayer) and any(
+                isinstance(m, meta_parallel.PipelineStageStack)
+                for m in model.modules()):
+            from ..spmd import apply_param_shardings
+            return apply_param_shardings(model, hcg.mesh)
+        return meta_parallel.PipelineParallel(model, hcg, _strategy())
     if mode == "model":
         return meta_parallel.TensorParallel(model, hcg, _strategy())
     if mode == "sharding":

@@ -2,10 +2,12 @@
 
 Counterpart of ``paddle_tpu/distributed/fleet/strategy.py``, with its
 fields and defaults: a plain config object over a defaults dict. The
-port reads ``hybrid_configs`` (``fleet.init``) and
-``gradient_merge`` / ``gradient_merge_configs`` (the snapshot that
-``fleet.distributed_optimizer`` attaches, which ``TrainStep`` reads);
-``localsgd`` and the pipeline's settings wait for their modules.
+port reads ``hybrid_configs`` (``fleet.init``), ``pipeline_configs
+['schedule_mode']`` (``spmd_pipeline.resolve_schedule``, from the
+process's strategy as in JAX), and from the snapshot that
+``fleet.distributed_optimizer`` attaches, which ``TrainStep`` reads,
+``gradient_merge`` / ``gradient_merge_configs`` and ``localsgd`` /
+``adaptive_localsgd`` with their configs (``meta_optimizers``).
 """
 
 from __future__ import annotations

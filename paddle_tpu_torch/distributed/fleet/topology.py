@@ -8,10 +8,14 @@ sp, mp)`` coordinate in both packages. There the rank mesh is a
 ``spmd.make_mesh``'s process groups, one per axis slice, and each
 getter returns the group that holds this rank.
 
-This part of the port runs data parallelism, tensor (mp) parallelism
-and ZeRO-1 over ``dp``; a layout with ``pp_degree`` or ``sp_degree``
-above 1, or ``sharding_degree`` above 1 together with ``mp``, raises:
-the pipeline and sequence parallelism come with the second part of
+Every axis but ``sp`` runs: data parallelism, ZeRO over ``dp`` or
+``sharding`` (beside ``mp`` too), tensor (mp) parallelism and the
+pipeline over ``pp``, where a stage is a process: each rank's previous
+and next stage are the ranks that share its (dp, sharding, sp, mp)
+coordinate one pp step away (:meth:`HybridCommunicateGroup.
+get_prev_stage_rank`), and the mp collectives inside a stage run on the
+mp group of that stage's pp coordinate. A layout with ``sp_degree``
+above 1 raises: sequence parallelism comes with part 2b of
 ``distributed/``.
 """
 
@@ -111,20 +115,11 @@ class CommunicateTopology:
         return groups
 
 
-def _check_ported(dp, mp, pp, sharding, sp) -> None:
-    why = None
-    if pp > 1:
-        why = f"pp_degree={pp} (the pipeline)"
-    elif sp > 1:
-        why = f"sp_degree={sp} (sequence parallelism)"
-    elif sharding > 1 and mp > 1:
-        why = (f"sharding_degree={sharding} with mp_degree={mp} (ZeRO over "
-               "the sharding axis beside tensor parallelism)")
-    if why:
+def _check_ported(sp) -> None:
+    if sp > 1:
         raise NotImplementedError(
-            f"{why} is not ported yet: this part of distributed/ runs dp, "
-            "mp and ZeRO-1 over dp (or over sharding without mp); the "
-            "rest comes with part 2 of ROADMAP.md Queue 1 item 4")
+            f"sp_degree={sp} (sequence parallelism) is not ported yet: it "
+            "comes with part 2b of distributed/ (ROADMAP.md Queue 1)")
 
 
 class HybridCommunicateGroup:
@@ -156,8 +151,7 @@ class HybridCommunicateGroup:
                    "mp": mp_degree}
         world = env.get_world_size() if devices is None else len(devices)
         validate_topology(degrees, world)
-        _check_ported(dp_degree, mp_degree, pp_degree, sharding_degree,
-                      sp_degree)
+        _check_ported(sp_degree)
         self._topo = CommunicateTopology(_AXIS_ORDER,
                                          tuple(degrees.values()))
         self.nranks = self._topo.world_size()
@@ -213,7 +207,27 @@ class HybridCommunicateGroup:
         return self._groups["pp"]
 
     def get_p2p_groups(self):
+        """The stage handoff's channels: this rank's pp group both ways
+        (a send or receive names its peer's global rank)."""
         return (self._groups["pp"], self._groups["pp"])
+
+    def get_prev_stage_rank(self) -> Optional[int]:
+        """The global rank of the previous stage at this rank's (dp,
+        sharding, sp, mp) coordinate; None on the first stage."""
+        s = self.get_stage_id()
+        return None if s == 0 else self._groups["pp"].ranks[s - 1]
+
+    def get_next_stage_rank(self) -> Optional[int]:
+        """The global rank of the next stage; None on the last."""
+        s = self.get_stage_id()
+        ranks = self._groups["pp"].ranks
+        return None if s == len(ranks) - 1 else ranks[s + 1]
+
+    def is_first_stage(self) -> bool:
+        return self.get_stage_id() == 0
+
+    def is_last_stage(self) -> bool:
+        return self.get_stage_id() == self._pp_degree - 1
 
     # sharding (ZeRO)
     def get_sharding_parallel_rank(self) -> int:

@@ -8,9 +8,12 @@ port's wrappers lay the model on the hybrid mesh
 engines do at wrap: every parameter from the first rank of its dp group
 over dp, and each parameter that mp does not shard from the first rank
 of its mp group over mp (``TensorParallel``); every parameter over the
-sharding and dp groups (``ShardingParallel``, whose optimizer slots
-``TrainStep(zero_axis="sharding")`` shards). Ranks that built the model
-from one seed already agree; the broadcast makes any model agree.
+sharding and dp groups and each one mp does not shard over mp
+(``ShardingParallel``, whose optimizer slots
+``TrainStep(zero_axis="sharding")`` shards, beside mp too). Ranks that
+built the model from one seed already agree; the broadcast makes any
+model agree. ``PipelineParallel`` (``pipeline_parallel.py``) shares the
+base; without a topology it lays nothing out.
 
 State-dict names and ``parameters()`` are the wrapped model's.
 """
@@ -44,7 +47,8 @@ class _MetaParallelBase(nn.Module):
         self._layers = layers
         self._hcg = hcg
         self._strategy = strategy
-        apply_param_shardings(layers, hcg.mesh)
+        if hcg is not None:
+            apply_param_shardings(layers, hcg.mesh)
         self._prepare()
 
     def _prepare(self) -> None:
@@ -88,3 +92,5 @@ class ShardingParallel(_MetaParallelBase):
         hcg = self._hcg
         _broadcast(self._layers, hcg.get_sharding_parallel_group())
         _broadcast(self._layers, hcg.get_data_parallel_group())
+        _broadcast(self._layers, hcg.get_model_parallel_group(),
+                   skip_axis="mp")

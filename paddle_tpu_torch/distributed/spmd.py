@@ -161,7 +161,7 @@ def count_over_data(count: torch.Tensor) -> Tuple[torch.Tensor, int]:
 
 def data_axes(mesh: Mesh) -> Tuple[str, ...]:
     """The mesh axes the batch dim is sharded over (dp + ZeRO
-    sharding)."""
+    sharding); never ``pp``, whose stages all see the same rows."""
     return tuple(a for a in _DATA_AXES if a in mesh.axis_names)
 
 
@@ -229,17 +229,16 @@ def shard_tensor(full: torch.Tensor, layout: Dict[int, tuple],
 def gather_tensor(local: torch.Tensor, layout: Dict[int, tuple],
                   mesh: Mesh) -> torch.Tensor:
     """The full tensor from every rank's block (a collective over each
-    sharded dimension's axis group; every rank of the group calls
-    it)."""
+    sharded dimension's axis groups; every rank of the groups calls it).
+    A dimension sharded over a tuple of axes is gathered over the inner
+    axis first: its blocks are laid out with the outer axis major, as
+    :func:`mesh_slice` cuts them (the JAX ``P(("dp", "sharding"))``)."""
     from .collective import all_gather
     out = local
     for dim, axes in sorted(layout.items(), reverse=True):
-        if len(axes) != 1:
-            raise NotImplementedError(
-                f"gathering a dimension sharded over {axes} (a tuple of "
-                "axes) is not ported")
-        blocks = all_gather(out.contiguous(), group=mesh.group(axes[0]))
-        out = torch.cat(list(blocks.unbind(0)), dim)
+        for ax in reversed(axes):
+            blocks = all_gather(out.contiguous(), group=mesh.group(ax))
+            out = torch.cat(list(blocks.unbind(0)), dim)
     return out
 
 

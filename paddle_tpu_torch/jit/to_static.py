@@ -83,6 +83,23 @@ to its full host array (a collective on every rank; rank 0 writes the
 file) and cut them back on load, so the files are the single-process
 step's.
 
+Pipelines (the JAX step's pipeline detection, ``:477-516``): a model
+carrying a ``PipelineStageStack`` on a pp axis of more than one rank
+(or a ``PipelineParallel`` engine) runs each call under the collective
+watchdog as a ``pipeline_step`` on the pp group, so a stage handoff that
+hangs raises ``CollectiveTimeoutError``. The gradients of the
+parameters the stages replicate (the embeddings, the final norm) are
+summed over the pp group before the data-parallel mean, the clip sums
+the pp-sharded blocks' squares over pp, and ZeRO-1's slot dimension
+skips the pp dimension 0 of the stacked blocks (no mesh axis may
+shard it twice). Either loss style runs: ``crit(layer(ids), labels)``
+through the model's fill-drain forward, or ``layer.pretraining_loss
+(...)`` under the resolved schedule.
+
+``strategy.localsgd`` / ``adaptive_localsgd`` on the optimizer's fleet
+snapshot make ``TrainStep(...)`` a ``distributed.fleet.meta_optimizers.
+LocalSGDTrainStep`` (the JAX meta-optimizer dispatch, ``:319-364``).
+
 Not ported: capturing the step in a CUDA graph.
 """
 
@@ -126,7 +143,35 @@ def _layer_key(name: str) -> str:
     return parts[0]
 
 
+def _pipeline_group(layer: torch.nn.Module):
+    """The pp group of a pipeline the model carries (a stack on a pp
+    axis, or a ``PipelineParallel`` across stage processes), else None."""
+    from ..distributed.meta_parallel.pipeline_parallel import \
+        PipelineParallel
+    from ..distributed.meta_parallel.spmd_pipeline import PipelineStageStack
+    for m in layer.modules():
+        if isinstance(m, PipelineStageStack) and m._pp_group is not None:
+            return m._pp_group
+        if isinstance(m, PipelineParallel) and m._handoff is not None:
+            return m._handoff.group
+    return None
+
+
 class TrainStep:
+    def __new__(cls, layer=None, loss_fn=None, optimizer=None, *args,
+                **kwargs):
+        # the fleet meta-optimizer dispatch: a strategy snapshot carried
+        # by the optimizer selects the LocalSGD step (never the process's
+        # strategy: a bare optimizer always gets the plain step)
+        strat = getattr(optimizer, "_fleet_strategy", None)
+        if cls is TrainStep and strat is not None and (
+                strat.localsgd or strat.adaptive_localsgd):
+            from ..distributed.fleet.meta_optimizers import \
+                localsgd_from_strategy
+            return localsgd_from_strategy(layer, loss_fn, optimizer, strat,
+                                          args, kwargs)
+        return super().__new__(cls)
+
     def __init__(self, layer: torch.nn.Module, loss_fn: Callable,
                  optimizer, seed: int = 0, *, mesh=None, data_spec=None,
                  zero_axis: Optional[str] = None,
@@ -161,8 +206,11 @@ class TrainStep:
         self.zero_axis = zero_axis
         self._batch_base = 0
         self._data_groups = []
+        self._pp_group = None
+        self._pp_replicated = []
         if self.mesh is not None:
             self._lay_on_mesh()
+        self._pp_group = _pipeline_group(layer)
         optimizer.init_state()
         if check_numerics not in (False, True, "raise", "warn"):
             raise ValueError(f"check_numerics={check_numerics!r}: expected "
@@ -215,6 +263,13 @@ class TrainStep:
         mp_sharded = [p for p in params
                       if any("mp" in axes
                              for axes in p._dist_layout.values())]
+        pp_sharded = [p for p in params
+                      if any("pp" in axes
+                             for axes in p._dist_layout.values())]
+        pp_group = mesh.group("pp") if mesh.axis_size("pp") > 1 else None
+        if pp_group is not None:
+            self._pp_replicated = [p for p in params
+                                   if not any(p is q for q in pp_sharded)]
         zero = {}
         if self.zero_axis and mesh.axis_size(self.zero_axis) > 1:
             z = mesh.axis_size(self.zero_axis)
@@ -229,7 +284,8 @@ class TrainStep:
                     if s is None and d % z == 0 and d >= z:
                         zero[p] = (i, group)
                         break
-        self.optimizer.set_distributed(mp_group_of(mesh), mp_sharded, zero)
+        self.optimizer.set_distributed(mp_group_of(mesh), mp_sharded, zero,
+                                       pp_group, pp_sharded)
 
     def _place(self, b) -> torch.Tensor:
         if not isinstance(b, torch.Tensor):
@@ -259,21 +315,30 @@ class TrainStep:
     @torch.no_grad()
     def _sync_grads(self) -> None:
         """The update's gradients: the window's sum divided by k
-        (``grad_accum_avg``), then averaged over each data axis, all
-        the gradients of a dtype flattened into one all-reduce."""
+        (``grad_accum_avg``), the pp-replicated ones summed over the pp
+        group, then all averaged over each data axis; all the gradients
+        of a dtype flattened into one all-reduce a group."""
         grads = [p.grad for p in self.layer.parameters()
                  if p.requires_grad and p.grad is not None]
         if self.grad_accum_steps > 1 and self.grad_accum_avg:
             torch._foreach_div_(grads, float(self.grad_accum_steps))
-        if not self._data_groups:
-            return
+        if self._pp_replicated:
+            from ..distributed.collective import all_reduce
+            self._flat_reduce([p.grad for p in self._pp_replicated],
+                              lambda t: all_reduce(t, group=self.mesh.group(
+                                  "pp")))
+        if self._data_groups:
+            self._flat_reduce(grads, self._mean_over_data)
+
+    @staticmethod
+    def _flat_reduce(grads, reduce) -> None:
         from torch._utils import (_flatten_dense_tensors,
                                   _unflatten_dense_tensors)
         by_dtype: Dict[torch.dtype, list] = {}
         for g in grads:
             by_dtype.setdefault(g.dtype, []).append(g)
         for gs in by_dtype.values():
-            flat = self._mean_over_data(_flatten_dense_tensors(gs))
+            flat = reduce(_flatten_dense_tensors(gs))
             for g, r in zip(gs, _unflatten_dense_tensors(flat, gs)):
                 g.copy_(r)
 
@@ -281,7 +346,7 @@ class TrainStep:
         """One step on ``batch``; returns the float32 loss on the device
         (reading it syncs)."""
         if not _trace.enabled():
-            return self._call_impl(*batch)
+            return self._dispatch(*batch)
         tr = _trace.get_tracer().start_trace("train.step",
                                              step=self.step_count + 1)
         # the wait for this step's batch happened before the trace
@@ -294,7 +359,7 @@ class TrainStep:
                 tr.end_span(sp, t=dw[1])
         try:
             with _trace.activate(tr):
-                return self._call_impl(*batch)
+                return self._dispatch(*batch)
         except BaseException as e:
             from ..monitor.numerics import NonFiniteError
             tr.mark_anomaly(
@@ -303,6 +368,16 @@ class TrainStep:
             raise
         finally:
             _trace.get_tracer().finish_trace(tr)
+
+    def _dispatch(self, *batch) -> torch.Tensor:
+        """A pipeline's step runs under the collective watchdog as a
+        ``pipeline_step`` of its pp group (a direct call without
+        ``FLAGS_collective_timeout_s``)."""
+        if self._pp_group is None:
+            return self._call_impl(*batch)
+        from ..distributed.collective import _run_collective
+        return _run_collective("pipeline_step", self._pp_group,
+                               self._call_impl, *batch)
 
     @contextlib.contextmanager
     def _step_span(self, mon: bool):

@@ -1,6 +1,7 @@
 """Models (counterpart of ``paddle_tpu.models``): GPT for serving and
-pretraining, BERT and ERNIE for pretraining, and ``generate`` over a
-static KV cache."""
+pretraining (and over the pipeline: ``GPTForPretrainingPipe``,
+``build_gpt_pipe``), BERT and ERNIE for pretraining, and ``generate``
+over a static KV cache."""
 
 from .bert import (BertConfig, BertForMaskedLM, BertModel, bert_base,
                    bert_large, bert_tiny)
@@ -9,13 +10,15 @@ from .convert import (gather_state_dict, load_jax_weights,
 from .ernie import (ErnieConfig, ErnieForPretraining, ErnieModel,
                     ernie_base, ernie_tiny)
 from .generation import generate
-from .gpt import (GPTConfig, GPTForPretraining, GPTModel,
-                  GPTPretrainingCriterion, gpt2_large, gpt2_medium,
-                  gpt2_small, gpt2_xl, gpt_tiny, parallel_logits)
+from .gpt import (GPTConfig, GPTForPretraining, GPTForPretrainingPipe,
+                  GPTModel, GPTPretrainingCriterion, build_gpt_pipe,
+                  gpt2_large, gpt2_medium, gpt2_small, gpt2_xl,
+                  gpt_pipeline_descs, gpt_tiny, parallel_logits)
 
 __all__ = ["BertConfig", "BertForMaskedLM", "BertModel", "ErnieConfig",
            "ErnieForPretraining", "ErnieModel", "GPTConfig",
-           "GPTForPretraining", "GPTModel", "GPTPretrainingCriterion",
+           "GPTForPretraining", "GPTForPretrainingPipe", "GPTModel",
+           "GPTPretrainingCriterion", "build_gpt_pipe", "gpt_pipeline_descs",
            "bert_base", "bert_large", "bert_tiny", "ernie_base",
            "ernie_tiny", "gather_state_dict", "generate", "gpt2_large", "gpt2_medium",
            "gpt2_small", "gpt2_xl", "gpt_tiny", "load_jax_weights",

@@ -68,6 +68,18 @@ paths (paged and static caches) take no mp group.
 
 ``use_recompute`` runs each block under ``fleet.utils.recompute`` in
 training (``recompute_policy``: a JAX selective-remat policy name).
+
+The pipeline models (BASELINE config 4): :class:`GPTForPretrainingPipe`
+keeps the decoder blocks in a ``PipelineStageStack`` (``blocks.
+stacked__*``, ``[L, ...]``, sharded over ``pp``) with the embeddings,
+the final norm and the tied head replicated over ``pp`` (their
+gradients summed over the pp group by ``TrainStep``). On a pp axis the
+first stage embeds, the last applies the head; ``forward`` gives every
+stage the last stage's logits (a pp broadcast), and ``pretraining_loss``
+runs the resolved schedule with the head on the last stage a
+microbatch at a time, returning the global masked mean on every stage.
+:func:`build_gpt_pipe` is the same network as a ``PipelineParallel``
+over ``gpt_pipeline_descs`` (the tied embedding a ``SharedLayerDesc``).
 """
 
 from __future__ import annotations
@@ -82,7 +94,8 @@ from torch import nn
 
 from ..amp import cast_inputs
 from ..core.device import DeviceLike, resolve_device
-from ..core.random import dropout_generator, make_generator
+from ..core.random import (count_seed_draws, dropout_generator,
+                           make_generator, skip_seed_words)
 from ..distributed.fleet.utils.recompute import recompute
 from ..distributed.meta_parallel.parallel_layers.mp_layers import (
     MPModule, ParallelCrossEntropy, copy_to_model_parallel,
@@ -103,7 +116,8 @@ __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
            "GPTModel", "GPTForPretraining", "GPTPretrainingCriterion",
            "LayerNorm", "Dropout", "parallel_logits", "gpt_tiny",
            "gpt2_small", "gpt2_medium", "gpt2_large", "gpt2_xl",
-           "STATIC_BLOCK"]
+           "STATIC_BLOCK", "GPTForPretrainingPipe", "gpt_pipeline_descs",
+           "build_gpt_pipe"]
 
 #: positions a page when the paged-decode kernel reads a static cache:
 #: ``generate`` allocates its buffers' length in whole pages
@@ -169,6 +183,10 @@ class GPTAttention(MPModule):
         super()._on_mesh(mesh)
         # this rank's heads: H/mp of them from head mp_rank * H/mp
         self.num_heads = self.qkv_weight.shape[2]
+
+    def seed_draws(self) -> int:
+        """Seed-word pairs a no-cache call draws (the attention dropout)."""
+        return int(self.training and self.cfg.attention_dropout_prob > 0)
 
     def forward(self, x, cache=None, pos=None):
         B, S, E = x.shape
@@ -349,6 +367,24 @@ class GPTDecoderLayer(nn.Module):
         return x + self.dropout2(self.mlp(self.ln2(x)))
 
 
+def _embedding_out(module, input_ids, position_ids=None):
+    """The word and position embeddings' sum and its dropout, for
+    ``GPTModel`` and the pipeline's embedding stage; position ids start
+    at 0 when none are given."""
+    if position_ids is None:
+        position_ids = torch.arange(input_ids.shape[1],
+                                    device=input_ids.device)[None]
+    # padded prefill rows can run past the table: JAX clamps the
+    # gather silently, PyTorch would fault, so clamp explicitly
+    position_ids = position_ids.clamp(
+        max=module.cfg.max_position_embeddings - 1)
+    wte = module.word_embeddings.weight
+    x = vocab_parallel_embedding(input_ids, wte, module.mp_rank *
+                                 wte.shape[0], module.mp_group) + \
+        F.embedding(position_ids, module.position_embeddings.weight)
+    return module.embedding_dropout(x)
+
+
 class GPTModel(MPModule):
     """Embeddings + N decoder blocks + final LN. Returns hidden states."""
 
@@ -381,25 +417,12 @@ class GPTModel(MPModule):
                     "into the fixed-size KV buffers); models/generation.py "
                     "threads it automatically")
             cache_pos = int(cache_pos)
-        if position_ids is None:
-            if static:
-                start = torch.full((1, 1), cache_pos, dtype=torch.long,
-                                   device=input_ids.device)
-            elif caches is not None:
-                start = cache_pos[:, None].long()
-            else:
-                start = torch.zeros((1, 1), dtype=torch.long,
-                                    device=input_ids.device)
+        if position_ids is None and caches is not None:
+            start = torch.full((1, 1), cache_pos, dtype=torch.long,
+                               device=input_ids.device) if static \
+                else cache_pos[:, None].long()
             position_ids = start + torch.arange(S, device=input_ids.device)
-        # padded prefill rows can run past the table: JAX clamps the
-        # gather silently, PyTorch would fault, so clamp explicitly
-        position_ids = position_ids.clamp(
-            max=self.cfg.max_position_embeddings - 1)
-        wte = self.word_embeddings.weight
-        x = vocab_parallel_embedding(input_ids, wte, self.mp_rank *
-                                     wte.shape[0], self.mp_group) + \
-            F.embedding(position_ids, self.position_embeddings.weight)
-        x = self.embedding_dropout(x)
+        x = _embedding_out(self, input_ids, position_ids)
         remat = self.cfg.use_recompute and self.training and caches is None
         for i, blk in enumerate(self.layers):
             if remat:
@@ -438,17 +461,8 @@ class GPTForPretraining(nn.Module):
         self.gpt = GPTModel(cfg, dev)
         self._init_weights(make_generator(seed, dev))
 
-    @torch.no_grad()
     def _init_weights(self, g: torch.Generator) -> None:
-        # biases are built as zeros and LayerNorms as (1, 0) already
-        std = self.cfg.initializer_range
-        out_std = std / math.sqrt(2 * self.cfg.num_layers)
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("out_weight", "w_out"):
-                p.normal_(0.0, out_std, generator=g)
-            elif leaf in ("qkv_weight", "w_in") or "embeddings" in name:
-                p.normal_(0.0, std, generator=g)
+        _init_gpt_weights(self, self.cfg, g)
 
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_pos=None, generator: Optional[torch.Generator] = None):
@@ -474,6 +488,24 @@ class GPTForPretraining(nn.Module):
         from .generation import generate
         return generate(self, input_ids, max_new_tokens=max_new_tokens,
                         **kwargs)
+
+
+@torch.no_grad()
+def _init_gpt_weights(module: nn.Module, cfg: GPTConfig,
+                      g: torch.Generator) -> None:
+    """The JAX initializers in parameter order: N(0, initializer_range)
+    for matrices and embeddings, the residual-out projections scaled by
+    ``1/sqrt(2*num_layers)``; biases stay zero and LayerNorms (1, 0).
+    A stacked name (``blocks.stacked__mlp__w_out``) initializes like its
+    template's."""
+    std = cfg.initializer_range
+    out_std = std / math.sqrt(2 * cfg.num_layers)
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1].rsplit("__", 1)[-1]
+        if leaf in ("out_weight", "w_out"):
+            p.normal_(0.0, out_std, generator=g)
+        elif leaf in ("qkv_weight", "w_in") or "embeddings" in name:
+            p.normal_(0.0, std, generator=g)
 
 
 class GPTPretrainingCriterion(nn.Module):
@@ -503,6 +535,204 @@ class GPTPretrainingCriterion(nn.Module):
         if n > 1:
             num = num * n
         return num / torch.clamp(cnt, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel GPT (BASELINE config 4: GPT-2 345M over pp x mp)
+# ---------------------------------------------------------------------------
+
+class GPTForPretrainingPipe(MPModule):
+    """GPT with the decoder stack as a pipeline over the ``pp`` axis
+    (the JAX ``GPTForPretrainingPipe``, ``models/gpt.py:918``): the
+    blocks in a ``PipelineStageStack`` (``blocks.stacked__<name>``
+    ``[L, ...]``), the embeddings, final norm and tied head outside it,
+    replicated over ``pp`` and sharded over ``mp`` as in
+    ``GPTForPretraining``. Without a pp axis the stack runs its layers
+    in turn (the same parameters, the same math). Built on ``device``
+    with weights from ``seed`` (the JAX initializers)."""
+
+    def __init__(self, cfg: GPTConfig,
+                 num_microbatches: Optional[int] = None,
+                 schedule: Optional[str] = None, device: DeviceLike = None,
+                 seed: int = 0):
+        super().__init__()
+        from ..distributed.meta_parallel.spmd_pipeline import \
+            PipelineStageStack
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                            device=dev)
+        self.word_embeddings.weight.spec = P(MP, None)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_position_embeddings, cfg.hidden_size, device=dev)
+        self.embedding_dropout = Dropout(cfg.hidden_dropout_prob)
+        self.blocks = PipelineStageStack(
+            lambda: GPTDecoderLayer(cfg, dev), cfg.num_layers,
+            num_microbatches=num_microbatches, schedule=schedule)
+        self.final_norm = LayerNorm(cfg.hidden_size, dev)
+        self.ce = ParallelCrossEntropy()
+        _init_gpt_weights(self, cfg, make_generator(seed, dev))
+
+    def _pipelined(self) -> bool:
+        return self.blocks.pp_degree() > 1
+
+    def _embed(self, input_ids, position_ids=None):
+        return _embedding_out(self, input_ids, position_ids)
+
+    def _stage_input(self, input_ids, position_ids):
+        """The stack's input: the embeddings on the first stage (or
+        without a pp axis); on a later stage a ``meta`` tensor of its
+        shape and dtype, the embedding dropout's draws skipped."""
+        if not self._pipelined() or self.blocks.stage_id() == 0:
+            return self._embed(input_ids, position_ids)
+        skip_seed_words(count_seed_draws(self.embedding_dropout))
+        w = self.position_embeddings.weight
+        (probe,) = cast_inputs("embedding", w.new_empty(0))
+        B, S = input_ids.shape
+        return torch.empty((B, S, self.cfg.hidden_size), dtype=probe.dtype,
+                           device="meta")
+
+    def forward(self, input_ids, position_ids=None,
+                generator: Optional[torch.Generator] = None):
+        """Logits ``[B, S, V]`` (this rank's vocab block on an mp
+        group), on every stage."""
+        if generator is not None:
+            with dropout_generator(generator):
+                return self.forward(input_ids, position_ids)
+        x = self._stage_input(input_ids, position_ids)
+        y = self.blocks(x)
+        wte = self.word_embeddings.weight
+        if not self._pipelined():
+            return parallel_logits(self.final_norm(y), wte, self.mp_group)
+        from ..distributed.meta_parallel.spmd_pipeline import \
+            last_stage_output
+        stack = self.blocks
+        last = stack.stage_id() == stack.pp_degree() - 1
+        logits = None
+        if last:
+            logits = parallel_logits(self.final_norm(y), wte, self.mp_group)
+        a, b = cast_inputs("lm_logits", x.new_empty(0, device="cpu"),
+                           wte.new_empty(0, device="cpu"))
+        shape = tuple(x.shape[:2]) + (wte.shape[0],)
+        group = stack._pp_group
+        out = last_stage_output(logits, logits if last else y, shape,
+                                torch.promote_types(a.dtype, b.dtype),
+                                group, group.ranks[-1])
+        return mark_mp_block(out, self.mp_group)
+
+    def _head_apply(self):
+        """The loss head over explicit leaves: final LayerNorm, the tied
+        vocab-parallel logits, the masked CE -> (loss_sum, mask_sum),
+        float32 (JAX ``_head_apply``, ``:982``)."""
+        from torch.func import functional_call
+        norm, ce, group = self.final_norm, self.ce, self.mp_group
+
+        def head_apply(leaves, y, lab, msk):
+            h = functional_call(norm, {"weight": leaves[0],
+                                       "bias": leaves[1]}, (y,))
+            logits = parallel_logits(h, leaves[2], group)
+            losses = ce(logits, lab)[..., 0].float()
+            m = msk.float()
+            return torch.sum(losses * m), torch.sum(m)
+        return head_apply
+
+    def pretraining_loss(self, input_ids, labels, loss_mask=None,
+                         position_ids=None):
+        """Embeddings -> ``PipelineStageStack.train_loss`` (the resolved
+        schedule; the head on the last stage a microbatch at a time) ->
+        the masked mean over the global batch: the sum of the
+        microbatches' ``(loss_sum, mask_sum)``, the mask counted over the
+        data ranks, divided once. The same scalar on every stage."""
+        x = self._stage_input(input_ids, position_ids)
+        if loss_mask is None:
+            loss_mask = torch.ones(tuple(labels.shape), dtype=torch.float32,
+                                   device=labels.device)
+        head = [self.final_norm.weight, self.final_norm.bias,
+                self.word_embeddings.weight]
+        ls, dn = self.blocks.train_loss(x, self._head_apply(), head,
+                                        [labels, loss_mask])
+        cnt, n = count_over_data(dn.detach())
+        if n > 1:
+            ls = ls * n
+        return ls / torch.clamp(cnt, min=1.0)
+
+
+class _GPTEmbeddingStage(MPModule):
+    """Embedding front of the pipeline: ids -> hidden states (its word
+    table is the tied head's, through a ``SharedLayerDesc``)."""
+
+    def __init__(self, cfg: GPTConfig, device: DeviceLike = None,
+                 seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                            device=dev)
+        self.word_embeddings.weight.spec = P(MP, None)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_position_embeddings, cfg.hidden_size, device=dev)
+        self.embedding_dropout = Dropout(cfg.hidden_dropout_prob)
+        _init_gpt_weights(self, cfg, make_generator(seed, dev))
+
+    def forward(self, input_ids):
+        return _embedding_out(self, input_ids, None)
+
+
+def gpt_pipeline_descs(cfg: GPTConfig, device: DeviceLike = None,
+                       seed: int = 0):
+    """Layer descriptions for ``PipelineLayer``: embedding | N blocks |
+    final norm | tied head (the embedding table shared between the
+    first and last stage)."""
+    from ..distributed.meta_parallel.parallel_layers.pp_layers import (
+        LayerDesc, SharedLayerDesc)
+    dev = resolve_device(device)
+
+    def embed_fwd(shared, ids):
+        return shared(ids)
+
+    def head_fwd(shared, hidden):
+        # tied LM head: project onto the first stage's embedding table
+        return parallel_logits(hidden, shared.word_embeddings.weight,
+                               shared.mp_group)
+
+    descs = [SharedLayerDesc("gpt_embed", _GPTEmbeddingStage,
+                             forward_func=embed_fwd, cfg=cfg, device=dev,
+                             seed=seed)]
+    descs += [LayerDesc(GPTDecoderLayer, cfg, dev)
+              for _ in range(cfg.num_layers)]
+    descs.append(LayerDesc(LayerNorm, cfg.hidden_size, dev))
+    descs.append(SharedLayerDesc("gpt_embed", _GPTEmbeddingStage,
+                                 forward_func=head_fwd, cfg=cfg, device=dev,
+                                 seed=seed))
+    return descs
+
+
+def build_gpt_pipe(cfg: GPTConfig, num_stages: int, accumulate_steps: int = 1,
+                   seg_method: str = "uniform", device: DeviceLike = None,
+                   seed: int = 0):
+    """GPT as a ``PipelineParallel`` engine over ``gpt_pipeline_descs``
+    (pp outer, the mp layers inside each desc). Under a fleet topology
+    of ``num_stages`` pp stages each rank builds its own stage; the
+    decoder blocks draw their weights from ``seed`` and the shared
+    embedding is its first stage's."""
+    from ..distributed.meta_parallel.parallel_layers.pp_layers import (
+        PipelineLayer)
+    from ..distributed.meta_parallel.pipeline_parallel import (
+        PipelineParallel)
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(logits, labels):
+        return crit(logits, labels)
+
+    pl_layer = PipelineLayer(gpt_pipeline_descs(cfg, device, seed),
+                             num_stages=num_stages, loss_fn=loss_fn,
+                             seg_method=seg_method)
+    g = make_generator(seed + 1, resolve_device(device))
+    for name, sub in pl_layer.named_children():
+        for m in sub.children():
+            if isinstance(m, GPTDecoderLayer):
+                _init_gpt_weights(m, cfg, g)
+    return PipelineParallel(pl_layer, accumulate_steps=accumulate_steps)
 
 
 def gpt_tiny(**kw) -> GPTConfig:

@@ -72,5 +72,9 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = float(p)
 
+    def seed_draws(self) -> int:
+        """Seed-word pairs a call draws (``core.random.count_seed_draws``)."""
+        return int(self.training and 0.0 < self.p < 1.0)
+
     def forward(self, x):
         return F.dropout(x, self.p, training=self.training)

@@ -6,7 +6,8 @@ before its rule (``grad_clip=``). On an mp mesh the optimizer names the
 gradients that mp shards (``mp_sharded``): their squares are summed over
 the mp group, and a replicated gradient (the layer norms, ``out_bias``,
 ``b_out``, the position embeddings) is counted once, so the norm is the
-unsharded model's.
+unsharded model's. Under a pipeline the blocks that pp shards
+(``pp_sharded``) are summed over the pp group the same way.
 """
 
 from __future__ import annotations
@@ -23,24 +24,30 @@ class ClipGradByGlobalNorm:
         self.clip_norm = float(clip_norm)
 
     def global_norm(self, grads: Dict, mp_sharded=(),
-                    mp_group=None) -> torch.Tensor:
-        """The float32 L2 norm of every gradient together; the squares of
-        the ``mp_sharded`` keys summed over ``mp_group``."""
-        if mp_group is None:
-            sq = sum(torch.sum(torch.square(g.float()))
-                     for g in grads.values())
-            return torch.sqrt(sq)
+                    mp_group=None, pp_sharded=(),
+                    pp_group=None) -> torch.Tensor:
+        """The float32 L2 norm of every gradient together: four partial
+        sums of squares by (mp-sharded, pp-sharded); the mp-sharded pair
+        summed over ``mp_group``, then the pp-sharded sum over
+        ``pp_group``. Without a group its sums stay the rank's own."""
         from ..distributed.collective import all_reduce
         dev = next(iter(grads.values())).device
-        sq_sh = torch.zeros((), dtype=torch.float32, device=dev) + sum(
-            torch.sum(torch.square(g.float()))
-            for k, g in grads.items() if k in mp_sharded)
-        sq_rep = sum(torch.sum(torch.square(g.float()))
-                     for k, g in grads.items() if k not in mp_sharded)
-        return torch.sqrt(all_reduce(sq_sh, group=mp_group) + sq_rep)
+        acc = torch.zeros(4, dtype=torch.float32, device=dev)
+        for k, g in grads.items():
+            i = 2 * (k in mp_sharded) + (k in pp_sharded)
+            acc[i] += torch.sum(torch.square(g.float()))
+        mp_part = acc[2:].clone()
+        if mp_group is not None:
+            all_reduce(mp_part, group=mp_group)
+        pp_part = (acc[1] + mp_part[1]).reshape(1)
+        if pp_group is not None:
+            all_reduce(pp_part, group=pp_group)
+        return torch.sqrt(acc[0] + mp_part[0] + pp_part[0])
 
-    def __call__(self, grads: Dict, mp_sharded=(), mp_group=None) -> Dict:
-        gnorm = self.global_norm(grads, mp_sharded, mp_group)
+    def __call__(self, grads: Dict, mp_sharded=(), mp_group=None,
+                 pp_sharded=(), pp_group=None) -> Dict:
+        gnorm = self.global_norm(grads, mp_sharded, mp_group, pp_sharded,
+                                 pp_group)
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         return {k: (g * scale).to(g.dtype) for k, g in grads.items()}

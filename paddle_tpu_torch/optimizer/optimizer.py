@@ -13,7 +13,8 @@ host-to-device copies and no syncs.
 
 Distributed (``TrainStep`` on a mesh sets it, :meth:`set_distributed`):
 the gradient clip sums the squares of mp-sharded gradients over the mp
-group and counts a replicated gradient once; under ZeRO-1 a parameter's
+group (and of pp-sharded ones over the pp group) and counts a
+replicated gradient once; under ZeRO-1 a parameter's
 slots hold only the rank's block of its first free dimension that the
 ZeRO axis divides (``TrainStep._slot_spec``'s rule), the rule updates
 that block of the parameter, and one ``all_gather`` a step (every
@@ -47,6 +48,8 @@ class Optimizer:
         self._zero: Dict[int, tuple] = {}
         self._mp_sharded: set = set()
         self._mp_group = None
+        self._pp_sharded: set = set()
+        self._pp_group = None
 
     # -- learning rate -------------------------------------------------------
     def get_lr(self) -> float:
@@ -64,12 +67,16 @@ class Optimizer:
         raise NotImplementedError
 
     # -- distributed ---------------------------------------------------------
-    def set_distributed(self, mp_group=None, mp_sharded=(), zero=None):
+    def set_distributed(self, mp_group=None, mp_sharded=(), zero=None,
+                        pp_group=None, pp_sharded=()):
         """Lay the optimizer on a mesh: ``mp_sharded`` the parameters
-        mp shards (by object), ``zero`` ``{param: (dim, group)}`` the
-        ZeRO-1 layout. Before :meth:`init_state`."""
+        mp shards (by object), ``pp_sharded`` those pp shards, ``zero``
+        ``{param: (dim, group)}`` the ZeRO-1 layout. Before
+        :meth:`init_state`."""
         self._mp_group = mp_group
         self._mp_sharded = {id(p) for p in mp_sharded}
+        self._pp_group = pp_group
+        self._pp_sharded = {id(p) for p in pp_sharded}
         self._zero = {id(p): dz for p, dz in (zero or {}).items()}
 
     def zero_block(self, p: torch.Tensor, t: torch.Tensor = None):
@@ -133,13 +140,13 @@ class Optimizer:
             else int(step)
         grads = {i: p.grad for i, p in enumerate(live)}
         if self._grad_clip is not None:
-            if self._mp_group is not None:
-                grads = self._grad_clip(
-                    grads, mp_sharded={i for i, p in enumerate(live)
-                                       if id(p) in self._mp_sharded},
-                    mp_group=self._mp_group)
-            else:
-                grads = self._grad_clip(grads)
+            grads = self._grad_clip(
+                grads, mp_sharded={i for i, p in enumerate(live)
+                                   if id(p) in self._mp_sharded},
+                mp_group=self._mp_group,
+                pp_sharded={i for i, p in enumerate(live)
+                            if id(p) in self._pp_sharded},
+                pp_group=self._pp_group)
         lr = float(torch.tensor(self.get_lr(), dtype=torch.float32))
         for i, p in enumerate(live):
             g = grads[i] + self._l2 * p if self._l2 else grads[i]

@@ -166,7 +166,7 @@ def test_validate_topology_and_unported_layouts():
     with pytest.raises(MeshTopologyError, match="does not factor"):
         validate_topology({"dp": 3}, 4)
     with pytest.raises(NotImplementedError, match="part 2"):
-        HybridCommunicateGroup(pp_degree=2, devices=[0, 1])
+        HybridCommunicateGroup(sp_degree=2, devices=[0, 1])
 
 
 def test_data_parallel_averages_and_no_sync_defers(world):

@@ -9,8 +9,10 @@ the DataLoader-fed BERT-base training path), ``fleet`` phase 20
 (``generate`` and beam search over static caches, the fleet router with
 fleet monitoring and a kill drill, weight pushes under load),
 ``distributed`` phase 21 (the kernels' dropout base offsets, NCCL at
-world size 1, a four-rank gloo world's parity and timed runs). Exits
-non-zero if a check fails.
+world size 1, a four-rank gloo world's parity and timed runs over dp x
+mp, then the pipeline's: the point-to-point probe, the f32 pipeline
+parity at pp x mp and pp = 4 under both schedules, BASELINE config 4 at
+pp = 2 x mp = 2). Exits non-zero if a check fails.
 """
 
 import os
