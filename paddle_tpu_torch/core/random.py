@@ -28,6 +28,12 @@ only. A pipeline stage positions its layers' draws in the
 single-process call order: :func:`count_seed_draws` counts a module's
 draws a call, :func:`advance_dropout_state` moves a saved state past
 some draws, and :func:`skip_seed_words` moves the active generator.
+
+A sequence-parallel rank holds positions ``s0 .. s0 + S/sp - 1`` of
+each row of a ``[B, S, ...]`` stream; inside :func:`sequence_shard`
+(which keeps the active generator and batch base) the dropouts hash
+those positions' absolute index (:func:`dropout_sequence_shard`), so
+the rank draws its shard of the single-process masks too.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from .device import DeviceLike, resolve_device
 __all__ = ["make_generator", "seed_words", "dropout_generator",
            "next_seed_words", "dropout_batch_base", "dropout_state",
            "replay_dropout_state", "count_seed_draws",
-           "advance_dropout_state", "skip_seed_words"]
+           "advance_dropout_state", "skip_seed_words", "sequence_shard",
+           "dropout_sequence_shard"]
 
 _SCOPE = threading.local()
 
@@ -70,12 +77,39 @@ def dropout_generator(generator: torch.Generator,
                       batch_base: int = 0) -> Iterator[None]:
     """Dropout inside this block draws its seed words from ``generator``;
     its tensors are batch rows ``batch_base..`` of a larger batch."""
+    with _pushed((generator, int(batch_base), None)):
+        yield
+
+
+@contextlib.contextmanager
+def _pushed(entry) -> Iterator[None]:
     stack = _SCOPE.__dict__.setdefault("stack", [])
-    stack.append((generator, int(batch_base)))
+    stack.append(entry)
     try:
         yield
     finally:
         stack.pop()
+
+
+@contextlib.contextmanager
+def sequence_shard(start: int, total: int) -> Iterator[None]:
+    """Dropout inside this block takes dim 1 of its tensors as positions
+    ``start ..`` of a sequence of ``total`` (a sequence-parallel rank's
+    shard), with the active generator and batch base; outside any
+    :func:`dropout_generator` it does nothing."""
+    top = _top()
+    if top is None:
+        yield
+        return
+    with _pushed((top[0], top[1], (int(start), int(total)))):
+        yield
+
+
+def dropout_sequence_shard():
+    """``(start, total)`` of the active :func:`sequence_shard`, or
+    None."""
+    top = _top()
+    return top[2] if top is not None else None
 
 
 def _top():
@@ -91,12 +125,13 @@ def dropout_batch_base() -> int:
 
 
 def dropout_state():
-    """The active generator's state and batch base, or None outside a
-    :func:`dropout_generator` (what :func:`replay_dropout_state` takes)."""
+    """The active generator's state, batch base and sequence shard, or
+    None outside a :func:`dropout_generator` (what
+    :func:`replay_dropout_state` takes)."""
     top = _top()
     if top is None:
         return None
-    return top[0].get_state(), top[1]
+    return top[0].get_state(), top[1], top[2]
 
 
 @contextlib.contextmanager
@@ -109,7 +144,7 @@ def replay_dropout_state(state) -> Iterator[None]:
         return
     g = torch.Generator(device="cpu")
     g.set_state(state[0])
-    with dropout_generator(g, state[1]):
+    with _pushed((g, state[1], state[2] if len(state) > 2 else None)):
         yield
 
 
@@ -135,15 +170,15 @@ def count_seed_draws(module) -> int:
 
 
 def advance_dropout_state(state, n: int):
-    """:func:`dropout_state`'s ``(generator state, batch base)`` after
-    ``n`` more draws of seed words (None stays None)."""
+    """:func:`dropout_state`'s tuple after ``n`` more draws of seed
+    words (None stays None)."""
     if state is None or n == 0:
         return state
     g = torch.Generator(device="cpu")
     g.set_state(state[0])
     for _ in range(n):
         seed_words(g)
-    return g.get_state(), state[1]
+    return (g.get_state(),) + tuple(state[1:])
 
 
 def skip_seed_words(n: int) -> None:

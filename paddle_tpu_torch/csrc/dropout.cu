@@ -19,6 +19,12 @@
 // 16 bytes per load and store (4 f32 or 8 bf16 elements) in a grid-stride
 // loop, with a scalar path for a misaligned pointer and the ragged tail.
 //
+// A slice of a larger tensor draws that tensor's mask: the flat index of
+// element i is base + i, or, for a block of rows (a sequence shard
+// [B, S/sp, E] of a [B, S, E] tensor), base + (i / row_len) * row_stride
+// + i % row_len. The row form is its own instantiation, so a whole
+// tensor's launch runs the code it ran before.
+//
 // Plain C interface, bound from Python with ctypes; returns
 // cudaGetLastError() after the launch.
 
@@ -53,10 +59,20 @@ __device__ __forceinline__ T drop_one(T x, long long i, uint32_t seed,
   return keep ? from_f32<T>(to_f32(x) * inv) : from_f32<T>(0.f);
 }
 
-template <typename T>
+// the hashed index of element i (see the header)
+template <bool ROWS>
+__device__ __forceinline__ long long hashed_index(long long i, long long idx0,
+                                                  long long row_len,
+                                                  long long row_stride) {
+  if (!ROWS) return i + idx0;
+  return idx0 + (i / row_len) * row_stride + i % row_len;
+}
+
+template <typename T, bool ROWS>
 __global__ void __launch_bounds__(THREADS)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-                   uint32_t seed, uint32_t thr, float inv, long long idx0) {
+                   uint32_t seed, uint32_t thr, float inv, long long idx0,
+                   long long row_len, long long row_stride) {
   constexpr int VEC = 16 / sizeof(T);
   const long long stride = (long long)gridDim.x * THREADS * VEC;
   const bool aligned =
@@ -69,18 +85,23 @@ __global__ void __launch_bounds__(THREADS)
       *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(x + base);
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        v[e] = drop_one(v[e], base + e + idx0, seed, thr, inv);
+        v[e] = drop_one(
+            v[e], hashed_index<ROWS>(base + e, idx0, row_len, row_stride),
+            seed, thr, inv);
       *reinterpret_cast<uint4*>(y + base) = *reinterpret_cast<uint4*>(v);
     } else {
       for (long long i = base; i < n && i < base + VEC; ++i)
-        y[i] = drop_one(x[i], i + idx0, seed, thr, inv);
+        y[i] = drop_one(x[i],
+                        hashed_index<ROWS>(i, idx0, row_len, row_stride),
+                        seed, thr, inv);
     }
   }
 }
 
 template <typename T>
 int launch(const void* x, void* y, long long n, uint32_t seed, uint32_t thr,
-           float inv, long long base, cudaStream_t stream) {
+           float inv, long long base, long long row_len,
+           long long row_stride, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const long long per_block = (long long)THREADS * VEC;
   // enough blocks to fill the card several times over; the grid-stride
@@ -88,8 +109,16 @@ int launch(const void* x, void* y, long long n, uint32_t seed, uint32_t thr,
   long long blocks = (n + per_block - 1) / per_block;
   if (blocks > 132 * 32) blocks = 132 * 32;
   if (blocks < 1) blocks = 1;
-  dropout_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, seed, thr, inv, base);
+  if (row_len > 0 && row_len < n)
+    dropout_kernel<T, true>
+        <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<T*>(y), n, seed, thr, inv,
+            base, row_len, row_stride);
+  else
+    dropout_kernel<T, false>
+        <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<T*>(y), n, seed, thr, inv,
+            base, 0, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -99,13 +128,18 @@ int launch(const void* x, void* y, long long n, uint32_t seed, uint32_t thr,
 // thr = keep_threshold(rate), inv = 1/(1-rate) rounded to x's dtype,
 // base the flat index of x's first element in a larger tensor (0 for a
 // whole one): element i hashes index base + i, so a slice draws the
-// whole tensor's mask.
+// whole tensor's mask. row_len > 0 (and below n) takes x as rows of
+// row_len elements that lie row_stride apart in that tensor.
 extern "C" int fused_dropout(const void* x, void* y, long long n,
                              unsigned int seed, unsigned int thr, float inv,
-                             long long base, int dtype, void* stream) {
+                             long long base, long long row_len,
+                             long long row_stride, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, n, seed, thr, inv, base, st);
+  if (dtype == 0)
+    return launch<float>(x, y, n, seed, thr, inv, base, row_len, row_stride,
+                         st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, n, seed, thr, inv, base, st);
+    return launch<__nv_bfloat16>(x, y, n, seed, thr, inv, base, row_len,
+                                 row_stride, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

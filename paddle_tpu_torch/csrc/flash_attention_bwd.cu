@@ -204,14 +204,22 @@ __device__ __forceinline__ void microtile(const float* a, const float* b,
 // bh enters a kernel as the launch's base term, b0 * 0xAC564B05 +
 // h0 * 19349663 for a launch over batch rows b0.. and heads h0.. of a
 // larger tensor (0 for a whole one); each block adds its own (b, h), so
-// the hash sees the absolute coordinates (b0 + b, h0 + h)
+// the hash sees the absolute coordinates (b0 + b, h0 + h). row0 and col0
+// are the absolute index of the launch's first query row and key column
+// (a sequence shard, a ring attention's K/V block; 0 for a whole one).
+// Only the unbiased kernels (row 3) take them: keep<false>, the biased
+// kernels' (rows 4 and 5), compiles without the two adds.
 struct Dropout {
   int on;
   uint32_t thr, seed, bh;
   float keep_scale;
+  uint32_t row0, col0;
+  template <bool BASES>
   __device__ __forceinline__ float keep(int row, int col) const {
     if (!on) return 1.f;
-    return attention_keep(row, col, bh, seed, thr) ? keep_scale : 0.f;
+    const uint32_t r = BASES ? (uint32_t)row + row0 : (uint32_t)row;
+    const uint32_t c = BASES ? (uint32_t)col + col0 : (uint32_t)col;
+    return attention_keep(r, c, bh, seed, thr) ? keep_scale : 0.f;
   }
 };
 
@@ -238,7 +246,7 @@ __device__ __forceinline__ void probs_and_ds(
       const float x = BIAS ? s[i][j] * scale + bias_s[tx + 16 * j]
                            : s[i][j] * scale;
       const float p = visible ? expf(x - lse_s[r]) : 0.f;
-      const float keep = drop.keep(row, col);
+      const float keep = drop.keep<!BIAS>(row, col);
       const float dsr = p * (dp[i][j] * keep - delta_s[r]);
       s[i][j] = p * keep;   // pv
       dp[i][j] = dsr * scale;  // ds
@@ -713,7 +721,7 @@ __global__ void __launch_bounds__(TC_THREADS)
         const bool visible =
             !edge || (qrow < Sq && key < Sk && (!causal || qrow + off >= key));
         const float p = visible ? expf(x - l) : 0.f;
-        const float keep = drop.keep(qrow, key);
+        const float keep = drop.keep<!BIAS>(qrow, key);
         const float dsr = p * (dpt[j][e] * keep - delta_s[c]);
         st[j][e] = p * keep;      // pv
         dpt[j][e] = dsr * scale;  // ds
@@ -902,7 +910,7 @@ __global__ void __launch_bounds__(TC_THREADS)
         const bool visible =
             !edge || (qrow < Sq && key < Sk && (!causal || qrow + off >= key));
         const float p = visible ? expf(x - l_r[rr]) : 0.f;
-        const float keep = drop.keep(qrow, key);
+        const float keep = drop.keep<!BIAS>(qrow, key);
         sc[j][e] = p * (dp[j][e] * keep - d_r[rr]) * scale;  // ds
       }
 
@@ -1068,7 +1076,8 @@ int variant(int dtype, int D) {
 // contiguous; lse [B, H, Sq] f32; delta is [B, H, Sq] f32 scratch.
 // dropout != 0 regenerates the forward's mask: threshold thr, seed =
 // s0 ^ (s1 << 1), keep_scale = 1/(1-rate) in f32, bh_base the hash's
-// batch and head base (see Dropout; 0 for a whole tensor).
+// batch and head base, row_base and col_base its first query row and key
+// column (see Dropout; 0 for a whole tensor).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dout,
@@ -1077,9 +1086,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int causal, float scale, int dropout,
                                    unsigned int thr, unsigned int seed,
                                    float keep_scale, unsigned int bh_base,
-                                   int dtype, void* stream) {
+                                   unsigned int row_base,
+                                   unsigned int col_base, int dtype,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{dropout, thr, seed, bh_base, keep_scale};
+  const Dropout drop{dropout,    thr,      seed,    bh_base,
+                     keep_scale, row_base, col_base};
 #define FLASH_BWD_ARGS \
   q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, causal, scale, \
       drop, st
@@ -1094,15 +1106,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 }
 
 // dq of the biased forward (flash_attention_bias_fwd): the arguments of
-// flash_attention_bwd without the delta scratch, plus bias [B, Sk] f32.
+// flash_attention_bwd without the delta scratch and the row and column
+// bases, plus bias [B, Sk] f32.
 extern "C" int flash_attention_bias_bwd_dq(
     const void* q, const void* k, const void* v, const void* bias,
     const void* o, const void* lse, const void* dout, void* dq, int B,
     int Sq, int Sk, int H, int D, int causal, float scale, int dropout,
-    unsigned int thr, unsigned int seed, float keep_scale, int dtype,
-    void* stream) {
+    unsigned int thr, unsigned int seed, float keep_scale,
+    unsigned int bh_base, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{dropout, thr, seed, 0u, keep_scale};
+  const Dropout drop{dropout, thr, seed, bh_base, keep_scale, 0u, 0u};
 #define FLASH_DQ_ARGS \
   q, k, v, bias, o, lse, nullptr, dout, dq, B, Sq, Sk, H, causal, scale, \
       drop, st
@@ -1123,9 +1136,9 @@ extern "C" int flash_attention_bias_bwd_dkv(
     const void* o, const void* lse, const void* dout, void* dk, void* dv,
     void* db_h, void* db, int B, int Sq, int Sk, int H, int D, int causal,
     float scale, int dropout, unsigned int thr, unsigned int seed,
-    float keep_scale, int dtype, void* stream) {
+    float keep_scale, unsigned int bh_base, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{dropout, thr, seed, 0u, keep_scale};
+  const Dropout drop{dropout, thr, seed, bh_base, keep_scale, 0u, 0u};
 #define FLASH_DKV_ARGS \
   q, k, v, bias, o, lse, nullptr, dout, dk, dv, db_h, B, Sq, Sk, H, causal, \
       scale, drop, st

@@ -175,7 +175,8 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? TC_MIN_BLOCKS_64 : 1)
                         const float* __restrict__ bias, bf16* __restrict__ o,
                         float* __restrict__ lse, int Sq, int Sk, int H,
                         int causal, float scale, int dropout, uint32_t thr,
-                        uint32_t seed, float keep_scale, uint32_t bh_base) {
+                        uint32_t seed, float keep_scale, uint32_t bh_base,
+                        uint32_t row_base, uint32_t col_base) {
   constexpr int LD = tc_ld<D>();
   constexpr int NK = TC_BK / 8;  // n8 tiles across a key tile
   constexpr int ND = D / 8;      // n8 tiles across D
@@ -231,11 +232,15 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? TC_MIN_BLOCKS_64 : 1)
   // is fmix32(row_h ^ col * 0x85EBCA6B) >= thr
   const uint32_t bh =
       (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u + bh_base;
+  // the row and column bases are row 1's; the biased kernel (row 2)
+  // compiles without them
+  const uint32_t row0 = BIAS ? 0u : row_base, col0 = BIAS ? 0u : col_base;
   uint32_t row_h[2];
   float m_r[2], shl_r[2], l_r[2];  // running max, its exp2 shift, lane's l
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    row_h[rr] = (uint32_t)(qr + 8 * rr) * 0x9E3779B1u ^ bh ^ seed;
+    row_h[rr] =
+        ((uint32_t)(qr + 8 * rr) + row0) * 0x9E3779B1u ^ bh ^ seed;
     m_r[rr] = NEG_INF;
     shl_r[rr] = 0.f;
     l_r[rr] = 0.f;
@@ -332,7 +337,7 @@ __global__ void __launch_bounds__(TC_THREADS, D == 64 ? TC_MIN_BLOCKS_64 : 1)
       for (int j = 0; j < NK; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const uint32_t col = k0 + j * 8 + 2 * t + (e & 1);
+          const uint32_t col = k0 + j * 8 + 2 * t + (e & 1) + col0;
           sc[j][e] *= fmix32(row_h[e >> 1] ^ col * 0x85EBCA6Bu) >= thr
                           ? keep_scale
                           : 0.f;
@@ -389,7 +394,8 @@ template <int D, bool BIAS>
 int launch_tc(const void* q, const void* k, const void* v, const void* bias,
               void* o, void* lse, int B, int Sq, int Sk, int H, int causal,
               float scale, int dropout, uint32_t thr, uint32_t seed,
-              float keep_scale, uint32_t bh_base, cudaStream_t stream) {
+              float keep_scale, uint32_t bh_base, uint32_t row_base,
+              uint32_t col_base, cudaStream_t stream) {
   constexpr int bytes = fwd_tc_smem_bytes<D, BIAS>();
   cudaFuncSetAttribute(flash_fwd_tc_kernel<D, BIAS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -398,7 +404,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
       static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Sk, H, causal,
-      scale, dropout, thr, seed, keep_scale, bh_base);
+      scale, dropout, thr, seed, keep_scale, bh_base, row_base, col_base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -469,7 +475,8 @@ __global__ void __launch_bounds__(TC_THREADS,
                          float* __restrict__ o, float* __restrict__ lse,
                          int Sq, int Sk, int H, int causal, float scale,
                          int dropout, uint32_t thr, uint32_t seed,
-                         float keep_scale, uint32_t bh_base) {
+                         float keep_scale, uint32_t bh_base,
+                         uint32_t row_base, uint32_t col_base) {
   constexpr int LD = f32_ld<D>();
   constexpr int BK = F32_BK;
   constexpr int NK = BK / 8;  // n8 tiles across a key tile (Q K^T)
@@ -529,11 +536,15 @@ __global__ void __launch_bounds__(TC_THREADS,
   // is fmix32(row_h ^ col * 0x85EBCA6B) >= thr
   const uint32_t bh =
       (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u + bh_base;
+  // the row and column bases are row 1's; the biased kernel (row 2)
+  // compiles without them
+  const uint32_t row0 = BIAS ? 0u : row_base, col0 = BIAS ? 0u : col_base;
   uint32_t row_h[2];
   float m_r[2], shl_r[2], l_r[2];  // running max, its exp2 shift, lane's l
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    row_h[rr] = (uint32_t)(qr + 8 * rr) * 0x9E3779B1u ^ bh ^ seed;
+    row_h[rr] =
+        ((uint32_t)(qr + 8 * rr) + row0) * 0x9E3779B1u ^ bh ^ seed;
     m_r[rr] = NEG_INF;
     shl_r[rr] = 0.f;
     l_r[rr] = 0.f;
@@ -632,7 +643,7 @@ __global__ void __launch_bounds__(TC_THREADS,
       for (int j = 0; j < NK; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const uint32_t col = k0 + j * 8 + 2 * t + (e & 1);
+          const uint32_t col = k0 + j * 8 + 2 * t + (e & 1) + col0;
           sc[j][e] *= fmix32(row_h[e >> 1] ^ col * 0x85EBCA6Bu) >= thr
                           ? keep_scale
                           : 0.f;
@@ -689,7 +700,8 @@ template <int D, bool BIAS>
 int launch_f32(const void* q, const void* k, const void* v, const void* bias,
                void* o, void* lse, int B, int Sq, int Sk, int H, int causal,
                float scale, int dropout, uint32_t thr, uint32_t seed,
-               float keep_scale, uint32_t bh_base, cudaStream_t stream) {
+               float keep_scale, uint32_t bh_base, uint32_t row_base,
+               uint32_t col_base, cudaStream_t stream) {
   constexpr int bytes = fwd_f32_smem_bytes<D, BIAS>();
   cudaFuncSetAttribute(flash_fwd_f32_kernel<D, BIAS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -698,7 +710,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, causal,
-      scale, dropout, thr, seed, keep_scale, bh_base);
+      scale, dropout, thr, seed, keep_scale, bh_base, row_base, col_base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -706,11 +718,12 @@ template <bool BIAS>
 int run(const void* q, const void* k, const void* v, const void* bias,
         void* o, void* lse, int B, int Sq, int Sk, int H, int D, int causal,
         float scale, int dropout, uint32_t thr, uint32_t seed,
-        float keep_scale, uint32_t bh_base, int dtype, void* stream) {
+        float keep_scale, uint32_t bh_base, uint32_t row_base,
+        uint32_t col_base, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_FWD_ARGS \
   q, k, v, bias, o, lse, B, Sq, Sk, H, causal, scale, dropout, thr, seed, \
-      keep_scale, bh_base, st
+      keep_scale, bh_base, row_base, col_base, st
   if (dtype == 0 && D == 64) return launch_f32<64, BIAS>(FLASH_FWD_ARGS);
   if (dtype == 0 && D == 128) return launch_f32<128, BIAS>(FLASH_FWD_ARGS);
   if (dtype == 1 && D == 64) return launch_tc<64, BIAS>(FLASH_FWD_ARGS);
@@ -725,29 +738,36 @@ int run(const void* q, const void* k, const void* v, const void* bias,
 // with threshold thr (keep_threshold(rate)), seed = s0 ^ (s1 << 1) and
 // keep_scale = 1/(1-rate) in f32. bh_base is the hash's batch and head
 // base, b0 * 0xAC564B05 + h0 * 19349663 for a launch over batch rows
-// b0.. and heads h0.. of a larger tensor (0 for a whole one), so a slice
-// draws the whole tensor's mask.
+// b0.. and heads h0.. of a larger tensor (0 for a whole one); row_base
+// and col_base are the absolute index of the launch's first query row
+// and first key column (a sequence shard, a ring attention's K/V block).
+// So a slice draws the whole tensor's mask. The causal mask stays the
+// launch's own (bottom-right aligned within Sq x Sk).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int Sq, int Sk, int H, int D, int causal,
                                    float scale, int dropout, unsigned int thr,
                                    unsigned int seed, float keep_scale,
-                                   unsigned int bh_base, int dtype,
+                                   unsigned int bh_base, unsigned int row_base,
+                                   unsigned int col_base, int dtype,
                                    void* stream) {
   return run<false>(q, k, v, nullptr, o, lse, B, Sq, Sk, H, D, causal, scale,
-                    dropout, thr, seed, keep_scale, bh_base, dtype, stream);
+                    dropout, thr, seed, keep_scale, bh_base, row_base,
+                    col_base, dtype, stream);
 }
 
 // The same with bias [B, Sk] f32 contiguous added to every query row's
-// scores of batch row b.
+// scores of batch row b; bh_base as above.
 extern "C" int flash_attention_bias_fwd(const void* q, const void* k,
                                         const void* v, const void* bias,
                                         void* o, void* lse, int B, int Sq,
                                         int Sk, int H, int D, int causal,
                                         float scale, int dropout,
                                         unsigned int thr, unsigned int seed,
-                                        float keep_scale, int dtype,
+                                        float keep_scale,
+                                        unsigned int bh_base, int dtype,
                                         void* stream) {
   return run<true>(q, k, v, bias, o, lse, B, Sq, Sk, H, D, causal, scale,
-                   dropout, thr, seed, keep_scale, 0u, dtype, stream);
+                   dropout, thr, seed, keep_scale, bh_base, 0u, 0u, dtype,
+                   stream);
 }

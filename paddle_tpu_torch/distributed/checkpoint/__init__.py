@@ -1,4 +1,4 @@
-"""Atomically committed checkpoints on one process.
+"""Atomically committed, sharded, asynchronous checkpoints.
 
 Counterpart of ``paddle_tpu/distributed/checkpoint/__init__.py``'s
 commit protocol (CheckFreq-style, docs/FAULT_TOLERANCE.md): every save
@@ -17,13 +17,36 @@ The manifest is the JAX package's: the same ``format``, keys and leaf
 paths (``jax.tree_util.keystr`` strings such as ``['params']['w']`` or
 ``[0]``, built here without JAX), so either package's
 ``verify_checkpoint`` and ``read_manifest`` read the other's
-directories. The leaf data is the port's own: one pickle of the state in
-``framework/io.py``'s format (tensors as numpy arrays), ``STATE_NAME``.
+directories. The leaf data is the port's own: pickles in
+``framework/io.py``'s format (tensors as numpy arrays).
 
-Saves complete synchronously: ``save(..., asynchronous=True)`` returns
-once the checkpoint is committed and :func:`wait` is a no-op. Async
-saves, the ``CheckpointManager``, sharded state and resharding on load
-(``load(target=...)``) are not ported.
+- **Single process**: one file, ``STATE_NAME``, holds the whole state.
+- **Sharded** (a state whose array leaves include :class:`Shard`, as
+  :func:`save_train_step` builds on a mesh; every rank of the world
+  calls :func:`save` together): each rank writes the blocks it owns to
+  ``shard_rank<r>.pdstate`` -- a block is written by the one rank at
+  coordinate 0 of every mesh axis the leaf is not sharded over, never
+  by its replicas -- and rank 0 writes the rest of the tree to
+  ``STATE_NAME``. The manifest records each sharded leaf's global shape
+  and its spec (the mesh axes of each dimension). Rank 0 commits once
+  every rank's files are down (the ranks agree over the world group).
+- **Asynchronous** (``asynchronous=True``): the call returns once the
+  state is snapshotted to host memory; a background thread writes the
+  files, and the commit runs at :func:`wait` or at the next save, where
+  a failure of the writer (on any rank) re-raises as
+  :class:`CheckpointError` and the staging directory goes. This is
+  the default of every save, as in the JAX package;
+  ``asynchronous=False`` commits before it returns.
+
+:func:`load` assembles the whole state from the blocks, and
+``load(target=...)`` cuts each leaf into the layout the target declares
+(:class:`Layout`: a mesh and a ``{dim: axes}`` block, a ZeRO dimension),
+which may be another factorisation or one process;
+:func:`load_train_step` hands the whole state to the step's own
+``set_state_dict``, which cuts it into the step's layout, whatever
+layout saved it. The ``CheckpointManager`` and
+``PreemptionSignal`` (``manager.py``) drive interval saves, SIGTERM and
+resume.
 """
 
 from __future__ import annotations
@@ -33,6 +56,7 @@ import json
 import logging
 import os
 import shutil
+import threading
 import time
 import zlib
 from typing import Any, Dict, List, Optional
@@ -45,8 +69,10 @@ from ...framework.io import save as _fsave
 
 __all__ = ["save", "load", "wait", "save_train_step", "load_train_step",
            "latest_step", "checkpoint_steps", "verify_checkpoint",
-           "read_manifest", "CheckpointError", "MANIFEST_NAME",
-           "STAGING_SUFFIX", "STATE_NAME"]
+           "read_manifest", "CheckpointError", "Checkpointer", "Shard",
+           "Layout", "CheckpointManager", "PreemptionSignal",
+           "MANAGER_STATE_NAME", "MANIFEST_NAME", "STAGING_SUFFIX",
+           "STATE_NAME"]
 
 logger = logging.getLogger("paddle_tpu_torch.checkpoint")
 
@@ -54,16 +80,47 @@ MANIFEST_NAME = "paddle_tpu_manifest.json"
 STAGING_SUFFIX = ".tmp"
 REPLACED_SUFFIX = ".old"    # the replaced checkpoint, parked for the
                             # two renames of a same-path re-commit
-#: the one data file of a port checkpoint: the state's leaves
+#: the data file of a port checkpoint: the state's leaves (in a
+#: sharded checkpoint the tree without its sharded leaves)
 STATE_NAME = "state.pdstate"
-
-_NO_TARGET = ("load(target=...) restores into a declared layout "
-              "(resharding), which this port does not have yet: it "
-              "comes with async saves and the CheckpointManager")
+#: a rank's blocks of the sharded leaves
+SHARD_NAME = "shard_rank{}.pdstate"
 
 
 class CheckpointError(RuntimeError):
     """A checkpoint save failed or a restore target failed verification."""
+
+
+class Shard:
+    """A rank's block of a sharded array leaf: ``block`` (this rank's
+    tensor), the leaf's global ``shape``, the block's ``starts`` (its
+    offset in each dimension), ``spec`` (per dimension the list of mesh
+    axes it is split over, or None) and ``owner`` (this rank writes it:
+    the other ranks hold replicas of the same block)."""
+
+    def __init__(self, block: torch.Tensor, shape, starts, spec,
+                 owner: bool):
+        self.block = block
+        self.shape = tuple(int(d) for d in shape)
+        self.starts = tuple(int(s) for s in starts)
+        self.spec = spec
+        self.owner = bool(owner)
+
+
+class Layout:
+    """Where a leaf goes on :func:`load`: this rank's block of the whole
+    by ``layout`` (``{dim: axes}`` over ``mesh``, as
+    ``spmd.shard_tensor`` cuts it), then narrowed over ``zero`` (a ZeRO
+    ``(dim, group)``), as ``dtype`` (None: the saved one)."""
+
+    def __init__(self, layout=None, mesh=None, zero=None, dtype=None):
+        self.layout, self.mesh, self.zero, self.dtype = \
+            dict(layout or {}), mesh, zero, dtype
+
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
+        from ..spmd import cut_block
+        t = cut_block(full, self.layout, self.mesh, self.zero)
+        return t if self.dtype is None else t.to(self.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -98,11 +155,16 @@ def _dtype_name(leaf) -> str:
 
 
 def _leaf_manifest(state) -> Dict[str, dict]:
-    """Tree path -> {shape, dtype} for every array leaf; scalars and
-    strings are recorded by type."""
+    """Tree path -> {shape, dtype} for every array leaf (a :class:`Shard`
+    with its global shape and its spec); scalars and strings are
+    recorded by type."""
     leaves = {}
     for key, leaf in _leaf_paths(state):
-        if hasattr(leaf, "shape") and hasattr(leaf, "dtype"):
+        if isinstance(leaf, Shard):
+            leaves[key] = {"shape": list(leaf.shape),
+                           "dtype": _dtype_name(leaf.block),
+                           "spec": leaf.spec}
+        elif hasattr(leaf, "shape") and hasattr(leaf, "dtype"):
             leaves[key] = {"shape": list(leaf.shape),
                            "dtype": _dtype_name(leaf)}
         else:
@@ -292,36 +354,216 @@ def read_manifest(path: str) -> Optional[dict]:
 # save / load
 # ---------------------------------------------------------------------------
 
+def _host(t):
+    """A host copy of a tensor (the async snapshot); anything else as
+    it is."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", copy=True)
+    return t
+
+
+def _split(state):
+    """``(tree, blocks)``: the tree with every :class:`Shard` replaced
+    by a reference to its path (tensors copied to the host), and this
+    rank's owned blocks ``{path: (starts, host tensor)}``."""
+    blocks = {}
+
+    def walk(tree, path):
+        if isinstance(tree, Shard):
+            if tree.owner:
+                blocks[path] = (tree.starts, _host(tree.block))
+            return _ShardRef(path)
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(walk(getattr(tree, n), f"{path}.{n}")
+                                for n in tree._fields))
+        if isinstance(tree, dict):
+            return type(tree)((k, walk(v, f"{path}[{k!r}]"))
+                              for k, v in tree.items())
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{path}[{i}]")
+                              for i, v in enumerate(tree))
+        return _host(tree)
+    return walk(state, ""), blocks
+
+
+class _ShardRef:
+    """The place of a sharded leaf in the saved tree: its path."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __reduce__(self):
+        return (_ShardRef, (self.path,))
+
+
+def _has_shards(tree) -> bool:
+    return any(isinstance(leaf, Shard) for _, leaf in _leaf_paths(tree))
+
+
+def _world():
+    """``(rank, nranks)`` of the world a sharded save spans."""
+    from .. import env
+    return env.get_rank(), env.get_world_size()
+
+
+def _agree(ok: bool) -> bool:
+    """True when every rank of the world says ``ok`` (a sharded save's
+    vote before and after the commit)."""
+    from ..collective import all_gather_object
+    votes: List = []
+    all_gather_object(votes, bool(ok))
+    return all(votes)
+
+
+def _write(tmp: str, tree, blocks, rank: int, sharded: bool) -> None:
+    """This rank's files of a save into ``tmp``, fsync'd."""
+    if rank == 0:
+        p = os.path.join(tmp, STATE_NAME)
+        _fsave(tree, p)
+        _fsync_file(p)
+    if sharded:
+        p = os.path.join(tmp, SHARD_NAME.format(rank))
+        _fsave(blocks, p)
+        _fsync_file(p)
+
+
+class _Pending:
+    """An async save between its snapshot and its commit."""
+
+    def __init__(self, tmp, final, leaves, extra_files, step, sharded):
+        self.tmp, self.final, self.leaves = tmp, final, leaves
+        self.extra_files, self.step, self.sharded = extra_files, step, \
+            sharded
+        self.thread = None
+        self.error: Optional[BaseException] = None
+
+
+class Checkpointer:
+    """The process's checkpoint writer: at most one async save awaits
+    its commit (a new save or :meth:`wait` finalizes it first, re-raising
+    its failure)."""
+
+    _instance: Optional["Checkpointer"] = None
+
+    def __init__(self):
+        self._pending: Optional[_Pending] = None
+
+    @classmethod
+    def instance(cls) -> "Checkpointer":
+        if cls._instance is None:
+            cls._instance = cls()
+        return cls._instance
+
+    def save(self, path: str, state, asynchronous: bool = True,
+             extra_files: Optional[Dict[str, str]] = None,
+             step: Optional[int] = None) -> None:
+        if self._pending is not None:
+            self.wait()
+        path = os.path.abspath(path)
+        tmp = path + STAGING_SUFFIX
+        sharded = _has_shards(state)
+        rank = _world()[0] if sharded else 0
+        leaves = _leaf_manifest(state)
+        tree, blocks = _split(state)
+        ok, err = True, None
+        if rank == 0:
+            try:
+                if os.path.isdir(tmp):
+                    shutil.rmtree(tmp)      # an orphan of a killed process
+                os.makedirs(tmp)
+            except OSError as e:
+                ok, err = False, e
+        if sharded and not _agree(ok):
+            raise CheckpointError(
+                f"checkpoint save failed: {path}: rank 0 could not stage "
+                f"{tmp} ({err!r})")
+        if not ok:
+            raise CheckpointError(f"checkpoint save failed: {path}: "
+                                  f"{err!r}") from err
+        pend = _Pending(tmp, path, leaves, extra_files, step, sharded)
+        if not asynchronous:
+            try:
+                _write(tmp, tree, blocks, rank, sharded)
+            except Exception as e:
+                pend.error = e
+            self._finish(pend)
+            return
+
+        def writer():
+            try:
+                _write(tmp, tree, blocks, rank, sharded)
+            except BaseException as e:      # re-raised at wait()
+                pend.error = e
+        pend.thread = threading.Thread(target=writer, daemon=True,
+                                       name="ptpu-ckpt-writer")
+        pend.thread.start()
+        self._pending = pend
+
+    def pending_ready(self) -> bool:
+        """True when the pending async save has finished writing, so
+        :meth:`wait` commits without blocking on the files."""
+        p = self._pending
+        return p is not None and not p.thread.is_alive()
+
+    def pending_path(self) -> Optional[str]:
+        """The staging directory of the pending async save, or None."""
+        return None if self._pending is None else self._pending.tmp
+
+    def wait(self) -> None:
+        """Block until the pending async save is written and committed;
+        re-raises a failure of its writer (on any rank) or its commit."""
+        pend, self._pending = self._pending, None
+        if pend is None:
+            return
+        pend.thread.join()
+        self._finish(pend)
+
+    def _finish(self, pend: _Pending) -> None:
+        """Commit a written save (rank 0, once every rank's files are
+        down), or remove it and raise."""
+        rank = _world()[0] if pend.sharded else 0
+        ok = pend.error is None
+        if pend.sharded:
+            ok = _agree(ok)
+        if ok and rank == 0:
+            try:
+                _commit(pend.tmp, pend.final, pend.leaves, pend.extra_files,
+                        pend.step)
+            except Exception as e:
+                pend.error, ok = e, False
+        if pend.sharded:
+            ok = _agree(ok)
+        if ok:
+            return
+        if rank == 0:
+            shutil.rmtree(pend.tmp, ignore_errors=True)
+        why = repr(pend.error) if pend.error is not None \
+            else "failed on another rank"
+        raise CheckpointError(
+            f"checkpoint save failed: {pend.final}: {why} (staging dir "
+            "removed; the previous committed checkpoint is intact)"
+        ) from pend.error
+
+
 def save(state: Dict[str, Any], path: str, asynchronous: bool = True,
          extra_files: Optional[Dict[str, str]] = None,
          step: Optional[int] = None) -> None:
     """Commit ``state`` (nested dicts, lists and tuples of tensors,
-    arrays and scalars) as a checkpoint directory at ``path``.
-
-    The save is synchronous whatever ``asynchronous`` says: the
-    checkpoint is durable and committed when the call returns, and
-    :func:`wait` has nothing to wait for. ``extra_files`` (name -> text)
-    are committed inside the directory and covered by the manifest."""
-    path = os.path.abspath(path)
-    tmp = path + STAGING_SUFFIX
-    if os.path.isdir(tmp):
-        shutil.rmtree(tmp)          # an orphan of a killed process
-    os.makedirs(tmp)
-    try:
-        leaves = _leaf_manifest(state)
-        state_path = os.path.join(tmp, STATE_NAME)
-        _fsave(state, state_path)
-        _fsync_file(state_path)
-        _commit(tmp, path, leaves, extra_files, step)
-    except Exception as e:
-        shutil.rmtree(tmp, ignore_errors=True)
-        raise CheckpointError(
-            f"checkpoint save failed: {path}: {e!r} (staging dir "
-            "removed; the previous committed checkpoint is intact)") from e
+    arrays, :class:`Shard` blocks and scalars) as a checkpoint directory
+    at ``path``. By default (``asynchronous=True``) the call returns once
+    the state is on the host and commits at :func:`wait` or the next
+    save; ``asynchronous=False`` commits before it returns. A state with
+    :class:`Shard` leaves is a sharded save: every rank calls it.
+    ``extra_files`` (name -> text) are committed inside the directory
+    and covered by the manifest."""
+    Checkpointer.instance().save(path, state, asynchronous,
+                                 extra_files=extra_files, step=step)
 
 
 def wait() -> None:
-    """A no-op: every :func:`save` commits before it returns."""
+    """Block until the pending async save is durable and committed;
+    re-raises its failure."""
+    Checkpointer.instance().wait()
 
 
 def _tensors(tree):
@@ -335,13 +577,62 @@ def _tensors(tree):
     return tree
 
 
+_NP_DTYPES = {"bfloat16": torch.bfloat16}
+
+
+def _assemble(path: str, tree, leaves: Dict[str, dict]):
+    """The whole state of a sharded checkpoint: every rank's blocks put
+    in place of the tree's references."""
+    full = {}
+    for name in sorted(os.listdir(path)):
+        if not (name.startswith("shard_rank") and name.endswith(".pdstate")):
+            continue
+        for key, (starts, block) in _fload(os.path.join(path, name)).items():
+            block = torch.as_tensor(block)
+            if key not in full:
+                meta = leaves[key]
+                full[key] = torch.empty(meta["shape"], dtype=block.dtype)
+            dst = full[key]
+            for d, (s, n) in enumerate(zip(starts, block.shape)):
+                dst = dst.narrow(d, s, n)
+            dst.copy_(block)
+
+    def fill(t):
+        if isinstance(t, _ShardRef):
+            if t.path not in full:
+                raise CheckpointError(f"{path}: no rank wrote {t.path}")
+            return full[t.path]
+        if isinstance(t, dict):
+            return {k: fill(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(fill(v) for v in t)
+        return t
+    return fill(tree)
+
+
+def _retarget(state, target):
+    """Each leaf of ``state`` in the form the matching leaf of
+    ``target`` declares: a :class:`Layout` cuts it, a tensor gives its
+    dtype; anything else (or no match) keeps the saved leaf."""
+    if isinstance(target, Layout) and isinstance(state, torch.Tensor):
+        return target.cut(state)
+    if isinstance(target, torch.Tensor) and isinstance(state, torch.Tensor):
+        return state.to(target.dtype)
+    if isinstance(state, dict) and isinstance(target, dict):
+        return {k: _retarget(v, target.get(k)) for k, v in state.items()}
+    if isinstance(state, (list, tuple)) and isinstance(target,
+                                                        (list, tuple)):
+        return type(state)(_retarget(v, t) for v, t in zip(state, target))
+    return state
+
+
 def load(path: str, target=None):
     """Restore a checkpoint the port committed, its arrays as CPU
-    tensors. Verification (``FLAGS_checkpoint_verify``) runs first: an
-    uncommitted or torn directory raises :class:`CheckpointError`.
-    ``target=`` raises ``NotImplementedError`` (no resharding here)."""
-    if target is not None:
-        raise NotImplementedError(_NO_TARGET)
+    tensors (a sharded one assembled whole). Verification
+    (``FLAGS_checkpoint_verify``) runs first: an uncommitted or torn
+    directory raises :class:`CheckpointError`. ``target`` (a tree like
+    the state's, :class:`Layout` or tensor leaves) reshards each leaf
+    into the layout it declares."""
     path = os.path.abspath(path)
     reason = verify_checkpoint(path)
     if reason is not None:
@@ -354,9 +645,13 @@ def load(path: str, target=None):
         raise CheckpointError(
             f"{path} holds no {STATE_NAME}: not a checkpoint this "
             "package wrote")
-    return _tensors(_fload(state_path))
-
-
+    state = _fload(state_path)
+    manifest = read_manifest(path) or {}
+    leaves = manifest.get("leaves", {})
+    if any("spec" in v for v in leaves.values()):
+        state = _assemble(path, state, leaves)
+    state = _tensors(state)
+    return state if target is None else _retarget(state, target)
 def checkpoint_steps(root: str) -> List[int]:
     """Committed ``step_<N>`` directory numbers under ``root``
     (ascending; staging ``.tmp`` directories excluded, validity not
@@ -407,16 +702,54 @@ def _listify(tree):
     return tree
 
 
+def _leaf_layouts(step):
+    """name -> ``(param, zero)`` for every parameter and optimizer slot
+    of a step on a mesh (``zero``: the slot's ZeRO ``(dim, group)``)."""
+    out = {k: (p, None) for k, p in step.layer.named_parameters()}
+    out.update(step._slot_layouts())
+    return out
+
+
+def _shard(step, t: torch.Tensor, p, zero):
+    """The :class:`Shard` of ``t``, a block of ``p``'s full shape under
+    its mesh layout (and ``zero``), on ``step``'s mesh."""
+    from ..spmd import mesh_slice
+    mesh = step.mesh
+    full = tuple(p._full_shape)
+    spec, starts, used = [None] * len(full), [0] * len(full), set()
+    for d, axes in p._dist_layout.items():
+        spec[d] = list(axes)
+        starts[d] = mesh_slice(mesh, axes, full[d])[0]
+        used.update(axes)
+    if zero is not None:
+        d, group = zero
+        spec[d] = [step.zero_axis]
+        starts[d] = group.rank * (full[d] // group.nranks)
+        used.add(step.zero_axis)
+    owner = all(mesh.axis_rank(a) == 0 for a in mesh.axis_names
+                if a not in used)
+    return Shard(t, full, starts, spec, owner)
+
+
 def _train_state(step) -> Dict[str, Any]:
     layer = step.layer
     params, frozen = {}, {}
     for k, p in layer.named_parameters():
         (params if p.requires_grad else frozen)[k] = p.detach()
+    opt = step.optimizer.state_dict()
+    if step.mesh is not None:
+        lay = _leaf_layouts(step)
+
+        def sharded(d):
+            return {k: _shard(step, v, *lay[k]) if k in lay and
+                    isinstance(v, torch.Tensor) and v.dim() else v
+                    for k, v in d.items()}
+        params, frozen, opt = sharded(params), sharded(frozen), sharded(opt)
     return {
         "params": params,
         "frozen": frozen,
         "buffers": {k: b.detach() for k, b in layer.named_buffers()},
-        "opt_state": step.optimizer.state_dict(),
+        "opt_state": opt,
         "step_count": int(step.step_count),
         "rng_state": step.generator.get_state(),
         "lr": float(step.optimizer.get_lr()),
@@ -427,44 +760,44 @@ def save_train_step(step, path: str, asynchronous: bool = True,
                     extra_files: Optional[Dict[str, str]] = None) -> None:
     """Commit a ``jit.TrainStep``'s whole training state: parameters
     (trainable and frozen), buffers, optimizer slots, step count, the
-    step's dropout generator state and the learning rate. Synchronous
-    (see :func:`save`)."""
+    step's dropout generator state and the learning rate. On a mesh a
+    sharded save (every rank calls it; each writes the blocks it owns).
+    Asynchronous unless ``asynchronous=False`` (see :func:`save`)."""
     save(_listify(_train_state(step)), path, asynchronous=asynchronous,
          extra_files=extra_files, step=int(step.step_count))
 
 
 @torch.no_grad()
 def load_train_step(step, path: str):
-    """Restore a checkpoint of :func:`save_train_step` into ``step``:
-    every tensor is copied in place into the step's own parameters,
-    buffers and slots, so the next steps are bit-equal to an
-    uninterrupted run's. The names and shapes must match."""
+    """Restore a checkpoint of :func:`save_train_step` into ``step``,
+    whatever layout saved it (another factorisation of the mesh, or one
+    process): the whole state goes to the step's own
+    ``set_state_dict``, which cuts it into the step's layout and copies
+    it in place, so a same-layout resume continues bit-equal to an
+    uninterrupted run. The names must match."""
     state = load(path)
     layer = step.layer
-    params = dict(layer.named_parameters())
+    want = layer.state_dict()
     saved = dict(state["params"], **state["frozen"])
-    if sorted(saved) != sorted(params):
+    saved.update({k: b for k, b in state["buffers"].items() if k in want})
+    if sorted(saved) != sorted(want):
         raise CheckpointError(
-            f"{path}: parameters {sorted(set(saved) ^ set(params))[:5]} "
-            "are not in both the checkpoint and the step")
-    buffers = dict(layer.named_buffers())
-    if sorted(state["buffers"]) != sorted(buffers):
-        raise CheckpointError(
-            f"{path}: buffers "
-            f"{sorted(set(state['buffers']) ^ set(buffers))[:5]} are not "
-            "in both the checkpoint and the step")
-    for name, t in list(saved.items()) + list(state["buffers"].items()):
-        dst = params[name] if name in params else buffers[name]
-        if tuple(dst.shape) != tuple(t.shape):
-            raise CheckpointError(
-                f"{path}: {name} is {tuple(t.shape)}, the step's "
-                f"{tuple(dst.shape)}")
+            f"{path}: parameters or buffers "
+            f"{sorted(set(saved) ^ set(want))[:5]} are not in both the "
+            "checkpoint and the step")
+    full = {k: tuple(getattr(p, "_full_shape", p.shape))
+            for k, p in layer.named_parameters()}
     for name, t in saved.items():
-        params[name].copy_(t)
-    for name, t in state["buffers"].items():
-        buffers[name].copy_(t)
-    step.optimizer.set_state_dict(state["opt_state"])
-    step.optimizer.set_lr(float(state["lr"]))
-    step.step_count = int(state["step_count"])
-    step.generator.set_state(state["rng_state"])
+        shape = full.get(name, tuple(want[name].shape))
+        if tuple(t.shape) != tuple(shape):
+            raise CheckpointError(
+                f"{path}: {name} is {tuple(t.shape)}, the step's {shape}")
+    step.set_state_dict({"params": saved, "opt_state": state["opt_state"],
+                         "lr": state["lr"],
+                         "step_count": state["step_count"],
+                         "rng_state": state["rng_state"]})
     return step
+
+
+from .manager import (MANAGER_STATE_NAME, CheckpointManager,  # noqa: E402
+                      PreemptionSignal)

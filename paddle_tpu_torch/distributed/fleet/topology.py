@@ -8,15 +8,15 @@ sp, mp)`` coordinate in both packages. There the rank mesh is a
 ``spmd.make_mesh``'s process groups, one per axis slice, and each
 getter returns the group that holds this rank.
 
-Every axis but ``sp`` runs: data parallelism, ZeRO over ``dp`` or
-``sharding`` (beside ``mp`` too), tensor (mp) parallelism and the
-pipeline over ``pp``, where a stage is a process: each rank's previous
-and next stage are the ranks that share its (dp, sharding, sp, mp)
-coordinate one pp step away (:meth:`HybridCommunicateGroup.
-get_prev_stage_rank`), and the mp collectives inside a stage run on the
-mp group of that stage's pp coordinate. A layout with ``sp_degree``
-above 1 raises: sequence parallelism comes with part 2b of
-``distributed/``.
+Every axis runs: data parallelism, ZeRO over ``dp`` or ``sharding``
+(beside ``mp`` too), tensor (mp) parallelism, the pipeline over ``pp``,
+where a stage is a process: each rank's previous and next stage are the
+ranks that share its (dp, sharding, sp, mp) coordinate one pp step away
+(:meth:`HybridCommunicateGroup.get_prev_stage_rank`), and the mp
+collectives inside a stage run on the mp group of that stage's pp
+coordinate; and sequence parallelism over ``sp``
+(:meth:`HybridCommunicateGroup.get_sequence_parallel_group`, the group
+``ops.ring_attention`` and a ``sequence_parallel`` GPT run over).
 """
 
 from __future__ import annotations
@@ -115,13 +115,6 @@ class CommunicateTopology:
         return groups
 
 
-def _check_ported(sp) -> None:
-    if sp > 1:
-        raise NotImplementedError(
-            f"sp_degree={sp} (sequence parallelism) is not ported yet: it "
-            "comes with part 2b of distributed/ (ROADMAP.md Queue 1)")
-
-
 class HybridCommunicateGroup:
     """The hybrid mesh over the world and one group per axis.
 
@@ -151,7 +144,6 @@ class HybridCommunicateGroup:
                    "mp": mp_degree}
         world = env.get_world_size() if devices is None else len(devices)
         validate_topology(degrees, world)
-        _check_ported(sp_degree)
         self._topo = CommunicateTopology(_AXIS_ORDER,
                                          tuple(degrees.values()))
         self.nranks = self._topo.world_size()

@@ -5,15 +5,12 @@ mp_layers.py``. The JAX layers hold the full logical parameter with a
 ``PartitionSpec`` and GSPMD inserts the collectives; the port's layers
 hold the same full parameter with the same ``.spec`` until
 ``spmd.apply_param_shardings`` cuts it to the rank's block, then insert
-the collectives themselves, as Megatron-LM writes them, through two
-autograd pairs over the mp group:
-
-- :func:`copy_to_model_parallel`: the identity forward, an all-reduce
-  of the gradient in the backward (the input of a column-parallel
-  product, whose every rank's share of the gradient sums to it);
-- :func:`reduce_from_model_parallel`: an all-reduce forward, the
-  identity backward (after a row-parallel product, a vocab-sharded
-  lookup).
+the collectives themselves, as Megatron-LM writes them, through the
+autograd pairs over the mp group of ``distributed.mp_ops`` (re-exported
+here; the encoder layers of ``nn.layers`` import them from there):
+:func:`copy_to_model_parallel` before a column-parallel product,
+:func:`reduce_from_model_parallel` after a row-parallel product or a
+vocab-sharded lookup.
 
 Without a mesh, or with an mp axis of one rank, every layer is its dense
 counterpart and no collective runs.
@@ -50,6 +47,11 @@ from torch import nn
 
 from ....nn import functional as F
 from ... import env
+from ...mp_ops import (MP_AXIS, MPModule, copy_to_model_parallel,
+                       gather_from_model_parallel, mark_mp_block,
+                       mp_block_group, mp_group_of, parallel_cross_entropy,
+                       reduce_from_model_parallel,
+                       scatter_to_model_parallel)
 from ...spmd import P, apply_param_shardings
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
@@ -57,100 +59,7 @@ __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "copy_to_model_parallel", "reduce_from_model_parallel",
            "vocab_parallel_embedding", "parallel_cross_entropy",
            "token_cross_entropy", "mp_group_of", "MPModule",
-           "mark_mp_block", "mp_block_group"]
-
-MP_AXIS = "mp"
-
-
-def mp_group_of(mesh=None):
-    """The mp group of ``mesh`` (default: the active mesh) when its mp
-    axis has more than one rank, else None."""
-    mesh = mesh if mesh is not None else env.get_mesh()
-    if mesh is None or mesh.axis_size(MP_AXIS) <= 1:
-        return None
-    return mesh.group(MP_AXIS)
-
-
-def mark_mp_block(t: torch.Tensor, group) -> torch.Tensor:
-    """Mark ``t`` as this rank's block of its last dimension over
-    ``group`` (None: nothing to mark); returns ``t``."""
-    if group is not None:
-        t._mp_block_group = group
-    return t
-
-
-def mp_block_group(t: torch.Tensor):
-    """The group :func:`mark_mp_block` gave ``t``, else None."""
-    return getattr(t, "_mp_block_group", None)
-
-
-def _sum(t, group):
-    from ...collective import all_reduce
-    return all_reduce(t, group=group)
-
-
-class _CopyToModelParallel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _sum(g.contiguous().clone(), ctx.group), None
-
-
-class _ReduceFromModelParallel(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        return _sum(x.contiguous().clone(), group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherFromModelParallel(torch.autograd.Function):
-    """All-gather the last dimension forward; the rank's slice of the
-    gradient backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        from ...collective import all_gather
-        ctx.group, ctx.n = group, x.shape[-1]
-        blocks = all_gather(x.contiguous(), group=group)
-        return torch.cat(list(blocks.unbind(0)), -1)
-
-    @staticmethod
-    def backward(ctx, g):
-        r = ctx.group.rank
-        return g[..., r * ctx.n:(r + 1) * ctx.n].contiguous(), None
-
-
-class _ScatterToModelParallel(torch.autograd.Function):
-    """The rank's slice of the last dimension forward; an all-gather of
-    the gradient backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        n = x.shape[-1] // group.nranks
-        r = group.rank
-        return x[..., r * n:(r + 1) * n].contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        from ...collective import all_gather
-        blocks = all_gather(g.contiguous(), group=ctx.group)
-        return torch.cat(list(blocks.unbind(0)), -1), None
-
-
-def copy_to_model_parallel(x, group):
-    return x if group is None else _CopyToModelParallel.apply(x, group)
-
-
-def reduce_from_model_parallel(x, group):
-    return x if group is None else _ReduceFromModelParallel.apply(x, group)
+           "mark_mp_block", "mp_block_group", "scatter_to_model_parallel"]
 
 
 def vocab_parallel_embedding(ids, weight, v0: int, group):
@@ -164,41 +73,6 @@ def vocab_parallel_embedding(ids, weight, v0: int, group):
     out = F.embedding(local, weight)
     out = out.masked_fill(outside[..., None], 0.0)
     return reduce_from_model_parallel(out, group)
-
-
-class _VocabParallelCE(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, logits, ids, group, v0):
-        from ...collective import ReduceOp, all_reduce
-        lg = logits.float()
-        m = lg.max(-1).values
-        all_reduce(m, ReduceOp.MAX, group)
-        z = lg - m[..., None]
-        e = torch.exp(z)
-        s = e.sum(-1)
-        all_reduce(s, group=group)
-        outside = (ids < v0) | (ids >= v0 + lg.shape[-1])
-        local = torch.where(outside, 0, ids - v0)
-        tgt = z.gather(-1, local[..., None])[..., 0].masked_fill(outside, 0.0)
-        all_reduce(tgt, group=group)
-        ctx.save_for_backward(e, s, local, outside)
-        ctx.dtype = logits.dtype
-        return torch.log(s) - tgt
-
-    @staticmethod
-    def backward(ctx, g):
-        e, s, local, outside = ctx.saved_tensors
-        grad = e / s[..., None]
-        onehot = torch.zeros_like(grad).scatter_(
-            -1, local[..., None], (~outside).float()[..., None])
-        grad = (grad - onehot) * g[..., None]
-        return grad.to(ctx.dtype), None, None, None
-
-
-def parallel_cross_entropy(logits, ids, group, v0: int):
-    """Per-token loss ``lse - tgt`` (float32) over a rank's vocab block
-    ``[..., V/mp]`` starting at class ``v0``."""
-    return _VocabParallelCE.apply(logits, ids.long(), group, int(v0))
 
 
 def token_cross_entropy(logits, ids):
@@ -216,18 +90,6 @@ def token_cross_entropy(logits, ids):
 def _device(device):
     from ....core.device import resolve_device
     return resolve_device(device)
-
-
-class MPModule(nn.Module):
-    """A module that learns its mp group (None without one) and rank
-    from ``spmd.apply_param_shardings`` (``_on_mesh``)."""
-
-    mp_group = None
-    mp_rank = 0
-
-    def _on_mesh(self, mesh) -> None:
-        self.mp_group = mp_group_of(mesh)
-        self.mp_rank = mesh.axis_rank(MP_AXIS) if self.mp_group else 0
 
 
 class VocabParallelEmbedding(MPModule):
@@ -287,7 +149,7 @@ class ColumnParallelLinear(MPModule):
         y = F.linear(copy_to_model_parallel(x, self.mp_group), self.weight,
                      self.bias)
         if self.gather_output and self.mp_group is not None:
-            return _GatherFromModelParallel.apply(y, self.mp_group)
+            return gather_from_model_parallel(y, self.mp_group)
         return mark_mp_block(y, self.mp_group)
 
 
@@ -317,7 +179,7 @@ class RowParallelLinear(MPModule):
 
     def forward(self, x):
         if self.mp_group is not None and not self.input_is_parallel:
-            x = _ScatterToModelParallel.apply(x, self.mp_group)
+            x = scatter_to_model_parallel(x, self.mp_group)
         y = reduce_from_model_parallel(F.linear(x, self.weight), self.mp_group)
         return y if self.bias is None else y + self.bias
 

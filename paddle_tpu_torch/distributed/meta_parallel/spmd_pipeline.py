@@ -279,7 +279,7 @@ class _Run:
     def dropout_scope(self, m: int):
         st = self.state
         if st is not None:
-            st = (st[0], st[1] + m * self.mb)
+            st = (st[0], st[1] + m * self.mb) + tuple(st[2:])
         return _random.replay_dropout_state(st)
 
     def stage_input(self, m: int):

@@ -37,9 +37,9 @@ from . import env
 
 __all__ = ["P", "PartitionSpec", "Mesh", "make_mesh", "current_mesh",
            "data_axes", "degrade_spec", "apply_param_shardings",
-           "apply_hybrid_specs", "shard_layout", "shard_tensor",
+           "apply_hybrid_specs", "shard_layout", "shard_tensor", "cut_block",
            "gather_tensor", "mesh_slice", "loss_average_groups",
-           "count_over_data"]
+           "loss_sum_groups", "count_over_data"]
 
 _DATA_AXES = ("dp", "sharding")
 
@@ -126,29 +126,40 @@ _LOSS_SCOPE = threading.local()
 
 
 @contextlib.contextmanager
-def loss_average_groups(groups: Sequence) -> Iterator[None]:
+def loss_average_groups(groups: Sequence,
+                        sum_groups: Sequence = ()) -> Iterator[None]:
     """The loss computed inside this block is averaged over ``groups``
     once it returns (a data-parallel ``TrainStep``'s data axes, each
-    rank holding an equal block of the global batch): a criterion that
-    divides by a count of its own positions (a masked mean) takes that
-    count over every rank (:func:`count_over_data`), so the average is
-    the global batch's mean, as the JAX mesh step computes it over the
-    whole array."""
+    rank holding an equal block of the global batch) and summed over
+    ``sum_groups`` (the sp group of a sequence-parallel step, each rank
+    holding a shard of every row): a criterion that divides by a count
+    of its own positions (a masked mean) takes that count over every
+    rank (:func:`count_over_data`), so the result is the global batch's
+    mean, as the JAX mesh step computes it over the whole array."""
     stack = _LOSS_SCOPE.__dict__.setdefault("stack", [])
-    stack.append(tuple(groups))
+    stack.append((tuple(groups), tuple(sum_groups)))
     try:
         yield
     finally:
         stack.pop()
 
 
-def count_over_data(count: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """``count`` (taken over this rank's rows) summed over the active
-    :func:`loss_average_groups`, and the number of ranks it summed;
-    ``(count, 1)`` outside of one."""
+def _loss_scope():
     stack = _LOSS_SCOPE.__dict__.get("stack")
-    groups = stack[-1] if stack else ()
-    if not groups:
+    return stack[-1] if stack else ((), ())
+
+
+def loss_sum_groups() -> Tuple:
+    """The active :func:`loss_average_groups`' ``sum_groups``."""
+    return _loss_scope()[1]
+
+
+def count_over_data(count: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``count`` (taken over this rank's positions) summed over the
+    active :func:`loss_average_groups` (both kinds), and the number of
+    ranks the loss is averaged over; ``(count, 1)`` outside of one."""
+    groups, sums = _loss_scope()
+    if not groups and not sums:
         return count, 1
     from .collective import all_reduce
     count = count.detach().clone()
@@ -156,6 +167,8 @@ def count_over_data(count: torch.Tensor) -> Tuple[torch.Tensor, int]:
     for g in groups:
         all_reduce(count, group=g)
         n *= g.nranks
+    for g in sums:
+        all_reduce(count, group=g)
     return count, n
 
 
@@ -224,6 +237,20 @@ def shard_tensor(full: torch.Tensor, layout: Dict[int, tuple],
         start, size = mesh_slice(mesh, axes, full.shape[dim])
         out = out.narrow(dim, start, size)
     return out
+
+
+def cut_block(full: torch.Tensor, layout: Dict[int, tuple], mesh: Mesh,
+              zero=None) -> torch.Tensor:
+    """This rank's block of ``full`` (contiguous): cut by ``layout``
+    (:func:`shard_tensor`), then narrowed over ``zero``, a ZeRO ``(dim,
+    group)`` (None: none). A step's state and a checkpoint's leaves are
+    cut by it."""
+    t = shard_tensor(full, layout, mesh) if layout else full
+    if zero is not None:
+        dim, group = zero
+        n = t.shape[dim] // group.nranks
+        t = t.narrow(dim, group.rank * n, n)
+    return t.contiguous()
 
 
 def gather_tensor(local: torch.Tensor, layout: Dict[int, tuple],

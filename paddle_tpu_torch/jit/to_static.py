@@ -65,6 +65,14 @@ optimizer's slots (ZeRO-1: each rank updates its block of every
 parameter, then one all-gather). The loss returned is the global
 batch's: averaged over the data axes, with a criterion's masked mean
 counting its mask over every data rank (``spmd.loss_average_groups``).
+On a mesh with an ``sp`` axis of more than one rank (sequence
+parallelism; the model must run sequence-parallel, as a GPT with
+``GPTConfig.sequence_parallel`` does, else the step raises
+``NotImplementedError``) every batch tensor of two or more dimensions
+is cut on dimension 1 as well, each sp rank keeping its ``S/sp``
+positions; the loss's count is summed over sp and so is the loss
+returned, and the gradients are summed over the sp group before the
+data-parallel mean.
 
 Gradient accumulation (``grad_accum_steps=k``, ``grad_accum_avg``, or
 the ``gradient_merge`` of a strategy that
@@ -81,7 +89,9 @@ one, and the next call takes its place in the window.
 ``state_dict()`` / ``save`` / ``load`` gather every parameter and slot
 to its full host array (a collective on every rank; rank 0 writes the
 file) and cut them back on load, so the files are the single-process
-step's.
+step's. ``save_sharded`` / ``load_sharded`` are the sharded checkpoint
+(``distributed.checkpoint``): each rank writes its own blocks, and a
+load reshards into the step's layout.
 
 Pipelines (the JAX step's pipeline detection, ``:477-516``): a model
 carrying a ``PipelineStageStack`` on a pp axis of more than one rank
@@ -206,6 +216,7 @@ class TrainStep:
         self.zero_axis = zero_axis
         self._batch_base = 0
         self._data_groups = []
+        self._sp_group = None
         self._pp_group = None
         self._pp_replicated = []
         if self.mesh is not None:
@@ -259,6 +270,18 @@ class TrainStep:
         apply_param_shardings(self.layer, mesh)
         self._data_groups = [mesh.group(a) for a in data_axes(mesh)
                              if mesh.axis_size(a) > 1]
+        if mesh.axis_size("sp") > 1:
+            # only a layer that runs sequence-parallel (its sp group set
+            # by _on_mesh) computes the global function on a shard
+            if not any(getattr(m, "sp_group", None) is not None
+                       for m in self.layer.modules()):
+                raise NotImplementedError(
+                    f"the mesh has an sp axis of {mesh.axis_size('sp')} "
+                    f"ranks but no layer of {type(self.layer).__name__} "
+                    "runs sequence-parallel: only a GPT with "
+                    "GPTConfig.sequence_parallel does; leave sp_degree at "
+                    "1 for this model")
+            self._sp_group = mesh.group("sp")
         params = [p for p in self.layer.parameters() if p.requires_grad]
         mp_sharded = [p for p in params
                       if any("mp" in axes
@@ -294,16 +317,21 @@ class TrainStep:
 
     def _local_batch(self, b: torch.Tensor) -> torch.Tensor:
         """This rank's block of a global batch tensor by ``data_spec``
-        (the dropout batch base from its first dimension)."""
-        if self.mesh is None or self.data_spec is None:
+        (the dropout batch base from its first dimension), and under
+        sequence parallelism its sp rank's positions of dimension 1."""
+        if self.mesh is None:
             return b
         from ..distributed.spmd import degrade_spec, mesh_slice
-        spec = tuple(degrade_spec(self.data_spec, self.mesh))
-        for i, entry in enumerate(spec[:b.dim()]):
-            start, size = mesh_slice(self.mesh, entry, b.shape[i])
-            if i == 0:
-                self._batch_base = start
-            b = b.narrow(i, start, size)
+        if self.data_spec is not None:
+            spec = tuple(degrade_spec(self.data_spec, self.mesh))
+            for i, entry in enumerate(spec[:b.dim()]):
+                start, size = mesh_slice(self.mesh, entry, b.shape[i])
+                if i == 0:
+                    self._batch_base = start
+                b = b.narrow(i, start, size)
+        if self._sp_group is not None and b.dim() >= 2:
+            start, size = mesh_slice(self.mesh, "sp", b.shape[1])
+            b = b.narrow(1, start, size)
         return b
 
     def _mean_over_data(self, t: torch.Tensor) -> torch.Tensor:
@@ -311,6 +339,14 @@ class TrainStep:
         for g in self._data_groups:
             all_reduce(t, ReduceOp.AVG, g)
         return t
+
+    def _global_loss(self, t: torch.Tensor) -> torch.Tensor:
+        """A rank's loss as the global batch's: summed over the sp
+        shards, averaged over the data axes."""
+        if self._sp_group is not None:
+            from ..distributed.collective import all_reduce
+            all_reduce(t, group=self._sp_group)
+        return self._mean_over_data(t)
 
     @torch.no_grad()
     def _sync_grads(self) -> None:
@@ -327,6 +363,11 @@ class TrainStep:
             self._flat_reduce([p.grad for p in self._pp_replicated],
                               lambda t: all_reduce(t, group=self.mesh.group(
                                   "pp")))
+        if self._sp_group is not None:
+            # every parameter is replicated over sp: its shards' sum
+            from ..distributed.collective import all_reduce
+            self._flat_reduce(grads, lambda t: all_reduce(
+                t, group=self._sp_group))
         if self._data_groups:
             self._flat_reduce(grads, self._mean_over_data)
 
@@ -424,7 +465,7 @@ class TrainStep:
                 if p.requires_grad and p.grad is None:
                     p.grad = torch.zeros_like(p)
             self._sync_grads()
-            loss = self._mean_over_data(loss.detach().float())
+            loss = self._global_loss(loss.detach().float())
             if chaos.active() and chaos.probe("grad.nonfinite"):
                 loss = torch.full_like(loss, float("nan"))
             # the watchdog's one host read a step, before the update
@@ -467,8 +508,9 @@ class TrainStep:
         """``loss_fn`` on this rank's batch: its dropouts draw from the
         step's generator, and a masked mean counts its positions over
         the data axes (``spmd.loss_average_groups``)."""
+        sums = [self._sp_group] if self._sp_group is not None else []
         with dropout_generator(self.generator, self._batch_base), \
-                loss_average_groups(self._data_groups):
+                loss_average_groups(self._data_groups, sums):
             return self.loss_fn(self.layer, *batch)
 
     def _backward(self, loss, watch: bool):
@@ -512,7 +554,7 @@ class TrainStep:
         with _goodput.measure("productive_dispatch", on_error="host_other"):
             loss = self._forward(batch)
             held = self._backward(loss, watch)
-            loss = self._mean_over_data(loss.detach().float())
+            loss = self._global_loss(loss.detach().float())
         if chaos.active() and chaos.probe("grad.nonfinite"):
             loss = torch.full_like(loss, float("nan"))
         if mon:
@@ -819,13 +861,9 @@ class TrainStep:
         return gather_tensor(t, getattr(p, "_dist_layout", {}), self.mesh)
 
     def _cut(self, full: torch.Tensor, p, zero=None) -> torch.Tensor:
-        from ..distributed.spmd import shard_tensor
-        t = shard_tensor(full, getattr(p, "_dist_layout", {}), self.mesh)
-        if zero is not None:
-            dim, group = zero
-            n = t.shape[dim] // group.nranks
-            t = t.narrow(dim, group.rank * n, n)
-        return t.contiguous()
+        from ..distributed.spmd import cut_block
+        return cut_block(full, getattr(p, "_dist_layout", {}), self.mesh,
+                         zero)
 
     def state_dict(self) -> Dict[str, Any]:
         """Host numpy: the full parameters, slots, step count, the
@@ -881,6 +919,19 @@ class TrainStep:
 
     def load(self, path: str) -> None:
         self.set_state_dict(fload(path))
+
+    def save_sharded(self, path: str, asynchronous: bool = True) -> None:
+        """A sharded checkpoint of the step's state at ``path``
+        (``distributed.checkpoint.save_train_step``: each rank writes the
+        blocks it owns; on a mesh every rank calls it)."""
+        from ..distributed.checkpoint import save_train_step
+        save_train_step(self, path, asynchronous=asynchronous)
+
+    def load_sharded(self, path: str) -> None:
+        """Restore a checkpoint of :meth:`save_sharded` (or
+        ``save_train_step``) resharded into this step's layout."""
+        from ..distributed.checkpoint import load_train_step
+        load_train_step(self, path)
 
 
 class _Attribution:

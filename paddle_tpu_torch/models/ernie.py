@@ -10,8 +10,10 @@ cross-entropy of the SOP head (:162-176). Names, dtypes under O1 and
 initializers follow the JAX package as BERT's do. The JAX package's
 ``ErnieEmbeddings`` is ``bert.BertEmbeddings`` built with
 ``task_type_vocab_size``, and ``ErnieModel`` is ``bert.BertModel`` over
-those embeddings. The 1.5B hybrid-parallel configuration waits for the
-distributed slice.
+those embeddings. :func:`ernie_3_1p5b` is BASELINE config 5's model
+(ERNIE-3.0 1.5B), trained over sharding x mp through
+``apply_hybrid_specs`` (the tensor-parallel route of ``models/bert.py``;
+``mesh=`` builds each rank's blocks only).
 """
 
 from __future__ import annotations
@@ -23,14 +25,15 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
-from ..core.random import dropout_generator, make_generator
+from ..core.random import dropout_generator
+from ..distributed.meta_parallel.parallel_layers.mp_layers import MPModule
 from ..nn import functional as F
 from ..nn.chunked_ce import masked_lm_loss
 from ..nn.layers import LayerNorm, Linear
-from .bert import BertModel, init_weights, mlm_head
+from .bert import BertModel, _vocab_group, build, mlm_head
 
 __all__ = ["ErnieConfig", "ErnieModel", "ErnieForPretraining", "ernie_tiny",
-           "ernie_base"]
+           "ernie_base", "ernie_3_1p5b"]
 
 
 @dataclass
@@ -57,23 +60,29 @@ class ErnieModel(BertModel):
         super().__init__(cfg, device, cfg.task_type_vocab_size)
 
 
-class ErnieForPretraining(nn.Module):
+class ErnieForPretraining(MPModule):
     """MLM head (tied decoder) + sentence-order prediction head. Built on
     ``device`` (the card unless ``device="cpu"`` is passed) with weights
-    drawn from ``seed``."""
+    drawn from ``seed``; with ``mesh=`` cut to this rank's blocks of the
+    hybrid specs as it is built (``models/bert.py``)."""
 
     def __init__(self, cfg: ErnieConfig, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         super().__init__()
         dev = resolve_device(device)
+        at = "meta" if mesh is not None else dev
         self.cfg = cfg
-        self.ernie = ErnieModel(cfg, dev)
-        self.transform = Linear(cfg.hidden_size, cfg.hidden_size, dev)
-        self.transform_norm = LayerNorm(cfg.hidden_size, dev)
+        self.ernie = ErnieModel(cfg, at)
+        self.transform = Linear(cfg.hidden_size, cfg.hidden_size, at)
+        self.transform_norm = LayerNorm(cfg.hidden_size, at)
         self.decoder_bias = nn.Parameter(torch.zeros(cfg.vocab_size,
-                                                     device=dev))
-        self.sop_head = Linear(cfg.hidden_size, 2, dev)
-        init_weights(self, cfg.initializer_range, make_generator(seed, dev))
+                                                     device=at))
+        self.sop_head = Linear(cfg.hidden_size, 2, at)
+        build(self, cfg, dev, seed, mesh)
+
+    def _on_mesh(self, mesh) -> None:
+        self.mp_group = _vocab_group(
+            mesh, self.ernie.embeddings.word_embeddings.weight)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 masked_positions=None, task_type_ids=None,
@@ -89,7 +98,8 @@ class ErnieForPretraining(nn.Module):
                                  task_type_ids=task_type_ids)
         h = self.transform_norm(F.gelu(self.transform(seq), approximate=True))
         mlm = mlm_head(h, self.ernie.embeddings.word_embeddings.weight,
-                       self.decoder_bias, masked_positions, "ernie_mlm_head")
+                       self.decoder_bias, masked_positions, "ernie_mlm_head",
+                       self.mp_group)
         return mlm, self.sop_head(pooled)
 
     def loss(self, mlm_scores, sop_scores, masked_lm_labels, sop_labels,
@@ -109,3 +119,12 @@ def ernie_tiny(**kw) -> ErnieConfig:
 
 def ernie_base(**kw) -> ErnieConfig:
     return ErnieConfig(**kw)
+
+
+def ernie_3_1p5b(**kw) -> ErnieConfig:
+    """ERNIE-3.0 1.5B-class config (BASELINE config 5)."""
+    d = dict(vocab_size=40000, hidden_size=2048, num_layers=24,
+             num_heads=16, intermediate_size=8192,
+             max_position_embeddings=2048)
+    d.update(kw)
+    return ErnieConfig(**d)

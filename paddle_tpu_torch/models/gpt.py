@@ -69,6 +69,19 @@ paths (paged and static caches) take no mp group.
 ``use_recompute`` runs each block under ``fleet.utils.recompute`` in
 training (``recompute_policy``: a JAX selective-remat policy name).
 
+Sequence parallelism (``sequence_parallel``, the JAX config's flag,
+with an ``sp`` mesh axis of more than one rank): the residual stream is
+this rank's shard ``[B, S/sp, E]`` of every row (``TrainStep`` hands
+each sp rank its slice of the ids, labels and mask), position ids are
+the shard's global positions, attention runs as
+``ops.ring_attention.ring_attention`` over the sp group (each visited
+block through the flash kernels), and the hidden and attention dropouts
+draw the single-process masks through the kernels' sequence bases
+(``core.random.sequence_shard``). The criterion's mean is the global
+one (its count summed over sp) and ``TrainStep`` sums the gradients
+over sp. Where the JAX model pins the stream's layout for GSPMD
+(``_seq_spec``), the port's rank holds the shard itself.
+
 The pipeline models (BASELINE config 4): :class:`GPTForPretrainingPipe`
 keeps the decoder blocks in a ``PipelineStageStack`` (``blocks.
 stacked__*``, ``[L, ...]``, sharded over ``pp``) with the embeddings,
@@ -94,13 +107,15 @@ from torch import nn
 
 from ..amp import cast_inputs
 from ..core.device import DeviceLike, resolve_device
-from ..core.random import (count_seed_draws, dropout_generator,
-                           make_generator, skip_seed_words)
+from ..core.random import (count_seed_draws, dropout_batch_base,
+                           dropout_generator, make_generator,
+                           next_seed_words, sequence_shard,
+                           skip_seed_words)
 from ..distributed.fleet.utils.recompute import recompute
 from ..distributed.meta_parallel.parallel_layers.mp_layers import (
     MPModule, ParallelCrossEntropy, copy_to_model_parallel,
     mark_mp_block, reduce_from_model_parallel, vocab_parallel_embedding)
-from ..distributed.spmd import P, count_over_data
+from ..distributed.spmd import P, count_over_data, loss_sum_groups
 from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm
 from ..ops.attention import (NEG_INF, _sdpa_plain, context_attention,
@@ -108,6 +123,7 @@ from ..ops.attention import (NEG_INF, _sdpa_plain, context_attention,
 from ..ops.kernels.bgmv import bgmv
 from ..ops.kernels.paged_decode import (paged_decode_attention,
                                         paged_decode_attention_quant)
+from ..ops.ring_attention import ring_attention
 from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
                                 gather_context, gather_context_quant,
                                 write_pages, write_pages_quant)
@@ -124,6 +140,7 @@ __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
 STATIC_BLOCK = 16
 
 MP = "mp"
+SP = "sp"
 
 
 @dataclass
@@ -142,6 +159,9 @@ class GPTConfig:
     #: fleet.utils.recompute.resolve_checkpoint_policy); None = full
     #: recompute
     recompute_policy: Optional[str] = None
+    #: shard the residual stream's sequence over the mesh's ``sp`` axis
+    #: (ring attention over the sp group)
+    sequence_parallel: bool = False
 
     @property
     def ffn_size(self) -> int:
@@ -150,6 +170,14 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+def _sp_group_of(cfg: GPTConfig, mesh):
+    """The sp group a sequence-parallel model runs over on ``mesh``, or
+    None."""
+    if not cfg.sequence_parallel or mesh.axis_size(SP) <= 1:
+        return None
+    return mesh.group(SP)
 
 
 def _param(*shape, device, spec=P()):
@@ -179,10 +207,13 @@ class GPTAttention(MPModule):
                                  spec=P(MP, None, None))
         self.out_bias = _param(E, device=device)
 
+    sp_group = None
+
     def _on_mesh(self, mesh) -> None:
         super()._on_mesh(mesh)
         # this rank's heads: H/mp of them from head mp_rank * H/mp
         self.num_heads = self.qkv_weight.shape[2]
+        self.sp_group = _sp_group_of(self.cfg, mesh)
 
     def seed_draws(self) -> int:
         """Seed-word pairs a no-cache call draws (the attention dropout)."""
@@ -208,6 +239,8 @@ class GPTAttention(MPModule):
             out = self._static_attention(q, k, v, cache, pos)
         elif cache is not None:
             out = self._paged_attention(q, k, v, cache, pos)
+        elif self.sp_group is not None:
+            out = self._ring_attention(q, k, v)
         else:
             out = F.scaled_dot_product_attention(
                 q, k, v, dropout_p=self.cfg.attention_dropout_prob,
@@ -218,6 +251,18 @@ class GPTAttention(MPModule):
         return reduce_from_model_parallel(
             out.reshape(B, S, H * D) @ w.reshape(H * D, E),
             self.mp_group) + b
+
+    def _ring_attention(self, q, k, v):
+        """Causal attention of this rank's sequence shard over the sp
+        group (``ops.ring_attention``), cast and dropped as
+        ``F.scaled_dot_product_attention`` would the whole sequence."""
+        q, k, v = cast_inputs("scaled_dot_product_attention", q, k, v)
+        rate = self.cfg.attention_dropout_prob if self.training else 0.0
+        words = next_seed_words() if rate > 0.0 else None
+        return ring_attention(q, k, v, self.sp_group, causal=True,
+                              dropout_rate=rate, seed_words=words,
+                              batch_base=dropout_batch_base(),
+                              head_base=self.mp_rank * self.num_heads)
 
     def _lora_delta(self, x, cache: PagedLayerCache):
         """Each batch row's adapter delta ``[B, S, 3, H, D]`` for the
@@ -401,11 +446,30 @@ class GPTModel(MPModule):
             [GPTDecoderLayer(cfg, device) for _ in range(cfg.num_layers)])
         self.final_norm = LayerNorm(cfg.hidden_size, device)
 
+    sp_group = None
+
+    def _on_mesh(self, mesh) -> None:
+        super()._on_mesh(mesh)
+        self.sp_group = _sp_group_of(self.cfg, mesh)
+
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_pos=None):
         """Hidden states ``[B, S, E]``; with a list of
         :class:`GPTAttention.StaticCache` (written in place) and its
-        integer write offset ``cache_pos``, ``(hidden, caches)``."""
+        integer write offset ``cache_pos``, ``(hidden, caches)``. Under
+        sequence parallelism ``input_ids`` is the rank's shard of every
+        row and the result the shard's hidden states."""
+        if self.sp_group is not None and caches is None:
+            S = input_ids.shape[1]
+            s0 = self.sp_group.rank * S
+            if position_ids is None:
+                position_ids = s0 + torch.arange(
+                    S, device=input_ids.device)[None]
+            with sequence_shard(s0, self.sp_group.nranks * S):
+                return self._forward(input_ids, position_ids, None, None)
+        return self._forward(input_ids, position_ids, caches, cache_pos)
+
+    def _forward(self, input_ids, position_ids, caches, cache_pos):
         B, S = input_ids.shape
         # a list of StaticCache, or the serving engine's paged view
         static = caches is not None and not isinstance(caches,
@@ -525,6 +589,9 @@ class GPTPretrainingCriterion(nn.Module):
 
     def forward(self, logits, labels, loss_mask=None):
         losses = self.ce(logits, labels)[..., 0]
+        if loss_mask is None and loss_sum_groups():
+            # a sequence shard: the mean over every rank's positions
+            loss_mask = torch.ones_like(losses)
         if loss_mask is None:
             return losses.mean()
         m = loss_mask.float()

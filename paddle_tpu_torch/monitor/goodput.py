@@ -23,9 +23,10 @@ rides seams that already exist:
 - dataloader ``next()``            → ``data_wait`` (the last wait is
   also attached as a ``data_wait`` span on the next ``train.step``
   trace)
-- ``checkpoint_stall`` and ``restart_gap`` keep their buckets and the
-  ledger's ``state()``/``restore()``; no port module feeds them yet (the
-  checkpoint manager is not ported)
+- ``distributed.checkpoint.CheckpointManager`` saves and waits →
+  ``checkpoint_stall``; its ``resume()`` restores the saved ledger
+  (``state()``/``restore()``, the sidecar), which attributes the dead
+  time since the last commit to ``restart_gap``
 
 ``host_other`` is DERIVED — the residual ``elapsed - sum(measured)`` —
 so the exhaustiveness invariant (bucket seconds sum to elapsed

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from ..distributed.mp_ops import mp_block_group, parallel_cross_entropy
+from ..distributed.spmd import count_over_data
 from ..ops.kernels.chunked_ce import chunked_ce_loss
 
 __all__ = ["CHUNKED_CE_THRESHOLD", "enabled_for", "hard_nll",
@@ -45,9 +47,19 @@ def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Mean NLL of ``logits [..., V]`` at integer ``labels [...]``:
     streamed (:func:`hard_nll`) from ``CHUNKED_CE_THRESHOLD`` vocab
     entries, a dense float32 logsumexp below; with ``weights`` the
-    weighted mean ``sum(nll * w) / max(sum(w), 1)``."""
+    weighted mean ``sum(nll * w) / max(sum(w), 1)``, the weights counted
+    over every data rank inside a data-parallel ``TrainStep``
+    (``spmd.count_over_data``), as the JAX mesh step takes the mean over
+    the whole batch. Over a rank's vocab
+    block (logits a tensor-parallel head marked) the vocab-parallel loss
+    of ``mp_layers.ParallelCrossEntropy`` (``mp_ops.parallel_cross_entropy``),
+    dense as the JAX loss is under an mp mesh."""
     ids = labels.long()
-    if enabled_for(logits.shape[-1]):
+    group = mp_block_group(logits)
+    if group is not None:
+        per = parallel_cross_entropy(logits, ids, group,
+                                     group.rank * logits.shape[-1])
+    elif enabled_for(logits.shape[-1]):
         per = hard_nll(logits, ids)
     else:
         lg32 = logits.float()
@@ -56,4 +68,10 @@ def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     if weights is None:
         return per.mean()
     w = weights.float()
-    return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1.0)
+    # in a data-parallel step the weights are counted over every data
+    # rank, so the ranks' average is the global batch's weighted mean
+    cnt, n = count_over_data(torch.sum(w))
+    num = torch.sum(per * w)
+    if n > 1:
+        num = num * n
+    return num / torch.clamp(cnt, min=1.0)

@@ -24,7 +24,11 @@ name (``amp.cast_inputs``).
   ``core.random.dropout_generator``; inside one entered with a batch
   base (a data-parallel rank's rows), x is taken as batch-major and
   hashes from element ``batch_base * (x.numel() / x.shape[0])``, so the
-  rank draws its rows of the whole batch's mask.
+  rank draws its rows of the whole batch's mask. Inside a
+  ``core.random.sequence_shard`` (a sequence-parallel rank's ``[B,
+  S/sp, ...]`` shard of a ``[B, S, ...]`` stream) its elements hash
+  their index in the whole stream: rows of ``S/sp`` positions, ``S``
+  positions apart (the kernel's row stride).
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import torch.nn.functional as F
 
 from ..amp import cast_inputs, is_active
 from ..core.flags import get_flag
-from ..core.random import dropout_batch_base, next_seed_words
+from ..core.random import (dropout_batch_base, dropout_sequence_shard,
+                           next_seed_words)
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.kernels import note_fallback
 from ..ops.kernels.dropout import fused_dropout
@@ -146,6 +151,15 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
         return torch.zeros_like(x)
     # rows b0.. of a larger batch hash from their first element's index
     b0 = dropout_batch_base()
+    shard = dropout_sequence_shard()
+    if shard is not None:
+        # positions s0.. of each row of a stream of S positions
+        s0, S = shard
+        inner = x.numel() // (x.shape[0] * x.shape[1])
+        row_len, row_stride = x.shape[1] * inner, S * inner
+        return fused_dropout(x, p, next_seed_words(),
+                             b0 * row_stride + s0 * inner, row_len,
+                             row_stride)
     base = b0 * (x.numel() // x.shape[0]) if b0 else 0
     return fused_dropout(x, p, next_seed_words(), base)
 

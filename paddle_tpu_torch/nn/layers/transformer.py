@@ -14,6 +14,19 @@ JAX package's ``lax.scan`` over layers casts its carry
 ``recompute_policy``), as the JAX stack does. Pre-LN, other
 activations, cross-attention, the decoder and the caches are not
 ported: no model of the port uses them yet.
+
+Tensor parallelism: ``distributed.spmd.apply_hybrid_specs`` stamps the
+JAX Megatron specs by name (``q_proj``, ``k_proj``, ``v_proj`` and
+``linear1`` column-parallel, ``out_proj`` and ``linear2`` row-parallel,
+their biases replicated) and ``apply_param_shardings`` cuts each to the
+rank's block. Told the mesh (``_on_mesh``), a layer whose projections
+were cut runs Megatron's collectives over the mp group, through the
+same autograd pair GPT's layers use (``distributed.mp_ops``): the
+identity with an all-reduced gradient before the column products, the
+all-reduce of the row products before their bias. Its heads are ``H/mp`` from head
+``mp_rank * H/mp``, which the attention passes to the flash kernels as
+the dropout mask's head base. A layer whose weights carry no mp block
+(no specs stamped) stays replicated.
 """
 
 from __future__ import annotations
@@ -24,6 +37,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...amp import cast_inputs
+from ...distributed.mp_ops import (MPModule, copy_to_model_parallel,
+                                   mp_group_of, reduce_from_model_parallel)
 from .. import functional as F
 from .common import Dropout, Linear
 from .norm import LayerNorm
@@ -32,9 +48,35 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder"]
 
 
-class MultiHeadAttention(nn.Module):
+def _mp_sharded(weight) -> bool:
+    return any("mp" in axes
+               for axes in getattr(weight, "_dist_layout", {}).values())
+
+
+class _EncoderMPModule(MPModule):
+    """An encoder layer that runs tensor-parallel only when its column
+    projection (``_column``) was cut to an mp block."""
+
+    _column = ""
+
+    def _on_mesh(self, mesh) -> None:
+        w = self.get_parameter(self._column)
+        self.mp_group = mp_group_of(mesh) if _mp_sharded(w) else None
+        self.mp_rank = mesh.axis_rank("mp") if self.mp_group else 0
+
+
+def _row_parallel(x, layer: Linear, group):
+    """``x @ W + b`` of a row-parallel ``layer``: the partial products
+    all-reduced over ``group``, then the replicated bias."""
+    x, w, b = cast_inputs("linear", x, layer.weight, layer.bias)
+    return reduce_from_model_parallel(x @ w, group) + b
+
+
+class MultiHeadAttention(_EncoderMPModule):
     """Self-attention over ``[B, S, E]``; ``attn_mask`` is an additive
     float mask."""
+
+    _column = "q_proj.weight"
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  device: Optional[torch.device] = None):
@@ -51,25 +93,30 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Linear(embed_dim, embed_dim, device)
 
     def _shape(self, x):
-        return x.reshape(x.shape[0], x.shape[1], self.num_heads,
-                         self.head_dim)
+        return x.reshape(x.shape[0], x.shape[1], -1, self.head_dim)
 
     def forward(self, x, attn_mask=None):
-        q, k, v = (self._shape(proj(x)) for proj in
+        group = self.mp_group
+        xc = copy_to_model_parallel(x, group)
+        q, k, v = (self._shape(proj(xc)) for proj in
                    (self.q_proj, self.k_proj, self.v_proj))
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask, dropout_p=self.dropout,
-            training=self.training)
-        B, S = out.shape[0], out.shape[1]
-        return self.out_proj(out.reshape(B, S, self.embed_dim))
+            training=self.training, head_base=self.mp_rank * q.shape[2])
+        out = out.reshape(out.shape[0], out.shape[1], -1)
+        if group is None:
+            return self.out_proj(out)
+        return _row_parallel(out, self.out_proj, group)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(_EncoderMPModule):
     """Post-LN self-attention and FFN blocks:
     ``norm1(x + dropout1(attn(x)))``, then
     ``norm2(x + dropout2(linear2(gelu(linear1(x)))))`` with exact (erf)
     gelu, as ``getattr(F, "gelu")`` with its default ``approximate=False``
     in the JAX layer, and no dropout between the two linears."""
+
+    _column = "linear1.weight"
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, attn_dropout: Optional[float] = None,
@@ -87,7 +134,10 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, src, src_mask=None):
         src = self.norm1(src + self.dropout1(self.self_attn(src, src_mask)))
-        ffn = self.linear2(F.gelu(self.linear1(src)))
+        group = self.mp_group
+        h = F.gelu(self.linear1(copy_to_model_parallel(src, group)))
+        ffn = (self.linear2(h) if group is None
+               else _row_parallel(h, self.linear2, group))
         return self.norm2(src + self.dropout2(ffn))
 
 

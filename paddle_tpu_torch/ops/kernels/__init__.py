@@ -82,14 +82,15 @@ FLASH_ATTENTION_FWD = Kernel(
     "flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
     "paddle_tpu/ops/pallas/flash_attention.py:399",
     # q, k, v, o, lse, B, Sq, Sk, H, D, causal, scale, dropout, thr,
-    # seed, keep_scale, bh_base, dtype, stream
-    (_P,) * 5 + (_I,) * 6 + (_F, _I, _U, _U, _F, _U, _I, _P))
+    # seed, keep_scale, bh_base, row_base, col_base, dtype, stream
+    (_P,) * 5 + (_I,) * 6 + (_F, _I, _U, _U, _F, _U, _U, _U, _I, _P))
 FLASH_ATTENTION_BWD = Kernel(
     "flash_attention_bwd", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "paddle_tpu/ops/pallas/flash_attention.py:532",
     # q, k, v, o, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, D, causal,
-    # scale, dropout, thr, seed, keep_scale, bh_base, dtype, stream
-    (_P,) * 10 + (_I,) * 6 + (_F, _I, _U, _U, _F, _U, _I, _P))
+    # scale, dropout, thr, seed, keep_scale, bh_base, row_base,
+    # col_base, dtype, stream
+    (_P,) * 10 + (_I,) * 6 + (_F, _I, _U, _U, _F, _U, _U, _U, _I, _P))
 CHUNKED_CE_LSE = Kernel(
     "chunked_ce_lse", "paddle_tpu_torch/csrc/chunked_ce.cu",
     "paddle_tpu/ops/pallas/chunked_ce.py:128",
@@ -103,28 +104,28 @@ CHUNKED_CE_DLOGITS = Kernel(
 FUSED_DROPOUT = Kernel(
     "fused_dropout", "paddle_tpu_torch/csrc/dropout.cu",
     "paddle_tpu/ops/pallas/dropout.py:69",
-    # x, y, n, seed, thr, inv, base, dtype, stream
-    (_P, _P, _L, _U, _U, _F, _L, _I, _P))
+    # x, y, n, seed, thr, inv, base, row_len, row_stride, dtype, stream
+    (_P, _P, _L, _U, _U, _F, _L, _L, _L, _I, _P))
 FLASH_ATTENTION_BIAS_FWD = Kernel(
     "flash_attention_bias_fwd", "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
     "paddle_tpu/ops/pallas/flash_attention.py:239",
     # q, k, v, bias, o, lse, B, Sq, Sk, H, D, causal, scale, dropout, thr,
-    # seed, keep_scale, dtype, stream
-    (_P,) * 6 + (_I,) * 6 + (_F, _I, _U, _U, _F, _I, _P))
+    # seed, keep_scale, bh_base, dtype, stream
+    (_P,) * 6 + (_I,) * 6 + (_F, _I, _U, _U, _F, _U, _I, _P))
 FLASH_ATTENTION_BIAS_BWD_DQ = Kernel(
     "flash_attention_bias_bwd_dq",
     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "paddle_tpu/ops/pallas/flash_attention.py:702",
     # q, k, v, bias, o, lse, dout, dq, B, Sq, Sk, H, D, causal, scale,
-    # dropout, thr, seed, keep_scale, dtype, stream
-    (_P,) * 8 + (_I,) * 6 + (_F, _I, _U, _U, _F, _I, _P))
+    # dropout, thr, seed, keep_scale, bh_base, dtype, stream
+    (_P,) * 8 + (_I,) * 6 + (_F, _I, _U, _U, _F, _U, _I, _P))
 FLASH_ATTENTION_BIAS_BWD_DKV = Kernel(
     "flash_attention_bias_bwd_dkv",
     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "paddle_tpu/ops/pallas/flash_attention.py:753",
     # q, k, v, bias, o, lse, dout, dk, dv, db_h, db, B, Sq, Sk, H, D,
-    # causal, scale, dropout, thr, seed, keep_scale, dtype, stream
-    (_P,) * 11 + (_I,) * 6 + (_F, _I, _U, _U, _F, _I, _P))
+    # causal, scale, dropout, thr, seed, keep_scale, bh_base, dtype, stream
+    (_P,) * 11 + (_I,) * 6 + (_F, _I, _U, _U, _F, _U, _I, _P))
 PAGED_DECODE = Kernel(
     "paged_decode_attention", "paddle_tpu_torch/csrc/paged_decode.cu",
     "paddle_tpu/ops/pallas/paged_decode.py:149",

@@ -87,9 +87,10 @@ def _mxu_round(mxu_dtype):
 
 
 def _dropout_mult(B, H, Sq, Sk, dropout_rate, seed_words, device,
-                  batch_base=0, head_base=0):
+                  batch_base=0, head_base=0, row_base=0, col_base=0):
     return torch.where(attention_keep(B, H, Sq, Sk, dropout_rate, seed_words,
-                                      device, batch_base, head_base),
+                                      device, batch_base, head_base,
+                                      row_base, col_base),
                        keep_scale(dropout_rate), 0.0)
 
 
@@ -100,12 +101,15 @@ def flash_attention_plain(q, k, v, causal: bool = True,
                           seed_words: SeedWords = None,
                           bias: Optional[torch.Tensor] = None,
                           mxu_dtype: Optional[torch.dtype] = None,
-                          batch_base: int = 0, head_base: int = 0):
+                          batch_base: int = 0, head_base: int = 0,
+                          row_base: int = 0, col_base: int = 0):
     """The kernels' function in plain PyTorch, computed in float32 and
     returned in q's dtype (plus ``lse [B, H, Sq]`` in float32); ``bias``
-    is ``[B, Sk]``. ``batch_base`` and ``head_base`` place the tensors'
-    batch rows and heads in a larger tensor whose dropout mask they
-    draw (the base-offset arguments of the kernels).
+    is ``[B, Sk]``. ``batch_base``, ``head_base``, ``row_base`` and
+    ``col_base`` place the tensors' batch rows, heads, query rows and key
+    columns in a larger tensor whose dropout mask they draw (the
+    base-offset arguments of the kernels); the causal mask stays the
+    launch's own.
 
     ``mxu_dtype`` is the operand dtype of the two products (``_dot``'s
     ``cd``, :115): None keeps float32; ``torch.bfloat16`` rounds q, k, v
@@ -125,7 +129,7 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     safe_l = torch.where(l == 0.0, 1.0, l)
     if dropout_rate > 0.0:
         p = p * _dropout_mult(*s.shape, dropout_rate, seed_words, q.device,
-                              batch_base, head_base)
+                              batch_base, head_base, row_base, col_base)
     o = torch.einsum("bhqk,bkhd->bqhd", mx(p), mx(vf)) / \
         safe_l.transpose(1, 2)[..., None]
     o = o.to(q.dtype)
@@ -140,7 +144,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
                               seed_words: SeedWords = None,
                               bias: Optional[torch.Tensor] = None,
                               mxu_dtype: Optional[torch.dtype] = None,
-                              batch_base: int = 0, head_base: int = 0):
+                              batch_base: int = 0, head_base: int = 0,
+                              row_base: int = 0, col_base: int = 0):
     """The backward kernels' function in plain PyTorch, as ``_bwd2`` and
     ``_bwd_v1`` compute it: ``p = exp(s - lse)`` from the saved ``lse``
     (shift 0 where it is ``NEG_INF``), ``delta = rowsum(dO * o)`` from the
@@ -166,7 +171,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
     pv = p
     if dropout_rate > 0.0:
         mult = _dropout_mult(*s.shape, dropout_rate, seed_words, q.device,
-                             batch_base, head_base)
+                             batch_base, head_base, row_base, col_base)
         pv, dp = p * mult, dp * mult
     delta = (dof * of).sum(-1).transpose(1, 2)               # [B, H, Sq]
     dsr = p * (dp - delta[..., None])
@@ -260,6 +265,10 @@ def _dropout_args(dropout_rate: float, seed_words: SeedWords):
             keep_scale(dropout_rate))
 
 
+def _u32(x: int) -> int:
+    return int(x) & 0xFFFFFFFF
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -298,11 +307,13 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
                         return_lse: bool = False,
                         dropout_rate: float = 0.0,
                         seed_words: SeedWords = None,
-                        batch_base: int = 0, head_base: int = 0):
+                        batch_base: int = 0, head_base: int = 0,
+                        row_base: int = 0, col_base: int = 0):
     """Attention over ``[B, S, H, D]`` q/k/v; returns ``o`` (q's dtype)
     or ``(o, lse)`` with ``lse [B, H, Sq]`` float32. The dropout mask is
-    that of batch rows ``batch_base..`` and heads ``head_base..`` of a
-    larger tensor (0, 0: the tensor itself)."""
+    that of batch rows ``batch_base..``, heads ``head_base..``, query
+    rows ``row_base..`` and key columns ``col_base..`` of a larger tensor
+    (all 0: the tensor itself)."""
     dropout_rate = float(dropout_rate)
     _check_args(q, k, v, causal, dropout_rate, seed_words)
     B, Sq, H, D = q.shape
@@ -314,7 +325,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         with uncounted():
             return flash_attention_plain(
                 q, k, v, causal, scale, return_lse, dropout_rate, seed_words,
-                batch_base=batch_base, head_base=head_base)
+                batch_base=batch_base, head_base=head_base,
+                row_base=row_base, col_base=col_base)
     _check_layout("flash forward", (q, k, v), (q, k, v))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -324,7 +336,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         lse.data_ptr() if lse is not None else None,
         B, Sq, k.shape[1], H, D, int(bool(causal)), float(scale),
         *_dropout_args(dropout_rate, seed_words),
-        bh_base(batch_base, head_base), _DTYPES[q.dtype], _stream(q))
+        bh_base(batch_base, head_base), _u32(row_base), _u32(col_base),
+        _DTYPES[q.dtype], _stream(q))
     check(_KERNEL.name, err)
     _KERNEL.launches += 1
     return (o, lse) if return_lse else o
@@ -334,7 +347,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                         scale: Optional[float] = None,
                         dropout_rate: float = 0.0,
                         seed_words: SeedWords = None,
-                        batch_base: int = 0, head_base: int = 0):
+                        batch_base: int = 0, head_base: int = 0,
+                        row_base: int = 0, col_base: int = 0):
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd` for the output
     gradient ``do``, from its saved ``o`` and ``lse``, with the same
     dropout bases."""
@@ -353,7 +367,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
         with uncounted():
             return flash_attention_bwd_plain(
                 q, k, v, o, lse, do, causal, scale, dropout_rate, seed_words,
-                batch_base=batch_base, head_base=head_base)
+                batch_base=batch_base, head_base=head_base,
+                row_base=row_base, col_base=col_base)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = function(_BWD.name)(
@@ -362,7 +377,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
         dv.data_ptr(), delta.data_ptr(), B, Sq, k.shape[1], H, D,
         int(bool(causal)), float(scale),
         *_dropout_args(dropout_rate, seed_words),
-        bh_base(batch_base, head_base), _DTYPES[q.dtype], _stream(q))
+        bh_base(batch_base, head_base), _u32(row_base), _u32(col_base),
+        _DTYPES[q.dtype], _stream(q))
     check(_BWD.name, err)
     _BWD.launches += 1
     return dq, dk, dv
@@ -372,9 +388,11 @@ def flash_attention_bias_fwd(q, k, v, bias, causal: bool = False,
                              scale: Optional[float] = None,
                              return_lse: bool = False,
                              dropout_rate: float = 0.0,
-                             seed_words: SeedWords = None):
+                             seed_words: SeedWords = None,
+                             batch_base: int = 0, head_base: int = 0):
     """:func:`flash_attention_fwd` with ``bias [B, Sk]`` float32 added to
-    the scaled scores of every query row (``_fwd_v1``)."""
+    the scaled scores of every query row (``_fwd_v1``); the dropout mask
+    of batch rows ``batch_base..`` and heads ``head_base..``."""
     dropout_rate = float(dropout_rate)
     _check_args(q, k, v, causal, dropout_rate, seed_words)
     _check_bias(bias, q, k)
@@ -386,7 +404,9 @@ def flash_attention_bias_fwd(q, k, v, bias, causal: bool = False,
     if q.device.type == "cpu":
         with uncounted():
             return flash_attention_plain(q, k, v, causal, scale, return_lse,
-                                         dropout_rate, seed_words, bias)
+                                         dropout_rate, seed_words, bias,
+                                         batch_base=batch_base,
+                                         head_base=head_base)
     _check_layout("flash forward", (q, k, v, bias), (q, k, v))
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -395,8 +415,8 @@ def flash_attention_bias_fwd(q, k, v, bias, causal: bool = False,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         o.data_ptr(), lse.data_ptr() if lse is not None else None,
         B, Sq, k.shape[1], H, D, int(bool(causal)), float(scale),
-        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
-        _stream(q))
+        *_dropout_args(dropout_rate, seed_words),
+        bh_base(batch_base, head_base), _DTYPES[q.dtype], _stream(q))
     check(_BIAS_FWD.name, err)
     _BIAS_FWD.launches += 1
     return (o, lse) if return_lse else o
@@ -415,10 +435,11 @@ def flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do,
                                 causal: bool = False,
                                 scale: Optional[float] = None,
                                 dropout_rate: float = 0.0,
-                                seed_words: SeedWords = None):
+                                seed_words: SeedWords = None,
+                                batch_base: int = 0, head_base: int = 0):
     """``dq`` of :func:`flash_attention_bias_fwd` for the output gradient
     ``do``, from its saved ``o`` and ``lse`` (the ``_bwd_v1`` dq
-    kernel)."""
+    kernel), with the forward's dropout bases."""
     dropout_rate = _bias_bwd_args(q, k, v, bias, o, lse, do, causal,
                                   dropout_rate, seed_words)
     B, Sq, H, D = q.shape
@@ -430,14 +451,15 @@ def flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do,
         with uncounted():
             return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                              scale, dropout_rate, seed_words,
-                                             bias)[0]
+                                             bias, batch_base=batch_base,
+                                             head_base=head_base)[0]
     dq = torch.empty_like(q)
     err = function(_BIAS_DQ.name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
         B, Sq, k.shape[1], H, D, int(bool(causal)), float(scale),
-        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
-        _stream(q))
+        *_dropout_args(dropout_rate, seed_words),
+        bh_base(batch_base, head_base), _DTYPES[q.dtype], _stream(q))
     check(_BIAS_DQ.name, err)
     _BIAS_DQ.launches += 1
     return dq
@@ -447,9 +469,11 @@ def flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
                                  causal: bool = False,
                                  scale: Optional[float] = None,
                                  dropout_rate: float = 0.0,
-                                 seed_words: SeedWords = None):
+                                 seed_words: SeedWords = None,
+                                 batch_base: int = 0, head_base: int = 0):
     """``(dk, dv, db)`` of :func:`flash_attention_bias_fwd`, ``db [B, Sk]``
-    float32 (the ``_bwd_v1`` dk/dv kernel and its head sum)."""
+    float32 (the ``_bwd_v1`` dk/dv kernel and its head sum), with the
+    forward's dropout bases."""
     dropout_rate = _bias_bwd_args(q, k, v, bias, o, lse, do, causal,
                                   dropout_rate, seed_words)
     B, Sq, H, D = q.shape
@@ -462,7 +486,8 @@ def flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
         with uncounted():
             return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
                                              scale, dropout_rate, seed_words,
-                                             bias)[1:]
+                                             bias, batch_base=batch_base,
+                                             head_base=head_base)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     db_h = torch.empty((B, H, Sk), dtype=torch.float32, device=q.device)
     db = torch.empty((B, Sk), dtype=torch.float32, device=q.device)
@@ -471,8 +496,8 @@ def flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
         o.data_ptr(), lse.data_ptr(), do.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), db_h.data_ptr(), db.data_ptr(), B, Sq, Sk, H, D,
         int(bool(causal)), float(scale),
-        *_dropout_args(dropout_rate, seed_words), _DTYPES[q.dtype],
-        _stream(q))
+        *_dropout_args(dropout_rate, seed_words),
+        bh_base(batch_base, head_base), _DTYPES[q.dtype], _stream(q))
     check(_BIAS_DKV.name, err)
     _BIAS_DKV.launches += 1
     return dk, dv, db
@@ -494,11 +519,10 @@ class FlashAttention(torch.autograd.Function):
                                          batch_base=batch_base,
                                          head_base=head_base)
         else:
-            if batch_base or head_base:
-                raise ValueError("the biased flash kernels take no dropout "
-                                 "base offsets")
             bias = bias.contiguous()
-            o, lse = flash_attention_bias_fwd(q, k, v, bias, *args)
+            o, lse = flash_attention_bias_fwd(q, k, v, bias, *args,
+                                              batch_base=batch_base,
+                                              head_base=head_base)
         ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.args = (causal, scale, dropout_rate, seed_words)
         return o
@@ -507,16 +531,16 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
         do = _aligned(do)
+        bases = dict(batch_base=ctx.bases[0], head_base=ctx.bases[1])
         if bias is None:
-            dq, dk, dv = flash_attention_bwd(
-                q, k, v, o, lse, do, *ctx.args, batch_base=ctx.bases[0],
-                head_base=ctx.bases[1])
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args,
+                                             **bases)
             db = None
         else:
             dq = flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do,
-                                             *ctx.args)
+                                             *ctx.args, **bases)
             dk, dv, db = flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse,
-                                                      do, *ctx.args)
+                                                      do, *ctx.args, **bases)
         return dq, dk, dv, db, None, None, None, None, None, None
 
 
@@ -531,7 +555,7 @@ def flash_attention(q, k, v, causal: bool = True,
     float32 as the JAX entry does (its gradient comes back in its own
     dtype). ``batch_base`` / ``head_base``: the dropout mask of these
     rows and heads in a larger batch (a data- or tensor-parallel rank's
-    slice), without a bias only."""
+    slice), with or without a bias."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if bias is not None:

@@ -68,27 +68,36 @@ def bh_base(batch_base: int, head_base: int) -> int:
 
 
 def dropout_keep(n: int, rate: float, seed_words: Tuple[int, int],
-                 device=None, base: int = 0) -> torch.Tensor:
+                 device=None, base: int = 0, row_len: int = 0,
+                 row_stride: int = 0) -> torch.Tensor:
     """Keep bits ``[n]`` (bool) of the fused dropout kernel over the flat
     element indices ``base .. base + n - 1`` (a slice of a larger tensor
-    that starts at element ``base`` draws that tensor's bits)."""
-    idx = (torch.arange(n, dtype=torch.int64, device=device)
-           + int(base)) & _M32
+    that starts at element ``base`` draws that tensor's bits); with
+    ``row_len`` (0 < row_len < n) element ``i`` hashes ``base + (i //
+    row_len) * row_stride + i % row_len``: rows of ``row_len`` elements
+    that lie ``row_stride`` apart in the larger tensor (a sequence shard
+    ``[B, S/sp, E]`` of ``[B, S, E]``)."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    if 0 < row_len < n:
+        i = (i // row_len) * int(row_stride) + i % row_len
+    idx = (i + int(base)) & _M32
     h = fmix32(_mul32(idx, 0x9E3779B1) ^ seed_mix(seed_words))
     return h >= keep_threshold(rate)
 
 
 def attention_keep(B: int, H: int, Sq: int, Sk: int, rate: float,
                    seed_words: Tuple[int, int], device=None,
-                   batch_base: int = 0, head_base: int = 0) -> torch.Tensor:
+                   batch_base: int = 0, head_base: int = 0,
+                   row_base: int = 0, col_base: int = 0) -> torch.Tensor:
     """Keep bits ``[B, H, Sq, Sk]`` (bool) of the flash kernels'
     attention dropout at absolute (b, h, query row, key column): batch
-    row ``b`` and head ``h`` of the launch are ``batch_base + b`` and
-    ``head_base + h`` of the whole tensor."""
-    rows = _mul32(torch.arange(Sq, dtype=torch.int64, device=device),
-                  0x9E3779B1)
-    cols = _mul32(torch.arange(Sk, dtype=torch.int64, device=device),
-                  0x85EBCA6B)
+    row ``b``, head ``h``, query row ``i`` and key column ``j`` of the
+    launch are ``batch_base + b``, ``head_base + h``, ``row_base + i``
+    and ``col_base + j`` of the whole tensor."""
+    rows = _mul32((torch.arange(Sq, dtype=torch.int64, device=device)
+                   + int(row_base)) & _M32, 0x9E3779B1)
+    cols = _mul32((torch.arange(Sk, dtype=torch.int64, device=device)
+                   + int(col_base)) & _M32, 0x85EBCA6B)
     b = _mul32(torch.arange(B, dtype=torch.int64, device=device)
                + int(batch_base), 0xAC564B05)
     h = _mul32(torch.arange(H, dtype=torch.int64, device=device)

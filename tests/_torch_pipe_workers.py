@@ -50,8 +50,8 @@ def _reset():
 
 
 def case_pipe_topology(rank, inputs, out_dir):
-    """pp = 2 x mp = 2 and sharding = 2 x mp = 2 build; sp still
-    raises."""
+    """pp = 2 x mp = 2, sharding = 2 x mp = 2 and sp = 2 x mp = 2
+    build."""
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.distributed import fleet
     out = {}
@@ -72,12 +72,12 @@ def case_pipe_topology(rank, inputs, out_dir):
                               hcg.get_sharding_parallel_group().ranks}
     _reset()
     strategy = fleet.DistributedStrategy()
-    strategy.hybrid_configs = {"sp_degree": 2}
-    try:
-        fleet.init(strategy=strategy, backend="gloo")
-        out["sp"] = None
-    except NotImplementedError as e:
-        out["sp"] = str(e)
+    strategy.hybrid_configs = {"sp_degree": 2, "mp_degree": 2}
+    fleet.init(strategy=strategy, backend="gloo")
+    hcg = fleet.get_hybrid_communicate_group()
+    out["sp"] = {"sp_group": hcg.get_sequence_parallel_group().ranks,
+                 "sp_rank": hcg.get_sequence_parallel_rank(),
+                 "sp_size": hcg.get_sequence_parallel_world_size()}
     return out
 
 

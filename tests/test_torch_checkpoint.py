@@ -79,10 +79,10 @@ def test_commit_stages_renames_and_swaps_through_old(tmp_path, monkeypatch):
         real_rename(src, dst)
     monkeypatch.setattr(os, "rename", rename)
     rng = np.random.default_rng(0)
-    tckpt.save(_state(rng, "torch"), path, step=1)
+    tckpt.save(_state(rng, "torch"), path, step=1, asynchronous=False)
     assert seen == [("ck.tmp", "ck", ["ck.tmp"])]
     m1 = tckpt.read_manifest(path)
-    tckpt.save(_state(rng, "torch"), path, step=2)
+    tckpt.save(_state(rng, "torch"), path, step=2, asynchronous=False)
     assert [s[:2] for s in seen[1:]] == [("ck", "ck.old"), ("ck.tmp", "ck")]
     assert sorted(os.listdir(str(tmp_path))) == ["ck"]
     m2 = tckpt.read_manifest(path)
@@ -106,7 +106,7 @@ def test_verify_catches_each_fault_at_its_level(tmp_path, fault):
     path = str(tmp_path / "ck")
     with flag_scope("checkpoint_verify", "full"):
         tckpt.save(_state(np.random.default_rng(1), "torch"), path,
-                   extra_files={"note.txt": "hello"})
+                   extra_files={"note.txt": "hello"}, asynchronous=False)
     data = os.path.join(path, tckpt.STATE_NAME)
     mpath = os.path.join(path, tckpt.MANIFEST_NAME)
     if fault == "torn":
@@ -150,10 +150,10 @@ def test_chaos_torn_commit_and_latest_step_skips_it(tmp_path):
     rng = np.random.default_rng(2)
     for n in (1, 2):
         tckpt.save(_state(rng, "torch"), os.path.join(root, f"step_{n}"),
-                   step=n)
+                   step=n, asynchronous=False)
     with tchaos.chaos_scope("ckpt.write.torn@1"):
         tckpt.save(_state(rng, "torch"), os.path.join(root, "step_3"),
-                   step=3)
+                   step=3, asynchronous=False)
     os.makedirs(os.path.join(root, "step_4.tmp"))     # a killed save
     assert tckpt.checkpoint_steps(root) == [1, 2, 3]
     with flag_scope("flight_recorder", True):
@@ -165,19 +165,31 @@ def test_chaos_torn_commit_and_latest_step_skips_it(tmp_path):
     assert jckpt.latest_step(root) == 2
     with tchaos.chaos_scope("ckpt.manifest.corrupt@1"):
         tckpt.save(_state(rng, "torch"), os.path.join(root, "step_5"),
-                   step=5)
+                   step=5, asynchronous=False)
     assert tckpt.latest_step(root) == 2
     assert "manifest unreadable" in tckpt.verify_checkpoint(
         os.path.join(root, "step_5"))
 
 
 def test_load_target_and_async_are_documented_gaps(tmp_path):
+    """Async saves and ``load(target=)``, once gaps, now ported: an async
+    save is written in the background and not visible until ``wait()``
+    commits it (then both packages' readers accept it); a target gives
+    each leaf the form it declares (a tensor's dtype, a ``Layout``)."""
     path = str(tmp_path / "ck")
-    tckpt.save({"a": torch.ones(2)}, path, asynchronous=True)
-    tckpt.wait()                       # the save committed already
+    a = torch.arange(8.0).reshape(2, 4)
+    tckpt.save({"a": a, "b": torch.ones(2)}, path, asynchronous=True)
+    tckpt.Checkpointer.instance()._pending.thread.join()
+    assert tckpt.verify_checkpoint(path) == "missing (not a directory)"
+    tckpt.wait()
     assert tckpt.verify_checkpoint(path) is None
-    with pytest.raises(NotImplementedError, match="target"):
-        tckpt.load(path, target={"a": torch.ones(2)})
+    assert jckpt.verify_checkpoint(path) is None
+    got = tckpt.load(path, target={
+        "a": tckpt.Layout(dtype=torch.float64),
+        "b": torch.zeros(2, dtype=torch.bfloat16)})
+    assert got["a"].dtype == torch.float64 and got["b"].dtype == \
+        torch.bfloat16
+    torch.testing.assert_close(got["a"], a.double(), rtol=0, atol=0)
 
 
 # -- across the packages -------------------------------------------------------------
@@ -189,7 +201,8 @@ def test_jax_reader_accepts_port_dirs_with_equal_leaf_keys(tmp_path):
     rng = np.random.default_rng(3)
     jpath, tpath = str(tmp_path / "jax"), str(tmp_path / "port")
     jckpt.save(_state(rng, "jax"), jpath, asynchronous=False, step=7)
-    tckpt.save(_state(np.random.default_rng(3), "torch"), tpath, step=7)
+    tckpt.save(_state(np.random.default_rng(3), "torch"), tpath, step=7,
+               asynchronous=False)
     jm, tm = jckpt.read_manifest(jpath), jckpt.read_manifest(tpath)
     assert tm["leaves"] == jm["leaves"]
     assert list(tm["leaves"]) == list(jm["leaves"])
@@ -295,7 +308,7 @@ def test_lora_checkpoint_round_trip_and_atomic_fail(tmp_path):
     wrong = str(tmp_path / "wrong")
     save_adapter_checkpoint(wrong, a[:, :2], b[:, :2])
     other = str(tmp_path / "other")
-    tckpt.save({"weights": torch.zeros(2)}, other)
+    tckpt.save({"weights": torch.zeros(2)}, other, asynchronous=False)
     for bad, match in ((torn, "failed verification: torn file"),
                        (wrong, "weights are"), (other, "lora_a")):
         with pytest.raises(ValueError, match=match):
@@ -340,7 +353,7 @@ def test_train_step_checkpoint_continues_bit_equal(tmp_path):
     a = fresh(1)
     [a(*batch, labels) for _ in range(2)]
     path = str(tmp_path / "step_2")
-    tckpt.save_train_step(a, path)
+    tckpt.save_train_step(a, path, asynchronous=False)
     ref = [float(a(*batch, labels)) for _ in range(2)]
     m = tckpt.read_manifest(path)
     assert m["step"] == 2 and tckpt.latest_step(str(tmp_path)) == 2

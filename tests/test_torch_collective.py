@@ -157,7 +157,13 @@ def test_topology_matches_jax(dims):
 
 
 def test_validate_topology_and_unported_layouts():
-    from paddle_tpu_torch.distributed.fleet import (HybridCommunicateGroup,
+    """The degrees' checks; and sequence parallelism, once an unported
+    layout, now lays out: an sp layout validates, its sp groups are the
+    JAX topology's, and a group of sp = 2 fails only for want of the
+    ranks (no world here), not as unported."""
+    from paddle_tpu.distributed.fleet import CommunicateTopology as JaxTopo
+    from paddle_tpu_torch.distributed.fleet import (CommunicateTopology,
+                                                    HybridCommunicateGroup,
                                                     MeshTopologyError,
                                                     validate_topology)
     assert validate_topology({"dp": 2, "mp": 2}, 8) == 4
@@ -165,7 +171,12 @@ def test_validate_topology_and_unported_layouts():
         validate_topology({"dp": 2, "mp": 4}, 4)
     with pytest.raises(MeshTopologyError, match="does not factor"):
         validate_topology({"dp": 3}, 4)
-    with pytest.raises(NotImplementedError, match="part 2"):
+    assert validate_topology({"sp": 2, "mp": 2}, 4) == 4
+    names, dims = ("dp", "pp", "sharding", "sp", "mp"), (1, 1, 1, 2, 2)
+    ours = CommunicateTopology(names, dims)
+    assert ours.get_comm_list("sp") == JaxTopo(names, dims).get_comm_list(
+        "sp") == [[0, 2], [1, 3]]
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         HybridCommunicateGroup(sp_degree=2, devices=[0, 1])
 
 

@@ -118,7 +118,8 @@ def _perturbed(params, delta):
 def _save_manifest(engine, path, perturb=0.0):
     """The engine's live parameters (shifted by ``perturb``) as a
     committed checkpoint, the shape every push arrives in."""
-    dckpt.save(_perturbed(engine.params, perturb), str(path))
+    dckpt.save(_perturbed(engine.params, perturb), str(path),
+               asynchronous=False)
     return str(path)
 
 
@@ -162,7 +163,8 @@ class Side:
         committed checkpoint of that package."""
         path = os.path.join(self.root, name)
         if self.name == "port":
-            dckpt.save(_perturbed(engine.params, delta), path)
+            dckpt.save(_perturbed(engine.params, delta), path,
+                       asynchronous=False)
             return path
         import jax.numpy as jnp
         state = {k: jnp.asarray(a) + jnp.asarray(delta, a.dtype)
@@ -177,7 +179,8 @@ class Side:
         path = os.path.join(self.root, name)
         if self.name == "port":
             dckpt.save({k: torch.from_numpy(np.array(a))
-                        for k, a in arrays.items()}, path)
+                        for k, a in arrays.items()}, path,
+                       asynchronous=False)
         else:
             import jax.numpy as jnp
             jckpt.save({k: jnp.asarray(a) for k, a in arrays.items()},

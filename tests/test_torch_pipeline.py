@@ -238,7 +238,7 @@ def test_tuple_axis_layout_equals_jax_and_gathers(world):
 def test_fleet_builds_pp_mp_and_sharding_mp(world):
     """fleet.init with pp=2 x mp=2 gives each rank its stage, pp group,
     neighbours and the mp group of its stage; sharding=2 x mp=2 builds;
-    sp_degree still raises."""
+    sp=2 x mp=2 builds with the JAX topology's sp groups."""
     res = _case(world, "pipe_topology")
     for r, got in enumerate(res):
         pm = got["pp_mp"]
@@ -251,7 +251,8 @@ def test_fleet_builds_pp_mp_and_sharding_mp(world):
         assert pm["p2p"] == [pm["pp_group"]] * 2
         assert pm["mp_sum"] == float(sum(pm["mp_group"]))
         assert got["sharding_mp"]["mode"] == "sharding"
-        assert "sp_degree=2" in got["sp"]
+        assert got["sp"] == {"sp_group": [r % 2, 2 + r % 2],
+                             "sp_rank": r // 2, "sp_size": 2}
 
 
 # -- GPT over the pipeline -----------------------------------------------------

@@ -1,4 +1,4 @@
-"""Rows 1, 3 and 8 of one checkout against another's, on one card: bits
+"""Rows 1-5 and 8 of one checkout against another's, on one card: bits
 and device time.
 
     python3 tools/ab_dropout_offsets.py OTHER_CHECKOUT
@@ -8,8 +8,11 @@ each checkout in the order this, other, other, this, a fresh process
 imports that checkout's ``paddle_tpu_torch`` (building its kernels into
 its own ``_build``), runs the flash forward and backward (rows 1 and 3)
 and the fused dropout (row 8) at GPT-2 345M's training shapes (B=8,
-S=1024, H=16, D=64, causal, dropout 0.1; dropout on [8, 1024, 1024]) in
-bfloat16 and float32 from the same seeded inputs and seed words, saves
+S=1024, H=16, D=64, causal, dropout 0.1; dropout on [8, 1024, 1024]),
+and the biased flash forward, dq and dk/dv/dbias (rows 2, 4, 5) at
+BERT-base's padded batch (B=48, S=512, H=12, D=64, 7 rows padded,
+dropout 0.1), in bfloat16 and float32 from the same seeded inputs and
+seed words, saves
 every output, and times each launch as the median of ``--reps`` launches
 (each between its own pair of CUDA events). Both checkouts are driven
 through the wrappers' arguments they share, so a checkout whose kernels
@@ -40,7 +43,8 @@ def _measure(out_path: str, reps: int) -> dict:
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels.dropout import dropout_apply
     from paddle_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_fwd)
+        flash_attention_bias_bwd_dkv, flash_attention_bias_bwd_dq,
+        flash_attention_bias_fwd, flash_attention_bwd, flash_attention_fwd)
     kernels.build()
     sys.path.insert(0, ROOT)
     from chip_smoke import _median_ms
@@ -65,6 +69,28 @@ def _measure(out_path: str, reps: int) -> dict:
         outs[f"dropout {name}"] = (dropout_apply(x, rate, words).cpu(),)
         times[f"row 8 {name}"] = _median_ms(
             lambda: dropout_apply(x, rate, words), iters=reps)
+        del q, k, v, do, o, lse, grads, x
+        q, k, v, do = (torch.randn(48, 512, 12, 64, device="cuda",
+                                   generator=g).to(dtype)
+                       for _ in range(4))
+        bias = torch.zeros(48, 512, device="cuda")
+        for b in range(7):
+            bias[b, 256 + 32 * b:] = -1e30
+        o, lse = flash_attention_bias_fwd(q, k, v, bias, False, None, True,
+                                          rate, words)
+        args = (q, k, v, bias, o, lse, do, False, None, rate, words)
+        outs[f"bias fwd {name}"] = (o.cpu(), lse.cpu())
+        outs[f"bias bwd {name}"] = (
+            flash_attention_bias_bwd_dq(*args).cpu(),
+            *(t.cpu() for t in flash_attention_bias_bwd_dkv(*args)))
+        times[f"row 2 {name}"] = _median_ms(
+            lambda: flash_attention_bias_fwd(q, k, v, bias, False, None,
+                                             True, rate, words), iters=reps)
+        times[f"row 4 {name}"] = _median_ms(
+            lambda: flash_attention_bias_bwd_dq(*args), iters=reps)
+        times[f"row 5 {name}"] = _median_ms(
+            lambda: flash_attention_bias_bwd_dkv(*args), iters=reps)
+        del q, k, v, do, o, lse, args
     torch.save(outs, out_path)
     return times
 

@@ -12,7 +12,10 @@ fleet monitoring and a kill drill, weight pushes under load),
 world size 1, a four-rank gloo world's parity and timed runs over dp x
 mp, then the pipeline's: the point-to-point probe, the f32 pipeline
 parity at pp x mp and pp = 4 under both schedules, BASELINE config 4 at
-pp = 2 x mp = 2). Exits non-zero if a check fails.
+pp = 2 x mp = 2; then sequence parallelism (ring and Ulysses attention,
+the sequence-parallel GPT's parity), BASELINE config 5 (ERNIE-3.0 1.5B
+at sharding = 2 x mp = 2) and the resharding checkpoint). Exits non-zero
+if a check fails.
 """
 
 import os

@@ -228,12 +228,14 @@ def main() -> int:
         tail = (B, S, S, H, D, int(causal), D ** -0.5,
                 *_dropout_args(rate, WORDS))
         if bi is None:
-            # bh_base 0, dtype 0 (f32)
+            # bh_base, row_base, col_base 0, dtype 0 (f32)
             return fns_[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), lse.data_ptr(), *tail, 0, 0, stream)
+                           o.data_ptr(), lse.data_ptr(), *tail, 0, 0, 0, 0,
+                           stream)
+        # bh_base 0, dtype 0
         return fns_[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        bi.data_ptr(), o.data_ptr(), lse.data_ptr(), *tail, 0,
-                       stream)
+                       0, stream)
 
     for name in list(fns):
         notes = []
