@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Twenty-two phases, in order:
+result line. Twenty-three phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -314,7 +314,30 @@ result line. Twenty-two phases, in order:
               2 x mp = 2 and resumed at the same layout (bit-exact), at
               mp = 4 and in one process (within ``RESHARD_TOL``); every
               rank checks that it imported no JAX;
-22. summary -- print one JSON line describing every ported kernel, then
+22. vision -- (a) BASELINE config 1: LeNet eager at B = 64 with
+              ``Momentum(0.01)``, ms a step (median of 3 runs of 10
+              steps), then 4 epochs of synthetic MNIST through
+              ``io.DataLoader`` with the last 3 losses' mean under the
+              first 3's; (b) BASELINE config 2: ResNet-50 at B = 256,
+              [3, 224, 224], 1000 classes, AMP O1, ``Momentum(0.1, 0.9,
+              weight_decay=1e-4)`` through ``TrainStep`` on a batch
+              resident on the card, channels-last by
+              ``FLAGS_jit_channels_last`` and again with it off: ms a
+              step, img/s and MFU on ``bench.py``'s count, peak memory,
+              the busy share and device time by group of one profiled
+              step, losses finite, BN statistics moved, the JAX
+              state-dict layout; (c) ResNet-18 f32 [4, 3, 64, 64], two
+              ``TrainStep`` steps on the card and on the CPU from the
+              same weights (losses, parameters, BN buffers, gradients per
+              tensor in L2), and the port's f32 conv bit-equal under
+              ``cudnn.allow_tf32`` on and off beside PyTorch's TF32 gap;
+              (d) VGG-16 O1 at B = 16, three steps, both classifier
+              dropouts through the fused dropout kernel (row 8 exactly
+              twice a dropout a step; (a)-(c) launch no kernel of the
+              port); (e) ``inference.passes.fold_conv_bn`` on (b)'s
+              ResNet-50 in eval: 53 pairs, the folded logits against the
+              unfolded;
+23. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
@@ -324,7 +347,8 @@ of phase 18, before each run of phase 19, before each part of phase
 20 and, in each rank of phase 21's world, before its parity runs and
 again before its timed run, its pipeline parity runs, each of its two
 pipeline loss styles, (h)'s attention calls and each of its parity
-layouts, and (i)'s timed updates, and read just after each (a witness's
+layouts, and (i)'s timed updates, and before phase 22, and read just
+after each (a witness's
 reference runs are taken back out of them, and phase 20 reads them
 before its teacher-forced references);
 the kernel JSON line gives each kernel's launches per path (``serve``,
@@ -337,14 +361,14 @@ float32 parity runs, ``pipe`` and ``pipe_forward``: (g) under 1F1B and
 in config 4's loss style, ``pipe_parity``: (f), ``ring``: (h)'s one
 counted ring and Ulysses call, ``sp_parity``: (h)'s sequence-parallel
 GPT runs, ``ernie_hybrid``: (i)'s three updates, each summed over the
-world's ranks).
+world's ranks; ``vision``: phase 22, whose launches are all (d)'s).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
 
-``tools/run_chip_phase.py monitor|fleet|distributed`` runs phase 1 and
-phase 18, 20 or 21 alone.
+``tools/run_chip_phase.py monitor|fleet|distributed|vision`` runs phase
+1 and phase 18, 20, 21 or 22 alone.
 """
 
 from __future__ import annotations
@@ -2572,11 +2596,14 @@ PROFILE_GROUPS = (
 )
 
 
-def _profile_step(tag: str, fn) -> float:
+def _profile_step(tag: str, fn, groups=PROFILE_GROUPS,
+                  step_ms=None) -> float:
     """Device time by kernel over one more call of ``fn`` (a step or a
     predictor run; torch.profiler), as ``tools/profile_torch_serve.py``
     reads it. Returns the device busy share of the call (summed kernel
-    time over its wall time; one stream, so kernels never overlap)."""
+    time over its wall time; one stream, so kernels never overlap).
+    ``step_ms``, the call's unprofiled time, also prints the busy time's
+    share of it (the profiler's own host cost left out)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2597,14 +2624,17 @@ def _profile_step(tag: str, fn) -> float:
     _log(f"{tag}: profiled step {wall * 1e3:.1f} ms wall, kernels busy "
          f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), {n_launch} "
          f"kernel launches")
-    groups = {}
+    if step_ms is not None:
+        _log(f"{tag}: kernels busy {100 * busy / step_ms:.1f}% of the "
+             f"unprofiled median step ({step_ms:.3f} ms)")
+    by_group = {}
     for a in dev:
-        group = next((g for g, keys in PROFILE_GROUPS
+        group = next((g for g, keys in groups
                       if any(k in a.key for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + a.self_device_time_total
+        by_group[group] = by_group.get(group, 0.0) + a.self_device_time_total
     _log(f"{tag}: device time by group: " + ", ".join(
         f"{g} {us / 1e3:.1f} ms ({100 * us / 1e3 / max(busy, 1e-9):.1f}%)"
-        for g, us in sorted(groups.items(), key=lambda kv: -kv[1])))
+        for g, us in sorted(by_group.items(), key=lambda kv: -kv[1])))
     for a in dev[:15]:
         ms = a.self_device_time_total / 1e3
         _log(f"{tag}:   {ms:9.3f} ms {100 * ms / max(busy, 1e-9):5.1f}% "
@@ -6560,6 +6590,360 @@ def _pipe_timed_report(ranks, key: str, style: str, sched: str,
              for i, r in enumerate(timed)))
 
 
+# -- phase 22: vision ----------------------------------------------------------
+# BASELINE config 1 (bench.py:255-292) and config 2 (bench.py:294-351)
+LENET_B = 64
+LENET_EPOCHS = 4
+LENET_SAMPLES = 1024
+VISION_B = 256
+VISION_RUNS, VISION_STEPS, VISION_WARMUP = 3, 10, 3
+# bench.py's count of a ResNet-50 step: B * 3 * 4.1e9 FLOPs (4.1 G a
+# forward image, the backward twice that; that file's count, which
+# takes 4.1 GMAC as 4.1 GFLOP)
+R50_FLOPS_PER_IMAGE_STEP = 3 * 4.1e9
+# (c): ResNet-18 f32 on the card against the CPU, the same weights and
+# batch, the card's run under cudnn.allow_tf32 on so that the port's own
+# choice keeps its convolutions f32. cuDNN's and the CPU's convolutions
+# sum in other orders and the weight-gradient kernels may use atomics, so
+# runs compare within tolerance, not bits: losses, parameters and BN
+# buffers after two steps within 1e-4 of the largest magnitude (a
+# parameter near 0 within 1e-7 absolute); the first-pass gradients, in
+# NCHW and in the channels-last layout the TrainStep takes, per tensor in
+# the L2-relative form of tests/test_e2e_models.py within 2e-4: 20x the
+# 1.0e-5 the f32 card read, and under the gap that PyTorch's own TF32
+# conv puts into its weight gradient, printed beside it. A step's update
+# is not held so: at lr 1e-3 a BN weight's update is about 1e-5, and the
+# f32 weight near 1.0 holds it only in 1.2e-7 (1%) steps, so that
+# rounding, not the gradient, would set the reading
+VISION_PARITY_TOL = 1e-4
+VISION_PARITY_FLOOR = 1e-7
+VISION_GRAD_L2_TOL = 2e-4
+# (e): the folded ResNet-50's eval logits against the unfolded ones
+FOLD_TOL = 1e-4
+VGG_B, VGG_STEPS = 16, 3
+VISION_PROFILE_GROUPS = (
+    ("layout transforms", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "implicit",
+                              "cudnn", "conv", "xmma", "Conv")),
+    ("batch norm backward", ("batch_norm",)),
+    ("pools", ("pool", "Pool")),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass")),
+    ("copies and casts", ("copy_kernel", "CatArrayBatched")),
+    ("elementwise", ("elementwise_kernel",)),
+    ("reductions", ("reduce_kernel", "welford", "Welford")),
+)
+
+
+def _vision_ce(amp: bool):
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.nn import functional as F
+
+    def loss_fn(layer, xb, yb):
+        if not amp:
+            return F.cross_entropy(layer(xb), yb)
+        with auto_cast(level="O1"):
+            return F.cross_entropy(layer(xb), yb)
+    return loss_fn
+
+
+def _timed_steps(fn, tag: str) -> float:
+    """Median over VISION_RUNS runs of VISION_STEPS calls of ``fn`` (each
+    run ends in a synchronize) of the ms a call."""
+    import numpy as np
+    import torch
+    runs = []
+    for _ in range(VISION_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VISION_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3 / VISION_STEPS)
+    _log(f"{tag}: runs of {VISION_STEPS} steps " + " ".join(
+        f"{r:.3f}" for r in runs) + " ms/step")
+    return float(np.median(runs))
+
+
+def _vision_lenet(smi: str) -> None:
+    """(a) BASELINE config 1: LeNet, eager, B=64, Momentum(0.01)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+    model = LeNet(device="cuda")
+    opt = Momentum(learning_rate=0.01, parameters=model.parameters())
+    x = torch.tensor(np.random.default_rng(0).normal(
+        size=(LENET_B, 1, 28, 28)).astype(np.float32), device="cuda")
+    y = torch.zeros(LENET_B, dtype=torch.int64, device="cuda")
+
+    def one():
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    one()
+    ms = _timed_steps(one, "vision (a)")
+    _log(f"vision (a): LeNet eager B={LENET_B} Momentum(0.01): {ms:.3f} "
+         f"ms/step (median of {VISION_RUNS} runs of {VISION_STEPS} steps; "
+         f"{smi})")
+    model = LeNet(device="cuda", seed=1)
+    opt = Momentum(learning_rate=0.01, parameters=model.parameters())
+    np.random.seed(0)
+    loader = DataLoader(MNIST(num_synthetic=LENET_SAMPLES), places="cuda",
+                        batch_size=LENET_B, shuffle=True, drop_last=True)
+    losses = []
+    for _ in range(LENET_EPOCHS):
+        for xb, yb in loader:
+            loss = F.cross_entropy(model(xb), yb)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    _log(f"vision (a): {LENET_EPOCHS} epochs of synthetic MNIST "
+         f"({LENET_SAMPLES} samples, {len(losses)} steps through "
+         f"io.DataLoader): loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean "
+         f"of the first 3 {first:.4f}, of the last 3 {last:.4f}")
+    _require(all(math.isfinite(v) for v in losses), "LeNet: non-finite loss")
+    _require(last < first, f"LeNet did not learn: {first} -> {last}")
+
+
+def _resnet50_keys(model) -> None:
+    """The JAX state-dict layout, and a strict load of the model's own
+    arrays into a fresh model through load_jax_weights."""
+    from paddle_tpu_torch.models import load_jax_weights
+    from paddle_tpu_torch.vision.models import resnet50
+    sd = model.state_dict()
+    _require(len(sd) == 53 + 53 * 4 + 2, f"{len(sd)} state-dict entries")
+    _require("conv1.bias" not in sd and "bn1._mean" in sd
+             and "layer1.0.downsample.0.weight" in sd
+             and tuple(sd["fc.weight"].shape) == (2048, 1000),
+             "ResNet-50 state-dict keys differ from the JAX model's")
+    fresh = resnet50(num_classes=1000, device="cpu")
+    load_jax_weights(fresh, {k: v.float().cpu().numpy()
+                             for k, v in sd.items()})
+
+
+def _vision_resnet50(smi: str):
+    """(b) BASELINE config 2: ResNet-50 at B=256, AMP O1, TrainStep,
+    channels-last by the flag, then with the flag off."""
+    import torch
+    from paddle_tpu_torch.core.flags import flag_scope
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet50(num_classes=1000, device="cuda")
+    opt = Momentum(learning_rate=0.1, parameters=model.parameters(),
+                   momentum=0.9, weight_decay=1e-4)
+    step = TrainStep(model, _vision_ce(amp=True), opt)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(VISION_B, 3, 224, 224, device="cuda", generator=g)
+    y = torch.randint(0, 1000, (VISION_B,), device="cuda", generator=g)
+    t0 = time.perf_counter()
+    losses = [float(step(x, y))]
+    _log(f"vision (b): first step {(time.perf_counter() - t0) * 1e3:.1f} ms"
+         " (cuDNN's heuristics pick each shape's algorithms)")
+    losses += [float(step(x, y)) for _ in range(VISION_WARMUP - 1)]
+    _require(model.conv1.weight.is_contiguous(
+        memory_format=torch.channels_last), "conv weights not channels-last")
+    for flag in (True, False):
+        tag = f"vision (b) channels_last={flag}"
+        with flag_scope("jit_channels_last", flag):
+            step(x, y)                    # lay the weights out
+            ms = _timed_steps(lambda: step(x, y), tag)
+            _profile_step(tag, lambda: float(step(x, y)),
+                          VISION_PROFILE_GROUPS, step_ms=ms)
+        imgs = VISION_B / (ms / 1e3)
+        mfu = VISION_B * R50_FLOPS_PER_IMAGE_STEP / (ms / 1e3) \
+            / PEAK_FLOPS["bfloat16"]
+        _log(f"vision (b): ResNet-50 B={VISION_B} AMP O1 Momentum "
+             f"channels_last={flag}: {ms:.3f} ms/step, {imgs:.1f} img/s, "
+             f"MFU {mfu:.4f} (bench.py's count, B*3*4.1e9 FLOPs a step, "
+             f"against 989 TFLOP/s bf16 dense; {smi})")
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"vision (b): peak device memory {peak / 2**30:.3f} GiB over the "
+         f"run (bf16 activations, f32 parameters, gradients and momentum)")
+    losses.append(float(step(x, y)))
+    _log("vision (b): losses " + " ".join(f"{v:.4f}" for v in losses))
+    _require(all(math.isfinite(v) for v in losses), "ResNet-50: non-finite")
+    _require(bool((model.bn1._mean != 0).any())
+             and bool((model.bn1._variance != 1).any()),
+             "ResNet-50: BN running statistics did not move")
+    _resnet50_keys(model)
+    return model, x[:8].clone()
+
+
+def _vision_parity(smi: str) -> None:
+    """(c) ResNet-18 float32, two TrainStep steps on the card and on the
+    CPU from the same weights and batch; then the TF32 gap."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    x = np.random.default_rng(6).normal(size=(4, 3, 64, 64)) \
+        .astype(np.float32)
+    y = np.array([0, 3, 5, 9], np.int64)
+    weights = resnet18(num_classes=10, device="cpu", seed=3).state_dict()
+
+    def build(dev):
+        m = resnet18(num_classes=10, device=dev)
+        m.load_state_dict(weights)
+        return m
+
+    runs = {}
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        for dev in ("cpu", "cuda"):
+            torch.backends.cudnn.allow_tf32 = True
+            grads = {}
+            for layout in ("NCHW", "channels-last"):
+                m = build(dev)
+                xt = torch.tensor(x, device=dev)
+                if layout == "channels-last":
+                    m = m.to(memory_format=torch.channels_last)
+                    xt = xt.contiguous(memory_format=torch.channels_last)
+                F.cross_entropy(m(xt), torch.tensor(y, device=dev)) \
+                    .backward()
+                grads.update({f"{k} ({layout})": p.grad.double().cpu()
+                              for k, p in m.named_parameters()})
+            m = build(dev)
+            step = TrainStep(m, _vision_ce(amp=False),
+                             Momentum(1e-3, parameters=m.parameters()))
+            losses = [float(step(x, y)) for _ in range(2)]
+            runs[dev] = (losses, grads, {k: v.double().cpu()
+                                         for k, v in m.state_dict().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (lc, gc, sc), (lg, gg, sg) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    worst, raw = {}, {}
+    for k, v in sc.items():
+        raw[k] = float((sg[k] - v).abs().max())
+        d = ((sg[k] - v).abs() - VISION_PARITY_FLOOR).clamp(min=0)
+        worst[k] = float(d.max() / v.abs().max().clamp(min=1e-12))
+    kmax = max(worst, key=worst.get)
+    kraw = max(raw, key=raw.get)
+    gl2 = {k: float((gg[k] - v).norm() / (v.norm() + 1e-12))
+           for k, v in gc.items()}
+    gmax = max(gl2, key=gl2.get)
+    _log(f"vision (c): ResNet-18 f32 [4, 3, 64, 64], two TrainStep steps, "
+         f"card under cudnn.allow_tf32 on {lg} vs CPU {lc}: loss rel "
+         f"{loss_err:.3e}; parameters and BN buffers worst "
+         f"{worst[kmax]:.3e} ({kmax}; largest absolute difference "
+         f"{raw[kraw]:.3e}, {kraw}); first-pass gradients in both layouts "
+         f"per-tensor L2-relative worst {gl2[gmax]:.3e} ({gmax}), median "
+         f"{float(np.median(list(gl2.values()))):.3e}, limit "
+         f"{VISION_GRAD_L2_TOL:g} ({smi})")
+    _require(loss_err < VISION_PARITY_TOL, "ResNet-18 card loss differs")
+    _require(worst[kmax] < VISION_PARITY_TOL, f"{kmax} differs")
+    _require(gl2[gmax] < VISION_GRAD_L2_TOL, f"{gmax} gradient differs")
+    # TF32: the port's f32 conv ignores the global flag; PyTorch's own
+    # conv takes TF32 under it
+    g = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randn(32, 64, 56, 56, device="cuda", generator=g)
+    w = torch.randn(64, 64, 3, 3, device="cuda", generator=g) * 0.05
+    cot = torch.randn(32, 64, 56, 56, device="cuda", generator=g)
+    w.requires_grad_(True)
+    try:
+        out, gw = {}, {}
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = flag
+            out["port", flag] = F.conv2d(a, w, padding=1)
+            o = torch.nn.functional.conv2d(a, w, padding=1)
+            gw[flag], = torch.autograd.grad((o * cot).sum(), w)
+            out["torch", flag] = o.detach()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    ref = out["torch", False]
+    same = torch.equal(out["port", True], out["port", False])
+    gap = float((out["torch", True] - ref).abs().max() / ref.abs().max())
+    ggap = float((gw[True] - gw[False]).norm() / gw[False].norm())
+    _log(f"vision (c): [32, 64, 56, 56] 3x3 conv: the port's f32 conv with "
+         f"cudnn.allow_tf32 on is bit-equal to off: {same}; PyTorch's own "
+         f"conv under TF32 is {gap:.3e} (of the largest output) from f32, "
+         f"its weight gradient {ggap:.3e} (L2-relative)")
+    _require(same, "the port's f32 conv follows the global TF32 flag")
+
+
+def _vision_vgg(smi: str) -> None:
+    """(d) VGG-16 at B=16, AMP O1: both classifier dropouts through the
+    fused dropout kernel."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import vgg16
+    model = vgg16(num_classes=1000, device="cuda")
+    step = TrainStep(model, _vision_ce(amp=True),
+                     Momentum(0.01, parameters=model.parameters()))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(VGG_B, 3, 224, 224, device="cuda", generator=g)
+    y = torch.randint(0, 1000, (VGG_B,), device="cuda", generator=g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(x, y)) for _ in range(VGG_STEPS)]
+    ms = (time.perf_counter() - t0) * 1e3 / VGG_STEPS
+    _log(f"vision (d): VGG-16 B={VGG_B} AMP O1 losses "
+         + " ".join(f"{v:.4f}" for v in losses)
+         + f", {ms:.1f} ms/step over {VGG_STEPS} steps, the first included"
+         f" ({smi})")
+    _require(all(math.isfinite(v) for v in losses), "VGG-16: non-finite")
+
+
+def _vision_fold(model, x) -> None:
+    """(e) fold_conv_bn on phase (b)'s ResNet-50 in eval."""
+    import torch
+    from paddle_tpu_torch.inference.passes import fold_conv_bn
+    model.eval()
+    with torch.no_grad():
+        before = model(x)
+        n = fold_conv_bn(model)
+        after = model(x)
+    err = float((after - before).abs().max() / before.abs().max())
+    _log(f"vision (e): fold_conv_bn folded {n} pairs of ResNet-50; eval "
+         f"logits at [{x.shape[0]}, 3, 224, 224] f32 within {err:.3e} of "
+         f"the unfolded model's")
+    _require(n == 53, f"fold_conv_bn folded {n} pairs, expected 53")
+    _require(err < FOLD_TOL, f"folded logits differ by {err}")
+
+
+def phase_vision(smi: str) -> dict:
+    """(a) BASELINE config 1 (LeNet eager), (b) config 2 (ResNet-50
+    TrainStep AMP O1, channels-last on and off), (c) ResNet-18 f32 card
+    against CPU and the TF32 gap, (d) VGG-16 O1 with both dropouts
+    through row 8, (e) fold_conv_bn on (b)'s model. Counts are set to 0
+    before (a); (a)-(c) must launch no kernel of the port, (d) row 8
+    exactly twice a dropout a step. Returns the phase's launches."""
+    from paddle_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    _vision_lenet(smi)
+    _log(f"vision: (a) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    model, x8 = _vision_resnet50(smi)
+    _log(f"vision: (b) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _vision_parity(smi)
+    _log(f"vision: (c) took {time.perf_counter() - t:.1f} s")
+    _path_launches({}, "vision (a)-(c)")
+    t = time.perf_counter()
+    _vision_vgg(smi)
+    _log(f"vision: (d) took {time.perf_counter() - t:.1f} s")
+    got = _path_launches({"fused_dropout": 2 * 2 * VGG_STEPS}, "vision (d)")
+    t = time.perf_counter()
+    _vision_fold(model, x8.float())
+    _log(f"vision: (e) took {time.perf_counter() - t:.1f} s")
+    _log(f"vision: launches {got}")
+    return {"vision": _path_launches(got, "vision (e)")}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -6613,6 +6997,7 @@ def main() -> int:
         "resilience", phase_resilience, (by_path["serve"], f32_serve))
     by_path.update(timed("fleet", phase_fleet))
     by_path.update(timed("distributed", phase_distributed, card["smi"]))
+    by_path.update(timed("vision", phase_vision, card["smi"]))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -45,6 +45,12 @@ black_list = {
     "cumsum", "rsqrt", "sqrt", "square",
 }
 
+# Never cast: ``batch_norm`` computes its statistics in f32 and returns
+# its input's dtype, and a cast would round its f32 running-stat buffers
+# through bf16; ``fused_conv_bn`` casts its conv operands itself
+# (``nn.functional_vision``), the JAX package's ``_keep_dtype`` (:56)
+_keep_dtype = {"batch_norm", "fused_conv_bn"}
+
 _tls = threading.local()
 
 
@@ -84,7 +90,7 @@ def is_active() -> bool:
 
 def _cast_target(op_name: str) -> Optional[torch.dtype]:
     """Target dtype for the op's floating inputs, or None (leave them)."""
-    if not is_active():
+    if not is_active() or op_name in _keep_dtype:
         return None
     if op_name in white_list:
         return torch.bfloat16

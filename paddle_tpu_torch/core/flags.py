@@ -8,7 +8,8 @@ serving throughput features ``serve_prefix_cache``,
 ``serve_prefill_chunk``, ``serve_spec_k``, ``serve_spec_ngram``, the
 serving watchdog ``serve_watchdog_s``, ``checkpoint_verify`` and the
 model lifecycle's ``serve_hot_swap``, ``serve_traffic_split`` and
-``serve_lifecycle``); it has no
+``serve_lifecycle``, and the vision path's ``jit_channels_last``); it
+has no
 kernel kill switches (the JAX package's
 ``pallas_*`` flags), because a kernel wrapper on the card launches its
 kernel or raises. The monitor flags (``monitor``, ``trace``,
@@ -102,6 +103,13 @@ define_flag("serve_kv_quant", "",
             "absmax scale pool beside them; decode reads them through "
             "the quantized paged-decode kernel. Empty (default) = the "
             "full-precision pools. Read once at cache construction.")
+define_flag("jit_channels_last", True,
+            "Run a model's 2-D convolutions channels-last inside "
+            "jit.TrainStep: the 4-D conv weights and 4-D float batch "
+            "inputs take torch.channels_last memory format (the layout "
+            "cuDNN's fast bf16 path wants). The tensors keep their "
+            "logical NCHW shape, so results do not depend on the flag. "
+            "Read at every step.")
 define_flag("amp_int8_matmul", False,
             "EXPERIMENTAL: under an active amp.auto_cast region, run "
             "nn.functional.linear matmuls whose 2-D weight tiles (K and N "

@@ -27,9 +27,10 @@ predictor runs (quantized ``Linear``s, bf16 weights under
 ``enable_tpu_bf16``), so the loaded predictor gives the live one's
 outputs.
 
-``switch_ir_optim``'s conv+BatchNorm fold (``inference/passes.py``)
-waits for the port's convolution and BatchNorm layers: the port has
-neither, so no model of it has anything to fold.
+``switch_ir_optim`` (on by default) folds every adjacent Conv2D +
+BatchNorm pair of the zoo's containers into the conv
+(``inference.passes.fold_conv_bn``) after ``layer.eval()``, as the JAX
+predictor does.
 """
 
 from __future__ import annotations
@@ -71,6 +72,7 @@ class Config:
         self.input_spec = None
         self._precision = PrecisionType.Float32
         self._weight_quant = False
+        self._ir_optim = True
 
     @classmethod
     def from_layer(cls, layer, input_spec) -> "Config":
@@ -94,9 +96,9 @@ class Config:
         self._weight_quant = True
 
     def switch_ir_optim(self, flag: bool = True):
-        """A no-op: the JAX package's one pass, the conv+BatchNorm fold
-        (``inference/passes.py``), has nothing to fold in the port,
-        which has no convolution or BatchNorm layer yet."""
+        """Fold Conv2D + BatchNorm pairs into the convs when the
+        predictor is built (``inference.passes.fold_conv_bn``)."""
+        self._ir_optim = bool(flag)
 
     def enable_memory_optim(self, flag: bool = True):
         """A no-op, as in the JAX package, which stores the switch and
@@ -190,6 +192,9 @@ class Predictor:
         from ..slim import quantize_weights
         layer = self._layer = config.layer
         layer.eval()
+        if config._ir_optim:
+            from .passes import fold_conv_bn
+            fold_conv_bn(layer)
         if config._weight_quant:
             quantize_weights(layer)
         self._bf16 = config._precision == PrecisionType.Bfloat16

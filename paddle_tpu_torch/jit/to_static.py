@@ -110,6 +110,24 @@ through the model's fill-drain forward, or ``layer.pretraining_loss
 snapshot make ``TrainStep(...)`` a ``distributed.fleet.meta_optimizers.
 LocalSGDTrainStep`` (the JAX meta-optimizer dispatch, ``:319-364``).
 
+Buffers (a vision model's BatchNorm ``_mean`` / ``_variance``) move in
+the forward, in place: ``nn.functional.batch_norm`` writes them under
+``no_grad``, as the JAX step threads them through its program. When the
+watchdog is armed every call first copies them (they are small), and a
+call that is undone, or whose update a raise drops, puts them back, as
+the JAX step restores ``prev_buffers`` (:884-948). ``state_dict()``'s
+``params`` hold them beside the parameters (``layer.state_dict()``).
+Under ``FLAGS_jit_channels_last`` (read every call, default on) a model
+with 2-D convolutions runs them channels-last: its 4-D conv weights and
+the batch's 4-D float tensors take ``torch.channels_last`` memory format
+(the JAX step's NHWC rewrite, :586-601; the logical shapes stay NCHW,
+so the numbers do not depend on it). A model with BatchNorm on a mesh
+whose data axes hold more than one rank raises ``NotImplementedError``:
+the JAX step takes batch statistics over the whole global batch, which
+needs ``SyncBatchNorm`` here, and that is not ported yet. An optimizer
+driven by an ``LRScheduler`` keeps its scheduler's rate across
+``set_state_dict`` (its state rides in ``opt_state``).
+
 Not ported: capturing the step in a CUDA graph.
 """
 
@@ -126,6 +144,7 @@ import torch
 
 from ..core.flags import get_flag
 from ..core.random import dropout_generator
+from ..nn.layout import to_channels_last
 from ..distributed import env as dist_env
 from ..distributed.spmd import loss_average_groups
 from ..framework.io import load as fload
@@ -219,6 +238,11 @@ class TrainStep:
         self._sp_group = None
         self._pp_group = None
         self._pp_replicated = []
+        from ..nn.layers.conv import Conv2D
+        self._conv_weights = [m.weight for m in layer.modules()
+                              if isinstance(m, Conv2D)]
+        self._channels_last = None       # the conv weights' current format
+        self._held_buffers = None
         if self.mesh is not None:
             self._lay_on_mesh()
         self._pp_group = _pipeline_group(layer)
@@ -264,7 +288,17 @@ class TrainStep:
             mp_group_of)
         from ..distributed.spmd import (apply_param_shardings, data_axes,
                                         degrade_spec, P)
+        from ..nn.layers.norm import _BatchNormBase
         mesh = self.mesh
+        dp = [a for a in data_axes(mesh) if mesh.axis_size(a) > 1]
+        if dp and any(isinstance(m, _BatchNormBase)
+                      for m in self.layer.modules()):
+            raise NotImplementedError(
+                f"{type(self.layer).__name__} has BatchNorm layers and the "
+                f"mesh's data axes {dp} hold more than one rank: the JAX "
+                "step takes batch statistics over the whole global batch, "
+                "which needs SyncBatchNorm, and that is not ported yet; "
+                "train this model on one rank of data parallelism")
         if dist_env.get_mesh() is None:
             dist_env.set_mesh(mesh)
         apply_param_shardings(self.layer, mesh)
@@ -313,7 +347,34 @@ class TrainStep:
     def _place(self, b) -> torch.Tensor:
         if not isinstance(b, torch.Tensor):
             b = torch.from_numpy(np.ascontiguousarray(b))
-        return b.to(self.device)
+        b = b.to(self.device)
+        return to_channels_last(b) if self._channels_last else b
+
+    @torch.no_grad()
+    def _memory_format(self) -> None:
+        """Lay the conv weights out as ``FLAGS_jit_channels_last`` says
+        (once a change of the flag; a model without 2-D convolutions is
+        left alone, and so are its inputs)."""
+        cl = bool(get_flag("jit_channels_last")) and bool(
+            self._conv_weights)
+        if cl == self._channels_last:
+            return
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        for w in self._conv_weights:
+            w.data = w.data.contiguous(memory_format=fmt)
+        self._channels_last = cl
+
+    def _hold_buffers(self, watch: bool) -> None:
+        """Copy the layer's floating buffers before an armed call."""
+        self._held_buffers = [(b, b.detach().clone())
+                              for b in self.layer.buffers()
+                              if b.is_floating_point()] if watch else None
+
+    @torch.no_grad()
+    def _restore_buffers(self) -> None:
+        """Put back the buffers :meth:`_hold_buffers` copied."""
+        for b, old in self._held_buffers or ():
+            b.copy_(old)
 
     def _local_batch(self, b: torch.Tensor) -> torch.Tensor:
         """This rank's block of a global batch tensor by ``data_spec``
@@ -445,7 +506,9 @@ class TrainStep:
         fr = mon or bool(get_flag("flight_recorder"))
         watch = bool(self._check_numerics) or self.skip_nonfinite_budget > 0
         health_every = int(get_flag("train_health_every") or 0)
+        self._memory_format()
         batch = [self._local_batch(self._place(b)) for b in batch]
+        self._hold_buffers(watch)
         if self.grad_accum_steps > 1:
             self._micro_count += 1
             if self._micro_count % self.grad_accum_steps:
@@ -489,8 +552,10 @@ class TrainStep:
         if bad:
             def rollback():
                 # the update was never applied: the accumulator goes back
-                # to what it held before this call, the step number with it
+                # to what it held before this call, the step number with
+                # it, and the buffers the forward moved
                 self._restore_grads(held)
+                self._restore_buffers()
                 self.step_count -= 1
                 if self.grad_accum_steps > 1:
                     self._micro_count -= 1
@@ -565,6 +630,7 @@ class TrainStep:
         if watch and not bool(torch.isfinite(loss)):
             def rollback():
                 self._restore_grads(held)
+                self._restore_buffers()
                 self._micro_count -= 1
             self._watchdog(loss, self._micro_count, "microstep", rollback)
         elif watch:
@@ -670,6 +736,7 @@ class TrainStep:
             rollback()
         elif not budget:
             self.optimizer.clear_grad()
+            self._restore_buffers()
         raise NonFiniteError(msg, offender=offender, step=step_index)
 
     # -- per-layer health ----------------------------------------------------
@@ -906,7 +973,9 @@ class TrainStep:
         self._micro_count = 0
         self.layer.load_state_dict(params)
         self.optimizer.set_state_dict(opt)
-        self.optimizer.set_lr(state["lr"])
+        from ..optimizer.lr import LRScheduler
+        if not isinstance(self.optimizer._lr, LRScheduler):
+            self.optimizer.set_lr(state["lr"])
         self.step_count = int(state["step_count"])
         self.generator.set_state(torch.as_tensor(state["rng_state"]))
 

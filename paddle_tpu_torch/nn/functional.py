@@ -6,15 +6,19 @@ Paddle's ``[in, out]`` weight, with the ``FLAGS_amp_int8_matmul`` route
 of :222-266), ``embedding``, ``gelu``, ``tanh``,
 ``layer_norm`` (:1014), ``dropout`` (:1115), the dense
 hard-label ``cross_entropy`` (:1222) and ``scaled_dot_product_attention``
-(``ops/attention.py``). Each casts its inputs under AMP by the JAX op
-name (``amp.cast_inputs``).
+(``ops/attention.py``), and the vision ops of ``functional_vision``
+(convolutions, pools, ``batch_norm``, ``fused_conv_bn``, ``relu``,
+``relu6``, ``sigmoid``, ``flatten``). Each casts its inputs under AMP by
+the JAX op name (``amp.cast_inputs``).
 
 - ``layer_norm`` computes in float32 and returns its input's dtype, as
   the JAX op does (``torch.nn.LayerNorm`` does not take bf16 input with
   f32 weights on the CPU, and under ``torch.autocast`` returns f32).
 - ``cross_entropy`` is the dense branch only (softmax over the last
-  axis in float32, hard labels, ``ignore_index``, mean): the models call
-  it for the 2-class SOP head; their vocab-wide losses go through
+  axis in float32, hard labels of shape ``[B]`` or ``[B, 1]``,
+  ``ignore_index``, ``reduction``): the models call it for the 2-class
+  SOP head and the vision classifiers (10 and 1000 classes, under the
+  chunked path's 4096 threshold); the vocab-wide losses go through
   ``nn.chunked_ce``.
 - ``dropout`` with ``axis=None`` and ``upscale_in_train`` goes through
   the fused dropout kernel on the card whatever the tensor's size: the
@@ -41,13 +45,16 @@ from ..core.flags import get_flag
 from ..core.random import (dropout_batch_base, dropout_sequence_shard,
                            next_seed_words)
 from ..ops.attention import scaled_dot_product_attention
+from . import functional_vision as _vision
+from .functional_vision import *  # noqa: F401,F403
 from ..ops.kernels import note_fallback
 from ..ops.kernels.dropout import fused_dropout
 from ..ops.kernels.quant_matmul import (int8_amp_linear,
                                         matmul_shapes_supported)
 
 __all__ = ["linear", "embedding", "gelu", "tanh", "layer_norm",
-           "dropout", "cross_entropy", "scaled_dot_product_attention"]
+           "dropout", "cross_entropy",
+           "scaled_dot_product_attention"] + _vision.__all__
 
 
 def _amp_int8_active(weight) -> bool:
@@ -164,11 +171,13 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     return fused_dropout(x, p, next_seed_words(), base)
 
 
-def cross_entropy(input, label, ignore_index: int = -100):
-    """Mean softmax cross-entropy over the last axis with hard labels
+def cross_entropy(input, label, ignore_index: int = -100,
+                  reduction: str = "mean"):
+    """Softmax cross-entropy over the last axis with hard labels
     (``label`` of ``input``'s leading shape, or with a trailing 1),
     skipping ``ignore_index``; float32 math, as the O1 black list casts
-    ``cross_entropy``."""
+    ``cross_entropy``. ``reduction``: ``"mean"`` over the labels that
+    count, ``"sum"`` or ``"none"``."""
     (input,) = cast_inputs("cross_entropy", input)
     logp = torch.log_softmax(input.float(), dim=-1)
     ids = label.long()
@@ -177,4 +186,11 @@ def cross_entropy(input, label, ignore_index: int = -100):
     valid = (ids != ignore_index).float()
     safe = torch.where(ids == ignore_index, 0, ids)
     loss = -logp.gather(-1, safe[..., None])[..., 0] * valid
-    return loss.sum() / valid.sum().clamp(min=1e-12)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp(min=1e-12)
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"reduction {reduction!r}: expected 'mean', 'sum' or "
+                     "'none'")

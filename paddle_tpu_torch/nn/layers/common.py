@@ -17,7 +17,7 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "Flatten", "Identity"]
 
 
 def _zeros(*shape, device):
@@ -78,3 +78,22 @@ class Dropout(nn.Module):
 
     def forward(self, x):
         return F.dropout(x, self.p, training=self.training)
+
+
+class Identity(nn.Module):
+    """Returns its input (``inference.passes.fold_conv_bn`` puts one where
+    a folded BatchNorm was)."""
+
+    def forward(self, x):
+        return x
+
+
+class Flatten(nn.Module):
+    """Merge dims ``start_axis .. stop_axis`` (``common.py``'s Flatten)."""
+
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return F.flatten(x, self.start_axis, self.stop_axis)

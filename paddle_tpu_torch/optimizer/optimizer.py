@@ -9,7 +9,10 @@ into the slots instead of returning new arrays (the JAX package's buffer
 donation, by other means). ``lr`` reaches the rule as a Python float
 that holds a float32 value exactly, and ``t`` (the 1-based step) as a
 Python int: scalar arithmetic stays on the host, so a step makes no
-host-to-device copies and no syncs.
+host-to-device copies and no syncs. ``learning_rate`` may be an
+``optimizer.lr.LRScheduler``, as in the JAX package (:55, :74-86): the
+rate is then the scheduler's at each update, ``set_lr`` raises, and
+``state_dict`` carries the scheduler's state as ``LR_Scheduler``.
 
 Distributed (``TrainStep`` on a mesh sets it, :meth:`set_distributed`):
 the gradient clip sums the squares of mp-sharded gradients over the mp
@@ -28,6 +31,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from .lr import LRScheduler
+
 __all__ = ["Optimizer"]
 
 
@@ -36,7 +41,8 @@ class Optimizer:
                  weight_decay=None, grad_clip=None):
         if parameters is None:
             raise ValueError("pass parameters=model.parameters()")
-        self._lr = float(learning_rate)
+        self._lr = learning_rate if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
         self._parameter_list: List[torch.nn.Parameter] = list(parameters)
         self._grad_clip = grad_clip
         # a float weight_decay is the coupled L2 decay g + coeff * p
@@ -53,9 +59,13 @@ class Optimizer:
 
     # -- learning rate -------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr())
         return self._lr
 
     def set_lr(self, value: float) -> None:
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._lr = float(value)
 
     # -- the rule (overridden) ----------------------------------------------
@@ -167,12 +177,15 @@ class Optimizer:
     # -- persistence ---------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
         """Step count and every slot, as CPU tensors keyed
-        ``param{i}_slot{j}`` (the JAX package's names)."""
+        ``param{i}_slot{j}`` (the JAX package's names), and a scheduler's
+        state as ``LR_Scheduler``."""
         out: Dict[str, Any] = {"_step_count": self._step_count}
         for i, p in enumerate(self._parameter_list):
             slots = self._accumulators.get(id(p))
             for j, s in enumerate(slots or ()):
                 out[f"param{i}_slot{j}"] = s.detach().cpu().clone()
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
         return out
 
     @torch.no_grad()
@@ -184,3 +197,5 @@ class Optimizer:
                 key = f"param{i}_slot{j}"
                 if key in state:
                     s.copy_(state[key])
+        if "LR_Scheduler" in state and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(state["LR_Scheduler"])

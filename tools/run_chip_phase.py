@@ -1,6 +1,6 @@
 """Run chip_smoke.py's card phase and one later phase alone.
 
-    python3 tools/run_chip_phase.py monitor|fleet|distributed
+    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision
 
 From the root of a checkout, on a machine with one CUDA card: builds the
 kernels (phase 1), then drives the named phase and prints its launches:
@@ -14,8 +14,12 @@ mp, then the pipeline's: the point-to-point probe, the f32 pipeline
 parity at pp x mp and pp = 4 under both schedules, BASELINE config 4 at
 pp = 2 x mp = 2; then sequence parallelism (ring and Ulysses attention,
 the sequence-parallel GPT's parity), BASELINE config 5 (ERNIE-3.0 1.5B
-at sharding = 2 x mp = 2) and the resharding checkpoint). Exits non-zero
-if a check fails.
+at sharding = 2 x mp = 2) and the resharding checkpoint), ``vision``
+phase 22 (BASELINE config 1, LeNet eager; config 2, ResNet-50 through
+``TrainStep`` at AMP O1, channels-last and not; ResNet-18 f32 on the
+card against the CPU and the TF32 gap; VGG-16 with its dropouts through
+the fused dropout kernel; ``fold_conv_bn``). Exits non-zero if a check
+fails.
 """
 
 import os
@@ -30,7 +34,8 @@ import chip_smoke  # noqa: E402
 PHASES = {"monitor": lambda card: chip_smoke.phase_monitor(),
           "fleet": lambda card: chip_smoke.phase_fleet(),
           "distributed": lambda card: chip_smoke.phase_distributed(
-              card["smi"])}
+              card["smi"]),
+          "vision": lambda card: chip_smoke.phase_vision(card["smi"])}
 
 
 def main() -> int:
