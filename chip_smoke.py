@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Twenty-three phases, in order:
+result line. Twenty-four phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -337,7 +337,30 @@ result line. Twenty-three phases, in order:
               port); (e) ``inference.passes.fold_conv_bn`` on (b)'s
               ResNet-50 in eval: 53 pairs, the folded logits against the
               unfolded;
-23. summary -- print one JSON line describing every ported kernel, then
+23. moe    -- ``bench.py --moe``'s GPT-2 345M-8E (gpt2_medium, 8
+              experts of ffn_size hidden in every second layer, top-2 at
+              capacity factor 2): (a) ten ``TrainStep`` steps at
+              ``bench_gpt2_345m``'s configuration (B = 8, S = 1024, O1,
+              dropout 0.1, AdamW) on ``crit + moe_loss`` with launches
+              exactly the dense step's formula, step time, tokens/s,
+              peak memory, a profiled step's device time by group
+              (routing, dispatch/combine, expert matmuls, flash, CE,
+              dropout, optimizer) and the router health of one eager
+              forward; (b) one forward and backward under the sort and
+              the einsum dispatch from the same parameters and seed words
+              (loss and gradients within phase 6's limits) and each
+              path's dispatch plus combine timed at T = 8192; (d)
+              ``generate`` greedy over the static cache on (a)'s model at
+              capacity factor E with exact launches, every token the full
+              forward's argmax (near-ties under ``TIE_GAP``), then phase
+              3's first 8 requests through ``ServingEngine``,
+              teacher-forced, decode p50, exact launches; (c) ep = 4 over
+              four ranks on the one card (gloo), gpt2_medium widths x 4
+              layers: float32 parity at capacity factor E against one
+              process's steps (losses, gathered parameters), the update
+              time, the collectives' seconds by op, peak memory a rank,
+              one O1 step, launches exactly the formula;
+24. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
@@ -347,7 +370,8 @@ of phase 18, before each run of phase 19, before each part of phase
 20 and, in each rank of phase 21's world, before its parity runs and
 again before its timed run, its pipeline parity runs, each of its two
 pipeline loss styles, (h)'s attention calls and each of its parity
-layouts, and (i)'s timed updates, and before phase 22, and read just
+layouts, and (i)'s timed updates, and before phase 22, before phase 23's
+(a), (d)'s two runs and, in each rank, (c), and read just
 after each (a witness's
 reference runs are taken back out of them, and phase 20 reads them
 before its teacher-forced references);
@@ -361,14 +385,16 @@ float32 parity runs, ``pipe`` and ``pipe_forward``: (g) under 1F1B and
 in config 4's loss style, ``pipe_parity``: (f), ``ring``: (h)'s one
 counted ring and Ulysses call, ``sp_parity``: (h)'s sequence-parallel
 GPT runs, ``ernie_hybrid``: (i)'s three updates, each summed over the
-world's ranks; ``vision``: phase 22, whose launches are all (d)'s).
+world's ranks; ``vision``: phase 22, whose launches are all (d)'s;
+``moe``: phase 23 (a)'s ten steps, ``moe_ep``: (c) summed over its
+ranks, ``moe_decode``: (d)'s generate and serving runs).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
 
-``tools/run_chip_phase.py monitor|fleet|distributed|vision`` runs phase
-1 and phase 18, 20, 21 or 22 alone.
+``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe`` runs
+phase 1 and phase 18, 20, 21, 22 or 23 alone.
 """
 
 from __future__ import annotations
@@ -6944,6 +6970,563 @@ def phase_vision(smi: str) -> dict:
     return {"vision": _path_launches(got, "vision (e)")}
 
 
+# -- phase 23: MoE ------------------------------------------------------------
+# bench.py --moe's gpt2_345m_8e (bench.py:1608): gpt2_medium with 8
+# experts of ffn_size hidden in every second layer, top-2 at capacity
+# factor 2, trained at bench_gpt2_345m's configuration (B=8, S=1024, O1,
+# dropout 0.1, AdamW 1e-4, decay 0.01) on crit + moe_loss
+# (bench.py:1534-1536)
+MOE_CFG = dict(moe_experts=8, moe_every=2)
+MOE_STEPS = 10
+# (b) the sort and einsum paths from the same parameters and seed words
+# under O1: one router, the same kernels; the combines round the sum of a
+# token's two products in another order (the einsum's matmul fuses a
+# multiply-add), so a later bf16 cast may round an element to its
+# neighbour, as between the kernels and their plain versions: phase 6's
+# limits
+MOE_MODE_LOSS_TOL, MOE_MODE_GRAD_TOL = AMP_LOSS_TOL, AMP_GRAD_TOL
+# (c) ep = 4 ranks on the one card over gloo, gpt2_medium widths x 4
+# layers (2 MoE), B=8, S=1024, dropout 0.1: f32 parity with one process
+# at capacity factor E (nothing dropped locally or globally, so the
+# routes are one process's) on the data loss (the aux loss is a mean of
+# per-rank values under ep), MOE_EP_STEPS steps; then one O1 step of
+# (a)'s loss at factor 2
+MOE_EP, MOE_EP_LAYERS, MOE_EP_STEPS = 4, 4, 3
+# (d) generate over the static cache on (a)'s model at factor E, then
+# phase 3's first requests through the serving engine
+MOE_GEN_B, MOE_GEN_S0, MOE_GEN_NEW = 2, 32, 16
+MOE_SERVE_REQUESTS = 8
+# a profiled step's device time: kernels launched inside the MoE layer's
+# profiler ranges (named as the JAX ops), by the autograd node of their
+# backward, or inside the optimizer's update; the rest by kernel name
+# (PROFILE_GROUPS)
+MOE_OP_GROUPS = (
+    ("expert matmuls (f32)", ("aten::bmm",)),
+    ("routing", ("moe_routing", "SoftmaxBackward", "LogsumexpBackward")),
+    ("dispatch/combine", ("moe_dispatch", "moe_combine", "IndexBackward",
+                          "IndexCopyBackward")),
+    ("expert bias, gelu", ("expert_ffn",)),
+    ("optimizer", ("moe_phase_optimizer",)),
+)
+
+
+def _moe_model(layers: int = 24, **cfg_kw):
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion,
+                                         gpt2_medium)
+    cfg = gpt2_medium(num_layers=layers, **dict(MOE_CFG, **cfg_kw))
+    model = GPTForPretraining(cfg, device="cuda", seed=0)
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(layer, ids, labels):
+        with auto_cast(level="O1"):
+            return crit(layer(ids), labels) + layer.moe_loss()
+    return cfg, model, loss_fn
+
+
+def _moe_profile(step, ids, labels, step_ms: float, smi: str) -> None:
+    """One more step under torch.profiler: the busy share and the device
+    time by group. A kernel counts to an ``MOE_OP_GROUPS`` group when the
+    host op that launched it, or one of its callers, is named in it (the
+    MoE layer's ranges, the autograd nodes of their backward, the
+    optimizer's update wrapped in a range for this step); every other
+    kernel by its name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    opt = step.optimizer
+    update = opt.step
+
+    def ranged(*a, **kw):
+        with record_function("moe_phase_optimizer"):
+            return update(*a, **kw)
+    opt.step = ranged
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(ids, labels))
+            wall = time.perf_counter() - t0
+    finally:
+        del opt.step
+    # the ranges' own spans on the device timeline are not kernels
+    ranges = {name for _, keys in MOE_OP_GROUPS for name in keys} | {
+        e.name for e in prof.events()
+        if getattr(e, "is_user_annotation", False)}
+    by_name = {}
+    for a in prof.key_averages():
+        if a.device_type == DeviceType.CUDA and a.key not in ranges:
+            by_name[a.key] = by_name.get(a.key, 0.0) + \
+                a.self_device_time_total
+    busy = sum(by_name.values())
+    groups, taken = {}, {}
+    for evt in prof.events():
+        kerns = getattr(evt, "kernels", None) or ()
+        if evt.device_type != DeviceType.CPU or not kerns:
+            continue
+        chain, e = [], evt
+        while e is not None:
+            chain.append(e.name)
+            e = e.cpu_parent
+        group = next((g for g, keys in MOE_OP_GROUPS
+                      if any(k in name for name in (
+                          chain[:1] if g.startswith("expert matmuls")
+                          else chain) for k in keys)), None)
+        if group is None:
+            continue
+        for k in kerns:
+            us = float(getattr(k, "duration", 0.0))
+            groups[group] = groups.get(group, 0.0) + us
+            taken[k.name] = taken.get(k.name, 0.0) + us
+    for name, us in by_name.items():
+        left = max(0.0, us - taken.get(name, 0.0))
+        group = next((g for g, keys in PROFILE_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + left
+    busy_ms = busy / 1e3
+    _log(f"moe: (a) profiled step {wall * 1e3:.1f} ms wall, kernels busy "
+         f"{busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}% of it, "
+         f"{100 * busy_ms / step_ms:.1f}% of the unprofiled median step "
+         f"{step_ms:.3f} ms) ({smi})")
+    _log("moe: (a) device time by group: " + ", ".join(
+        f"{g} {us / 1e3:.3f} ms ({100 * us / max(busy, 1e-9):.1f}%)"
+        for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + ("" if taken else " (no kernel was attributed to a host op: "
+           "the op groups are empty)"))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        _log(f"moe:   {us / 1e3:9.3f} ms {100 * us / max(busy, 1e-9):5.1f}% "
+             f"{name[:90]}")
+
+
+def _moe_train(smi: str):
+    """(a) bench.py's gpt2_345m_8e through TrainStep: exact launches,
+    step time, tokens/s, peak memory, a profiled step, then the router
+    health of one eager forward. Returns the model, its loss_fn, step,
+    batch and launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cfg, model, loss_fn = _moe_model()
+    n_all = sum(p.numel() for p in model.parameters())
+    n_exp = sum(p.numel() for n, p in model.named_parameters()
+                if ".moe.experts." in n)
+    step = TrainStep(model, loss_fn, AdamW(
+        learning_rate=TRAIN_LR, parameters=model.parameters(),
+        weight_decay=TRAIN_WD), seed=0)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size,
+                          (TRAIN_B, TRAIN_S)).astype(np.int32)
+    torch.cuda.synchronize()
+    _log(f"moe: (a) gpt2_medium + {cfg.moe_experts} experts every "
+         f"{cfg.moe_every}nd layer ({len(cfg.moe_layer_indices())} MoE "
+         f"layers, top-{cfg.moe_top_k}, capacity factor "
+         f"{cfg.moe_capacity_factor}): {n_all} parameters, {n_exp} in the "
+         f"experts; model and step built in {time.perf_counter() - t:.1f} s")
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))
+        times.append(time.perf_counter() - t0)
+    L, n = cfg.num_layers, MOE_STEPS
+    want = dict(_zero_launches(), flash_attention_fwd=L * n,
+                flash_attention_bwd=L * n, chunked_ce_lse=n,
+                chunked_ce_dlogits=n, fused_dropout=2 * (1 + 2 * L) * n)
+    launches = _path_launches(want, "moe (a)")
+    _require(all(math.isfinite(x) for x in losses), "moe: non-finite loss")
+    _require(losses[-1] < losses[0], f"moe: loss did not decrease: "
+             f"{losses[0]} -> {losses[-1]}")
+    step_s = float(np.median(times[2:]))
+    tokens = TRAIN_B * TRAIN_S
+    _log("moe: (a) losses " + " ".join(f"{x:.4f}" for x in losses))
+    _log(f"moe: (a) B={TRAIN_B} S={TRAIN_S} O1 dropout "
+         f"{cfg.hidden_dropout_prob} AdamW ({smi}): step 1 "
+         f"{times[0] * 1e3:.1f} ms, median over steps 3-{MOE_STEPS} "
+         f"{step_s * 1e3:.2f} ms/step, {tokens / step_s:.1f} tokens/s, "
+         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+         f" GiB; launches over {MOE_STEPS} steps {launches} (the dense "
+         "step's formula)")
+    _moe_profile(step, ids, labels, step_s * 1e3, smi)
+    model.eval()
+    with torch.no_grad():
+        model(torch.from_numpy(ids).cuda())
+    arr = model.gpt.moe_layer_stats().double().cpu().numpy()
+    model.train()
+    _log(f"moe: (a) router health of one eager forward (eval, bench.py's "
+         f"reading): drop {100 * arr[:, 2].mean():.2f}%, balance "
+         f"{100 * arr[:, 4].mean():.2f}, entropy {arr[:, 3].mean():.4f} "
+         f"nats over {arr.shape[0]} layers; per layer drop % "
+         + " ".join(f"{100 * x:.1f}" for x in arr[:, 2]))
+    return model, loss_fn, step, (ids, labels), launches
+
+
+def _moe_modes(model, loss_fn, batch, smi: str) -> None:
+    """(b) One forward and backward of (a)'s step under each dispatch
+    mode from the same parameters and seed words: loss and gradients
+    within phase 6's limits; then the dispatch plus combine of each at
+    T = 8192 timed."""
+    import torch
+    from paddle_tpu_torch.core.flags import flag_scope
+    from paddle_tpu_torch.core.random import dropout_generator
+    from paddle_tpu_torch.incubate.moe import (
+        MOE_STATS, einsum_combine, einsum_dispatch, moe_capacity,
+        reset_moe_stats, sort_combine, sort_dispatch, topk_routing)
+    ids, labels = (torch.from_numpy(b).cuda() for b in batch)
+    res = {}
+    for mode in ("sort", "einsum"):
+        for p in model.parameters():
+            p.grad = None
+        reset_moe_stats()
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator().manual_seed(23)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with flag_scope("moe_dispatch", mode), dropout_generator(g):
+            loss = loss_fn(model, ids, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[mode] = (float(loss), [p.grad.detach().clone()
+                                   for p in model.parameters()],
+                     time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated() / 2**30,
+                     MOE_STATS[f"{mode}_dispatches"])
+    for p in model.parameters():
+        p.grad = None
+    (ls, gs, ts, ms_, ns), (le, ge, te, me, ne) = res["sort"], res["einsum"]
+    num = sum(float(torch.sum((a - b).double() ** 2)) for a, b in zip(gs, ge))
+    den = sum(float(torch.sum(b.double() ** 2)) for b in ge)
+    gerr = math.sqrt(num / den)
+    lerr = abs(ls - le) / abs(le)
+    del gs, ge, res
+    torch.cuda.empty_cache()
+    _log(f"moe: (b) one O1 forward and backward of (a)'s model, sort "
+         f"against einsum (each {ns} / {ne} MoE dispatches): loss {ls:.6f}"
+         f" / {le:.6f}, relative {lerr:.3e} (tol {MOE_MODE_LOSS_TOL:g}); "
+         f"gradients' error norm over their norm {gerr:.3e} (tol "
+         f"{MOE_MODE_GRAD_TOL:g}); {ts * 1e3:.1f} / {te * 1e3:.1f} ms, peak "
+         f"{ms_:.3f} / {me:.3f} GiB ({smi})")
+    _require(ns == ne == len(model.cfg.moe_layer_indices()),
+             f"moe (b): dispatch counts {ns} {ne}")
+    _require(lerr <= MOE_MODE_LOSS_TOL and gerr <= MOE_MODE_GRAD_TOL,
+             f"moe (b): sort and einsum disagree: loss {lerr}, grads {gerr}")
+    # the dispatch and combine alone at (a)'s per-layer shape: the f32
+    # stream of the mixed stack, T = B * S tokens
+    E, k, cf = model.cfg.moe_experts, model.cfg.moe_top_k, \
+        model.cfg.moe_capacity_factor
+    T, D = TRAIN_B * TRAIN_S, model.cfg.hidden_size
+    C = moe_capacity(T, cf, E)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(T, D, device="cuda", generator=gen)
+    r = topk_routing(torch.randn(T, E, device="cuda", generator=gen), k, C)
+    eo = torch.randn(E, C, D, device="cuda", generator=gen)
+    with torch.no_grad():
+        same = (torch.equal(sort_dispatch(x, r, E, C),
+                            einsum_dispatch(x, r, E, C)),
+                _rel_err(sort_combine(eo, r, C), einsum_combine(eo, r, C)))
+        t_sort = (_median_ms(lambda: sort_dispatch(x, r, E, C)),
+                  _median_ms(lambda: sort_combine(eo, r, C)))
+        t_ein = (_median_ms(lambda: einsum_dispatch(x, r, E, C)),
+                 _median_ms(lambda: einsum_combine(eo, r, C)))
+    _log(f"moe: (b) dispatch + combine at T={T} D={D} E={E} C={C} top-{k} "
+         f"f32 ({smi}): sort {t_sort[0]:.4f} + {t_sort[1]:.4f} = "
+         f"{sum(t_sort):.4f} ms, einsum {t_ein[0]:.4f} + {t_ein[1]:.4f} = "
+         f"{sum(t_ein):.4f} ms; dispatches bit-equal {same[0]}, combines "
+         f"{same[1]:.3e} apart (relative to the largest)")
+    _require(same[0] and same[1] <= 1e-6, f"moe (b): the paths' data "
+             f"movement differs: {same}")
+
+
+def _moe_ep_model(amp: bool, cf: float):
+    """(c)'s model: gpt2_medium widths x MOE_EP_LAYERS, seed 0; the data
+    loss in f32, or (a)'s loss under O1."""
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    cfg, model, loss_fn = _moe_model(MOE_EP_LAYERS, moe_capacity_factor=cf)
+    if amp:
+        return model, loss_fn
+    crit = GPTPretrainingCriterion()
+    return model, lambda layer, ids, labels: crit(layer(ids), labels)
+
+
+def _moe_ep_reference(path: str) -> list:
+    """(c)'s one-process reference on the card: MOE_EP_STEPS f32 steps
+    at capacity factor E; its losses and parameters to ``path``."""
+    import gc
+    import torch
+    from paddle_tpu_torch.framework.io import save
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    model, loss_fn = _moe_ep_model(False, float(MOE_CFG["moe_experts"]))
+    step = TrainStep(model, loss_fn, AdamW(
+        TRAIN_LR, parameters=model.parameters(), weight_decay=TRAIN_WD),
+        seed=0)
+    ids, labels = _dist_batch(TRAIN_B, TRAIN_S, 6)
+    losses = [float(step(ids, labels)) for _ in range(MOE_EP_STEPS)]
+    save({"losses": losses, "params": step.state_dict()["params"]}, path)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _moe_ep_rank(out_dir: str) -> None:
+    """One rank of (c)'s ep world (a spawned process; phase 1's libraries
+    load from ``paddle_tpu_torch/_build``): the f32 parity steps, timed,
+    with the collectives' seconds by op, then one O1 step. Writes
+    ``moe_rank<r>.pkl``."""
+    import gc
+    import pickle
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.distributed.spmd import P, make_mesh
+    from paddle_tpu_torch.framework.io import load
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.monitor import scoped_registry
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh({"ep": MOE_EP})
+    env.set_mesh(mesh)
+    kernels.reset_launch_counts()
+    res = {}
+    for tag, amp, cf, n in (("parity", False,
+                             float(MOE_CFG["moe_experts"]), MOE_EP_STEPS),
+                            ("o1", True, 2.0, 1)):
+        torch.cuda.reset_peak_memory_stats()
+        model, loss_fn = _moe_ep_model(amp, cf)
+        step = TrainStep(model, loss_fn, AdamW(
+            TRAIN_LR, parameters=model.parameters(), weight_decay=TRAIN_WD),
+            seed=0, mesh=mesh, data_spec=P("ep"))
+        ids, labels = _dist_batch(TRAIN_B, TRAIN_S, 6)
+        losses, times, comm = [], [], []
+        with scoped_registry() as reg:
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(ids, labels)))
+                times.append(time.perf_counter() - t0)
+                comm.append(sum(_comm_by_op(reg).values()))
+            by_op = _comm_by_op(reg)
+        out = {"losses": losses, "times": times, "by_op": by_op,
+               "comm": [b - a for a, b in zip([0.0] + comm, comm)],
+               "peak": torch.cuda.max_memory_allocated(),
+               "w1": tuple(model.gpt.layers[1].moe.experts.w1.shape),
+               "ep_degree": step._ep_degree}
+        if tag == "parity":
+            params = step.state_dict()["params"]
+            if rank == 0:
+                ref = load(os.path.join(out_dir, "moe_reference.pdparams"))
+                out["ref_losses"] = ref["losses"]
+                out.update(_param_errors(params, ref["params"]))
+        res[tag] = out
+        del step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = {k["name"]: k["launches"] for k in kernels.kernels()}
+    res["leaked"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "paddle_tpu"))
+    res["backend"] = dist.ParallelEnv().backend
+    with open(os.path.join(out_dir, f"moe_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _moe_ep(smi: str) -> dict:
+    """(c) ep = 4 over four ranks on the one card: f32 parity against one
+    process, timed, the collectives by op, one O1 step, exact launches.
+    Returns the launches summed over the ranks."""
+    import pickle
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.distributed.spawn_mod import spawn
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        ref = _moe_ep_reference(os.path.join(tmp, "moe_reference.pdparams"))
+        _log(f"moe: (c) the one-process reference, gpt2_medium widths x "
+             f"{MOE_EP_LAYERS} layers + experts, f32, capacity factor "
+             f"{MOE_CFG['moe_experts']}, B={TRAIN_B} S={TRAIN_S}: losses "
+             + " ".join(f"{x:.6f}" for x in ref)
+             + f" ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        spawn("chip_smoke:_moe_ep_rank", args=(tmp,), nprocs=MOE_EP)
+        _log(f"moe: (c) the {MOE_EP}-rank world took "
+             f"{time.perf_counter() - t:.1f} s")
+        ranks = []
+        for r in range(MOE_EP):
+            with open(os.path.join(tmp, f"moe_rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for r, res in enumerate(ranks):
+        _require(not res["leaked"], f"rank {r} imported {res['leaked'][:5]}")
+        _require(res["backend"] == "gloo", f"rank {r}: {res['backend']}")
+        _require(res["parity"]["ep_degree"] == MOE_EP
+                 and res["parity"]["w1"][0] == MOE_CFG["moe_experts"] //
+                 MOE_EP, f"rank {r}: ep degree or expert block "
+                 f"{res['parity']['ep_degree']} {res['parity']['w1']}")
+    p0 = ranks[0]["parity"]
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["parity"]["losses"], p0["ref_losses"]))
+    step_ms = [float(np.median(r["parity"]["times"][1:])) * 1e3
+               for r in ranks]
+    comm = [100 * float(np.median(np.asarray(r["parity"]["comm"][1:])
+                                  / np.asarray(r["parity"]["times"][1:])))
+            for r in ranks]
+    _log(f"moe: (c) ep={MOE_EP}, f32, capacity factor "
+         f"{MOE_CFG['moe_experts']}, dropout 0.1, four ranks on one card "
+         f"over gloo ({smi}): losses " + " ".join(
+             f"{x:.6f}" for x in p0["losses"])
+         + f" against one process's, largest relative difference {rel:.3e}"
+         f" (tol {DIST_LOSS_TOL:g}); {p0['n_params']} gathered parameters, "
+         f"worst {p0['worst'][0]} {p0['worst'][1]:.3e} (tol "
+         f"{DIST_PARAM_TOL:g}), the key bias {p0['key_bias']:.3e} (tol "
+         f"{2 * TRAIN_LR * MOE_EP_STEPS:g}); median update by rank "
+         + ", ".join(f"{x:.1f}" for x in step_ms) + " ms; share in "
+         "collectives (comm_* series, host time) by rank "
+         + ", ".join(f"{x:.1f}%" for x in comm)
+         + "; peak memory by rank " + ", ".join(
+             f"{r['parity']['peak'] / 2**30:.3f} GiB" for r in ranks))
+    _log("moe: (c) rank 0's seconds in collectives over the "
+         f"{MOE_EP_STEPS} f32 steps by op/group: " + ", ".join(
+             f"{k} {v:.3f}" for k, v in sorted(
+                 p0["by_op"].items(), key=lambda kv: -kv[1])))
+    o1 = [r["o1"] for r in ranks]
+    _log(f"moe: (c) one O1 step of (a)'s loss at capacity factor 2: loss "
+         f"{o1[0]['losses'][0]:.4f}, {o1[0]['times'][0] * 1e3:.1f} ms, peak "
+         "memory by rank " + ", ".join(
+             f"{r['peak'] / 2**30:.3f} GiB" for r in o1))
+    _require(p0["keys_equal"], "moe (c): the gathered state dict's keys")
+    _require(rel <= DIST_LOSS_TOL, f"moe (c): losses differ by {rel}")
+    _require(p0["worst"][1] <= DIST_PARAM_TOL
+             and p0["key_bias"] <= 2 * TRAIN_LR * MOE_EP_STEPS,
+             f"moe (c): parameters differ: {p0['worst']}, key bias "
+             f"{p0['key_bias']}")
+    _require(all(math.isfinite(r["losses"][0]) for r in o1)
+             and len({r["losses"][0] for r in o1}) == 1,
+             f"moe (c): O1 losses {[r['losses'] for r in o1]}")
+    L, n = MOE_EP_LAYERS, MOE_EP_STEPS + 1
+    want = dict(_zero_launches(), flash_attention_fwd=L * n,
+                flash_attention_bwd=L * n, chunked_ce_lse=n,
+                chunked_ce_dlogits=n, fused_dropout=2 * (1 + 2 * L) * n)
+    for r, res in enumerate(ranks):
+        _require(res["launches"] == want, f"moe (c) rank {r}: launches "
+                 f"{res['launches']} != {want}")
+    _log(f"moe: (c) launches a rank {ranks[0]['launches']} (each rank "
+         "exactly the formula)")
+    names = list(want)
+    return {n_: sum(r["launches"][n_] for r in ranks) for n_ in names}
+
+
+def _moe_decode(model, smi: str) -> dict:
+    """(d) ``generate`` greedy over the static cache on (a)'s model at
+    capacity factor E, exact launches, every token the full forward's
+    argmax (near-ties under ``TIE_GAP``); then phase 3's first requests
+    through ``ServingEngine``, teacher-forced, with decode p50 and exact
+    launches. Returns the launches of both."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.incubate.moe import MoELayer
+    from paddle_tpu_torch.models import generate
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving import (Request, SamplingParams,
+                                          ServingConfig, ServingEngine)
+    cfg = model.cfg
+    for m in model.modules():
+        if isinstance(m, MoELayer):
+            m.capacity_factor = float(m.num_experts)
+    model.eval()
+    L = cfg.num_layers
+    rng = np.random.RandomState(23)
+    prompts = rng.randint(0, cfg.vocab_size, (MOE_GEN_B, MOE_GEN_S0))
+    generate(model, prompts, max_new_tokens=2,
+             decode_strategy="greedy_search")              # first use
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = generate(model, prompts, max_new_tokens=MOE_GEN_NEW,
+                   decode_strategy="greedy_search")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    gen = _path_launches({"flash_attention_fwd": L,
+                          "paged_decode_attention": L * (MOE_GEN_NEW - 1)},
+                         "moe (d) generate")
+    tokens = out[:, MOE_GEN_S0:].cpu().numpy()
+    checked = _teacher_forced("moe: (d) generate", model,
+                              [_Stream(p, tk) for p, tk in
+                               zip(prompts, tokens)], TIE_GAP)
+    _log(f"moe: (d) generate B={MOE_GEN_B} S0={MOE_GEN_S0} "
+         f"{MOE_GEN_NEW} new tokens greedy at capacity factor "
+         f"{cfg.moe_experts} in {wall * 1e3:.1f} ms ({smi}); {checked} "
+         f"tokens against the full forward; launches {gen}")
+    engine = ServingEngine(model, ServingConfig(**SERVE_CFG), device="cuda")
+    engine.warmup()
+    specs = _slice_specs(cfg.vocab_size)[:MOE_SERVE_REQUESTS]
+    kernels.reset_launch_counts()
+    states = [engine.submit(Request(p, max_new_tokens=new,
+                                    sampling=SamplingParams()))
+              for p, new in specs]
+    engine.run()
+    torch.cuda.synchronize()
+    served = {k["name"]: k["launches"] for k in kernels.kernels()}
+    stats, summary = engine.stats(), engine.metrics_summary()
+    for st, (p, new) in zip(states, specs):
+        _require(st.outcome == "completed" and len(st.generated) == new,
+                 f"moe (d): request {st.request.request_id} ended "
+                 f"{st.outcome} with {len(st.generated)} tokens")
+    n_pre, n_dec = stats["prefill_dispatches"], stats["decode_dispatches"]
+    _require(served["flash_attention_fwd"] >= L * n_pre > 0
+             and served["paged_decode_attention"] == L * n_dec > 0,
+             f"moe (d): serving launches {served} for {n_pre} prefill and "
+             f"{n_dec} decode dispatches")
+    _require(not any(v for k, v in served.items() if k not in (
+        "flash_attention_fwd", "paged_decode_attention")),
+             f"moe (d): serving launched {served}")
+    _teacher_forced("moe: (d) serve", model, states, TIE_GAP)
+    _log(f"moe: (d) {len(states)} requests through ServingEngine ({n_pre} "
+         f"prefill and {n_dec} decode dispatches, {smi}): "
+         f"{summary['tokens_per_sec']:.2f} tokens/s, decode step p50 "
+         f"{_ms(summary['decode_step_p50_s'])} p99 "
+         f"{_ms(summary['decode_step_p99_s'])}, TTFT p50 "
+         f"{_ms(summary['ttft_p50_s'])}; launches {served}")
+    engine.shutdown()
+    return {n: gen[n] + served[n] for n in gen}
+
+
+def phase_moe(smi: str) -> dict:
+    """(a) GPT-2 345M-8E (bench.py --moe) through TrainStep at O1 with
+    exact launches, (b) sort against einsum, (c) ep = 4 on four ranks,
+    (d) MoE decode and serving. Counts are set to 0 before each part.
+    Returns the launches of (a), (c) summed over the ranks, and (d)."""
+    import gc
+    import torch
+    t = time.perf_counter()
+    model, loss_fn, step, batch, train = _moe_train(smi)
+    _log(f"moe: (a) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _moe_modes(model, loss_fn, batch, smi)
+    _log(f"moe: (b) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    decode = _moe_decode(model, smi)
+    _log(f"moe: (d) took {time.perf_counter() - t:.1f} s")
+    del model, loss_fn, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ep = _moe_ep(smi)
+    _log(f"moe: (c) took {time.perf_counter() - t:.1f} s")
+    return {"moe": train, "moe_ep": ep, "moe_decode": decode}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -6998,6 +7581,7 @@ def main() -> int:
     by_path.update(timed("fleet", phase_fleet))
     by_path.update(timed("distributed", phase_distributed, card["smi"]))
     by_path.update(timed("vision", phase_vision, card["smi"]))
+    by_path.update(timed("moe", phase_moe, card["smi"]))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -22,7 +22,9 @@ saves them (``save`` / ``load``, ``jit.save`` / ``jit.load``,
 with the JAX package's metric names, flags and fault-injection sites.
 ``distributed`` trains over data and tensor parallelism with ZeRO-1,
 gradient accumulation and activation recompute, one process a rank
-(``torch.distributed``).
+(``torch.distributed``). ``incubate.moe`` adds the Mixture-of-Experts
+layer (routing, sort and einsum dispatch, the expert-parallel program
+over an ``ep`` mesh axis) and the MoE GPT (``GPTConfig.moe_experts``).
 """
 
 from .core import make_generator, resolve_device

@@ -8,8 +8,9 @@ serving throughput features ``serve_prefix_cache``,
 ``serve_prefill_chunk``, ``serve_spec_k``, ``serve_spec_ngram``, the
 serving watchdog ``serve_watchdog_s``, ``checkpoint_verify`` and the
 model lifecycle's ``serve_hot_swap``, ``serve_traffic_split`` and
-``serve_lifecycle``, and the vision path's ``jit_channels_last``); it
-has no
+``serve_lifecycle``, the vision path's ``jit_channels_last``, and
+the MoE layer's ``moe_dispatch``, ``moe_expert_parallel`` and
+``moe_a2a_chunks``); it has no
 kernel kill switches (the JAX package's
 ``pallas_*`` flags), because a kernel wrapper on the card launches its
 kernel or raises. The monitor flags (``monitor``, ``trace``,
@@ -110,6 +111,28 @@ define_flag("jit_channels_last", True,
             "cuDNN's fast bf16 path wants). The tensors keep their "
             "logical NCHW shape, so results do not depend on the flag. "
             "Read at every step.")
+define_flag("moe_dispatch", "sort",
+            "MoE token dispatch/combine implementation "
+            "(incubate.moe): 'sort' (default) = argsort by expert, one "
+            "scatter into the [E*C + 1, D] buffer and one gather back, "
+            "O(T*k*D) data moved; 'einsum' = the GShard one-hot "
+            "dispatch/combine einsums over O(T*E*C) tensors, the parity "
+            "oracle. Both paths share one router, so capacity clipping "
+            "and drop decisions are identical.")
+define_flag("moe_expert_parallel", True,
+            "Run stacked-expert MoE layers on a mesh with an 'ep' axis "
+            "of more than one rank through the explicit expert-parallel "
+            "program: each rank routes its own tokens at the local "
+            "capacity and exchanges capacity chunks with its ep peers "
+            "by all-to-all. The port has no other path on such a mesh: "
+            "off, the layer raises NotImplementedError (reason "
+            "'flag_off').")
+define_flag("moe_a2a_chunks", 2,
+            "Capacity-dim chunks of the expert-parallel all-to-all: "
+            "every chunk's tokens-out exchange is issued before any "
+            "expert computes, each chunk's tokens-back exchange right "
+            "after that chunk's FFN. Reduced until a chunk's width "
+            "tiles the local capacity. 1 = no chunking.")
 define_flag("amp_int8_matmul", False,
             "EXPERIMENTAL: under an active amp.auto_cast region, run "
             "nn.functional.linear matmuls whose 2-D weight tiles (K and N "

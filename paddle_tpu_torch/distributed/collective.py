@@ -21,7 +21,10 @@ calls it (real NCCL calls on one card).
   tensor as it was; ``scatter`` gives each rank its row of ``src``'s
   list; ``alltoall`` takes the
   ``[nranks, ...]`` blocks a rank sends (block ``d`` to rank ``d``) and
-  returns the blocks it received (block ``s`` from rank ``s``).
+  returns the blocks it received (block ``s`` from rank ``s``); on a
+  tensor that requires grad it is an autograd node whose backward is
+  the inverse exchange (the same all-to-all of the gradients), on any
+  backend and route.
 - ``send`` / ``recv`` pair across processes, matched by ``tag`` as
   well as by peer; ``isend`` / ``irecv`` post them and return a
   :class:`P2PWork` to ``wait()`` on; ``ppermute_shift`` moves each
@@ -473,18 +476,52 @@ def scatter(tensor, tensor_list=None, src: int = 0,
     return tensor
 
 
+class _AllToAll(torch.autograd.Function):
+    """The exchange as an autograd node: block ``d`` of a rank's
+    gradient goes back to rank ``d``, the same all-to-all on the
+    cotangents (the exchange is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _alltoall(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _alltoall(g.contiguous(), ctx.group), None
+
+
 def alltoall(in_tensor_list, out_tensor_list=None,
              group: Optional[Group] = None, sync_op: bool = True):
     """This rank sends block ``d`` of ``in_tensor_list`` (a list, or a
     ``[nranks, ...]`` tensor) to rank ``d`` and receives block ``s`` of
     its result from rank ``s``. With a list in, the list of received
-    blocks (appended to ``out_tensor_list`` when given)."""
+    blocks (appended to ``out_tensor_list`` when given). Differentiable:
+    a tensor that requires grad gets the received blocks' gradient back
+    by the inverse exchange (the expert all-to-all of
+    ``incubate.moe``)."""
     g = group or _default_group()
     as_list = isinstance(in_tensor_list, (list, tuple))
     x = torch.stack(list(in_tensor_list)) if as_list else in_tensor_list
     if x.shape[0] != g.nranks:
         raise ValueError(f"alltoall: expected {g.nranks} blocks, got "
                          f"{x.shape[0]}")
+    if (g.process_group is not None and torch.is_grad_enabled()
+            and x.requires_grad):
+        out = _AllToAll.apply(x, g)
+    else:
+        out = _alltoall(x, g)
+    if not as_list:
+        return out
+    res = list(out.unbind(0))
+    if out_tensor_list is not None:
+        out_tensor_list.extend(res)
+        return None
+    return res
+
+
+def _alltoall(x, g: Group) -> torch.Tensor:
+    """The ``[nranks, ...]`` exchange of :func:`alltoall`, no autograd."""
     if g.process_group is None:
         out = x
     elif x.is_cuda and _backend(g) == "gloo":
@@ -500,13 +537,7 @@ def alltoall(in_tensor_list, out_tensor_list=None,
             dist.all_to_all_single(out, x, group=g.process_group)
             return out
         out = _collective("all_to_all", g, x, run)
-    if not as_list:
-        return out
-    res = list(out.unbind(0))
-    if out_tensor_list is not None:
-        out_tensor_list.extend(res)
-        return None
-    return res
+    return out
 
 
 def p2p_route(tensor, group: Optional[Group] = None) -> str:

@@ -174,7 +174,11 @@ def count_over_data(count: torch.Tensor) -> Tuple[torch.Tensor, int]:
 
 def data_axes(mesh: Mesh) -> Tuple[str, ...]:
     """The mesh axes the batch dim is sharded over (dp + ZeRO
-    sharding); never ``pp``, whose stages all see the same rows."""
+    sharding) whose ranks replicate every parameter; never ``pp``, whose
+    stages all see the same rows. An ``ep`` axis also cuts the batch
+    (``data_spec=P("ep")``), but its ranks hold different experts:
+    ``TrainStep`` averages the loss over it and treats the gradients
+    apart."""
     return tuple(a for a in _DATA_AXES if a in mesh.axis_names)
 
 

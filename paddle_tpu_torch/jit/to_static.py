@@ -74,6 +74,20 @@ positions; the loss's count is summed over sp and so is the loss
 returned, and the gradients are summed over the sp group before the
 data-parallel mean.
 
+Expert parallelism (the JAX step on an ``ep`` mesh, ``:493-520``): on a
+mesh with an ``ep`` axis of ``n`` ranks (``data_spec=P("ep")`` cuts the
+batch over it) ``apply_param_shardings`` leaves each rank its ``E/n``
+experts of every ``P('ep', ...)`` leaf, and the MoE layers run the
+expert-parallel program. Each rank's loss is the mean over its own rows
+and the backward all-to-all brings every rank's cotangents home to an
+expert, so an expert block's gradient sums the n ranks' means: it is
+divided by n and never reduced (the blocks differ by rank), while every
+other gradient is averaged over ep; the loss returned and a masked
+mean's count are taken over ep as over a data axis, and the clip sums
+the expert blocks' squares over ep. A step of a model whose stacked MoE
+layers run over ep > 1 (``_ep_degree``) runs under the collective
+watchdog as a ``moe_step`` of the ep group.
+
 Gradient accumulation (``grad_accum_steps=k``, ``grad_accum_avg``, or
 the ``gradient_merge`` of a strategy that
 ``fleet.distributed_optimizer`` attached to the optimizer): k-1 calls
@@ -186,6 +200,14 @@ def _pipeline_group(layer: torch.nn.Module):
     return None
 
 
+def _ep_degree(layer: torch.nn.Module) -> int:
+    """The ep degree the model's stacked MoE layers run at (the JAX
+    step's ``_ep_degree``), 0 without one."""
+    from ..incubate.moe import MoELayer
+    return max((m._ep_degree() for m in layer.modules()
+                if isinstance(m, MoELayer) and m._stacked), default=0)
+
+
 class TrainStep:
     def __new__(cls, layer=None, loss_fn=None, optimizer=None, *args,
                 **kwargs):
@@ -235,7 +257,10 @@ class TrainStep:
         self.zero_axis = zero_axis
         self._batch_base = 0
         self._data_groups = []
+        self._loss_groups = []
         self._sp_group = None
+        self._ep_group = None
+        self._ep_sharded = []
         self._pp_group = None
         self._pp_replicated = []
         from ..nn.layers.conv import Conv2D
@@ -246,6 +271,8 @@ class TrainStep:
         if self.mesh is not None:
             self._lay_on_mesh()
         self._pp_group = _pipeline_group(layer)
+        self._ep_degree = 0 if self._pp_group is not None else \
+            _ep_degree(layer)
         optimizer.init_state()
         if check_numerics not in (False, True, "raise", "warn"):
             raise ValueError(f"check_numerics={check_numerics!r}: expected "
@@ -304,6 +331,12 @@ class TrainStep:
         apply_param_shardings(self.layer, mesh)
         self._data_groups = [mesh.group(a) for a in data_axes(mesh)
                              if mesh.axis_size(a) > 1]
+        self._loss_groups = list(self._data_groups)
+        if mesh.axis_size("ep") > 1:
+            # the ep ranks hold other rows (data_spec=P("ep")): the loss
+            # is their mean, the expert blocks ep cut are theirs alone
+            self._ep_group = mesh.group("ep")
+            self._loss_groups.append(self._ep_group)
         if mesh.axis_size("sp") > 1:
             # only a layer that runs sequence-parallel (its sp group set
             # by _on_mesh) computes the global function on a shard
@@ -323,6 +356,9 @@ class TrainStep:
         pp_sharded = [p for p in params
                       if any("pp" in axes
                              for axes in p._dist_layout.values())]
+        self._ep_sharded = [p for p in params
+                            if any("ep" in axes
+                                   for axes in p._dist_layout.values())]
         pp_group = mesh.group("pp") if mesh.axis_size("pp") > 1 else None
         if pp_group is not None:
             self._pp_replicated = [p for p in params
@@ -342,7 +378,8 @@ class TrainStep:
                         zero[p] = (i, group)
                         break
         self.optimizer.set_distributed(mp_group_of(mesh), mp_sharded, zero,
-                                       pp_group, pp_sharded)
+                                       pp_group, pp_sharded, self._ep_group,
+                                       self._ep_sharded)
 
     def _place(self, b) -> torch.Tensor:
         if not isinstance(b, torch.Tensor):
@@ -403,18 +440,22 @@ class TrainStep:
 
     def _global_loss(self, t: torch.Tensor) -> torch.Tensor:
         """A rank's loss as the global batch's: summed over the sp
-        shards, averaged over the data axes."""
+        shards, averaged over the data axes and ep."""
+        from ..distributed.collective import ReduceOp, all_reduce
         if self._sp_group is not None:
-            from ..distributed.collective import all_reduce
             all_reduce(t, group=self._sp_group)
-        return self._mean_over_data(t)
+        for g in self._loss_groups:
+            all_reduce(t, ReduceOp.AVG, g)
+        return t
 
     @torch.no_grad()
     def _sync_grads(self) -> None:
         """The update's gradients: the window's sum divided by k
         (``grad_accum_avg``), the pp-replicated ones summed over the pp
-        group, then all averaged over each data axis; all the gradients
-        of a dtype flattened into one all-reduce a group."""
+        group; on an ep axis the expert blocks divided by its size and
+        every other gradient averaged over it; then all averaged over
+        each data axis; all the gradients of a dtype flattened into one
+        all-reduce a group."""
         grads = [p.grad for p in self.layer.parameters()
                  if p.requires_grad and p.grad is not None]
         if self.grad_accum_steps > 1 and self.grad_accum_avg:
@@ -429,6 +470,20 @@ class TrainStep:
             from ..distributed.collective import all_reduce
             self._flat_reduce(grads, lambda t: all_reduce(
                 t, group=self._sp_group))
+        if self._ep_group is not None:
+            # each rank's loss is the mean over its own rows, and the
+            # backward all-to-all brings every rank's cotangents home to
+            # an expert: its gradient sums the n ranks' means, n times
+            # the global mean's; it is this rank's alone, never reduced
+            from ..distributed.collective import ReduceOp, all_reduce
+            ep = {id(p) for p in self._ep_sharded}
+            params = [p for p in self.layer.parameters()
+                      if p.requires_grad and p.grad is not None]
+            torch._foreach_div_([p.grad for p in params if id(p) in ep],
+                                float(self._ep_group.nranks))
+            self._flat_reduce(
+                [p.grad for p in params if id(p) not in ep],
+                lambda t: all_reduce(t, ReduceOp.AVG, self._ep_group))
         if self._data_groups:
             self._flat_reduce(grads, self._mean_over_data)
 
@@ -473,13 +528,18 @@ class TrainStep:
 
     def _dispatch(self, *batch) -> torch.Tensor:
         """A pipeline's step runs under the collective watchdog as a
-        ``pipeline_step`` of its pp group (a direct call without
+        ``pipeline_step`` of its pp group, a step of expert-parallel MoE
+        layers as a ``moe_step`` of the ep group (a direct call without
         ``FLAGS_collective_timeout_s``)."""
-        if self._pp_group is None:
-            return self._call_impl(*batch)
         from ..distributed.collective import _run_collective
-        return _run_collective("pipeline_step", self._pp_group,
-                               self._call_impl, *batch)
+        if self._pp_group is not None:
+            return _run_collective("pipeline_step", self._pp_group,
+                                   self._call_impl, *batch)
+        if self._ep_degree > 1:
+            from ..incubate.moe import moe_ep_group
+            return _run_collective("moe_step", moe_ep_group(
+                self._ep_degree), self._call_impl, *batch)
+        return self._call_impl(*batch)
 
     @contextlib.contextmanager
     def _step_span(self, mon: bool):
@@ -575,7 +635,7 @@ class TrainStep:
         the data axes (``spmd.loss_average_groups``)."""
         sums = [self._sp_group] if self._sp_group is not None else []
         with dropout_generator(self.generator, self._batch_base), \
-                loss_average_groups(self._data_groups, sums):
+                loss_average_groups(self._loss_groups, sums):
             return self.loss_fn(self.layer, *batch)
 
     def _backward(self, loss, watch: bool):

@@ -1,5 +1,5 @@
-"""Models (counterpart of ``paddle_tpu.models``): GPT for serving and
-pretraining (and over the pipeline: ``GPTForPretrainingPipe``,
+"""Models (counterpart of ``paddle_tpu.models``): GPT (dense or MoE,
+``GPTConfig.moe_experts``) for serving and pretraining (and over the pipeline: ``GPTForPretrainingPipe``,
 ``build_gpt_pipe``; sequence-parallel with ``sequence_parallel``), BERT
 and ERNIE for pretraining (tensor-parallel through
 ``apply_hybrid_specs``; ERNIE-3.0 1.5B as ``ernie_3_1p5b``), and

@@ -11,6 +11,10 @@ holds each parameter's block: :func:`shard_state_dict` cuts a full
 state dict (the JAX package's or the port's) to this rank's blocks,
 :func:`load_jax_weights` does so itself, and :func:`gather_state_dict`
 puts the full arrays back together (a collective every rank calls).
+An MoE model's leaves (``layers.<i>.moe.gate.weight`` and the stacked
+``layers.<i>.moe.experts.w1`` / ``b1`` / ``w2`` / ``b2``) copy the same
+way in both directions; on an ``ep`` mesh a rank holds its ``E/n``
+experts of each stacked leaf.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""GPT: decoder-only language model (dense), PyTorch port.
+"""GPT: decoder-only language model, dense or MoE, PyTorch port.
 
 Counterpart of ``paddle_tpu/models/gpt.py``: fused QKV attention, pre-LN
 blocks, tied LM head, the no-cache forward (training and inference), the
@@ -19,10 +19,24 @@ Under ``amp.auto_cast`` the model casts at the JAX op names
 (``embedding``, ``fused_qkv``, ``scaled_dot_product_attention``,
 ``attn_out``, ``linear``, ``lm_logits``), so its dtypes follow the JAX
 model's: under O1 the stream starts in bf16, the MLP's ``y + b_out``
-promotes to f32 (so ``dropout1`` runs on bf16 and ``dropout2`` on f32),
-and each block's output is cast back to the dtype of the stream that
-entered it, as the JAX package's ``lax.scan`` over layers casts its
-carry (``nn/scan.py:286``).
+promotes to f32 (so ``dropout1`` runs on bf16 and ``dropout2`` on f32).
+The JAX model runs a homogeneous stack (two or more blocks of one class)
+as one ``lax.scan``, whose carry casts each block's output back to the
+dtype of the stream that entered it (``nn/scan.py:286``), and a mixed
+stack (dense and MoE blocks) as a per-layer loop that casts nothing; the
+port casts exactly where the JAX model would scan, so under O1 a mixed
+stack's stream is f32 from its first block on, as in JAX.
+
+Mixture-of-Experts (``GPTConfig.moe_experts`` > 0): every
+``moe_every``-th block is a :class:`GPTMoEDecoderLayer`, whose FFN is an
+``incubate.moe.MoELayer`` (``layers.<i>.moe.gate.weight``,
+``layers.<i>.moe.experts.w1`` ...; the dense blocks keep ``mlp.*``).
+Without a cache the model collects the MoE blocks' router vectors
+(``GPTModel.moe_layer_stats``) and their weighted aux and z losses
+(``moe_loss()``, which a training loss adds to the CE); with a cache an
+MoE block returns ``x`` as a dense one does, so ``generate`` and the
+serving engine serve an MoE GPT unchanged. On a mesh with an ``ep``
+axis the MoE layers run the expert-parallel program over it.
 
 Attention routes through ``ops.attention.sdpa_array`` (the flash
 kernels on the card) for the causal no-cache and prefill paths, through
@@ -68,6 +82,8 @@ paths (paged and static caches) take no mp group.
 
 ``use_recompute`` runs each block under ``fleet.utils.recompute`` in
 training (``recompute_policy``: a JAX selective-remat policy name).
+:class:`GPTForPretrainingPipe` refuses an MoE config, as the JAX class
+does.
 
 Sequence parallelism (``sequence_parallel``, the JAX config's flag,
 with an ``sp`` mesh axis of more than one rank): the residual stream is
@@ -116,6 +132,8 @@ from ..distributed.meta_parallel.parallel_layers.mp_layers import (
     MPModule, ParallelCrossEntropy, copy_to_model_parallel,
     mark_mp_block, reduce_from_model_parallel, vocab_parallel_embedding)
 from ..distributed.spmd import P, count_over_data, loss_sum_groups
+from ..incubate.moe.layer import (MoELayer, _publish_row,
+                                  publish_router_stats, xavier_uniform_)
 from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm
 from ..ops.attention import (NEG_INF, _sdpa_plain, context_attention,
@@ -129,11 +147,11 @@ from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
                                 write_pages, write_pages_quant)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
-           "GPTModel", "GPTForPretraining", "GPTPretrainingCriterion",
-           "LayerNorm", "Dropout", "parallel_logits", "gpt_tiny",
-           "gpt2_small", "gpt2_medium", "gpt2_large", "gpt2_xl",
-           "STATIC_BLOCK", "GPTForPretrainingPipe", "gpt_pipeline_descs",
-           "build_gpt_pipe"]
+           "GPTMoEDecoderLayer", "GPTModel", "GPTForPretraining",
+           "GPTPretrainingCriterion", "LayerNorm", "Dropout",
+           "parallel_logits", "gpt_tiny", "gpt2_small", "gpt2_medium",
+           "gpt2_large", "gpt2_xl", "STATIC_BLOCK", "GPTForPretrainingPipe",
+           "gpt_pipeline_descs", "build_gpt_pipe"]
 
 #: positions a page when the paged-decode kernel reads a static cache:
 #: ``generate`` allocates its buffers' length in whole pages
@@ -162,6 +180,18 @@ class GPTConfig:
     #: shard the residual stream's sequence over the mesh's ``sp`` axis
     #: (ring attention over the sp group)
     sequence_parallel: bool = False
+    #: Mixture-of-Experts: ``moe_experts`` > 0 swaps the FFN of every
+    #: ``moe_every``-th decoder layer (layer i is MoE iff (i+1) %
+    #: moe_every == 0) for an ``incubate.moe.MoELayer`` of ``moe_experts``
+    #: stacked experts (hidden ``ffn_size``), top-``moe_top_k`` routing at
+    #: ``moe_capacity_factor``; the router losses, weighted by
+    #: ``moe_aux_weight`` / ``moe_z_weight``, are ``GPTModel.moe_loss()``
+    moe_experts: int = 0
+    moe_every: int = 1
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 1e-2
+    moe_z_weight: float = 1e-3
 
     @property
     def ffn_size(self) -> int:
@@ -170,6 +200,13 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    def moe_layer_indices(self):
+        """Decoder-layer indices that carry an MoE FFN."""
+        if not self.moe_experts:
+            return []
+        k = max(1, int(self.moe_every))
+        return [i for i in range(self.num_layers) if (i + 1) % k == 0]
 
 
 def _sp_group_of(cfg: GPTConfig, mesh):
@@ -403,13 +440,46 @@ class GPTDecoderLayer(nn.Module):
         self.ln1 = LayerNorm(cfg.hidden_size, device)
         self.attn = GPTAttention(cfg, device)
         self.ln2 = LayerNorm(cfg.hidden_size, device)
-        self.mlp = GPTMLP(cfg, device)
+        self._build_ffn(cfg, device)
         self.dropout1 = Dropout(cfg.hidden_dropout_prob)
         self.dropout2 = Dropout(cfg.hidden_dropout_prob)
 
+    def _build_ffn(self, cfg: GPTConfig, device: torch.device) -> None:
+        self.mlp = GPTMLP(cfg, device)
+
+    def _ffn(self, h):
+        """The block's feed-forward half (``GPTMoEDecoderLayer`` swaps in
+        the expert mixture)."""
+        return self.mlp(h)
+
     def forward(self, x, cache=None, pos=None):
         x = x + self.dropout1(self.attn(self.ln1(x), cache, pos))
-        return x + self.dropout2(self.mlp(self.ln2(x)))
+        return x + self.dropout2(self._ffn(self.ln2(x)))
+
+
+class GPTMoEDecoderLayer(GPTDecoderLayer):
+    """Pre-LN block whose FFN is a mixture of experts (``incubate.moe``,
+    ``layers.<i>.moe.gate.weight``, ``layers.<i>.moe.experts.w1`` ...).
+    Without a cache it returns ``(x, moe_vec)``, the layer's float32
+    ``[aux, z, drop, entropy, balance, load_0..E-1]``; with a cache it
+    returns ``x``, as the dense layer does, so every decode path is
+    unchanged. It draws no seed words of its own: its dropouts are the
+    dense block's."""
+
+    def _build_ffn(self, cfg: GPTConfig, device: torch.device) -> None:
+        self.moe = MoELayer(
+            cfg.hidden_size, num_experts=cfg.moe_experts,
+            d_hidden=cfg.ffn_size, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, device=device)
+
+    def _ffn(self, h):
+        return self.moe(h)
+
+    def forward(self, x, cache=None, pos=None):
+        out = super().forward(x, cache, pos)
+        if cache is not None:
+            return out
+        return out, self.moe.moe_vec
 
 
 def _embedding_out(module, input_ids, position_ids=None):
@@ -442,9 +512,21 @@ class GPTModel(MPModule):
         self.position_embeddings = nn.Embedding(
             cfg.max_position_embeddings, cfg.hidden_size, device=device)
         self.embedding_dropout = Dropout(cfg.hidden_dropout_prob)
+        moe_idx = set(cfg.moe_layer_indices())
+        if cfg.moe_experts and not moe_idx:
+            raise ValueError(
+                f"moe_experts={cfg.moe_experts} but moe_every="
+                f"{cfg.moe_every} places no MoE layer in a "
+                f"{cfg.num_layers}-layer stack (layer i is MoE iff "
+                "(i+1) % moe_every == 0)")
         self.layers = nn.ModuleList(
-            [GPTDecoderLayer(cfg, device) for _ in range(cfg.num_layers)])
+            [GPTMoEDecoderLayer(cfg, device) if i in moe_idx else
+             GPTDecoderLayer(cfg, device) for i in range(cfg.num_layers)])
+        for i in sorted(moe_idx):
+            self.layers[i].moe._label = f"layer{i}"
         self.final_norm = LayerNorm(cfg.hidden_size, device)
+        self._moe_vecs = None
+        self._moe_loss = None
 
     sp_group = None
 
@@ -488,17 +570,78 @@ class GPTModel(MPModule):
             position_ids = start + torch.arange(S, device=input_ids.device)
         x = _embedding_out(self, input_ids, position_ids)
         remat = self.cfg.use_recompute and self.training and caches is None
+        # the JAX model runs a homogeneous stack as one lax.scan (no
+        # cache, or a paged one), whose carry keeps the stream's dtype
+        # across layers; a mixed stack (MoE every other layer) and a
+        # static cache run its per-layer loop, which casts nothing, so
+        # under O1 the stream stays in the dtype the first promoting
+        # block returns
+        scan = not static and _scans(self.layers)
+        vecs = []
         for i, blk in enumerate(self.layers):
             if remat:
-                x = recompute(blk, x, policy=self.cfg.recompute_policy
-                              ).to(x.dtype)
-                continue
-            layer_cache = (caches[i] if static else caches.layer(i)
-                           if caches is not None else None)
-            # the scan carry keeps the stream's dtype across layers
-            x = blk(x, layer_cache, cache_pos).to(x.dtype)
+                out = recompute(blk, x, policy=self.cfg.recompute_policy)
+            else:
+                layer_cache = (caches[i] if static else caches.layer(i)
+                               if caches is not None else None)
+                out = blk(x, layer_cache, cache_pos)
+            if isinstance(blk, GPTMoEDecoderLayer) and caches is None:
+                out, vec = out
+                vecs.append(vec)
+            x = out.to(x.dtype) if scan else out
+        if caches is None:
+            self._moe_vecs = torch.stack(vecs) if vecs else None
+            if self.cfg.moe_experts:
+                self._reduce_moe_loss()
         x = self.final_norm(x)
         return (x, list(caches)) if static else x
+
+    # -- the MoE side channel ----------------------------------------------
+    def _reduce_moe_loss(self) -> None:
+        """The weighted router losses of the last no-cache forward: aux
+        and z summed over the MoE layers (a value of that forward's
+        graph: add it to the loss it ran for)."""
+        v = self._moe_vecs
+        if v is None:
+            self._moe_loss = None
+            return
+        w_a = float(self.cfg.moe_aux_weight)
+        w_z = float(self.cfg.moe_z_weight)
+        self._moe_loss = (w_a * v[:, 0].sum()
+                          + w_z * v[:, 1].sum()).to(torch.float32)
+
+    def moe_loss(self):
+        """The weighted MoE router loss (aux + z) of the last forward, or
+        None for a dense config: ``crit(logits, labels) +
+        model.gpt.moe_loss()``."""
+        return self._moe_loss
+
+    def moe_layer_stats(self):
+        """The MoE layers' router vectors ``[L_moe, 5+E]`` of the last
+        no-cache forward (rows in ``cfg.moe_layer_indices()`` order,
+        columns ``[aux, z, drop, entropy, balance, load_0..E-1]``), or
+        None."""
+        return self._moe_vecs
+
+    def publish_moe_telemetry(self, registry=None) -> int:
+        """Publish the per-layer router gauges of the last forward into
+        the monitor registry (``tools/monitor_report.py --moe`` renders
+        them); returns the number of layers published."""
+        vecs = self._moe_vecs
+        if vecs is None:
+            return publish_router_stats(self, registry)
+        arr = vecs.detach().double().cpu().numpy()
+        E = self.cfg.moe_experts
+        for row, i in zip(arr, self.cfg.moe_layer_indices()):
+            _publish_row(row[2:], f"layer{i}", E, registry)
+        return arr.shape[0]
+
+
+def _scans(layers) -> bool:
+    """Whether the JAX model would run ``layers`` as one ``lax.scan``
+    (``nn/scan.py::can_scan_layers``): two or more blocks of one class
+    (the same parameter shapes, by construction)."""
+    return len(layers) >= 2 and len({type(b) for b in layers}) == 1
 
 
 def parallel_logits(hidden, embedding_weight, mp_group=None):
@@ -527,6 +670,11 @@ class GPTForPretraining(nn.Module):
 
     def _init_weights(self, g: torch.Generator) -> None:
         _init_gpt_weights(self, self.cfg, g)
+
+    def moe_loss(self):
+        """The weighted MoE router loss of the last forward
+        (``GPTModel.moe_loss``), or None for a dense config."""
+        return self.gpt.moe_loss()
 
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_pos=None, generator: Optional[torch.Generator] = None):
@@ -561,7 +709,8 @@ def _init_gpt_weights(module: nn.Module, cfg: GPTConfig,
     for matrices and embeddings, the residual-out projections scaled by
     ``1/sqrt(2*num_layers)``; biases stay zero and LayerNorms (1, 0).
     A stacked name (``blocks.stacked__mlp__w_out``) initializes like its
-    template's."""
+    template's. An MoE layer's gate and stacked experts take the JAX
+    ``XavierUniform`` default over their whole shapes."""
     std = cfg.initializer_range
     out_std = std / math.sqrt(2 * cfg.num_layers)
     for name, p in module.named_parameters():
@@ -570,6 +719,8 @@ def _init_gpt_weights(module: nn.Module, cfg: GPTConfig,
             p.normal_(0.0, out_std, generator=g)
         elif leaf in ("qkv_weight", "w_in") or "embeddings" in name:
             p.normal_(0.0, std, generator=g)
+        elif leaf in ("w1", "w2") or name.endswith("moe.gate.weight"):
+            xavier_uniform_(p, g)
 
 
 class GPTPretrainingCriterion(nn.Module):
@@ -625,6 +776,11 @@ class GPTForPretrainingPipe(MPModule):
         super().__init__()
         from ..distributed.meta_parallel.spmd_pipeline import \
             PipelineStageStack
+        if cfg.moe_experts:
+            raise NotImplementedError(
+                "GPTForPretrainingPipe does not support MoE configs (the "
+                "pipeline stage stack builds dense decoder layers); use "
+                "GPTForPretraining, as the JAX package says")
         dev = resolve_device(device)
         self.cfg = cfg
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,

@@ -26,21 +26,29 @@ def _zeros(*shape, device):
 
 
 class Linear(nn.Module):
-    """``y = x W + b`` with ``W [in, out]`` (``common.py:21-36``)."""
+    """``y = x W + b`` with ``W [in, out]`` (``common.py:21-36``);
+    ``bias_attr=False`` builds it without the bias (other ``bias_attr``
+    objects wait for ``nn/initializer.py``)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, bias_attr=None):
         super().__init__()
+        if bias_attr not in (None, False):
+            raise NotImplementedError(
+                "bias_attr objects wait for nn/initializer.py; pass None "
+                "or False")
         self.in_features, self.out_features = in_features, out_features
         self.weight = _zeros(in_features, out_features, device=device)
-        self.bias = _zeros(out_features, device=device)
+        self.bias = None if bias_attr is False else _zeros(out_features,
+                                                           device=device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """XavierUniform weight (the JAX default), zero bias."""
         limit = math.sqrt(6.0 / (self.in_features + self.out_features))
         self.weight.uniform_(-limit, limit, generator=generator)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

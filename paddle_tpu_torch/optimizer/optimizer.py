@@ -16,8 +16,9 @@ rate is then the scheduler's at each update, ``set_lr`` raises, and
 
 Distributed (``TrainStep`` on a mesh sets it, :meth:`set_distributed`):
 the gradient clip sums the squares of mp-sharded gradients over the mp
-group (and of pp-sharded ones over the pp group) and counts a
-replicated gradient once; under ZeRO-1 a parameter's
+group (of pp-sharded ones over the pp group, of the expert blocks an ep
+axis shards over the ep group) and counts a replicated gradient once;
+under ZeRO-1 a parameter's
 slots hold only the rank's block of its first free dimension that the
 ZeRO axis divides (``TrainStep._slot_spec``'s rule), the rule updates
 that block of the parameter, and one ``all_gather`` a step (every
@@ -56,6 +57,8 @@ class Optimizer:
         self._mp_group = None
         self._pp_sharded: set = set()
         self._pp_group = None
+        self._ep_sharded: set = set()
+        self._ep_group = None
 
     # -- learning rate -------------------------------------------------------
     def get_lr(self) -> float:
@@ -78,15 +81,18 @@ class Optimizer:
 
     # -- distributed ---------------------------------------------------------
     def set_distributed(self, mp_group=None, mp_sharded=(), zero=None,
-                        pp_group=None, pp_sharded=()):
+                        pp_group=None, pp_sharded=(), ep_group=None,
+                        ep_sharded=()):
         """Lay the optimizer on a mesh: ``mp_sharded`` the parameters
-        mp shards (by object), ``pp_sharded`` those pp shards, ``zero``
-        ``{param: (dim, group)}`` the ZeRO-1 layout. Before
-        :meth:`init_state`."""
+        mp shards (by object), ``pp_sharded`` those pp shards,
+        ``ep_sharded`` the expert blocks ep shards, ``zero`` ``{param:
+        (dim, group)}`` the ZeRO-1 layout. Before :meth:`init_state`."""
         self._mp_group = mp_group
         self._mp_sharded = {id(p) for p in mp_sharded}
         self._pp_group = pp_group
         self._pp_sharded = {id(p) for p in pp_sharded}
+        self._ep_group = ep_group
+        self._ep_sharded = {id(p) for p in ep_sharded}
         self._zero = {id(p): dz for p, dz in (zero or {}).items()}
 
     def zero_block(self, p: torch.Tensor, t: torch.Tensor = None):
@@ -156,7 +162,10 @@ class Optimizer:
                 mp_group=self._mp_group,
                 pp_sharded={i for i, p in enumerate(live)
                             if id(p) in self._pp_sharded},
-                pp_group=self._pp_group)
+                pp_group=self._pp_group,
+                ep_sharded={i for i, p in enumerate(live)
+                            if id(p) in self._ep_sharded},
+                ep_group=self._ep_group)
         lr = float(torch.tensor(self.get_lr(), dtype=torch.float32))
         for i, p in enumerate(live):
             g = grads[i] + self._l2 * p if self._l2 else grads[i]

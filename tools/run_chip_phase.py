@@ -1,6 +1,6 @@
 """Run chip_smoke.py's card phase and one later phase alone.
 
-    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision
+    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe
 
 From the root of a checkout, on a machine with one CUDA card: builds the
 kernels (phase 1), then drives the named phase and prints its launches:
@@ -18,8 +18,10 @@ at sharding = 2 x mp = 2) and the resharding checkpoint), ``vision``
 phase 22 (BASELINE config 1, LeNet eager; config 2, ResNet-50 through
 ``TrainStep`` at AMP O1, channels-last and not; ResNet-18 f32 on the
 card against the CPU and the TF32 gap; VGG-16 with its dropouts through
-the fused dropout kernel; ``fold_conv_bn``). Exits non-zero if a check
-fails.
+the fused dropout kernel; ``fold_conv_bn``), ``moe`` phase 23 (GPT-2
+345M-8E through ``TrainStep`` at AMP O1, sort against einsum, ``generate``
+and the serving engine over it, ep = 4 over four ranks on the card).
+Exits non-zero if a check fails.
 """
 
 import os
@@ -35,7 +37,8 @@ PHASES = {"monitor": lambda card: chip_smoke.phase_monitor(),
           "fleet": lambda card: chip_smoke.phase_fleet(),
           "distributed": lambda card: chip_smoke.phase_distributed(
               card["smi"]),
-          "vision": lambda card: chip_smoke.phase_vision(card["smi"])}
+          "vision": lambda card: chip_smoke.phase_vision(card["smi"]),
+          "moe": lambda card: chip_smoke.phase_moe(card["smi"])}
 
 
 def main() -> int:
