@@ -277,7 +277,7 @@ result line. Twenty-four phases, in order:
               losses and the gathered parameters against one process's
               TrainStep on the same weights, batch and seed; (d) the full
               gpt2_medium at dp = 2 x mp = 2, O1, recompute, ZeRO-1,
-              B = 8 a call, two calls an update, four updates: losses
+              B = 8 a call, two calls an update, two updates: losses
               finite and falling, the median update, the share of it in
               collectives (the ``comm_*`` series), peak memory per rank
               and each rank's launches exactly the formula; the
@@ -288,8 +288,8 @@ result line. Twenty-four phases, in order:
               fill-drain and 1F1B, against one process's TrainStep, 1F1B
               bit-equal to fill-drain; (g) BASELINE config 4's model
               (gpt2_medium at pp = 2 x mp = 2, B = 8 in 8 microbatches,
-              O1): four updates of ``pretraining_loss`` under 1F1B, then
-              three of config 4's ``crit(layer(ids), labels)``, each with
+              O1): two updates of ``pretraining_loss`` under 1F1B, then
+              two of config 4's ``crit(layer(ids), labels)``, each with
               losses finite and falling, the median update, the
               collective split, peak memory, in-flight maxima equal to
               the timetable's and launches exactly the formula; (h)
@@ -307,7 +307,7 @@ result line. Twenty-four phases, in order:
               linear warmup), ZeRO over sharding,
               dropout 0.1, B = 8, S = 512, 76 masked positions, the last
               row padded from 384: the rank's blocks, one warm-up and
-              three updates with losses finite, falling and equal on
+              two updates with losses finite, falling and equal on
               every rank, the median update, tokens/s, the collective
               split, peak memory and launches exactly the formula; (j)
               config 5's widths at 2 layers saved sharded at sharding =
@@ -360,7 +360,32 @@ result line. Twenty-four phases, in order:
               process's steps (losses, gathered parameters), the update
               time, the collectives' seconds by op, peak memory a rank,
               one O1 step, launches exactly the formula;
-24. summary -- print one JSON line describing every ported kernel, then
+24. vision2 -- (a) ResNet-18 f32 [16, 3, 64, 64] at dp = 4 over four
+              ranks on the one card (gloo), two Momentum steps through
+              ``TrainStep`` with every BatchNorm's statistics over the
+              global batch, against one process's step (losses,
+              parameters, running statistics; both equal on every rank);
+              (b) BASELINE config 2 through ``hapi.Model.fit`` under
+              ``fleet.init`` in the same world: ResNet-50, every BN
+              converted to ``SyncBatchNorm``, global batch 256 (64 a
+              rank), 224^2, AMP O1, channels-last, Momentum(0.9) under a
+              cosine schedule stepped by the ``LRScheduler`` callback:
+              ms an update, img/s, the share in collectives split into
+              the BN statistics collectives and the gradient all-reduce,
+              peak memory a rank, rank 0's profiled update; losses,
+              running statistics, parameters and ``evaluate``'s
+              ``Accuracy`` equal on every rank; (c)
+              ``max_pool2d(return_mask=True)`` -> ``MaxUnPool2D`` at
+              ResNet's stem, (d) the detection ops at their published
+              widths (SSD300 priors, decode and multi-class NMS;
+              YOLOv3-608's three heads; Mask R-CNN's ``roi_align`` on P2,
+              FPN anchors and proposal routing; R-FCN's ``psroi_pool``;
+              ``nms`` on 1000 boxes; DCNv2's ``deform_conv2d`` on res5)
+              and (e) ``QuantizedConv2D`` forward and backward at a res3
+              conv, each card against the port's own CPU run and timed;
+              no part launches a kernel of the port, and every rank
+              checks that it imported no JAX;
+25. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
@@ -371,7 +396,8 @@ of phase 18, before each run of phase 19, before each part of phase
 again before its timed run, its pipeline parity runs, each of its two
 pipeline loss styles, (h)'s attention calls and each of its parity
 layouts, and (i)'s timed updates, and before phase 22, before phase 23's
-(a), (d)'s two runs and, in each rank, (c), and read just
+(a), (d)'s two runs and, in each rank, (c), before phase 24's (c) and,
+in each rank, (a), and read just
 after each (a witness's
 reference runs are taken back out of them, and phase 20 reads them
 before its teacher-forced references);
@@ -384,17 +410,18 @@ the kernel JSON line gives each kernel's launches per path (``serve``,
 float32 parity runs, ``pipe`` and ``pipe_forward``: (g) under 1F1B and
 in config 4's loss style, ``pipe_parity``: (f), ``ring``: (h)'s one
 counted ring and Ulysses call, ``sp_parity``: (h)'s sequence-parallel
-GPT runs, ``ernie_hybrid``: (i)'s three updates, each summed over the
+GPT runs, ``ernie_hybrid``: (i)'s two updates, each summed over the
 world's ranks; ``vision``: phase 22, whose launches are all (d)'s;
 ``moe``: phase 23 (a)'s ten steps, ``moe_ep``: (c) summed over its
-ranks, ``moe_decode``: (d)'s generate and serving runs).
+ranks, ``moe_decode``: (d)'s generate and serving runs; ``vision2``:
+phase 24, its ranks' (a) and (b) and its own (c)-(e), all 0).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
 
-``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe`` runs
-phase 1 and phase 18, 20, 21, 22 or 23 alone.
+``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2``
+runs phase 1 and phase 18, 20, 21, 22, 23 or 24 alone.
 """
 
 from __future__ import annotations
@@ -5093,8 +5120,9 @@ DIST_LOSS_TOL = 1e-5
 DIST_PARAM_TOL = 1e-5
 DIST_KEY_BIAS_TOL = 2 * TRAIN_LR * DIST_PARITY_STEPS
 # (d) the timed run: gpt2_medium, B = 8 a call, S = 1024, O1, recompute,
-# two microsteps an update, four updates
-DIST_B, DIST_S, DIST_ACCUM, DIST_UPDATES = 8, 1024, 2, 4
+# two microsteps an update, two updates (four until phase 24 needed the
+# script's time)
+DIST_B, DIST_S, DIST_ACCUM, DIST_UPDATES = 8, 1024, 2, 2
 
 
 def _dist_batch(B, S, seed):
@@ -5364,7 +5392,9 @@ def _dist_timed(rank: int) -> dict:
 # logits broadcast over pp)
 PIPE_PARITY_LAYERS, PIPE_PARITY_M = 4, 4
 PIPE_LAYOUTS = {"pp=2 x mp=2": (2, 2), "pp=4": (4, 1)}
-PIPE_B, PIPE_M, PIPE_UPDATES, PIPE_FWD_UPDATES = 8, 8, 4, 3
+# two timed updates each (four and three until phase 24 needed the
+# script's time)
+PIPE_B, PIPE_M, PIPE_UPDATES, PIPE_FWD_UPDATES = 8, 8, 2, 2
 GLOO_RAW_OPS = ("send_recv", "isend_irecv", "batch_isend_irecv")
 
 
@@ -5711,9 +5741,10 @@ SP_ATTN_TOL = {"o": 2.0 ** -7, "grads": 2.0 ** -6}
 # (i) BASELINE config 5: ERNIE-3.0 1.5B at sharding = 2 x mp = 2 (dp cut
 # from n/4 to 1 for one card), O1, AdamW, ZeRO over sharding; a global
 # batch of 8 (4 a sharding rank), S = 512, 76 masked positions a row, the
-# last row padded from position 384; one warm-up, then three updates
+# last row padded from position 384; one warm-up, then two updates
 E5_SHARDING, E5_MP, E5_B, E5_S, E5_M = 2, 2, 8, 512, 76
-E5_PAD_FROM, E5_UPDATES, E5_LR, E5_WD = 384, 3, 1e-4, 0.01
+# two timed updates (three until phase 24 needed the script's time)
+E5_PAD_FROM, E5_UPDATES, E5_LR, E5_WD = 384, 2, 1e-4, 0.01
 # the peak lr is reached by a linear warmup over E5_WARMUP updates, as
 # ERNIE's pretraining recipe warms up: at 1e-4 from the first update
 # Adam's first sign-like steps move every weight of the 24 post-LN
@@ -6646,6 +6677,8 @@ VISION_PARITY_FLOOR = 1e-7
 VISION_GRAD_L2_TOL = 2e-4
 # (e): the folded ResNet-50's eval logits against the unfolded ones
 FOLD_TOL = 1e-4
+# (b)'s channels-last ms a step, which phase 24 prints beside its dp run
+_R50_ONE_PROCESS = {}
 VGG_B, VGG_STEPS = 16, 3
 VISION_PROFILE_GROUPS = (
     ("layout transforms", ("nchwToNhwc", "nhwcToNchw")),
@@ -6786,6 +6819,8 @@ def _vision_resnet50(smi: str):
             _profile_step(tag, lambda: float(step(x, y)),
                           VISION_PROFILE_GROUPS, step_ms=ms)
         imgs = VISION_B / (ms / 1e3)
+        if flag:
+            _R50_ONE_PROCESS["ms"] = ms
         mfu = VISION_B * R50_FLOPS_PER_IMAGE_STEP / (ms / 1e3) \
             / PEAK_FLOPS["bfloat16"]
         _log(f"vision (b): ResNet-50 B={VISION_B} AMP O1 Momentum "
@@ -7527,6 +7562,708 @@ def phase_moe(smi: str) -> dict:
     return {"moe": train, "moe_ep": ep, "moe_decode": decode}
 
 
+# -- phase 24: vision part 2 ----------------------------------------------------
+# (a) f32 parity: ResNet-18 at [16, 3, 64, 64], dp = 4 over four ranks on
+# the one card (gloo) against one process's step on the global batch, two
+# Momentum steps at lr 1e-3: losses within DIST_LOSS_TOL (1e-5)
+# relative; parameters and BN running statistics, each tensor's largest
+# difference over its largest magnitude (a difference under
+# VISION_PARITY_FLOOR, 1e-7, counting as none), within VISION_PARITY_TOL
+# (1e-4) or within twice what the same one-process step run in NCHW
+# reads against the channels-last one, whichever is larger. The ranks'
+# per-channel moments combine in another order than one process's
+# Welford pass, and B = 4 a rank takes other cuDNN algorithms than
+# B = 16; a BN bias holds only two updates of a gradient that is small by
+# cancellation, so such reorderings move it by far more than 1e-4 of
+# itself: a CPU rehearsal at these shapes read 1.184e-02 between the two
+# layouts of one process (a BN bias; updates 5.483e-03 in L2) and
+# 9.893e-06 between dp = 4 and one process, both channels-last; on the
+# card (vision2 phase, PR 20, H100 80GB HBM3, 700.00 W) both the NCHW run
+# and dp = 4 read 1.839e-03 on layer2.0.bn1.bias, every other tensor
+# under 1.3e-4
+V2_RANKS = 4
+V2_PARITY_B, V2_PARITY_HW, V2_PARITY_STEPS = 16, 64, 2
+# (b) BASELINE config 2 through Model.fit under fleet.init: ResNet-50,
+# every BN converted to SyncBatchNorm, global batch 256 (64 a rank), 224^2,
+# AMP O1, channels-last, Momentum(0.9) under a cosine schedule stepped by
+# the LRScheduler callback; V2_WARMUP updates, then V2_TIMED timed ones,
+# then one more profiled on rank 0; an evaluate over V2_EVAL images
+V2_B, V2_WARMUP, V2_TIMED, V2_EVAL = 256, 2, 3, 64
+# (c) max_pool2d(return_mask=True) -> MaxUnPool2D at ResNet's stem
+V2_POOL_SHAPE = (32, 64, 112, 112)
+# (d), (e): the card against the port's own CPU run, float outputs within
+# DET_TOL of their largest magnitude (sums in another order); indices,
+# counts and the host-side multiclass_nms equal
+DET_TOL = 1e-5
+# deform_conv2d's contraction sums C * K = 4608 products a output, and
+# the quantized conv's weight gradient B * 28 * 28 = 6272: their f32
+# sums in another order sit further apart
+DET_SUM_TOL = 1e-4
+# roi_align's sample coordinates reach 300 on P2, where an f32 quantum
+# is 3.05e-05 px and a bilinear value moves by up to twice the map's
+# largest step across one: the op's f32 result sits 1.51e-05 (of the
+# largest output) from its float64 evaluation on the CPU, and the card
+# read 2.58e-05 from the CPU (vision2 phase, PR 20)
+DET_COORD_TOL = 1e-4
+
+
+_V2_FAILS = []
+
+
+def _v2_check(cond, msg: str) -> None:
+    """Phase 24's checks: a failure is printed and recorded and the phase
+    goes on, so one run prints every reading; it fails at its end."""
+    if not cond:
+        _log(f"vision2: FAILED: {msg}")
+        _V2_FAILS.append(msg)
+
+
+def _o1_net(net):
+    """``net`` wrapped so that its forward runs under ``auto_cast(level=
+    "O1")`` and returns float32 logits (the JAX ``Model.prepare`` takes
+    no AMP setting, so the cast lives in the network)."""
+    import torch
+    from paddle_tpu_torch.amp import auto_cast
+
+    class O1(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.net = inner
+
+        def forward(self, x):
+            with auto_cast(level="O1"):
+                return self.net(x).float()
+    return O1(net)
+
+
+class _SynthImageNet:
+    """``n`` seeded ImageNet-shaped samples on the card (``distinct`` of
+    them, repeated), as phase 22 makes its batch: N(0, 1) images and
+    uniform labels from one generator."""
+
+    def __init__(self, n: int, distinct: int, seed: int):
+        import torch
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        self.x = torch.randn(distinct, 3, 224, 224, device="cuda",
+                             generator=g)
+        self.y = torch.randint(0, 1000, (distinct,), device="cuda",
+                               generator=g)
+        self.n = n
+
+    def __getitem__(self, i):
+        j = i % self.x.shape[0]
+        return self.x[j], self.y[j]
+
+    def __len__(self):
+        return self.n
+
+
+def _v2_parity_batch():
+    import numpy as np
+    rng = np.random.default_rng(6)
+    return (rng.normal(size=(V2_PARITY_B, 3, V2_PARITY_HW, V2_PARITY_HW))
+            .astype(np.float32),
+            (np.arange(V2_PARITY_B) % 10).astype(np.int64))
+
+
+def _v2_reference(tmp: str) -> list:
+    """(a)'s one-process step on the card: the initial ResNet-18 weights
+    to ``v2_init.pdparams``, the losses and final state to
+    ``v2_reference.pdparams``."""
+    import torch
+    from paddle_tpu_torch.framework.io import save
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    from paddle_tpu_torch.core.flags import flag_scope
+    from paddle_tpu_torch.models import load_jax_weights
+    init = resnet18(num_classes=10, device="cuda", seed=3).state_dict()
+    save(init, os.path.join(tmp, "v2_init.pdparams"))
+    x, y = _v2_parity_batch()
+    out = {}
+    for cl in (True, False):
+        m = resnet18(num_classes=10, device="cuda")
+        load_jax_weights(m, {k: v.cpu().numpy() for k, v in init.items()})
+        with flag_scope("jit_channels_last", cl):
+            step = TrainStep(m, _vision_ce(amp=False), Momentum(
+                1e-3, momentum=0.9, parameters=m.parameters()))
+            losses = [float(step(x, y)) for _ in range(V2_PARITY_STEPS)]
+        out["state" if cl else "state_nchw"] = m.state_dict()
+        out["losses" if cl else "losses_nchw"] = losses
+        del step, m
+    out["init"] = init
+    save(out, os.path.join(tmp, "v2_reference.pdparams"))
+    torch.cuda.empty_cache()
+    return out["losses"]
+
+
+def _digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _v2_buffers(model):
+    return [b for n, b in sorted(model.state_dict().items())
+            if n.endswith(("_mean", "_variance"))]
+
+
+def _v2_params(model):
+    return [p for _, p in sorted(model.named_parameters())]
+
+
+def _v2_errors(state: dict, ref: dict) -> dict:
+    """``state`` against the reference's: each tensor's largest
+    difference over its largest magnitude (differences under
+    VISION_PARITY_FLOOR count as none), the three worst parameters and
+    the worst running statistic; the L2 error of each parameter's update
+    over the update's L2; the same two for the reference's NCHW run (the
+    card's own noise between cuDNN's algorithms)."""
+    import numpy as np
+
+    def max_rel(a, r):
+        d = np.maximum(np.abs(a - r) - VISION_PARITY_FLOOR, 0.0)
+        return float(d.max() / max(np.abs(r).max(), 1e-12))
+
+    out = {}
+    for tag, got in (("dp", state), ("nchw", {
+            k: np.asarray(v, np.float64)
+            for k, v in ref["state_nchw"].items()})):
+        rel, upd = {}, {}
+        for k, v in ref["state"].items():
+            r = np.asarray(v, np.float64)
+            rel[k] = max_rel(got[k], r)
+            if not k.endswith(("_mean", "_variance")):
+                step = r - np.asarray(ref["init"][k], np.float64)
+                upd[k] = float(np.linalg.norm(got[k] - r)
+                               / max(np.linalg.norm(step), 1e-30))
+        stats = {k: v for k, v in rel.items()
+                 if k.endswith(("_mean", "_variance"))}
+        params = sorted(((k, v) for k, v in rel.items() if k not in stats),
+                        key=lambda kv: -kv[1])
+        out[tag] = {"params": params[:3],
+                    "stats": max(stats.items(), key=lambda kv: kv[1]),
+                    "update": max(upd.items(), key=lambda kv: kv[1])}
+    return out
+
+
+def _v2_parity_rank(rank: int, hcg, tmp: str) -> dict:
+    """(a) on one rank: the dp = 4 step from the reference's weights."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed.spmd import P
+    from paddle_tpu_torch.framework.io import load
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import load_jax_weights
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    m = resnet18(num_classes=10, device="cuda")
+    load_jax_weights(m, load(os.path.join(tmp, "v2_init.pdparams")))
+    step = TrainStep(m, _vision_ce(amp=False), Momentum(
+        1e-3, momentum=0.9, parameters=m.parameters()),
+        mesh=hcg.mesh, data_spec=P("dp"))
+    x, y = _v2_parity_batch()
+    losses = [float(step(x, y)) for _ in range(V2_PARITY_STEPS)]
+    out = {"losses": losses, "buffers": _digest(_v2_buffers(m)),
+           "params": _digest(_v2_params(m)),
+           "groups": {len(b._data_groups) for b in m.modules()
+                      if hasattr(b, "_data_groups")}}
+    if rank == 0:
+        ref = load(os.path.join(tmp, "v2_reference.pdparams"))
+        out["ref_losses"] = ref["losses"]
+        out.update(_v2_errors({k: v.double().cpu().numpy() for k, v in
+                               m.state_dict().items()}, ref))
+    del step, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _v2_fit_rank(rank: int, smi: str) -> dict:
+    """(b) on one rank: ResNet-50 through ``Model.fit`` over the fleet's
+    dp mesh; per update the host ms, the seconds in collectives (the
+    registry's ``comm_*``) and the part of them in the batch norms'
+    statistics collectives; then an evaluate and the state's digests."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.monitor import scoped_registry
+    from paddle_tpu_torch.nn import functional_vision as fv
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+    from paddle_tpu_torch.vision.models import resnet50
+    n_updates = V2_WARMUP + V2_TIMED
+    stats_s = [0.0]
+    all_ranks = fv._all_ranks
+
+    def timed_all_ranks(t, groups):
+        t0 = time.perf_counter()
+        try:
+            return all_ranks(t, groups)
+        finally:
+            stats_s[0] += time.perf_counter() - t0
+    fv._all_ranks = timed_all_ranks
+    torch.cuda.reset_peak_memory_stats()
+    resnet = nn.SyncBatchNorm.convert_sync_batchnorm(
+        resnet50(num_classes=1000, device="cuda"))
+    net = _o1_net(resnet)
+    sched = CosineAnnealingDecay(0.1, T_max=n_updates)
+    model = Model(net)
+    model.prepare(Momentum(sched, momentum=0.9, parameters=net.parameters(),
+                           weight_decay=1e-4),
+                  nn.CrossEntropyLoss(), Accuracy())
+    rec = {"times": [], "comm": [], "stats": [], "losses": [], "lrs": []}
+
+    class Timer(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+            self.c0 = sum(_comm_by_op(reg).values())
+            self.s0 = stats_s[0]
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.synchronize()
+            rec["times"].append(time.perf_counter() - self.t0)
+            rec["comm"].append(sum(_comm_by_op(reg).values()) - self.c0)
+            rec["stats"].append(stats_s[0] - self.s0)
+            rec["losses"].append(logs["loss"])
+            rec["lrs"].append(model._optimizer.get_lr())
+
+    loader = DataLoader(_SynthImageNet(V2_B * n_updates, V2_B, seed=0),
+                        places="cuda", batch_size=V2_B,
+                        use_buffer_reader=False)
+    with scoped_registry() as reg:
+        model.fit(loader, epochs=1, verbose=0, callbacks=[Timer()])
+        by_op = _comm_by_op(reg)
+    # one more update, profiled on rank 0 (every rank joins its
+    # collectives)
+    extra = _SynthImageNet(V2_B, V2_B, seed=1)
+    x, y = extra.x, extra.y
+    busy = None
+    if rank == 0:
+        busy = _profile_step("vision2 (b) rank 0", lambda: model.train_batch(
+            [x], [y]), VISION_PROFILE_GROUPS,
+            step_ms=1e3 * float(np.median(rec["times"][V2_WARMUP:])))
+    else:
+        model.train_batch([x], [y])
+    fv._all_ranks = all_ranks
+    peak = torch.cuda.max_memory_allocated()
+    ev_data = _SynthImageNet(V2_EVAL, V2_EVAL, seed=2)
+    ev = model.evaluate(DataLoader(ev_data, places="cuda",
+                                   batch_size=V2_EVAL,
+                                   use_buffer_reader=False), verbose=0)
+    sync = sum(isinstance(b, nn.SyncBatchNorm) for b in resnet.modules())
+    return dict(rec, by_op=by_op, busy=busy, peak=peak, eval=ev,
+                sync_bns=sync, buffers=_digest(_v2_buffers(resnet)),
+                params=_digest(_v2_params(resnet)),
+                cl=resnet.conv1.weight.is_contiguous(
+                    memory_format=torch.channels_last),
+                steps=model._train_step.step_count)
+
+
+def _vision2_rank(out_dir: str, smi: str) -> None:
+    """One rank of phase 24's world (a spawned process): (a), then (b).
+    Writes ``v2_rank<r>.pkl``."""
+    import gc
+    import pickle
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import kernels
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": V2_RANKS, "mp_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy, backend="gloo")
+    hcg = fleet.get_hybrid_communicate_group()
+    rank = dist.get_rank()
+    kernels.reset_launch_counts()
+    res = {"parity": _v2_parity_rank(rank, hcg, out_dir)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["fit"] = _v2_fit_rank(rank, smi)
+    res["launches"] = {k["name"]: k["launches"] for k in kernels.kernels()}
+    res["leaked"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "paddle_tpu"))
+    res["backend"] = dist.ParallelEnv().backend
+    with open(os.path.join(out_dir, f"v2_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _v2_world(smi: str) -> dict:
+    """(a) and (b) in one four-rank world; returns the ranks' launches
+    summed."""
+    import pickle
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.distributed.spawn_mod import spawn
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        ref = _v2_reference(tmp)
+        _log(f"vision2: (a) the one-process reference, ResNet-18 f32 "
+             f"[{V2_PARITY_B}, 3, {V2_PARITY_HW}, {V2_PARITY_HW}]: losses "
+             + " ".join(f"{v:.6f}" for v in ref)
+             + f" ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        spawn("chip_smoke:_vision2_rank", args=(tmp, smi), nprocs=V2_RANKS)
+        _log(f"vision2: the {V2_RANKS}-rank world took "
+             f"{time.perf_counter() - t:.1f} s")
+        ranks = []
+        for r in range(V2_RANKS):
+            with open(os.path.join(tmp, f"v2_rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    for r, res in enumerate(ranks):
+        _v2_check(not res["leaked"], f"rank {r} imported {res['leaked'][:5]}")
+        _v2_check(res["backend"] == "gloo", f"rank {r}: {res['backend']}")
+        _v2_check(not any(res["launches"].values()),
+                  f"vision2 rank {r}: launches {res['launches']}")
+    # (a)
+    par = [r["parity"] for r in ranks]
+    p0 = par[0]
+    rel = max(abs(a - b) / abs(b) for r in par
+              for a, b in zip(r["losses"], p0["ref_losses"]))
+    def fmt(e):
+        return ("parameters worst " + ", ".join(
+            f"{k} {v:.3e}" for k, v in e["params"])
+            + f"; running statistics worst {e['stats'][0]} "
+            f"{e['stats'][1]:.3e}; updates (L2) worst {e['update'][0]} "
+            f"{e['update'][1]:.3e}")
+    _log(f"vision2: (a) ResNet-18 f32 dp={V2_RANKS} on one card over gloo, "
+         f"{V2_PARITY_STEPS} Momentum steps ({smi}): losses "
+         + " ".join(f"{v:.6f}" for v in p0["losses"])
+         + f" against one process's, largest relative difference {rel:.3e} "
+         f"(tol {DIST_LOSS_TOL:g}); against it (largest difference over "
+         f"the largest magnitude, floor {VISION_PARITY_FLOOR:g}) "
+         + fmt(p0["dp"]) + "; the one-process run in NCHW against it: "
+         + fmt(p0["nchw"]))
+    _v2_check(all(r["groups"] == {1} for r in par),
+              f"vision2 (a): BN data groups {[r['groups'] for r in par]}")
+    _v2_check(rel <= DIST_LOSS_TOL, f"vision2 (a): losses differ by {rel}")
+    for what in ("params", "stats"):
+        worst = p0["dp"][what][0][1] if what == "params" \
+            else p0["dp"][what][1]
+        floor = p0["nchw"][what][0][1] if what == "params" \
+            else p0["nchw"][what][1]
+        _v2_check(worst <= max(VISION_PARITY_TOL, 2 * floor),
+                  f"vision2 (a): {what} {p0['dp'][what]} beyond "
+                  f"{max(VISION_PARITY_TOL, 2 * floor):.3e}")
+    _v2_check(len({r["buffers"] for r in par}) == 1
+              and len({r["params"] for r in par}) == 1,
+              "vision2 (a): the ranks' states differ")
+    # (b)
+    fits = [r["fit"] for r in ranks]
+    f0 = fits[0]
+    n = V2_WARMUP + V2_TIMED
+    timed = slice(V2_WARMUP, None)
+    ms = [1e3 * float(np.median(f["times"][timed])) for f in fits]
+    comm = [100 * float(np.median(np.asarray(f["comm"][timed])
+                                  / np.asarray(f["times"][timed])))
+            for f in fits]
+    stats = [100 * float(np.median(np.asarray(f["stats"][timed])
+                                   / np.asarray(f["times"][timed])))
+             for f in fits]
+    one = _R50_ONE_PROCESS.get("ms")
+    _log(f"vision2: (b) BASELINE config 2 through Model.fit under "
+         f"fleet.init: ResNet-50 dp={V2_RANKS} (four ranks on one card over "
+         f"gloo), global batch {V2_B} ({V2_B // V2_RANKS} a rank), 224^2, "
+         f"AMP O1, channels-last, {f0['sync_bns']} SyncBatchNorms, "
+         f"Momentum(0.9) under CosineAnnealingDecay ({smi}): losses "
+         + " ".join(f"{v:.4f}" for v in f0["losses"]) + "; lr "
+         + " ".join(f"{v:.5f}" for v in f0["lrs"]))
+    _log("vision2: (b) update ms by rank (median of the "
+         f"{V2_TIMED} after {V2_WARMUP} warm-up) "
+         + ", ".join(f"{v:.1f}" for v in ms)
+         + f"; rank 0's updates " + " ".join(
+             f"{1e3 * v:.1f}" for v in f0["times"])
+         + f" ms; global {V2_B / (ms[0] / 1e3):.1f} img/s (rank 0); "
+         "share of the update in collectives (host time) by rank "
+         + ", ".join(f"{v:.1f}%" for v in comm)
+         + ", of it the BN statistics collectives "
+         + ", ".join(f"{v:.1f}%" for v in stats)
+         + " and the gradient all-reduce the rest; peak memory by rank "
+         + ", ".join(f"{f['peak'] / 2**30:.3f} GiB" for f in fits)
+         + ("; one process at B=256 (phase 22 (b), channels-last) "
+            f"{one:.3f} ms a step, {V2_B / (one / 1e3):.1f} img/s"
+            if one else "; phase 22 did not run in this process"))
+    _log("vision2: (b) rank 0's seconds in collectives over the fit by "
+         "op/group: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+             f0["by_op"].items(), key=lambda kv: -kv[1]))
+         + f"; of them in the BN statistics collectives "
+         f"{sum(f0['stats']):.3f} s ({2 * f0['sync_bns']} a step)")
+    _log(f"vision2: (b) evaluate on {V2_EVAL} images, every rank: "
+         + "; ".join(f"loss {f['eval']['loss'][0]:.6f} acc "
+                     f"{f['eval']['acc']:.4f}" for f in fits))
+    _v2_check(all(f["steps"] == n + 1 for f in fits),
+              f"vision2 (b): {[f['steps'] for f in fits]} updates")
+    _v2_check(f0["sync_bns"] == 53 and all(f["cl"] for f in fits),
+              "vision2 (b): SyncBatchNorms or channels-last missing")
+    _v2_check(all(math.isfinite(v) for v in f0["losses"]),
+              f"vision2 (b): losses {f0['losses']}")
+    _v2_check(all(f["losses"] == f0["losses"] for f in fits),
+              "vision2 (b): the ranks' losses differ")
+    _v2_check(len({f["buffers"] for f in fits}) == 1,
+              "vision2 (b): running statistics differ across the ranks")
+    _v2_check(len({f["params"] for f in fits}) == 1,
+              "vision2 (b): parameters differ across the ranks")
+    _v2_check(all(f["eval"] == f0["eval"] for f in fits),
+              "vision2 (b): evaluate differs across the ranks")
+    _v2_check(f0["lrs"][0] > f0["lrs"][-1],
+              f"vision2 (b): the schedule did not move: {f0['lrs']}")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
+def _v2_pool() -> None:
+    """(c) max_pool2d(return_mask=True) then MaxUnPool2D at ResNet's stem
+    (3x3, stride 2, pad 1 over [32, 64, 112, 112]), card against CPU."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(*V2_POOL_SHAPE, device="cuda", generator=g)
+    unpool = nn.MaxUnPool2D(3, 2, 1, output_size=V2_POOL_SHAPE[2:])
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev)
+        o, m = F.max_pool2d(xd, 3, 2, 1, return_mask=True)
+        outs[dev] = (o.cpu(), m.cpu(), unpool(o, m).cpu())
+    same = all(torch.equal(a, b) for a, b in zip(outs["cpu"], outs["cuda"]))
+    pool_ms = _median_ms(lambda: F.max_pool2d(x, 3, 2, 1, return_mask=True),
+                         iters=20, warmup=3)
+    o, m = F.max_pool2d(x, 3, 2, 1, return_mask=True)
+    unpool_ms = _median_ms(lambda: unpool(o, m), iters=20, warmup=3)
+    _log(f"vision2: (c) max_pool2d(return_mask=True) -> MaxUnPool2D at "
+         f"{list(V2_POOL_SHAPE)}: card equal to CPU (values, indices, "
+         f"unpooled): {same}; {pool_ms:.4f} ms pool with indices, "
+         f"{unpool_ms:.4f} ms unpool")
+    _v2_check(same, "vision2 (c): the card's pool mask or unpool differs")
+
+
+def _ssd300_priors(dev):
+    """SSD300 on VOC: the six maps' priors (8732), Caffe order."""
+    import torch
+    from paddle_tpu_torch.vision import ops
+    image = torch.empty(1, 3, 300, 300, device=dev)
+    maps = [(38, 30.0, 60.0, [2.0], 8.0), (19, 60.0, 111.0, [2.0, 3.0], 16.0),
+            (10, 111.0, 162.0, [2.0, 3.0], 32.0),
+            (5, 162.0, 213.0, [2.0, 3.0], 64.0),
+            (3, 213.0, 264.0, [2.0], 100.0), (1, 264.0, 315.0, [2.0], 300.0)]
+    boxes, vars_ = [], []
+    for size, mn, mx, ars, step in maps:
+        feat = torch.empty(1, 1, size, size, device=dev)
+        b, v = ops.prior_box(feat, image, [mn], [mx], ars, flip=True,
+                             clip=True, steps=(step, step),
+                             min_max_aspect_ratios_order=True)
+        boxes.append(b.reshape(-1, 4))
+        vars_.append(v.reshape(-1, 4))
+    return torch.cat(boxes), torch.cat(vars_)
+
+
+def _det_cases():
+    """(d)'s ops at their published widths: (name, fn(dev) -> outputs,
+    the float tolerance). Inputs from seeded numpy, distinct scores."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.default_rng(24)
+
+    def t(a, dev):
+        return torch.tensor(a, device=dev)
+
+    def boxes(n, w, h, min_wh=4.0):
+        xy = rng.uniform(0, 1, (n, 2)) * [w * 0.8, h * 0.8]
+        wh = rng.uniform(0, 1, (n, 2)) * [w * 0.3, h * 0.3] + min_wh
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+    # SSD300: decode 2 images' 8732 locations, then multiclass NMS
+    loc = (rng.normal(size=(2, 8732, 4)) * 0.5).astype(np.float32)
+    logits = rng.normal(size=(2, 21, 8732)).astype(np.float32) * 3
+    conf = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+
+    def ssd(dev):
+        pb, pv = _ssd300_priors(dev)
+        dec = ops.box_coder(pb, pv, t(loc, dev), "decode_center_size")
+        out, cnt = ops.multiclass_nms(dec, t(conf.astype(np.float32), dev),
+                                      0.01, 400, 200, 0.45)
+        return pb, dec, out, cnt
+
+    # YOLOv3-608: three heads, 80 classes
+    heads = [(19, 32, [116, 90, 156, 198, 373, 326]),
+             (38, 16, [30, 61, 62, 45, 59, 119]),
+             (76, 8, [10, 13, 16, 30, 33, 23])]
+    yx = [rng.normal(size=(2, 255, s, s)).astype(np.float32)
+          for s, _, _ in heads]
+    img = np.array([[608, 608], [608, 608]], np.int32)
+
+    def yolo(dev):
+        outs = []
+        for (s, ds, anchors), x in zip(heads, yx):
+            outs += list(ops.yolo_box(t(x, dev), t(img, dev), anchors, 80,
+                                      0.005, ds))
+        return outs
+
+    # Mask R-CNN FPN: P2 at 800 x 1216, stride 4
+    p2 = rng.normal(size=(2, 256, 200, 304)).astype(np.float32)
+    box_rois = np.concatenate([boxes(512, 1216, 800) for _ in range(2)])
+    mask_rois = np.concatenate([boxes(100, 1216, 800) for _ in range(2)])
+
+    def roi_align(dev):
+        f = t(p2, dev)
+        return (ops.roi_align(f, t(box_rois, dev), t([512, 512], dev), 7,
+                              0.25, 2, True),
+                ops.roi_align(f, t(mask_rois, dev), t([100, 100], dev), 14,
+                              0.25, 2, True))
+
+    levels = [(200, 304, 32.0, 4.0), (100, 152, 64.0, 8.0),
+              (50, 76, 128.0, 16.0), (25, 38, 256.0, 32.0),
+              (13, 19, 512.0, 64.0)]
+
+    def anchors(dev):
+        return [ops.anchor_generator(torch.empty(1, 1, h, w, device=dev),
+                                     [size], [0.5, 1.0, 2.0],
+                                     stride=(st, st))[0]
+                for h, w, size, st in levels]
+
+    props = boxes(2000, 1216, 800, 2.0)
+    lvl_scores = [(rng.permutation(2000).astype(np.float32) / 2000)[:, None]
+                  for _ in range(4)]
+
+    def fpn(dev):
+        multi, restore, counts = ops.distribute_fpn_proposals(
+            t(props, dev), 2, 5, 4, 224)
+        rois, sc = ops.collect_fpn_proposals(
+            multi, [t(v, dev) for v in lvl_scores], 2, 5, 1000, counts)
+        return multi + [restore, counts, rois, sc]
+
+    # R-FCN: 81 classes x 7 x 7 position-sensitive maps at stride 16
+    rfcn = rng.normal(size=(2, 3969, 50, 76)).astype(np.float32)
+    rfcn_rois = np.concatenate([boxes(300, 1216, 800) for _ in range(2)])
+
+    def psroi(dev):
+        return ops.psroi_pool(t(rfcn, dev), t(rfcn_rois, dev),
+                              t([300, 300], dev), 7, 1.0 / 16)
+
+    nms_boxes = boxes(1000, 1216, 800)
+    nms_scores = rng.permutation(1000).astype(np.float32) / 1000
+
+    def nms(dev):
+        return ops.nms(t(nms_boxes, dev), 0.5, t(nms_scores, dev))
+
+    # DCNv2 on res5's 3x3 conv
+    dx = rng.normal(size=(2, 512, 25, 38)).astype(np.float32)
+    doff = (rng.normal(size=(2, 18, 25, 38)) * 2).astype(np.float32)
+    dmask = rng.uniform(size=(2, 9, 25, 38)).astype(np.float32)
+    dw = (rng.normal(size=(512, 512, 3, 3)) * 0.02).astype(np.float32)
+
+    def dcn(dev):
+        return ops.deform_conv2d(t(dx, dev), t(doff, dev), t(dw, dev),
+                                 padding=1, mask=t(dmask, dev))
+
+    return [("ssd300 prior_box + box_coder + multiclass_nms", ssd, DET_TOL),
+            ("yolov3-608 yolo_box x3", yolo, DET_TOL),
+            ("mask-rcnn roi_align (7x7 and 14x14)", roi_align,
+             DET_COORD_TOL),
+            ("fpn anchor_generator P2-P6", anchors, DET_TOL),
+            ("fpn distribute + collect", fpn, DET_TOL),
+            ("r-fcn psroi_pool", psroi, DET_TOL),
+            ("nms 1000 boxes", nms, DET_TOL),
+            ("dcnv2 deform_conv2d res5", dcn, DET_SUM_TOL)]
+
+
+def _v2_detection() -> None:
+    """(d) every detection op at its published widths on the card against
+    the port's own CPU run, each timed on the card (the median of three
+    calls after one)."""
+    import torch
+
+    def flat(out):
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    for name, fn, tol in _det_cases():
+        want = flat(fn("cpu"))
+        got = flat(fn("cuda"))
+        worst = 0.0
+        for g, w in zip(got, want):
+            g = g.cpu()
+            if w.is_floating_point():
+                _v2_check(g.shape == w.shape, f"vision2 (d) {name}: shape")
+                worst = max(worst, _rel_err(g, w) if w.numel() else 0.0)
+            else:
+                _v2_check(torch.equal(g, w), f"vision2 (d) {name}: indices "
+                          "or counts differ")
+        ms = _median_ms(lambda: fn("cuda"), iters=3, warmup=1)
+        _log(f"vision2: (d) {name}: {ms:.3f} ms on the card (inputs "
+             f"copied in included), card within {worst:.3e} of the CPU "
+             f"(tol {tol:g}); {len(got)} outputs")
+        _v2_check(worst <= tol, f"vision2 (d) {name}: {worst} > {tol}")
+
+
+def _v2_quant_conv() -> None:
+    """(e) QuantizedConv2D forward and backward at a res3 3x3 conv
+    ([8, 128, 28, 28], 128 -> 128), two training calls (the moving range
+    moves), card against CPU."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import quant
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(8, 128, 28, 28, generator=g)
+    cot = torch.randn(8, 128, 28, 28, generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        conv = nn.Conv2D(128, 128, 3, padding=1, device="cpu")
+        conv.reset_parameters(torch.Generator().manual_seed(6))
+        qc = quant.QuantizedConv2D(conv).to(dev)
+        outs = []
+        for _ in range(2):
+            xd = x.detach().to(dev).requires_grad_(True)
+            out = qc(xd)
+            (out * cot.to(dev)).sum().backward()
+            outs += [out.detach().cpu(), xd.grad.cpu(),
+                     conv.weight.grad.cpu()]
+            conv.weight.grad = None
+            conv.bias.grad = None
+        res[dev] = (outs, float(qc._fq_a.scale))
+    errs = [_rel_err(a, b) for a, b in zip(res["cuda"][0], res["cpu"][0])]
+    _log(f"vision2: (e) QuantizedConv2D [8, 128, 28, 28] 3x3 128->128, two "
+         f"calls: card against CPU out / dx / dw worst "
+         + " / ".join(f"{max(errs[i::3]):.3e}" for i in range(3))
+         + f" (tol {DET_TOL:g} / {DET_SUM_TOL:g} / {DET_SUM_TOL:g}); "
+         f"activation scale {res['cuda'][1]:.6f} / {res['cpu'][1]:.6f}")
+    _v2_check(max(errs[0::3]) <= DET_TOL and max(errs[1::3] + errs[2::3])
+              <= DET_SUM_TOL, f"vision2 (e): {errs}")
+    _v2_check(res["cuda"][1] == res["cpu"][1], "vision2 (e): scales differ")
+
+
+def phase_vision2(smi: str) -> dict:
+    """(a) ResNet-18 f32 at dp = 4 against one process, (b) BASELINE
+    config 2 (ResNet-50) through Model.fit at dp = 4, O1, global BN
+    statistics, (c) the pool mask and MaxUnPool2D, (d) the detection ops
+    at published widths, (e) QuantizedConv2D; card against CPU for (c)-
+    (e). Counts are set to 0 before (c) and in every rank before (a); no
+    part launches a kernel of the port. Returns the phase's launches."""
+    from paddle_tpu_torch.ops import kernels
+    t = time.perf_counter()
+    world = _v2_world(smi)
+    _log(f"vision2: (a)-(b) took {time.perf_counter() - t:.1f} s")
+    kernels.reset_launch_counts()
+    for tag, fn in (("(c)", _v2_pool), ("(d)", _v2_detection),
+                    ("(e)", _v2_quant_conv)):
+        t = time.perf_counter()
+        fn()
+        _log(f"vision2: {tag} took {time.perf_counter() - t:.1f} s")
+    got = _path_launches({}, "vision2 (c)-(e)")
+    _require(not _V2_FAILS, "vision2: " + "; ".join(_V2_FAILS))
+    return {"vision2": {k: world[k] + got[k] for k in got}}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -7582,6 +8319,7 @@ def main() -> int:
     by_path.update(timed("distributed", phase_distributed, card["smi"]))
     by_path.update(timed("vision", phase_vision, card["smi"]))
     by_path.update(timed("moe", phase_moe, card["smi"]))
+    by_path.update(timed("vision2", phase_vision2, card["smi"]))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

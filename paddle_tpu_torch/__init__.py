@@ -25,9 +25,14 @@ gradient accumulation and activation recompute, one process a rank
 (``torch.distributed``). ``incubate.moe`` adds the Mixture-of-Experts
 layer (routing, sort and einsum dispatch, the expert-parallel program
 over an ``ep`` mesh axis) and the MoE GPT (``GPTConfig.moe_experts``).
+``vision`` holds the zoo models, the detection ops (``vision.ops``) and
+the data side; ``hapi.Model`` trains, evaluates and predicts over them
+(data-parallel under ``fleet.init``), with ``metric`` and ``callbacks``.
 """
 
 from .core import make_generator, resolve_device
-from .framework import load, save
+from .framework import (disable_static, enable_static, in_dynamic_mode,
+                        load, save)
 
-__all__ = ["load", "make_generator", "resolve_device", "save"]
+__all__ = ["disable_static", "enable_static", "in_dynamic_mode", "load",
+           "make_generator", "resolve_device", "save"]

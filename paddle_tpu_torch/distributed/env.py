@@ -10,7 +10,9 @@ launcher's environment: the JAX protocol (``PADDLE_TRAINER_ID``,
 
 The JAX module's bound-axis tracking and ``shard_map`` shim have no
 counterpart: each rank is its own process and every collective is an
-eager call on its own tensor.
+eager call on its own tensor. ``set_data_axis`` / ``current_data_axis``
+(``env.py:81-87``) name the mesh axis whose group ``nn.SyncBatchNorm``
+averages its statistics over while one is set.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ from typing import Optional
 
 __all__ = ["get_rank", "get_world_size", "get_local_rank",
            "get_local_world_size", "set_mesh", "get_mesh",
-           "mark_initialized", "is_initialized", "reset"]
+           "mark_initialized", "is_initialized", "reset", "set_data_axis",
+           "current_data_axis"]
 
-_global = {"mesh": None, "initialized": False}
+_global = {"mesh": None, "initialized": False, "data_axis": None}
 
 
 def _env_int(*names: str, default: int) -> int:
@@ -83,3 +86,14 @@ def reset() -> None:
     the process group, if any, stays (``destroy_process_group``)."""
     _global["mesh"] = None
     _global["initialized"] = False
+    _global["data_axis"] = None
+
+
+def set_data_axis(name: Optional[str]) -> None:
+    """Name the mesh axis ``SyncBatchNorm`` averages its statistics over
+    (None: none)."""
+    _global["data_axis"] = name
+
+
+def current_data_axis() -> Optional[str]:
+    return _global["data_axis"]

@@ -36,17 +36,19 @@ def fold_conv_bn(layer: nn.Module, aggressive: bool = False) -> int:
     """Fold every (Conv2D, BatchNorm) pair of adjacent children into the
     conv and replace the BatchNorm with ``Identity``, through the whole
     module tree; only inside the containers of :func:`_fold_containers`
-    unless ``aggressive``. Mutates ``layer`` in place (call it on an
+    unless ``aggressive``; a ``SyncBatchNorm`` stays, as in the JAX pass.
+    Mutates ``layer`` in place (call it on an
     eval-mode model); returns the number of pairs folded."""
     from ..nn.layers.common import Identity
     from ..nn.layers.conv import Conv2D
-    from ..nn.layers.norm import _BatchNormBase
+    from ..nn.layers.norm import SyncBatchNorm, _BatchNormBase
 
     folded = 0
     children = list(layer._modules.items())
     if aggressive or isinstance(layer, _fold_containers()):
         for (_, a), (name_b, b) in zip(children, children[1:]):
-            if not (type(a) is Conv2D and isinstance(b, _BatchNormBase)):
+            if not (type(a) is Conv2D and isinstance(b, _BatchNormBase)
+                    and not isinstance(b, SyncBatchNorm)):
                 continue
             mean = b._mean.float()
             gamma = b.weight.float() if b.weight is not None \

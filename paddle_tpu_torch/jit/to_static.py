@@ -135,10 +135,13 @@ Under ``FLAGS_jit_channels_last`` (read every call, default on) a model
 with 2-D convolutions runs them channels-last: its 4-D conv weights and
 the batch's 4-D float tensors take ``torch.channels_last`` memory format
 (the JAX step's NHWC rewrite, :586-601; the logical shapes stay NCHW,
-so the numbers do not depend on it). A model with BatchNorm on a mesh
-whose data axes hold more than one rank raises ``NotImplementedError``:
-the JAX step takes batch statistics over the whole global batch, which
-needs ``SyncBatchNorm`` here, and that is not ported yet. An optimizer
+so the numbers do not depend on it). On a mesh whose data axes hold
+more than one rank every batch norm of the model learns those axes'
+groups (``_data_groups``) and takes its training statistics over the
+global batch, as the JAX step under GSPMD does: one collective a layer
+forward and one backward (``nn.functional_vision._batch_norm_global``);
+its running statistics come out the same on every rank, so rank 0's
+state dict is the model's. An optimizer
 driven by an ``LRScheduler`` keeps its scheduler's rate across
 ``set_state_dict`` (its state rides in ``opt_state``).
 
@@ -317,20 +320,14 @@ class TrainStep:
                                         degrade_spec, P)
         from ..nn.layers.norm import _BatchNormBase
         mesh = self.mesh
-        dp = [a for a in data_axes(mesh) if mesh.axis_size(a) > 1]
-        if dp and any(isinstance(m, _BatchNormBase)
-                      for m in self.layer.modules()):
-            raise NotImplementedError(
-                f"{type(self.layer).__name__} has BatchNorm layers and the "
-                f"mesh's data axes {dp} hold more than one rank: the JAX "
-                "step takes batch statistics over the whole global batch, "
-                "which needs SyncBatchNorm, and that is not ported yet; "
-                "train this model on one rank of data parallelism")
         if dist_env.get_mesh() is None:
             dist_env.set_mesh(mesh)
         apply_param_shardings(self.layer, mesh)
         self._data_groups = [mesh.group(a) for a in data_axes(mesh)
                              if mesh.axis_size(a) > 1]
+        for m in self.layer.modules():
+            if isinstance(m, _BatchNormBase):
+                m._data_groups = tuple(self._data_groups)
         self._loss_groups = list(self._data_groups)
         if mesh.axis_size("ep") > 1:
             # the ep ranks hold other rows (data_spec=P("ep")): the loss

@@ -27,7 +27,9 @@ for the convolutions and pools on the card.
   by the whole window; ``ceil_mode`` is accepted and ignored (the JAX op
   floors the output size whatever it says, :487-542). Adaptive pools
   take bins ``floor(i*H/o) .. ceil((i+1)*H/o)`` (PyTorch's and the JAX
-  op's).
+  op's). ``max_pool2d(return_mask=True)`` / ``max_pool2d_with_index``
+  return flat ``h * W + w`` indices a channel, which ``max_unpool2d``
+  (``MaxUnPool2D``) scatters back.
 - ``batch_norm``: the JAX recipe, not ``F.batch_norm`` (whose running
   variance is unbiased and whose momentum is the complement):
   statistics in f32 from the input (the biased variance), ``scale =
@@ -60,7 +62,8 @@ __all__ = [
     "conv3d_transpose", "max_pool1d", "max_pool2d", "max_pool3d",
     "avg_pool1d", "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
     "adaptive_avg_pool2d", "adaptive_avg_pool3d", "adaptive_max_pool1d",
-    "adaptive_max_pool2d", "adaptive_max_pool3d", "batch_norm",
+    "adaptive_max_pool2d", "adaptive_max_pool3d", "max_pool2d_with_index",
+    "max_unpool2d", "batch_norm",
     "fused_conv_bn", "relu", "relu6", "sigmoid", "flatten",
 ]
 
@@ -315,8 +318,9 @@ def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCHW"):
     if return_mask:
-        raise NotImplementedError(
-            "max_pool2d(return_mask=True) comes with MaxUnPool2D")
+        if data_format != "NCHW" or ceil_mode:
+            raise ValueError("return_mask supports NCHW, ceil_mode=False")
+        return max_pool2d_with_index(x, kernel_size, stride, padding)
     return _pool_nd(x, kernel_size, stride, padding, 2, "max", data_format)
 
 
@@ -397,6 +401,50 @@ def adaptive_max_pool3d(x, output_size, return_mask=False):
     return _adaptive_pool(x, output_size, 3, "max", "NCDHW")
 
 
+def max_pool2d_with_index(x, kernel_size, stride=None, padding=0):
+    """Max pool returning ``(out, indices)``: each output's flat
+    ``h * W + w`` position in its channel of the unpadded input, the first
+    maximum of its window in (kh, kw) order (``functional.py:664``). The
+    input is padded with its dtype's lowest finite value first, as the
+    JAX op pads, so a pad wider than half the window is taken too."""
+    ks = _ntuple(kernel_size, 2)
+    st = _ntuple(stride if stride is not None else kernel_size, 2)
+    pads = _ntuple(padding, 2)
+    a = x.contiguous()
+    W = a.shape[3]
+    if pads[0] or pads[1]:
+        low = torch.finfo(a.dtype).min if a.is_floating_point() \
+            else torch.iinfo(a.dtype).min
+        a = F.pad(a, (pads[1], pads[1], pads[0], pads[0]), value=low)
+    out, pidx = F.max_pool2d(a, ks, st, return_indices=True)
+    wp = a.shape[3]
+    row = torch.div(pidx, wp, rounding_mode="floor") - pads[0]
+    col = pidx % wp - pads[1]
+    return out, (row * W + col).to(torch.int32)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None, data_format="NCHW"):
+    """Scatter each pooled value back to its flat per-channel position,
+    zeros elsewhere (``functional.py:700``); the output is
+    ``output_size[-2:]`` or ``(o - 1) * stride - 2 * pad + k`` a side."""
+    if data_format != "NCHW":
+        raise ValueError("max_unpool2d supports NCHW only")
+    ks = _ntuple(kernel_size, 2)
+    st = _ntuple(stride if stride is not None else kernel_size, 2)
+    pads = _ntuple(padding, 2)
+    N, C, oH, oW = x.shape
+    if output_size is not None:
+        H, W = int(output_size[-2]), int(output_size[-1])
+    else:
+        H = (oH - 1) * st[0] - 2 * pads[0] + ks[0]
+        W = (oW - 1) * st[1] - 2 * pads[1] + ks[1]
+    flat = x.reshape(N, C, oH * oW)
+    idx = indices.reshape(N, C, oH * oW).long()
+    out = flat.new_zeros(N, C, H * W).scatter(2, idx, flat)
+    return out.reshape(N, C, H, W)
+
+
 # -- batch norm ----------------------------------------------------------
 def _fold_scale_shift(mean, var, gamma, beta, epsilon):
     """BN statistics (+ the optional affine) folded into one f32 (scale,
@@ -451,6 +499,112 @@ class _BatchNormTrain(torch.autograd.Function):
         return gx, gw, gb, None
 
 
+def _all_ranks(t, groups):
+    """Sum ``t`` over each group in turn (in place; returns it)."""
+    from ..distributed.collective import all_reduce
+    for g in groups:
+        all_reduce(t, group=g)
+    return t
+
+
+def _global_moments(n, mean, m2, groups):
+    """The global count, mean and centred second moment of per-rank
+    ``(n, mean, m2)`` (``m2`` the sum of squared deviations from the
+    rank's mean), by the parallel-variance formula: every rank's triple
+    lands in its own row of a zero buffer summed over the group (one
+    collective a group, exact: a row's other terms are 0), then each rank
+    combines the rows in rank order, ``N = sum n_r``, ``mean = sum n_r
+    mean_r / N``, ``M2 = sum (m2_r + n_r (mean_r - mean)^2)``, so every
+    rank computes the same bits."""
+    for g in groups:
+        rows = mean.new_zeros(g.nranks, 3, mean.numel())
+        rows[g.rank, 0] = n
+        rows[g.rank, 1] = mean
+        rows[g.rank, 2] = m2
+        rows = _all_ranks(rows, [g])
+        ns, means, m2s = rows[:, 0], rows[:, 1], rows[:, 2]
+        n = ns.sum(0)
+        mean = (ns * means).sum(0) / n
+        m2 = (m2s + ns * (means - mean) ** 2).sum(0)
+    return n, mean, m2
+
+
+class _BatchNormGlobal(torch.autograd.Function):
+    """``_BatchNormTrain`` with its statistics over the global batch of a
+    data-parallel mesh: each rank holds its rows, the forward combines the
+    ranks' per-channel count, mean and centred second moment
+    (:func:`_global_moments`, f32 from the input whatever its dtype), and
+    the backward all-reduces ``[sum dy, sum dy * (a - mean)]`` a channel
+    (one collective) before the elementwise gradient ``dx = gamma * rstd *
+    (dy - sum dy / N - (a - mean) * rstd^2 * sum dy (a - mean) / N)``. Each
+    rank's ``dy`` is its own loss's cotangent and the step averages the
+    parameter gradients over the data ranks, so ``dx`` is the data-rank
+    count times the global loss's, as every other rank-local gradient is;
+    the affine gradients are the rank's own sums, averaged by the step."""
+
+    @staticmethod
+    def forward(ctx, a, weight, bias, epsilon, groups):
+        axes = [0] + list(range(2, a.dim()))
+        acc = torch.promote_types(a.dtype, torch.float32)
+        var, mean = torch.var_mean(a.to(acc), dim=axes, correction=0)
+        n = float(a.numel() // a.shape[1])
+        count, mean, m2 = _global_moments(
+            torch.full_like(mean, n), mean, var * n, groups)
+        var = m2 / count
+        rstd = torch.rsqrt(var + epsilon)
+        scale, shift = _fold_scale_shift(mean, var, weight, bias, epsilon)
+        ctx.save_for_backward(a, weight, mean, rstd, count)
+        ctx.groups = groups
+        ctx.mark_non_differentiable(mean, var)
+        return _apply_scale_shift(a, scale, shift), mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gv):
+        a, weight, mean, rstd, count = ctx.saved_tensors
+        axes = [0] + list(range(2, a.dim()))
+        shape = (1, -1) + (1,) * (a.dim() - 2)
+        g32 = g.to(mean.dtype)
+        xmu = a.to(mean.dtype) - mean.view(shape)
+        sums = torch.stack([g32.sum(axes), (g32 * xmu).sum(axes)])
+        local = sums.clone()
+        sums = _all_ranks(sums, ctx.groups)
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            k = rstd if weight is None else weight.to(rstd.dtype) * rstd
+            gx = (g32 - (sums[0] / count).view(shape)
+                  - xmu * (rstd * rstd * sums[1] / count).view(shape)) \
+                * k.view(shape)
+            gx = gx.to(a.dtype)
+        if weight is not None:
+            if ctx.needs_input_grad[1]:
+                gw = (local[1] * rstd).to(weight.dtype)
+            if ctx.needs_input_grad[2]:
+                gb = local[0].to(weight.dtype)
+        return gx, gw, gb, None, None
+
+
+def _update_running(running_mean, running_var, mean, var, momentum):
+    with torch.no_grad():
+        running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+        running_var.copy_(momentum * running_var + (1 - momentum) * var)
+
+
+def _batch_norm_global(x, running_mean, running_var, weight, bias, groups,
+                      momentum=0.9, epsilon=1e-5, data_format="NCHW"):
+    """Training-mode :func:`batch_norm` whose statistics are taken over
+    the global batch held by the ranks of ``groups`` (the data groups of
+    a mesh, each of more than one rank): the same output, running
+    statistics and gradients as one process's ``batch_norm`` on the
+    whole batch, to f32 reassociation; the running statistics come out
+    the same on every rank."""
+    channel_last = data_format in _CHANNEL_LAST
+    a = _to_channel_first(x, channel_last)
+    out, mean, var = _BatchNormGlobal.apply(a, weight, bias, float(epsilon),
+                                            list(groups))
+    _update_running(running_mean, running_var, mean, var, momentum)
+    return _from_channel_first(out, channel_last)
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None):
@@ -463,11 +617,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if training and not use_global_stats:
         out, mean, var = _BatchNormTrain.apply(a, weight, bias,
                                                float(epsilon))
-        with torch.no_grad():
-            running_mean.copy_(momentum * running_mean
-                               + (1 - momentum) * mean)
-            running_var.copy_(momentum * running_var
-                              + (1 - momentum) * var)
+        _update_running(running_mean, running_var, mean, var, momentum)
     else:
         acc = torch.promote_types(running_mean.dtype, torch.float32)
         scale, shift = _fold_scale_shift(running_mean.to(acc),

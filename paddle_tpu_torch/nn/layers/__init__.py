@@ -7,11 +7,13 @@ from .container import Sequential
 from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
                    Conv3D, Conv3DTranspose, fused_conv_bn_act)
 from .loss import CrossEntropyLoss
-from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   LayerNorm, SyncBatchNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                       AdaptiveAvgPool3D, AdaptiveMaxPool1D,
                       AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
-                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
+                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+                      MaxUnPool2D)
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
@@ -22,6 +24,7 @@ __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "Conv2D", "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
            "CrossEntropyLoss", "Dropout", "Embedding", "Flatten", "Identity",
            "LayerNorm", "Linear", "MaxPool1D", "MaxPool2D", "MaxPool3D",
-           "MultiHeadAttention", "ReLU", "ReLU6", "Sequential", "Sigmoid",
+           "MaxUnPool2D", "MultiHeadAttention", "ReLU", "ReLU6",
+           "Sequential", "Sigmoid", "SyncBatchNorm",
            "Tanh", "TransformerEncoder", "TransformerEncoderLayer",
            "fused_conv_bn_act"]

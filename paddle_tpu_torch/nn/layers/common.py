@@ -16,39 +16,34 @@ import torch
 from torch import nn
 
 from .. import functional as F
+from ..initializer import make_param, reinit
 
 __all__ = ["Linear", "Embedding", "Dropout", "Flatten", "Identity"]
 
 
-def _zeros(*shape, device):
-    return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
-                                    device=device))
-
-
 class Linear(nn.Module):
     """``y = x W + b`` with ``W [in, out]`` (``common.py:21-36``);
-    ``bias_attr=False`` builds it without the bias (other ``bias_attr``
-    objects wait for ``nn/initializer.py``)."""
+    ``weight_attr`` / ``bias_attr`` as in JAX (``nn.initializer``):
+    ``False`` builds no bias, an initializer or ``ParamAttr`` replaces
+    the default one (and ``trainable=False`` freezes the parameter)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 device: Optional[torch.device] = None, bias_attr=None):
+                 device: Optional[torch.device] = None, bias_attr=None,
+                 weight_attr=None):
         super().__init__()
-        if bias_attr not in (None, False):
-            raise NotImplementedError(
-                "bias_attr objects wait for nn/initializer.py; pass None "
-                "or False")
         self.in_features, self.out_features = in_features, out_features
-        self.weight = _zeros(in_features, out_features, device=device)
-        self.bias = None if bias_attr is False else _zeros(out_features,
-                                                           device=device)
+        self.weight = make_param((in_features, out_features), weight_attr,
+                                 device)
+        self.bias = make_param((out_features,), bias_attr, device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """XavierUniform weight (the JAX default), zero bias."""
+        """XavierUniform weight (the JAX default), zero bias, unless an
+        attr gave the parameter its own initializer."""
         limit = math.sqrt(6.0 / (self.in_features + self.out_features))
-        self.weight.uniform_(-limit, limit, generator=generator)
-        if self.bias is not None:
-            self.bias.zero_()
+        reinit(self.weight, generator,
+               lambda p, g: p.uniform_(-limit, limit, generator=g))
+        reinit(self.bias, generator, lambda p, g: p.zero_())
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -56,18 +51,20 @@ class Linear(nn.Module):
 
 class Embedding(nn.Module):
     """Token embedding (``common.py:93-112``): rows of ``weight`` at the
-    ids."""
+    ids; ``weight_attr`` as :class:`Linear`'s."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, weight_attr=None):
         super().__init__()
-        self.weight = _zeros(num_embeddings, embedding_dim, device=device)
+        self.weight = make_param((num_embeddings, embedding_dim),
+                                 weight_attr, device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator,
                          std: float = 1.0) -> None:
         """N(0, std); the JAX default is N(0, 1)."""
-        self.weight.normal_(0.0, std, generator=generator)
+        reinit(self.weight, generator,
+               lambda p, g: p.normal_(0.0, std, generator=g))
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)

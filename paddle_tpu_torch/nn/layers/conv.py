@@ -4,10 +4,10 @@ The JAX package's layouts and names: ``weight [out, in/groups, *k]``
 (``[in, out/groups, *k]`` for a transpose) and ``bias [out]``, both drawn
 from Uniform(±1/sqrt(fan_in)) with ``fan_in = in * prod(k) / groups``
 (``conv.py:49-58``) in :meth:`reset_parameters`; ``bias_attr=False``
-leaves no ``bias`` parameter (and no state-dict key). The JAX
+leaves no ``bias`` parameter (and no state-dict key), an initializer or
+``ParamAttr`` (``nn.initializer``) replaces the default one. The JAX
 constructors' argument order is kept; ``padding_mode`` other than
-``"zeros"`` and ``weight_attr`` / ``bias_attr`` objects (the JAX
-``nn/initializer.py`` family, not ported yet) raise.
+``"zeros"`` raises.
 """
 
 from __future__ import annotations
@@ -21,19 +21,16 @@ from torch import nn
 
 from .. import functional as F
 from ..functional_vision import _ntuple
+from ..initializer import make_param, reinit
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
            "Conv2DTranspose", "Conv3DTranspose", "fused_conv_bn_act"]
 
 
-def _check_attrs(padding_mode, weight_attr, bias_attr) -> None:
+def _check_padding_mode(padding_mode) -> None:
     if padding_mode != "zeros":
         raise NotImplementedError(
             f"padding_mode={padding_mode!r}: only 'zeros' is ported")
-    if weight_attr is not None or bias_attr not in (None, False):
-        raise NotImplementedError(
-            "weight_attr / bias_attr objects wait for nn/initializer.py; "
-            "pass None (the default initializer) or bias_attr=False")
 
 
 class _ConvNd(nn.Module):
@@ -42,7 +39,7 @@ class _ConvNd(nn.Module):
                  padding_mode="zeros", weight_attr=None, bias_attr=None,
                  data_format=None, device: Optional[torch.device] = None):
         super().__init__()
-        _check_attrs(padding_mode, weight_attr, bias_attr)
+        _check_padding_mode(padding_mode)
         self._in_channels = in_channels
         self._out_channels = out_channels
         self._kernel_size = _ntuple(kernel_size, n)
@@ -56,12 +53,12 @@ class _ConvNd(nn.Module):
             shape = (in_channels, out_channels // groups) + self._kernel_size
         else:
             shape = (out_channels, in_channels // groups) + self._kernel_size
-        self.weight = nn.Parameter(torch.zeros(shape, device=device))
-        if bias_attr is False:
+        self.weight = make_param(shape, weight_attr, device)
+        bias = make_param((out_channels,), bias_attr, device)
+        if bias is None:
             self.register_parameter("bias", None)
         else:
-            self.bias = nn.Parameter(torch.zeros(out_channels,
-                                                 device=device))
+            self.bias = bias
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -70,9 +67,11 @@ class _ConvNd(nn.Module):
         fan_in = self._in_channels * int(np.prod(self._kernel_size)) \
             // self._groups
         bound = 1.0 / math.sqrt(fan_in)
-        self.weight.uniform_(-bound, bound, generator=generator)
-        if self.bias is not None:
-            self.bias.uniform_(-bound, bound, generator=generator)
+
+        def default(p, g):
+            p.uniform_(-bound, bound, generator=g)
+        reinit(self.weight, generator, default)
+        reinit(self.bias, generator, default)
 
     def extra_repr(self):
         return (f"{self._in_channels}, {self._out_channels}, "

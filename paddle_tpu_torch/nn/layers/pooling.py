@@ -1,6 +1,7 @@
 """Pooling layers: counterpart of ``paddle_tpu/nn/layers/pooling.py``,
-each a thin layer over its ``nn.functional`` op. ``MaxUnPool2D`` (and
-``max_pool2d(return_mask=True)``, which feeds it) is not ported yet."""
+each a thin layer over its ``nn.functional`` op; ``MaxUnPool2D``
+(``pooling.py:91``) takes the indices ``max_pool2d(return_mask=True)``
+returns."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from .. import functional as F
 __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
            "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
-           "AdaptiveMaxPool3D"]
+           "AdaptiveMaxPool3D", "MaxUnPool2D"]
 
 
 class _Pool(nn.Module):
@@ -87,3 +88,21 @@ class AdaptiveMaxPool2D(_AdaptivePool):
 
 class AdaptiveMaxPool3D(_AdaptivePool):
     _fn = staticmethod(F.adaptive_max_pool3d)
+
+
+class MaxUnPool2D(nn.Module):
+    """Inverse of ``MaxPool2D`` given its pooled indices."""
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.data_format = data_format
+        self.output_size = output_size
+
+    def forward(self, x, indices):
+        return F.max_unpool2d(x, indices, self.kernel_size, self.stride,
+                              self.padding, self.output_size,
+                              self.data_format)

@@ -9,8 +9,10 @@ layers update them on the eager tape and freeze them under jit.
 the int8 stack, numpy on the host as in the JAX package: ``slim``'s
 deploy pass and the kernel's ``quantize_per_channel`` follow it.
 
-``QuantizedConv2D`` and ``QuantizedConv2DTranspose`` wait for the
-port's convolution layers (ROADMAP Queue 1).
+``QuantizedConv2D`` and ``QuantizedConv2DTranspose`` wrap the port's
+``Conv2D`` / ``Conv2DTranspose``: a channel-wise fake-quantized weight
+along its output axis (0 for a conv, 1 for a transpose's ``[in, out /
+groups, kh, kw]``) and a moving-average fake-quantized input.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from torch import nn
 __all__ = [
     "FakeQuantAbsMax", "FakeQuantChannelWiseAbsMax",
     "FakeQuantMovingAverageAbsMax", "MovingAverageAbsMaxScale",
-    "PerChannelAbsMaxObserver", "QuantizedLinear",
+    "PerChannelAbsMaxObserver", "QuantizedLinear", "QuantizedConv2D",
+    "QuantizedConv2DTranspose",
     "MAOutputScaleLayer", "FakeQuantMAOutputScaleLayer",
     "FloatFunctionalLayer", "add", "subtract", "multiply", "divide",
 ]
@@ -175,6 +178,50 @@ class QuantizedLinear(nn.Module):
         from .. import functional as F
         return F.linear(self._fq_a(x), self._fq_w(self.inner.weight),
                         self.inner.bias)
+
+
+class QuantizedConv2D(nn.Module):
+    """QAT wrapper over the port's ``Conv2D``."""
+
+    def __init__(self, layer, weight_bits=8, activation_bits=8,
+                 moving_rate=0.9, **kw):
+        super().__init__()
+        self.inner = layer
+        self._fq_w = FakeQuantChannelWiseAbsMax(quant_bits=weight_bits,
+                                                quant_axis=0)
+        self._fq_a = FakeQuantMovingAverageAbsMax(moving_rate=moving_rate,
+                                                  quant_bits=activation_bits)
+
+    def forward(self, x):
+        from .. import functional as F
+        inner = self.inner
+        return F.conv2d(self._fq_a(x), self._fq_w(inner.weight), inner.bias,
+                        stride=inner._stride, padding=inner._padding,
+                        dilation=inner._dilation, groups=inner._groups,
+                        data_format=inner._data_format)
+
+
+class QuantizedConv2DTranspose(nn.Module):
+    """QAT wrapper over the port's ``Conv2DTranspose``."""
+
+    def __init__(self, layer, weight_bits=8, activation_bits=8,
+                 moving_rate=0.9, **kw):
+        super().__init__()
+        self.inner = layer
+        self._fq_w = FakeQuantChannelWiseAbsMax(quant_bits=weight_bits,
+                                                quant_axis=1)
+        self._fq_a = FakeQuantMovingAverageAbsMax(moving_rate=moving_rate,
+                                                  quant_bits=activation_bits)
+
+    def forward(self, x):
+        from .. import functional as F
+        inner = self.inner
+        return F.conv2d_transpose(
+            self._fq_a(x), self._fq_w(inner.weight), inner.bias,
+            stride=inner._stride, padding=inner._padding,
+            dilation=inner._dilation, groups=inner._groups,
+            output_padding=getattr(inner, "_output_padding", 0),
+            data_format=inner._data_format)
 
 
 class MAOutputScaleLayer(nn.Module):

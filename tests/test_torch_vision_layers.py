@@ -6,7 +6,9 @@ per-side padding, dilation, groups), every pool (``ceil_mode``,
 training and evaluation with the running statistics after three calls,
 ``fused_conv_bn`` against the unfused chain, an AMP O1 conv -> BN -> ReLU
 chain in bf16, and the channels-last layouts (``NHWC`` data formats and
-``torch.channels_last`` memory) against NCHW. The same inputs, made by
+``torch.channels_last`` memory) against NCHW; the global-statistics
+batch norm on a group of one rank against ``batch_norm``, and
+``SyncBatchNorm`` eagerly and converted. The same inputs, made by
 numpy from a seed, go through both packages; the JAX vision ops reach
 no Pallas kernel, so they run as the JAX package's own tests run them.
 Tolerances: float32 outputs and gradients within 1e-5 (relative to the
@@ -287,6 +289,103 @@ def test_batch_norm_layer_names_and_buffers():
     bn.eval()
     assert torch.equal(bn(x), TF.batch_norm(x, bn._mean, bn._variance,
                                             bn.weight, bn.bias))
+
+
+def _one_rank_group():
+    from paddle_tpu_torch.distributed.collective import Group
+    return Group([0], 99)
+
+
+@pytest.mark.parametrize("case", range(len(BN_CASES)))
+def test_global_batch_norm_on_one_rank_is_batch_norm(case):
+    """The global-statistics node over a group of one rank (no process
+    group: each collective returns its input) is ``batch_norm``: output,
+    the three gradients and the running statistics to f32 rounding (its
+    backward is elementwise torch ops, not ATen's batch-norm backward)."""
+    from paddle_tpu_torch.nn.functional_vision import _batch_norm_global
+    shape, kw = BN_CASES[case]
+    C = shape[-1] if kw.get("data_format") == "NHWC" else shape[1]
+    x, cot = _rand(shape, 60 + case) * 2 + 1, _rand(shape, 70 + case)
+    outs = []
+    for glob in (False, True):
+        xt = torch.tensor(x, requires_grad=True)
+        wt = torch.tensor(_rand((C,), 7) + 1.0, requires_grad=True)
+        bt = torch.tensor(_rand((C,), 8), requires_grad=True)
+        rm, rv = torch.zeros(C), torch.ones(C)
+        if glob:
+            y = _batch_norm_global(xt, rm, rv, wt, bt, [_one_rank_group()],
+                                   **kw)
+        else:
+            y = TF.batch_norm(xt, rm, rv, wt, bt, training=True, **kw)
+        (y * torch.tensor(cot)).sum().backward()
+        outs.append([t.detach().numpy() for t in
+                     (y, xt.grad, wt.grad, bt.grad, rm, rv)])
+    for what, a, e in zip(("out", "dx", "dw", "db", "mean", "var"),
+                          *outs):
+        assert _rel(e, a) < F32_TOL, what
+
+
+def test_global_batch_norm_bf16_takes_f32_statistics():
+    """Under O1 the input is bf16: the statistics and the backward's sums
+    are f32, the output and dx bf16, as ``batch_norm``'s."""
+    from paddle_tpu_torch.nn.functional_vision import _batch_norm_global
+    x = torch.tensor(_rand((4, 6, 5, 5), 3) * 3 + 2).to(torch.bfloat16)
+    outs = []
+    for glob in (False, True):
+        xt = x.clone().requires_grad_(True)
+        rm, rv = torch.zeros(6), torch.ones(6)
+        w, b = torch.ones(6, requires_grad=True), torch.zeros(6)
+        y = _batch_norm_global(xt, rm, rv, w, b, [_one_rank_group()]) \
+            if glob else TF.batch_norm(xt, rm, rv, w, b, training=True)
+        y.float().square().sum().backward()
+        assert y.dtype == xt.grad.dtype == torch.bfloat16
+        assert rm.dtype == torch.float32
+        outs.append((y.float().detach(), xt.grad.float(), rm, rv))
+    for a, e in zip(*outs):
+        assert _rel(e.numpy(), a.numpy()) < BF16_TOL
+
+
+def test_sync_batch_norm_eager_is_batch_norm_and_converts_like_jax():
+    """Eagerly, with no data axis set, ``SyncBatchNorm`` is ``BatchNorm``
+    (the JAX layer's degradation); ``convert_sync_batchnorm`` swaps every
+    batch norm of a tree for one sharing its parameters and buffers, as
+    the JAX classmethod does, and ``fold_conv_bn`` leaves a synced pair
+    alone, as the JAX pass does."""
+    import paddle_tpu as paddle
+    from paddle_tpu import nn as jnn
+    from paddle_tpu.inference.passes import fold_conv_bn as jfold
+    from paddle_tpu_torch.inference.passes import fold_conv_bn
+    from paddle_tpu_torch.models import load_jax_weights
+    paddle.seed(0)
+    jm = jnn.Sequential(jnn.Conv2D(3, 4, 3), jnn.BatchNorm2D(4),
+                        jnn.Sequential(jnn.Conv2D(4, 4, 1),
+                                       jnn.BatchNorm2D(4)))
+    tm = tnn.Sequential(tnn.Conv2D(3, 4, 3, device="cpu"),
+                        tnn.BatchNorm2D(4, device="cpu"),
+                        tnn.Sequential(tnn.Conv2D(4, 4, 1, device="cpu"),
+                                       tnn.BatchNorm2D(4, device="cpu")))
+    load_jax_weights(tm, {k: np.asarray(v._data)
+                          for k, v in jm.state_dict().items()})
+    bn1 = tm[1]
+    tm = tnn.SyncBatchNorm.convert_sync_batchnorm(tm)
+    jm = jnn.SyncBatchNorm.convert_sync_batchnorm(jm)
+    assert isinstance(tm[1], tnn.SyncBatchNorm)
+    assert isinstance(tm[2][1], tnn.SyncBatchNorm)
+    assert tm[1].weight is bn1.weight and tm[1]._mean is bn1._mean
+    assert sorted(tm.state_dict()) == sorted(jm.state_dict())
+    x = _rand((2, 3, 8, 8), 4)
+    for _ in range(2):
+        got = tm(torch.tensor(x))
+        want = jm(paddle.to_tensor(x))
+        assert _rel(got.detach().numpy(), np.asarray(want._data)) < F32_TOL
+    assert _rel(bn1._variance.numpy(),
+                np.asarray(jm[1]._variance._data)) < F32_TOL
+    tm.eval()
+    jm.eval()
+    assert fold_conv_bn(tm) == jfold(jm) == 0
+    lone = tnn.SyncBatchNorm.convert_sync_batchnorm(
+        tnn.BatchNorm2D(4, device="cpu"))
+    assert isinstance(lone, tnn.SyncBatchNorm)
 
 
 @pytest.mark.parametrize("training", [True, False])

@@ -311,15 +311,6 @@ def test_nonfinite_skip_puts_bn_buffers_back():
     assert np.isfinite(float(step(x, y)))
 
 
-def test_batch_norm_model_on_a_data_parallel_mesh_raises():
-    from paddle_tpu_torch.distributed.spmd import Mesh
-    tm = _small_bn_model()
-    mesh = Mesh({"dp": 2}, {"dp": None}, (0,))
-    with pytest.raises(NotImplementedError, match="SyncBatchNorm"):
-        TrainStep(tm, _ce, Momentum(0.01, parameters=tm.parameters()),
-                  mesh=mesh)
-
-
 def test_models_refuse_the_cpu_default_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is the card")

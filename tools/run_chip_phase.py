@@ -1,6 +1,6 @@
 """Run chip_smoke.py's card phase and one later phase alone.
 
-    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe
+    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2
 
 From the root of a checkout, on a machine with one CUDA card: builds the
 kernels (phase 1), then drives the named phase and prints its launches:
@@ -20,7 +20,12 @@ phase 22 (BASELINE config 1, LeNet eager; config 2, ResNet-50 through
 card against the CPU and the TF32 gap; VGG-16 with its dropouts through
 the fused dropout kernel; ``fold_conv_bn``), ``moe`` phase 23 (GPT-2
 345M-8E through ``TrainStep`` at AMP O1, sort against einsum, ``generate``
-and the serving engine over it, ep = 4 over four ranks on the card).
+and the serving engine over it, ep = 4 over four ranks on the card),
+``vision2`` phase 24 (ResNet-18 f32 at dp = 4 against one process and
+BASELINE config 2's ResNet-50 through ``hapi.Model.fit`` at dp = 4 over
+four ranks on the card, with BatchNorm statistics over the global batch;
+the pool mask and ``MaxUnPool2D``, the detection ops at their published
+widths and ``QuantizedConv2D``, card against CPU).
 Exits non-zero if a check fails.
 """
 
@@ -38,7 +43,8 @@ PHASES = {"monitor": lambda card: chip_smoke.phase_monitor(),
           "distributed": lambda card: chip_smoke.phase_distributed(
               card["smi"]),
           "vision": lambda card: chip_smoke.phase_vision(card["smi"]),
-          "moe": lambda card: chip_smoke.phase_moe(card["smi"])}
+          "moe": lambda card: chip_smoke.phase_moe(card["smi"]),
+          "vision2": lambda card: chip_smoke.phase_vision2(card["smi"])}
 
 
 def main() -> int:
