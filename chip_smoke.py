@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Twenty-four phases, in order:
+result line. Twenty-six phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -385,7 +385,29 @@ result line. Twenty-four phases, in order:
               conv, each card against the port's own CPU run and timed;
               no part launches a kernel of the port, and every rank
               checks that it imported no JAX;
-25. summary -- print one JSON line describing every ported kernel, then
+25. recsys -- ``bench.py --recsys``'s full configuration,
+              ``dlrm_criteo_small`` (13 dense and 8 sparse slots, vocab
+              200 000, dim 32, bottom and top MLPs (64, 32), B = 512): (a)
+              bench.py's dedup parity on the card (dedup against the
+              per-id oracle: rows, table and adagrad state); (b) DLRM
+              through a ``TieredEmbeddingTable`` a slot (512 hot rows,
+              2048 host rows over an SSD log, admission at 2 touches):
+              3 steps on the card against the port on the CPU from the
+              same weights (losses, dense parameters, tables, tier
+              counters), then 25 timed steps with examples/s, embedding
+              MB/s, the dedup ratio and the tier hit %, failing if
+              promotions or demotions are 0, and one profiled step; (c)
+              the serving leg through ``RecsysEngine``, 32 requests of 64
+              candidates at 100% availability, candidates/s and lookup
+              p99; (d) the same DLRM over ``ShardedEmbeddingTable`` at
+              full vocab in one process, then a ps = 2 world of two ranks
+              on the one card (gloo) whose lookups and updates of a
+              200 000-row table are held to a one-process table's; (e)
+              the native PS server built with g++ from the port's source,
+              pull and push held to a ``SparseTable`` of the pulled rows,
+              and ``DistributedEmbedding`` on the card over it; no part
+              launches a kernel of the port;
+26. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
@@ -397,7 +419,8 @@ again before its timed run, its pipeline parity runs, each of its two
 pipeline loss styles, (h)'s attention calls and each of its parity
 layouts, and (i)'s timed updates, and before phase 22, before phase 23's
 (a), (d)'s two runs and, in each rank, (c), before phase 24's (c) and,
-in each rank, (a), and read just
+in each rank, (a), before phase 25 and in each rank of its (d), and
+read just
 after each (a witness's
 reference runs are taken back out of them, and phase 20 reads them
 before its teacher-forced references);
@@ -414,14 +437,15 @@ GPT runs, ``ernie_hybrid``: (i)'s two updates, each summed over the
 world's ranks; ``vision``: phase 22, whose launches are all (d)'s;
 ``moe``: phase 23 (a)'s ten steps, ``moe_ep``: (c) summed over its
 ranks, ``moe_decode``: (d)'s generate and serving runs; ``vision2``:
-phase 24, its ranks' (a) and (b) and its own (c)-(e), all 0).
+phase 24, its ranks' (a) and (b) and its own (c)-(e), all 0;
+``recsys``: phase 25 and its ps ranks, all 0).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
 
-``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2``
-runs phase 1 and phase 18, 20, 21, 22, 23 or 24 alone.
+``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys``
+runs phase 1 and phase 18, 20, 21, 22, 23, 24 or 25 alone.
 """
 
 from __future__ import annotations
@@ -8264,6 +8288,514 @@ def phase_vision2(smi: str) -> dict:
     return {"vision2": {k: world[k] + got[k] for k in got}}
 
 
+# -- phase 25: recsys -----------------------------------------------------------
+# bench.py --recsys's full configuration, dlrm_criteo_small
+# (bench.py:1700-1705): 13 dense and 8 sparse slots, vocab 200 000 a slot,
+# dim 32, bottom MLP (64, 32), top MLP (64, 32), B = 512, Adam 1e-2 on the
+# dense parameters, a TieredEmbeddingTable a slot (512 hot rows, 2048 host
+# rows over an SSD log, admission at 2 touches, adagrad 0.05); two warm
+# steps, then RECSYS_STEPS timed, then one profiled
+RECSYS_CFG = dict(num_dense=13, num_sparse=8, vocab_sizes=200_000,
+                  embedding_dim=32, bottom_mlp=(64, 32), top_mlp=(64, 32))
+RECSYS_B, RECSYS_STEPS, RECSYS_HOT, RECSYS_HOST = 512, 25, 512, 2048
+# (a) bench.py's dedup parity (_recsys_dedup_parity): dedup against the
+# per-id oracle, rows, table and adagrad state, max abs difference
+RECSYS_DEDUP_TOL = 1e-6
+# (b) the card against the port on the CPU from the same weights and
+# tables, RECSYS_PARITY_STEPS steps: losses relative, dense parameters
+# absolute, table rows absolute and adagrad sums relative. The MLPs'
+# f32 products sum in other orders on the two devices; the tables take
+# the same updates from gradients that differ by that much
+RECSYS_PARITY_STEPS = 3
+RECSYS_LOSS_TOL, RECSYS_DENSE_TOL = 1e-5, 1e-5
+RECSYS_ROW_TOL, RECSYS_G2_TOL = 5e-6, 1e-5
+# (c) the serving leg: 32 requests of 64 candidates, deadline 30 s, four
+# requests an engine step
+RECSYS_SERVE_REQUESTS, RECSYS_K = 32, 64
+# (d) ShardedEmbeddingTable at full vocab, one process: two warm steps
+# and RECSYS_SHARDED_STEPS timed; then a ps = 2 world on the one card
+# (gloo) whose lookups and updates of one 200 000-row table are held to a
+# one-process table's from the same rows: the first lookup bit-equal (one
+# gather, one nonzero term a row in the all_reduce), later lookups and
+# the rows within RECSYS_ROW_TOL, the adagrad sums (up to ~40 after four
+# pushes of N(0, 1) gradients) within 10 * RECSYS_G2_TOL absolute (the
+# same row-wise ops on fewer rows: the CPU test reads them bit-equal)
+RECSYS_SHARDED_STEPS = 10
+RECSYS_PS = 2
+RECSYS_PS_STEPS = 4
+RECSYS_PROFILE_GROUPS = (
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("index (gather / scatter)", ("index", "gather", "scatter")),
+    ("copies", ("copy_kernel", "Memcpy", "Memset", "CatArrayBatched")),
+    ("elementwise", ("elementwise_kernel",)),
+    ("reductions", ("reduce_kernel",)),
+)
+
+
+def _recsys_dedup() -> None:
+    """(a) bench.py's dedup parity on the card: a 64-row table, 256 ids
+    with heavy duplication, dedup on against off."""
+    import numpy as np
+    from paddle_tpu_torch.core.flags import flag_scope
+    from paddle_tpu_torch.recsys import ShardedEmbeddingTable
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, 64, size=256)
+    grads = rng.normal(size=(ids.size, 16)).astype(np.float32)
+    states = []
+    for dedup in (True, False):
+        with flag_scope("recsys_dedup", dedup):
+            tab = ShardedEmbeddingTable(64, 16, optimizer="adagrad", lr=0.1,
+                                        seed=11, device="cuda")
+            rows = tab.pull(ids)
+            tab.push(ids, grads)
+            states.append((rows, tab.state_dict(), tab.rows_fetched))
+    (r_d, s_d, f_d), (r_n, s_n, f_n) = states
+    diffs = [float(np.abs(r_d - r_n).max()),
+             float(np.abs(s_d["data"] - s_n["data"]).max()),
+             float(np.abs(s_d["g2"] - s_n["g2"]).max())]
+    _log(f"recsys: (a) dedup against the per-id oracle on the card, rows / "
+         f"data / g2 max diff {diffs[0]:.3e} / {diffs[1]:.3e} / "
+         f"{diffs[2]:.3e} (tol {RECSYS_DEDUP_TOL:g}); rows fetched "
+         f"{f_d} against {f_n}")
+    _require(max(diffs) <= RECSYS_DEDUP_TOL, f"recsys (a): {diffs}")
+    _require(f_d < f_n, "recsys (a): dedup fetched no fewer rows")
+
+
+def _recsys_model(device, tables=None, seed=0):
+    from paddle_tpu_torch.models.dlrm import DLRM, DLRMConfig
+    from paddle_tpu_torch.recsys import TieredEmbeddingTable
+    cfg = DLRMConfig(**RECSYS_CFG)
+    if tables is None:
+        tables = [TieredEmbeddingTable(v, cfg.embedding_dim,
+                                       hot_rows=RECSYS_HOT,
+                                       host_rows=RECSYS_HOST, admit_after=2,
+                                       lr=0.05, seed=f, name=f"slot{f}",
+                                       device=device)
+                  for f, v in enumerate(cfg.vocab_list())]
+    return DLRM(cfg, tables=tables, seed=seed, device=device), cfg
+
+
+def _recsys_gen():
+    from paddle_tpu_torch.recsys import CriteoSynthetic
+    return CriteoSynthetic(num_dense=RECSYS_CFG["num_dense"],
+                           num_sparse=RECSYS_CFG["num_sparse"],
+                           vocab_sizes=RECSYS_CFG["vocab_sizes"], alpha=1.05,
+                           batch_size=RECSYS_B, seed=0)
+
+
+def _recsys_stepper(model, gen):
+    from paddle_tpu_torch.optimizer import Adam
+    opt = Adam(learning_rate=1e-2, parameters=list(model.parameters()))
+
+    def step(i):
+        dense, ids, labels = gen.batch(i)
+        loss = model.loss(dense, ids, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss.detach())
+    return step
+
+
+def _recsys_parity() -> None:
+    """(b) RECSYS_PARITY_STEPS steps on the card against the port on the
+    CPU from the same dense weights and freshly seeded tiered tables."""
+    import numpy as np
+    import torch
+    cpu, cfg = _recsys_model("cpu")
+    card, _ = _recsys_model("cuda")
+    card.load_state_dict(cpu.state_dict())
+    gen = _recsys_gen()
+    runs = {}
+    for tag, model in (("cpu", cpu), ("cuda", card)):
+        step = _recsys_stepper(model, gen)
+        runs[tag] = [step(i) for i in range(RECSYS_PARITY_STEPS)]
+    loss = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"]))
+    cs = cpu.state_dict()
+    dense = max(float((v.cpu() - cs[k]).abs().max())
+                for k, v in card.state_dict().items())
+    rows = g2 = 0.0
+    same_stats = True
+    for tc, tg in zip(cpu.tables, card.tables):
+        sc, sg = tc.state_dict(), tg.state_dict()
+        same_stats &= tc.stats == tg.stats
+        for k, v in sc.items():
+            if np.asarray(v).dtype.kind != "f" or not np.asarray(v).size:
+                continue
+            d = float(np.abs(np.asarray(sg[k]) - v).max())
+            if k.endswith("g2"):
+                g2 = max(g2, d / max(float(np.abs(v).max()), 1e-30))
+            else:
+                rows = max(rows, d)
+        _require(np.array_equal(sc["hot_ids"], sg["hot_ids"]),
+                 "recsys (b): hot sets differ between card and CPU")
+    _log(f"recsys: (b) {RECSYS_PARITY_STEPS} steps on the card against the "
+         f"CPU from the same weights: losses "
+         + " ".join(f"{v:.6f}" for v in runs["cuda"])
+         + f", worst relative {loss:.3e} (tol {RECSYS_LOSS_TOL:g}); dense "
+         f"parameters {dense:.3e} (tol {RECSYS_DENSE_TOL:g}); table rows "
+         f"{rows:.3e} (tol {RECSYS_ROW_TOL:g}), adagrad sums {g2:.3e} "
+         f"relative (tol {RECSYS_G2_TOL:g}); tier counters "
+         f"{'equal' if same_stats else 'DIFFER'}")
+    _require(loss <= RECSYS_LOSS_TOL and dense <= RECSYS_DENSE_TOL
+             and rows <= RECSYS_ROW_TOL and g2 <= RECSYS_G2_TOL,
+             "recsys (b): the card left the CPU's trajectory")
+    _require(same_stats, "recsys (b): tier counters differ")
+    for m in (cpu, card):
+        for t in m.tables:
+            t.close()
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def _recsys_train(smi: str):
+    """(b) dlrm_criteo_small through tiered tables: two warm steps,
+    RECSYS_STEPS timed, one profiled. Returns the model and generator."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import recsys
+    torch.cuda.reset_peak_memory_stats()
+    model, cfg = _recsys_model("cuda")
+    for t in model.tables:
+        recsys.register_table(t.name, t)
+    gen = _recsys_gen()
+    step = _recsys_stepper(model, gen)
+    first = step(0)
+    step(1)
+    tables = model.tables
+    b0 = sum(t.bytes_pulled + t.bytes_pushed for t in tables)
+    torch.cuda.synchronize()
+    times, losses, split = [], [], []
+    t0 = time.perf_counter()
+    for i in range(2, 2 + RECSYS_STEPS):
+        t = time.perf_counter()
+        losses.append(step(i))
+        times.append(time.perf_counter() - t)
+        split.append(dict(model.last_timings))
+    dt = time.perf_counter() - t0
+    touched = sum(t.bytes_pulled + t.bytes_pushed for t in tables) - b0
+    agg = {k: sum(t.stats[k] for t in tables) for k in tables[0].stats}
+    hits = (agg["hbm_hits"] + agg["host_hits"] + agg["ssd_reads"]
+            + agg["lazy_inits"])
+    pct = {"hbm": 100.0 * agg["hbm_hits"] / max(hits, 1),
+           "host": 100.0 * agg["host_hits"] / max(hits, 1),
+           "ssd": 100.0 * (agg["ssd_reads"] + agg["lazy_inits"])
+           / max(hits, 1)}
+    med = 1e3 * float(np.median(times))
+    _log(f"recsys: (b) dlrm_criteo_small through tiered tables, B="
+         f"{RECSYS_B}, {RECSYS_STEPS} timed steps ({smi}): "
+         f"{RECSYS_B * RECSYS_STEPS / dt:.1f} examples/s, {med:.3f} ms a "
+         f"step (median; {1e3 * min(times):.3f}-{1e3 * max(times):.3f}), "
+         f"loss {first:.4f} -> {losses[-1]:.4f}; embedding "
+         f"{touched / dt / 1e6:.3f} MB/s touched; dedup ratio "
+         f"{float(np.mean([t.dedup_ratio for t in tables])):.3f}; tier hits "
+         f"hbm {pct['hbm']:.2f}% / host {pct['host']:.2f}% / ssd "
+         f"{pct['ssd']:.2f}% (promotions {agg['promotions']}, demotions "
+         f"{agg['demotions']}, evictions {agg['evictions']}); lookup "
+         f"{1e3 * float(np.median([s['lookup_s'] for s in split])):.3f} ms, "
+         f"interaction + MLPs "
+         f"{1e3 * float(np.median([s['mlp_s'] for s in split])):.3f} ms "
+         f"(forward, median); peak "
+         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    _require(all(math.isfinite(v) for v in losses), f"recsys (b): {losses}")
+    _require(agg["promotions"] and agg["demotions"],
+             f"recsys (b): tier spill/promotion counters are zero ({agg}): "
+             "the tables did not exceed their hot budget")
+    _profile_step("recsys (b)", lambda: step(2 + RECSYS_STEPS),
+                  groups=RECSYS_PROFILE_GROUPS, step_ms=med)
+    return model, gen
+
+
+def _recsys_serve(model, gen, smi: str) -> None:
+    """(c) bench.py's serving leg through RecsysEngine on (b)'s warm
+    tables; one request's scores against a direct forward."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.recsys import (RecsysEngine, RecsysRequest,
+                                         RecsysServingConfig)
+    eng = RecsysEngine(model, RecsysServingConfig(max_batch=4))
+    rng = np.random.default_rng(1)
+    reqs = [RecsysRequest(rng.normal(size=model.cfg.num_dense)
+                          .astype(np.float32), gen.sample_ids(rng, RECSYS_K),
+                          deadline_s=30.0)
+            for _ in range(RECSYS_SERVE_REQUESTS)]
+    states = [eng.submit(r) for r in reqs]
+    eng.run()
+    s = eng.metrics_summary()
+    offered = max(s["requests_submitted"] + s["requests_rejected"], 1)
+    avail = 100.0 * s["requests_completed"] / offered
+    with torch.no_grad():
+        direct = model(np.broadcast_to(reqs[0].dense, (RECSYS_K, len(
+            reqs[0].dense))), reqs[0].candidate_ids).cpu().numpy()
+    got = states[0].result.scores
+    diff = float(np.abs(got - direct).max())
+    _log(f"recsys: (c) serving {RECSYS_SERVE_REQUESTS} requests of "
+         f"{RECSYS_K} candidates ({smi}): {s['requests_completed']}/"
+         f"{offered} ranked, availability {avail:.1f}%, "
+         f"{s['candidates_per_sec']:.1f} candidates/s, lookup p50 / p99 "
+         f"{1e3 * s['lookup_p50_s']:.3f} / {1e3 * s['lookup_p99_s']:.3f} "
+         f"ms, e2e p50 / p99 {1e3 * s['e2e_p50_s']:.3f} / "
+         f"{1e3 * s['e2e_p99_s']:.3f} ms; request 1's scores against a "
+         f"direct forward {diff:.3e}")
+    _require(avail == 100.0, f"recsys (c): availability {avail}")
+    _require(all(st.result is not None and st.result.scores.shape
+                 == (RECSYS_K,) and np.isfinite(st.result.scores).all()
+                 for st in states), "recsys (c): missing or bad scores")
+    _require(diff <= 1e-4 * max(float(np.abs(direct).max()), 1.0),
+             f"recsys (c): scores differ from a direct forward by {diff}")
+
+
+def _recsys_sharded(gen, smi: str) -> None:
+    """(d) DLRM over ShardedEmbeddingTable at full vocab in one process."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import recsys
+    from paddle_tpu_torch.recsys import ShardedEmbeddingTable
+    cfg_vocab = RECSYS_CFG["vocab_sizes"]
+    D = RECSYS_CFG["embedding_dim"]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    tables = [ShardedEmbeddingTable(cfg_vocab, D, lr=0.05, seed=f,
+                                    device="cuda")
+              for f in range(RECSYS_CFG["num_sparse"])]
+    build = time.perf_counter() - t
+    for f, tab in enumerate(tables):
+        recsys.register_table(f"sharded{f}", tab)
+    hbm = recsys.publish_table_hbm()
+    model, _ = _recsys_model("cuda", tables=tables)
+    step = _recsys_stepper(model, gen)
+    losses = [step(0), step(1)]
+    torch.cuda.synchronize()
+    times = []
+    for i in range(2, 2 + RECSYS_SHARDED_STEPS):
+        t = time.perf_counter()
+        losses.append(step(i))
+        times.append(time.perf_counter() - t)
+    ids = gen.batch(99)[1][:, 0]
+    same = torch.equal(tables[0].lookup(ids),
+                       tables[0].data[0, torch.from_numpy(ids).cuda()])
+    med = 1e3 * float(np.median(times))
+    _log(f"recsys: (d) DLRM over {len(tables)} ShardedEmbeddingTables of "
+         f"{cfg_vocab} x {D} on the card ({smi}), one process: "
+         f"{sum(hbm[f'sharded{f}'] for f in range(len(tables))) / 1e6:.1f} "
+         f"MB of tables (registered census), built in {build:.2f} s; "
+         f"{med:.3f} ms a step (median of {RECSYS_SHARDED_STEPS}), "
+         f"{RECSYS_B / (med / 1e3):.1f} examples/s; loss {losses[0]:.4f} -> "
+         f"{losses[-1]:.4f}; peak "
+         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; a lookup "
+         f"equals the gather: {same}")
+    _require(all(math.isfinite(v) for v in losses), f"recsys (d): {losses}")
+    _require(same, "recsys (d): a lookup differs from the gather")
+    del model, tables
+    recsys.reset()
+    torch.cuda.empty_cache()
+
+
+def _recsys_ps_rank(out_dir: str) -> None:
+    """One rank of (d)'s ps world (a spawned process): a 200 000-row table
+    over ps = 2 against a one-process table from the same rows. Writes
+    ``recsys_rank<r>.pkl``."""
+    import pickle
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.distributed.spmd import make_mesh
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.recsys import RECSYS_STATS, ShardedEmbeddingTable
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    kernels.reset_launch_counts()
+    V, D = RECSYS_CFG["vocab_sizes"], RECSYS_CFG["embedding_dim"]
+    one = ShardedEmbeddingTable(V, D, lr=0.05, seed=0, device="cuda")
+    env.set_mesh(make_mesh({"ps": RECSYS_PS}))
+    ps = ShardedEmbeddingTable(V, D, lr=0.05, seed=0, device="cuda")
+    one.load_state_dict(ps.state_dict())
+    gen = _recsys_gen()
+    rng = np.random.default_rng(5)
+    diffs, look, upd = [], [], []
+    for i in range(RECSYS_PS_STEPS):
+        ids = gen.batch(i)[1].reshape(-1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows = ps.lookup(ids)
+        torch.cuda.synchronize()
+        look.append(time.perf_counter() - t)
+        diffs.append(float((rows - one.lookup(ids)).abs().max()))
+        g = rng.normal(size=(ids.size, D)).astype(np.float32)
+        t = time.perf_counter()
+        ps.apply_grads(ids, g)
+        torch.cuda.synchronize()
+        upd.append(time.perf_counter() - t)
+        one.apply_grads(ids, g)
+    got, want = ps.state_dict(), one.state_dict()
+    res = {"lookups": diffs,
+           "data": float(np.abs(got["data"] - want["data"]).max()),
+           "g2": float(np.abs(got["g2"] - want["g2"]).max()),
+           "block": tuple(ps.data.shape), "lookup_s": look,
+           "update_s": upd, "stats": dict(RECSYS_STATS),
+           "launches": {k["name"]: k["launches"] for k in kernels.kernels()},
+           "leaked": sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "paddle_tpu")),
+           "backend": dist.ParallelEnv().backend}
+    with open(os.path.join(out_dir, f"recsys_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _recsys_ps_world(smi: str) -> dict:
+    """(d) the ps = 2 world; returns its launches summed over the ranks."""
+    import pickle
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.distributed.spawn_mod import spawn
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        spawn("chip_smoke:_recsys_ps_rank", args=(tmp,), nprocs=RECSYS_PS)
+        took = time.perf_counter() - t
+        ranks = []
+        for r in range(RECSYS_PS):
+            with open(os.path.join(tmp, f"recsys_rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    V, D = RECSYS_CFG["vocab_sizes"], RECSYS_CFG["embedding_dim"]
+    n_ids = RECSYS_B * RECSYS_CFG["num_sparse"]
+    _log(f"recsys: (d) ps = {RECSYS_PS} over {RECSYS_PS} ranks on the one "
+         f"card (gloo, {took:.1f} s with start-up; {smi}): a {V} x {D} "
+         f"table, each rank's block {ranks[0]['block']}; "
+         f"{RECSYS_PS_STEPS} lookups and updates of {n_ids} ids against a "
+         f"one-process table from the same rows: lookups' max diff by rank "
+         + ", ".join(" ".join(f"{d:.3e}" for d in r["lookups"])
+                     for r in ranks) + "; final data / g2 max diff "
+         + ", ".join(f"{r['data']:.3e} / {r['g2']:.3e}" for r in ranks)
+         + "; ms a lookup (masked gather + all_reduce) by rank "
+         + ", ".join(f"{1e3 * float(np.median(r['lookup_s'])):.3f}"
+                     for r in ranks)
+         + ", an update "
+         + ", ".join(f"{1e3 * float(np.median(r['update_s'])):.3f}"
+                     for r in ranks) + " (medians)")
+    for r, res in enumerate(ranks):
+        _require(not res["leaked"], f"rank {r} imported {res['leaked'][:5]}")
+        _require(res["backend"] == "gloo", f"recsys rank {r}: "
+                 f"{res['backend']}")
+        _require(res["lookups"][0] == 0.0
+                 and max(res["lookups"]) <= RECSYS_ROW_TOL
+                 and res["data"] <= RECSYS_ROW_TOL
+                 and res["g2"] <= RECSYS_G2_TOL * 10.0,
+                 f"recsys (d) rank {r}: the ps table left the one-process "
+                 f"table ({res['lookups']}, {res['data']}, {res['g2']})")
+        _require(res["stats"]["manual_lookups"] >= RECSYS_PS_STEPS
+                 and res["stats"]["fallbacks"] == 0,
+                 f"recsys (d) rank {r}: {res['stats']}")
+        _require(res["block"] == (1, V // RECSYS_PS, D),
+                 f"recsys (d) rank {r}: block {res['block']}")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ranks[0]["launches"]}
+
+
+def _recsys_ps_server(gen) -> None:
+    """(e) the native PS server built from the port's source: two server
+    processes, pull and push held against a SparseTable holding the
+    pulled rows, and DistributedEmbedding on the card over them."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed.ps import (DistributedEmbedding,
+                                                 SparseTable)
+    from paddle_tpu_torch.distributed.ps import service
+    t = time.perf_counter()
+    binary = service._binary_path()
+    build = time.perf_counter() - t
+    servers = [service.PSServerHandle(), service.PSServerHandle()]
+    client = service.PSClient([s.endpoint for s in servers])
+    try:
+        D = RECSYS_CFG["embedding_dim"]
+        client.create_table(0, kind="sparse", dim=D, optimizer="sgd",
+                            lr=0.05, seed=0, init_scale=0.01)
+        ids = gen.batch(0)[1].reshape(-1)
+        keys = ids.astype(np.uint64)
+        t = time.perf_counter()
+        rows = client.pull_sparse(0, keys, D)
+        pull_ms = 1e3 * (time.perf_counter() - t)
+        uniq, inv = np.unique(ids, return_inverse=True)
+        ref = SparseTable(uniq.size, D, optimizer="sgd", lr=0.05)
+        ref.load_state_dict({"data": client.pull_sparse(
+            0, uniq.astype(np.uint64), D)})
+        same_pull = np.array_equal(rows, ref.pull(inv))
+        g = np.random.default_rng(3).normal(size=(ids.size, D)) \
+            .astype(np.float32)
+        t = time.perf_counter()
+        client.push_sparse(0, keys, g, grad=True)
+        push_ms = 1e3 * (time.perf_counter() - t)
+        ref.push(inv, g)
+        push_diff = float(np.abs(client.pull_sparse(
+            0, uniq.astype(np.uint64), D) - ref.data).max())
+        emb = DistributedEmbedding(RECSYS_CFG["vocab_sizes"], D,
+                                   client=client, table_id=0, device="cuda")
+        small = ids[:64].reshape(8, 8)
+        before = client.pull_sparse(0, np.unique(small).astype(np.uint64), D)
+        out = emb(small)
+        same_rows = np.array_equal(
+            out.detach().cpu().numpy().reshape(-1, D),
+            client.pull_sparse(0, small.reshape(-1).astype(np.uint64), D))
+        out.sum().backward()
+        moved = float(np.abs(client.pull_sparse(
+            0, np.unique(small).astype(np.uint64), D) - before).max())
+        _log(f"recsys: (e) PS server built from "
+             f"paddle_tpu_torch/distributed/ps/_native/ps_server.cpp "
+             f"({os.path.basename(binary)}, {build:.2f} s), two processes: "
+             f"pull of {ids.size} ids {pull_ms:.3f} ms, equal to a "
+             f"SparseTable of the pulled rows: {same_pull}; push "
+             f"{push_ms:.3f} ms, rows after it against the SparseTable's "
+             f"push {push_diff:.3e}; DistributedEmbedding on the card "
+             f"over the servers: rows equal {same_rows}, its backward "
+             f"moved the pushed rows by up to {moved:.3e}")
+        _require(same_pull and push_diff <= 1e-7 and same_rows
+                 and moved > 0 and out.device.type == "cuda",
+                 "recsys (e): the PS server disagrees")
+    finally:
+        client.stop_servers()
+        for s in servers:
+            s.wait(timeout=30)
+
+
+def phase_recsys(smi: str) -> dict:
+    """(a) dedup parity, (b) dlrm_criteo_small through tiered tables (and
+    card against CPU), (c) its serving leg, (d) ShardedEmbeddingTable at
+    full vocab in one process and over ps = 2 ranks, (e) the native PS
+    server. Counts are set to 0 before the phase and in each rank of (d);
+    no part launches a kernel of the port. Returns the phase's launches."""
+    import gc
+    import torch
+    from paddle_tpu_torch import recsys
+    from paddle_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    _recsys_dedup()
+    _log(f"recsys: (a) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _recsys_parity()
+    model, gen = _recsys_train(smi)
+    _log(f"recsys: (b) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _recsys_serve(model, gen, smi)
+    _log(f"recsys: (c) took {time.perf_counter() - t:.1f} s")
+    recsys.reset()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    _recsys_sharded(gen, smi)
+    world = _recsys_ps_world(smi)
+    _log(f"recsys: (d) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _recsys_ps_server(gen)
+    _log(f"recsys: (e) took {time.perf_counter() - t:.1f} s")
+    got = _path_launches({}, "recsys (a)-(e)")
+    _require(not any(world.values()), f"recsys (d) ranks: launches {world}")
+    return {"recsys": {k: got[k] + world[k] for k in got}}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -8320,6 +8852,7 @@ def main() -> int:
     by_path.update(timed("vision", phase_vision, card["smi"]))
     by_path.update(timed("moe", phase_moe, card["smi"]))
     by_path.update(timed("vision2", phase_vision2, card["smi"]))
+    by_path.update(timed("recsys", phase_recsys, card["smi"]))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

@@ -28,6 +28,9 @@ over an ``ep`` mesh axis) and the MoE GPT (``GPTConfig.moe_experts``).
 ``vision`` holds the zoo models, the detection ops (``vision.ops``) and
 the data side; ``hapi.Model`` trains, evaluates and predicts over them
 (data-parallel under ``fleet.init``), with ``metric`` and ``callbacks``.
+``recsys`` holds the giant embedding tables (tiered, ps-sharded, on the
+host and the PS server of ``distributed.ps``) that ``models.dlrm``
+trains through and ``recsys.RecsysEngine`` ranks with.
 """
 
 from .core import make_generator, resolve_device

@@ -10,7 +10,8 @@ serving watchdog ``serve_watchdog_s``, ``checkpoint_verify`` and the
 model lifecycle's ``serve_hot_swap``, ``serve_traffic_split`` and
 ``serve_lifecycle``, the vision path's ``jit_channels_last``, and
 the MoE layer's ``moe_dispatch``, ``moe_expert_parallel`` and
-``moe_a2a_chunks``); it has no
+``moe_a2a_chunks``, and recsys's ``recsys_dedup`` and
+``recsys_sharded_lookup``); it has no
 kernel kill switches (the JAX package's
 ``pallas_*`` flags), because a kernel wrapper on the card launches its
 kernel or raises. The monitor flags (``monitor``, ``trace``,
@@ -133,6 +134,20 @@ define_flag("moe_a2a_chunks", 2,
             "expert computes, each chunk's tokens-back exchange right "
             "after that chunk's FFN. Reduced until a chunk's width "
             "tiles the local capacity. 1 = no chunking.")
+define_flag("recsys_dedup", True,
+            "Unique/dedup embedding lookups in recsys: sort-unique the "
+            "batch ids, gather each distinct row once, inverse-permute "
+            "back. Sparse gradients accumulate over the unique set before "
+            "the row update either way (the SparseTable push semantics); "
+            "off = the per-id gather, the parity oracle (same rows, "
+            "O(batch) instead of O(unique) row traffic).")
+define_flag("recsys_sharded_lookup", True,
+            "Run ShardedEmbeddingTable lookups and updates on a ps > 1 "
+            "mesh through the explicit program: each ps rank gathers the "
+            "unique rows it owns and one all_reduce over the ps group "
+            "assembles the batch. Off selects the JAX package's GSPMD "
+            "auto path, which has no counterpart when ranks are "
+            "processes: the port raises NotImplementedError there.")
 define_flag("amp_int8_matmul", False,
             "EXPERIMENTAL: under an active amp.auto_cast region, run "
             "nn.functional.linear matmuls whose 2-D weight tiles (K and N "

@@ -11,9 +11,10 @@ the pipeline (a stage a process: ``PipelineStageStack`` with 1F1B and
 fill-drain, ``PipelineParallel`` over a ``PipelineLayer``);
 ``fleet.meta_optimizers`` LocalSGD; ``fleet.utils.recompute`` is
 activation recompute; :mod:`.checkpoint` the single-process commit
-protocol. ``spawn`` and ``launch`` start a world. Sequence parallelism,
-the checkpoint manager with resharding, elastic, auto_parallel and the
-parameter server are not ported yet (``ROADMAP.md``).
+protocol. ``spawn`` and ``launch`` start a world. :mod:`.ps` is the
+parameter server: host sparse tables, the C++ server with its client and
+communicators, and ``DistributedEmbedding``. Elastic and auto_parallel
+are not ported yet (``ROADMAP.md``).
 """
 
 from . import checkpoint, collective, env, spmd  # noqa: F401
@@ -51,7 +52,7 @@ from .spmd import apply_param_shardings, make_mesh  # noqa: F401
 
 def __getattr__(name):
     import importlib
-    if name in ("fleet", "meta_parallel", "launch"):
+    if name in ("fleet", "meta_parallel", "launch", "ps"):
         return importlib.import_module(f".{name}", __name__)
     if name == "spawn":
         return importlib.import_module(".spawn_mod", __name__).spawn

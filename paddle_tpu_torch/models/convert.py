@@ -14,7 +14,11 @@ puts the full arrays back together (a collective every rank calls).
 An MoE model's leaves (``layers.<i>.moe.gate.weight`` and the stacked
 ``layers.<i>.moe.experts.w1`` / ``b1`` / ``w2`` / ``b2``) copy the same
 way in both directions; on an ``ep`` mesh a rank holds its ``E/n``
-experts of each stacked leaf.
+experts of each stacked leaf. A DLRM's state dict holds its dense MLPs
+only (``bottom.<i>.weight [in, out]``, ``top.<i>.bias``): its embedding
+tables are no parameters and carry across through their own
+``state_dict`` / ``load_state_dict`` (the JAX tables' keys and global
+row order) or ``recsys.save_tables`` / ``load_tables``.
 """
 
 from __future__ import annotations

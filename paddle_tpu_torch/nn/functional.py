@@ -5,7 +5,8 @@ Counterpart of ``paddle_tpu/nn/functional.py``: ``linear`` (:func:`linear`,
 Paddle's ``[in, out]`` weight, with the ``FLAGS_amp_int8_matmul`` route
 of :222-266), ``embedding``, ``gelu``, ``tanh``,
 ``layer_norm`` (:1014), ``dropout`` (:1115), the dense
-hard-label ``cross_entropy`` (:1222) and ``scaled_dot_product_attention``
+hard-label ``cross_entropy`` (:1222), ``binary_cross_entropy_with_logits``
+(:1342) and ``scaled_dot_product_attention``
 (``ops/attention.py``), and the vision ops of ``functional_vision``
 (convolutions, pools, ``batch_norm``, ``fused_conv_bn``, ``relu``,
 ``relu6``, ``sigmoid``, ``flatten``). Each casts its inputs under AMP by
@@ -53,7 +54,7 @@ from ..ops.kernels.quant_matmul import (int8_amp_linear,
                                         matmul_shapes_supported)
 
 __all__ = ["linear", "embedding", "gelu", "tanh", "layer_norm",
-           "dropout", "cross_entropy",
+           "dropout", "cross_entropy", "binary_cross_entropy_with_logits",
            "scaled_dot_product_attention"] + _vision.__all__
 
 
@@ -194,3 +195,32 @@ def cross_entropy(input, label, ignore_index: int = -100,
         return loss
     raise ValueError(f"reduction {reduction!r}: expected 'mean', 'sum' or "
                      "'none'")
+
+
+def _reduce(loss, reduction: str):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"reduction {reduction!r}: expected 'mean', 'sum' or "
+                     "'none'")
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction: str = "mean",
+                                     pos_weight=None):
+    """Sigmoid cross-entropy on logits in float32, in the JAX op's
+    ``log_sigmoid`` form (``functional.py:1342-1367``): ``-(pw * y *
+    log_sigmoid(z) + (1 - y) * log_sigmoid(-z))``, times ``weight``,
+    then ``reduction`` (``"mean"``, ``"sum"`` or ``"none"``)."""
+    z = logit.float()
+    y = label.float()
+    pos = y * F.logsigmoid(z)
+    if pos_weight is not None:
+        pos = pos_weight * pos
+    loss = -(pos + (1 - y) * F.logsigmoid(-z))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)

@@ -1,6 +1,6 @@
 """Run chip_smoke.py's card phase and one later phase alone.
 
-    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2
+    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys
 
 From the root of a checkout, on a machine with one CUDA card: builds the
 kernels (phase 1), then drives the named phase and prints its launches:
@@ -25,7 +25,12 @@ and the serving engine over it, ep = 4 over four ranks on the card),
 BASELINE config 2's ResNet-50 through ``hapi.Model.fit`` at dp = 4 over
 four ranks on the card, with BatchNorm statistics over the global batch;
 the pool mask and ``MaxUnPool2D``, the detection ops at their published
-widths and ``QuantizedConv2D``, card against CPU).
+widths and ``QuantizedConv2D``, card against CPU), ``recsys`` phase 25
+(``bench.py --recsys``'s dedup parity; DLRM ``dlrm_criteo_small``
+trained through tiered tables, then against the CPU, and ranked by
+``RecsysEngine``; ``ShardedEmbeddingTable`` at full vocab in one process
+and over a ps = 2 world on the card; the native PS server built from
+the port's source).
 Exits non-zero if a check fails.
 """
 
@@ -44,7 +49,8 @@ PHASES = {"monitor": lambda card: chip_smoke.phase_monitor(),
               card["smi"]),
           "vision": lambda card: chip_smoke.phase_vision(card["smi"]),
           "moe": lambda card: chip_smoke.phase_moe(card["smi"]),
-          "vision2": lambda card: chip_smoke.phase_vision2(card["smi"])}
+          "vision2": lambda card: chip_smoke.phase_vision2(card["smi"]),
+          "recsys": lambda card: chip_smoke.phase_recsys(card["smi"])}
 
 
 def main() -> int:
