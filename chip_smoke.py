@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Twenty-six phases, in order:
+result line. Twenty-seven phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -53,9 +53,9 @@ result line. Twenty-six phases, in order:
               from a seed) through ``ServingEngine`` at the full serving
               configuration, check the launch counts against the
               dispatch counts and cross-check every generated token
-              against a teacher-forced no-cache forward, then profile one
-              more run of the same requests (the device busy share
-              phase 14 prints beside its own);
+              against a teacher-forced no-cache forward, then profile ten
+              steps of one more run of the same requests (the device
+              busy share phase 14 prints beside its own);
 4. mt      -- multi-tenant serving of GPT-2 345M at the configuration of
               ``bench.py``'s ``serve_multitenant_metrics`` (full): int8
               paged KV, eight LoRA adapters of four tenants, at most four
@@ -127,8 +127,9 @@ result line. Twenty-six phases, in order:
               a teacher-forced no-cache forward of the engine's bf16
               parameters (near-ties under ``BF16_TIE_GAP``), KV bytes a
               token half of f32's; its TTFT, decode p50/p99, peak memory
-              and the device busy share of one profiled run printed beside
-              phase 3's (which profiles one more f32 run for it);
+              and the device busy share of ten profiled steps printed
+              beside phase 3's (which profiles ten steps of one more f32
+              run for it);
 15. chat   -- ``bench.py``'s ``serve_throughput_features`` at full size:
               its MMPP shared-prefix chat traffic (24 requests after a warm
               burst of 4) served open-loop by the flags-off engine and by
@@ -213,7 +214,7 @@ result line. Twenty-six phases, in order:
               from seed 0): (a) phase 3's requests with every knob off,
               with phase 3's launches and tokens exactly and no
               resilience series, then off, armed (``serve_watchdog_s``
-              5), armed, off, twice, with the same tokens and launches,
+              5), armed, off, with the same tokens and launches,
               decode p50 off against armed and the guarded dispatch's
               own host cost; (b) 48 requests at once (priorities 0-2, deadlines
               0.5-4 s) into a queue of 16 under the ``priority`` policy
@@ -364,7 +365,8 @@ result line. Twenty-six phases, in order:
               ranks on the one card (gloo), two Momentum steps through
               ``TrainStep`` with every BatchNorm's statistics over the
               global batch, against one process's step (losses,
-              parameters, running statistics; both equal on every rank);
+              parameters, running statistics; both equal on every rank;
+              cuDNN's deterministic algorithms in both);
               (b) BASELINE config 2 through ``hapi.Model.fit`` under
               ``fleet.init`` in the same world: ResNet-50, every BN
               converted to ``SyncBatchNorm``, global batch 256 (64 a
@@ -407,7 +409,27 @@ result line. Twenty-six phases, in order:
               pull and push held to a ``SparseTable`` of the pulled rows,
               and ``DistributedEmbedding`` on the card over it; no part
               launches a kernel of the port;
-26. summary -- print one JSON line describing every ported kernel, then
+26. tp_serve -- tensor parallelism on the one card: rows 1 (f32), 2
+              (context), 9 and 10 against their plain versions at an mp =
+              2 rank's 8 heads; then two ranks over gloo serve phase 3's
+              model and sixteen requests (128-token prefill chunks) at mp
+              = 2 (``ServingConfig.mesh``: half the heads, half the pool
+              bytes a rank): (a) f32 pools, a teacher-forced run whose
+              every dispatch's whole-vocabulary logits are held to one
+              process's engine (``TP_LOGIT_TOL``), then a lockstep run
+              whose greedy tokens must equal one process's up to a
+              near-tie, timed (decode p50, tokens/s, the decode
+              dispatches' share in gloo); (b) the same check over int8
+              pools (``TP_INT8_TOL``) on the first 8 requests; (c) one
+              f32 step of
+              the MoE GPT (345M-8E widths, 2 layers) at mp = 2 against one
+              process, phase 23 (c)'s limits; (d) ``fleet.elastic.
+              run_elastic`` around a 2-layer gpt2_medium-width f32
+              ``TrainStep``, the chaos site ``worker.die`` at the second
+              step, resumed from the checkpoint bit for bit; exact launch
+              counts in each rank, and every rank checks that it imported
+              no JAX;
+27. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
@@ -419,7 +441,8 @@ again before its timed run, its pipeline parity runs, each of its two
 pipeline loss styles, (h)'s attention calls and each of its parity
 layouts, and (i)'s timed updates, and before phase 22, before phase 23's
 (a), (d)'s two runs and, in each rank, (c), before phase 24's (c) and,
-in each rank, (a), before phase 25 and in each rank of its (d), and
+in each rank, (a), before phase 25 and in each rank of its (d), in each rank of
+phase 26 before (a)'s runs, (b) and (c), and before its (d), and
 read just
 after each (a witness's
 reference runs are taken back out of them, and phase 20 reads them
@@ -438,14 +461,16 @@ world's ranks; ``vision``: phase 22, whose launches are all (d)'s;
 ``moe``: phase 23 (a)'s ten steps, ``moe_ep``: (c) summed over its
 ranks, ``moe_decode``: (d)'s generate and serving runs; ``vision2``:
 phase 24, its ranks' (a) and (b) and its own (c)-(e), all 0;
-``recsys``: phase 25 and its ps ranks, all 0).
+``recsys``: phase 25 and its ps ranks, all 0; ``tp_serve``: phase 26
+(a) and (b) summed over its two ranks, ``tp_moe``: its (c) over the
+ranks, ``elastic``: its (d)).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
 
-``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys``
-runs phase 1 and phase 18, 20, 21, 22, 23, 24 or 25 alone.
+``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys|tp_serve``
+runs phase 1 and phase 18, 20, 21, 22, 23, 24, 25 or 26 alone.
 """
 
 from __future__ import annotations
@@ -601,6 +626,11 @@ CHAT_SPEC = dict(num_requests=24, rate_rps=4.0, prompt_len_range=(16, 64),
                  prefix_zipf=1.2)
 CHAT_FLAGS = {"serve_prefix_cache": True, "serve_prefill_chunk": 128,
               "serve_spec_k": 4}
+# phases 3 and 14 profile this many engine steps of one more run, after
+# its first two: a short window (the whole run until phase 26 needed the
+# script's time; reading a whole run's trace, some 650 000 events, took
+# the profiler most of each phase)
+PROFILE_SERVE_STEPS = 10
 # a teacher-forced position may pick another token than the engine only
 # where the engine's token is within this of the maximum logit (a tie
 # that the summation order of the paged and no-cache paths may break
@@ -785,12 +815,12 @@ def _f32_bias_fwd_case(mask, rate):
             "shape": shape}
 
 
-def _paged_case(dtype, seed, timed=False):
+def _paged_case(dtype, seed, timed=False, H=16):
     import numpy as np
     import torch
     from paddle_tpu_torch.ops.kernels.paged_decode import (
         paged_decode_attention, paged_decode_plain)
-    B, MB, bs, H, D, P = 8, 32, 16, 16, 64, 257
+    B, MB, bs, D, P = 8, 32, 16, 64, 257
     g = torch.Generator(device="cuda").manual_seed(seed)
     kp = torch.randn(P, bs, H, D, device="cuda", generator=g).to(dtype)
     vp = torch.randn(P, bs, H, D, device="cuda", generator=g).to(dtype)
@@ -843,7 +873,7 @@ def _paged_case(dtype, seed, timed=False):
             "shape": f"B={B} MB={MB} bs={bs} H={H} D={D} P={P} {name}"}
 
 
-def _quant_paged_case(seed, timed=False):
+def _quant_paged_case(seed, timed=False, H=16):
     """Kernel 10 at row 9's shape: float32 q, int8 pools written by
     ``write_pages_quant`` from random float32 K/V, an inactive slot."""
     import numpy as np
@@ -851,7 +881,7 @@ def _quant_paged_case(seed, timed=False):
     from paddle_tpu_torch.ops.kernels.paged_decode import (
         paged_decode_attention_quant, paged_decode_quant_plain)
     from paddle_tpu_torch.serving.kv_cache import write_pages_quant
-    B, MB, bs, H, D, P = 8, 32, 16, 16, 64, 257
+    B, MB, bs, D, P = 8, 32, 16, 64, 257
     g = torch.Generator(device="cuda").manual_seed(seed)
     every_page = torch.arange(P, dtype=torch.int32, device="cuda")[None]
     start = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -1839,17 +1869,20 @@ def _serve_line(summary, peak) -> str:
 
 
 def _profile_serve(tag, engine, specs) -> float:
-    """The device busy share of one more run of ``specs`` through
-    ``engine`` under torch.profiler (``_profile_step``); its launches
-    are not read by any count."""
+    """The device busy share of ``PROFILE_SERVE_STEPS`` engine steps of
+    one more run of ``specs`` through ``engine``, after its first two,
+    under torch.profiler (``_profile_step``); the run then finishes
+    unprofiled. Its launches are not read by any count."""
     from paddle_tpu_torch.serving import Request, SamplingParams
-
-    def run():
-        for p, new in specs:
-            engine.submit(Request(p, max_new_tokens=new,
-                                  sampling=SamplingParams()))
-        engine.run()
-    return _profile_step(f"{tag} profile", run)
+    for p, new in specs:
+        engine.submit(Request(p, max_new_tokens=new,
+                              sampling=SamplingParams()))
+    engine.step()
+    engine.step()
+    busy = _profile_step(f"{tag} profile", lambda: [
+        engine.step() for _ in range(PROFILE_SERVE_STEPS)])
+    engine.run()
+    return busy
 
 
 # -- phase 14: bf16 serving ---------------------------------------------------
@@ -1949,7 +1982,8 @@ def phase_bf16_serve(f32: dict) -> dict:
     _log(f"bf16: f32 (phase 3) {_serve_line(f32['summary'], f32['peak'])};"
          f" KV {kv32} bytes a token")
     busy = _profile_serve("bf16", engine, specs)
-    _log(f"bf16: device busy share of one profiled run {100 * busy:.2f}% "
+    _log(f"bf16: device busy share of {PROFILE_SERVE_STEPS} profiled steps "
+         f"{100 * busy:.2f}% "
          f"(f32, phase 3: {100 * f32['busy']:.2f}%)")
     del engine, model
     gc.collect()
@@ -3486,9 +3520,10 @@ MONITOR_TRAIN_KERNELS = ("flash_fwd_tc_kernel", "dq_tc_kernel",
                          "dkv_tc_kernel", "lse_kernel", "dlogits_kernel",
                          "dropout_kernel")
 MONITOR_TRAIN_STEPS = 8
-# timed steps a configuration in the per-feature step-time table, and
-# the table's passes (forward order; a second pass would run in reverse)
-FEATURE_STEPS = 4
+# timed steps a configuration in the per-feature step-time table (4
+# until phase 26 needed the script's time), and the table's passes
+# (forward order; a second pass would run in reverse)
+FEATURE_STEPS = 2
 FEATURE_PASSES = 1
 # the serving "all on" run's flags (its admin plane on an ephemeral
 # 127.0.0.1 port), read when the engine is built and at every submit
@@ -3966,7 +4001,8 @@ RES_DRAIN_AFTER, RES_DRAIN_BUDGET_S = 6, 0.25
 RES_WATCHDOG_S, RES_HANG_AT = 2.0, 5
 # the armed watchdog of part (a), and the order of its timed runs
 RES_ARMED_S = 5.0
-RES_ARMED_ORDER = ("off", "armed", "armed", "off") * 2
+# (twice over until phase 26 needed the script's time)
+RES_ARMED_ORDER = ("off", "armed", "armed", "off")
 # part (e): the LoRA engine and the BERT-base steps
 RES_ADAPTERS, RES_RANK, RES_LORA_REQUESTS = 4, 8, 8
 RES_TRAIN_STEPS = 3
@@ -5145,7 +5181,7 @@ DIST_PARAM_TOL = 1e-5
 DIST_KEY_BIAS_TOL = 2 * TRAIN_LR * DIST_PARITY_STEPS
 # (d) the timed run: gpt2_medium, B = 8 a call, S = 1024, O1, recompute,
 # two microsteps an update, two updates (four until phase 24 needed the
-# script's time)
+# script's time; two is the fewest that shows the loss fall)
 DIST_B, DIST_S, DIST_ACCUM, DIST_UPDATES = 8, 1024, 2, 2
 
 
@@ -5417,7 +5453,7 @@ def _dist_timed(rank: int) -> dict:
 PIPE_PARITY_LAYERS, PIPE_PARITY_M = 4, 4
 PIPE_LAYOUTS = {"pp=2 x mp=2": (2, 2), "pp=4": (4, 1)}
 # two timed updates each (four and three until phase 24 needed the
-# script's time)
+# script's time; two is the fewest that shows the loss fall)
 PIPE_B, PIPE_M, PIPE_UPDATES, PIPE_FWD_UPDATES = 8, 8, 2, 2
 GLOO_RAW_OPS = ("send_recv", "isend_irecv", "batch_isend_irecv")
 
@@ -5767,7 +5803,8 @@ SP_ATTN_TOL = {"o": 2.0 ** -7, "grads": 2.0 ** -6}
 # batch of 8 (4 a sharding rank), S = 512, 76 masked positions a row, the
 # last row padded from position 384; one warm-up, then two updates
 E5_SHARDING, E5_MP, E5_B, E5_S, E5_M = 2, 2, 8, 512, 76
-# two timed updates (three until phase 24 needed the script's time)
+# two timed updates (three until phase 24 needed the script's time; with
+# one, the warm-up's lr ramp can leave the loss above the warm-up's)
 E5_PAD_FROM, E5_UPDATES, E5_LR, E5_WD = 384, 2, 1e-4, 0.01
 # the peak lr is reached by a linear warmup over E5_WARMUP updates, as
 # ERNIE's pretraining recipe warms up: at 1e-4 from the first update
@@ -5777,11 +5814,12 @@ E5_PAD_FROM, E5_UPDATES, E5_LR, E5_WD = 384, 2, 1e-4, 0.01
 # PERF.md, PR 17), as ERNIE-base's jumps at its second step at 1e-4 in
 # both packages
 E5_WARMUP = 10
-# (j) resharding: config 5's widths at 2 layers, f32, dropout 0.1: two
-# steps at sharding = 2 x mp = 2, a sharded save, two more; resumed at
-# the same layout (bit-exact), at mp = 4 and in one process (each within
-# RESHARD_TOL of the uninterrupted run's losses, relative)
-RESHARD_LAYERS, RESHARD_STEPS, RESHARD_TOL = 2, 2, 1e-5
+# (j) resharding: config 5's widths at 1 layer (2 until phase 26 needed
+# the script's time), f32, dropout 0.1: two steps at sharding = 2 x mp =
+# 2, a sharded save, two more; resumed at the same layout (bit-exact), at
+# mp = 4 and in one process (each within RESHARD_TOL of the
+# uninterrupted run's losses, relative)
+RESHARD_LAYERS, RESHARD_STEPS, RESHARD_TOL = 1, 2, 1e-5
 
 
 def _e5_batch(seed: int):
@@ -7690,6 +7728,24 @@ def _v2_parity_batch():
             (np.arange(V2_PARITY_B) % 10).astype(np.int64))
 
 
+@contextlib.contextmanager
+def _deterministic_convs():
+    """cuDNN's deterministic algorithms for (a)'s parity steps, in the
+    reference and in every rank. Left to its heuristics, cuDNN took
+    other f32 convolution algorithms in the ranks (a quarter of the
+    batch each) than in the reference process in two of three whole
+    runs, depending on what memory earlier phases left for its
+    workspaces, and a BN bias then read 3.5e-4 off, past the check's
+    limit; the deterministic algorithms are chosen by shape alone."""
+    import torch
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def _v2_reference(tmp: str) -> list:
     """(a)'s one-process step on the card: the initial ResNet-18 weights
     to ``v2_init.pdparams``, the losses and final state to
@@ -7701,6 +7757,10 @@ def _v2_reference(tmp: str) -> list:
     from paddle_tpu_torch.vision.models import resnet18
     from paddle_tpu_torch.core.flags import flag_scope
     from paddle_tpu_torch.models import load_jax_weights
+    # the memory earlier phases cached back to the card, for cuDNN's
+    # workspaces
+    gc.collect()
+    torch.cuda.empty_cache()
     init = resnet18(num_classes=10, device="cuda", seed=3).state_dict()
     save(init, os.path.join(tmp, "v2_init.pdparams"))
     x, y = _v2_parity_batch()
@@ -7708,7 +7768,7 @@ def _v2_reference(tmp: str) -> list:
     for cl in (True, False):
         m = resnet18(num_classes=10, device="cuda")
         load_jax_weights(m, {k: v.cpu().numpy() for k, v in init.items()})
-        with flag_scope("jit_channels_last", cl):
+        with flag_scope("jit_channels_last", cl), _deterministic_convs():
             step = TrainStep(m, _vision_ce(amp=False), Momentum(
                 1e-3, momentum=0.9, parameters=m.parameters()))
             losses = [float(step(x, y)) for _ in range(V2_PARITY_STEPS)]
@@ -7789,7 +7849,8 @@ def _v2_parity_rank(rank: int, hcg, tmp: str) -> dict:
         1e-3, momentum=0.9, parameters=m.parameters()),
         mesh=hcg.mesh, data_spec=P("dp"))
     x, y = _v2_parity_batch()
-    losses = [float(step(x, y)) for _ in range(V2_PARITY_STEPS)]
+    with _deterministic_convs():
+        losses = [float(step(x, y)) for _ in range(V2_PARITY_STEPS)]
     out = {"losses": losses, "buffers": _digest(_v2_buffers(m)),
            "params": _digest(_v2_params(m)),
            "groups": {len(b._data_groups) for b in m.modules()
@@ -8796,6 +8857,609 @@ def phase_recsys(smi: str) -> dict:
     return {"recsys": {k: got[k] + world[k] for k in got}}
 
 
+# -- phase 26: tensor-parallel serving --------------------------------------
+# GPT-2 345M (phase 3's weights, seed 0) served tensor-parallel at mp = 2
+# (``ServingConfig.mesh``) by two ranks sharing the one card over gloo,
+# phase 3's sixteen requests with 128-token prefill chunks (a prompt past
+# 128 tokens continues through the context path); one process's engine
+# at the same configuration is the reference. In a teacher-forced run
+# both engines take the reference's tokens, so every prefill and decode
+# dispatch has the same rows, and each rank's whole-vocabulary logits are
+# held to the reference's within TP_LOGIT_TOL (f32 pools) or TP_INT8_TOL
+# (int8 pools). The row-parallel products sum two halves of 512 where one
+# process sums 1024 terms, a reordering of f32 sums (PERF.md §6 gives
+# the predicted reading); over int8 pools such a last-bit
+# difference can move a K or V element to the next int8 quantum
+# (absmax / 127 of its row), so int8 takes a wider limit.
+TP_MP, TP_CHUNK = 2, 128
+TP_LOGIT_TOL, TP_INT8_TOL = 1e-3, 5e-2
+# (b) holds the int8 pools over phase 3's first TP_INT8_REQUESTS requests
+# (one admission batch): a decode step over gloo costs 6-9 one-process
+# steps on one card, and the script has a time limit
+TP_INT8_REQUESTS = 8
+# (c) the MoE GPT of bench.py --moe (gpt2_medium widths, 8 experts every
+# second layer) cut to 2 layers, one f32 step at mp = 2 against one
+# process, phase 21 (c)'s batch; (d) run_elastic around a 2-layer
+# gpt2_medium-width f32 TrainStep (AdamW), worker.die at the second step
+# boundary, ELASTIC_STEPS steps in all
+TP_MOE_LAYERS, ELASTIC_STEPS = 2, 3
+
+
+def _tp_kernel_checks() -> None:
+    """Rows 1 (f32), 2 (context), 9 and 10 at an mp = 2 rank's head count
+    (H = 8) against their plain versions."""
+    import torch
+    _flash_case(4, 256, 8, 64, torch.float32, seed=261)
+    _context_flash_case(4, 128, 8, 64, torch.float32, (0, 128, 256, 384),
+                        seed=262)
+    _paged_case(torch.float32, seed=263, H=8)
+    _quant_paged_case(seed=264, H=8)
+
+
+def _tp_engine(model, quant: str, mesh=None):
+    """An engine at SERVE_CFG with TP_CHUNK-token chunks (not warmed up:
+    phase 1 loaded the kernels, and the timed figures are medians)."""
+    from paddle_tpu_torch.core.flags import flag_scope
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+    with flag_scope("serve_kv_quant", quant), \
+            flag_scope("serve_prefill_chunk", TP_CHUNK):
+        return ServingEngine(model, ServingConfig(**SERVE_CFG, mesh=mesh),
+                             device="cuda")
+
+
+def _tp_specs(vocab_size: int, quant: str) -> list:
+    specs = _slice_specs(vocab_size)
+    return specs[:TP_INT8_REQUESTS] if quant else specs
+
+
+def _tp_first_id(engine) -> int:
+    """The run's first request id (its requests are numbered in order)."""
+    sched = engine.scheduler
+    return min(st.request.request_id for st in sched.waiting
+               + [st for _, st in sched.active()])
+
+
+def _tp_pool_bytes(engine) -> int:
+    c = engine.cache
+    return sum(t.numel() * t.element_size()
+               for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None)
+
+
+def _tp_run(engine, specs, reg=None) -> dict:
+    """Serve ``specs`` through ``engine``: the run's wall seconds,
+    tokens a second, the median decode step and (with the registry
+    ``reg``) the share of the decode dispatches' host time spent in
+    collectives."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import Request, SamplingParams
+    dec = {"t": 0.0, "comm": 0.0}
+    run_decode = engine._run_decode
+
+    def timed_decode(pairs, params):
+        c0 = sum(_comm_by_op(reg).values()) if reg is not None else 0.0
+        t0 = time.perf_counter()
+        run_decode(pairs, params)
+        dec["t"] += time.perf_counter() - t0
+        if reg is not None:
+            dec["comm"] += sum(_comm_by_op(reg).values()) - c0
+    engine._run_decode = timed_decode
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = [engine.submit(Request(p, max_new_tokens=new,
+                                    sampling=SamplingParams()))
+              for p, new in specs]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del engine._run_decode
+    return {"states": states, "wall": wall,
+            "tokens_per_s": sum(len(st.generated) for st in states) / wall,
+            "decode_ms": 1e3 * float(np.median(engine._lat["decode_step"])),
+            "gloo_share": dec["comm"] / dec["t"] if reg is not None
+            else None}
+
+
+def _tp_reference(model, quant: str) -> dict:
+    """One process's engine over phase 3's model and traffic (128-token
+    chunks), each dispatch's real rows' logits copied to the host as it
+    samples: those logits and the tokens taken, the top-2 gap of every
+    accepted token by (request, position), the pool bytes, the dispatch
+    counts and the run's times (the copies included)."""
+    import gc
+    import numpy as np
+    import torch
+    engine = _tp_engine(model, quant)
+    rec = {"logits": [], "tokens": [], "gaps": {}}
+    sample = engine._sample
+    first = {}
+
+    def recorded(rows, states):
+        toks, ok = sample(rows, states)
+        idx = [i for i, st in enumerate(states) if st is not None]
+        got = rows[idx].float()
+        top2 = got.topk(2, dim=-1).values
+        rec["logits"].append(got.cpu())
+        rec["tokens"].append(np.asarray(toks)[idx].copy())
+        if "id" not in first:
+            first["id"] = _tp_first_id(engine)
+        for i, gap in zip(idx, (top2[:, 0] - top2[:, 1]).tolist()):
+            st = states[i]
+            # keyed (request, position of the token sampled); a chunk
+            # that leaves the prompt unfinished is overwritten by the
+            # chunk that finishes it
+            rec["gaps"][(st.request.request_id - first["id"],
+                         len(st.generated))] = gap
+        return toks, ok
+    engine._sample = recorded
+    run = _tp_run(engine, _tp_specs(model.cfg.vocab_size, quant))
+    del engine._sample
+    rec["generated"] = [list(st.generated) for st in run.pop("states")]
+    rec["run"] = run
+    rec["pool_bytes"] = _tp_pool_bytes(engine)
+    rec["stats"] = dict(engine._stats)
+    engine.shutdown()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tp_serve_rank(ref_path: str, quant: str, timed: bool) -> dict:
+    """This rank's mp = 2 engine over the reference's traffic, sampling
+    in lockstep: every dispatch's whole-vocabulary logits (the vocab
+    blocks gathered over mp) against the reference's; where the lockstep
+    token differs from the reference's, the reference's is taken
+    (teacher forcing: the dispatches stay the reference's) and the place
+    recorded. With ``timed`` the run's decode dispatches are timed
+    against the comm_* series."""
+    import gc
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.distributed.spmd import make_mesh
+    from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+    from paddle_tpu_torch.monitor import scoped_registry
+    from paddle_tpu_torch.ops import kernels
+    ref = torch.load(ref_path, weights_only=False)
+    env.reset()
+    mesh = make_mesh({"mp": TP_MP})
+    model = GPTForPretraining(gpt2_medium(), device="cuda", seed=0)
+    engine = _tp_engine(model, quant, mesh)
+    kernels.reset_launch_counts()
+    errs, rows_ok, finite, flips, first = [], [], [], [], {}
+    full_logits, sample = engine._full_logits, engine._sample
+    seen = {}
+
+    def gathered(rows):
+        seen["full"] = full_logits(rows)
+        return seen["full"]
+
+    def checked(rows, states):
+        toks, ok = sample(rows, states)
+        i = len(errs)
+        idx = [j for j, st in enumerate(states) if st is not None]
+        got = seen.pop("full")[idx].float()
+        want = ref["logits"][i].to(got.device)
+        rows_ok.append(got.shape == want.shape)
+        finite.append(bool(ok[idx].all()))
+        errs.append(float((got - want).abs().max())
+                    if got.shape == want.shape else float("inf"))
+        toks = np.array(toks, copy=True)
+        if "id" not in first:
+            first["id"] = _tp_first_id(engine)
+        for j, t in zip(idx, ref["tokens"][i]):
+            if toks[j] != t:
+                st = states[j]
+                flips.append((st.request.request_id - first["id"],
+                              len(st.generated)))
+                toks[j] = t
+        return toks, ok
+    engine._full_logits, engine._sample = gathered, checked
+    specs = _tp_specs(model.cfg.vocab_size, quant)
+    if timed:
+        with scoped_registry() as reg:
+            run = _tp_run(engine, specs, reg)
+    else:
+        run = _tp_run(engine, specs)
+    del engine._full_logits, engine._sample
+    torch.cuda.synchronize()
+    states = run.pop("states")
+    out = {"errs": errs, "dispatches": (len(errs), len(ref["logits"])),
+           "rows_ok": all(rows_ok), "finite": all(finite), "flips": flips,
+           "outcomes": [st.outcome for st in states], "run": run,
+           "pool_bytes": _tp_pool_bytes(engine),
+           "heads": engine.cache.head_block, "stats": dict(engine._stats),
+           "launches": {k["name"]: k["launches"]
+                        for k in kernels.kernels()},
+           "messages": engine._lockstep.messages}
+    engine.shutdown()
+    del engine, model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_moe_step(mp: bool):
+    """(c)'s f32 TrainStep: the MoE GPT cut to TP_MOE_LAYERS, AdamW,
+    ``crit + moe_loss``; at mp = 2 on a fleet mesh."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.spmd import P
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    kw = {}
+    if mp:
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": TP_MP}
+        fleet.init(strategy=strategy, backend="gloo")
+        kw = dict(mesh=fleet.get_hybrid_communicate_group().mesh,
+                  data_spec=P("dp"))
+    _, model, _ = _moe_model(TP_MOE_LAYERS)
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(layer, ids, labels):
+        return crit(layer(ids), labels) + layer.moe_loss()
+    return model, TrainStep(model, loss_fn, AdamW(
+        TRAIN_LR, parameters=model.parameters(), weight_decay=TRAIN_WD),
+        seed=0, **kw)
+
+
+def _tp_moe_reference(path: str) -> float:
+    import gc
+    import torch
+    from paddle_tpu_torch.framework.io import save
+    model, step = _tp_moe_step(False)
+    ids, labels = _dist_batch(DIST_PARITY_B, DIST_S, 5)
+    loss = float(step(ids, labels))
+    save({"loss": loss, "params": step.state_dict()["params"]}, path)
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _tp_moe_rank(ref_path: str, rank: int) -> dict:
+    import gc
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io import load
+    from paddle_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    model, step = _tp_moe_step(True)
+    ids, labels = _dist_batch(DIST_PARITY_B, DIST_S, 5)
+    out = {"loss": float(step(ids, labels)),
+           "launches": {k["name"]: k["launches"] for k in kernels.kernels()},
+           "w1": tuple(model.gpt.layers[1].moe.experts.w1.shape),
+           "qkv": tuple(model.gpt.layers[0].attn.qkv_weight.shape)}
+    params = step.state_dict()["params"]
+    if rank == 0:
+        ref = load(ref_path)
+        out["ref_loss"] = ref["loss"]
+        out.update(_param_errors(params, ref["params"]))
+    fleet.reset()
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_wait(path: str, budget_s: float = 900.0) -> None:
+    """Wait for the file ``path`` (another process's marker)."""
+    deadline = time.monotonic() + budget_s
+    while not os.path.exists(path):
+        _require(time.monotonic() < deadline, f"tp_serve: {path} did not "
+                 f"appear within {budget_s:g} s")
+        time.sleep(0.1)
+
+
+def _tp_mark(path: str) -> None:
+    with open(path + ".part", "w"):
+        pass
+    os.replace(path + ".part", path)
+
+
+def _tp_rank(out_dir: str) -> None:
+    """One rank of phase 26's world (a spawned process; phase 1's
+    libraries load from ``paddle_tpu_torch/_build``): (a) f32 and (b)
+    int8 serving at mp = 2, (c) the MoE step. It starts and joins the
+    world while the parent computes the references, and waits for them
+    (the ``refs_done`` marker); rank 0 marks the end of (a), after which
+    the parent runs (d). Writes ``tp_rank<r>.pkl``."""
+    import pickle
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    import paddle_tpu_torch.distributed as dist
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    _tp_wait(os.path.join(out_dir, "refs_done"))
+    res = {"f32": _tp_serve_rank(os.path.join(out_dir, "tp_ref_f32.pt"),
+                                 "", timed=True)}
+    if rank == 0:
+        _tp_mark(os.path.join(out_dir, "f32_done"))
+    res["int8"] = _tp_serve_rank(os.path.join(out_dir, "tp_ref_int8.pt"),
+                                 "int8", timed=False)
+    res["moe"] = _tp_moe_rank(os.path.join(out_dir, "tp_moe_ref.pdparams"),
+                              rank)
+    res["leaked"] = sorted(m for m in sys.modules
+                           if m.split(".")[0] in ("jax", "paddle_tpu"))
+    res["backend"] = dist.ParallelEnv().backend
+    with open(os.path.join(out_dir, f"tp_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tp_elastic(tmp: str) -> dict:
+    """(d): ELASTIC_STEPS f32 steps of a 2-layer gpt2_medium-width
+    TrainStep under ``run_elastic``, saving after each step; the chaos
+    site ``worker.die`` kills the loop at the second step boundary
+    (before its save), the supervisor restarts it from the first step's
+    checkpoint. Every step's loss, the killed step's included, must equal
+    an uninterrupted run's bit for bit. Returns the run's launches."""
+    import gc
+    import torch
+    from paddle_tpu_torch.distributed.fleet import elastic
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing import chaos
+    ids, labels = _dist_batch(DIST_PARITY_B, DIST_S, 8)
+
+    def make():
+        model, loss_fn = _dist_model(2, amp=False)
+        return TrainStep(model, loss_fn, AdamW(
+            TRAIN_LR, parameters=model.parameters(),
+            weight_decay=TRAIN_WD), seed=0)
+    step = make()
+    ref = [float(step(ids, labels)) for _ in range(ELASTIC_STEPS)]
+    del step
+    gc.collect()
+    kernels.reset_launch_counts()
+    ckpt = os.path.join(tmp, "elastic_step.pdstate")
+    seen = {"resumes": [], "losses": [], "save_s": [], "load_s": []}
+
+    def train(resume):
+        seen["resumes"].append(resume is not None)
+        step = make()
+        if resume:
+            t = time.perf_counter()
+            step.load(resume)
+            seen["load_s"].append(time.perf_counter() - t)
+        while step.step_count < ELASTIC_STEPS:
+            seen["losses"].append((step.step_count + 1,
+                                   float(step(ids, labels))))
+            if chaos.probe("worker.die"):
+                raise chaos.ChaosFault("worker.die")
+            t = time.perf_counter()
+            step.save(ckpt)
+            seen["save_s"].append(time.perf_counter() - t)
+        return seen["losses"][-1][1]
+    naps = []
+    chaos.configure("worker.die@2")
+    t = time.perf_counter()
+    try:
+        elastic.run_elastic(train, ckpt, max_restarts=1,
+                            manager=elastic.ElasticManager(
+                                root=os.path.join(tmp, "heartbeats"),
+                                rank=0, np_=1), sleep=naps.append)
+    finally:
+        chaos.reset()
+    secs = time.perf_counter() - t
+    torch.cuda.synchronize()
+    calls, L = len(seen["losses"]), 2
+    got = _path_launches(dict(
+        flash_attention_fwd=L * calls, flash_attention_bwd=L * calls,
+        chunked_ce_lse=calls, chunked_ce_dlogits=calls,
+        fused_dropout=2 * (1 + 2 * L) * calls), "tp_serve (d)")
+    nbytes = os.path.getsize(ckpt)
+    _log(f"tp_serve: (d) run_elastic, gpt2_medium widths x 2 layers, f32 "
+         f"AdamW, B={DIST_PARITY_B} S={DIST_S}: steps run "
+         f"{[s for s, _ in seen['losses']]}, restarts from a checkpoint "
+         f"{seen['resumes']}, backoff asked {naps} s (not slept); losses "
+         + " ".join(f"{s}:{x:.6f}" for s, x in seen["losses"])
+         + " against the uninterrupted " + " ".join(
+             f"{x:.6f}" for x in ref)
+         + f"; a save {_secs(seen['save_s'])} s of {nbytes / 2**20:.1f} "
+         f"MiB, the load {_secs(seen['load_s'])} s; {secs:.1f} s in all")
+    _require(seen["resumes"] == [False, True] and naps == [2.0],
+             f"tp_serve (d): resumes {seen['resumes']}, backoff {naps}")
+    _require([s for s, _ in seen["losses"]] == [1, 2, 2, 3]
+             and all(x == ref[s - 1] for s, x in seen["losses"]),
+             f"tp_serve (d): losses {seen['losses']} are not the "
+             f"uninterrupted run's {ref} bit for bit")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def _secs(xs) -> str:
+    return "/".join(f"{x:.2f}" for x in xs)
+
+
+def _tp_launch_want(stats: dict, quant: bool) -> dict:
+    """A rank's exact launches for an engine's dispatches: row 1 (f32)
+    once a layer a fresh prefill chunk, row 2 once a layer a continuation
+    chunk, the decode kernel of the pools once a layer a decode."""
+    L = 24
+    fresh = stats["prefill_dispatches"] - stats["context_prefill_dispatches"]
+    want = dict(_zero_launches(), flash_attention_fwd=L * fresh,
+                flash_attention_bias_fwd=L * stats[
+                    "context_prefill_dispatches"])
+    key = "paged_decode_attention_quant" if quant else \
+        "paged_decode_attention"
+    want[key] = L * stats["decode_dispatches"]
+    return want
+
+
+def _tp_report(ranks, refs: dict, smi: str) -> None:
+    """(a) and (b): the logits of every dispatch, the lockstep tokens
+    against one process's (any difference only where one process's
+    top-2 gap is under TP_LOGIT_TOL), pool bytes, the f32 run's times,
+    exact launches."""
+    for r, res in enumerate(ranks):
+        _require(not res["leaked"], f"rank {r} imported {res['leaked'][:5]}")
+        _require(res["backend"] == "gloo", f"rank {r}: {res['backend']}")
+    for tag, tol in (("f32", TP_LOGIT_TOL), ("int8", TP_INT8_TOL)):
+        ref = refs[tag]
+        near = sorted(k for k, g in ref["gaps"].items() if g < TP_LOGIT_TOL)
+        for r, res in enumerate(ranks):
+            s = res[tag]
+            worst = max(s["errs"])
+            gaps = [ref["gaps"][k] for k in s["flips"]]
+            part = "a" if tag == "f32" else "b"
+            _log(f"tp_serve: ({part}) {tag} pools, rank {r} (heads "
+                 f"{s['heads'][0]}-{s['heads'][0] + s['heads'][1] - 1} of "
+                 f"{s['heads'][2]}): {s['dispatches'][0]} dispatches "
+                 f"({s['stats']['prefill_dispatches']} prefill, "
+                 f"{s['stats']['context_prefill_dispatches']} of them "
+                 f"context, {s['stats']['decode_dispatches']} decode), "
+                 f"whole-vocabulary logits against one process's: max "
+                 f"|difference| {worst:.3e} (tol {tol:g}), median over "
+                 f"dispatches {sorted(s['errs'])[len(s['errs']) // 2]:.3e};"
+                 f" lockstep greedy tokens "
+                 + ("equal one process's at every position" if not gaps
+                    else f"differ at (request, position) {s['flips']} "
+                    f"where one process's top-2 gaps are {gaps}")
+                 + f" (one process's first top-2 gap under {TP_LOGIT_TOL:g}"
+                 f": {near[0] if near else 'none'}); K+V pools "
+                 f"{s['pool_bytes'] / 1e6:.1f} MB against one process's "
+                 f"{ref['pool_bytes'] / 1e6:.1f} MB; {smi}")
+            _require(s["dispatches"][0] == s["dispatches"][1]
+                     and s["rows_ok"] and s["finite"],
+                     f"tp_serve {tag} rank {r}: dispatches "
+                     f"{s['dispatches']}, rows {s['rows_ok']}, finite "
+                     f"{s['finite']}")
+            _require(worst <= tol, f"tp_serve {tag} rank {r}: logits differ"
+                     f" by {worst} > {tol}")
+            _require(all(g < TP_LOGIT_TOL for g in gaps),
+                     f"tp_serve {tag} rank {r}: greedy tokens differ at "
+                     f"{s['flips']}, where one process's top-2 gaps are "
+                     f"{gaps}")
+            _require(2 * s["pool_bytes"] == ref["pool_bytes"],
+                     f"tp_serve {tag} rank {r}: pools {s['pool_bytes']} B, "
+                     f"one process {ref['pool_bytes']} B")
+            _require(s["stats"] == ref["stats"],
+                     f"tp_serve {tag} rank {r}: dispatches {s['stats']} != "
+                     f"one process's {ref['stats']}")
+            _require(all(o == "completed" for o in s["outcomes"]),
+                     f"tp_serve {tag} rank {r}: outcomes {s['outcomes']}")
+            want = _tp_launch_want(s["stats"], tag == "int8")
+            _require(s["launches"] == want, f"tp_serve ({part}) rank {r}: "
+                     f"launches {s['launches']} != {want}")
+        _require(ranks[0][tag]["flips"] == ranks[1][tag]["flips"],
+                 f"tp_serve {tag}: the ranks' lockstep tokens differ")
+    one = refs["f32"]["run"]
+    for r, res in enumerate(ranks):
+        t = res["f32"]["run"]
+        _log(f"tp_serve: (a) rank {r}, the lockstep run: decode step p50 "
+             f"{t['decode_ms']:.2f} ms (one process {one['decode_ms']:.2f} "
+             f"ms), {t['tokens_per_s']:.1f} tokens/s (one process "
+             f"{one['tokens_per_s']:.1f}), each with its comparison or "
+             f"copy of the logits; {100 * t['gloo_share']:.1f}% of the "
+             f"decode dispatches' host time in gloo collectives (comm_* "
+             f"series), {res['f32']['messages']} lockstep messages; {smi}")
+
+
+def _tp_moe_report(ranks, ref_loss: float, smi: str) -> None:
+    m0 = ranks[0]["moe"]
+    rel = max(abs(r["moe"]["loss"] - ref_loss) / abs(ref_loss)
+              for r in ranks)
+    _log(f"tp_serve: (c) the MoE GPT, gpt2_medium widths x "
+         f"{TP_MOE_LAYERS} layers (8 experts in layer 1), f32, dropout "
+         f"0.1, B={DIST_PARITY_B} S={DIST_S}, one step at mp = {TP_MP} "
+         f"(expert w1 {m0['w1']}, qkv {m0['qkv']} a rank): loss "
+         f"{m0['loss']:.6f} against one process's {ref_loss:.6f}, relative "
+         f"difference {rel:.3e} (tol {DIST_LOSS_TOL:g}); "
+         f"{m0['n_params']} gathered parameters, worst {m0['worst'][0]} "
+         f"{m0['worst'][1]:.3e} (tol {DIST_PARAM_TOL:g}), the key bias "
+         f"{m0['key_bias']:.3e} (tol {2 * TRAIN_LR:g}); {smi}")
+    _require(m0["keys_equal"], "tp_serve (c): the gathered keys")
+    _require(rel <= DIST_LOSS_TOL, f"tp_serve (c): losses differ by {rel}")
+    _require(m0["worst"][1] <= DIST_PARAM_TOL
+             and m0["key_bias"] <= 2 * TRAIN_LR,
+             f"tp_serve (c): parameters {m0['worst']}, key bias "
+             f"{m0['key_bias']}")
+    L = TP_MOE_LAYERS
+    want = dict(_zero_launches(), flash_attention_fwd=L,
+                flash_attention_bwd=L, fused_dropout=2 * (1 + 2 * L))
+    for r, res in enumerate(ranks):
+        _require(res["moe"]["launches"] == want, f"tp_serve (c) rank {r}: "
+                 f"launches {res['moe']['launches']} != {want}")
+
+
+def phase_tp_serve(smi: str) -> dict:
+    """Rows 1 (f32), 2 (context), 9 and 10 at a rank's H = 8; then a
+    world of two ranks on the one card over gloo: (a) f32 and (b) int8
+    tensor-parallel serving at mp = 2 against one process, (c) the MoE
+    GPT's step at mp = 2 against one process; (d) ``run_elastic`` with a
+    killed step, in this process beside (b) and (c). Counts are set to 0
+    in each rank before (a), (b) and (c), and in this process before
+    (d). Returns the launches of
+    (a)+(b) (``tp_serve``) and (c) (``tp_moe``), each summed over the
+    ranks, and (d)'s (``elastic``)."""
+    import gc
+    import pickle
+    import tempfile
+    import torch
+    from paddle_tpu_torch.distributed.spawn_mod import spawn
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks start, join the world and build their models while
+        # this process checks the kernels and computes the references
+        ctx = spawn("chip_smoke:_tp_rank", args=(tmp,), nprocs=TP_MP,
+                    join=False)
+        try:
+            _tp_kernel_checks()
+            torch.cuda.empty_cache()
+            from paddle_tpu_torch.models import GPTForPretraining, gpt2_medium
+            model = GPTForPretraining(gpt2_medium(), device="cuda", seed=0)
+            refs = {}
+            for tag, quant in (("f32", ""), ("int8", "int8")):
+                refs[tag] = _tp_reference(model, quant)
+                torch.save({"logits": refs[tag].pop("logits"),
+                            "tokens": refs[tag].pop("tokens")},
+                           os.path.join(tmp, f"tp_ref_{tag}.pt"))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref_loss = _tp_moe_reference(
+                os.path.join(tmp, "tp_moe_ref.pdparams"))
+            _tp_mark(os.path.join(tmp, "refs_done"))
+            _log(f"tp_serve: kernel checks and one process's references "
+                 f"took {time.perf_counter() - t:.1f} s")
+            # (d) once (a)'s timed run is over, beside (b) and (c)
+            while not os.path.exists(os.path.join(tmp, "f32_done")):
+                _require(not ctx.join(timeout=0.1),
+                         "tp_serve: the world ended before (a) did")
+            t = time.perf_counter()
+            elastic = _tp_elastic(tmp)
+            ctx.join()
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        _log(f"tp_serve: (d) and the rest of the {TP_MP}-rank world took "
+             f"{time.perf_counter() - t:.1f} s")
+        ranks = []
+        for r in range(TP_MP):
+            with open(os.path.join(tmp, f"tp_rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    _tp_report(ranks, refs, smi)
+    _tp_moe_report(ranks, ref_loss, smi)
+    names = list(_zero_launches())
+    serve = {n: sum(r[q]["launches"][n] for r in ranks
+                    for q in ("f32", "int8")) for n in names}
+    _log(f"tp_serve: launches over both ranks {serve}")
+    return {"tp_serve": serve,
+            "tp_moe": {n: sum(r["moe"]["launches"][n] for r in ranks)
+                       for n in names},
+            "elastic": elastic}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -8853,6 +9517,7 @@ def main() -> int:
     by_path.update(timed("moe", phase_moe, card["smi"]))
     by_path.update(timed("vision2", phase_vision2, card["smi"]))
     by_path.update(timed("recsys", phase_recsys, card["smi"]))
+    by_path.update(timed("tp_serve", phase_tp_serve, card["smi"]))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

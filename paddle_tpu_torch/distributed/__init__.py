@@ -13,8 +13,11 @@ fill-drain, ``PipelineParallel`` over a ``PipelineLayer``);
 activation recompute; :mod:`.checkpoint` the single-process commit
 protocol. ``spawn`` and ``launch`` start a world. :mod:`.ps` is the
 parameter server: host sparse tables, the C++ server with its client and
-communicators, and ``DistributedEmbedding``. Elastic and auto_parallel
-are not ported yet (``ROADMAP.md``).
+communicators, and ``DistributedEmbedding``. :mod:`.auto_parallel`
+cuts annotated tensors to a rank's block (``ProcessMesh``,
+``shard_tensor``, ``shard_op``, ``reshard``); ``fleet.elastic`` is the
+restartable training loop, ``fleet.dataset`` the file datasets and
+``fleet.utils.fs`` the storage transports.
 """
 
 from . import checkpoint, collective, env, spmd  # noqa: F401
@@ -52,7 +55,7 @@ from .spmd import apply_param_shardings, make_mesh  # noqa: F401
 
 def __getattr__(name):
     import importlib
-    if name in ("fleet", "meta_parallel", "launch", "ps"):
+    if name in ("fleet", "meta_parallel", "launch", "ps", "auto_parallel"):
         return importlib.import_module(f".{name}", __name__)
     if name == "spawn":
         return importlib.import_module(".spawn_mod", __name__).spawn

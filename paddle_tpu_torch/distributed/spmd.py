@@ -21,7 +21,13 @@ Not ported, and why: ``constrain`` and ``shard_map`` are directives to
 the XLA compiler (a layout pin, a manual-SPMD region); an eager rank
 has no compiler to direct, and the modules' collectives take their
 place (and with ``constrain`` its ``BATCH`` sentinel).
-``shard_serving_cache`` waits for tensor-parallel serving.
+
+Tensor-parallel serving: :data:`SERVE_KV_SPEC` shards a paged K/V pool
+``[L, P, bs, H, D]`` over its heads on ``mp`` (and an int8 cache's
+``[L, P, bs, H]`` scale pools the same way), so an mp rank holds
+``H/mp`` heads of every page; :func:`shard_serving_cache` cuts a whole
+cache to that block, and :func:`serving_heads` says which heads a rank
+holds. Pages and block tables stay whole: a page holds every head.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ __all__ = ["P", "PartitionSpec", "Mesh", "make_mesh", "current_mesh",
            "data_axes", "degrade_spec", "apply_param_shardings",
            "apply_hybrid_specs", "shard_layout", "shard_tensor", "cut_block",
            "gather_tensor", "mesh_slice", "loss_average_groups",
-           "loss_sum_groups", "count_over_data"]
+           "loss_sum_groups", "count_over_data", "SERVE_KV_SPEC",
+           "serving_heads", "shard_serving_cache"]
 
 _DATA_AXES = ("dp", "sharding")
 
@@ -329,3 +336,44 @@ def apply_hybrid_specs(layer, mp_axis: str = "mp"):
         else:
             p.spec = P()
     return layer
+
+
+#: layout of a serving paged K/V pool ``[L, P, bs, H, D]`` under tensor
+#: parallelism: heads over ``mp``, the split the model's q/k/v heads
+#: take (``qkv_weight`` P(None, None, 'mp', None)), so a rank writes and
+#: reads its own heads with no collective; layers, pages and the
+#: positions of a page stay whole (the host block tables index them)
+SERVE_KV_SPEC = P(None, None, None, "mp", None)
+
+
+def serving_heads(num_heads: int, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """``(first head, heads)`` of this rank's block of a serving cache's
+    ``num_heads`` under :data:`SERVE_KV_SPEC` (all of them without a
+    mesh, or on a mesh without an mp axis: the JAX ``degrade_spec``
+    rule)."""
+    if mesh is None:
+        return 0, int(num_heads)
+    return mesh_slice(mesh, degrade_spec(SERVE_KV_SPEC, mesh)[3],
+                      int(num_heads))
+
+
+@torch.no_grad()
+def shard_serving_cache(cache, mesh: Mesh):
+    """Cut a serving ``PagedKVCache``'s pools to this rank's heads under
+    :data:`SERVE_KV_SPEC` (an int8 cache's ``[L, P, bs, H]`` scale pools
+    on the same dimension), in place on the cache object, so a rank's
+    device memory holds ``1/mp`` of the K/V. A cache built for a mesh
+    (``PagedKVCache(..., mesh=)``, as the engine builds it) or cut
+    before is returned as it is. Returns ``cache``."""
+    if cache.head_block is not None:
+        return cache
+    h0, n = serving_heads(cache.num_heads, mesh)
+    cache.head_block = (h0, n, cache.num_heads)
+    if n == cache.num_heads:
+        return cache
+    cut = lambda t: None if t is None else \
+        t.narrow(3, h0, n).contiguous().clone()      # noqa: E731
+    cache.k, cache.v = cut(cache.k), cut(cache.v)
+    cache.k_scale, cache.v_scale = cut(cache.k_scale), cut(cache.v_scale)
+    cache.num_heads = n
+    return cache

@@ -34,8 +34,20 @@ Where the JAX layer falls back to its GSPMD auto path on an ep mesh
 own experts): :func:`note_moe_fallback` raises ``NotImplementedError``
 with the JAX reason, and ``MOE_STATS["fallbacks"]`` stays 0. The JAX
 ``manual_collectives_unsupported`` cause does not exist here (a rank is
-a process). On a mesh with ``mp``, ``pp`` or ``sp`` above 1 the layer
-raises too.
+a process).
+
+Tensor parallelism: on a mesh with an ``mp`` axis the layer's tokens are
+replicated over mp (the block's row-parallel sum made them whole) and so
+are its experts and gate (their specs name ``ep`` only, as the JAX
+``P('ep', ...)`` leaves them), so every mp rank computes the same
+routing and output; the gradient that reaches them is the same on every
+mp rank too (``copy_to_model_parallel`` all-reduced it), so they need no
+mp reduction. On ep x mp the explicit program runs inside each mp
+slice's ep group (``mesh.group("ep")``: the ranks that share the mp
+coordinate). A mesh with ``sp`` above 1 raises (a sequence shard's
+tokens would route at a capacity of their own, where the JAX layer
+routes the global batch: the next part of ``distributed/``), and so
+does ``pp`` above 1 (the JAX pipeline model refuses MoE configs).
 
 The expert products are ``torch.bmm`` (the JAX einsums), in the
 promoted dtype of the tokens and the weights: under AMP O1 a bfloat16
@@ -89,8 +101,14 @@ EP_AXIS = "ep"
 MOE_STATS = {"ep_dispatches": 0, "sort_dispatches": 0,
              "einsum_dispatches": 0, "fallbacks": 0}
 
-#: mesh axes an MoE layer does not compose with yet
-_REFUSED_AXES = ("mp", "pp", "sp")
+#: mesh axes an MoE layer does not compose with, and why
+_REFUSED_AXES = {
+    "sp": "MoE over sp is not ported yet: a sequence shard's tokens would "
+          "route at a capacity of their own, where the JAX layer routes "
+          "the global batch; it comes with the next part of "
+          "distributed/ (part 3b)",
+    "pp": "MoE over pp is not ported: the JAX GPTForPretrainingPipe "
+          "refuses MoE configs, and the port mirrors it"}
 
 
 def reset_moe_stats() -> None:
@@ -400,12 +418,11 @@ class MoELayer(nn.Module):
         mesh = dist_env.get_mesh()
         if mesh is None:
             return 1
-        big = {a: mesh.axis_size(a) for a in _REFUSED_AXES
-               if mesh.axis_size(a) > 1}
-        if big:
-            raise NotImplementedError(
-                f"an MoE layer on a mesh with {big}: MoE over mp, pp or sp "
-                "is not ported yet (distributed part 3); use dp and ep")
+        for axis, why in _REFUSED_AXES.items():
+            if mesh.axis_size(axis) > 1:
+                raise NotImplementedError(
+                    f"an MoE layer on a mesh with {axis}="
+                    f"{mesh.axis_size(axis)}: {why}; use dp, mp and ep")
         n = self._ep_degree()
         if n <= 1:
             return 1

@@ -99,7 +99,11 @@ def generate(model, input_ids, max_new_tokens: int = 32,
             f"exceeds max_position_embeddings="
             f"{cfg.max_position_embeddings}; positions past the table "
             "would silently clamp")
-    H, D = cfg.num_heads, cfg.head_dim
+    D = cfg.head_dim
+    # a model on an mp group attends with its rank's heads
+    attn = next((m for m in model.modules()
+                 if isinstance(m, GPTAttention)), None)
+    H = cfg.num_heads if attn is None else attn.num_heads
     # whole pages, so a decode step can read the buffers as a page pool
     # (slots past the written positions are never visible)
     Lb = -(-L // STATIC_BLOCK) * STATIC_BLOCK

@@ -36,7 +36,10 @@ Without a cache the model collects the MoE blocks' router vectors
 (``moe_loss()``, which a training loss adds to the CE); with a cache an
 MoE block returns ``x`` as a dense one does, so ``generate`` and the
 serving engine serve an MoE GPT unchanged. On a mesh with an ``ep``
-axis the MoE layers run the expert-parallel program over it.
+axis the MoE layers run the expert-parallel program over it; on an mp
+axis (with or without ep) every mp rank routes the same whole tokens
+through the same replicated experts, as the JAX model composes MoE
+with TP.
 
 Attention routes through ``ops.attention.sdpa_array`` (the flash
 kernels on the card) for the causal no-cache and prefill paths, through
@@ -78,7 +81,14 @@ the vocab-masked lookup. The logits are the rank's vocab block, which
 Attention passes its first head and the step's batch base to the flash
 kernels, so each rank draws its slice of the single-process dropout
 masks. A model on no mesh is exactly the model above. The serving
-paths (paged and static caches) take no mp group.
+paths run on an mp group too (``ServingConfig.mesh``): the paged pools
+hold the rank's heads (``spmd.SERVE_KV_SPEC``), and the paged, context
+and static paths write and read those heads with the rank's ``H/mp``
+queries, the out-projection's partial sums all-reduced as in training;
+a LoRA ``b`` pool holds the rank's block of the fused QKV columns. The
+paged forward returns the rank's vocab block of the logits (the engine
+gathers them where it samples); a static-cache forward (``generate``,
+whose buffers hold the rank's heads) returns them whole.
 
 ``use_recompute`` runs each block under ``fleet.utils.recompute`` in
 training (``recompute_policy``: a JAX selective-remat policy name).
@@ -131,6 +141,7 @@ from ..distributed.fleet.utils.recompute import recompute
 from ..distributed.meta_parallel.parallel_layers.mp_layers import (
     MPModule, ParallelCrossEntropy, copy_to_model_parallel,
     mark_mp_block, reduce_from_model_parallel, vocab_parallel_embedding)
+from ..distributed.mp_ops import gather_from_model_parallel
 from ..distributed.spmd import P, count_over_data, loss_sum_groups
 from ..incubate.moe.layer import (MoELayer, _publish_row,
                                   publish_router_stats, xavier_uniform_)
@@ -259,10 +270,6 @@ class GPTAttention(MPModule):
     def forward(self, x, cache=None, pos=None):
         B, S, E = x.shape
         H, D = self.num_heads, self.head_dim
-        if self.mp_group is not None and cache is not None:
-            raise NotImplementedError(
-                "a model laid on an mp group attends without a cache only "
-                "(tensor-parallel serving is not ported yet)")
         x = copy_to_model_parallel(x, self.mp_group)
         xc, w, b = cast_inputs("fused_qkv", x, self.qkv_weight,
                                self.qkv_bias)
@@ -689,8 +696,10 @@ class GPTForPretraining(nn.Module):
         out = self.gpt(input_ids, position_ids, caches, cache_pos)
         if isinstance(out, tuple):
             hidden, caches = out
-            return parallel_logits(hidden,
-                                   self.gpt.word_embeddings.weight), caches
+            group = self.gpt.mp_group
+            return gather_from_model_parallel(parallel_logits(
+                hidden, self.gpt.word_embeddings.weight, group),
+                group), caches
         return parallel_logits(out, self.gpt.word_embeddings.weight,
                                self.gpt.mp_group)
 

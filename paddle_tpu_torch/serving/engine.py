@@ -1,7 +1,7 @@
 """LLM serving engine: paged decode + continuous batching, PyTorch port.
 
-Counterpart of ``paddle_tpu/serving/engine.py`` on one device (no
-mesh). Each :meth:`ServingEngine.step`:
+Counterpart of ``paddle_tpu/serving/engine.py``. Each
+:meth:`ServingEngine.step`:
 
 0. honours a latched drain signal (``enable_drain``: the engine drains
    and raises ``EngineDrained``), cuts over to staged weights (see
@@ -76,6 +76,21 @@ whose logits rows turn NaN ahead of the finiteness checks, so it fails
 alone; ``serve.detok.raise`` raises in a token's callback. Not ported:
 the ``serve_program_*`` series (the port compiles no programs).
 
+Tensor-parallel serving (``ServingConfig.mesh``, a
+``distributed.spmd.Mesh`` with an ``mp`` axis): every rank of the mp
+group runs an engine over the same traffic. The engine lays the model
+out on the mesh before it snapshots the parameters (the Megatron specs:
+``H/mp`` heads, ``FF/mp`` of the MLP, ``V/mp`` rows of the tied table),
+builds its pools at the rank's heads (``spmd.SERVE_KV_SPEC``, int8
+scale pools too) and a LoRA ``b`` pool at the rank's QKV columns, and
+gathers the logits' vocab blocks over mp where it samples. A head count
+that mp does not divide raises ``ValueError`` at construction. The
+ranks keep in lockstep through mp rank 0's decisions
+(:mod:`.lockstep`): admissions, preemptions, ends, the overload state,
+the drain and the sampled tokens are the leader's. On an mp group the
+dispatch watchdog is refused (each forward's collectives run under
+``FLAGS_collective_timeout_s``), and so is a live weight swap.
+
 Live weight hot-swap (``FLAGS_serve_hot_swap``, read once at
 construction), as in the JAX engine: :meth:`ServingEngine.swap_weights`
 verifies a committed checkpoint of this engine's parameter dict
@@ -120,6 +135,7 @@ from ..testing import chaos
 from .detok import StreamingDetokenizer
 from .kv_cache import (PagedCacheView, PagedKVCache, blocks_needed,
                        context_index)
+from .lockstep import Lockstep
 from .lora import LoRAManager
 from .prefix_cache import RadixPrefixCache
 from .resilience import (DecodeWatchdogError, DispatchWorker, DrainLatch,
@@ -220,7 +236,10 @@ class ServingConfig:
     completion slack (``slo_windows`` seconds); 0.0 (default) = no
     tracker. ``drain_budget_s`` is how long a drain keeps decoding
     in-flight requests before it snapshots the rest into ``drain_dir``
-    (None: a drain with pending work refuses)."""
+    (None: a drain with pending work refuses). ``mesh`` (a
+    ``distributed.spmd.Mesh``) serves tensor-parallel over its ``mp``
+    axis, each rank of the group running an engine in lockstep with mp
+    rank 0; None (default) is the one-process engine."""
 
     max_batch_slots: int = 8
     block_size: int = 16
@@ -244,6 +263,7 @@ class ServingConfig:
     slo_windows: Tuple[float, ...] = (60.0, 300.0, 3600.0)
     drain_budget_s: float = 5.0
     drain_dir: Optional[str] = None
+    mesh: Optional[object] = None
 
     def resolve(self, model_max_positions: Optional[int]) -> None:
         if self.queue_policy not in QUEUE_POLICIES:
@@ -313,6 +333,12 @@ class ServingEngine:
             raise ValueError("ServingEngine needs a model with a .cfg "
                              "(num_heads/head_dim/num_layers)")
         self.model = model.to(self.device).eval()
+        self.mesh = config.mesh if config is not None else None
+        #: the mp group of a tensor-parallel engine (None: one process)
+        self._mp_group = None
+        self._lockstep: Optional[Lockstep] = None
+        if self.mesh is not None:
+            self._lay_on_mesh(cfg)
         # the weights served: a detached copy of the parameters and
         # buffers taken now, as the JAX engine's param_arrays /
         # buffer_arrays are (paddle_tpu/serving/engine.py:224-225), so a
@@ -340,7 +366,8 @@ class ServingEngine:
             max_slots=c.max_batch_slots,
             max_blocks_per_slot=blocks_needed(c.max_context_len,
                                               c.block_size),
-            dtype=_CACHE_DTYPES[c.cache_dtype], device=self.device)
+            dtype=_CACHE_DTYPES[c.cache_dtype], device=self.device,
+            mesh=self.mesh)
         self.buckets = BucketTable(c.prefill_buckets, c.batch_buckets)
         self.lora = None
         if c.lora_adapters > 0:
@@ -349,14 +376,16 @@ class ServingEngine:
                 cfg.num_layers, cfg.hidden_size,
                 3 * cfg.num_heads * cfg.head_dim,
                 max_adapters=c.lora_adapters, rank=c.lora_rank,
-                device=self.device)
+                device=self.device, head_block=self.cache.head_block)
         self.scheduler = Scheduler(self.cache, self.buckets,
                                    max_queue=c.max_queue, clock=clock,
                                    max_seq_len=c.max_context_len,
                                    policy=c.queue_policy,
                                    on_event=self._on_request_event,
                                    tenant_quota=c.tenant_quota,
-                                   lora=self.lora)
+                                   lora=self.lora,
+                                   follower=self._lockstep is not None
+                                   and not self._lockstep.leader)
         self._overload = (OverloadDetector(
             c.overload_threshold_s, alpha=c.overload_alpha,
             exit_frac=c.overload_exit_frac)
@@ -432,6 +461,33 @@ class ServingEngine:
                                     device=self.device)
         _LIVE_ENGINES.add(self)
         self._attach_admin()
+
+    def _lay_on_mesh(self, cfg) -> None:
+        """Cut the model to this rank's blocks (the JAX engine's
+        ``apply_hybrid_specs`` + ``apply_param_shardings``) and join the
+        mp group's lockstep. Raises ``ValueError`` when mp does not
+        divide the heads."""
+        from ..distributed.mp_ops import mp_group_of
+        from ..distributed.spmd import (apply_hybrid_specs,
+                                        apply_param_shardings)
+        mp = self.mesh.axis_size("mp")
+        if cfg.num_heads % mp:
+            raise ValueError(
+                f"model num_heads={cfg.num_heads} not divisible by mesh "
+                f"mp={mp}; TP serving shards KV over heads")
+        apply_hybrid_specs(self.model)
+        apply_param_shardings(self.model, self.mesh)
+        self._mp_group = mp_group_of(self.mesh)
+        if self._mp_group is not None:
+            self._lockstep = Lockstep(self._mp_group)
+
+    def _full_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole vocabulary's logits from the rank's block (an
+        all-gather over mp; ``logits`` itself on one process)."""
+        if self._mp_group is None:
+            return logits
+        from ..distributed.mp_ops import gather_from_model_parallel
+        return gather_from_model_parallel(logits, self._mp_group)
 
     @torch.no_grad()
     def warmup(self) -> int:
@@ -564,6 +620,8 @@ class ServingEngine:
     def _on_request_event(self, outcome: str, st: RequestState) -> None:
         """Scheduler terminal-transition hook: metrics, flight event, SLO
         and span-tree closure. Fires on lifecycle events only."""
+        if self._lockstep is not None:
+            self._lockstep.record(st.request.request_id, outcome)
         self._requests_counter().inc(event=outcome)
         if st.request.tenant:
             get_registry().counter(
@@ -771,7 +829,14 @@ class ServingEngine:
         sched = self.scheduler
         completed_before = sched.stats["completed"]
         deadline = self.clock() + max(0.0, budget)
-        while sched.active() and self.clock() < deadline:
+        ls = self._lockstep
+        while True:
+            # on an mp group the leader's budget decides for every rank
+            go = bool(sched.active()) and self.clock() < deadline
+            if ls is not None:
+                go = ls.share(go)
+            if not go:
+                break
             try:
                 self.step(admit=False)
             except DecodeWatchdogError:
@@ -780,6 +845,8 @@ class ServingEngine:
         # on the successor as drained work
         sched.sweep_active()
         sched.honour_queued_cancels()
+        if ls is not None:
+            ls.sync_ended(sched)
         specs = [request_spec(st) for _, st in sched.active()]
         specs += [request_spec(st) for st in sched.waiting]
         if specs and snapshot_dir is None:
@@ -789,8 +856,11 @@ class ServingEngine:
                 "snapshot_dir is configured — refusing to discard work "
                 "(pass snapshot_dir or ServingConfig.drain_dir)")
         path = None
-        if specs:
+        if specs and (ls is None or ls.leader):
             path = save_drain_snapshot(snapshot_dir, specs)
+        if ls is not None:
+            # one snapshot of the group's work, the leader's
+            path = ls.share(path)
         for _, st in list(sched.active()):
             sched.drain_release(st)
         for st in list(sched.waiting):
@@ -824,7 +894,12 @@ class ServingEngine:
         second tree, else drain), ``"staged"`` or ``"drain"``. Returns a
         dict with ``mode`` and ``epoch`` and each mode's detail.
         Verification runs at ``FLAGS_checkpoint_verify``, never below
-        ``manifest``."""
+        ``manifest``. An engine on an mp group refuses."""
+        if self._lockstep is not None:
+            raise NotImplementedError(
+                "a live weight swap of a tensor-parallel engine is not "
+                "ported: every mp rank would have to cut over at the same "
+                "boundary")
         if not self._hot_swap:
             raise RuntimeError(
                 "FLAGS_serve_hot_swap is off — live weight swap is "
@@ -1072,27 +1147,9 @@ class ServingEngine:
         :class:`DecodeWatchdogError` on a watchdog trip (after a prefill
         trip every planned state not yet prefilled is back in the
         queue)."""
-        if self._drain_latch is not None and self._drain_latch.triggered \
-                and not self._draining:
+        if self._boundary(admit):
             raise EngineDrained(self.drain())
-        if self._staged is not None:
-            # the cutover point: an iteration boundary, before anything
-            # of this step is admitted or dispatched
-            self._cutover()
         sched = self.scheduler
-        # both sweeps cost nothing without deadlines or cancels, and
-        # write the registry only on a lifecycle event
-        sched.expire_queued()
-        sched.sweep_active()
-        if self._overload is not None:
-            oldest_t = sched.oldest_waiting_t()
-            delay = (self.clock() - oldest_t
-                     if oldest_t is not None else 0.0)
-            transition = self._overload.observe(delay)
-            if transition is not None:
-                self._overload_transition(transition)
-        if admit:
-            sched.plan_admissions()
         groups = self._plan_prefill_groups()
         for gi, group in enumerate(groups):
             try:
@@ -1114,7 +1171,13 @@ class ServingEngine:
                 # drafts staged before the capacity pass, so the verify
                 # window's K/V writes land in real pages, never scratch
                 self._stage_drafts()
-            for st in sched.ensure_decode_capacity():
+            if self._lockstep is None:
+                preempted = sched.ensure_decode_capacity()
+            else:
+                preempted = self._lockstep.preemptions(
+                    sched, sched.ensure_decode_capacity()
+                    if self._lockstep.leader else ())
+            for st in preempted:
                 # recompute-preemption: back to the queue, same trace
                 self._trace_requeue(st, "preemption")
             # one decode or verify dispatch per live weights epoch: one
@@ -1128,6 +1191,41 @@ class ServingEngine:
             self._retire_unreferenced()
         self._publish_gauges()
         return sched.has_work
+
+    def _boundary(self, admit: bool) -> bool:
+        """The iteration boundary's decisions: a latched drain (True:
+        drain now, nothing else decided), the cutover of staged weights,
+        the expiry and cancel sweeps, the overload detector and the
+        admissions. On an mp group the leader makes them and the
+        followers take them (:meth:`.lockstep.Lockstep.boundary`)."""
+        ls = self._lockstep
+        if ls is not None and not ls.leader:
+            return ls.boundary(self, False)
+        drain = (self._drain_latch is not None
+                 and self._drain_latch.triggered and not self._draining)
+        admitted = None
+        if not drain:
+            if self._staged is not None:
+                # the cutover point: an iteration boundary, before
+                # anything of this step is admitted or dispatched
+                self._cutover()
+            sched = self.scheduler
+            # both sweeps cost nothing without deadlines or cancels, and
+            # write the registry only on a lifecycle event
+            sched.expire_queued()
+            sched.sweep_active()
+            if self._overload is not None:
+                oldest_t = sched.oldest_waiting_t()
+                delay = (self.clock() - oldest_t
+                         if oldest_t is not None else 0.0)
+                transition = self._overload.observe(delay)
+                if transition is not None:
+                    self._overload_transition(transition)
+            if admit:
+                admitted = sched.plan_admissions()
+        if ls is not None:
+            ls.boundary(self, drain, admitted)
+        return drain
 
     def _decodable(self) -> List[Tuple[int, RequestState]]:
         """Active slots that take a decode/verify row this iteration;
@@ -1162,6 +1260,14 @@ class ServingEngine:
         job is raised here as it was."""
         self._dispatch_seq += 1
         timeout_s = float(get_flag("serve_watchdog_s") or 0.0)
+        if self._lockstep is not None and (timeout_s > 0.0 or hang):
+            # a rank that abandoned its dispatch would leave the others
+            # inside its collectives
+            raise NotImplementedError(
+                "the serving dispatch watchdog (FLAGS_serve_watchdog_s, "
+                "chaos serve.decode.hang) runs one process's dispatch; on "
+                "an mp group FLAGS_collective_timeout_s bounds each of the "
+                "forward's collectives instead")
         if timeout_s <= 0.0 and not hang:
             return job()
         if hang and timeout_s <= 0.0:
@@ -1301,11 +1407,17 @@ class ServingEngine:
         return _memory.measure_program(kind, self.device)
 
     def _sample(self, rows, states):
-        """Next token and finiteness per row, on the host."""
+        """Next token and finiteness per row, on the host (on an mp
+        group the leader's, from the whole vocabulary's logits)."""
+        rows = self._full_logits(rows)
+        ls = self._lockstep
+        if ls is not None and not ls.leader:
+            return ls.share()
         ok = torch.isfinite(rows).all(dim=-1)
         toks = sample_tokens(rows, *self._sampling_arrays(states),
                              generator=self._generator, finite=ok)
-        return toks.cpu().numpy(), ok.cpu().numpy()
+        out = toks.cpu().numpy(), ok.cpu().numpy()
+        return out if ls is None else ls.share(out)
 
     def _forward(self, ids: np.ndarray, states, pos: np.ndarray,
                  context: bool = False, params: Optional[dict] = None):
@@ -1473,8 +1585,11 @@ class ServingEngine:
                           for _, st in pairs)
 
         def job():
-            logits = self._forward(ids, per_slot, pos, context=True,
-                                   params=params)
+            logits = self._full_logits(self._forward(
+                ids, per_slot, pos, context=True, params=params))
+            ls = self._lockstep
+            if ls is not None and not ls.leader:
+                return ls.share()
             logits = self._poison(logits, per_slot, row=0)   # [B, S, V]
             samp = self._sampling_arrays(per_slot)
             ok_rows = torch.isfinite(logits).all(dim=-1)
@@ -1487,8 +1602,9 @@ class ServingEngine:
                 drafts = torch.from_numpy(ids[:, 1:]).to(self.device)
                 draws = tuple(t.cpu().numpy() for t in verify_draws(
                     logits, drafts, *samp, generator=self._generator))
-            return tuple(t.cpu().numpy()
-                         for t in (tok0, greedy, ok_rows)) + draws
+            out = tuple(t.cpu().numpy()
+                        for t in (tok0, greedy, ok_rows)) + draws
+            return out if ls is None else ls.share(out)
         hang = chaos.active() and chaos.probe("serve.decode.hang")
         tok0, greedy, ok_rows, p_draft, tok_full, tok_resid = \
             self._guarded_dispatch("verify", job, hang=hang)

@@ -33,6 +33,14 @@ exactly the positions ``<= pos + i``.
 
 Where the JAX engine donated the pools to each compiled step and got new
 ones back, the port writes them in place (``write_pages``).
+
+Tensor-parallel serving (``ServingConfig.mesh``): a cache built with a
+``mesh`` holds this rank's heads only, ``[L, P, bs, H/mp, D]`` (and
+``[L, P, bs, H/mp]`` scales), the block of ``distributed.spmd.
+SERVE_KV_SPEC``; ``head_block`` records ``(first head, heads, all
+heads)``. The block tables, the page allocator and
+:func:`gather_context` do not change: a page holds every head, so the
+ranks of an mp group allocate the same pages for the same requests.
 """
 
 from __future__ import annotations
@@ -315,14 +323,23 @@ class PagedKVCache:
     is ``FLAGS_serve_kv_quant`` as it stood at construction: ``""``
     gives ``dtype`` pools and ``k_scale``/``v_scale`` None, ``"int8"``
     gives int8 pools ``[L, P, bs, H, D]`` and f32 scale pools
-    ``[L, P, bs, H]``."""
+    ``[L, P, bs, H]``. With a ``mesh`` the pools hold this rank's
+    ``H/mp`` heads (``spmd.shard_serving_cache``'s layout, built at that
+    size); ``num_heads`` is then the rank's count and ``head_block``
+    ``(first head, heads, all heads)``, None for a whole cache."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  *, num_pages: int, block_size: int, max_slots: int,
                  max_blocks_per_slot: int, dtype=torch.float32,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.device = resolve_device(device)
         self.num_layers = int(num_layers)
+        self.head_block = None
+        if mesh is not None:
+            from ..distributed.spmd import serving_heads
+            h0, n = serving_heads(num_heads, mesh)
+            self.head_block = (h0, n, int(num_heads))
+            num_heads = n
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.block_size = int(block_size)

@@ -13,6 +13,12 @@ exactly 0.0. Host-side it keeps a name -> row map and per-adapter slot
 references: admission acquires, slot release drops, and
 :meth:`LoRAManager.unload_adapter` refuses while a slot holds one.
 
+Under tensor parallelism (``ServingConfig.mesh``) a rank's manager is
+built with its ``head_block``: an adapter still loads whole (``b [L, r,
+3*H*D]``), and the ``b`` pool keeps the rank's columns of the fused
+QKV, ``[L, A, r, 3*(H/mp)*D]``, so the bgmv kernel writes the rank's
+block of the projection the model computes.
+
 A load writes its row of the pools in place, between steps, on the
 engine's stream, so no dispatch ever sees half an adapter; nothing keeps
 a host copy that could go stale. Adapters also load from a checkpoint
@@ -50,11 +56,13 @@ class LoRAManager:
 
     ``max_adapters`` is the number of loadable adapters; the pools hold
     ``max_adapters + 1`` float32 rows (row 0 the zero adapter).
-    ``out_features`` is the fused-QKV width ``3 * H * D``."""
+    ``out_features`` is the fused-QKV width ``3 * H * D``; with
+    ``head_block = (first head, heads, H)`` the ``b`` pool holds those
+    heads' columns only (``pool_features``)."""
 
     def __init__(self, num_layers: int, hidden_size: int,
                  out_features: int, *, max_adapters: int, rank: int,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, head_block=None):
         if max_adapters < 1:
             raise ValueError("max_adapters must be >= 1")
         if rank < 1:
@@ -65,10 +73,16 @@ class LoRAManager:
         self.out_features = int(out_features)
         self.rank = int(rank)
         self.max_adapters = int(max_adapters)
+        self.head_block = None
+        self.pool_features = self.out_features
+        if head_block is not None and head_block[1] != head_block[2]:
+            h0, n, H = (int(v) for v in head_block)
+            self.head_block = (h0, n, H)
+            self.pool_features = self.out_features // H * n
         rows = self.max_adapters + 1
         self.a = torch.zeros((num_layers, rows, rank, hidden_size),
                              device=self.device)
-        self.b = torch.zeros((num_layers, rows, rank, out_features),
+        self.b = torch.zeros((num_layers, rows, rank, self.pool_features),
                              device=self.device)
         self._rows: Dict[str, int] = {}
         self._refs: Dict[str, int] = {}
@@ -138,6 +152,11 @@ class LoRAManager:
             raise RuntimeError(
                 f"adapter pool full ({self.max_adapters} rows); unload "
                 "an unreferenced adapter first")
+        if self.head_block is not None:
+            # this rank's heads of each of q, k and v
+            h0, n, H = self.head_block
+            b = b.reshape(L, r, 3, H, -1)[:, :, :, h0:h0 + n].reshape(
+                L, r, self.pool_features)
         row = self._free.pop(0)
         self.a[:, row].copy_(a)
         self.b[:, row].copy_(b)

@@ -269,14 +269,22 @@ class AdmissionGroup:
 
 
 class Scheduler:
-    """Bounded queue + slot/page admission control (host-side only)."""
+    """Bounded queue + slot/page admission control (host-side only).
+
+    A ``follower`` (an mp rank other than 0 of a tensor-parallel engine,
+    ``serving.lockstep``) decides nothing that reads its clock: its
+    expiry and cancel sweeps do nothing, a cancel only latches, and the
+    engine applies the leader's decisions through :meth:`end_as`,
+    :meth:`admit_as` and :meth:`apply_preemptions`."""
 
     def __init__(self, cache: PagedKVCache, buckets: BucketTable,
                  max_queue: int = 1024, clock=time.perf_counter,
                  max_seq_len: Optional[int] = None,
                  policy: str = "reject-new",
                  on_event: Optional[Callable] = None,
-                 tenant_quota: Optional[int] = None, lora=None):
+                 tenant_quota: Optional[int] = None, lora=None,
+                 follower: bool = False):
+        self.follower = bool(follower)
         self.cache = cache
         self.buckets = buckets
         #: most slots one tenant may hold at a time; None = no cap
@@ -401,7 +409,14 @@ class Scheduler:
         """Client disconnect: a queued request is cancelled on the spot,
         an in-flight one latched and cancelled at the next iteration
         boundary (``sweep_active``), its pages freed then. False when
-        the id is unknown or already terminal."""
+        the id is unknown or already terminal. A follower only latches:
+        the leader's cancel reaches it at the next boundary."""
+        if self.follower:
+            st = self.find(request_id)
+            if st is None or st.outcome is not None:
+                return False
+            st.cancel_requested = True
+            return True
         for st in self.waiting:
             if st.request.request_id == request_id:
                 self.waiting.remove(st)
@@ -416,7 +431,7 @@ class Scheduler:
     def expire_queued(self) -> List[RequestState]:
         """Drop queued requests past their deadline before they touch a
         slot. Free until the first request with a deadline exists."""
-        if not self._saw_deadline or not self.waiting:
+        if self.follower or not self._saw_deadline or not self.waiting:
             return []
         now = self.clock()
         out = []
@@ -435,6 +450,8 @@ class Scheduler:
         cancels and expire in-flight requests past their deadline,
         freeing their pages now."""
         out = []
+        if self.follower:
+            return out
         for _, st in list(self.active()):
             if st.cancel_requested:
                 self._terminate(st, "cancelled")
@@ -451,6 +468,8 @@ class Scheduler:
         the latch lazily; a drain calls this so that a disconnected
         client's work is never snapshotted)."""
         out = []
+        if self.follower:
+            return out
         for st in [w for w in self.waiting if w.cancel_requested]:
             self.waiting.remove(st)
             self._terminate(st, "cancelled")
@@ -539,28 +558,95 @@ class Scheduler:
                 self._terminate(st, "failed",
                                 reason=f"adapter {adapter!r} not loaded")
                 continue
-            slot = free_slots[0]
-            eff = st.effective_prompt()
-            # match() increfs the hit pages; a failed alloc_slot drops
-            # them again, so the retry next iteration re-matches
-            n_hit, shared = 0, ()
-            if self.cache.prefix_cache is not None:
-                n_hit, shared = self.cache.prefix_cache.match(eff)
-            if not self.cache.alloc_slot(slot, eff.size,
-                                         shared_pages=shared):
+            if not self._admit(idx, free_slots[0], self.clock()):
                 break                      # page pool dry: FIFO blocks
-            self.waiting.pop(idx)
             free_slots.pop(0)
-            st.slot = slot
-            st.admitted_t = self.clock()
-            st.prefill_pos = n_hit
-            st.prefill_len = int(eff.size)
-            self.slots[slot] = st
-            if self.lora is not None and adapter:
-                self.lora.acquire(adapter)
             admitted.append(st)
-            self.stats["admitted"] += 1
         return admitted
+
+    def _admit(self, idx: int, slot: int, admitted_t: float) -> bool:
+        """Admit ``waiting[idx]`` into ``slot``: pages for its effective
+        prompt (a prefix-cache hit mapped copy-on-write), the prefill
+        stamps, the adapter reference. False (nothing changed) when the
+        pool cannot hold it."""
+        st = self.waiting[idx]
+        eff = st.effective_prompt()
+        # match() increfs the hit pages; a failed alloc_slot drops them
+        # again, so the retry next iteration re-matches
+        n_hit, shared = 0, ()
+        if self.cache.prefix_cache is not None:
+            n_hit, shared = self.cache.prefix_cache.match(eff)
+        if not self.cache.alloc_slot(slot, eff.size, shared_pages=shared):
+            return False
+        self.waiting.pop(idx)
+        st.slot = slot
+        st.admitted_t = admitted_t
+        st.prefill_pos = n_hit
+        st.prefill_len = int(eff.size)
+        self.slots[slot] = st
+        if self.lora is not None and st.request.adapter:
+            self.lora.acquire(st.request.adapter)
+        self.stats["admitted"] += 1
+        return True
+
+    # -- a follower's side of the lockstep ------------------------------------
+    def find(self, request_id: int) -> Optional[RequestState]:
+        """The queued or slot-holding state of ``request_id``, or None."""
+        for st in self.waiting:
+            if st.request.request_id == request_id:
+                return st
+        for st in self.slots:
+            if st is not None and st.request.request_id == request_id:
+                return st
+        return None
+
+    def end_as(self, st: RequestState, outcome: str) -> None:
+        """End ``st`` as the leader ended it."""
+        queued = st in self.waiting
+        if queued:
+            self.waiting.remove(st)
+        self._terminate(st, outcome)
+        if outcome == "expired" and queued:
+            self.stats["expired_queued"] += 1
+
+    def admit_as(self, request_id: int, slot: int,
+                 admitted_t: float) -> RequestState:
+        """Admit ``request_id`` into ``slot`` with the leader's stamp."""
+        from .lockstep import LockstepError
+        idx = next((i for i, st in enumerate(self.waiting)
+                    if st.request.request_id == request_id), None)
+        if idx is None or self.slots[slot] is not None:
+            raise LockstepError(
+                f"the leader admitted request {request_id} into slot "
+                f"{slot}, which this rank cannot: "
+                + ("the request is not queued here" if idx is None
+                   else "the slot is taken"))
+        st = self.waiting[idx]
+        if not self._admit(idx, slot, admitted_t):
+            raise LockstepError(
+                f"the leader admitted request {request_id}, for which "
+                "this rank's page pool has no room")
+        return st
+
+    def apply_preemptions(self, ids: Sequence[int]) -> List[RequestState]:
+        """Preempt the leader's ``ids``, then give every slot its pages
+        for the coming dispatch (as :meth:`ensure_decode_capacity` did on
+        the leader). Returns the preempted states."""
+        from .lockstep import LockstepError
+        out = []
+        for rid in ids:
+            st = self.find(rid)
+            if st is None or st.slot is None:
+                raise LockstepError(f"the leader preempted request {rid}, "
+                                    "which holds no slot on this rank")
+            self._preempt(st)
+            out.append(st)
+        for slot, st in sorted(self.active(), key=lambda p: p[1].admitted_t):
+            if not self.cache.extend_slot(slot, st.seq_len + len(st.draft)):
+                raise LockstepError(
+                    f"request {st.request.request_id} cannot grow on this "
+                    "rank's page pool, where the leader's could")
+        return out
 
     # -- decode-time growth / preemption ------------------------------------
     def ensure_decode_capacity(self) -> List[RequestState]:

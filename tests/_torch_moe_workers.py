@@ -186,6 +186,52 @@ def case_gpt_ep(rank, inputs, out_dir):
     return out
 
 
+def case_gpt_mp(rank, inputs, out_dir):
+    """The MoE GPT through ``TrainStep`` under SGD (its update scales with
+    the gradient, so a missing or doubled mp reduction shows), two steps:
+    at dp = 1 x mp = 2 (ranks 0-1) with ``crit + moe_loss``, and at ep =
+    2 x mp = 2 (``data_spec=P("ep")``) at capacity factor 8 (no drops)
+    with ``crit`` alone. Losses and the gathered parameters, rank 0's."""
+    from paddle_tpu_torch.distributed.spmd import P
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForPretraining,
+                                         GPTPretrainingCriterion, gpt_tiny,
+                                         load_jax_weights)
+    from paddle_tpu_torch.optimizer import SGD
+    out = {}
+    for name, axes, cf, spec in (("mp", {"mp": 2}, None, P("dp")),
+                                 ("ep_mp", {"ep": 2, "mp": 2}, 8.0,
+                                  P("ep"))):
+        mesh = _mesh(axes)
+        n = int(np.prod(list(axes.values())))
+        if rank < n:
+            cfg = dict(inputs["gpt_cfg"])
+            if cf is not None:
+                cfg["moe_capacity_factor"] = cf
+            model = load_jax_weights(
+                GPTForPretraining(gpt_tiny(**cfg), device="cpu"),
+                inputs["gpt_weights"])
+            crit = GPTPretrainingCriterion()
+            aux = cf is None
+
+            def loss_fn(layer, ids, labels):
+                loss = crit(layer(ids), labels)
+                return loss + layer.moe_loss() if aux else loss
+            step = TrainStep(model, loss_fn, SGD(SGD_LR, parameters=
+                                                 model.parameters()),
+                             mesh=mesh, data_spec=spec)
+            losses = [float(step(*inputs["gpt_batch"])) for _ in range(2)]
+            params = step.state_dict()["params"]
+            out[name] = {"losses": losses,
+                         "params": params if rank == 0 else None,
+                         "w1": tuple(model.gpt.layers[0].moe.experts.w1
+                                     .shape),
+                         "qkv": tuple(model.gpt.layers[0].attn.qkv_weight
+                                      .shape)}
+        _reset()
+    return out
+
+
 def case_ckpt(rank, inputs, out_dir):
     """ep = 4: a ``CheckpointManager`` saves the sharded state (the
     expert blocks a rank's own) every 2 steps over 4 steps; a fresh step
@@ -259,7 +305,8 @@ def case_hang(rank, inputs, out_dir):
 def case_refused(rank, inputs, out_dir):
     """Where the JAX layer falls back to its auto path on an ep mesh the
     port raises ``NotImplementedError`` naming the reason; an MoE layer
-    on a mesh with mp, pp or sp above 1 raises too."""
+    on a mesh with pp or sp above 1 raises too, and one on mp x ep runs
+    (its entry None)."""
     from paddle_tpu_torch.core.flags import flag_scope
     from paddle_tpu_torch.incubate.moe import MOE_STATS, MoELayer
     from paddle_tpu_torch.nn.layers.common import Linear

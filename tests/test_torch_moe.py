@@ -25,7 +25,8 @@ from paddle_tpu_torch.nn.layers.common import Linear
 
 import _torch_moe_workers as W
 
-CASES = ("ep_layer", "scatter_gather", "gpt_ep", "ckpt", "hang", "refused")
+CASES = ("ep_layer", "scatter_gather", "gpt_ep", "gpt_mp", "ckpt", "hang",
+         "refused")
 GPT_CFG = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
                max_position_embeddings=64, moe_experts=8,
                initializer_range=0.2)
@@ -524,15 +525,80 @@ def test_chaos_hang_on_the_expert_exchange_raises_structured(world):
 def test_refused_fallbacks_and_meshes(world):
     """Where the JAX layer falls back to GSPMD on an ep mesh the port
     raises ``NotImplementedError`` with the JAX reason and counts no
-    fallback; MoE over mp, pp or sp raises too."""
+    fallback; MoE over pp or sp raises too (sp naming the next part of
+    ``distributed/``), and MoE over mp x ep runs."""
     for r in _case(world, "refused"):
         for reason in ("heterogeneous_experts", "custom_gate",
                        "indivisible", "flag_off"):
             assert r[reason] is not None and f"reason: {reason}" in \
                 r[reason], reason
-        for ax in ("mp", "pp", "sp"):
+        for ax in ("pp", "sp"):
             assert r[ax] is not None and ax in r[ax], ax
+        assert "part 3b" in r["sp"]
+        assert r["mp"] is None
         assert r["fallbacks"] == 0
+
+
+def _jax_sgd_steps(axes, cf=None, aux=True):
+    """Two SGD steps of the JAX MoE GPT's ``TrainStep`` on a mesh of the
+    virtual CPU devices (None: one device), and its parameters."""
+    import jax
+    from jax.sharding import PartitionSpec as JP
+    from paddle_tpu.distributed import env as jenv
+    from paddle_tpu.distributed.spmd import make_mesh
+    from paddle_tpu.jit.to_static import TrainStep as JaxTrainStep
+    from paddle_tpu.models.gpt import GPTPretrainingCriterion as JaxCrit
+    from paddle_tpu.optimizer import SGD as JaxSGD
+    mesh = None
+    if axes is not None:
+        mesh = make_mesh(axes, jax.devices()[:int(np.prod(list(
+            axes.values())))])
+        jenv.set_mesh(mesh)
+    import paddle_tpu as paddle
+    from paddle_tpu.models.gpt import GPTForPretraining as JaxGPT
+    from paddle_tpu.models.gpt import gpt_tiny as jax_tiny
+    paddle.seed(4)
+    jm = JaxGPT(jax_tiny(**GPT_CFG, **({} if cf is None else
+                                       {"moe_capacity_factor": cf})))
+    crit = JaxCrit()
+
+    def loss_fn(layer, ids, labels):
+        loss = crit(layer(ids), labels)
+        return loss + layer.moe_loss() if aux else loss
+    step = JaxTrainStep(jm, loss_fn, JaxSGD(learning_rate=W.SGD_LR,
+                                            parameters=jm.parameters()),
+                        mesh=mesh)
+    losses = [float(step(*_gpt_batch())) for _ in range(2)]
+    params = {k: np.asarray(v) for k, v in step.params.items()}
+    jenv.reset()
+    return losses, params
+
+
+@pytest.mark.parametrize("name", ["mp", "ep_mp"])
+def test_moe_gpt_over_mp_matches_jax(world, name):
+    """The MoE GPT's ``TrainStep`` under SGD 0.1, two steps: at dp = 1 x
+    mp = 2 with ``crit + moe_loss`` against the JAX GSPMD step on the
+    ``{"mp": 2}`` mesh; at ep = 2 x mp = 2 (``data_spec=P("ep")``, no
+    drops at capacity factor 8, ``crit`` alone) against the JAX auto path
+    (one device) at the same capacity. Losses and every gathered
+    parameter within 1e-5 in f32: the experts, replicated over mp, get
+    the same gradient on every mp rank and no mp reduction. A rank keeps
+    half the heads, and on ep x mp half the experts."""
+    if name == "mp":
+        jl, jparams = _jax_sgd_steps({"mp": 2})
+        ranks, experts = 2, W.E
+    else:
+        jl, jparams = _jax_sgd_steps(None, cf=8.0, aux=False)
+        ranks, experts = 4, W.E // 2
+    res = [r[name] for r in _case(world, "gpt_mp")[:ranks]]
+    for r in res:
+        np.testing.assert_allclose(r["losses"], jl, rtol=0, atol=1e-5)
+        assert r["w1"][0] == experts and r["qkv"][2] == 2
+    params = res[0]["params"]
+    assert set(params) == set(jparams)
+    for k, v in jparams.items():
+        np.testing.assert_allclose(params[k], v, atol=1e-5, rtol=0,
+                                   err_msg=k)
 
 
 # -- the card ----------------------------------------------------------------

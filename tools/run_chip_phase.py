@@ -1,6 +1,6 @@
 """Run chip_smoke.py's card phase and one later phase alone.
 
-    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys
+    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys|tp_serve
 
 From the root of a checkout, on a machine with one CUDA card: builds the
 kernels (phase 1), then drives the named phase and prints its launches:
@@ -30,7 +30,10 @@ widths and ``QuantizedConv2D``, card against CPU), ``recsys`` phase 25
 trained through tiered tables, then against the CPU, and ranked by
 ``RecsysEngine``; ``ShardedEmbeddingTable`` at full vocab in one process
 and over a ps = 2 world on the card; the native PS server built from
-the port's source).
+the port's source), ``tp_serve`` phase 26 (GPT-2 345M served
+tensor-parallel at mp = 2 by two ranks on the card, f32 and int8 pools,
+against one process; the MoE GPT's step at mp = 2; ``run_elastic``
+resuming a killed training loop).
 Exits non-zero if a check fails.
 """
 
@@ -50,7 +53,8 @@ PHASES = {"monitor": lambda card: chip_smoke.phase_monitor(),
           "vision": lambda card: chip_smoke.phase_vision(card["smi"]),
           "moe": lambda card: chip_smoke.phase_moe(card["smi"]),
           "vision2": lambda card: chip_smoke.phase_vision2(card["smi"]),
-          "recsys": lambda card: chip_smoke.phase_recsys(card["smi"])}
+          "recsys": lambda card: chip_smoke.phase_recsys(card["smi"]),
+          "tp_serve": lambda card: chip_smoke.phase_tp_serve(card["smi"])}
 
 
 def main() -> int:
