@@ -26,15 +26,18 @@ result line. Twenty-seven phases, in order:
               the same operands), and time the kernel, the plain
               version, the card's bound and, where one exists, the one
               PyTorch call that computes the same function (the bf16
-              flash kernels' and the f32 forward's earlier CUDA-core
-              design's times and the paged-decode, int8 and bgmv
-              kernels' first design's times printed beside them, with
+              flash kernels' and the f32 forward's and backward's
+              earlier CUDA-core design's times and the paged-decode,
+              int8 and bgmv kernels' first design's times printed
+              beside them, with
               the redesigned kernels' registers and spills from the build
-              log). The f32 forward, which runs three TF32 tensor-core
-              products an f32 product, is timed at the serving prefill
-              and at BERT-base's padded batch against SDPA in f32 and a
-              bound at a third of the TF32 rate; bgmv at the decode and
-              prefill dispatches; each redesigned kernel's two launches
+              log). The f32 forward and backward, which run three TF32
+              tensor-core products an f32 product, are timed against
+              SDPA in f32 and a bound at a third of the TF32 rate: the
+              forward at the serving prefill and at BERT-base's padded
+              batch, the backward at a dp = 2 x mp = 2 rank's causal
+              training shape and the biased one at BERT-base's batch;
+              bgmv at the decode and prefill dispatches; each redesigned kernel's two launches
               must give the same bits; the biased forward also causal at
               Sq < Sk as the chat path's context prefills launch it (Sq =
               128 and 5 over a 512-token right-aligned context, f32 and
@@ -487,10 +490,10 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit;
-# int8 in tensor-core operations a second). The f32 flash forward runs an
-# f32 product as three TF32 tensor-core products (the 3xTF32 split, f32
-# accuracy): its peak is a third of the 494.7 TFLOP/s TF32 rate; every
-# other f32 row keeps the CUDA cores' 67
+# int8 in tensor-core operations a second). The f32 flash forward and
+# backward run an f32 product as three TF32 tensor-core products (the
+# 3xTF32 split, f32 accuracy): their peak is a third of the 494.7 TFLOP/s
+# TF32 rate; every other f32 row keeps the CUDA cores' 67
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
               "float32_3xtf32": 494.7e12 / 3}
@@ -529,6 +532,15 @@ CUDA_CORE_F32_FWD_MS = {"flash_attention_fwd float32": 0.0530,
                         "flash_attention_bias_fwd float32": 1.4644,
                         "flash_attention_bias_fwd float32 dropout 0.1":
                             1.5340}
+# the float32 flash backward's times when it ran its products on the CUDA
+# cores (dkv_kernel<float>, dq_kernel<float>), at the f32 shapes timed
+# below: a dp = 2 x mp = 2 rank's causal training shape (row 3) and
+# BERT-base's padded batch (rows 4, 5), dropout 0.1
+# (tools/time_flash_bwd.py --dtype float32 on the earlier source, an
+# H100 80GB HBM3 at 700 W); printed beside today's
+CUDA_CORE_F32_BWD_MS = {"flash_attention_bwd float32": 0.7393,
+                        "flash_attention_bias_bwd_dq float32": 2.6416,
+                        "flash_attention_bias_bwd_dkv float32": 3.6119}
 # the paged-decode kernels' and the int8 matmul's times at the same shapes
 # in their first design (one block per (slot, head) walking its positions
 # row by row; mma.sync fed by byte gathers from an N-major weight), this
@@ -544,11 +556,12 @@ FIRST_DESIGN_MS = {"paged_decode_attention": 0.0278,
                    "bgmv": 0.0122, "bgmv B=8 S=1 float32": 0.0122,
                    "bgmv B=4 S=256 float32": 0.0293}
 # the redesigned kernels' entry functions, whose ptxas lines (registers,
-# spills) phase 2 prints
-PTXAS_ENTRIES = {"paged_decode_attention": "paged_decode_kernel",
-                 "int8_matmul": "int8_matmul_kernel",
-                 "flash_attention_fwd": "flash_fwd_f32_kernel",
-                 "bgmv": "bgmv_kernel"}
+# spills) phase 2 prints, by the kernel whose build log holds them
+PTXAS_ENTRIES = {"paged_decode_attention": ("paged_decode_kernel",),
+                 "int8_matmul": ("int8_matmul_kernel",),
+                 "flash_attention_fwd": ("flash_fwd_f32_kernel",),
+                 "flash_attention_bwd": ("dkv_f32_kernel", "dq_f32_kernel"),
+                 "bgmv": ("bgmv_kernel",)}
 # the lse kernel and its plain version sum 50304 exponentials in
 # another order: relative to the largest lse
 LSE_TOL = 1e-5
@@ -1121,6 +1134,12 @@ def _flash_train_case(dtype, timed=False, B=TRAIN_B, H=16, batch_base=0,
                                               rate, words, **bases))
     grads = flash_attention_bwd(q, k, v, o, lse, do, True, None, rate, words,
                                 **bases)
+    again = flash_attention_bwd(q, k, v, o, lse, do, True, None, rate, words,
+                                **bases)
+    _require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+             f"two launches of flash_attention_bwd gave different bits in "
+             f"{_name(dtype)}")
+    del again
     refs = flash_attention_bwd_plain(q, k, v, o, lse, do, True, None, rate,
                                      words, **bases)
     errs = [_rel_err(a, r) for a, r in zip(grads, refs)]
@@ -1266,6 +1285,14 @@ def _bias_flash_case(B, S, H, D, dtype, mask, rate=0.1, seed=10,
                                         **bases)
     dk, dv, db = fa.flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
                                                  *args, **bases)
+    again = (fa.flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do, *args,
+                                            **bases),
+             *fa.flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
+                                              *args, **bases))
+    _require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv, db), again)),
+             f"two launches of the biased backward gave different bits in "
+             f"{name}")
+    del again
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, *args,
                                         bias=bias, **bases)
     errs.update((n, _rel_err(a, r)) for n, a, r in
@@ -1305,10 +1332,12 @@ def _bias_flash_case(B, S, H, D, dtype, mask, rate=0.1, seed=10,
     pairs = H * S * int(mask.sum())
     io = B * S * H * D * elem
     row_f32 = B * S * 4                          # a bias or db row
-    b_fwd = _bound_ms(4 * io + row_f32 + B * H * S * 4, 4 * D * pairs, name)
-    b_dq = _bound_ms(6 * io + row_f32 + B * H * S * 4, 6 * D * pairs, name)
+    # f32 runs three TF32 tensor-core products an f32 product
+    peak = "float32_3xtf32" if name == "float32" else name
+    b_fwd = _bound_ms(4 * io + row_f32 + B * H * S * 4, 4 * D * pairs, peak)
+    b_dq = _bound_ms(6 * io + row_f32 + B * H * S * 4, 6 * D * pairs, peak)
     b_dkv = _bound_ms(7 * io + 2 * row_f32 + B * H * S * 4, 8 * D * pairs,
-                      name)
+                      peak)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_mask = bias.to(dtype)[:, None, None, :]
     fwd_lib = _median_ms(lambda: F.scaled_dot_product_attention(
@@ -1642,8 +1671,8 @@ def phase_kernels() -> dict:
     # on bf16 and f32 activations; the rows time the bf16 case
     _flash_train_case(torch.float32)
     rows.update(_flash_train_case(torch.bfloat16, timed=True))
-    # row 3 (f32): the CUDA-core backward at a rank's shape in phase 21's
-    # f32 parity runs (dp = 2 x mp = 2: 2 rows, 8 heads)
+    # row 3 (f32): the f32 backward at a rank's shape in phase 21's f32
+    # parity runs (dp = 2 x mp = 2: 2 rows, 8 heads)
     more_rows["flash_attention_bwd float32"] = _flash_train_case(
         torch.float32, timed=True, B=2, H=8)["flash_attention_bwd"]
     _ce_case(torch.float32)
@@ -1656,7 +1685,11 @@ def phase_kernels() -> dict:
     import numpy as np
     mask = pretraining_batch(BERT_B, BERT_S, BERT_M, 30528)[0][2]
     _require((mask == 0).any(), "the BERT batch has no padded row")
-    _bias_flash_case(BERT_B, BERT_S, 12, 64, torch.float32, mask)
+    # rows 4 and 5 (f32): the f32 biased backward, f32 BERT training's
+    for kname, r in _bias_flash_case(BERT_B, BERT_S, 12, 64, torch.float32,
+                                     mask, timed=True).items():
+        if kname != "flash_attention_bias_fwd":
+            more_rows[f"{kname} float32"] = r
     # the f32 and int8 predictors' attention (and f32 training's, rate 0.1)
     for rate in (0.0, 0.1):
         more_rows["flash_attention_bias_fwd float32"
@@ -1709,7 +1742,7 @@ def phase_kernels() -> dict:
     for name, r in {**rows, **more_rows, **bgmv_cases, **int8_cases}.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         cuda_core = {**CUDA_CORE_FWD_MS, **CUDA_CORE_BWD_MS,
-                     **CUDA_CORE_F32_FWD_MS}
+                     **CUDA_CORE_F32_FWD_MS, **CUDA_CORE_F32_BWD_MS}
         old = (f", the earlier CUDA-core design {cuda_core[name]:.4f} ms"
                if name in cuda_core else "")
         if name in FIRST_DESIGN_MS:
@@ -1717,9 +1750,10 @@ def phase_kernels() -> dict:
         _log(f"kernels: {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
              f"({r['bound_by']}), library {lib} ms{old}")
-    for name, entry in PTXAS_ENTRIES.items():
-        for line in _ptxas(name, entry):
-            _log(f"kernels: ptxas {line}")
+    for name, entries in PTXAS_ENTRIES.items():
+        for entry in entries:
+            for line in _ptxas(name, entry):
+                _log(f"kernels: ptxas {line}")
     return rows
 
 
@@ -2431,13 +2465,15 @@ def phase_parity() -> None:
         loss = crit(model(ids.to(dev), generator=torch.Generator()
                           .manual_seed(5)), labels.to(dev))
         loss.backward()
-        launched = sum(k["launches"] - before[k["name"]]
-                       for k in kernels.kernels())
+        by_kernel = {k["name"]: k["launches"] - before[k["name"]]
+                     for k in kernels.kernels()
+                     if k["launches"] != before[k["name"]]}
+        launched = sum(by_kernel.values())
         results[dev] = (loss.item(), {n: p.grad.detach().cpu()
                                       for n, p in model.named_parameters()})
         _log(f"parity: {dev} loss {results[dev][0]:.6f} in "
              f"{time.perf_counter() - t0:.2f} s, {launched} kernel "
-             f"launches")
+             f"launches {by_kernel}")
         _require((launched > 0) == (dev == "cuda"),
                  f"{dev} run launched {launched} kernels")
         del model, loss
@@ -2693,8 +2729,8 @@ def gpt_flops_per_token(h=1024, L=24, V=50304, S=1024) -> float:
 # kernel-name fragments of each group in the step profile; the first
 # group whose fragment a kernel's name holds takes it
 PROFILE_GROUPS = (
-    ("flash forward", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
-    ("flash backward", ("dkv_kernel", "dq_kernel", "dkv_tc_kernel",
+    ("flash forward", ("flash_fwd_f32_kernel", "flash_fwd_tc_kernel")),
+    ("flash backward", ("dkv_f32_kernel", "dq_f32_kernel", "dkv_tc_kernel",
                         "dq_tc_kernel", "delta_kernel", "db_sum_kernel")),
     ("chunked CE", ("lse_kernel", "dlogits_kernel")),
     ("int8 matmul", ("int8_matmul_kernel",)),
@@ -2819,17 +2855,21 @@ def phase_bert_parity() -> None:
         model = BertForMaskedLM(cfg, device="cpu", seed=0).to(dev)
         ids, tt, mask, pos, labels, w = (torch.from_numpy(a).to(dev)
                                          for a in batch)
-        before = sum(k["launches"] for k in kernels.kernels())
+        before = {k["name"]: k["launches"] for k in kernels.kernels()}
         loss = model.loss(model(ids, tt, mask, pos,
                                 generator=torch.Generator().manual_seed(5)),
                           labels, w)
         loss.backward()
-        launched = sum(k["launches"] for k in kernels.kernels()) - before
+        by_kernel = {k["name"]: k["launches"] - before[k["name"]]
+                     for k in kernels.kernels()
+                     if k["launches"] != before[k["name"]]}
+        launched = sum(by_kernel.values())
         results[dev] = (loss.item(), {
             n: p.grad.detach().cpu() for n, p in model.named_parameters()
             if p.grad is not None})
         _log(f"bert parity: {dev} loss {results[dev][0]:.6f} in "
-             f"{time.perf_counter() - t0:.2f} s, {launched} kernel launches")
+             f"{time.perf_counter() - t0:.2f} s, {launched} kernel launches "
+             f"{by_kernel}")
         _require((launched > 0) == (dev == "cuda"),
                  f"{dev} run launched {launched} kernels")
         del model, loss

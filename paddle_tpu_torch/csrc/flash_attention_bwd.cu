@@ -34,11 +34,13 @@
 //      GPT-2 345M's training shape (B=8, S=1024, H=16, D=64, bf16,
 //      causal, dropout 0.1; H100 80GB HBM3 at 700 W,
 //      tools/time_flash_bwd.py), bit-identical results;
-//   2. dkv_kernel: one block per (b, h, 64-key tile) keeps its K and V
-//      tiles and its dk/dv (and per-head dbias) accumulators, and sweeps
-//      the query tiles that can see those keys;
-//   3. dq_kernel: one block per (b, h, 64-query tile) keeps its Q and dO
-//      tiles and its dq accumulator, and sweeps the visible key tiles;
+//   2. dkv_tc_kernel (bf16) or dkv_f32_kernel (f32): one block per (b, h,
+//      64-key tile) keeps its K and V tiles and its dk/dv (and per-head
+//      dbias) accumulators, and sweeps the query tiles that can see those
+//      keys, each key tile's in one order;
+//   3. dq_tc_kernel or dq_f32_kernel: one block per (b, h, 64-query tile)
+//      keeps its Q and dO tiles and its dq accumulator, and sweeps the
+//      visible key tiles in one order;
 //   4. db_sum_kernel (bias dk/dv entry only): dbias summed over heads in
 //      a fixed order.
 // Scores and dp are computed in both 2 and 3 (14 D operations per
@@ -51,13 +53,63 @@
 // does seven products, 14 D) against 0.13 GB, so the bound is the bf16
 // tensor-core rate of 989 TFLOP/s, far above the card's 3.35 TB/s line.
 //
-// float32 inputs (variants 0, 1) run the products on the CUDA cores in
-// f32: tiles live in shared memory in rows of D + 4 floats (16-byte
-// aligned, consecutive rows in different banks), each of 256 threads
-// computes a 4x4 microtile of s and dp with 16-byte loads along D (rows
-// ty + 16 i, columns tx + 16 j) and keeps a 4 x D/16 share of its
-// accumulators in registers. Its ceiling is the card's f32 rate (67
-// TFLOP/s); it is the reference path the f32 parity tests hold.
+// float32 inputs (variants 0, 1; dkv_f32_kernel, dq_f32_kernel) are
+// computed at f32 accuracy, as the TPU kernels compute them under the
+// default "highest" matmul precision (`_mxu_dtype` keeps f32 operands,
+// :63-73). All five products (s, dp, dv += pv^T dO, dk += ds^T q, dq +=
+// ds k) run on mma.sync m16n8k8 .tf32 by the error-compensated 3xTF32
+// split of mma_tf32.cuh, the f32 forward's: both operands split into big
+// = tf32(x) and small = tf32(x - big), the cross terms summed before
+// big . big. Plain TF32, or raw f32 registers fed to a tf32 product,
+// would keep 10 mantissa bits and is not used. The layout is the bf16
+// kernels' below, in f32:
+//   - tiles arrive by 16-byte cp.async in rows of D + 4 floats, the swept
+//     operand double-buffered (Q and dO in dkv, 32-query tiles, 16 at
+//     D = 128, where the dK and dV accumulators take 128 floats a thread;
+//     K and V in dq, 32-key tiles);
+//   - every fragment is read straight from those rows with no bank
+//     conflict and no transposed copy: A fragments, and B fragments of a
+//     tile used transposed (Q^T, dO^T, K^T, V^T), read banks 4g + t (g =
+//     lane / 4, t = lane % 4); pv and ds feed dV, dK and dQ as A
+//     fragments in the accumulator's own layout (the product's k index i
+//     stands for query or key 2 (i % 4) + i / 4, the forward's P.V trick),
+//     so their B operand reads rows 2t and 2t + 1 of dO, Q or K, banks
+//     8t + g, with no shared-memory round trip;
+//   - the split: K's and V's (dkv), Q's and dO's (dq) A fragments anew at
+//     every swept tile, the accumulator fragments as they feed the next
+//     product, and the B fragments of the swept tile in dkv once a block
+//     at D = 64 (split_tile: the big halves in place, the small ones in a
+//     tile of their own), in dq as each warp loads them;
+//   - dK, dV and dQ sum each swept tile's products from zero on the
+//     tensor cores and add them to their running sums on the CUDA cores,
+//     rounded to nearest (add_tile): the tensor cores' f32 accumulation
+//     truncates, and a sum kept there over a whole sweep drifts;
+//   - causal grids run tile-major, every head's heaviest tile first (dkv's
+//     first key tiles, dq's last query tiles): a grid of a wave or two
+//     then ends on light tiles instead of a few heavy ones;
+//   - pv, ds, dsr, the masks, dropout and dbias as the bf16 kernels form
+//     them, from f32 fragments.
+// What bounds it: the tensor-core instruction. mma.sync m16n8k8 tf32
+// sustains 279-324 TFLOP/s on the card (tools/time_torch_flash_f32.py),
+// and the split runs seven products a visible pair, 14 D operations, as
+// three of them: at a dp = 2 x mp = 2 rank's causal training shape (B=2,
+// S=1024, H=8, D=64, dropout 0.1) 7.5 GFLOP, a floor of 0.07-0.08 ms.
+// Measured on an H100 80GB HBM3 at 700 W (tools/time_flash_bwd.py
+// --dtype float32 --shape rank,bert; PERF.md section 6): there the
+// no-bias entry took 0.2732-0.2753 ms (dkv 144.4 us, dq 119.4, delta
+// 4.2) against the CUDA-core design's 0.7393-0.7486; at BERT-base's
+// padded batch (B=48, S=512, H=12, D=64, dropout 0.1) dq took
+// 1.2029-1.2133 ms and dk/dv/db 1.7416-1.7699 against 2.6398-2.6423 and
+// 3.6119-3.6237. What moved it, at the rank's shape: the tile-major
+// causal grid, 0.3437 -> 0.3062 ms; 32-query dkv tiles against 64,
+// 0.2929; the split once a block in dkv, dkv 165.3 -> 145.8 us (1.7876
+// -> 1.7200 ms at BERT's batch). What did not: the split once a block in
+// dq (1.1979 -> 1.2744 ms at BERT's batch, 3 blocks an SM down to 2), and
+// dq holding Q's and dO's split A fragments in registers for the sweep
+// (1.2021 -> 1.2538 ms at 2 blocks an SM, 1.7314 at 3 with spills). The
+// tile sums cost 1% at the rank's shape (0.2705 -> 0.2732 ms) and 2-4% of
+// dk/dv/db at BERT's batch. The bias and D = 128 kernels take the same
+// templates; at D = 128 the kernels are checked, not tuned.
 //
 // bfloat16 inputs (variants 2, 3) run every product on the tensor cores
 // (dkv_tc_kernel, dq_tc_kernel), as the TPU kernels run theirs on the
@@ -106,99 +158,25 @@
 
 #include "dropout_hash.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;            // query rows per tile
-constexpr int BK = 64;            // key rows per tile
-constexpr int THREADS = 256;      // 16 x 16 threads
-constexpr int LDP = BK + 16;      // row stride of the [q][key] p/ds tiles
-constexpr int LDQ = BQ + 4;       // row stride of the [key][q] ds tile
+constexpr int THREADS = 256;      // delta_kernel's and db_sum_kernel's block
+constexpr int TC_THREADS = 128;   // 4 warps, 16 rows each
+constexpr int TC_ROWS = 64;       // rows a block owns
 constexpr float NEG_INF = -1e30f; // the TPU kernel's mask value
 
-template <int D>
-__host__ __device__ constexpr int ldt() {
-  return D + 4;  // row stride of the [row][D] q/k/v/dO tiles
+// elements a shared-memory row of a [rows][D] tile of T: 16 bytes of
+// padding (tile_async's layout; tc_ld<D>() for bf16, D + 4 for f32)
+template <typename T, int D>
+__host__ __device__ constexpr int row_ld() {
+  return D + 16 / static_cast<int>(sizeof(T));
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ float comp(float4 a, int i) {
-  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
-}
-
-// copy rows r0.. of a [*, H, D] tensor (head h, batch b already applied
-// to `src`) into a [64][D+4] f32 tile; rows at or past n are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int n, long long ld_row) {
-  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int row = r0 + r;
-    dst[r * ldt<D>() + d] = row < n ? to_f32(src[row * ld_row + d]) : 0.f;
-  }
-}
-
-// bias_s[c] = bias_b[c0 + c] for the 64 columns of a key tile
-__device__ __forceinline__ void load_bias(float* bias_s, const float* bias_b,
-                                          int c0, int Sk) {
-  if (threadIdx.x < BK)
-    bias_s[threadIdx.x] =
-        c0 + threadIdx.x < Sk ? bias_b[c0 + threadIdx.x] : 0.f;
-}
-
-// delta_s[r] = rowsum(dO * o) of query rows q0 + r, from the dO tile in
-// shared memory and the o rows in device memory (`o` at batch b, head h);
-// one warp per row, summed in the order delta_kernel sums
-template <typename T, int D>
-__device__ __forceinline__ void tile_delta(float* delta_s, const float* dOs,
-                                           const T* o, int q0, int Sq,
-                                           long long ld_row) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BQ; r += THREADS / 32) {
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < Sq) {
-#pragma unroll
-      for (int d = lane; d < D; d += 32)
-        acc += dOs[r * ldt<D>() + d] * to_f32(o[row * ld_row + d]);
-    }
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, m);
-    if (lane == 0) delta_s[r] = acc;
-  }
-}
-
-// s[i][j] = a[ty + 16 i] . b[tx + 16 j] over D, from two [64][D+4] tiles
-template <int D>
-__device__ __forceinline__ void microtile(const float* a, const float* b,
-                                          int ty, int tx, float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = *reinterpret_cast<const float4*>(&a[(ty + 16 * i) * ldt<D>() + d]);
-      bv[i] = *reinterpret_cast<const float4*>(&b[(tx + 16 * i) * ldt<D>() + d]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += dot4(av[i], bv[j]);
-  }
 }
 
 // bh enters a kernel as the launch's base term, b0 * 0xAC564B05 +
@@ -223,38 +201,6 @@ struct Dropout {
   }
 };
 
-// p and ds of one 4x4 microtile: rows (queries) q0 + ty + 16 i, columns
-// (keys) k0 + tx + 16 j; lse_s holds the shifted lse, delta_s delta,
-// bias_s the key tile's bias (BIAS only); db[j] accumulates column j's
-// dsr = ds / scale (BIAS only)
-template <bool BIAS>
-__device__ __forceinline__ void probs_and_ds(
-    float (&s)[4][4], float (&dp)[4][4], const float* lse_s,
-    const float* delta_s, const float* bias_s, float (&db)[4], int q0,
-    int k0, int ty, int tx, int Sq, int Sk, int causal, float scale,
-    const Dropout& drop) {
-  const int off = Sk - Sq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      const bool visible =
-          row < Sq && col < Sk && (!causal || row + off >= col);
-      const float x = BIAS ? s[i][j] * scale + bias_s[tx + 16 * j]
-                           : s[i][j] * scale;
-      const float p = visible ? expf(x - lse_s[r]) : 0.f;
-      const float keep = drop.keep<!BIAS>(row, col);
-      const float dsr = p * (dp[i][j] * keep - delta_s[r]);
-      s[i][j] = p * keep;   // pv
-      dp[i][j] = dsr * scale;  // ds
-      if (BIAS) db[j] += dsr;
-    }
-  }
-}
-
 template <typename T, int D>
 __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                              float* __restrict__ delta, int rows, int Sq,
@@ -278,267 +224,9 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout
   }
 }
 
-template <int D>
-constexpr int dkv_smem_floats() {
-  // K, V, Q, dO tiles + p and ds tiles + lse and delta + the key tile's
-  // bias + the dbias partial sums of the 16 thread rows
-  return 4 * 64 * ldt<D>() + 2 * BQ * LDP + 2 * BQ + BK + 16 * BK;
-}
-
-template <typename T, int D, bool BIAS>
-__global__ void __launch_bounds__(THREADS)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ bias,
-               const T* __restrict__ o, const float* __restrict__ lse,
-               const float* __restrict__ delta, const T* __restrict__ dout,
-               T* __restrict__ dk, T* __restrict__ dv,
-               float* __restrict__ db_h, int Sq, int Sk, int H, int causal,
-               float scale, Dropout drop) {
-  constexpr int DC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + 64 * ldt<D>();
-  float* Qs = Vs + 64 * ldt<D>();
-  float* dOs = Qs + 64 * ldt<D>();
-  float* Ps = dOs + 64 * ldt<D>();   // [q][key] p * keep
-  float* dSs = Ps + BQ * LDP;        // [q][key] ds
-  float* lse_s = dSs + BQ * LDP;
-  float* delta_s = lse_s + BQ;
-  float* bias_s = delta_s + BQ;
-  float* db_s = bias_s + BK;         // [16][BK]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y, b = blockIdx.z;
-  drop.bh += (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
-  const long long ld_row = (long long)H * D;
-  const long long qoff = ((long long)b * Sq * H + h) * D;
-  const long long koff = ((long long)b * Sk * H + h) * D;
-  const float* lse_bh = lse + ((long long)b * H + h) * Sq;
-
-  load_tile<T, D>(Ks, k + koff, k0, Sk, ld_row);
-  load_tile<T, D>(Vs, v + koff, k0, Sk, ld_row);
-  if (BIAS) load_bias(bias_s, bias + (long long)b * Sk, k0, Sk);
-
-  float dk_acc[4][DC], dv_acc[4][DC], db[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  // the first query row that sees key k0 is k0 - (Sk - Sq)
-  const int first = causal ? max(0, k0 - (Sk - Sq)) / BQ : 0;
-  const int n_q = (Sq + BQ - 1) / BQ;
-  for (int t = first; t < n_q; ++t) {
-    const int q0 = t * BQ;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Qs, q + qoff, q0, Sq, ld_row);
-    load_tile<T, D>(dOs, dout + qoff, q0, Sq, ld_row);
-    if (tid < BQ) {
-      const int row = q0 + tid;
-      const float l = row < Sq ? lse_bh[row] : 0.f;
-      lse_s[tid] = l == NEG_INF ? 0.f : l;
-      if (!BIAS)
-        delta_s[tid] =
-            row < Sq ? delta[((long long)b * H + h) * Sq + row] : 0.f;
-    }
-    __syncthreads();
-    if (BIAS) {
-      tile_delta<T, D>(delta_s, dOs, o + qoff, q0, Sq, ld_row);
-      __syncthreads();
-    }
-
-    float s[4][4], dp[4][4];
-    microtile<D>(Qs, Ks, ty, tx, s);
-    microtile<D>(dOs, Vs, ty, tx, dp);
-    probs_and_ds<BIAS>(s, dp, lse_s, delta_s, bias_s, db, q0, k0, ty, tx,
-                       Sq, Sk, causal, scale, drop);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
-        dSs[(ty + 16 * i) * LDP + tx + 16 * j] = dp[i][j];
-      }
-    __syncthreads();
-
-    // dv[key] += pv[q][key] dO[q], dk[key] += ds[q][key] q[q]; this
-    // thread's keys are ty * 4 + i, its columns g * 64 + tx * 4 + c
-#pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&Ps[r * LDP + ty * 4]);
-      const float4 d4 = *reinterpret_cast<const float4*>(&dSs[r * LDP + ty * 4]);
-#pragma unroll
-      for (int g = 0; g < DC / 4; ++g) {
-        const float4 o4 =
-            *reinterpret_cast<const float4*>(&dOs[r * ldt<D>() + g * 64 + tx * 4]);
-        const float4 q4 =
-            *reinterpret_cast<const float4*>(&Qs[r * ldt<D>() + g * 64 + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            dv_acc[i][g * 4 + c] += comp(p4, i) * comp(o4, c);
-            dk_acc[i][g * 4 + c] += comp(d4, i) * comp(q4, c);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= Sk) continue;
-    T* dkrow = dk + koff + key * ld_row;
-    T* dvrow = dv + koff + key * ld_row;
-#pragma unroll
-    for (int g = 0; g < DC / 4; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        store(&dkrow[g * 64 + tx * 4 + c], dk_acc[i][g * 4 + c]);
-        store(&dvrow[g * 64 + tx * 4 + c], dv_acc[i][g * 4 + c]);
-      }
-  }
-
-  if (BIAS) {
-    // merge the 16 thread rows' column sums in a fixed order
-#pragma unroll
-    for (int j = 0; j < 4; ++j) db_s[ty * BK + tx + 16 * j] = db[j];
-    __syncthreads();
-    if (tid < BK && k0 + tid < Sk) {
-      float acc = 0.f;
-      for (int r = 0; r < 16; ++r) acc += db_s[r * BK + tid];
-      db_h[((long long)b * H + h) * Sk + k0 + tid] = acc;
-    }
-  }
-}
-
-template <int D>
-constexpr int dq_smem_floats() {
-  // Q, dO, K, V tiles + the [key][q] ds tile + lse and delta + the key
-  // tile's bias
-  return 4 * 64 * ldt<D>() + BK * LDQ + 2 * BQ + BK;
-}
-
-template <typename T, int D, bool BIAS>
-__global__ void __launch_bounds__(THREADS)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ bias,
-              const T* __restrict__ o, const float* __restrict__ lse,
-              const float* __restrict__ delta, const T* __restrict__ dout,
-              T* __restrict__ dq, int Sq, int Sk, int H, int causal,
-              float scale, Dropout drop) {
-  constexpr int DC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + 64 * ldt<D>();
-  float* Ks = dOs + 64 * ldt<D>();
-  float* Vs = Ks + 64 * ldt<D>();
-  float* dSt = Vs + 64 * ldt<D>();   // [key][q] ds
-  float* lse_s = dSt + BK * LDQ;
-  float* delta_s = lse_s + BQ;
-  float* bias_s = delta_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  drop.bh += (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
-  const long long ld_row = (long long)H * D;
-  const long long qoff = ((long long)b * Sq * H + h) * D;
-  const long long koff = ((long long)b * Sk * H + h) * D;
-  const float* lse_bh = lse + ((long long)b * H + h) * Sq;
-
-  load_tile<T, D>(Qs, q + qoff, q0, Sq, ld_row);
-  load_tile<T, D>(dOs, dout + qoff, q0, Sq, ld_row);
-  if (tid < BQ) {
-    const int row = q0 + tid;
-    const float l = row < Sq ? lse_bh[row] : 0.f;
-    lse_s[tid] = l == NEG_INF ? 0.f : l;
-    if (!BIAS)
-      delta_s[tid] =
-          row < Sq ? delta[((long long)b * H + h) * Sq + row] : 0.f;
-  }
-  if (BIAS) {
-    __syncthreads();  // dO loaded
-    tile_delta<T, D>(delta_s, dOs, o + qoff, q0, Sq, ld_row);
-  }
-
-  float acc[4][DC], unused[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-
-  // the last key column any row of this tile may see
-  int last_col = Sk - 1;
-  if (causal) last_col = min(last_col, min(q0 + BQ, Sq) - 1 + (Sk - Sq));
-  const int n_k = last_col < 0 ? 0 : last_col / BK + 1;
-  for (int t = 0; t < n_k; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // Q/dO/delta ready; the previous tile's readers done
-    load_tile<T, D>(Ks, k + koff, k0, Sk, ld_row);
-    load_tile<T, D>(Vs, v + koff, k0, Sk, ld_row);
-    if (BIAS) load_bias(bias_s, bias + (long long)b * Sk, k0, Sk);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    microtile<D>(Qs, Ks, ty, tx, s);
-    microtile<D>(dOs, Vs, ty, tx, dp);
-    probs_and_ds<BIAS>(s, dp, lse_s, delta_s, bias_s, unused, q0, k0, ty,
-                       tx, Sq, Sk, causal, scale, drop);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSt[(tx + 16 * j) * LDQ + ty + 16 * i] = dp[i][j];
-    __syncthreads();
-
-    // dq[q] += ds[q][key] k[key]; this thread's queries are ty * 4 + i
-#pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 d4 = *reinterpret_cast<const float4*>(&dSt[kk * LDQ + ty * 4]);
-#pragma unroll
-      for (int g = 0; g < DC / 4; ++g) {
-        const float4 k4 =
-            *reinterpret_cast<const float4*>(&Ks[kk * ldt<D>() + g * 64 + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[i][g * 4 + c] += comp(d4, i) * comp(k4, c);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    T* dqrow = dq + qoff + row * ld_row;
-#pragma unroll
-    for (int g = 0; g < DC / 4; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        store(&dqrow[g * 64 + tx * 4 + c], acc[i][g * 4 + c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the bf16 path on the tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int TC_THREADS = 128;   // 4 warps, 16 rows each
-constexpr int TC_ROWS = 64;       // rows a block owns
-
-// the swept query tile of dkv_tc_kernel
-template <int D>
-__host__ __device__ constexpr int dkv_qt() {
-  return D == 128 ? 32 : 64;
-}
-
-__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+// the dot product of two 16-byte chunks of bf16 or f32 (the pointer's
+// type picks the element)
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, const bf16*) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
   const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
   float acc = 0.f;
@@ -549,26 +237,32 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   }
   return acc;
 }
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, const float*) {
+  const float4 x = *reinterpret_cast<const float4*>(&a);
+  const float4 y = *reinterpret_cast<const float4*>(&b);
+  return x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+}
 
 // delta_s[r] = rowsum(dO * o) of ROWS rows, dO from a shared tile and o
 // from a shared tile (os_shared) or from device memory (o_rows at row 0,
 // rows at or past n read as zeros)
-template <int ROWS, int D>
-__device__ __forceinline__ void tc_delta(float* delta_s, const bf16* dOs,
-                                         const bf16* os_shared,
-                                         const bf16* o_rows, int r0, int n,
+template <int ROWS, int D, typename T>
+__device__ __forceinline__ void tc_delta(float* delta_s, const T* dOs,
+                                         const T* os_shared,
+                                         const T* o_rows, int r0, int n,
                                          long long ld_row) {
+  constexpr int E = 16 / sizeof(T);       // elements a 16-byte chunk
   constexpr int TPR = TC_THREADS / ROWS;  // threads a row, adjacent lanes
   constexpr int PART = D / TPR;
   const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
-  const bf16* d = dOs + r * tc_ld<D>() + part * PART;
+  const T* d = dOs + r * row_ld<T, D>() + part * PART;
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < PART; i += 8) {
+  for (int i = 0; i < PART; i += E) {
     const uint4 dv = *reinterpret_cast<const uint4*>(d + i);
     uint4 ov;
     if (os_shared != nullptr) {
-      ov = *reinterpret_cast<const uint4*>(os_shared + r * tc_ld<D>() +
+      ov = *reinterpret_cast<const uint4*>(os_shared + r * row_ld<T, D>() +
                                            part * PART + i);
     } else {
       const int row = r0 + r;
@@ -576,12 +270,22 @@ __device__ __forceinline__ void tc_delta(float* delta_s, const bf16* dOs,
                                                      part * PART + i)
                    : make_uint4(0u, 0u, 0u, 0u);
     }
-    acc += dot8(dv, ov);
+    acc += dot16(dv, ov, d);
   }
 #pragma unroll
   for (int m = TPR / 2; m > 0; m >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (part == 0) delta_s[r] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 path on the tensor cores
+// ---------------------------------------------------------------------------
+
+// the swept query tile of dkv_tc_kernel
+template <int D>
+__host__ __device__ constexpr int dkv_qt() {
+  return D == 128 ? 32 : 64;
 }
 
 template <int D, bool BIAS>
@@ -674,7 +378,8 @@ __global__ void __launch_bounds__(TC_THREADS)
     const float* lse_s = vecs + s * 2 * QT;
     float* delta_s = vecs + s * 2 * QT + QT;
     if (BIAS) {
-      tc_delta<QT, D>(delta_s, dOs, dOs + QT * LD, nullptr, 0, 0, 0);
+      tc_delta<QT, D, bf16>(delta_s, dOs, dOs + QT * LD, nullptr, 0, 0,
+                            0);
       __syncthreads();
     }
 
@@ -845,7 +550,8 @@ __global__ void __launch_bounds__(TC_THREADS)
   if (BIAS) {
     cp_async_wait<0>();
     __syncthreads();
-    tc_delta<TC_ROWS, D>(delta_s, dOs, nullptr, o + qoff, q0, Sq, ld_row);
+    tc_delta<TC_ROWS, D, bf16>(delta_s, dOs, nullptr, o + qoff, q0, Sq,
+                               ld_row);
     __syncthreads();
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) d_r[rr] = delta_s[qr + 8 * rr];
@@ -944,43 +650,585 @@ __global__ void __launch_bounds__(TC_THREADS)
   }
 }
 
-template <int D, bool BIAS>
-int launch_dkv_tc(const void* q, const void* k, const void* v,
-                  const void* bias, const void* o, const void* lse,
-                  const void* delta, const void* dout, void* dk, void* dv,
-                  void* db_h, int B, int Sq, int Sk, int H, int causal,
-                  float scale, Dropout drop, cudaStream_t stream) {
-  constexpr int bytes = dkv_tc_smem_bytes<D, BIAS>();
-  cudaFuncSetAttribute(dkv_tc_kernel<D, BIAS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  dkv_tc_kernel<D, BIAS><<<dim3((Sk + TC_ROWS - 1) / TC_ROWS, H, B),
-                           TC_THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<float*>(db_h), Sq, Sk, H, causal, scale, drop);
-  return static_cast<int>(cudaGetLastError());
+// ---------------------------------------------------------------------------
+// the f32 path on the tensor cores, by the 3xTF32 split
+// ---------------------------------------------------------------------------
+
+constexpr int F32_DQ_KT = 32;  // dq_f32_kernel's key tile
+// blocks an SM that __launch_bounds__ asks for at D = 64
+constexpr int F32_DKV_MIN_BLOCKS_64 = 2;
+constexpr int F32_DQ_MIN_BLOCKS_64 = 3;
+
+// the swept query tile of dkv_f32_kernel: at D = 128 the dK and dV
+// accumulators take 128 floats a thread
+template <int D>
+__host__ __device__ constexpr int dkv_f32_qt() {
+  return D == 128 ? 16 : 32;
+}
+
+// The f32 grids: (row tile, head, batch row) as dim3(tiles, H, B), or
+// under a causal mask tile-major, dim3(H, B, tiles), so that blocks start
+// in order of falling work (dkv's first key tiles and dq's last query
+// tiles see the most of the other side), every head's heaviest tile
+// first: a grid of one or two waves then ends with its light tiles
+// instead of waiting on a few heavy ones
+dim3 f32_grid(int tiles, int H, int B, int causal) {
+  return causal ? dim3(H, B, tiles) : dim3(tiles, H, B);
+}
+
+// this block's (tile, h, b) of f32_grid, tiles in launch order
+struct GridPos {
+  int tile, h, b;
+};
+__device__ __forceinline__ GridPos grid_pos(int causal) {
+  if (causal) return {(int)blockIdx.z, (int)blockIdx.x, (int)blockIdx.y};
+  return {(int)blockIdx.x, (int)blockIdx.y, (int)blockIdx.z};
+}
+
+// The split tf32 fragments of mma.sync m16n8k8 (g = lane / 4, t = lane %
+// 4), read from f32 tiles in rows of LD = D + 4 floats.
+//
+// A, rows r .. r + 15 and columns c .. c + 7 of a tile from p = &tile[r][c]:
+// (row, k) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); the reads
+// fall in banks 4g + t, free of conflicts
+template <int LD>
+__device__ __forceinline__ void a_frag(const float* p, int g, int t,
+                                       uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  p += g * LD + t;
+  split(p[0], big[0], small[0]);
+  split(p[8 * LD], big[1], small[1]);
+  split(p[4], big[2], small[2]);
+  split(p[8 * LD + 4], big[3], small[3]);
+}
+
+// the swept tile's ROWS rows split once a block, in place: the big
+// halves over the f32 values, the small ones at the same offsets in
+// `small`
+template <int ROWS, int D>
+__device__ __forceinline__ void split_tile(float* tile, float* small) {
+  constexpr int LD = row_ld<float, D>();
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  static_assert(ROWS * CH % TC_THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / TC_THREADS; ++it) {
+    const int i = threadIdx.x + it * TC_THREADS;
+    const int o = i / CH * LD + i % CH * 4;
+    float4 x = *reinterpret_cast<float4*>(tile + o), y;
+    uint32_t b, sm;
+    split(x.x, b, sm), x.x = __uint_as_float(b), y.x = __uint_as_float(sm);
+    split(x.y, b, sm), x.y = __uint_as_float(b), y.y = __uint_as_float(sm);
+    split(x.z, b, sm), x.z = __uint_as_float(b), y.z = __uint_as_float(sm);
+    split(x.w, b, sm), x.w = __uint_as_float(b), y.w = __uint_as_float(sm);
+    *reinterpret_cast<float4*>(tile + o) = x;
+    *reinterpret_cast<float4*>(small + o) = y;
+  }
+}
+
+// element i of a B fragment from p: split here, or (PS) read from a tile
+// split_tile split, its small half `off` floats on
+template <bool PS>
+__device__ __forceinline__ void b_elem(const float* p, int i, long off,
+                                       uint32_t& big, uint32_t& small) {
+  if (PS) {
+    big = __float_as_uint(p[i]);
+    small = __float_as_uint(p[i + off]);
+  } else {
+    split(p[i], big, small);
+  }
+}
+
+// B of X^T, k down the columns c .. c + 7 and n across rows r .. r + 7
+// of X from p = &X[r][c]: (k, n) = (t, g), (t + 4, g); banks 4g + t
+template <int LD, bool PS>
+__device__ __forceinline__ void bt_frag(const float* p, long off, int g,
+                                        int t, uint32_t (&big)[2],
+                                        uint32_t (&small)[2]) {
+  p += g * LD + t;
+  b_elem<PS>(p, 0, off, big[0], small[0]);
+  b_elem<PS>(p, 4, off, big[1], small[1]);
+}
+
+// B of X, k down rows r .. r + 7 and n across columns c .. c + 7 from p =
+// &X[r][c], the k index i standing for row r + 2 (i % 4) + i / 4 (see
+// acc_frag): (k, n) = (t, g), (t + 4, g) read rows 2t and 2t + 1; banks
+// 8t + g
+template <int LD, bool PS>
+__device__ __forceinline__ void b_frag(const float* p, long off, int g,
+                                       int t, uint32_t (&big)[2],
+                                       uint32_t (&small)[2]) {
+  p += 2 * t * LD + g;
+  b_elem<PS>(p, 0, off, big[0], small[0]);
+  b_elem<PS>(p, LD, off, big[1], small[1]);
+}
+
+// an m16n8 accumulator fragment as the A operand of the next product:
+// lane (g, t) holds columns 2t and 2t + 1 of rows g and g + 8, and the A
+// fragment wants k indices t and t + 4, so k index i stands for column
+// 2 (i % 4) + i / 4: (row, k) = (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4) are c[0], c[2], c[1], c[3] as they stand
+__device__ __forceinline__ void acc_frag(const float (&c)[4],
+                                         uint32_t (&big)[4],
+                                         uint32_t (&small)[4]) {
+  split(c[0], big[0], small[0]);
+  split(c[2], big[1], small[1]);
+  split(c[1], big[2], small[2]);
+  split(c[3], big[3], small[3]);
+}
+
+// acc += t, a swept tile's products summed from zero on the tensor cores,
+// rounded to nearest on the CUDA cores. The tensor cores' f32 accumulation
+// truncates: a sum kept there over a whole sweep (hundreds of adds) drifts
+// toward zero by up to an ulp an add. At a dp = 2 x mp = 2 rank's shape
+// that read 1.279e-05 and 1.446e-05 of the largest dk and dv against the
+// plain version (the CUDA-core design 5.450e-07, 3.484e-07); summed a tile
+// at a time 2.325e-06 and 2.613e-06, for 1% more time (H100 80GB HBM3 at
+// 700 W; tools/emulate_tf32_accumulation.py models both)
+__device__ __forceinline__ void add_tile(float (&acc)[4], const float (&t)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
 }
 
 template <int D, bool BIAS>
-int launch_dq_tc(const void* q, const void* k, const void* v,
-                 const void* bias, const void* o, const void* lse,
-                 const void* delta, const void* dout, void* dq, int B, int Sq,
-                 int Sk, int H, int causal, float scale, Dropout drop,
-                 cudaStream_t stream) {
-  constexpr int bytes = dq_tc_smem_bytes<D, BIAS>();
-  cudaFuncSetAttribute(dq_tc_kernel<D, BIAS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  dq_tc_kernel<D, BIAS><<<dim3((Sq + TC_ROWS - 1) / TC_ROWS, H, B),
-                          TC_THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(o), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dq), Sq, Sk, H, causal, scale, drop);
+constexpr int dkv_f32_smem_bytes() {
+  // K and V tiles, then two stages of the swept Q, dO (and o) tiles, all
+  // f32; then two stages of lse and delta; then at D = 64 the small halves
+  // of the split Q and dO tiles
+  return (2 * TC_ROWS + 2 * (BIAS ? 3 : 2) * dkv_f32_qt<D>() +
+          (D == 64 ? 2 * dkv_f32_qt<D>() : 0)) *
+             row_ld<float, D>() * 4 +
+         2 * 2 * dkv_f32_qt<D>() * 4;
+}
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(TC_THREADS,
+                                  D == 64 ? F32_DKV_MIN_BLOCKS_64 : 1)
+    dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ o,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const float* __restrict__ dout, float* __restrict__ dk,
+                   float* __restrict__ dv, float* __restrict__ db_h, int Sq,
+                   int Sk, int H, int causal, float scale, Dropout drop) {
+  constexpr int QT = dkv_f32_qt<D>();
+  constexpr int LD = row_ld<float, D>();
+  constexpr int NQ = QT / 8;        // n8 tiles (S^T), k8 steps (dV, dK)
+  constexpr int ND = D / 8;         // k8 steps (S^T), n8 tiles (dV, dK)
+  constexpr int NT = BIAS ? 3 : 2;  // tiles a stage
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + TC_ROWS * LD;
+  // at D = 64 each swept Q and dO tile is split once a block (split_tile)
+  // and every warp reads its B fragments' halves; at D = 128 the warps
+  // split them as they load them, as that took spills there
+  constexpr bool PS = D == 64;
+  float* stages = Vs + TC_ROWS * LD;  // stage s at stages + s * NT * QT * LD
+  float* q_small = stages + 2 * NT * QT * LD;  // PS: the small halves
+  float* o_small = q_small + QT * LD;
+  float* vecs = q_small + (PS ? 2 * QT * LD : 0);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const GridPos pos = grid_pos(causal);  // the first key tiles first
+  const int k0 = pos.tile * TC_ROWS;
+  const int h = pos.h, b = pos.b;
+  drop.bh += (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  const long long ld_row = (long long)H * D;
+  const long long qoff = ((long long)b * Sq * H + h) * D;
+  const long long koff = ((long long)b * Sk * H + h) * D;
+  const float* lse_bh = lse + ((long long)b * H + h) * Sq;
+  const float* delta_bh = BIAS ? nullptr : delta + ((long long)b * H + h) * Sq;
+  const int off = Sk - Sq;
+  const int kr = warp * 16 + g;  // this thread's key rows: kr, kr + 8
+
+  float brow[2] = {0.f, 0.f};
+  if (BIAS) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int key = k0 + kr + 8 * rr;
+      brow[rr] = key < Sk ? bias[(long long)b * Sk + key] : 0.f;
+    }
+  }
+
+  auto prefetch = [&](int tq, int s) {
+    float* st = stages + s * NT * QT * LD;
+    const int q0 = tq * QT;
+    tile_async<QT, D, TC_THREADS>(st, q + qoff, q0, Sq, ld_row);
+    tile_async<QT, D, TC_THREADS>(st + QT * LD, dout + qoff, q0, Sq,
+                                  ld_row);
+    if (BIAS)
+      tile_async<QT, D, TC_THREADS>(st + 2 * QT * LD, o + qoff, q0, Sq,
+                                    ld_row);
+    float* vs = vecs + s * 2 * QT;
+    vec_async<QT, TC_THREADS>(vs, lse_bh, q0, Sq);
+    if (!BIAS) vec_async<QT, TC_THREADS>(vs + QT, delta_bh, q0, Sq);
+  };
+
+  // the first query row that sees key k0 is k0 - (Sk - Sq)
+  const int first = causal ? max(0, k0 - off) / QT : 0;
+  const int n_q = (Sq + QT - 1) / QT;
+  tile_async<TC_ROWS, D, TC_THREADS>(Ks, k + koff, k0, Sk, ld_row);
+  tile_async<TC_ROWS, D, TC_THREADS>(Vs, v + koff, k0, Sk, ld_row);
+  if (first < n_q) prefetch(first, 0);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4], db[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const float* Kw = Ks + warp * 16 * LD;  // this warp's 16 keys
+  const float* Vw = Vs + warp * 16 * LD;
+
+  for (int tq = first; tq < n_q; ++tq) {
+    const int s = (tq - first) & 1;
+    __syncthreads();  // the stage refilled next was read last iteration
+    if (tq + 1 < n_q) prefetch(tq + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float* Qs = stages + s * NT * QT * LD;
+    float* dOs = Qs + QT * LD;
+    const float* lse_s = vecs + s * 2 * QT;
+    float* delta_s = vecs + s * 2 * QT + QT;
+    if (BIAS) {
+      tc_delta<QT, D, float>(delta_s, dOs, dOs + QT * LD, nullptr, 0, 0, 0);
+      __syncthreads();
+    }
+    if (PS) {
+      split_tile<QT, D>(Qs, q_small);
+      split_tile<QT, D>(dOs, o_small);
+      __syncthreads();
+    }
+    const long q_off = q_small - Qs, o_off = o_small - dOs;
+
+    // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys; K's and
+    // V's A fragments are split anew at every query tile (held for the
+    // sweep, big and small, they would take 2 D registers a thread)
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t kb[4], ks[4], vb[4], vs[4];
+      a_frag<LD>(Kw + kk * 8, g, t, kb, ks);
+      a_frag<LD>(Vw + kk * 8, g, t, vb, vs);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        uint32_t xb[2], xs[2];
+        bt_frag<LD, PS>(Qs + j * 8 * LD + kk * 8, q_off, g, t, xb, xs);
+        mma_3xtf32(st[j], kb, ks, xb, xs);
+        bt_frag<LD, PS>(dOs + j * 8 * LD + kk * 8, o_off, g, t, xb, xs);
+        mma_3xtf32(dpt[j], vb, vs, xb, xs);
+      }
+    }
+
+    // pv and ds in the fragments; element (j, e) is key k0 + kr + 8 (e / 2),
+    // query q0 + 8 j + 2 t + e % 2
+    const int q0 = tq * QT;
+    const bool edge = q0 + QT > Sq || k0 + TC_ROWS > Sk ||
+                      (causal && q0 + off < k0 + TC_ROWS - 1);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        const int rr = e >> 1;
+        const int qrow = q0 + c, key = k0 + kr + 8 * rr;
+        const float l = lse_s[c] == NEG_INF ? 0.f : lse_s[c];
+        const float x = BIAS ? st[j][e] * scale + brow[rr] : st[j][e] * scale;
+        const bool visible =
+            !edge || (qrow < Sq && key < Sk && (!causal || qrow + off >= key));
+        const float p = visible ? expf(x - l) : 0.f;
+        const float keep = drop.keep<!BIAS>(qrow, key);
+        const float dsr = p * (dpt[j][e] * keep - delta_s[c]);
+        st[j][e] = p * keep;      // pv
+        dpt[j][e] = dsr * scale;  // ds
+        if (BIAS) db[rr] += dsr;
+      }
+
+    // dV += Pv^T dO and dK += dS^T Q, the fragments as A operands: the
+    // product's k index i stands for query 8 kk + 2 (i % 4) + i / 4. The
+    // tile's products are summed from zero on the tensor cores and added
+    // to dV and dK on the CUDA cores (see add_tile)
+    uint32_t pb[NQ][4], ps[NQ][4], sb[NQ][4], ss[NQ][4];
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      acc_frag(st[kk], pb[kk], ps[kk]);
+      acc_frag(dpt[kk], sb[kk], ss[kk]);
+    }
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+      float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
+        uint32_t xb[2], xs[2];
+        b_frag<LD, PS>(dOs + kk * 8 * LD + jd * 8, o_off, g, t, xb, xs);
+        mma_3xtf32(tv, pb[kk], ps[kk], xb, xs);
+        b_frag<LD, PS>(Qs + kk * 8 * LD + jd * 8, q_off, g, t, xb, xs);
+        mma_3xtf32(tk, sb[kk], ss[kk], xb, xs);
+      }
+      add_tile(dv_acc[jd], tv);
+      add_tile(dk_acc[jd], tk);
+    }
+  }
+  cp_async_wait<0>();
+
+  // a quad writes 32 contiguous bytes of a row
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = k0 + kr + 8 * rr;
+    if (key < Sk) {
+      float* dkrow = dk + koff + key * ld_row + 2 * t;
+      float* dvrow = dv + koff + key * ld_row + 2 * t;
+#pragma unroll
+      for (int jd = 0; jd < ND; ++jd) {
+        *reinterpret_cast<float2*>(dkrow + jd * 8) =
+            make_float2(dk_acc[jd][2 * rr], dk_acc[jd][2 * rr + 1]);
+        *reinterpret_cast<float2*>(dvrow + jd * 8) =
+            make_float2(dv_acc[jd][2 * rr], dv_acc[jd][2 * rr + 1]);
+      }
+    }
+    if (BIAS) {
+      // the row's four lanes, in a fixed order
+      float acc = db[rr];
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (t == 0 && key < Sk) db_h[((long long)b * H + h) * Sk + key] = acc;
+    }
+  }
+}
+
+template <int D, bool BIAS>
+constexpr int dq_f32_smem_bytes() {
+  // Q and dO tiles, two stages of the swept K and V tiles, all f32; then
+  // two stages of the key tile's bias and the block's delta
+  return (2 * TC_ROWS + 2 * 2 * F32_DQ_KT) * row_ld<float, D>() * 4 +
+         (2 * F32_DQ_KT + TC_ROWS) * 4;
+}
+
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(TC_THREADS,
+                                  D == 64 ? F32_DQ_MIN_BLOCKS_64 : 1)
+    dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ o,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  const float* __restrict__ dout, float* __restrict__ dq,
+                  int Sq, int Sk, int H, int causal, float scale,
+                  Dropout drop) {
+  constexpr int KT = F32_DQ_KT;  // the swept key tile
+  constexpr int LD = row_ld<float, D>();
+  constexpr int NK = KT / 8;     // n8 tiles (S, dP), k8 steps (dQ)
+  constexpr int ND = D / 8;      // k8 steps (S, dP), n8 tiles (dQ)
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + TC_ROWS * LD;
+  float* stages = dOs + TC_ROWS * LD;  // stage s: K, V at stages + s * 2 KT LD
+  float* bias_st = stages + 2 * 2 * KT * LD;
+  float* delta_s = bias_st + 2 * KT;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // the last query tiles first under a causal mask
+  const GridPos pos = grid_pos(causal);
+  const int n_tiles = (Sq + TC_ROWS - 1) / TC_ROWS;
+  const int q0 = (causal ? n_tiles - 1 - pos.tile : pos.tile) * TC_ROWS;
+  const int h = pos.h, b = pos.b;
+  drop.bh += (uint32_t)b * 0xAC564B05u + (uint32_t)h * 19349663u;
+  const long long ld_row = (long long)H * D;
+  const long long qoff = ((long long)b * Sq * H + h) * D;
+  const long long koff = ((long long)b * Sk * H + h) * D;
+  const float* lse_bh = lse + ((long long)b * H + h) * Sq;
+  const int off = Sk - Sq;
+  const int qr = warp * 16 + g;  // this thread's query rows: qr, qr + 8
+
+  auto prefetch = [&](int tk, int s) {
+    float* st = stages + s * 2 * KT * LD;
+    const int k0 = tk * KT;
+    tile_async<KT, D, TC_THREADS>(st, k + koff, k0, Sk, ld_row);
+    tile_async<KT, D, TC_THREADS>(st + KT * LD, v + koff, k0, Sk, ld_row);
+    if (BIAS)
+      vec_async<KT, TC_THREADS>(bias_st + s * KT, bias + (long long)b * Sk,
+                                k0, Sk);
+  };
+
+  // the last key column any row of this tile may see
+  int last_col = Sk - 1;
+  if (causal) last_col = min(last_col, min(q0 + TC_ROWS, Sq) - 1 + off);
+  const int n_k = last_col < 0 ? 0 : last_col / KT + 1;
+  tile_async<TC_ROWS, D, TC_THREADS>(Qs, q + qoff, q0, Sq, ld_row);
+  tile_async<TC_ROWS, D, TC_THREADS>(dOs, dout + qoff, q0, Sq, ld_row);
+  if (n_k > 0) prefetch(0, 0);
+  cp_async_commit();
+
+  float l_r[2], d_r[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + qr + 8 * rr;
+    const float l = row < Sq ? lse_bh[row] : 0.f;
+    l_r[rr] = l == NEG_INF ? 0.f : l;
+    d_r[rr] = (!BIAS && row < Sq) ? delta[((long long)b * H + h) * Sq + row]
+                                  : 0.f;
+  }
+  if (BIAS) {
+    cp_async_wait<0>();
+    __syncthreads();
+    tc_delta<TC_ROWS, D, float>(delta_s, dOs, nullptr, o + qoff, q0, Sq,
+                                ld_row);
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) d_r[rr] = delta_s[qr + 8 * rr];
+  }
+
+  float dq_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+  const float* Qw = Qs + warp * 16 * LD;  // this warp's 16 query rows
+  const float* dOw = dOs + warp * 16 * LD;
+
+  for (int tk = 0; tk < n_k; ++tk) {
+    const int s = tk & 1;
+    __syncthreads();  // the stage refilled next was read last iteration
+    if (tk + 1 < n_k) prefetch(tk + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Ks = stages + s * 2 * KT * LD;
+    const float* Vs = Ks + KT * LD;
+    const float* bias_s = bias_st + s * KT;
+
+    // S = Q K^T and dP = dO V^T over this warp's 16 query rows; Q's and
+    // dO's A fragments are split anew at every key tile
+    float sc[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t qb[4], qs[4], ob[4], os[4];
+      a_frag<LD>(Qw + kk * 8, g, t, qb, qs);
+      a_frag<LD>(dOw + kk * 8, g, t, ob, os);
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        uint32_t xb[2], xs[2];
+        bt_frag<LD, false>(Ks + j * 8 * LD + kk * 8, 0, g, t, xb, xs);
+        mma_3xtf32(sc[j], qb, qs, xb, xs);
+        bt_frag<LD, false>(Vs + j * 8 * LD + kk * 8, 0, g, t, xb, xs);
+        mma_3xtf32(dp[j], ob, os, xb, xs);
+      }
+    }
+
+    // ds in the fragments; element (j, e) is query q0 + qr + 8 (e / 2),
+    // key k0 + 8 j + 2 t + e % 2
+    const int k0 = tk * KT;
+    const bool edge = q0 + TC_ROWS > Sq || k0 + KT > Sk ||
+                      (causal && q0 + off < k0 + KT - 1);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        const int rr = e >> 1;
+        const int qrow = q0 + qr + 8 * rr, key = k0 + c;
+        const float x = BIAS ? sc[j][e] * scale + bias_s[c] : sc[j][e] * scale;
+        const bool visible =
+            !edge || (qrow < Sq && key < Sk && (!causal || qrow + off >= key));
+        const float p = visible ? expf(x - l_r[rr]) : 0.f;
+        const float keep = drop.keep<!BIAS>(qrow, key);
+        sc[j][e] = p * (dp[j][e] * keep - d_r[rr]) * scale;  // ds
+      }
+
+    // dQ += dS K, the fragments as A operands: the product's k index i
+    // stands for key 8 kk + 2 (i % 4) + i / 4; the tile's products summed
+    // from zero, then added to dQ (add_tile)
+    uint32_t sb[NK][4], ss[NK][4];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) acc_frag(sc[kk], sb[kk], ss[kk]);
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+      float tq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t xb[2], xs[2];
+        b_frag<LD, false>(Ks + kk * 8 * LD + jd * 8, 0, g, t, xb, xs);
+        mma_3xtf32(tq, sb[kk], ss[kk], xb, xs);
+      }
+      add_tile(dq_acc[jd], tq);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = q0 + qr + 8 * rr;
+    if (row >= Sq) continue;
+    float* dqrow = dq + qoff + row * ld_row + 2 * t;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd)
+      *reinterpret_cast<float2*>(dqrow + jd * 8) =
+          make_float2(dq_acc[jd][2 * rr], dq_acc[jd][2 * rr + 1]);
+  }
+}
+
+// sets the kernel's dynamic shared memory, launches it on a block of
+// TC_THREADS with the entries' untyped pointers cast to its parameters,
+// and returns cudaGetLastError()
+template <typename... P, typename... A>
+int launch_tc(void (*kernel)(P...), int bytes, dim3 grid, cudaStream_t stream,
+              A... args) {
+  static_assert(sizeof...(P) == sizeof...(A), "one argument a parameter");
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       bytes);
+  kernel<<<grid, TC_THREADS, bytes, stream>>>(static_cast<P>(args)...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dk, dv (and db_h) by dkv_tc_kernel (bf16) or dkv_f32_kernel (f32)
+template <typename T, int D, bool BIAS>
+int launch_dkv(const void* q, const void* k, const void* v, const void* bias,
+               const void* o, const void* lse, const void* delta,
+               const void* dout, void* dk, void* dv, void* db_h, int B,
+               int Sq, int Sk, int H, int causal, float scale, Dropout drop,
+               cudaStream_t stream) {
+  const dim3 grid((Sk + TC_ROWS - 1) / TC_ROWS, H, B);
+#define DKV_ARGS \
+  q, k, v, bias, o, lse, delta, dout, dk, dv, db_h, Sq, Sk, H, causal, \
+      scale, drop
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_tc(dkv_tc_kernel<D, BIAS>, dkv_tc_smem_bytes<D, BIAS>(),
+                     grid, stream, DKV_ARGS);
+  else
+    return launch_tc(dkv_f32_kernel<D, BIAS>, dkv_f32_smem_bytes<D, BIAS>(),
+                     f32_grid(grid.x, H, B, causal), stream, DKV_ARGS);
+#undef DKV_ARGS
+}
+
+// dq by dq_tc_kernel (bf16) or dq_f32_kernel (f32)
+template <typename T, int D, bool BIAS>
+int launch_dq(const void* q, const void* k, const void* v, const void* bias,
+              const void* o, const void* lse, const void* delta,
+              const void* dout, void* dq, int B, int Sq, int Sk, int H,
+              int causal, float scale, Dropout drop, cudaStream_t stream) {
+  const dim3 grid((Sq + TC_ROWS - 1) / TC_ROWS, H, B);
+#define DQ_ARGS \
+  q, k, v, bias, o, lse, delta, dout, dq, Sq, Sk, H, causal, scale, drop
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_tc(dq_tc_kernel<D, BIAS>, dq_tc_smem_bytes<D, BIAS>(), grid,
+                     stream, DQ_ARGS);
+  else
+    return launch_tc(dq_f32_kernel<D, BIAS>, dq_f32_smem_bytes<D, BIAS>(),
+                     f32_grid(grid.x, H, B, causal), stream, DQ_ARGS);
+#undef DQ_ARGS
 }
 
 // db[b, c] = sum over h of db_h[b, h, c], heads in order
@@ -992,55 +1240,6 @@ __global__ void db_sum_kernel(const float* __restrict__ db_h,
   float acc = 0.f;
   for (int h = 0; h < H; ++h) acc += db_h[(b * H + h) * Sk + c];
   db[i] = acc;
-}
-
-template <typename T, int D, bool BIAS>
-int launch_dkv(const void* q, const void* k, const void* v, const void* bias,
-               const void* o, const void* lse, const void* delta,
-               const void* dout, void* dk, void* dv, void* db_h, int B,
-               int Sq, int Sk, int H, int causal, float scale, Dropout drop,
-               cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch_dkv_tc<D, BIAS>(q, k, v, bias, o, lse, delta, dout, dk, dv,
-                                  db_h, B, Sq, Sk, H, causal, scale, drop,
-                                  stream);
-  } else {
-    constexpr int bytes = dkv_smem_floats<D>() * 4;
-    cudaFuncSetAttribute(dkv_kernel<T, D, BIAS>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    dkv_kernel<T, D, BIAS><<<dim3((Sk + BK - 1) / BK, H, B), THREADS, bytes,
-                             stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<const T*>(o), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<const T*>(dout),
-        static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(db_h),
-        Sq, Sk, H, causal, scale, drop);
-    return static_cast<int>(cudaGetLastError());
-  }
-}
-
-template <typename T, int D, bool BIAS>
-int launch_dq(const void* q, const void* k, const void* v, const void* bias,
-              const void* o, const void* lse, const void* delta,
-              const void* dout, void* dq, int B, int Sq, int Sk, int H,
-              int causal, float scale, Dropout drop, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch_dq_tc<D, BIAS>(q, k, v, bias, o, lse, delta, dout, dq, B,
-                                 Sq, Sk, H, causal, scale, drop, stream);
-  } else {
-    constexpr int bytes = dq_smem_floats<D>() * 4;
-    cudaFuncSetAttribute(dq_kernel<T, D, BIAS>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    dq_kernel<T, D, BIAS><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS, bytes,
-                            stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(bias),
-        static_cast<const T*>(o), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<const T*>(dout),
-        static_cast<T*>(dq), Sq, Sk, H, causal, scale, drop);
-    return static_cast<int>(cudaGetLastError());
-  }
 }
 
 template <typename T, int D>

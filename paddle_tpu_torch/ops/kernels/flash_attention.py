@@ -7,9 +7,8 @@ the ``v1`` kernels that take an additive key bias ``[B, 1, 1, Sk]`` (the
 padding mask of BERT and ERNIE): ``_fwd_v1`` (:239), the ``_bwd_v1`` dq
 kernel (:702) and its dk/dv/dbias kernel (:753). Each source's header
 says what bounds it on the card and what its design does about it.
-The forward runs both dtypes on the tensor cores (float32 by the
-error-compensated 3xTF32 split, at f32 accuracy); the backward runs
-bfloat16 on the tensor cores and float32 on the CUDA cores.
+The forward and the backward run both dtypes on the tensor cores, float32
+by the error-compensated 3xTF32 split, at f32 accuracy.
 
 All functions take ``[B, S, H, D]`` tensors and an optional in-kernel
 attention dropout (``dropout_rate`` with two ``seed_words``): the keep
@@ -224,7 +223,7 @@ def _check_bias(bias, q, k):
                          f"on {bias.device}")
 
 
-def _check_saved(q, o, lse, do, cuda_args):
+def _check_saved(q, k, v, o, lse, do, bias=None):
     B, Sq, H, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Sq):
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)} must "
@@ -236,17 +235,17 @@ def _check_saved(q, o, lse, do, cuda_args):
             or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError("flash backward takes q, k, v, o, do in one dtype "
                          "and lse in float32, all on one device")
-    _check_layout("flash backward", cuda_args)
+    rows = (q, k, v, o, do)
+    extra = (lse,) if bias is None else (lse, bias)
+    _check_layout("flash backward", rows + extra, rows)
 
 
-def _check_layout(what, cuda_args, rows=None):
+def _check_layout(what, cuda_args, rows):
     """Contiguous arguments, and 16-byte aligned ``rows``: the tensors
-    whose rows the kernel copies in 16-byte pieces (by default every bf16
-    argument; the forward's q, k and v in either dtype)."""
+    whose rows the kernel copies in 16-byte pieces (q, k, v, and the
+    backward's o and dO, in either dtype)."""
     if not all(t.is_contiguous() for t in cuda_args):
         raise ValueError(f"{what} takes contiguous arguments")
-    if rows is None:
-        rows = [t for t in cuda_args if t.dtype == torch.bfloat16]
     if any(t.data_ptr() % 16 for t in rows):
         raise ValueError(f"the {what} takes 16-byte aligned tensors")
 
@@ -354,7 +353,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     dropout bases."""
     dropout_rate = float(dropout_rate)
     _check_args(q, k, v, causal, dropout_rate, seed_words)
-    _check_saved(q, o, lse, do, (q, k, v, o, do, lse))
+    _check_saved(q, k, v, o, lse, do)
     B, Sq, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -427,7 +426,7 @@ def _bias_bwd_args(q, k, v, bias, o, lse, do, causal, dropout_rate,
     dropout_rate = float(dropout_rate)
     _check_args(q, k, v, causal, dropout_rate, seed_words)
     _check_bias(bias, q, k)
-    _check_saved(q, o, lse, do, (q, k, v, bias, o, do, lse))
+    _check_saved(q, k, v, o, lse, do, bias)
     return dropout_rate
 
 

@@ -653,6 +653,58 @@ def test_f32_bias_forward_on_tensor_cores_matches_plain(cuda, Sq, Sk, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,causal", [(65, 65, 64, False),
+                                            (65, 65, 128, False),
+                                            (200, 200, 64, False),
+                                            (200, 200, 128, False),
+                                            (512, 512, 64, False),
+                                            (130, 333, 64, True),
+                                            (72, 200, 128, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("neg", [NEG, NEG_BF16], ids=["f32", "bf16"])
+def test_f32_backward_on_tensor_cores_matches_plain_on_card(cuda, Sq, Sk, D,
+                                                            causal, rate,
+                                                            neg):
+    """The f32 dq and dk/dv/dbias kernels on the tensor cores (3xTF32):
+    padded keys and a fully masked batch row, with the f32 and the
+    bf16-rounded -1e30, ragged S, D = 128, causal Sk != Sq, with and
+    without dropout, with batch and head bases. dq, dk, dv and db within
+    1e-4 of the largest of the float32 plain version (chip_smoke.py's
+    TOL["float32"]); a second call repeats the first bit for bit (no
+    atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D + 4)
+    q, do = (torch.randn(3, Sq, 4, D, device=cuda, generator=g)
+             for _ in range(2))
+    k, v = (torch.randn(3, Sk, 4, D, device=cuda, generator=g)
+            for _ in range(2))
+    bias = torch.from_numpy(_key_bias([Sk, Sk // 3, 0], Sk, neg)).to(cuda)
+    args = (causal, None, rate, (47, 48))
+    bases = dict(batch_base=5, head_base=3)
+    o, lse = flash_attention_bias_fwd(q, k, v, bias, causal, None, True,
+                                      rate, (47, 48), **bases)
+    assert (o[2] == 0).all() and (lse[2] == -1e30).all()
+
+    def grads():
+        return (flash_attention_bias_bwd_dq(q, k, v, bias, o, lse, do, *args,
+                                            **bases),
+                *flash_attention_bias_bwd_dkv(q, k, v, bias, o, lse, do,
+                                              *args, **bases))
+    counts = [kk.launches for kk in (kernels.FLASH_ATTENTION_BIAS_BWD_DQ,
+                                     kernels.FLASH_ATTENTION_BIAS_BWD_DKV)]
+    got = grads()
+    for a, b in zip(got, grads()):
+        assert torch.equal(a, b)
+    assert [kk.launches for kk in (kernels.FLASH_ATTENTION_BIAS_BWD_DQ,
+                                   kernels.FLASH_ATTENTION_BIAS_BWD_DKV)] \
+        == [c + 2 for c in counts]
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, *args, bias=bias,
+                                     **bases)
+    for t, ref in zip(got, refs):
+        assert t.dtype == torch.float32
+        assert _rel_err(t, ref) <= 1e-4
+
+
+@pytest.mark.cuda
 def test_tiny_bert_trainstep_on_card_launches_the_bias_kernels(cuda):
     cfg = bert_tiny(**SLICE, hidden_dropout_prob=0.1,
                     attention_dropout_prob=0.1)

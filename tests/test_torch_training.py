@@ -33,8 +33,9 @@ from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import chunked_ce as tce
 from paddle_tpu_torch.ops.kernels.dropout import dropout_plain, fused_dropout
 from paddle_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention, flash_attention_bias_fwd, flash_attention_bwd,
-    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
+    flash_attention, flash_attention_bias_bwd_dkv, flash_attention_bias_bwd_dq,
+    flash_attention_bias_fwd, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_plain)
 from paddle_tpu_torch.optimizer import Adam, AdamW, ClipGradByGlobalNorm
 
 # a vocab above the chunked-CE threshold (4096) and not a multiple of
@@ -723,6 +724,83 @@ def test_f32_forward_on_tensor_cores_matches_plain_on_card(cuda, Sq, Sk, D,
     o_ref, lse_ref = flash_attention_plain(q, k, v, *args)
     assert (o - o_ref).abs().max().item() <= 1e-4
     assert (lse - lse_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,D,causal", [(65, 65, 64, True),
+                                            (65, 65, 128, False),
+                                            (200, 200, 64, False),
+                                            (200, 200, 128, True),
+                                            (512, 512, 64, True),
+                                            (512, 512, 128, False),
+                                            (72, 200, 64, True),
+                                            (72, 200, 128, True)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bases", [(0, 0, 0, 0), (1, 2, 96, 160)],
+                         ids=["whole", "bases"])
+def test_f32_backward_on_tensor_cores_matches_plain_on_card(cuda, Sq, Sk, D,
+                                                            causal, rate,
+                                                            bases):
+    """The f32 backward runs its five products on the tensor cores by the
+    3xTF32 split, pv and ds feeding dV, dK and dQ as A fragments in the
+    accumulator's own layout: ragged S (partial tiles), D = 128, causal
+    with Sk != Sq, with and without dropout, with batch, head, row and
+    column bases. dq, dk, dv within 1e-4 of the largest of the float32
+    plain version (chip_smoke.py's TOL["float32"]), far inside what plain
+    TF32 (10 mantissa bits) would give; a second call repeats the first
+    bit for bit (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk + D + 7)
+    q, do = (torch.randn(2, Sq, 4, D, device=cuda, generator=g)
+             for _ in range(2))
+    k, v = (torch.randn(2, Sk, 4, D, device=cuda, generator=g)
+            for _ in range(2))
+    kw = dict(zip(("batch_base", "head_base", "row_base", "col_base"),
+                  bases))
+    args = (causal, None, rate, (37, 38))
+    o, lse = flash_attention_fwd(q, k, v, causal, None, True, rate, (37, 38),
+                                 **kw)
+    before = kernels.FLASH_ATTENTION_BWD.launches
+    grads = flash_attention_bwd(q, k, v, o, lse, do, *args, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, *args, **kw)
+    assert kernels.FLASH_ATTENTION_BWD.launches == before + 2
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, *args, **kw)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == torch.float32
+        assert _rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_f32_flash_backward_raises_on_unaligned_tensors(cuda):
+    """The f32 backward copies q, k, v, o and dO rows in 16-byte pieces: a
+    contiguous f32 argument that starts 4 bytes past an aligned address
+    is refused, in the no-bias and the biased entries; the autograd entry
+    copies it and runs, to the aligned copies' bits."""
+    buf = torch.randn(2 * 64 * 2 * 64 + 1, device=cuda)
+    bad = buf[1:].view(2, 64, 2, 64)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    q, k, v, do = (torch.randn(2, 64, 2, 64, device=cuda) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True)
+    bias = torch.zeros(2, 64, device=cuda)
+    for i in range(5):
+        args = [q, k, v, o, do]
+        args[i] = bad
+        q_, k_, v_, o_, do_ = args
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention_bwd(q_, k_, v_, o_, lse, do_)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention_bias_bwd_dq(q_, k_, v_, bias, o_, lse, do_)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention_bias_bwd_dkv(q_, k_, v_, bias, o_, lse, do_)
+    grads = []
+    for x, dout in ((bad, bad), (bad.clone(), bad.clone())):
+        xs = [x.detach().clone().requires_grad_() if i else
+              x.detach().requires_grad_() for i in range(3)]
+        flash_attention(*xs).backward(dout)
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

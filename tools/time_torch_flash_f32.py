@@ -78,6 +78,12 @@ extern "C" int mma_tf32_peak(void* out, int blocks, int threads, int steps,
 
 
 def variants(src: str) -> dict:
+    # the split lives in a header: inline it, so that variants edit it
+    header = os.path.join(REPO, "paddle_tpu_torch", "csrc", "mma_tf32.cuh")
+    with open(header) as f:
+        split_src = f.read().replace("#pragma once\n", "")
+    src = src.replace('#include "mma_tf32.cuh"\n', split_src)
+
     def sub(text, name, value):
         old = f"constexpr int {name} = "
         start = text.index(old) + len(old)   # raises if the anchor is gone
