@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It imports nothing of JAX and nothing of ``paddle_tpu``, and it has no
 fallback: any failure raises and the script exits non-zero without its
-result line. Twenty-seven phases, in order:
+result line. Twenty-eight phases, in order:
 
 1. card    -- print the card's name and power limit (``nvidia-smi``),
               build every kernel from ``paddle_tpu_torch/csrc`` with
@@ -432,7 +432,24 @@ result line. Twenty-seven phases, in order:
               step, resumed from the checkpoint bit for bit; exact launch
               counts in each rank, and every rank checks that it imported
               no JAX;
-27. summary -- print one JSON line describing every ported kernel, then
+27. eager  -- the eager Paddle API (``import paddle_tpu_torch as
+              paddle``): (a) phase 7's GPT-2 345M (B=8, S=1024, AMP O1,
+              AdamW) three ``TrainStep`` steps, then from the same
+              weights three steps of the dygraph loop (``paddle.seed(0)``,
+              ``paddle.to_tensor`` batches, ``loss.backward()``,
+              ``opt.step()``, ``opt.clear_grad()``): losses and the
+              parameters after bit-equal to the step's, phase 7's
+              launches a step, ms a step and peak memory beside the
+              step's; (b) microseconds a call of ``paddle.add``,
+              ``paddle.matmul``, ``x.reshape``, ``x[1:]`` and
+              ``x.sum(axis=0)`` on facade tensors against the same torch
+              calls; (c) the public ``F.scaled_dot_product_attention`` on
+              facades with dropout 0.1 under ``paddle.seed``, gradients
+              by ``paddle.grad``, at rows 1/3's causal shape and rows
+              2/4/5's BERT shape with a ``[B, 1, 1, S]`` key bias,
+              bit-equal to the direct ``ops.attention`` call, one launch
+              of each row;
+28. summary -- print one JSON line describing every ported kernel, then
               the result line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of phases 3, 4, 7, 10, 11,
@@ -445,8 +462,9 @@ pipeline loss styles, (h)'s attention calls and each of its parity
 layouts, and (i)'s timed updates, and before phase 22, before phase 23's
 (a), (d)'s two runs and, in each rank, (c), before phase 24's (c) and,
 in each rank, (a), before phase 25 and in each rank of its (d), in each rank of
-phase 26 before (a)'s runs, (b) and (c), and before its (d), and
-read just
+phase 26 before (a)'s runs, (b) and (c), and before its (d), before
+phase 27's ``TrainStep`` steps, its eager steps and (c)'s facade calls,
+and read just
 after each (a witness's
 reference runs are taken back out of them, and phase 20 reads them
 before its teacher-forced references);
@@ -466,14 +484,15 @@ ranks, ``moe_decode``: (d)'s generate and serving runs; ``vision2``:
 phase 24, its ranks' (a) and (b) and its own (c)-(e), all 0;
 ``recsys``: phase 25 and its ps ranks, all 0; ``tp_serve``: phase 26
 (a) and (b) summed over its two ranks, ``tp_moe``: its (c) over the
-ranks, ``elastic``: its (d)).
+ranks, ``elastic``: its (d); ``eager``: phase 27 (a)'s eager steps,
+``eager_sdpa``: (c)'s facade calls).
 Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or in a directory that holds this script and
 nothing else of the repository, it exits non-zero and prints no result.
 
-``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys|tp_serve``
-runs phase 1 and phase 18, 20, 21, 22, 23, 24, 25 or 26 alone.
+``tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys|tp_serve|eager``
+runs phase 1 and phase 18, 20, 21, 22, 23, 24, 25, 26 or 27 alone.
 """
 
 from __future__ import annotations
@@ -9500,6 +9519,244 @@ def phase_tp_serve(smi: str) -> dict:
             "elastic": elastic}
 
 
+# -- phase 27: the eager API -------------------------------------------------
+# (a) phase 7's GPT-2 345M step driven by the dygraph loop of the Paddle
+# API (``import paddle_tpu_torch as paddle``): ``paddle.seed(0)``,
+# ``paddle.to_tensor`` batches, ``loss.backward(); opt.step();
+# opt.clear_grad()``, from the weights ``TrainStep`` starts from, whose
+# three steps run first in the same process; (b) the facade's host cost
+# a call against torch's on plain tensors; (c) the public
+# ``F.scaled_dot_product_attention`` on facades at rows 1/3's and rows
+# 2/4/5's shapes against the direct ``ops.attention`` call
+EAGER_STEPS = 3
+EAGER_TIMED_PAIRS = 10
+EAGER_CALLS = 10000
+
+
+def _eager_step(model, ids, labels):
+    """One step of the dygraph loop on ``model`` with a fresh AdamW (as
+    ``_train_setup`` builds it), as a callable returning the loss."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    crit = GPTPretrainingCriterion()
+    opt = paddle.optimizer.AdamW(learning_rate=TRAIN_LR,
+                                 parameters=model.parameters(),
+                                 weight_decay=TRAIN_WD)
+
+    def one() -> float:
+        x, y = paddle.to_tensor(ids), paddle.to_tensor(labels)
+        with paddle.amp.auto_cast(level="O1"):
+            loss = crit(model(x), y)
+        _require(isinstance(loss, paddle.Tensor),
+                 f"eager: the criterion returned {type(loss).__name__}")
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss)                             # syncs
+    return one
+
+
+def _timed(fn, n: int):
+    """``n`` calls of ``fn``: (results, seconds each)."""
+    out, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out.append(fn())
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def _eager_train(smi: str) -> dict:
+    """(a): TrainStep's three steps, then the eager loop's from the same
+    weights; the losses and the parameters after must be bit-equal, the
+    eager launches phase 7's per step; then each loop timed in turns."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernels
+    cfg, model, loss_fn, step, ids, labels = _train_setup(amp=True)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    ts_losses, ts_times = _timed(lambda: float(step(ids, labels)),
+                                 EAGER_STEPS)
+    ts_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L, n = cfg.num_layers, EAGER_STEPS
+    want = {"flash_attention_fwd": L * n, "flash_attention_bwd": L * n,
+            "chunked_ce_lse": n, "chunked_ce_dlogits": n,
+            "fused_dropout": 2 * (1 + 2 * L) * n}
+    _path_launches(want, "eager: TrainStep")
+    after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del step
+    gc.collect()
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(init[k])
+    del init
+    eager_one = _eager_step(model, ids, labels)
+    paddle.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = _timed(eager_one, EAGER_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _path_launches(want, "eager (a)")
+    _log(f"eager: (a) losses {losses}, TrainStep's {ts_losses}")
+    _require(losses == ts_losses, f"eager: losses {losses} != TrainStep's "
+             f"{ts_losses}")
+    bad = [k for k, v in model.state_dict().items()
+           if not torch.equal(v, after[k])]
+    _require(not bad, f"eager: parameters after {n} steps differ from "
+             f"TrainStep's: {bad[:5]}")
+    del after
+    # the timing: a TrainStep and the eager loop step the same model in
+    # turns (which goes first alternates), so the host's drift falls on
+    # both alike
+    step = TrainStep(model, loss_fn, paddle.optimizer.AdamW(
+        learning_rate=TRAIN_LR, parameters=model.parameters(),
+        weight_decay=TRAIN_WD), seed=0)
+    pairs = {"TrainStep": (lambda: float(step(ids, labels)), []),
+             "eager": (eager_one, [])}
+    for i in range(EAGER_TIMED_PAIRS):
+        for name in (("TrainStep", "eager") if i % 2 == 0
+                     else ("eager", "TrainStep")):
+            fn, acc = pairs[name]
+            acc.extend(_timed(fn, 1)[1])
+    ms = {k: np.array(v[1]) * 1e3 for k, v in pairs.items()}
+    ratio = ms["eager"] / ms["TrainStep"]
+    _log(f"eager: (a) gpt2_medium B={TRAIN_B} S={TRAIN_S} AMP O1 AdamW, "
+         f"losses and parameters after {n} steps bit-equal to TrainStep's; "
+         f"their step times {[round(t * 1e3, 3) for t in times]} ms "
+         f"against TrainStep's {[round(t * 1e3, 3) for t in ts_times]}; "
+         f"peak device memory {peak:.3f} GiB against {ts_peak:.3f}; "
+         f"launches {launches} ({smi})")
+    _log(f"eager: (a) {EAGER_TIMED_PAIRS} steps each in turns: eager "
+         f"median {np.median(ms['eager']):.3f} ms/step (quartiles "
+         f"{np.percentile(ms['eager'], 25):.3f}-"
+         f"{np.percentile(ms['eager'], 75):.3f}), TrainStep "
+         f"{np.median(ms['TrainStep']):.3f} "
+         f"({np.percentile(ms['TrainStep'], 25):.3f}-"
+         f"{np.percentile(ms['TrainStep'], 75):.3f}); eager / TrainStep "
+         f"by pair: median {np.median(ratio):.4f}, range "
+         f"{ratio.min():.4f}-{ratio.max():.4f} ({smi})")
+    del step, eager_one, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _eager_host_cost(smi: str) -> None:
+    """(b): microseconds a call, facade against torch on the same small
+    card tensors, over ``EAGER_CALLS`` calls each."""
+    import torch
+    import paddle_tpu_torch as paddle
+    a = torch.randn(64, 64, device="cuda")
+    b = torch.randn(64, 64, device="cuda")
+    x, y = paddle.to_tensor(a), paddle.to_tensor(b)
+    pairs = (("add", lambda: paddle.add(x, y), lambda: torch.add(a, b)),
+             ("matmul", lambda: paddle.matmul(x, y),
+              lambda: torch.matmul(a, b)),
+             ("reshape", lambda: x.reshape([4096]), lambda: a.reshape(4096)),
+             ("getitem", lambda: x[1:], lambda: a[1:]),
+             ("sum", lambda: x.sum(axis=0), lambda: a.sum(dim=0)))
+
+    def us(fn):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EAGER_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / EAGER_CALLS * 1e6
+    for name, facade, plain in pairs:
+        # torch, facade, facade, torch: the host's drift cancels
+        t1, f1, f2, t2 = us(plain), us(facade), us(facade), us(plain)
+        _log(f"eager: (b) {name}: facade {f1:.2f} / {f2:.2f} us a call, "
+             f"torch {t1:.2f} / {t2:.2f} us ([64, 64] f32 on the card, "
+             f"{EAGER_CALLS} calls; {smi})")
+
+
+def _eager_sdpa(smi: str) -> dict:
+    """(c): the public op on facades under ``paddle.seed``, gradients by
+    ``paddle.grad``, bit-equal to the direct call; the counts are read
+    after the facade calls, before the direct ones."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import attention, kernels
+    F = paddle.nn.functional
+    kernels.reset_launch_counts()
+    cases = []
+    for tag, (B, S, H), masked in (("rows 1/3", (TRAIN_B, TRAIN_S, 16),
+                                    False),
+                                   ("rows 2/4/5", (BERT_B, BERT_S, 12),
+                                    True)):
+        g = torch.Generator(device="cuda").manual_seed(len(cases))
+        q, k, v, do = (torch.randn(B, S, H, 64, device="cuda", generator=g)
+                       .to(torch.bfloat16) for _ in range(4))
+        mask = None
+        if masked:
+            mask = torch.zeros(B, 1, 1, S, device="cuda")
+            mask[1::2, ..., S // 2:] = -1e30
+        kw = dict(dropout_p=0.1, is_causal=not masked)
+        paddle.seed(5)
+        fq, fk, fv = (paddle.to_tensor(t, stop_gradient=False)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            fq, fk, fv, None if mask is None else paddle.to_tensor(mask),
+            **kw)
+        grads = paddle.grad(out, [fq, fk, fv], paddle.to_tensor(do))
+        cases.append((tag, q, k, v, do, mask, kw, out, grads))
+    torch.cuda.synchronize()
+    launches = _path_launches({"flash_attention_fwd": 1,
+                               "flash_attention_bwd": 1,
+                               "flash_attention_bias_fwd": 1,
+                               "flash_attention_bias_bwd_dq": 1,
+                               "flash_attention_bias_bwd_dkv": 1},
+                              "eager (c)")
+    for tag, q, k, v, do, mask, kw, out, grads in cases:
+        paddle.seed(5)
+        tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        ref = attention.scaled_dot_product_attention(tq, tk, tv, mask, **kw)
+        refg = torch.autograd.grad(ref, [tq, tk, tv], do)
+        same = [torch.equal(out._data, ref)] + [
+            torch.equal(a._data, b) for a, b in zip(grads, refg)]
+        _log(f"eager: (c) {tag} {list(q.shape)} bf16, dropout 0.1, "
+             f"{'[B, 1, 1, S] key bias' if mask is not None else 'causal'}"
+             f": output, dq, dk, dv bit-equal to the direct call {same}")
+        _require(all(same), f"eager (c) {tag}: the facade call differs "
+                 "from the direct call")
+    return launches
+
+
+def phase_eager(smi: str) -> dict:
+    """(a) GPT-2 345M trained three steps by the eager loop against
+    TrainStep, (b) the facade's host cost, (c) the public attention op
+    on facades. Counts are set to 0 before TrainStep's steps, before
+    the eager steps (read after them: ``eager``) and before (c)'s facade
+    calls (``eager_sdpa``)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device, random
+    saved = (list(device._DEFAULT_DEVICE), dict(random._EAGER))
+    paddle.set_device("gpu")
+    try:
+        t = time.perf_counter()
+        train = _eager_train(smi)
+        _log(f"eager: (a) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        _eager_host_cost(smi)
+        _log(f"eager: (b) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        sdpa = _eager_sdpa(smi)
+        _log(f"eager: (c) took {time.perf_counter() - t:.1f} s")
+    finally:
+        device._DEFAULT_DEVICE[:] = saved[0]
+        random._EAGER.update(saved[1])
+    return {"eager": train, "eager_sdpa": sdpa}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "paddle_tpu_torch", "csrc")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -9558,6 +9815,7 @@ def main() -> int:
     by_path.update(timed("vision2", phase_vision2, card["smi"]))
     by_path.update(timed("recsys", phase_recsys, card["smi"]))
     by_path.update(timed("tp_serve", phase_tp_serve, card["smi"]))
+    by_path.update(timed("eager", phase_eager, card["smi"]))
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.")
                     or m == "paddle_tpu" or m.startswith("paddle_tpu."))

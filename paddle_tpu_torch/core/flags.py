@@ -27,7 +27,7 @@ import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
-__all__ = ["define_flag", "get_flag", "set_flags", "flag_scope"]
+__all__ = ["define_flag", "get_flag", "get_flags", "set_flags", "flag_scope"]
 
 
 @dataclass
@@ -74,6 +74,13 @@ def get_flag(name: str) -> Any:
     if env is not None:
         return flag.parser(env)
     return flag.default
+
+
+def get_flags(names) -> Dict[str, Any]:
+    """``paddle.get_flags``: ``{name: value}`` for a name or a list."""
+    if isinstance(names, str):
+        names = [names]
+    return {n: get_flag(n) for n in names}
 
 
 def set_flags(flags: Dict[str, Any]) -> None:

@@ -34,6 +34,16 @@ each row of a ``[B, S, ...]`` stream; inside :func:`sequence_shard`
 (which keeps the active generator and batch base) the dropouts hash
 those positions' absolute index (:func:`dropout_sequence_shard`), so
 the rank draws its shard of the single-process masks too.
+
+The eager API's stateful side (``paddle_tpu/core/random.py:57``):
+:func:`seed` reseeds the generators of ``tensor.random`` (one a device,
+made on first use) and installs a process-wide dropout generator,
+``torch.Generator("cpu").manual_seed(s)`` as ``TrainStep(seed=s)``
+makes its own, at the bottom of the :func:`dropout_generator` stack.
+An eager training loop after ``paddle.seed(s)`` thus draws the seed
+words that ``TrainStep(seed=s)`` draws over the same steps. Before any
+:func:`seed`, dropout in training mode outside a generator still
+raises.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ import torch
 
 from .device import DeviceLike, resolve_device
 
-__all__ = ["make_generator", "seed_words", "dropout_generator",
+__all__ = ["make_generator", "seed_words", "dropout_generator", "seed",
+           "random_generator", "get_rng_state", "set_rng_state",
            "next_seed_words", "dropout_batch_base", "dropout_state",
            "replay_dropout_state", "count_seed_draws",
            "advance_dropout_state", "skip_seed_words", "sequence_shard",
@@ -114,7 +125,68 @@ def dropout_sequence_shard():
 
 def _top():
     stack = _SCOPE.__dict__.get("stack")
-    return stack[-1] if stack else None
+    if stack:
+        return stack[-1]
+    return _EAGER["dropout"]
+
+
+# the eager API's generators (:func:`seed`): the process-wide dropout
+# entry under every dropout_generator scope, and the random functions'
+# generator of each device
+_EAGER = {"seed": 0, "dropout": None, "random": {}}
+
+
+def seed(value: int) -> int:
+    """``paddle.seed``: the random functions' generators restart from
+    ``value`` and the process-wide dropout generator is a CPU generator
+    seeded with ``value``. Returns ``value``."""
+    value = int(value)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(value)
+    _EAGER["seed"] = value
+    _EAGER["dropout"] = (g, 0, None)
+    _EAGER["random"] = {}
+    return value
+
+
+def random_generator(device) -> torch.Generator:
+    """The random functions' generator on ``device``, seeded from the
+    last :func:`seed` (0 before one) at its first use."""
+    dev = torch.device(device)
+    key = (dev.type, dev.index or 0) if dev.type == "cuda" else ("cpu", 0)
+    g = _EAGER["random"].get(key)
+    if g is None:
+        g = torch.Generator(device=dev)
+        g.manual_seed(_EAGER["seed"])
+        _EAGER["random"][key] = g
+    return g
+
+
+def get_rng_state():
+    """The seed and every generator's state (what :func:`set_rng_state`
+    takes back)."""
+    drop = _EAGER["dropout"]
+    return {"seed": _EAGER["seed"],
+            "dropout": None if drop is None else drop[0].get_state(),
+            "random": {k: g.get_state()
+                       for k, g in _EAGER["random"].items()}}
+
+
+def set_rng_state(state) -> None:
+    _EAGER["seed"] = int(state["seed"])
+    if state["dropout"] is None:
+        _EAGER["dropout"] = None
+    else:
+        g = torch.Generator(device="cpu")
+        g.set_state(state["dropout"])
+        _EAGER["dropout"] = (g, 0, None)
+    gens = {}
+    for key, st in state["random"].items():
+        g = torch.Generator(device=torch.device(
+            key[0], key[1]) if key[0] == "cuda" else "cpu")
+        g.set_state(st)
+        gens[key] = g
+    _EAGER["random"] = gens
 
 
 def dropout_batch_base() -> int:

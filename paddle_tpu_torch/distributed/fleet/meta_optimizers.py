@@ -72,7 +72,7 @@ class LocalSGDTrainStep:
         self.num_replicas = mesh.axis_size(axis)
         self.generator = torch.Generator(device="cpu")
         self.generator.manual_seed(int(seed))
-        self.device = next(layer.parameters()).device
+        self.device = next(iter(layer.parameters())).device
         # every replica starts from the group's first rank's parameters
         from ..collective import broadcast
         with torch.no_grad():

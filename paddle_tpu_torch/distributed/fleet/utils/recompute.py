@@ -44,6 +44,7 @@ import torch
 
 from .... import amp as _amp
 from ....core import random as _random
+from ....nn.layer import Layer
 
 __all__ = ["recompute", "recompute_sequential", "resolve_checkpoint_policy"]
 
@@ -129,7 +130,7 @@ def recompute(function, *args, use_reentrant: bool = True,
                       preserve_rng_state=preserve_rng_state, **ck, **kwargs)
 
 
-class _Segment(torch.nn.Module):
+class _Segment(Layer):
     """A run of layers or callables as one callable."""
 
     def __init__(self, fns):

@@ -25,6 +25,7 @@ from torch import nn
 
 from ..collective import broadcast
 from ..spmd import apply_param_shardings
+from ...nn.layer import Layer
 
 __all__ = ["TensorParallel", "ShardingParallel"]
 
@@ -41,7 +42,7 @@ def _broadcast(layer: nn.Module, group, skip_axis=None) -> None:
         broadcast(p.data, group.ranks[0], group)
 
 
-class _MetaParallelBase(nn.Module):
+class _MetaParallelBase(Layer):
     def __init__(self, layers: nn.Module, hcg, strategy=None):
         super().__init__()
         self._layers = layers

@@ -53,6 +53,7 @@ from ...mp_ops import (MP_AXIS, MPModule, copy_to_model_parallel,
                        reduce_from_model_parallel,
                        scatter_to_model_parallel)
 from ...spmd import P, apply_param_shardings
+from ....nn.layer import Layer
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy", "split",
@@ -184,7 +185,7 @@ class RowParallelLinear(MPModule):
         return y if self.bias is None else y + self.bias
 
 
-class ParallelCrossEntropy(nn.Module):
+class ParallelCrossEntropy(Layer):
     """Per-token softmax cross entropy ``[..., 1]`` (float32). Over a
     rank's vocab block (logits marked by the layer that made them, or
     any logits when ``mp_group`` is given) the vocab-parallel loss, the

@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from ....nn.layer import Layer
 
 __all__ = ["LayerDesc", "SharedLayerDesc", "SegmentLayers", "PipelineLayer"]
 
@@ -62,7 +63,7 @@ class SharedLayerDesc(LayerDesc):
         self.shared_weight_attr = shared_weight_attr
 
 
-class _SharedCall(nn.Module):
+class _SharedCall(Layer):
     """Call-site wrapper around a shared layer instance."""
 
     def __init__(self, shared: nn.Module, forward_func: Optional[Callable]):
@@ -130,7 +131,7 @@ class SegmentLayers:
         return type(d).__name__
 
 
-class PipelineLayer(nn.Module):
+class PipelineLayer(Layer):
     """The whole network as an ordered desc list, segmented into stages
     (``stage_<s>`` children, each an ``nn.Sequential``). Under a fleet
     topology with ``num_stages`` pp stages only this rank's stage is
@@ -279,7 +280,7 @@ class PipelineLayer(nn.Module):
         return self._loss_fn(output, labels)
 
 
-class _Recomputed(nn.Module):
+class _Recomputed(Layer):
     def __init__(self, inner):
         super().__init__()
         self.inner = inner
@@ -289,7 +290,7 @@ class _Recomputed(nn.Module):
         return recompute(self.inner, *a, **kw)
 
 
-class _FnLayer(nn.Module):
+class _FnLayer(Layer):
     def __init__(self, fn):
         super().__init__()
         self._fn = fn

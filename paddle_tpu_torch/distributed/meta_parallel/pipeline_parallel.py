@@ -80,7 +80,7 @@ class PipelineParallel(_MetaParallelBase):
         return split(inputs), split(labels)
 
     def _device(self):
-        p = next(self._layers.parameters(), None)
+        p = next(iter(self._layers.parameters()), None)
         return p.device if p is not None else torch.device("cpu")
 
     def _fwd_stage(self, s: int, x, mb: int):

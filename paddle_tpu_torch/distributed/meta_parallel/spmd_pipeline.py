@@ -69,6 +69,7 @@ from ...core.flags import get_flag
 from ...core import random as _random
 from .. import env as dist_env
 from ..spmd import P
+from ...nn.layer import Layer
 
 __all__ = ["PP_AXIS", "PipelineStageStack", "resolve_schedule",
            "bubble_fraction", "schedule_slots", "schedule_timetable",
@@ -472,7 +473,7 @@ def last_stage_output(t: Optional[torch.Tensor], handle: torch.Tensor,
                                   tuple(shape), dtype, group, src)
 
 
-class PipelineStageStack(nn.Module):
+class PipelineStageStack(Layer):
     """N structurally identical blocks stacked into ``[L, ...]``
     parameters and run as a pipeline over the ``pp`` axis.
 

@@ -24,9 +24,9 @@ the collectives only, never ``nn``.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from . import env
+from ..nn.layer import Layer
 
 __all__ = ["MP_AXIS", "MPModule", "mp_group_of", "mark_mp_block",
            "mp_block_group", "copy_to_model_parallel",
@@ -175,7 +175,7 @@ def parallel_cross_entropy(logits, ids, group, v0: int):
     return _VocabParallelCE.apply(logits, ids.long(), group, int(v0))
 
 
-class MPModule(nn.Module):
+class MPModule(Layer):
     """A module that learns its mp group (None without one) and rank
     from ``spmd.apply_param_shardings`` (``_on_mesh``)."""
 

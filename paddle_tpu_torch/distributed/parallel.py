@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from . import env
+from ..nn.layer import Layer
 
 __all__ = ["init_parallel_env", "get_rank", "get_world_size",
            "DataParallel", "ParallelEnv"]
@@ -132,7 +133,7 @@ class ParallelEnv:
     nranks = world_size
 
 
-class DataParallel(nn.Module):
+class DataParallel(Layer):
     """Data-parallel wrapper: the forward is the layer's;
     :meth:`apply_collective_grads` averages every gradient over
     ``group`` (default: the world) after ``backward()``."""

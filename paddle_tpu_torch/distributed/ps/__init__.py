@@ -29,7 +29,6 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
-from torch import nn
 
 from ...core.device import DeviceLike, resolve_device
 
@@ -44,6 +43,7 @@ from .service import (AsyncCommunicator, GeoCommunicator,  # noqa: E402
                       PSClient, PSServerHandle, role_from_env, run_server,
                       server_endpoints_from_env)
 from .ssd_table import SSDSparseTable  # noqa: E402
+from ...nn.layer import Layer
 
 
 class SparseTable:
@@ -188,7 +188,7 @@ def host_grad(g: torch.Tensor) -> np.ndarray:
     return g.detach().float().cpu().numpy()
 
 
-class DistributedEmbedding(nn.Module):
+class DistributedEmbedding(Layer):
     """Embedding whose table lives in host memory (PS-style).
 
     forward: host pull -> rows on ``device`` (the card unless

@@ -26,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.tensor import Tensor
 from .crypto import _MAGIC, decrypt_bytes, encrypt_bytes
 
 __all__ = ["save", "load", "to_numpy"]
@@ -40,6 +41,8 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _to_saveable(obj):
+    if type(obj) is Tensor:
+        obj = obj._data
     if isinstance(obj, torch.Tensor):
         return to_numpy(obj)
     if isinstance(obj, dict):

@@ -30,6 +30,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..core.tensor import unwrap
 from ..io.dataloader import DataLoader
 from ..jit.to_static import TrainStep
 from ..metric import Metric
@@ -53,7 +54,7 @@ class Model:
 
     @property
     def _device(self) -> torch.device:
-        return next(self.network.parameters()).device
+        return next(iter(self.network.parameters())).device
 
     # ------------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -108,6 +109,7 @@ class Model:
 
     def _place(self, xs) -> list:
         dev = self._device
+        xs = unwrap(list(xs))
         return [x.to(dev) if isinstance(x, torch.Tensor)
                 else torch.as_tensor(np.asarray(x), device=dev) for x in xs]
 

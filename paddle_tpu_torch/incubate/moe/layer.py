@@ -88,6 +88,7 @@ from ...nn.layers.common import Linear
 from .dispatch import (einsum_combine, einsum_dispatch,
                        resolve_dispatch_mode, sort_combine, sort_dispatch)
 from .routing import STATS_FIELDS, moe_capacity, topk_routing
+from ...nn.layer import Layer
 
 __all__ = ["EP_AXIS", "MOE_STATS", "reset_moe_stats", "note_moe_fallback",
            "global_scatter", "global_gather", "ExpertFFN", "MoELayer",
@@ -258,7 +259,7 @@ def _stacked(shape, device):
     return p
 
 
-class ExpertFFN(nn.Module):
+class ExpertFFN(Layer):
     """E homogeneous FFN experts as stacked parameters ``w1 [E, D, H]``,
     ``b1 [E, 1, H]``, ``w2 [E, H, D]``, ``b2 [E, 1, D]``, each with the
     spec ``P('ep', None, None)``: on an ep mesh
@@ -314,7 +315,7 @@ class _MeanForward(torch.autograd.Function):
         return g, None
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """Gated mixture of experts.
 
     Routing: capacity-disciplined top-``top_k`` gating with an

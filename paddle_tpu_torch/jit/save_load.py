@@ -150,7 +150,7 @@ def run_layer(layer: nn.Module, state, inputs, bf16: bool):
     ``torch.func.functional_call`` on ``state`` when given. Under
     ``bf16`` floating inputs are cast to bf16 and floating outputs back
     to float32. Returns the list of outputs."""
-    device = next(layer.parameters()).device
+    device = next(iter(layer.parameters())).device
     args = []
     for a in inputs:
         t = a if isinstance(a, torch.Tensor) else torch.as_tensor(

@@ -160,6 +160,7 @@ import numpy as np
 import torch
 
 from ..core.flags import get_flag
+from ..core.tensor import unwrap
 from ..core.random import dropout_generator
 from ..nn.layout import to_channels_last
 from ..distributed import env as dist_env
@@ -237,7 +238,7 @@ class TrainStep:
         self.optimizer = optimizer
         self.generator = torch.Generator(device="cpu")
         self.generator.manual_seed(int(seed))
-        self.device = next(layer.parameters()).device
+        self.device = next(iter(layer.parameters())).device
         self.step_count = 0
         if grad_accum_steps is None:
             # gradient merge comes only from the strategy snapshot that
@@ -379,6 +380,7 @@ class TrainStep:
                                        self._ep_sharded)
 
     def _place(self, b) -> torch.Tensor:
+        b = unwrap(b)
         if not isinstance(b, torch.Tensor):
             b = torch.from_numpy(np.ascontiguousarray(b))
         b = b.to(self.device)

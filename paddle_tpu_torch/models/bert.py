@@ -62,6 +62,7 @@ from ..nn.chunked_ce import masked_lm_loss
 from ..nn.layers import (Dropout, Embedding, LayerNorm, Linear,
                          TransformerEncoder, TransformerEncoderLayer)
 from ..ops.attention import NEG_INF
+from ..nn.layer import Layer
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertModel", "BertForMaskedLM",
            "bert_tiny", "bert_base", "bert_large"]
@@ -221,7 +222,7 @@ class BertEmbeddings(MPModule):
         return self.dropout(self.layer_norm(x))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Embeddings + post-LN transformer encoder + tanh pooler; returns
     ``(seq [B, S, E], pooled [B, E])``."""
 

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.tensor import unwrap
+
 __all__ = ["torch_state_dict_from_jax", "load_jax_weights",
            "shard_state_dict", "gather_state_dict"]
 
@@ -57,6 +59,7 @@ def shard_state_dict(state: Mapping[str, object], model: nn.Module,
     lay = _layouts(model)
     out = {}
     for k, v in state.items():
+        v = unwrap(v)
         t = torch.as_tensor(v) if not isinstance(v, torch.Tensor) else v
         out[k] = shard_tensor(t, lay[k], mesh).contiguous() if k in lay \
             else t

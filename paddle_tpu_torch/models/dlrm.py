@@ -45,11 +45,12 @@ from ..core.device import DeviceLike, resolve_device
 from ..core.random import make_generator
 from ..distributed.ps import TableRows, host_grad, make_anchor
 from ..nn import functional as F
+from ..nn.layer import Layer
 
 __all__ = ["DLRMConfig", "TableEmbedding", "DLRM", "dlrm_tiny"]
 
 
-class TableEmbedding(tnn.Module):
+class TableEmbedding(Layer):
     """Embedding over a SparseTable-protocol table with a device-tensor
     fast path: forward uses ``table.lookup`` (device rows, no host round
     trip for device-resident tables) when present, else ``table.pull``;
@@ -124,7 +125,7 @@ def _mlp(sizes: Sequence[int], final_act: bool, device) -> nn.Sequential:
     return nn.Sequential(*layers)
 
 
-class DLRM(tnn.Module):
+class DLRM(Layer):
     """``forward(dense [B, num_dense], ids [B, num_sparse]) -> logits
     [B]``. ``tables`` injects the embedding stores (one per sparse
     slot, or one shared); default = per-slot host ``SparseTable``.

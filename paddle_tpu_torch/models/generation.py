@@ -85,7 +85,7 @@ def generate(model, input_ids, max_new_tokens: int = 32,
             f"unknown decode_strategy {decode_strategy!r}: use "
             "'greedy_search' or 'sampling' (beam search lives in "
             "paddle_tpu_torch.nn.BeamSearchDecoder + dynamic_decode)")
-    dev = next(model.parameters()).device
+    dev = next(iter(model.parameters())).device
     prompt = torch.as_tensor(np.asarray(
         input_ids.cpu() if torch.is_tensor(input_ids) else input_ids),
         dtype=torch.long).to(dev)

@@ -156,6 +156,7 @@ from ..ops.ring_attention import ring_attention
 from ..serving.kv_cache import (PagedCacheView, PagedLayerCache,
                                 gather_context, gather_context_quant,
                                 write_pages, write_pages_quant)
+from ..nn.layer import Layer
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
            "GPTMoEDecoderLayer", "GPTModel", "GPTForPretraining",
@@ -439,7 +440,7 @@ class GPTMLP(MPModule):
                                           self.mp_group) + self.b_out
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-LN block: x + drop1(attn(ln1(x))); x + drop2(mlp(ln2(x)))."""
 
     def __init__(self, cfg: GPTConfig, device: torch.device):
@@ -660,7 +661,7 @@ def parallel_logits(hidden, embedding_weight, mp_group=None):
     return mark_mp_block(torch.matmul(hidden, w.t()), mp_group)
 
 
-class GPTForPretraining(nn.Module):
+class GPTForPretraining(Layer):
     """GPT with the tied LM head. Built on ``device`` (the card unless
     ``device="cpu"`` is passed) with weights drawn from ``seed`` by the
     JAX package's initializers: N(0, initializer_range) for matrices and
@@ -732,7 +733,7 @@ def _init_gpt_weights(module: nn.Module, cfg: GPTConfig,
             xavier_uniform_(p, g)
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(Layer):
     """Mean cross-entropy over the (non-masked) positions, through
     ``ParallelCrossEntropy`` as in the JAX model: on one device (or mp =
     1) at a vocab of ``CHUNKED_CE_THRESHOLD`` or more the streamed loss

@@ -6,8 +6,8 @@ Paddle's ``[in, out]`` weight, with the ``FLAGS_amp_int8_matmul`` route
 of :222-266), ``embedding``, ``gelu``, ``tanh``,
 ``layer_norm`` (:1014), ``dropout`` (:1115), the dense
 hard-label ``cross_entropy`` (:1222), ``binary_cross_entropy_with_logits``
-(:1342) and ``scaled_dot_product_attention``
-(``ops/attention.py``), and the vision ops of ``functional_vision``
+(:1342) and ``scaled_dot_product_attention`` (:1808, over
+``ops/attention.py``), and the vision ops of ``functional_vision``
 (convolutions, pools, ``batch_norm``, ``fused_conv_bn``, ``relu``,
 ``relu6``, ``sigmoid``, ``flatten``). Each casts its inputs under AMP by
 the JAX op name (``amp.cast_inputs``).
@@ -45,7 +45,8 @@ from ..amp import cast_inputs, is_active
 from ..core.flags import get_flag
 from ..core.random import (dropout_batch_base, dropout_sequence_shard,
                            next_seed_words)
-from ..ops.attention import scaled_dot_product_attention
+from ..core.tensor import paddle_api
+from ..ops import attention as _attention
 from . import functional_vision as _vision
 from .functional_vision import *  # noqa: F401,F403
 from ..ops.kernels import note_fallback
@@ -224,3 +225,25 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
     if weight is not None:
         loss = loss * weight
     return _reduce(loss, reduction)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p: float = 0.0,
+                                 is_causal: bool = False,
+                                 training: bool = True, name=None,
+                                 head_base: int = 0):
+    """``paddle.nn.functional.scaled_dot_product_attention`` over ``[B, S,
+    H, D]`` (``functional.py:1808``): on the card the flash kernels,
+    causal or not, with the in-kernel dropout (rows 1 and 3) or a float
+    ``[B, 1, 1, Sk]`` mask (rows 2, 4 and 5); its dropout draws seed
+    words from the active dropout generator (``paddle.seed``'s outside
+    one). ``head_base`` is the global index of the first head (a
+    tensor-parallel rank's)."""
+    return _attention.scaled_dot_product_attention(
+        query, key, value, attn_mask, dropout_p, is_causal, training,
+        head_base)
+
+
+for _name in __all__:
+    globals()[_name] = paddle_api(globals()[_name])
+del _name

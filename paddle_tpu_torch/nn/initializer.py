@@ -240,7 +240,8 @@ def _resolve_attr(attr, default_init):
 
 
 def make_param(shape, attr, device=None):
-    """A float32 zeros ``Parameter`` for ``attr`` (None for ``False``)
+    """A float32 zeros ``Parameter`` for ``attr`` (None for ``False``) on
+    ``device`` (else the ``paddle.set_device`` one, else torch's default)
     carrying what ``attr`` asked for: its explicit initializer (applied
     now and by :func:`reinit`; None when the layer's default applies),
     ``trainable`` as ``requires_grad``, and ``optimize_attr`` /
@@ -249,6 +250,9 @@ def make_param(shape, attr, device=None):
     if resolved is None:
         return None
     init, trainable, _ = resolved
+    if device is None:
+        from ..core.device import set_device_default
+        device = set_device_default()
     p = torch.nn.Parameter(torch.zeros(tuple(shape), dtype=torch.float32,
                                        device=device),
                            requires_grad=bool(trainable))

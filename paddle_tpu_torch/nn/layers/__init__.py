@@ -3,7 +3,7 @@ BERT and ERNIE models and the vision zoo are built from."""
 
 from .activation import ReLU, ReLU6, Sigmoid, Tanh
 from .common import Dropout, Embedding, Flatten, Identity, Linear
-from .container import Sequential
+from .container import LayerDict, LayerList, ParameterList, Sequential
 from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
                    Conv3D, Conv3DTranspose, fused_conv_bn_act)
 from .loss import CrossEntropyLoss
@@ -23,8 +23,9 @@ __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "BatchNorm2D", "BatchNorm3D", "Conv1D", "Conv1DTranspose",
            "Conv2D", "Conv2DTranspose", "Conv3D", "Conv3DTranspose",
            "CrossEntropyLoss", "Dropout", "Embedding", "Flatten", "Identity",
-           "LayerNorm", "Linear", "MaxPool1D", "MaxPool2D", "MaxPool3D",
-           "MaxUnPool2D", "MultiHeadAttention", "ReLU", "ReLU6",
-           "Sequential", "Sigmoid", "SyncBatchNorm",
+           "LayerDict", "LayerList", "LayerNorm", "Linear", "MaxPool1D",
+           "MaxPool2D", "MaxPool3D", "MaxUnPool2D", "MultiHeadAttention",
+           "ParameterList", "ReLU", "ReLU6", "Sequential", "Sigmoid",
+           "SyncBatchNorm",
            "Tanh", "TransformerEncoder", "TransformerEncoderLayer",
            "fused_conv_bn_act"]

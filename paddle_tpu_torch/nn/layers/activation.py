@@ -3,14 +3,13 @@ the ones the vision models and the JAX vision tests use."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from ..layer import Layer
 
 __all__ = ["ReLU", "ReLU6", "Sigmoid", "Tanh"]
 
 
-class _Act(nn.Module):
+class _Act(Layer):
     _fn = None
 
     def forward(self, x):

@@ -13,15 +13,15 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
 
 from .. import functional as F
 from ..initializer import make_param, reinit
+from ..layer import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout", "Flatten", "Identity"]
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """``y = x W + b`` with ``W [in, out]`` (``common.py:21-36``);
     ``weight_attr`` / ``bias_attr`` as in JAX (``nn.initializer``):
     ``False`` builds no bias, an initializer or ``ParamAttr`` replaces
@@ -49,7 +49,7 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Token embedding (``common.py:93-112``): rows of ``weight`` at the
     ids; ``weight_attr`` as :class:`Linear`'s."""
 
@@ -70,7 +70,7 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.weight)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """``upscale_in_train`` dropout, active in training mode."""
 
     def __init__(self, p: float = 0.5):
@@ -85,7 +85,7 @@ class Dropout(nn.Module):
         return F.dropout(x, self.p, training=self.training)
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     """Returns its input (``inference.passes.fold_conv_bn`` puts one where
     a folded BatchNorm was)."""
 
@@ -93,7 +93,7 @@ class Identity(nn.Module):
         return x
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Merge dims ``start_axis .. stop_axis`` (``common.py``'s Flatten)."""
 
     def __init__(self, start_axis: int = 1, stop_axis: int = -1):

@@ -17,11 +17,11 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from .. import functional as F
 from ..functional_vision import _ntuple
 from ..initializer import make_param, reinit
+from ..layer import Layer
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
            "Conv2DTranspose", "Conv3DTranspose", "fused_conv_bn_act"]
@@ -33,7 +33,7 @@ def _check_padding_mode(padding_mode) -> None:
             f"padding_mode={padding_mode!r}: only 'zeros' is ported")
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, n, transpose,
                  stride=1, padding=0, output_padding=0, dilation=1, groups=1,
                  padding_mode="zeros", weight_attr=None, bias_attr=None,

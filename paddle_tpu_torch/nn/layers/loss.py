@@ -4,14 +4,13 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from ..layer import Layer
 
 __all__ = ["CrossEntropyLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index: int = -100,
                  reduction: str = "mean", soft_label: bool = False,
                  axis: int = -1, use_softmax: bool = True,

@@ -33,12 +33,13 @@ from ..functional_vision import (_CHANNEL_LAST, _batch_norm_global,
                                  _from_channel_first, _to_channel_first,
                                  _update_running)
 from ..initializer import make_param
+from ..layer import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm", "LayerNorm"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """``weight``/``bias`` over the last dim; float32 statistics, output
     in the input's dtype (``nn/functional.py:1014``)."""
 
@@ -54,7 +55,7 @@ class LayerNorm(nn.Module):
                             self.eps)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features: int, momentum: float = 0.9,
                  epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
                  data_format: str = "NCHW", use_global_stats=None,

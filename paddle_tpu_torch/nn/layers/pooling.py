@@ -5,9 +5,8 @@ returns."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from ..layer import Layer
 
 __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
@@ -15,7 +14,7 @@ __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
            "AdaptiveMaxPool3D", "MaxUnPool2D"]
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     _fn = None
 
     def __init__(self, kernel_size, stride=None, padding=0, **kwargs):
@@ -54,7 +53,7 @@ class AvgPool3D(_Pool):
     _fn = staticmethod(F.avg_pool3d)
 
 
-class _AdaptivePool(nn.Module):
+class _AdaptivePool(Layer):
     _fn = None
 
     def __init__(self, output_size, **kwargs):
@@ -90,7 +89,7 @@ class AdaptiveMaxPool3D(_AdaptivePool):
     _fn = staticmethod(F.adaptive_max_pool3d)
 
 
-class MaxUnPool2D(nn.Module):
+class MaxUnPool2D(Layer):
     """Inverse of ``MaxPool2D`` given its pooled indices."""
 
     def __init__(self, kernel_size, stride=None, padding=0,

@@ -43,6 +43,7 @@ from ...distributed.mp_ops import (MPModule, copy_to_model_parallel,
 from .. import functional as F
 from .common import Dropout, Linear
 from .norm import LayerNorm
+from ..layer import Layer
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder"]
@@ -141,7 +142,7 @@ class TransformerEncoderLayer(_EncoderMPModule):
         return self.norm2(src + self.dropout2(ffn))
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer`` run in order (the model
     draws each copy's weights afresh)."""
 

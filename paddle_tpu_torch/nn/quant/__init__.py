@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
+from ..layer import Layer
 
 __all__ = [
     "FakeQuantAbsMax", "FakeQuantChannelWiseAbsMax",
@@ -77,7 +77,7 @@ class PerChannelAbsMaxObserver:
         return q, scales
 
 
-class FakeQuantAbsMax(nn.Module):
+class FakeQuantAbsMax(Layer):
     """Per-tensor absmax fake quant."""
 
     def __init__(self, name=None, quant_bits=8, dtype="float32"):
@@ -90,7 +90,7 @@ class FakeQuantAbsMax(nn.Module):
         return _qdq(x, s, qmax)
 
 
-class FakeQuantChannelWiseAbsMax(nn.Module):
+class FakeQuantChannelWiseAbsMax(Layer):
     """Per-channel absmax fake quant along ``quant_axis``."""
 
     def __init__(self, name=None, channel_num=None, quant_bits=8,
@@ -106,7 +106,7 @@ class FakeQuantChannelWiseAbsMax(nn.Module):
         return _qdq(x, s, qmax)
 
 
-class FakeQuantMovingAverageAbsMax(nn.Module):
+class FakeQuantMovingAverageAbsMax(Layer):
     """Moving-average absmax fake quant: the activation range is an EMA
     in the ``scale`` and ``state`` buffers, updated in training mode
     before the quantization uses it."""
@@ -138,7 +138,7 @@ class FakeQuantMovingAverageAbsMax(nn.Module):
         return _qdq(x, s, qmax)
 
 
-class MovingAverageAbsMaxScale(nn.Module):
+class MovingAverageAbsMaxScale(Layer):
     """Observe an EMA absmax in training mode without quantizing (the
     output scales a deploy pass records)."""
 
@@ -156,7 +156,7 @@ class MovingAverageAbsMaxScale(nn.Module):
         return x
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(Layer):
     """QAT wrapper over the port's ``nn.layers.Linear``: fake-quantized
     weight (channel-wise along the output axis by default) and
     moving-average fake-quantized input."""
@@ -180,7 +180,7 @@ class QuantizedLinear(nn.Module):
                         self.inner.bias)
 
 
-class QuantizedConv2D(nn.Module):
+class QuantizedConv2D(Layer):
     """QAT wrapper over the port's ``Conv2D``."""
 
     def __init__(self, layer, weight_bits=8, activation_bits=8,
@@ -201,7 +201,7 @@ class QuantizedConv2D(nn.Module):
                         data_format=inner._data_format)
 
 
-class QuantizedConv2DTranspose(nn.Module):
+class QuantizedConv2DTranspose(Layer):
     """QAT wrapper over the port's ``Conv2DTranspose``."""
 
     def __init__(self, layer, weight_bits=8, activation_bits=8,
@@ -224,7 +224,7 @@ class QuantizedConv2DTranspose(nn.Module):
             data_format=inner._data_format)
 
 
-class MAOutputScaleLayer(nn.Module):
+class MAOutputScaleLayer(Layer):
     """Wrap a layer and observe its output's EMA absmax."""
 
     def __init__(self, layer, moving_rate=0.9, name=None, dtype="float32"):
@@ -236,7 +236,7 @@ class MAOutputScaleLayer(nn.Module):
         return self._scale(self.inner(*args, **kwargs))
 
 
-class FakeQuantMAOutputScaleLayer(nn.Module):
+class FakeQuantMAOutputScaleLayer(Layer):
     """Wrap a layer, fake-quantizing its output with an EMA range."""
 
     def __init__(self, layer, weight_bits=8, activation_bits=8,
@@ -250,7 +250,7 @@ class FakeQuantMAOutputScaleLayer(nn.Module):
         return self._fq(self.inner(*args, **kwargs))
 
 
-class FloatFunctionalLayer(nn.Module):
+class FloatFunctionalLayer(Layer):
     """Elementwise ops as layers, so quantization passes can hook them."""
 
 

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..core.tensor import unwrap
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -44,7 +45,10 @@ class Optimizer:
             raise ValueError("pass parameters=model.parameters()")
         self._lr = learning_rate if isinstance(learning_rate, LRScheduler) \
             else float(learning_rate)
-        self._parameter_list: List[torch.nn.Parameter] = list(parameters)
+        # a facade leaf (``to_tensor(..., stop_gradient=False)``) is
+        # updated through its torch tensor
+        self._parameter_list: List[torch.nn.Parameter] = unwrap(
+            list(parameters))
         self._grad_clip = grad_clip
         # a float weight_decay is the coupled L2 decay g + coeff * p
         self._l2 = float(weight_decay or 0.0)

@@ -34,6 +34,7 @@ from ..nn.layers.common import Linear
 from ..nn.quant import PerChannelAbsMaxObserver
 from ..ops.kernels import note_fallback
 from ..ops.kernels.quant_matmul import int8_linear, matmul_shapes_supported
+from ..nn.layer import Layer
 
 __all__ = ["QuantizedLinear", "quantize_weights",
            "PostTrainingQuantization", "QAT", "fake_quant"]
@@ -45,7 +46,7 @@ def _channel_scales(w: np.ndarray, bits: int = 8) -> np.ndarray:
     return PerChannelAbsMaxObserver(quant_bits=bits, quant_axis=1).observe(w)
 
 
-class QuantizedLinear(nn.Module):
+class QuantizedLinear(Layer):
     """Linear with int8 weights: ``weight_q [in, out]`` int8 and ``scale
     [out]`` float32 buffers and the ``bias`` parameter (the JAX state
     dict's keys). ``weight_q`` is the transposed view of ``[out, in]``
@@ -189,7 +190,7 @@ def fake_quant(x, bits: int = 8):
     return x + (q - x).detach()
 
 
-class _QATLinear(nn.Module):
+class _QATLinear(Layer):
     """A Linear trained under fake-quantized weights and activations."""
 
     def __init__(self, lin: Linear, bits: int = 8):

@@ -8,18 +8,17 @@ NCHW contract holds on both ends either way.
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
 from ...core.device import DeviceLike, resolve_device
 from ...nn import functional as F
 from ...nn import layout as _layout
 from ._init import init_weights
+from ...nn.layer import Layer
 
 __all__ = ["LeNet"]
 
 
-class LeNet(tnn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, data_format="NCHW",
                  device: DeviceLike = None, seed: int = 0):
         super().__init__()

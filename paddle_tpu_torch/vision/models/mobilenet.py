@@ -9,13 +9,12 @@ dropout kernel on the card. Built on ``device`` (the card unless
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
 from ...core.device import DeviceLike, resolve_device
 from ...nn import functional as F
 from ...nn import layout as _layout
 from ._init import init_weights
+from ...nn.layer import Layer
 
 __all__ = ["MobileNetV1", "MobileNetV2", "mobilenet_v1", "mobilenet_v2"]
 
@@ -36,7 +35,7 @@ class _ConvBNReLU(nn.Sequential):
         return nn.fused_conv_bn_act(conv, bn, x, "relu6")
 
 
-class _DepthwiseSeparable(tnn.Module):
+class _DepthwiseSeparable(Layer):
     def __init__(self, in_c, out_c, stride, device=None):
         super().__init__()
         self.dw = _ConvBNReLU(in_c, in_c, 3, stride, groups=in_c,
@@ -47,7 +46,7 @@ class _DepthwiseSeparable(tnn.Module):
         return self.pw(self.dw(x))
 
 
-class MobileNetV1(tnn.Module):
+class MobileNetV1(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  data_format="NCHW", device: DeviceLike = None,
                  seed: int = 0):
@@ -86,7 +85,7 @@ class MobileNetV1(tnn.Module):
         return x
 
 
-class _InvertedResidual(tnn.Module):
+class _InvertedResidual(Layer):
     def __init__(self, in_c, out_c, stride, expand_ratio, device=None):
         super().__init__()
         hidden = int(round(in_c * expand_ratio))
@@ -107,7 +106,7 @@ class _InvertedResidual(tnn.Module):
         return x + out if self.use_res else out
 
 
-class MobileNetV2(tnn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  data_format="NCHW", device: DeviceLike = None,
                  seed: int = 0):

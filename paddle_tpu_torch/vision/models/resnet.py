@@ -14,19 +14,18 @@ from __future__ import annotations
 
 import functools
 
-from torch import nn as tnn
-
 from ... import nn
 from ...core.device import DeviceLike, resolve_device
 from ...nn import functional as F
 from ...nn import layout as _layout
 from ._init import init_weights
+from ...nn.layer import Layer
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152"]
 
 
-class BasicBlock(tnn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -53,7 +52,7 @@ class BasicBlock(tnn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(tnn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -87,7 +86,7 @@ class BottleneckBlock(tnn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(tnn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, data_format="NCHW",
                  device: DeviceLike = None, seed: int = 0):

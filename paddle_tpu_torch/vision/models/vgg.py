@@ -11,13 +11,12 @@ converts the input to ``torch.channels_last`` at entry. Built on
 
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
 from ...core.device import DeviceLike, resolve_device
 from ...nn import functional as F
 from ...nn import layout as _layout
 from ._init import init_weights
+from ...nn.layer import Layer
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19"]
 
@@ -47,7 +46,7 @@ def _make_layers(cfg, batch_norm=False, device=None):
     return nn.Sequential(*layers)
 
 
-class VGG(tnn.Module):
+class VGG(Layer):
     def __init__(self, features, num_classes=1000, with_pool=True,
                  data_format="NCHW", device: DeviceLike = None,
                  seed: int = 0):

@@ -1,6 +1,6 @@
 """Run chip_smoke.py's card phase and one later phase alone.
 
-    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys|tp_serve
+    python3 tools/run_chip_phase.py monitor|fleet|distributed|vision|moe|vision2|recsys|tp_serve|eager
 
 From the root of a checkout, on a machine with one CUDA card: builds the
 kernels (phase 1), then drives the named phase and prints its launches:
@@ -33,7 +33,11 @@ and over a ps = 2 world on the card; the native PS server built from
 the port's source), ``tp_serve`` phase 26 (GPT-2 345M served
 tensor-parallel at mp = 2 by two ranks on the card, f32 and int8 pools,
 against one process; the MoE GPT's step at mp = 2; ``run_elastic``
-resuming a killed training loop).
+resuming a killed training loop), ``eager`` phase 27 (GPT-2 345M trained
+three steps by the eager loop of the Paddle API against ``TrainStep``
+from the same weights, bit for bit; the facade's host cost a call; the
+public ``F.scaled_dot_product_attention`` on facades against the direct
+call).
 Exits non-zero if a check fails.
 """
 
@@ -54,7 +58,8 @@ PHASES = {"monitor": lambda card: chip_smoke.phase_monitor(),
           "moe": lambda card: chip_smoke.phase_moe(card["smi"]),
           "vision2": lambda card: chip_smoke.phase_vision2(card["smi"]),
           "recsys": lambda card: chip_smoke.phase_recsys(card["smi"]),
-          "tp_serve": lambda card: chip_smoke.phase_tp_serve(card["smi"])}
+          "tp_serve": lambda card: chip_smoke.phase_tp_serve(card["smi"]),
+          "eager": lambda card: chip_smoke.phase_eager(card["smi"])}
 
 
 def main() -> int:
